@@ -1,0 +1,130 @@
+"""Model / ModelBuilder — the fit-and-score core of hex.Model/ModelBuilder.
+
+Reference: h2o3_tpu/models/model.py. The same lifecycle:
+
+    model = GBMEstimator(**params).train(frame, y="col")
+    preds = model.predict(frame)              # Frame of predictions
+    mm    = model.model_performance(frame)    # ModelMetrics
+
+The port keeps only the fit: no Job, DKV, memory governor, recovery,
+telemetry or cross-validation around it.
+"""
+
+from __future__ import annotations
+
+from typing import Dict, List, Optional, Sequence
+
+import numpy as np
+import torch
+
+from h2o3_tpu_torch.frame.frame import Frame
+
+
+class ModelCategory:
+    BINOMIAL = "Binomial"
+    MULTINOMIAL = "Multinomial"
+    REGRESSION = "Regression"
+
+
+def infer_category(frame: Frame, y: Optional[str]) -> str:
+    """Response-type sniffing (reference ModelBuilder.init)."""
+    c = frame.col(y)
+    if c.is_categorical:
+        return (ModelCategory.BINOMIAL if c.cardinality == 2
+                else ModelCategory.MULTINOMIAL)
+    return ModelCategory.REGRESSION
+
+
+def adapt_domain(test_col, train_domain: List[str]) -> np.ndarray:
+    """Map test categorical codes into the training domain; unseen or
+    missing → -1 (the adaptTestForTrain domain-mapping pass)."""
+    host = test_col.host_view()
+    na = np.isnan(host)
+    codes = np.where(na, 0, host).astype(np.int32)
+    if test_col.domain != train_domain:
+        lut = {lvl: i for i, lvl in enumerate(train_domain)}
+        mapping = np.array([lut.get(lvl, -1)
+                            for lvl in (test_col.domain or [])], np.int32)
+        codes = mapping[codes] if len(mapping) else \
+            np.full(test_col.nrows, -1, np.int32)
+    return np.where(na, -1, codes).astype(np.int32)
+
+
+class Model:
+    """Trained-model base (hex/Model.java)."""
+
+    algo: str = "base"
+
+    def __init__(self, params: dict, output: dict):
+        self.params = params
+        self.output = output           # domains, names, varimp, ...
+        self.training_metrics = None
+
+    def _score_raw(self, frame: Frame) -> Dict[str, np.ndarray]:
+        raise NotImplementedError
+
+    def predict(self, frame: Frame) -> Frame:
+        """Bulk scoring → prediction Frame on the scored frame's device."""
+        cols = self._score_raw(frame)
+        domains = {}
+        if self.output.get("domain"):
+            domains["predict"] = self.output["domain"]
+        return Frame.from_numpy(cols, domains=domains, device=frame.device)
+
+    def model_performance(self, frame: Frame):
+        raise NotImplementedError
+
+
+class ModelBuilder:
+    """Training lifecycle base (hex/ModelBuilder.java): ``train`` resolves
+    the predictors and runs ``_fit``."""
+
+    algo: str = "base"
+
+    def __init__(self, **params):
+        self.params = params
+
+    def _fit(self, frame: Frame, x: Sequence[str], y: str):
+        raise NotImplementedError
+
+    def _host_weights(self, frame: Frame, y: Optional[str]) -> np.ndarray:
+        """HOST mirror of the effective training weights: user weight
+        column × response-NA exclusion, [frame.nrows] float32."""
+        wc_name = self.params.get("weights_column")
+        if wc_name and wc_name in frame:
+            wh = np.nan_to_num(
+                frame.col(wc_name).to_numpy()).astype(np.float32)
+        else:
+            wh = np.ones(frame.nrows, np.float32)
+        if y is not None and y in frame:
+            wh = wh * (~np.isnan(frame.col(y).host_view())).astype(
+                np.float32)
+        return wh
+
+    def _normalize_uniform_weights(self, w: torch.Tensor,
+                                   wh_host: np.ndarray):
+        """(w', scale): a constant weight column rescales to exactly 1.0
+        so 'uniform weights ≡ no weights' holds bit for bit; callers
+        divide every ABSOLUTE training threshold (min_rows,
+        min_split_improvement, reg_lambda) by the returned scale."""
+        pos = wh_host[wh_host > 0]
+        if pos.size and pos.min() == pos.max() and float(pos[0]) != 1.0:
+            s = float(pos[0])
+            return w / s, s
+        return w, 1.0
+
+    def resolve_x(self, frame: Frame, x: Optional[Sequence[str]],
+                  y: Optional[str]) -> List[str]:
+        drop = {y, self.params.get("weights_column")}
+        drop |= set(self.params.get("ignored_columns") or [])
+        if x is None:
+            x = frame.names
+        else:
+            x = [n if isinstance(n, str) else frame.names[n] for n in x]
+        return [n for n in x if n not in drop]
+
+    def train(self, training_frame: Frame, y: Optional[str] = None,
+              x: Optional[Sequence[str]] = None):
+        """Fit on ``training_frame`` (on its device) → Model."""
+        return self._fit(training_frame, self.resolve_x(training_frame, x, y),
+                         y)

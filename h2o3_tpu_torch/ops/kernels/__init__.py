@@ -1,0 +1,119 @@
+"""CUDA kernel loader — build, load and count the hand-written kernels.
+
+Reference: h2o3_tpu/ops/pallas/__init__.py, the Pallas policy layer. The
+port has no policy table and no knob: a CUDA tensor goes to its kernel
+or the call raises; a CPU tensor goes to the kernel's plain version.
+
+Build route: each ``csrc/<name>.cu`` (plain C interface, no PyTorch
+headers) compiles with ``nvcc -gencode arch=compute_90a,code=sm_90a -O3
+-shared -Xcompiler -fPIC`` into ``build/lib<name>-<digest>.so`` at first
+use and loads through ``ctypes``. The digest covers the source and the
+flags, so an edited source rebuilds and a stale library is never loaded.
+``build()`` starts one ``nvcc`` per source, all at once.
+
+Launch counts: every wrapper adds one to ``LAUNCHES[name]`` right after
+its kernel launched, and nowhere else, so a run can show that its main
+path went through the kernels.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+from pathlib import Path
+from typing import Dict, List, Optional
+
+CSRC = Path(__file__).with_name("csrc")
+BUILD = Path(__file__).with_name("build")
+
+ARCH = ["-gencode", "arch=compute_90a,code=sm_90a"]
+FLAGS = ["-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
+         "-Xptxas=-v"]
+# per-source extra flags: the split scan must round its gain exactly as
+# the plain float32 version does, so no fused multiply-adds
+EXTRA = {"treekernel": ["-fmad=false"]}
+
+LAUNCHES: Dict[str, int] = {"tree_hist": 0, "tree_split": 0,
+                            "tree_partition": 0}
+
+_LIBS: Dict[str, ctypes.CDLL] = {}
+
+
+def count(name: str) -> None:
+    LAUNCHES[name] = LAUNCHES.get(name, 0) + 1
+
+
+def reset_counts() -> None:
+    for k in LAUNCHES:
+        LAUNCHES[k] = 0
+
+
+def nvcc() -> str:
+    """Path of the CUDA compiler; raises when there is none."""
+    home = os.environ.get("CUDA_HOME") or "/usr/local/cuda"
+    for cand in (os.path.join(home, "bin", "nvcc"), shutil.which("nvcc")):
+        if cand and os.path.isfile(cand):
+            return cand
+    raise RuntimeError("nvcc not found (set CUDA_HOME or put nvcc on "
+                       "PATH); the CUDA kernels cannot be built")
+
+
+def sources() -> List[str]:
+    return sorted(p.stem for p in CSRC.glob("*.cu"))
+
+
+def _cmd(name: str, out: Path) -> List[str]:
+    return ([nvcc()] + ARCH + FLAGS + EXTRA.get(name, [])
+            + ["-o", str(out), str(CSRC / f"{name}.cu")])
+
+
+def lib_path(name: str) -> Path:
+    src = (CSRC / f"{name}.cu").read_bytes()
+    flags = " ".join(ARCH + FLAGS + EXTRA.get(name, [])).encode()
+    digest = hashlib.sha256(src + b"\0" + flags).hexdigest()[:16]
+    return BUILD / f"lib{name}-{digest}.so"
+
+
+def build(names: Optional[List[str]] = None) -> Dict[str, str]:
+    """Compile the named sources (all by default) that have no library
+    yet, one ``nvcc`` per source, all started together. Returns each
+    built source's compiler log (the ``-Xptxas=-v`` register/shared
+    memory report); raises with the log if any build fails."""
+    names = sources() if names is None else names
+    BUILD.mkdir(parents=True, exist_ok=True)
+    procs = {}
+    for name in names:
+        out = lib_path(name)
+        if out.exists():
+            continue
+        tmp = out.with_suffix(f".{os.getpid()}.tmp")
+        procs[name] = (subprocess.Popen(
+            _cmd(name, tmp), stdout=subprocess.PIPE,
+            stderr=subprocess.STDOUT, text=True), tmp, out)
+    logs, failed = {}, []
+    for name, (proc, tmp, out) in procs.items():
+        logs[name] = proc.communicate()[0]
+        if proc.returncode != 0:
+            failed.append(name)
+        else:
+            os.replace(tmp, out)     # atomic: concurrent builders agree
+    if failed:
+        raise RuntimeError("nvcc failed for " + ", ".join(
+            f"{n}:\n{logs[n]}" for n in failed))
+    return logs
+
+
+def load(name: str) -> ctypes.CDLL:
+    """The loaded library of ``csrc/<name>.cu``, building it first if
+    needed."""
+    lib = _LIBS.get(name)
+    if lib is None:
+        path = lib_path(name)
+        if not path.exists():
+            build([name])
+        lib = ctypes.CDLL(str(path))
+        _LIBS[name] = lib
+    return lib

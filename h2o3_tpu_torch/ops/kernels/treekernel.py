@@ -1,0 +1,330 @@
+"""One tree level: histogram → split scan → row partition.
+
+Reference: h2o3_tpu/ops/pallas/treekernel.py ``fused_level`` (one
+``pallas_call``, ``_fused_call``, on a single data shard) and
+``xla_level`` (the reference composition). Here the level is three
+hand-written CUDA kernels (csrc/treekernel.cu), each with its plain
+PyTorch version beside it:
+
+- ``tree_hist``      phase 0: the [Lh, F, B, 3] {w, w·g, w·h} histogram
+                     (left children only at d >= 1, into the parent slot);
+- ``tree_split``     the boundary: sibling subtraction with the w/h >= 0
+                     clamps, ``best_splits``, the min-split-improvement and
+                     depth-limit masks, the categorical-split flags;
+- ``tree_partition`` phase 1: every row to child ``2·nid + {0, 1}``.
+
+A wrapper given CUDA tensors launches its kernel on the current stream
+(and raises if the kernel does not build or launch); given CPU tensors it
+runs its plain version. ``fused_level`` composes the three wrappers;
+``plain_level`` composes the three plain versions on any device and is
+the reference the kernels are held against on the card.
+"""
+
+from __future__ import annotations
+
+import ctypes
+from typing import Optional
+
+import torch
+
+from h2o3_tpu_torch.ops import kernels
+from h2o3_tpu_torch.ops.histogram import histogram
+from h2o3_tpu_torch.ops.split_scan import best_splits
+
+_VP, _I, _LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+
+# shared-memory budget of one tree_hist block's [nodes, B, 3] slab
+HIST_SLAB_BYTES = 64 * 1024
+# tree_split: at most this many warps per node block, within this budget
+SPLIT_WARPS, SPLIT_SMEM_BYTES = 8, 200 * 1024
+
+_LIB = None
+
+
+def _lib():
+    global _LIB
+    if _LIB is None:
+        lib = kernels.load("treekernel")
+        lib.h2o3_cuda_error_string.argtypes = [_I]
+        lib.h2o3_cuda_error_string.restype = ctypes.c_char_p
+        lib.tree_hist.argtypes = [_VP, _I, _VP, _VP, _VP, _LL, _I, _I, _I,
+                                  _I, _LL, _I, _VP]
+        lib.tree_split.argtypes = [_VP] * 20 + [_I] * 7 + [_VP]
+        lib.tree_partition.argtypes = [_VP, _I, _VP, _VP, _VP, _VP, _VP,
+                                       _VP, _VP, _VP, _LL, _I, _I, _I, _I,
+                                       _VP]
+        for fn in (lib.tree_hist, lib.tree_split, lib.tree_partition):
+            fn.restype = _I
+        _LIB = lib
+    return _LIB
+
+
+def _on_cuda(t: torch.Tensor, name: str) -> bool:
+    """True for a CUDA tensor, False for a CPU one; raises otherwise."""
+    if t.device.type == "cuda":
+        return True
+    if t.device.type == "cpu":
+        return False
+    raise ValueError(f"{name}: no kernel or plain version for device "
+                     f"{t.device}")
+
+
+def _need(t: Optional[torch.Tensor], dtype, shape, name: str, device):
+    if t is None:
+        return None
+    if t.device != device or t.dtype != dtype or not t.is_contiguous() \
+            or tuple(t.shape) != tuple(shape):
+        raise ValueError(
+            f"{name}: want contiguous {dtype} {tuple(shape)} on {device}, "
+            f"got {t.dtype} {tuple(t.shape)} on {t.device}"
+            f"{'' if t.is_contiguous() else ' (non-contiguous)'}")
+    return t.data_ptr()
+
+
+def _launched(rc: int, name: str) -> None:
+    if rc != 0:
+        msg = _lib().h2o3_cuda_error_string(rc).decode()
+        raise RuntimeError(f"{name} kernel failed to launch: {msg} ({rc})")
+    kernels.count(name)
+
+
+def _stream(device) -> int:
+    return torch.cuda.current_stream(device).cuda_stream
+
+
+def _bin_dtype(bins: torch.Tensor) -> int:
+    if bins.dtype not in (torch.int8, torch.int32):
+        raise ValueError(f"bins must be int8 or int32, got {bins.dtype}")
+    return int(bins.dtype == torch.int8)
+
+
+# ------------------------------------------------------------ tree_hist
+
+
+def hist_plain(bins, nid, stats, *, d: int, n_nodes_h: int, n_bins: int):
+    """Plain version of ``tree_hist``: at d >= 1 odd (right-child) rows
+    are skipped and even rows land in their parent's slot."""
+    if d > 0:
+        nid = torch.where(nid % 2 == 0, nid >> 1, -1)
+    return histogram(bins, nid, stats, n_nodes=n_nodes_h, n_bins=n_bins)
+
+
+def tree_hist(bins, nid, stats, *, d: int, n_nodes_h: int, n_bins: int):
+    """[Lh, F, B, 3] level histogram of ``stats`` [N, 3]."""
+    if not _on_cuda(bins, "tree_hist"):
+        return hist_plain(bins, nid, stats, d=d, n_nodes_h=n_nodes_h,
+                          n_bins=n_bins)
+    dev = bins.device
+    N, F = bins.shape
+    B, Lh = n_bins, n_nodes_h
+    is8 = _bin_dtype(bins)
+    p_bins = _need(bins, bins.dtype, (N, F), "bins", dev)
+    p_nid = _need(nid, torch.int32, (N,), "nid", dev)
+    p_stats = _need(stats, torch.float32, (N, 3), "stats", dev)
+    out = torch.zeros((Lh, F, B, 3), dtype=torch.float32, device=dev)
+    node_chunk = max(1, HIST_SLAB_BYTES // (B * 12))
+    n_chunks = -(-Lh // node_chunk)
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    row_blocks = max(1, -(-8 * sms // (F * n_chunks)))
+    rows_per_block = max(256, -(-N // row_blocks))
+    rc = _lib().tree_hist(p_bins, is8, p_nid, p_stats, out.data_ptr(), N,
+                          F, B, Lh, int(d > 0), rows_per_block, node_chunk,
+                          _stream(dev))
+    _launched(rc, "tree_hist")
+    return out
+
+
+# ----------------------------------------------------------- tree_split
+
+
+def split_plain(lh, prev, col_mask, nb, is_cat, constraints, lo, hi, knobs,
+                depth_limit, *, d: int, n_nodes: int, n_bins: int):
+    """Plain version of ``tree_split``: sibling subtraction with the
+    f32-cancellation clamps on w and h, the split scan, and the masks.
+    ``knobs`` is [min_rows, reg_lambda, min_split_improvement]."""
+    if d == 0:
+        hist = lh
+    else:
+        rh = prev - lh
+        rh[..., 0] = rh[..., 0].clamp_min(0.0)
+        rh[..., 2] = rh[..., 2].clamp_min(0.0)
+        hist = torch.stack([lh, rh], dim=1).reshape(n_nodes, *lh.shape[1:])
+    ic = None if is_cat is None else is_cat != 0
+    bg, bf, bt, bnal, blv, brv, leftmask = best_splits(
+        hist, nb, col_mask != 0, min_rows=knobs[0], reg_lambda=knobs[1],
+        is_cat=ic, constraints=constraints, lo=lo, hi=hi)
+    split = (bg > knobs[2]) & (d < depth_limit[0])
+    cs = ic[bf.long()] & split if ic is not None \
+        else torch.zeros_like(split)
+    return hist, bg, bf, bt, bnal, blv, brv, leftmask, split, cs
+
+
+def tree_split(lh, prev, col_mask, nb, is_cat, constraints, lo, hi, knobs,
+               depth_limit, *, d: int, n_nodes: int, n_bins: int):
+    """Level boundary → (hist [L,F,B,3], gain, feat, thresh, na_left,
+    left_val, right_val, leftmask [L,B-1], split, cat_split). Inputs:
+    ``lh`` [Lh,F,B,3] from ``tree_hist``; ``prev`` the previous level's
+    histogram (None at d=0); ``col_mask`` int8 [1|L, F]; ``nb`` int32
+    [F]; ``is_cat``/``constraints`` int8 [F] or None; ``lo``/``hi``
+    float32 [1|L]; ``knobs`` float32 [3]; ``depth_limit`` int32 [1]."""
+    if not _on_cuda(lh, "tree_split"):
+        return split_plain(lh, prev, col_mask, nb, is_cat, constraints, lo,
+                           hi, knobs, depth_limit, d=d, n_nodes=n_nodes,
+                           n_bins=n_bins)
+    dev = lh.device
+    L, B = n_nodes, n_bins
+    Lh, F = lh.shape[0], lh.shape[1]
+    if d > 0 and prev is None:
+        raise ValueError("tree_split: d > 0 needs the previous histogram")
+    cm_rows, bound_rows = col_mask.shape[0], lo.shape[0]
+    ptrs = [
+        _need(lh, torch.float32, (Lh, F, B, 3), "lh", dev),
+        _need(prev if d > 0 else None, torch.float32, (Lh, F, B, 3),
+              "prev", dev),
+        _need(col_mask, torch.int8, (cm_rows, F), "col_mask", dev),
+        _need(nb, torch.int32, (F,), "nb", dev),
+        _need(is_cat, torch.int8, (F,), "is_cat", dev),
+        _need(constraints, torch.int8, (F,), "constraints", dev),
+        _need(lo, torch.float32, (bound_rows,), "lo", dev),
+        _need(hi, torch.float32, (bound_rows,), "hi", dev),
+        _need(knobs, torch.float32, (3,), "knobs", dev),
+        _need(depth_limit, torch.int32, (1,), "depth_limit", dev),
+    ]
+    if cm_rows not in (1, L) or bound_rows not in (1, L):
+        raise ValueError("tree_split: col_mask and lo/hi take 1 or L rows")
+    f32 = dict(dtype=torch.float32, device=dev)
+    i32 = dict(dtype=torch.int32, device=dev)
+    b8 = dict(dtype=torch.bool, device=dev)
+    outs = (torch.empty((L, F, B, 3), **f32), torch.empty(L, **f32),
+            torch.empty(L, **i32), torch.empty(L, **i32),
+            torch.empty(L, **b8), torch.empty(L, **f32),
+            torch.empty(L, **f32), torch.empty((L, B - 1), **b8),
+            torch.empty(L, **b8), torch.empty(L, **b8))
+    n_warps = min(SPLIT_WARPS, F, SPLIT_SMEM_BYTES // (28 * B + 16))
+    if n_warps < 1:
+        raise ValueError(f"tree_split: {B} bins exceed shared memory")
+    rc = _lib().tree_split(*ptrs, *(o.data_ptr() for o in outs), d, L, F,
+                           B, cm_rows, bound_rows, n_warps, _stream(dev))
+    _launched(rc, "tree_split")
+    return outs
+
+
+# ------------------------------------------------------- tree_partition
+
+
+def partition_plain(bins, nid, feat, thresh, na_left, split, cat_split,
+                    leftmask, *, n_bins: int):
+    """Plain version of ``tree_partition`` (``_level_goleft`` on the raw
+    per-node decisions, gated by ``split``)."""
+    n = nid.long()
+    b = bins.gather(1, feat.long()[n][:, None])[:, 0].to(torch.int32)
+    isna = b == n_bins - 1
+    real = (b >= 0) & (b < n_bins - 1)
+    inset = leftmask[n, b.clamp(0, n_bins - 2).long()] & real
+    go_split = torch.where(cat_split[n], inset, b <= thresh[n])
+    goleft = torch.where(split[n], torch.where(isna, na_left[n], go_split),
+                         True)
+    return (2 * nid + torch.where(goleft, 0, 1)).to(torch.int32)
+
+
+def tree_partition(bins, nid, feat, thresh, na_left, split, cat_split,
+                   leftmask, *, n_bins: int):
+    """Routed node ids [N] int32: ``2·nid`` (left) or ``2·nid + 1``."""
+    if not _on_cuda(bins, "tree_partition"):
+        return partition_plain(bins, nid, feat, thresh, na_left, split,
+                               cat_split, leftmask, n_bins=n_bins)
+    dev = bins.device
+    N, F = bins.shape
+    L = feat.shape[0]
+    is8 = _bin_dtype(bins)
+    ptrs = [
+        _need(bins, bins.dtype, (N, F), "bins", dev),
+        _need(nid, torch.int32, (N,), "nid", dev),
+    ]
+    out = torch.empty(N, dtype=torch.int32, device=dev)
+    tables = [
+        _need(feat, torch.int32, (L,), "feat", dev),
+        _need(thresh, torch.int32, (L,), "thresh", dev),
+        _need(na_left, torch.bool, (L,), "na_left", dev),
+        _need(split, torch.bool, (L,), "split", dev),
+        _need(cat_split, torch.bool, (L,), "cat_split", dev),
+        _need(leftmask, torch.bool, (L, n_bins - 1), "leftmask", dev),
+    ]
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    n_blocks = max(1, min(-(-N // 256), 8 * sms))
+    rc = _lib().tree_partition(ptrs[0], is8, ptrs[1], out.data_ptr(),
+                               *tables, N, F, n_bins, L, n_blocks,
+                               _stream(dev))
+    _launched(rc, "tree_partition")
+    return out
+
+
+# --------------------------------------------------------------- levels
+
+
+def level_operands(col_mask, nb, is_cat, constraints, lo, hi, scalars,
+                  device):
+    """The per-level small operands in the kernels' types, on device."""
+    def t(x, dtype):
+        if isinstance(x, torch.Tensor):
+            return x.to(device=device, dtype=dtype).reshape(-1)
+        return torch.full((1,), x, dtype=dtype, device=device)
+
+    knobs = torch.cat([t(scalars.min_rows, torch.float32),
+                       t(scalars.reg_lambda, torch.float32),
+                       t(scalars.msi, torch.float32)])
+    dl = t(scalars.depth_limit if scalars.depth_limit is not None
+           else 1 << 30, torch.int32)
+    cm = col_mask if col_mask.dim() == 2 else col_mask[None, :]
+    cm = cm.to(device=device, dtype=torch.int8).contiguous()
+    nb = nb.to(device=device, dtype=torch.int32).contiguous()
+    ic = None if is_cat is None else is_cat.to(device=device,
+                                               dtype=torch.int8)
+    cons = None if constraints is None else constraints.to(
+        device=device, dtype=torch.int8)
+    lo = lo.to(device=device, dtype=torch.float32).contiguous()
+    hi = hi.to(device=device, dtype=torch.float32).contiguous()
+    return cm, nb, ic, cons, lo, hi, knobs, dl
+
+
+def _level(hist_fn, split_fn, part_fn, bins, nid, stats, prev_hist,
+           col_mask, nb, is_cat, constraints, lo, hi, scalars, *, d,
+           n_nodes, n_bins):
+    cm, nb, ic, cons, lo, hi, knobs, dl = level_operands(
+        col_mask, nb, is_cat, constraints, lo, hi, scalars, bins.device)
+    lh = hist_fn(bins, nid, stats, d=d, n_nodes_h=max(n_nodes // 2, 1),
+                 n_bins=n_bins)
+    hist, bg, bf, bt, bnal, blv, brv, lmask, split, cs = split_fn(
+        lh, prev_hist, cm, nb, ic, cons, lo, hi, knobs, dl, d=d,
+        n_nodes=n_nodes, n_bins=n_bins)
+    new_nid = part_fn(bins, nid, bf, bt, bnal, split, cs, lmask,
+                      n_bins=n_bins)
+    return hist, bg, bf, bt, bnal, blv, brv, lmask, split, new_nid
+
+
+def fused_level(bins, nid, stats, prev_hist, col_mask, nb, is_cat,
+                constraints, lo, hi, scalars, *, d: int, n_nodes: int,
+                n_bins: int):
+    """One tree level: returns (hist [L,F,B,3], gain, feat, thresh,
+    na_left, left_val, right_val, leftmask, split, new_nid).
+
+    ``stats`` is the level-invariant [N, 3] {w, w·g, w·h} block,
+    ``prev_hist`` the previous level's histogram (None at the root), and
+    ``split`` already folds in the min-split-improvement and depth-limit
+    masks. CUDA inputs run the three kernels; CPU inputs their plain
+    versions. The reference's ``block_rows``/``mesh``/``interpret``
+    arguments have no counterpart on one device."""
+    return _level(tree_hist, tree_split, tree_partition, bins, nid, stats,
+                  prev_hist, col_mask, nb, is_cat, constraints, lo, hi,
+                  scalars, d=d, n_nodes=n_nodes, n_bins=n_bins)
+
+
+def plain_level(bins, nid, stats, prev_hist, col_mask, nb, is_cat,
+                constraints, lo, hi, scalars, *, d: int, n_nodes: int,
+                n_bins: int):
+    """``fused_level`` through the plain versions on any device — the
+    reference the kernels are held against on the card (the counterpart
+    of the reference package's ``xla_level``)."""
+    return _level(hist_plain, split_plain, partition_plain, bins, nid,
+                  stats, prev_hist, col_mask, nb, is_cat, constraints, lo,
+                  hi, scalars, d=d, n_nodes=n_nodes, n_bins=n_bins)

@@ -1,0 +1,55 @@
+"""The PyTorch port's import boundary: ``h2o3_tpu_torch`` never imports
+JAX or any module of the reference package ``h2o3_tpu``."""
+
+import ast
+import os
+import subprocess
+import sys
+from pathlib import Path
+
+import pytest
+
+ROOT = Path(__file__).resolve().parents[1]
+PKG = ROOT / "h2o3_tpu_torch"
+FORBIDDEN = ("jax", "jaxlib", "h2o3_tpu")
+
+
+def _forbidden(mod: str) -> bool:
+    top = mod.split(".")[0]
+    return top in FORBIDDEN
+
+
+def test_import_loads_no_jax_or_reference_module():
+    """A fresh interpreter imports the whole port (every module) and
+    finds no jax* or h2o3_tpu* module loaded."""
+    mods = sorted(
+        ".".join(p.relative_to(ROOT).with_suffix("").parts).removesuffix(
+            ".__init__")
+        for p in PKG.rglob("*.py"))
+    code = ("import importlib, sys\n"
+            f"for m in {mods!r}:\n"
+            "    importlib.import_module(m)\n"
+            "bad = [m for m in sys.modules if m.split('.')[0] in "
+            f"{FORBIDDEN!r}]\n"
+            "print(len(sys.modules)); assert not bad, bad\n")
+    env = dict(os.environ, PYTHONPATH=str(ROOT))
+    r = subprocess.run([sys.executable, "-c", code], cwd=str(ROOT), env=env,
+                       capture_output=True, text=True, timeout=120)
+    assert r.returncode == 0, r.stderr
+
+
+@pytest.mark.parametrize("path", sorted(str(p.relative_to(ROOT))
+                                        for p in PKG.rglob("*.py")))
+def test_no_forbidden_import_statement(path):
+    """AST scan: no import statement of any port module names jax or the
+    reference package."""
+    tree = ast.parse((ROOT / path).read_text(), filename=path)
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            names = [a.name for a in node.names]
+        elif isinstance(node, ast.ImportFrom):
+            names = [node.module or ""]
+        else:
+            continue
+        for n in names:
+            assert not _forbidden(n), f"{path}:{node.lineno} imports {n}"

@@ -1,0 +1,237 @@
+"""The port's CUDA kernels against their plain PyTorch versions, on the
+card (marker ``gpu``; each test skips without a CUDA device).
+
+Run on a machine with an NVIDIA GPU, from the repository root:
+
+    python -m pytest --noconftest -m gpu tests/test_torch_cuda.py
+
+(``--noconftest``: tests/conftest.py boots the JAX reference cloud, and
+these tests use neither JAX nor the reference package.)
+
+The checks are those of chip_smoke.py phase 2 at small shapes: with
+small-integer stats every output is EXACTLY equal; with real-valued stats
+histograms agree within the float32 summation bound (2·n·2^-24·Σ|x| for
+a cell of n rows) and a split decision may differ only at a near-tie."""
+
+import sys
+from pathlib import Path
+
+import numpy as np
+import pytest
+import torch
+
+sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
+
+import chip_smoke as cs  # noqa: E402
+from h2o3_tpu_torch.ops import kernels  # noqa: E402
+from h2o3_tpu_torch.ops.kernels import treekernel as tk  # noqa: E402
+
+pytestmark = pytest.mark.gpu
+
+N = 20_000
+
+
+@pytest.fixture
+def dev():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (the kernels have no CPU mode)")
+    return torch.device("cuda")
+
+
+def _bm(dev, n=N):
+    import h2o3_tpu_torch as h2o
+    from h2o3_tpu_torch.frame.binning import bin_frame
+    cols, domains = cs.airlines_arrays(n)
+    fr = h2o.Frame.from_numpy(cols, domains=domains, device=dev)
+    x = [c for c in cols if c != "IsDepDelayed"]
+    return bin_frame(fr, x, nbins=64, nbins_cats=1024)
+
+
+def _chain(bins, stats, ops, B, depth, exact):
+    nid = torch.zeros(bins.shape[0], dtype=torch.int32, device=bins.device)
+    prev = None
+    flips = 0
+    for d in range(depth):
+        _, f, out_p, nid = cs.compare_level(tk, bins, nid, stats, prev, ops,
+                                            d=d, L=2 ** d, B=B, exact=exact)
+        prev = out_p[0]
+        flips += f
+    return flips
+
+
+@pytest.mark.parametrize("label", ["dyadic", "real"])
+def test_flagship_levels_kernels_vs_plain(dev, label):
+    bm = _bm(dev)
+    _, sc, is_cat, cm, lo, hi = cs.level_plan(bm, torch, dev)
+    ops = tk.level_operands(cm, bm.nbins, is_cat, None, lo, hi, sc, dev)
+    stats = (cs.dyadic_stats if label == "dyadic" else cs.real_stats)(
+        bm.bins.shape[0], 1, torch, dev)
+    kernels.reset_counts()
+    _chain(bm.bins, stats, ops, bm.nbins_total, 6, exact=label == "dyadic")
+    assert kernels.LAUNCHES == {"tree_hist": 6, "tree_split": 6,
+                                "tree_partition": 6}
+
+
+def test_constraints_bounds_and_node_masks(dev):
+    """Monotone constraints, per-node [L] bounds and an [L, F] column
+    mask through the kernel, exact on dyadic stats."""
+    bm = _bm(dev)
+    _, sc, is_cat, _, _, _ = cs.level_plan(bm, torch, dev)
+    F, B = bm.bins.shape[1], bm.nbins_total
+    r = np.random.RandomState(3)
+    stats = cs.dyadic_stats(bm.bins.shape[0], 2, torch, dev)
+    cons = torch.tensor([1, -1, 0, 0, 1, 0, 0, 0, 0, -1], dtype=torch.int8,
+                        device=dev)
+    nid = torch.zeros(bm.bins.shape[0], dtype=torch.int32, device=dev)
+    prev = None
+    for d in range(4):
+        L = 2 ** d
+        cm = torch.from_numpy((r.rand(L, F) > 0.3) | (np.arange(F) == 0)).to(dev)
+        lo = torch.from_numpy(-r.rand(L).astype(np.float32)).to(dev)
+        hi = torch.from_numpy(r.rand(L).astype(np.float32)).to(dev)
+        ops = tk.level_operands(cm, bm.nbins, is_cat, cons, lo, hi, sc, dev)
+        _, _, out_p, nid = cs.compare_level(tk, bm.bins, nid, stats, prev,
+                                            ops, d=d, L=L, B=B, exact=True)
+        prev = out_p[0]
+
+
+def test_node_chunked_histogram_depth_bucket_10(dev, monkeypatch):
+    """Lh = 256 parents (depth bucket 10), with the slab budget cut so the
+    histogram runs in many node chunks."""
+    bm = _bm(dev)
+    _, sc, is_cat, cm, lo, hi = cs.level_plan(bm, torch, dev)
+    B = bm.nbins_total
+    ops = tk.level_operands(cm, bm.nbins, is_cat, None, lo, hi, sc, dev)
+    r = np.random.RandomState(4)
+    nid = torch.from_numpy(r.randint(0, 512, N).astype(np.int32)).to(dev)
+    stats = cs.dyadic_stats(N, 5, torch, dev)
+    prev = tk.hist_plain(bm.bins, nid >> 1, stats, d=0, n_nodes_h=256,
+                         n_bins=B)
+    for slab in (tk.HIST_SLAB_BYTES, 7 * B * 12):
+        monkeypatch.setattr(tk, "HIST_SLAB_BYTES", slab)
+        cs.compare_level(tk, bm.bins, nid, stats, prev, ops, d=9, L=512,
+                         B=B, exact=True)
+
+
+def test_int32_bins_wide_histogram(dev):
+    B, F = 200, 6
+    r = np.random.RandomState(6)
+    bins = torch.from_numpy(r.randint(0, B, (N, F)).astype(np.int32)).to(dev)
+    nb = torch.full((F,), B - 1, dtype=torch.int32, device=dev)
+    ic = torch.tensor([True, False, True, False, False, True], device=dev)
+    sc = cs.level_plan(_bm(dev, 100), torch, dev)[1]
+    inf = torch.full((1,), np.inf, device=dev)
+    ops = tk.level_operands(torch.ones(F, dtype=torch.bool, device=dev), nb,
+                            ic, None, -inf, inf, sc, dev)
+    _chain(bins, cs.dyadic_stats(N, 7, torch, dev), ops, B, 4, exact=True)
+
+
+def _edge_hist(case):
+    r = np.random.RandomState(21)
+    L, F, B = 2, 3, 6
+    w = r.randint(1, 5, (L, F, B)).astype(np.float32)
+    g = r.randint(-6, 7, (L, F, B)).astype(np.float32)
+    h = r.randint(1, 4, (L, F, B)).astype(np.float32)
+    cm = np.ones(F, bool)
+    lam = 1.0
+    if case == "empty_bins":
+        w[:, :, [1, 3]] = g[:, :, [1, 3]] = h[:, :, [1, 3]] = 0.0
+    elif case == "nan_keys":
+        lam = 0.0
+        w[:, :, [0, 2]] = 1.0
+        h[:, :, [0, 2]] = np.float32(-1e-10)
+        g[:, :, [0, 2]] = 0.0
+    elif case == "all_masked":
+        cm = np.zeros(F, bool)
+    return np.stack([w, w * g, w * h], axis=-1).astype(np.float32), cm, lam
+
+
+@pytest.mark.parametrize("case", ["all_masked", "nan_keys", "empty_bins"])
+def test_split_scan_edge_cases_on_card(dev, case):
+    """All gains -inf (index 0 wins), NaN Newton keys (sorted last, NaN
+    gains win), empty bins (keyed +inf): kernel == plain."""
+    hist, cm, lam = _edge_hist(case)
+    F, B = hist.shape[1], hist.shape[2]
+    lh = torch.from_numpy(hist[:1]).to(dev).contiguous()
+    prev = torch.from_numpy(hist[:1] + hist[1:]).to(dev).contiguous()
+    from h2o3_tpu_torch.models.tree import TreeScalars
+    sc = TreeScalars(torch.tensor(1.0, device=dev),
+                     torch.tensor(lam, device=dev),
+                     torch.tensor(1e-5, device=dev),
+                     torch.tensor(30, dtype=torch.int32, device=dev))
+    inf = torch.full((1,), np.inf, device=dev)
+    ops = tk.level_operands(torch.from_numpy(cm).to(dev),
+                            torch.full((F,), B - 1, dtype=torch.int32),
+                            torch.tensor([True, False, True]), None, -inf,
+                            inf, sc, dev)
+    out_p = tk.split_plain(lh, prev, *ops, d=1, n_nodes=2, n_bins=B)
+    out_k = tk.tree_split(lh, prev, *ops, d=1, n_nodes=2, n_bins=B)
+    torch.cuda.synchronize()
+    for i, (a, b) in enumerate(zip(out_k, out_p)):
+        np.testing.assert_array_equal(a.cpu().numpy(), b.cpu().numpy(),
+                                      err_msg=f"output {i}")
+
+
+def test_grow_tree_kernels_equal_plain(dev):
+    from h2o3_tpu_torch.models.tree import Tree, grow_tree
+    bm = _bm(dev)
+    tp, sc, _, cm, _, _ = cs.level_plan(bm, torch, dev)
+    st = cs.dyadic_stats(bm.bins.shape[0], 9, torch, dev)
+    w = st[:, 0].contiguous()
+    g, h = st[:, 1] / w.clamp_min(1.0), st[:, 2] / w.clamp_min(1.0)
+    t_k, nid_k, _ = grow_tree(bm.bins, bm.nbins, w, g, h, cm, params=tp,
+                              scalars=sc)
+    t_p, nid_p, _ = grow_tree(bm.bins, bm.nbins, w, g, h, cm, params=tp,
+                              scalars=sc, level_fn=tk.plain_level)
+    for f in Tree._fields:
+        assert torch.equal(getattr(t_k, f), getattr(t_p, f)), f
+    assert torch.equal(nid_k, nid_p)
+
+
+def test_gbm_on_card_goes_through_kernels(dev):
+    import h2o3_tpu_torch as h2o
+    cols, domains = cs.airlines_arrays(N)
+    fr = h2o.Frame.from_numpy(cols, domains=domains, device=dev)
+    kernels.reset_counts()
+    m = h2o.GBMEstimator(ntrees=3, max_depth=4, seed=1).train(
+        fr, y="IsDepDelayed")
+    # depth 4 lays out at bucket 6: every bucket level launches
+    assert kernels.LAUNCHES == {"tree_hist": 18, "tree_split": 18,
+                                "tree_partition": 18}
+    m_cpu = h2o.GBMEstimator(ntrees=3, max_depth=4, seed=1).train(
+        h2o.Frame.from_numpy(cols, domains=domains, device="cpu"),
+        y="IsDepDelayed")
+    assert abs(m.training_metrics["AUC"] - m_cpu.training_metrics["AUC"]) \
+        < 5e-3
+    p1 = m.predict(fr).col("p1").host_view()
+    assert p1.shape == (N,) and np.isfinite(p1).all()
+
+
+def test_boost_step_makes_no_host_sync(dev):
+    """The boosting iteration (gradients, samples, one tree through the
+    kernels, margin update) runs with CUDA sync debugging set to error."""
+    from h2o3_tpu_torch.models import gbm
+    from h2o3_tpu_torch.models.distribution import get_distribution
+    from h2o3_tpu_torch.models.tree import TreeParams, scalars_of
+    bm = _bm(dev)
+    tp = TreeParams(max_depth=6, min_rows=10.0, reg_lambda=0.0,
+                    nbins_total=bm.nbins_total, col_sample_rate=0.7,
+                    cat_feats=tuple(bool(v) for v in bm.is_cat))
+    sc = scalars_of(tp, dev, depth_limit=5)
+    lr = torch.tensor(0.1, device=dev)
+    n = bm.bins.shape[0]
+    y = (torch.rand(n, device=dev) > 0.5).to(torch.float32)
+    w = torch.ones(n, device=dev)
+    margin = torch.zeros(n, device=dev)
+    gens = [gbm.tree_generator(1, t, dev) for t in range(2)]
+    tk._lib()                                  # build + load first
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        for gen in gens:
+            _, margin, _ = gbm.boost_step(
+                bm, y, w, margin, gen, dist=get_distribution("bernoulli"),
+                tp=tp, sc=sc, learn_rate=lr, sample_rate=0.8)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    assert torch.isfinite(margin).all()
