@@ -24,9 +24,31 @@ Phases, in order; any failure exits non-zero and no phase carries on:
 5. Kernel timings at the main path's shapes (5M rows, d=0..5) with CUDA
    events, beside their plain versions, a library yardstick and the
    bound from bytes and operations.
+6. The DRF path on phase 4's frame: ``DRFEstimator(ntrees=10,
+   max_depth=10, seed=1)`` with the default mtries (sqrt(F) columns per
+   node, so ``tree_split`` takes [L, F] masks) and sample_rate 0.632;
+   every level kernel launched 10 x 10 times; OOB AUC. Before it, one
+   ``grow_tree`` with mtries through the kernels and through the plain
+   versions from the same generator state: the Trees must be equal.
+7. The ``histogram`` kernel (full histogram, no sibling subtraction)
+   against its plain version on a 1M-row slice of the uplift data (F=12,
+   B=65, int8 bins) at L = 1, 8, 64, 512 with 0/1 stats: EXACT; once
+   with int32 bins; real-valued stats within the summation bound; one
+   ``_grow_uplift_tree`` through the kernel and through the plain
+   version: the Trees must be equal.
+8. The uplift main path: 13,979,592 rows of the Criteo Uplift v2.1
+   schema, ``UpliftDRFEstimator(ntrees=10, max_depth=10, ...).train``,
+   ``_score_raw`` and ``model_performance``; ``histogram`` launched
+   2 x 10 x 10 times and no level kernel; where the time goes (binning
+   alone, the training metrics alone, a 2-tree fit under torch.profiler);
+   AUUC and Qini checked against the CPU plain path on a 50K-row sample.
+9. ``histogram`` timed at the uplift path's shapes (d=0..9), as phase 5.
 
-The line before the last is the ``{"kernels": [...]}`` record; the last
-is ``{"ok": true, "device": {...}}``.
+Launch counts are read per path: each path sets every count to 0 just
+before it runs and reads them just after. The line before the last is
+the ``{"kernels": [...]}`` record (all four kernels, each with its own
+source, the TPU kernel it replaces and its launches on the path that
+runs it); the last is ``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
@@ -41,10 +63,25 @@ import numpy as np
 HBM_BYTES_PER_S = 3.35e12        # H100 SXM device memory rate
 F32_OPS_PER_S = 67e12            # H100 SXM float32 rate outside tensor cores
 FLAGSHIP = dict(ntrees=10, max_depth=6, seed=1)
+DRF = dict(ntrees=10, max_depth=10, seed=1)
+# Criteo Uplift Prediction v2.1 (Diemert et al., arXiv:2111.10106): its
+# rows and widths; ntrees cut from the reference default 50 to 10
+N_UPLIFT = 13_979_592
+UPLIFT = dict(treatment_column="treatment", ntrees=10, max_depth=10,
+              nbins=64, min_rows=10, sample_rate=0.632, mtries=-2,
+              uplift_metric="KL", seed=1)
 N_MAIN = 5_000_000
 N_KERNEL = 1_000_000
-TREEKERNEL_SRC = "h2o3_tpu_torch/ops/kernels/csrc/treekernel.cu"
-REPLACES = "h2o3_tpu/ops/pallas/treekernel.py:250"
+N_SAMPLE = 50_000
+_TREEKERNEL = dict(source="h2o3_tpu_torch/ops/kernels/csrc/treekernel.cu",
+                   replaces="h2o3_tpu/ops/pallas/treekernel.py:250")
+KERNELS = {
+    "tree_hist": _TREEKERNEL, "tree_split": _TREEKERNEL,
+    "tree_partition": _TREEKERNEL,
+    "histogram": dict(source="h2o3_tpu_torch/ops/kernels/csrc/histogram.cu",
+                      replaces="h2o3_tpu/ops/pallas_histogram.py:94"),
+}
+LEVEL_KERNELS = ("tree_hist", "tree_split", "tree_partition")
 CARD = ""
 
 
@@ -97,6 +134,35 @@ def dyadic_stats(n: int, seed: int, torch, device):
     return torch.from_numpy(np.stack([w, w * g, w * h], 1)).to(device)
 
 
+def criteo_arrays(n: int, seed: int = 11):
+    """The Criteo Uplift v2.1 schema: 12 float features f0..f11 (no NA),
+    a 2-level ``treatment`` (85% treated) and a 2-level response
+    ``visit`` (4.7% base rate), with a treatment effect that varies with
+    f1 and f9. Generated from a seed; nothing is downloaded."""
+    rng = np.random.default_rng(seed)
+    f = np.empty((12, n), np.float32)
+    f[0:4] = rng.standard_normal((4, n), dtype=np.float32)
+    f[4:8] = np.exp(rng.standard_normal((4, n), dtype=np.float32) * 0.75)
+    f[8:12] = np.floor(rng.gamma(2.0, 4.0, (4, n))).astype(np.float32)
+    treat = rng.random(n, dtype=np.float32) < 0.85
+    z = -3.35 + 0.45 * f[0] + 0.25 * np.minimum(f[8], 20) / 8 - 0.2 * f[4]
+    z = z + treat * (0.15 + 0.55 * (f[1] > 0.5) - 0.25 * (f[9] > 10))
+    visit = rng.random(n, dtype=np.float32) < 1 / (1 + np.exp(-z))
+    cols = {f"f{i}": f[i] for i in range(12)}
+    cols["treatment"] = treat.astype(np.int32)
+    cols["visit"] = visit.astype(np.int32)
+    return cols, {"treatment": ["0", "1"], "visit": ["0", "1"]}
+
+
+def binary_stats(n: int, seed: int, torch, device):
+    """[n, 3] {w, w·y, w} with w, y in {0, 1}: uplift's per-arm stats;
+    every float32 sum of up to 2^24 rows is exact in any order."""
+    r = np.random.RandomState(seed)
+    w = (r.rand(n) < 0.6).astype(np.float32)
+    y = (r.rand(n) < 0.05).astype(np.float32)
+    return torch.from_numpy(np.stack([w, w * y, w], 1)).to(device)
+
+
 def real_stats(n: int, seed: int, torch, device):
     r = np.random.RandomState(seed)
     g = r.uniform(-1, 1, n).astype(np.float32)
@@ -122,17 +188,28 @@ def level_plan(bm, torch, device):
         -inf, inf
 
 
-def hist_tolerance(bins, nid, stats, d, Lh, B):
+def summation_bound(plain, stats):
     """|kernel - plain| allowed per cell for real-valued stats: twice the
     float32 recursive-summation bound n·u·Σ|x| (u = 2^-24) of a cell of n
-    rows — both sides sum the same rows in different orders. Returns
-    (tolerance, Σ|x| per cell)."""
+    rows — both sides sum the same rows in different orders. ``plain``
+    maps [N, 3] stats to the plain histogram. Returns (tolerance, Σ|x|
+    per cell)."""
     import torch
-    from h2o3_tpu_torch.ops.kernels.treekernel import hist_plain
-    mass = hist_plain(bins, nid, stats.abs(), d=d, n_nodes_h=Lh, n_bins=B)
-    n = hist_plain(bins, nid, torch.ones_like(stats), d=d, n_nodes_h=Lh,
-                   n_bins=B)
+    mass = plain(stats.abs())
+    n = plain(torch.ones_like(stats))
     return 2.0 * n * 2.0 ** -24 * mass, mass
+
+
+def check_within_bound(got, want, plain, stats, label):
+    """Hold ``got`` to ``want`` within the summation bound; returns the
+    largest |diff| relative to a cell's absolute mass."""
+    tol, mass = summation_bound(plain, stats)
+    diff = (got - want).abs()
+    check(bool((diff <= tol).all()),
+          f"{label} beyond the summation bound: max |diff| "
+          f"{float(diff.max())}, max |diff|/bound "
+          f"{float((diff / tol.clamp_min(1e-30)).max())}")
+    return float((diff / mass.clamp_min(1e-30)).max())
 
 
 def compare_level(tk, bins, nid, stats, prev, ops, *, d, L, B, exact):
@@ -149,13 +226,10 @@ def compare_level(tk, bins, nid, stats, prev, ops, *, d, L, B, exact):
     if exact:
         check(torch.equal(lh_k, lh_p), f"tree_hist d={d} not exact")
     else:
-        tol, mass = hist_tolerance(bins, nid, stats, d, Lh, B)
-        diff = (lh_k - lh_p).abs()
-        errs["tree_hist_rel"] = float((diff / mass.clamp_min(1e-30)).max())
-        check(bool((diff <= tol).all()),
-              f"tree_hist d={d} beyond the summation bound: max |diff| "
-              f"{float(diff.max())}, max |diff|/bound "
-              f"{float((diff / tol.clamp_min(1e-30)).max())}")
+        errs["tree_hist_rel"] = check_within_bound(
+            lh_k, lh_p, lambda s: tk.hist_plain(bins, nid, s, d=d,
+                                                n_nodes_h=Lh, n_bins=B),
+            stats, f"tree_hist d={d}")
     out_p = tk.split_plain(lh_p, prev, cm, nb, ic, cons, lo, hi, knobs, dl,
                            d=d, n_nodes=L, n_bins=B)
     out_k = tk.tree_split(lh_p, prev, cm, nb, ic, cons, lo, hi, knobs, dl,
@@ -190,6 +264,42 @@ def compare_level(tk, bins, nid, stats, prev, ops, *, d, L, B, exact):
     errs["tree_partition"] = float((new_k - new_p).abs().max())
     check(torch.equal(new_k, new_p), f"tree_partition d={d} not exact")
     return errs, flips, out_p, new_p
+
+
+def check_launches(counts, want, path: str) -> None:
+    """Every kernel's launches on one path: ``want`` maps a kernel name
+    to its expected count; kernels not named must not have launched."""
+    for k, v in counts.items():
+        check(v == want.get(k, 0), f"{k} launched {v} times on the {path} "
+                                   f"path, want {want.get(k, 0)}")
+
+
+def compare_histogram(bins, nid, stats, *, L, B, exact):
+    """Hold the ``histogram`` kernel against its plain version. Returns
+    (max |err|, max |err| relative to a cell's absolute mass)."""
+    import torch
+    from h2o3_tpu_torch.ops.histogram import local_histogram
+    from h2o3_tpu_torch.ops.kernels.histogram import full_histogram
+    want = local_histogram(bins, nid, stats, n_nodes=L, n_bins=B)
+    got = full_histogram(bins, nid, stats, n_nodes=L, n_bins=B)
+    torch.cuda.synchronize()
+    err = float((got - want).abs().max())
+    if exact:
+        check(torch.equal(got, want), f"histogram L={L} not exact "
+                                      f"(max |err| {err})")
+        return err, 0.0
+    return err, check_within_bound(
+        got, want, lambda s: local_histogram(bins, nid, s, n_nodes=L,
+                                             n_bins=B),
+        stats, f"histogram L={L}")
+
+
+def equal_trees(t_a, t_b, label: str) -> None:
+    import torch
+    from h2o3_tpu_torch.models.tree import Tree
+    for f in Tree._fields:
+        check(torch.equal(getattr(t_a, f), getattr(t_b, f)),
+              f"{label}: field {f} differs kernels vs plain")
 
 
 def time_ms(torch, fn, reps: int = 10) -> float:
@@ -293,7 +403,7 @@ def phase_kernels(torch, dev, bm):
 
 
 def phase_grow_tree(torch, dev, bm):
-    from h2o3_tpu_torch.models.tree import Tree, grow_tree
+    from h2o3_tpu_torch.models.tree import grow_tree
     from h2o3_tpu_torch.ops.kernels.treekernel import plain_level
     tp, sc, _, cm, _, _ = level_plan(bm, torch, dev)
     st = dyadic_stats(N_KERNEL, 8, torch, dev)
@@ -306,9 +416,7 @@ def phase_grow_tree(torch, dev, bm):
     t_p, nid_p, gain_p = grow_tree(bins, bm.nbins, w, g, h, cm, params=tp,
                                    scalars=sc, level_fn=plain_level)
     torch.cuda.synchronize()
-    for f in Tree._fields:
-        check(torch.equal(getattr(t_k, f), getattr(t_p, f)),
-              f"grow_tree field {f} differs kernels vs plain")
+    equal_trees(t_k, t_p, "grow_tree")
     check(torch.equal(nid_k, nid_p), "grow_tree leaf ids differ")
     check(torch.equal(gain_k, gain_p), "grow_tree gains differ")
     say(f"phase3 grow_tree depth {tp.max_depth}: kernels == plain, field "
@@ -334,9 +442,7 @@ def phase_main(torch, dev, cols, domains):
     counts = dict(kernels.LAUNCHES)
     peak = torch.cuda.max_memory_allocated()
     want = FLAGSHIP["ntrees"] * FLAGSHIP["max_depth"]
-    for k, v in counts.items():
-        check(v == want, f"{k} launched {v} times on the main path, "
-                         f"want {want}")
+    check_launches(counts, {k: want for k in LEVEL_KERNELS}, "GBM")
     tm = model.training_metrics
     p1 = pred.col("p1").host_view()
     check(p1.shape == (N_MAIN,) and np.isfinite(p1).all()
@@ -377,24 +483,16 @@ def phase_main(torch, dev, cols, domains):
     return model, fr, counts
 
 
-def phase_profile(torch, dev, fr):
-    """Where the main path's time goes: the binning pass alone, then one
-    more fit under torch.profiler (device time by kernel, host time by
-    op, and the device's busy share of the fit's wall time)."""
-    import h2o3_tpu_torch as h2o
-    from h2o3_tpu_torch.frame.binning import bin_frame
+def profiled_fit(torch, label: str, fit) -> None:
+    """Run ``fit()`` under torch.profiler: device time by kernel, host
+    time by op, and the device's busy share of the fit's wall time (the
+    profiler stretches the wall time, so the share is a floor)."""
     from torch.profiler import ProfilerActivity, profile
-    x = [c for c in fr.names if c != "IsDepDelayed"]
     torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    bin_frame(fr, x, nbins=64, nbins_cats=1024,
-              weights=np.ones(fr.nrows, np.float32))
-    torch.cuda.synchronize()
-    say(f"phase4 profile: bin_frame alone {time.perf_counter() - t0:.3f} s")
     t0 = time.perf_counter()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
-        h2o.GBMEstimator(**FLAGSHIP).train(fr, y="IsDepDelayed")
+        fit()
         torch.cuda.synchronize()
     wall = (time.perf_counter() - t0) * 1e3
     ev = prof.key_averages()
@@ -404,7 +502,7 @@ def phase_profile(torch, dev, fr):
                        getattr(e, "self_cuda_time_total", 0.0))
 
     busy = sum(dev_us(e) for e in ev) / 1e3
-    say(f"phase4 profile: fit under the profiler {wall:.1f} ms wall, "
+    say(f"{label}: fit under the profiler {wall:.1f} ms wall, "
         f"device busy {busy:.1f} ms ({100 * busy / wall:.1f}%)")
     for e in sorted(ev, key=dev_us, reverse=True)[:10]:
         if dev_us(e) > 0:
@@ -414,6 +512,22 @@ def phase_profile(torch, dev, fr):
                     reverse=True)[:10]:
         say(f"  host   {e.self_cpu_time_total / 1e3:9.3f} ms  "
             f"x{e.count:<5d} {e.key[:90]}")
+
+
+def phase_profile(torch, dev, fr):
+    """Where the main path's time goes: the binning pass alone, then one
+    more fit under torch.profiler."""
+    import h2o3_tpu_torch as h2o
+    from h2o3_tpu_torch.frame.binning import bin_frame
+    x = [c for c in fr.names if c != "IsDepDelayed"]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    bin_frame(fr, x, nbins=64, nbins_cats=1024,
+              weights=np.ones(fr.nrows, np.float32))
+    torch.cuda.synchronize()
+    say(f"phase4 profile: bin_frame alone {time.perf_counter() - t0:.3f} s")
+    profiled_fit(torch, "phase4 profile", lambda: h2o.GBMEstimator(
+        **FLAGSHIP).train(fr, y="IsDepDelayed"))
 
 
 def _hist_bytes(N, F, Lh, B, bin_bytes):
@@ -430,8 +544,8 @@ def phase_timing(torch, dev, model, counts):
     tp, sc, is_cat, cm, lo, hi = level_plan(bm, torch, dev)
     ops = tk.level_operands(cm, bm.nbins, is_cat, None, lo, hi, sc, dev)
     stats = dyadic_stats(N, 9, torch, dev)
-    acc = {k: dict(ms=0.0, plain_ms=0.0, bound_ms=0.0, library_ms=0.0,
-                   bytes_ms=0.0, ops_ms=0.0) for k in counts}
+    acc = {k: dict(ms=0.0, plain_ms=0.0, library_ms=0.0, bytes_ms=0.0,
+                   ops_ms=0.0) for k in LEVEL_KERNELS}
     nid = torch.zeros(N, dtype=torch.int32, device=dev)
     prev = None
     levels = 6
@@ -499,21 +613,279 @@ def phase_timing(torch, dev, model, counts):
         del cell, src
     records = []
     for k, a in acc.items():
-        bound = max(a["bytes_ms"], a["ops_ms"])
-        rec = {"name": k, "route": "cuda", "source": TREEKERNEL_SRC,
-               "replaces": REPLACES, "launches": counts[k],
-               "ms": a["ms"] / levels, "plain_ms": a["plain_ms"] / levels,
-               "bound_ms": bound / levels,
-               "bound_by": "bytes" if a["bytes_ms"] >= a["ops_ms"]
-               else "operations",
-               "library_ms": (a["library_ms"] / levels
-                              if k == "tree_hist" else None)}
+        rec = kernel_record(k, counts[k], a, levels,
+                            has_library=k == "tree_hist")
         records.append(rec)
         say(f"phase5 {k}: {rec['ms']:.6g} ms per launch (mean of d=0..5 at "
             f"{N} rows), plain {rec['plain_ms']:.6g} ms, bound "
             f"{rec['bound_ms']:.6g} ms ({rec['bound_by']}), library "
             f"{rec['library_ms']}")
     return records
+
+
+def kernel_record(name, launches, a, levels, *, has_library):
+    """One entry of the ``{"kernels": [...]}`` line from per-level sums
+    of measured times and of the bound's two terms."""
+    return {"name": name, "route": "cuda", **KERNELS[name],
+            "launches": launches,
+            "ms": a["ms"] / levels, "plain_ms": a["plain_ms"] / levels,
+            "bound_ms": max(a["bytes_ms"], a["ops_ms"]) / levels,
+            "bound_by": "bytes" if a["bytes_ms"] >= a["ops_ms"]
+            else "operations",
+            "library_ms": a["library_ms"] / levels if has_library else None}
+
+
+def phase_drf_grow_tree(torch, dev, bm):
+    """One DRF-style ``grow_tree`` (per-node mtries masks drawn from a
+    generator) through the kernels and through the plain versions, both
+    from the same generator state: equal Trees."""
+    from h2o3_tpu_torch.models.gbm import tree_generator
+    from h2o3_tpu_torch.models.tree import TreeParams, grow_tree, scalars_of
+    from h2o3_tpu_torch.ops.kernels.treekernel import plain_level
+    F = bm.bins.shape[1]
+    tp = TreeParams(max_depth=DRF["max_depth"], min_rows=1.0,
+                    reg_lambda=0.0, min_split_improvement=1e-5,
+                    nbins_total=bm.nbins_total,
+                    cat_feats=tuple(bool(v) for v in bm.is_cat))
+    sc = scalars_of(tp, dev)
+    st = dyadic_stats(N_KERNEL, 10, torch, dev)
+    w = st[:, 0].contiguous()
+    g = (st[:, 1] / torch.where(w > 0, w, 1.0)).contiguous()
+    h = (st[:, 2] / torch.where(w > 0, w, 1.0)).contiguous()
+    bins = bm.bins[:N_KERNEL].contiguous()
+    cm = torch.ones(F, dtype=torch.bool, device=dev)
+    mtries = max(1, int(np.sqrt(F)))
+    out = [grow_tree(bins, bm.nbins, w, g, h, cm, params=tp, scalars=sc,
+                     mtries=mtries, generator=tree_generator(1, 0, dev),
+                     **kw)
+           for kw in ({}, {"level_fn": plain_level})]
+    torch.cuda.synchronize()
+    (t_k, nid_k, _), (t_p, nid_p, _) = out
+    equal_trees(t_k, t_p, "grow_tree with mtries")
+    check(torch.equal(nid_k, nid_p), "grow_tree with mtries: leaf ids")
+    say(f"phase6 grow_tree depth {tp.max_depth}, mtries {mtries} of {F} per "
+        f"node ([L, F] column masks): kernels == plain, field for field "
+        f"({int(t_k.is_split.sum())} splits)")
+
+
+def phase_drf(torch, dev, fr):
+    """The DRF path on phase 4's 5M-row airlines frame."""
+    import h2o3_tpu_torch as h2o
+    from h2o3_tpu_torch.ops import kernels
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    kernels.reset_counts()
+    t0 = time.perf_counter()
+    model = h2o.DRFEstimator(**DRF).train(fr, y="IsDepDelayed")
+    torch.cuda.synchronize()
+    t_train = time.perf_counter() - t0
+    counts = dict(kernels.LAUNCHES)
+    peak = torch.cuda.max_memory_allocated()
+    # depth 10 is a depth bucket of its own: 10 levels a tree
+    want = DRF["ntrees"] * DRF["max_depth"]
+    check(model.forest.feat.shape[1] == DRF["max_depth"],
+          f"DRF laid out at depth {model.forest.feat.shape[1]}")
+    check_launches(counts, {k: want for k in LEVEL_KERNELS}, "DRF")
+    tm = model.training_metrics
+    check(np.isfinite(tm["AUC"]) and tm["AUC"] > 0.7,
+          f"DRF OOB AUC {tm['AUC']}")
+    p1 = model.predict(fr).col("p1").host_view()
+    check(p1.shape == (N_MAIN,) and np.isfinite(p1).all()
+          and (p1 >= 0).all() and (p1 <= 1).all(), "DRF p1 in [0, 1]")
+    say(f"phase6 DRF ntrees={DRF['ntrees']} max_depth={DRF['max_depth']} "
+        f"(mtries sqrt(F) per node, sample_rate 0.632) on {N_MAIN} rows: "
+        f"train {t_train:.3f} s, "
+        f"{N_MAIN * DRF['ntrees'] / t_train:.6g} rows*trees/s, OOB AUC "
+        f"{tm['AUC']:.6f} (nobs {tm.nobs}), OOB logloss "
+        f"{tm['logloss']:.6f}, peak device memory {peak / 2**30:.3f} GiB")
+    say(f"phase6 launches: {counts}")
+    return counts
+
+
+def uplift_inputs(torch, dev, cols, domains, n):
+    """The first ``n`` uplift rows on ``dev``: (binned features, response,
+    treatment), the last two as float32 0/1."""
+    import h2o3_tpu_torch as h2o
+    from h2o3_tpu_torch.frame.binning import bin_frame
+    fr = h2o.Frame.from_numpy({k: v[:n] for k, v in cols.items()},
+                              domains=domains, device=dev)
+    bm = bin_frame(fr, [f"f{i}" for i in range(12)], nbins=64,
+                   nbins_cats=64)
+    y = fr.col("visit").data.to(torch.float32)
+    t = fr.col("treatment").data.to(torch.float32)
+    return bm, y, t
+
+
+def phase_hist_kernel(torch, dev, cols, domains):
+    """Phase 7: ``histogram`` vs its plain version at the uplift width;
+    returns the largest |err|."""
+    from h2o3_tpu_torch.models.gbm import tree_generator
+    from h2o3_tpu_torch.models.uplift import _grow_uplift_tree
+    from h2o3_tpu_torch.ops.histogram import plain_histogram
+    bm, y, treat = uplift_inputs(torch, dev, cols, domains, N_KERNEL)
+    bins, B = bm.bins, bm.nbins_total
+    N, F = bins.shape
+    check(bins.dtype == torch.int8 and B == 65 and F == 12,
+          f"uplift bins int8 B=65 F=12, got {bins.dtype} {B} {F}")
+    r = np.random.RandomState(12)
+    worst = 0.0
+
+    def ids(L):
+        nid = r.randint(0, L, N).astype(np.int32)
+        nid[::97] = L                 # outside the histogram: skipped
+        return torch.from_numpy(nid).to(dev)
+
+    st01 = binary_stats(N, 13, torch, dev)
+    for L in (1, 8, 64, 512):
+        err, _ = compare_histogram(bins, ids(L), st01, L=L, B=B, exact=True)
+        worst = max(worst, err)
+        say(f"phase7 histogram 0/1 stats L={L}: exact")
+    compare_histogram(bins.to(torch.int32).contiguous(), ids(64), st01, L=64,
+                      B=B, exact=True)
+    say("phase7 histogram int32 bins L=64: exact")
+    st = real_stats(N, 14, torch, dev)
+    for L in (1, 64, 512):
+        err, rel = compare_histogram(bins, ids(L), st, L=L, B=B, exact=False)
+        worst = max(worst, err)
+        say(f"phase7 histogram real-valued stats L={L}: max|err| {err:.3g}, "
+            f"max |err|/cell mass {rel:.3g} (within the summation bound)")
+    # one uplift tree through the kernel and through the plain version
+    gen = tree_generator(1, 0, dev)
+    w = (torch.rand(N, generator=gen, device=dev) < 0.632).to(torch.float32)
+    kw = dict(depth=UPLIFT["max_depth"], B=B, mtries=F, metric="kl",
+              min_rows=10.0)
+    t_k, pt_k, pc_k = _grow_uplift_tree(bins, bm.nbins, w, y, treat, None,
+                                        **kw)
+    t_p, pt_p, pc_p = _grow_uplift_tree(bins, bm.nbins, w, y, treat, None,
+                                        hist_fn=plain_histogram, **kw)
+    torch.cuda.synchronize()
+    equal_trees(t_k, t_p, "_grow_uplift_tree")
+    check(torch.equal(pt_k, pt_p) and torch.equal(pc_k, pc_p),
+          "_grow_uplift_tree leaf rates differ")
+    say(f"phase7 _grow_uplift_tree depth {kw['depth']}: kernel == plain, "
+        f"field for field ({int(t_k.is_split.sum())} splits)")
+    return worst
+
+
+def phase_uplift(torch, dev, cols, domains):
+    """Phase 8: the uplift main path at the Criteo v2.1 size."""
+    import h2o3_tpu_torch as h2o
+    from h2o3_tpu_torch.ops import kernels
+    fr = h2o.Frame.from_numpy(cols, domains=domains, device=dev)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    kernels.reset_counts()
+    t0 = time.perf_counter()
+    model = h2o.UpliftDRFEstimator(**UPLIFT).train(fr, y="visit")
+    torch.cuda.synchronize()
+    t_train = time.perf_counter() - t0
+    counts = dict(kernels.LAUNCHES)
+    check_launches(counts, {"histogram": 2 * UPLIFT["ntrees"]
+                            * UPLIFT["max_depth"]}, "uplift")
+    t1 = time.perf_counter()
+    raw = model._score_raw(fr)
+    torch.cuda.synchronize()
+    t_score = time.perf_counter() - t1
+    peak = torch.cuda.max_memory_allocated()
+    up, pt = raw["uplift_predict"], raw["p_y1_ct1"]
+    check(up.shape == (N_UPLIFT,) and np.isfinite(up).all()
+          and (np.abs(up) <= 1).all() and (pt > 0).all() and (pt < 1).all(),
+          "uplift predictions finite, rates in (0, 1)")
+    tm = model.training_metrics
+    check(np.isfinite(tm["auuc"]) and np.isfinite(tm["qini"])
+          and tm["qini"] > 0, f"uplift AUUC {tm['auuc']} Qini {tm['qini']}")
+    check(tm.nobs == N_UPLIFT, f"uplift nobs {tm.nobs}")
+    say(f"phase8 uplift main path: UpliftDRF ntrees={UPLIFT['ntrees']} "
+        f"max_depth={UPLIFT['max_depth']} on {N_UPLIFT} rows x 12 features: "
+        f"train {t_train:.3f} s (training metrics included), "
+        f"{N_UPLIFT * UPLIFT['ntrees'] / t_train:.6g} rows*trees/s, score "
+        f"{t_score:.3f} s, AUUC {tm['auuc']:.6f}, Qini {tm['qini']:.6f}, "
+        f"peak device memory {peak / 2**30:.3f} GiB")
+    say(f"phase8 launches: {counts}")
+    # where the time goes: binning alone, the training metrics alone (the
+    # scoring walks and the host AUUC), and a 2-tree fit under the profiler
+    from h2o3_tpu_torch.frame.binning import bin_frame
+    t0 = time.perf_counter()
+    bin_frame(fr, [f"f{i}" for i in range(12)], nbins=64, nbins_cats=64,
+              weights=np.ones(fr.nrows, np.float32))
+    torch.cuda.synchronize()
+    t_bin = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    model.model_performance(fr)
+    say(f"phase8 breakdown: bin_frame alone {t_bin:.3f} s, training "
+        f"metrics alone {time.perf_counter() - t0:.3f} s")
+    profiled_fit(torch, "phase8 profile (ntrees=2)", lambda: h2o.
+                 UpliftDRFEstimator(**dict(UPLIFT, ntrees=2)).train(
+                     fr, y="visit"))
+    # the fit against the CPU plain path on a sample, without bagging: the
+    # card's and the CPU's generators draw different bags
+    kw = dict(UPLIFT, sample_rate=1.0)
+    small = {k: v[:N_SAMPLE] for k, v in cols.items()}
+    fits = [h2o.UpliftDRFEstimator(**kw).train(
+        h2o.Frame.from_numpy(small, domains=domains, device=d), y="visit")
+        for d in (dev, "cpu")]
+    a, b = (m.training_metrics for m in fits)
+    d_auuc = abs(a["auuc"] - b["auuc"]) / max(abs(b["auuc"]), 1e-12)
+    d_qini = abs(a["qini"] - b["qini"]) / max(abs(b["qini"]), 1e-12)
+    agree = float((fits[0].forest.feat.cpu() == fits[1].forest.feat)
+                  .float().mean())
+    check(d_auuc <= 1e-3 and d_qini <= 1e-3,
+          f"{N_SAMPLE}-row uplift fit card vs CPU: relative dAUUC {d_auuc} "
+          f"dQini {d_qini}")
+    say(f"phase8 {N_SAMPLE}-row uplift fit card vs CPU plain (no bagging): "
+        f"relative |dAUUC| {d_auuc:.3g}, |dQini| {d_qini:.3g} (tolerance "
+        f"1e-3: 0/1 stats sum exactly, a near-tie in the float32 "
+        f"divergence may flip a split), split features equal at "
+        f"{agree:.4f} of slots")
+    return model, fr, counts
+
+
+def phase_hist_timing(torch, dev, model, fr, counts):
+    """Phase 9: ``histogram`` at the uplift path's shapes, d=0..9, on the
+    first tree's node ids and the treated arm's stats."""
+    from h2o3_tpu_torch.models.gbm import tree_generator
+    from h2o3_tpu_torch.models.tree import Tree, _route
+    from h2o3_tpu_torch.ops.histogram import local_histogram
+    from h2o3_tpu_torch.ops.kernels.histogram import full_histogram
+    bm = model.bm
+    bins = bm.bins
+    N, F = bins.shape
+    B = bm.nbins_total
+    D = UPLIFT["max_depth"]
+    leaf = _route(Tree(*(a[0] for a in model.forest)), bins, B)
+    gen = tree_generator(UPLIFT["seed"], 0, dev)
+    keep = torch.rand(N, generator=gen, device=dev) < UPLIFT["sample_rate"]
+    w = fr.valid_weights() * keep * fr.col("treatment").data
+    y = fr.col("visit").data.to(torch.float32)
+    stats = torch.stack([w, w * y, w], dim=1).contiguous()
+    acc = dict(ms=0.0, plain_ms=0.0, library_ms=0.0, bytes_ms=0.0,
+               ops_ms=0.0)
+    feat = torch.arange(F, device=dev)
+    for d in range(D):
+        L = 2 ** d
+        nid = (leaf >> (D - d)).to(torch.int32).contiguous()
+        cell = ((nid.long()[:, None] * F + feat) * B
+                + bins.long()).reshape(-1)
+        src = stats[:, None, :].expand(N, F, 3).reshape(N * F, 3)
+        ms = time_ms(torch, lambda: full_histogram(bins, nid, stats,
+                                                   n_nodes=L, n_bins=B))
+        say(f"  histogram d={d} (L={L}): {ms:.6g} ms")
+        acc["ms"] += ms
+        acc["plain_ms"] += time_ms(torch, lambda: local_histogram(
+            bins, nid, stats, n_nodes=L, n_bins=B), reps=3)
+        acc["library_ms"] += time_ms(torch, lambda: torch.zeros(
+            (L * F * B, 3), device=dev).index_add_(0, cell, src), reps=3)
+        acc["bytes_ms"] += _hist_bytes(N, F, L, B, bins.element_size()) \
+            / HBM_BYTES_PER_S * 1e3
+        acc["ops_ms"] += 3 * N * F / F32_OPS_PER_S * 1e3
+        del cell, src
+    rec = kernel_record("histogram", counts["histogram"], acc, D,
+                        has_library=True)
+    say(f"phase9 histogram: {rec['ms']:.6g} ms per launch (mean of d=0..9 "
+        f"at {N} rows, F={F}, B={B}), plain {rec['plain_ms']:.6g} ms, bound "
+        f"{rec['bound_ms']:.6g} ms ({rec['bound_by']}), library "
+        f"{rec['library_ms']:.6g} ms (index_add_ on precomputed cells)")
+    return rec
 
 
 def main() -> int:
@@ -538,12 +910,23 @@ def main() -> int:
 
     worst = phase_kernels(torch, dev, bm)
     phase_grow_tree(torch, dev, bm)
-    del fr_k, bm
-    model, fr, counts = phase_main(torch, dev, cols, domains)
+    model, fr, counts_gbm = phase_main(torch, dev, cols, domains)
     phase_profile(torch, dev, fr)
-    records = phase_timing(torch, dev, model, counts)
+    records = phase_timing(torch, dev, model, counts_gbm)
+    phase_drf_grow_tree(torch, dev, bm)
+    del fr_k, bm, model
+    counts_drf = phase_drf(torch, dev, fr)
+    del fr, cols
+
+    ucols, udomains = criteo_arrays(N_UPLIFT)
+    worst["histogram"] = phase_hist_kernel(torch, dev, ucols, udomains)
+    umodel, ufr, counts_up = phase_uplift(torch, dev, ucols, udomains)
+    records.append(phase_hist_timing(torch, dev, umodel, ufr, counts_up))
+    paths = {"gbm": counts_gbm, "drf": counts_drf, "uplift": counts_up}
     for rec in records:
         rec["max_abs_err"] = worst[rec["name"]]
+        rec["launches_by_path"] = {p: c[rec["name"]]
+                                   for p, c in paths.items()}
     say(f"chip_smoke total {time.perf_counter() - t_all:.3f} s")
     print(CARD, flush=True)
     print(json.dumps({"kernels": records}), flush=True)

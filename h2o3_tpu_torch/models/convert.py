@@ -1,12 +1,12 @@
-"""Carry a trained GBM across from the reference package's numpy images.
+"""Carry trained forests across from the reference package's numpy images.
 
-``gbm_model_from_arrays`` builds a port ``GBMModel`` from plain numpy
-arrays and lists — every ``Tree`` field of the stacked forest, the
-training binning (``edges``, ``nbins``, ``is_cat``, ``names``,
-``domains``, ``nbins_total``, ``nbins_cats``), ``f0``, ``dist_name`` and
-the output ``category`` and ``domain`` — so both packages score the same
-forest. Nothing here imports the reference package: the caller hands
-over numpy.
+``gbm_model_from_arrays``, ``drf_model_from_arrays`` and
+``uplift_model_from_arrays`` build port models from plain numpy arrays
+and lists — every ``Tree`` field of the stacked forest, the training
+binning (``edges``, ``nbins``, ``is_cat``, ``names``, ``domains``,
+``nbins_total``, ``nbins_cats``) and the model's own fields — so both
+packages score the same forest. Nothing here imports the reference
+package: the caller hands over numpy.
 """
 
 from __future__ import annotations
@@ -17,9 +17,13 @@ import numpy as np
 import torch
 
 from h2o3_tpu_torch.frame.binning import BinnedMatrix
+from h2o3_tpu_torch.models.drf import DRFModel
 from h2o3_tpu_torch.models.gbm import GBMModel
 from h2o3_tpu_torch.models.tree import Tree
+from h2o3_tpu_torch.models.uplift import UpliftDRFModel
 from h2o3_tpu_torch.parallel.device import DeviceLike, resolve_device
+
+Arrays = Dict[str, Union[np.ndarray, List]]
 
 _TREE_DTYPES = {"feat": torch.int32, "thresh": torch.int32,
                 "na_left": torch.bool, "is_split": torch.bool,
@@ -27,8 +31,44 @@ _TREE_DTYPES = {"feat": torch.int32, "thresh": torch.int32,
                 "cat_split": torch.bool, "left_words": torch.int32}
 
 
-def gbm_model_from_arrays(d: Dict[str, Union[np.ndarray, List]],
-                          device: DeviceLike = None) -> GBMModel:
+def _f32(a, dev) -> torch.Tensor:
+    return torch.from_numpy(np.array(a, np.float32)).to(dev)
+
+
+def _forest(d: Arrays, dev) -> Tree:
+    fields = {}
+    for f in Tree._fields:
+        a = np.ascontiguousarray(np.asarray(d[f]))
+        if f == "left_words":
+            a = a.astype(np.uint32).view(np.int32)   # same bit pattern
+        fields[f] = torch.from_numpy(a.copy()).to(dev, _TREE_DTYPES[f])
+    return Tree(**fields)
+
+
+def _binned(d: Arrays, dev) -> BinnedMatrix:
+    nbins_total = int(d["nbins_total"])
+    return BinnedMatrix(
+        bins=torch.zeros((0, len(d["names"])), dtype=torch.int8
+                         if nbins_total <= 127 else torch.int32,
+                         device=dev),
+        nbins=torch.from_numpy(np.array(d["nbins"], np.int32)).to(dev),
+        edges=_f32(d["edges"], dev),
+        is_cat=np.asarray(d["is_cat"], bool),
+        names=list(d["names"]), nbins_total=nbins_total, nrows=0,
+        domains=[None if dom is None else list(dom)
+                 for dom in d["domains"]],
+        nbins_cats=int(d["nbins_cats"]))
+
+
+def _output(d: Arrays) -> dict:
+    return {"category": str(d["category"]),
+            "domain": None if d["domain"] is None else list(d["domain"]),
+            "response": d.get("response"),
+            "names": list(d["names"]),
+            "default_threshold": float(d.get("default_threshold", 0.5))}
+
+
+def gbm_model_from_arrays(d: Arrays, device: DeviceLike = None) -> GBMModel:
     """Port ``GBMModel`` on ``device`` from the reference model's images.
 
     Required keys: the ``Tree`` fields (``left_words`` as the reference's
@@ -37,29 +77,37 @@ def gbm_model_from_arrays(d: Dict[str, Union[np.ndarray, List]],
     ``category``, ``domain``. Optional: ``response``,
     ``default_threshold`` (0.5), ``params``."""
     dev = resolve_device(device)
-    fields = {}
-    for f in Tree._fields:
-        a = np.ascontiguousarray(np.asarray(d[f]))
-        if f == "left_words":
-            a = a.astype(np.uint32).view(np.int32)   # same bit pattern
-        fields[f] = torch.from_numpy(a.copy()).to(dev, _TREE_DTYPES[f])
-    forest = Tree(**fields)
-    nbins_total = int(d["nbins_total"])
-    bm = BinnedMatrix(
-        bins=torch.zeros((0, len(d["names"])), dtype=torch.int8
-                         if nbins_total <= 127 else torch.int32,
-                         device=dev),
-        nbins=torch.from_numpy(np.array(d["nbins"], np.int32)).to(dev),
-        edges=torch.from_numpy(np.array(d["edges"], np.float32)).to(dev),
-        is_cat=np.asarray(d["is_cat"], bool),
-        names=list(d["names"]), nbins_total=nbins_total, nrows=0,
-        domains=[None if dom is None else list(dom)
-                 for dom in d["domains"]],
-        nbins_cats=int(d["nbins_cats"]))
-    output = {"category": str(d["category"]),
-              "domain": None if d["domain"] is None else list(d["domain"]),
-              "response": d.get("response"),
-              "names": list(d["names"]),
-              "default_threshold": float(d.get("default_threshold", 0.5))}
-    return GBMModel(dict(d.get("params") or {}), output, forest, bm,
-                    np.float32(d["f0"]), str(d["dist_name"]))
+    return GBMModel(dict(d.get("params") or {}), _output(d), _forest(d, dev),
+                    _binned(d, dev), np.float32(d["f0"]),
+                    str(d["dist_name"]))
+
+
+def drf_model_from_arrays(d: Arrays, device: DeviceLike = None) -> DRFModel:
+    """Port ``DRFModel`` (binomial or regression) on ``device`` from the
+    reference model's images: the keys of ``gbm_model_from_arrays``
+    without ``f0``/``dist_name``."""
+    dev = resolve_device(device)
+    return DRFModel(dict(d.get("params") or {}), _output(d),
+                    _forest(d, dev), _binned(d, dev))
+
+
+def uplift_model_from_arrays(d: Arrays,
+                             device: DeviceLike = None) -> UpliftDRFModel:
+    """Port ``UpliftDRFModel`` on ``device`` from the reference model's
+    images: the ``Tree`` fields (``leaf`` = p_t - p_c), ``leaf_pt`` and
+    ``leaf_pc`` [T, 2^D], the binning keys of ``gbm_model_from_arrays``,
+    ``domain`` (the response's), ``treatment_domain``, ``response`` and
+    ``params`` (which must name ``treatment_column``; ``auuc_type`` and
+    ``auuc_nbins`` are read from it too)."""
+    dev = resolve_device(device)
+    params = dict(d["params"])
+    if not params.get("treatment_column"):
+        raise ValueError("uplift_model_from_arrays: params must name the "
+                         "treatment_column")
+    output = {"category": "BinomialUplift", "response": d["response"],
+              "names": list(d["names"]), "domain": list(d["domain"]),
+              "treatment_domain": list(d["treatment_domain"]),
+              "nclasses": 2}
+    return UpliftDRFModel(params, output, _forest(d, dev),
+                          _f32(d["leaf_pt"], dev), _f32(d["leaf_pc"], dev),
+                          _binned(d, dev))

@@ -1,0 +1,256 @@
+"""DRF — distributed random forest, binomial and regression.
+
+Reference: h2o3_tpu/models/drf.py (hex/tree/drf/DRF.java). What differs
+from GBM, as the reference has it:
+- each tree is an independent regression tree on the raw response (the
+  class-1 indicator for a binomial response), trained on a bagged row
+  sample (``sample_rate``, default 0.632) — no shrinkage, no margins;
+- per-NODE column subsampling of exactly ``mtries`` columns (-1: sqrt(F)
+  for classification, F/3 for regression), so every level hands the
+  split kernel an [L, F] column mask;
+- prediction = average of the per-tree leaf means (votes);
+- training metrics are out-of-bag: every row is scored only by the trees
+  whose bag excluded it.
+
+The reference runs the forest as one compiled ``lax.scan``; here a plain
+loop over trees (``bag_step``) runs eagerly on the frame's device with no
+host sync inside it, each tree through the level kernels. Each tree draws
+its bag, column and per-node samples from a ``torch.Generator`` seeded
+from (seed, tree index); the draws differ from the reference's
+``jax.random`` bits.
+"""
+
+from __future__ import annotations
+
+from typing import Dict, List, Optional, Sequence
+
+import numpy as np
+import torch
+
+from h2o3_tpu_torch.frame.binning import (BinnedMatrix, bin_frame,
+                                          rebin_for_scoring)
+from h2o3_tpu_torch.frame.frame import Frame
+from h2o3_tpu_torch.models import metrics as mm
+from h2o3_tpu_torch.models.gbm import _sample_columns, tree_generator
+from h2o3_tpu_torch.models.model import (Model, ModelBuilder, ModelCategory,
+                                         adapt_domain, infer_category)
+from h2o3_tpu_torch.models.tree import (Tree, TreeParams, bucket_depth,
+                                        grow_tree, predict_forest,
+                                        scalars_of, stack_trees)
+from h2o3_tpu_torch.parallel.device import fetch
+
+MAX_COMPLETE_DEPTH = 14  # complete-tree layout: histograms are 2^d·F·B·3
+
+
+def bag_step(bm: BinnedMatrix, y, w, oob_sum, oob_cnt,
+             gen: torch.Generator, *, tp: TreeParams, sc,
+             sample_rate: float, mtries: int):
+    """One tree of the forest on the device, with no host sync: bag mask,
+    per-tree column sample, ``grow_tree`` with g = -y, h = 1 (so the
+    Newton leaf is the bag-weighted mean of y) and per-node ``mtries``
+    masks, then the out-of-bag accumulators. Returns (tree, oob_sum,
+    oob_cnt, gain_by_feature)."""
+    dev = w.device
+    keep = torch.rand(w.shape[0], generator=gen, device=dev) < sample_rate
+    wbag = w * keep.to(torch.float32)
+    oob = (w > 0) & ~keep
+    col_mask = _sample_columns(gen, bm.bins.shape[1], tp.col_sample_rate,
+                               dev)
+    tree, nid, gains = grow_tree(bm.bins, bm.nbins, wbag, -y,
+                                 torch.ones_like(y), col_mask, params=tp,
+                                 scalars=sc, mtries=mtries, generator=gen)
+    pred = tree.leaf[nid.long()]       # routing nid is bag-independent
+    oob_sum = oob_sum + torch.where(oob, pred, 0.0)
+    oob_cnt = oob_cnt + oob.to(torch.float32)
+    return tree, oob_sum, oob_cnt, gains
+
+
+class DRFModel(Model):
+    algo = "drf"
+
+    def __init__(self, params, output, forest: Tree, bm: BinnedMatrix):
+        super().__init__(params, output)
+        self.forest = forest           # [T, D, Lmax]
+        self.bm = bm
+
+    def _mean_votes(self, bm: BinnedMatrix) -> torch.Tensor:
+        """Average tree output [N]."""
+        T = self.forest.feat.shape[0]
+        # an explicit reciprocal multiply, as the reference spells it
+        inv_t = torch.tensor(1.0 / T, dtype=torch.float32)
+        return predict_forest(self.forest, bm.bins,
+                              self.bm.nbins_total) * inv_t
+
+    def _probs(self, bm: BinnedMatrix) -> torch.Tensor:
+        p1 = torch.clamp(self._mean_votes(bm), 0.0, 1.0)
+        return torch.stack([1.0 - p1, p1], dim=1)
+
+    def _score_raw(self, frame: Frame) -> Dict[str, np.ndarray]:
+        bm = rebin_for_scoring(self.bm, frame)
+        n = frame.nrows
+        if self.output["category"] == ModelCategory.REGRESSION:
+            return {"predict": fetch(self._mean_votes(bm))[:n]}
+        p = fetch(self._probs(bm))[:n]
+        t = self.output.get("default_threshold", 0.5)
+        return {"predict": (p[:, 1] >= t).astype(np.int32),
+                "p0": p[:, 0], "p1": p[:, 1]}
+
+    def model_performance(self, frame: Frame):
+        y = self.output["response"]
+        bm = rebin_for_scoring(self.bm, frame)
+        w = frame.valid_weights()
+        wc = self.params.get("weights_column")
+        if wc and wc in frame:
+            v = frame.col(wc).numeric_view()
+            w = w * torch.where(torch.isnan(v), 0.0, v)
+        if self.output["category"] == ModelCategory.REGRESSION:
+            yv = frame.col(y).numeric_view()
+            w = w * torch.where(torch.isnan(yv), 0.0, 1.0)
+            yv = torch.where(torch.isnan(yv), 0.0, yv)
+            return mm.regression_metrics(self._mean_votes(bm), yv, w)
+        yv = adapt_domain(frame.col(y), self.output["domain"])
+        yv = np.pad(yv, (0, bm.bins.shape[0] - frame.nrows),
+                    constant_values=-1)
+        w = w * torch.from_numpy((yv >= 0).astype(np.float32)).to(w.device)
+        yt = torch.from_numpy(np.maximum(yv, 0).astype(np.float32))
+        return mm.binomial_metrics(self._probs(bm)[:, 1], yt.to(w.device), w)
+
+    @property
+    def varimp_table(self) -> List:
+        return self.output.get("varimp") or []
+
+
+class DRFEstimator(ModelBuilder):
+    """h2o-py H2ORandomForestEstimator-compatible surface, binomial and
+    regression. Parameters outside ``PORTED`` keep the reference's names
+    and defaults; setting one away from its default raises
+    ``NotImplementedError`` (multinomial DRF does too)."""
+
+    algo = "drf"
+
+    DEFAULTS = dict(
+        max_runtime_secs=0.0,
+        ntrees=50, max_depth=20, min_rows=1.0, nbins=20, nbins_cats=1024,
+        mtries=-1, sample_rate=0.632, col_sample_rate_per_tree=1.0,
+        min_split_improvement=1e-5, seed=-1, nfolds=0,
+        weights_column=None, fold_column=None, fold_assignment="auto",
+        keep_cross_validation_models=True,
+        keep_cross_validation_predictions=False,
+        keep_cross_validation_fold_assignment=False,
+        ignored_columns=None, stopping_rounds=0, stopping_metric="auto",
+        stopping_tolerance=1e-3, binomial_double_trees=False,
+        distribution="auto", calibrate_model=False,
+        calibration_frame=None, calibration_method="PlattScaling",
+        histogram_type="auto", checkpoint=None,
+    )
+    PORTED = frozenset((
+        "ntrees", "max_depth", "min_rows", "nbins", "nbins_cats", "mtries",
+        "sample_rate", "col_sample_rate_per_tree", "min_split_improvement",
+        "seed", "weights_column", "ignored_columns"))
+
+    def __init__(self, **params):
+        unknown = set(params) - set(self.DEFAULTS)
+        if unknown:
+            raise ValueError(f"unknown DRF params: {sorted(unknown)}")
+        for k, v in params.items():
+            if k not in self.PORTED and v != self.DEFAULTS[k]:
+                raise NotImplementedError(
+                    f"DRF parameter '{k}' is not ported yet")
+        merged = dict(self.DEFAULTS)
+        merged.update(params)
+        super().__init__(**merged)
+
+    def _fit(self, frame: Frame, x: Sequence[str], y: Optional[str]):
+        p = self.params
+        dev = frame.device
+        category = infer_category(frame, y)
+        if category == ModelCategory.MULTINOMIAL:
+            raise NotImplementedError(
+                "multinomial DRF is not ported yet (binomial and "
+                "regression are)")
+        w = frame.valid_weights()
+        if p.get("weights_column"):
+            wc = frame.col(p["weights_column"]).numeric_view()
+            w = w * torch.where(torch.isnan(wc), 0.0, wc)
+        rc = frame.col(y)
+        wh_host = self._host_weights(frame, y)
+        resp_na_host = np.isnan(rc.host_view())
+        if resp_na_host.any():
+            keep = np.pad((~resp_na_host).astype(np.float32),
+                          (0, frame.nrows_padded - frame.nrows))
+            w = w * torch.from_numpy(keep).to(dev)
+        bm = bin_frame(frame, x, nbins=p["nbins"], nbins_cats=p["nbins_cats"],
+                       weights=wh_host)
+
+        # complete-tree layout: a level costs 2^d histogram node slots
+        # whether or not rows reach them, so the depth is capped by the
+        # data size too (log2(rows) + 3 leaves room for unbalanced trees);
+        # trees are laid out at the depth bucket, never past the caps
+        depth = int(p["max_depth"])
+        data_cap = int(np.ceil(np.log2(max(frame.nrows_padded, 4)))) + 3
+        depth = min(depth, MAX_COMPLETE_DEPTH, data_cap)
+        layout_depth = min(bucket_depth(depth), MAX_COMPLETE_DEPTH, data_cap)
+        F = len(x)
+        mtries = int(p["mtries"])
+        if mtries == -1:
+            mtries = (max(1, int(np.sqrt(F)))
+                      if category != ModelCategory.REGRESSION
+                      else max(1, F // 3))
+        elif mtries <= 0:
+            mtries = F
+        w, w_scale = self._normalize_uniform_weights(w, wh_host)
+        tp = TreeParams(
+            max_depth=layout_depth,
+            min_rows=float(p["min_rows"]) / w_scale,
+            learn_rate=1.0, reg_lambda=0.0,
+            min_split_improvement=float(p["min_split_improvement"])
+            / w_scale,
+            col_sample_rate=float(p["col_sample_rate_per_tree"]),
+            nbins_total=bm.nbins_total,
+            cat_feats=tuple(bool(v) for v in bm.is_cat))
+        sc = scalars_of(tp, dev, depth_limit=depth)
+
+        npad = bm.bins.shape[0]
+        if category == ModelCategory.REGRESSION:
+            yv = np.nan_to_num(rc.to_numpy()).astype(np.float32)
+        else:
+            yv = (np.nan_to_num(rc.to_numpy()) == 1).astype(np.float32)
+        y_dev = torch.from_numpy(np.pad(yv, (0, npad - frame.nrows))).to(dev)
+
+        seed = int(p["seed"]) if int(p["seed"]) >= 0 else 0xD2F
+        ntrees = int(p["ntrees"])
+        sample_rate = float(p["sample_rate"])
+        oob_sum = torch.zeros(npad, dtype=torch.float32, device=dev)
+        oob_cnt = torch.zeros(npad, dtype=torch.float32, device=dev)
+        gains = torch.zeros(F, dtype=torch.float32, device=dev)
+        trees: List[Tree] = []
+        for t in range(ntrees):
+            tree, oob_sum, oob_cnt, gain = bag_step(
+                bm, y_dev, w, oob_sum, oob_cnt, tree_generator(seed, t, dev),
+                tp=tp, sc=sc, sample_rate=sample_rate, mtries=mtries)
+            trees.append(tree)
+            gains = gains + gain
+        output = {"category": category, "response": y, "names": list(x),
+                  "nclasses": rc.cardinality if rc.is_categorical else 1,
+                  "domain": rc.domain}
+        model = DRFModel(p, output, stack_trees(trees), bm)
+
+        # OOB training metrics (rows never out of bag drop out by weight)
+        w_oob = w * (oob_cnt > 0).to(torch.float32)
+        mean_oob = oob_sum / torch.clamp_min(oob_cnt, 1.0)
+        if category == ModelCategory.REGRESSION:
+            model.training_metrics = mm.regression_metrics(mean_oob, y_dev,
+                                                           w_oob)
+        else:
+            model.training_metrics = mm.binomial_metrics(
+                torch.clamp(mean_oob, 0.0, 1.0), y_dev, w_oob)
+            model.output["default_threshold"] = \
+                model.training_metrics["max_f1_threshold"]
+        # scaled relative importance (hex/VarImp semantics)
+        vi = fetch(gains)
+        order = np.argsort(-vi)
+        tot = vi.sum() or 1.0
+        model.output["varimp"] = [
+            (x[i], float(vi[i]), float(vi[i] / max(vi.max(), 1e-12)),
+             float(vi[i] / tot)) for i in order]
+        return model

@@ -70,6 +70,13 @@ class Tree(NamedTuple):
     #                           set ⇔ bin 32k+b goes LEFT
 
 
+def zero_catsplit(D: int, Lmax: int, device):
+    """(cat_split, left_words) placeholders for builders that never make
+    categorical subset splits (uplift)."""
+    return (torch.zeros((D, Lmax), dtype=torch.bool, device=device),
+            torch.zeros((D, Lmax, 1), dtype=torch.int32, device=device))
+
+
 @dataclasses.dataclass(frozen=True)
 class TreeParams:
     max_depth: int = 5
@@ -98,14 +105,30 @@ def _pack_leftmask(leftmask: torch.Tensor, W: int) -> torch.Tensor:
                        words).to(torch.int32)
 
 
+def row_feature_values(bins: torch.Tensor, f_r: torch.Tensor) -> torch.Tensor:
+    """``bins[i, f_r[i]]`` as int32 [N] (a gather; the reference spells it
+    as a masked feature sum, which is cheaper than a gather on the TPU)."""
+    return bins.gather(1, f_r.long()[:, None])[:, 0].to(torch.int32)
+
+
+def _mtries_mask(gen: torch.Generator, L: int, F: int, mtries: int,
+                 device) -> torch.Tensor:
+    """Exactly-``mtries``-per-node column mask [L, F] — the reference DRF
+    per-split column subsample: each node keeps the columns of its
+    ``mtries`` smallest uniform draws from ``gen``."""
+    u = torch.rand((L, F), generator=gen, device=device)
+    rank = torch.argsort(torch.argsort(u, dim=1, stable=True), dim=1,
+                         stable=True)
+    return rank < mtries
+
+
 def _level_goleft(feat_d, thresh_d, nal_d, isp_d, cat_d, lw_d, nid, bins,
                   B: int):
     """Row routing for one tree level — shared by scoring and leaf
     assignment. Numeric splits compare bin <= t; categorical subset
     splits test the row's bin bit in the node's packed left-set."""
     n = nid.long()
-    f_r = feat_d.long()[n]
-    b_r = bins.gather(1, f_r[:, None])[:, 0].to(torch.int32)
+    b_r = row_feature_values(bins, feat_d[n])
     isna = b_r == (B - 1)
     go_num = b_r <= thresh_d[n]
     W = lw_d.shape[1]
@@ -119,13 +142,17 @@ def _level_goleft(feat_d, thresh_d, nal_d, isp_d, cat_d, lw_d, nid, bins,
 
 
 def grow_tree(bins, nb, w, g, h, col_mask, *, params: TreeParams,
-              scalars: TreeScalars, constraints=None,
-              interaction_sets=None,
+              scalars: TreeScalars, mtries: int = 0,
+              generator: Optional[torch.Generator] = None,
+              constraints=None, interaction_sets=None,
               level_fn=fused_level):
     """Grow one tree; returns (Tree, final_leaf_id_per_row, gain_by_feat).
 
     bins [Npad, F] int8/int32; w zero on padding rows; col_mask [F] bool
-    (per-tree column sampling). ``constraints`` [F] in {-1,0,+1} activates monotone constraints
+    (per-tree column sampling). ``0 < mtries < F`` additionally samples
+    exactly ``mtries`` columns per NODE per level (DRF semantics), drawn
+    from ``generator``: the level's column mask becomes an [L, F] mask.
+    ``constraints`` [F] in {-1,0,+1} activates monotone constraints
     (per-node value bounds propagate to children through the split
     midpoint; leaves are clipped into them). ``interaction_sets`` [S, F]
     bool activates interaction constraints (a node's subtree may only use
@@ -170,6 +197,8 @@ def grow_tree(bins, nb, w, g, h, col_mask, *, params: TreeParams,
     for d in range(D):
         L = 2 ** d
         cm = col_mask
+        if 0 < mtries < F:
+            cm = _mtries_mask(generator, L, F, mtries, dev) & col_mask[None, :]
         if interaction_sets is not None:
             cm = (cm if cm.dim() == 2 else cm[None, :]) & allowed
         (hist, bg, bf, bt, bnal, blv, brv, leftmask, split,

@@ -1,10 +1,15 @@
-"""Plain (node, feature, bin) histogram — the executable spec of the
-``tree_hist`` CUDA kernel and its CPU path.
+"""(node, feature, bin) histogram — the hot loop of tree building.
 
-Reference: h2o3_tpu/ops/histogram.py ``histogram`` (a one-hot matmul per
-row block on the TPU). Here one ``index_add_`` scatters each row's
-{w, w·g, w·h} into its (node, feature, bin) slot, accumulating in
-float32.
+Reference: h2o3_tpu/ops/histogram.py. ``histogram`` is the reference-
+shaped entry point: it builds the {w, w·g, w·h} stats and sums them per
+(node, feature, bin) over ALL nodes (no sibling subtraction). On CUDA
+tensors it runs the ``histogram`` kernel (ops/kernels/histogram.py, the
+port of ``pallas_local_histogram``); on CPU tensors its plain version.
+
+``local_histogram`` is that plain version (the counterpart of the
+reference's ``_local_histogram``): one ``index_add_`` scatters each row's
+stats into its (node, feature, bin) slot, accumulating in float32. It is
+also the plain version of the ``tree_hist`` kernel.
 """
 
 from __future__ import annotations
@@ -12,20 +17,46 @@ from __future__ import annotations
 import torch
 
 
-def histogram(bins: torch.Tensor, nid: torch.Tensor, stats: torch.Tensor,
-              *, n_nodes: int, n_bins: int) -> torch.Tensor:
+def local_histogram(bins: torch.Tensor, nid: torch.Tensor,
+                    stats: torch.Tensor, *, n_nodes: int,
+                    n_bins: int) -> torch.Tensor:
     """[n_nodes, F, B, 3] per-(node, feature, bin) sums of the [N, 3]
-    ``stats`` rows. Rows whose ``nid`` lies outside [0, n_nodes) are
-    skipped (they scatter into a discarded slot)."""
+    ``stats`` rows. A row whose ``nid`` lies outside [0, n_nodes), or a
+    (row, feature) whose bin lies outside [0, n_bins), is skipped (it
+    scatters into a discarded slot), as the reference's one-hot row is
+    all zeros there."""
     N, F = bins.shape
     B = n_bins
     n = nid.to(torch.int64)
-    cell = (n[:, None] * F + torch.arange(F, device=bins.device)) * B \
-        + bins.to(torch.int64)
+    b = bins.to(torch.int64)
+    cell = (n[:, None] * F + torch.arange(F, device=bins.device)) * B + b
     dump = n_nodes * F * B
-    cell = torch.where(((n >= 0) & (n < n_nodes))[:, None], cell, dump)
+    keep = ((n >= 0) & (n < n_nodes))[:, None] & (b >= 0) & (b < B)
+    cell = torch.where(keep, cell, dump)
     out = torch.zeros((dump + 1, 3), dtype=torch.float32,
                       device=bins.device)
     src = stats.to(torch.float32)[:, None, :].expand(N, F, 3)
     out.index_add_(0, cell.reshape(-1), src.reshape(N * F, 3))
     return out[:dump].reshape(n_nodes, F, B, 3)
+
+
+def _stats(w, g, h) -> torch.Tensor:
+    return torch.stack([w, w * g, w * h], dim=1).to(torch.float32)
+
+
+def histogram(bins, nid, w, g, h, *, n_nodes: int,
+              n_bins: int) -> torch.Tensor:
+    """[n_nodes, F, n_bins, {w, w·g, w·h}] over all rows: the ``histogram``
+    kernel on CUDA tensors, ``local_histogram`` on CPU tensors. Padding
+    rows must have w == 0."""
+    from h2o3_tpu_torch.ops.kernels.histogram import full_histogram
+    return full_histogram(bins, nid, _stats(w, g, h), n_nodes=n_nodes,
+                          n_bins=n_bins)
+
+
+def plain_histogram(bins, nid, w, g, h, *, n_nodes: int,
+                    n_bins: int) -> torch.Tensor:
+    """``histogram`` through its plain version on any device — the
+    reference the kernel is held against on the card."""
+    return local_histogram(bins, nid, _stats(w, g, h), n_nodes=n_nodes,
+                           n_bins=n_bins)

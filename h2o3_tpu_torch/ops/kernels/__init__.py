@@ -7,9 +7,10 @@ or the call raises; a CPU tensor goes to the kernel's plain version.
 Build route: each ``csrc/<name>.cu`` (plain C interface, no PyTorch
 headers) compiles with ``nvcc -gencode arch=compute_90a,code=sm_90a -O3
 -shared -Xcompiler -fPIC`` into ``build/lib<name>-<digest>.so`` at first
-use and loads through ``ctypes``. The digest covers the source and the
-flags, so an edited source rebuilds and a stale library is never loaded.
-``build()`` starts one ``nvcc`` per source, all at once.
+use and loads through ``ctypes``. The digest covers the source, every
+shared header ``csrc/*.cuh`` and the flags, so an edited source or header
+rebuilds and a stale library is never loaded. ``build()`` starts one
+``nvcc`` per source, all at once.
 
 Launch counts: every wrapper adds one to ``LAUNCHES[name]`` right after
 its kernel launched, and nowhere else, so a run can show that its main
@@ -26,6 +27,8 @@ import subprocess
 from pathlib import Path
 from typing import Dict, List, Optional
 
+import torch
+
 CSRC = Path(__file__).with_name("csrc")
 BUILD = Path(__file__).with_name("build")
 
@@ -37,7 +40,7 @@ FLAGS = ["-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
 EXTRA = {"treekernel": ["-fmad=false"]}
 
 LAUNCHES: Dict[str, int] = {"tree_hist": 0, "tree_split": 0,
-                            "tree_partition": 0}
+                            "tree_partition": 0, "histogram": 0}
 
 _LIBS: Dict[str, ctypes.CDLL] = {}
 
@@ -72,6 +75,8 @@ def _cmd(name: str, out: Path) -> List[str]:
 
 def lib_path(name: str) -> Path:
     src = (CSRC / f"{name}.cu").read_bytes()
+    for header in sorted(CSRC.glob("*.cuh")):
+        src += b"\0" + header.name.encode() + b"\0" + header.read_bytes()
     flags = " ".join(ARCH + FLAGS + EXTRA.get(name, [])).encode()
     digest = hashlib.sha256(src + b"\0" + flags).hexdigest()[:16]
     return BUILD / f"lib{name}-{digest}.so"
@@ -117,3 +122,76 @@ def load(name: str) -> ctypes.CDLL:
         lib = ctypes.CDLL(str(path))
         _LIBS[name] = lib
     return lib
+
+
+def bind(name: str, signatures: Dict[str, list]) -> ctypes.CDLL:
+    """Load ``csrc/<name>.cu`` and declare its launchers: each takes the
+    listed ctypes argument types and returns an int cudaError_t; the
+    library's ``h2o3_cuda_error_string`` turns one into text."""
+    lib = load(name)
+    lib.h2o3_cuda_error_string.argtypes = [ctypes.c_int]
+    lib.h2o3_cuda_error_string.restype = ctypes.c_char_p
+    for fn, argtypes in signatures.items():
+        getattr(lib, fn).argtypes = argtypes
+        getattr(lib, fn).restype = ctypes.c_int
+    return lib
+
+
+# ------------------------------------------------- shared wrapper checks
+
+
+def on_cuda(t: torch.Tensor, name: str) -> bool:
+    """True for a CUDA tensor, False for a CPU one; raises otherwise."""
+    if t.device.type == "cuda":
+        return True
+    if t.device.type == "cpu":
+        return False
+    raise ValueError(f"{name}: no kernel or plain version for device "
+                     f"{t.device}")
+
+
+def need(t: Optional[torch.Tensor], dtype, shape, name: str, device):
+    """``t``'s data pointer (None stays None) after checking its device,
+    type, shape and contiguity; raises on anything the kernel does not
+    take."""
+    if t is None:
+        return None
+    if t.device != device or t.dtype != dtype or not t.is_contiguous() \
+            or tuple(t.shape) != tuple(shape):
+        raise ValueError(
+            f"{name}: want contiguous {dtype} {tuple(shape)} on {device}, "
+            f"got {t.dtype} {tuple(t.shape)} on {t.device}"
+            f"{'' if t.is_contiguous() else ' (non-contiguous)'}")
+    return t.data_ptr()
+
+
+def launched(lib: ctypes.CDLL, rc: int, name: str) -> None:
+    """Raise if the launch was refused; else count it."""
+    if rc != 0:
+        msg = lib.h2o3_cuda_error_string(rc).decode()
+        raise RuntimeError(f"{name} kernel failed to launch: {msg} ({rc})")
+    count(name)
+
+
+def stream(device) -> int:
+    return torch.cuda.current_stream(device).cuda_stream
+
+
+def bin_dtype(bins: torch.Tensor) -> int:
+    """1 for int8 bins, 0 for int32; raises on any other type."""
+    if bins.dtype not in (torch.int8, torch.int32):
+        raise ValueError(f"bins must be int8 or int32, got {bins.dtype}")
+    return int(bins.dtype == torch.int8)
+
+
+def slab_geometry(device, n_rows: int, n_feat: int, n_nodes: int,
+                  n_bins: int, slab_bytes: int):
+    """(rows_per_block, node_chunk) of a slab histogram launch
+    (csrc/hist_slab.cuh): node chunks whose [nodes, B, 3] slab fits
+    ``slab_bytes`` of shared memory, and enough row blocks for about
+    eight blocks per SM over the (feature, node chunk) grid."""
+    node_chunk = max(1, slab_bytes // (n_bins * 12))
+    n_chunks = -(-n_nodes // node_chunk)
+    sms = torch.cuda.get_device_properties(device).multi_processor_count
+    row_blocks = max(1, -(-8 * sms // (n_feat * n_chunks)))
+    return max(256, -(-n_rows // row_blocks)), node_chunk

@@ -22,16 +22,7 @@
 
 #include <algorithm>
 
-extern "C" const char* h2o3_cuda_error_string(int err) {
-  return cudaGetErrorString(static_cast<cudaError_t>(err));
-}
-
-static cudaError_t allow_smem(const void* kernel, size_t bytes) {
-  if (bytes <= 48 * 1024) return cudaSuccess;
-  return cudaFuncSetAttribute(kernel,
-                              cudaFuncAttributeMaxDynamicSharedMemorySize,
-                              static_cast<int>(bytes));
-}
+#include "hist_slab.cuh"
 
 // ------------------------------------------------------------ tree_hist
 // Replaces phase 0 (_hist_block, treekernel.py:72): the [Lh, F, B, 3]
@@ -42,93 +33,20 @@ static cudaError_t allow_smem(const void* kernel, size_t bytes) {
 // Bound: bytes. Each row is read once per feature block (bins byte, nid,
 // 12 bytes of stats) and scattered into shared memory; the work per byte
 // is a few shared atomics, far below the card's arithmetic rate.
-// Design: a block owns one (row chunk, feature, node chunk) triple and
-// accumulates its [nodes, B, 3] slab in shared memory with shared
-// atomics, then flushes the non-zero cells to global memory with
-// atomicAdd. The node chunk keeps the slab under the shared-memory budget
-// at any depth (depth bucket 10 has Lh = 256 parents: 387 KB at B = 126,
-// cut into chunks); each stat goes into its own slot, so a NaN stat never
-// touches its neighbours. The float sums happen in no fixed order:
-// exact for small-integer stats, within rounding otherwise.
-
-template <typename BinT>
-__global__ void tree_hist_kernel(const BinT* __restrict__ bins,
-                                 const int32_t* __restrict__ nid,
-                                 const float* __restrict__ stats,
-                                 float* __restrict__ out, long long n_rows,
-                                 int n_feat, int n_bins, int n_parents,
-                                 int left_only, long long rows_per_block,
-                                 int node_chunk) {
-  extern __shared__ float slab[];
-  const int f = blockIdx.y;
-  const int c0 = blockIdx.z * node_chunk;
-  const int nc = min(node_chunk, n_parents - c0);
-  const int per_node = n_bins * 3;
-  const int slab_n = nc * per_node;
-  for (int i = threadIdx.x; i < slab_n; i += blockDim.x) slab[i] = 0.f;
-  __syncthreads();
-  const long long r0 = static_cast<long long>(blockIdx.x) * rows_per_block;
-  const long long r1 = min(n_rows, r0 + rows_per_block);
-  for (long long r = r0 + threadIdx.x; r < r1; r += blockDim.x) {
-    int n = nid[r];
-    if (left_only) {
-      if (n & 1) continue;
-      n >>= 1;
-    }
-    n -= c0;
-    if (static_cast<unsigned>(n) >= static_cast<unsigned>(nc)) continue;
-    const int b = static_cast<int>(bins[r * n_feat + f]);
-    if (static_cast<unsigned>(b) >= static_cast<unsigned>(n_bins)) continue;
-    float* cell = slab + n * per_node + b * 3;
-    const float* s = stats + r * 3;
-    atomicAdd(cell + 0, s[0]);
-    atomicAdd(cell + 1, s[1]);
-    atomicAdd(cell + 2, s[2]);
-  }
-  __syncthreads();
-  for (int i = threadIdx.x; i < slab_n; i += blockDim.x) {
-    const float v = slab[i];
-    if (v != 0.f) {  // NaN compares unequal, so it is flushed too
-      const int nl = i / per_node;
-      const int rest = i - nl * per_node;
-      atomicAdd(out + (static_cast<long long>(c0 + nl) * n_feat + f) *
-                          per_node + rest,
-                v);
-    }
-  }
-}
+// Design: slab_hist_kernel (hist_slab.cuh). A block owns one (row chunk,
+// feature, node chunk) triple and accumulates its [nodes, B, 3] slab in
+// shared memory; the node chunk keeps the slab under the shared-memory
+// budget at any depth (depth bucket 10 has Lh = 256 parents: 387 KB at
+// B = 126, cut into chunks).
 
 extern "C" int tree_hist(const void* bins, int bins_int8, const void* nid,
                          const void* stats, void* out, long long n_rows,
                          int n_feat, int n_bins, int n_parents, int left_only,
                          long long rows_per_block, int node_chunk,
                          void* stream) {
-  const long long nrb = (n_rows + rows_per_block - 1) / rows_per_block;
-  const int nchunks = (n_parents + node_chunk - 1) / node_chunk;
-  const size_t smem =
-      static_cast<size_t>(std::min(node_chunk, n_parents)) * n_bins * 3 *
-      sizeof(float);
-  dim3 grid(static_cast<unsigned>(nrb), n_feat, nchunks);
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  cudaError_t err;
-  if (bins_int8) {
-    err = allow_smem(reinterpret_cast<const void*>(&tree_hist_kernel<int8_t>),
-                     smem);
-    if (err != cudaSuccess) return err;
-    tree_hist_kernel<int8_t><<<grid, 256, smem, s>>>(
-        static_cast<const int8_t*>(bins), static_cast<const int32_t*>(nid),
-        static_cast<const float*>(stats), static_cast<float*>(out), n_rows,
-        n_feat, n_bins, n_parents, left_only, rows_per_block, node_chunk);
-  } else {
-    err = allow_smem(
-        reinterpret_cast<const void*>(&tree_hist_kernel<int32_t>), smem);
-    if (err != cudaSuccess) return err;
-    tree_hist_kernel<int32_t><<<grid, 256, smem, s>>>(
-        static_cast<const int32_t*>(bins), static_cast<const int32_t*>(nid),
-        static_cast<const float*>(stats), static_cast<float*>(out), n_rows,
-        n_feat, n_bins, n_parents, left_only, rows_per_block, node_chunk);
-  }
-  return cudaGetLastError();
+  return launch_slab_hist(bins, bins_int8, nid, stats, out, n_rows, n_feat,
+                          n_bins, n_parents, left_only, rows_per_block,
+                          node_chunk, stream);
 }
 
 // ----------------------------------------------------------- tree_split

@@ -23,12 +23,13 @@ the reference the kernels are held against on the card.
 from __future__ import annotations
 
 import ctypes
-from typing import Optional
 
 import torch
 
 from h2o3_tpu_torch.ops import kernels
-from h2o3_tpu_torch.ops.histogram import histogram
+from h2o3_tpu_torch.ops.histogram import local_histogram
+from h2o3_tpu_torch.ops.kernels import (bin_dtype, launched, need, on_cuda,
+                                        slab_geometry, stream)
 from h2o3_tpu_torch.ops.split_scan import best_splits
 
 _VP, _I, _LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
@@ -44,58 +45,14 @@ _LIB = None
 def _lib():
     global _LIB
     if _LIB is None:
-        lib = kernels.load("treekernel")
-        lib.h2o3_cuda_error_string.argtypes = [_I]
-        lib.h2o3_cuda_error_string.restype = ctypes.c_char_p
-        lib.tree_hist.argtypes = [_VP, _I, _VP, _VP, _VP, _LL, _I, _I, _I,
-                                  _I, _LL, _I, _VP]
-        lib.tree_split.argtypes = [_VP] * 20 + [_I] * 7 + [_VP]
-        lib.tree_partition.argtypes = [_VP, _I, _VP, _VP, _VP, _VP, _VP,
-                                       _VP, _VP, _VP, _LL, _I, _I, _I, _I,
-                                       _VP]
-        for fn in (lib.tree_hist, lib.tree_split, lib.tree_partition):
-            fn.restype = _I
-        _LIB = lib
+        _LIB = kernels.bind("treekernel", {
+            "tree_hist": [_VP, _I, _VP, _VP, _VP, _LL, _I, _I, _I, _I, _LL,
+                          _I, _VP],
+            "tree_split": [_VP] * 20 + [_I] * 7 + [_VP],
+            "tree_partition": [_VP, _I, _VP, _VP, _VP, _VP, _VP, _VP, _VP,
+                               _VP, _LL, _I, _I, _I, _I, _VP],
+        })
     return _LIB
-
-
-def _on_cuda(t: torch.Tensor, name: str) -> bool:
-    """True for a CUDA tensor, False for a CPU one; raises otherwise."""
-    if t.device.type == "cuda":
-        return True
-    if t.device.type == "cpu":
-        return False
-    raise ValueError(f"{name}: no kernel or plain version for device "
-                     f"{t.device}")
-
-
-def _need(t: Optional[torch.Tensor], dtype, shape, name: str, device):
-    if t is None:
-        return None
-    if t.device != device or t.dtype != dtype or not t.is_contiguous() \
-            or tuple(t.shape) != tuple(shape):
-        raise ValueError(
-            f"{name}: want contiguous {dtype} {tuple(shape)} on {device}, "
-            f"got {t.dtype} {tuple(t.shape)} on {t.device}"
-            f"{'' if t.is_contiguous() else ' (non-contiguous)'}")
-    return t.data_ptr()
-
-
-def _launched(rc: int, name: str) -> None:
-    if rc != 0:
-        msg = _lib().h2o3_cuda_error_string(rc).decode()
-        raise RuntimeError(f"{name} kernel failed to launch: {msg} ({rc})")
-    kernels.count(name)
-
-
-def _stream(device) -> int:
-    return torch.cuda.current_stream(device).cuda_stream
-
-
-def _bin_dtype(bins: torch.Tensor) -> int:
-    if bins.dtype not in (torch.int8, torch.int32):
-        raise ValueError(f"bins must be int8 or int32, got {bins.dtype}")
-    return int(bins.dtype == torch.int8)
 
 
 # ------------------------------------------------------------ tree_hist
@@ -106,31 +63,29 @@ def hist_plain(bins, nid, stats, *, d: int, n_nodes_h: int, n_bins: int):
     are skipped and even rows land in their parent's slot."""
     if d > 0:
         nid = torch.where(nid % 2 == 0, nid >> 1, -1)
-    return histogram(bins, nid, stats, n_nodes=n_nodes_h, n_bins=n_bins)
+    return local_histogram(bins, nid, stats, n_nodes=n_nodes_h,
+                           n_bins=n_bins)
 
 
 def tree_hist(bins, nid, stats, *, d: int, n_nodes_h: int, n_bins: int):
     """[Lh, F, B, 3] level histogram of ``stats`` [N, 3]."""
-    if not _on_cuda(bins, "tree_hist"):
+    if not on_cuda(bins, "tree_hist"):
         return hist_plain(bins, nid, stats, d=d, n_nodes_h=n_nodes_h,
                           n_bins=n_bins)
     dev = bins.device
     N, F = bins.shape
     B, Lh = n_bins, n_nodes_h
-    is8 = _bin_dtype(bins)
-    p_bins = _need(bins, bins.dtype, (N, F), "bins", dev)
-    p_nid = _need(nid, torch.int32, (N,), "nid", dev)
-    p_stats = _need(stats, torch.float32, (N, 3), "stats", dev)
+    is8 = bin_dtype(bins)
+    p_bins = need(bins, bins.dtype, (N, F), "bins", dev)
+    p_nid = need(nid, torch.int32, (N,), "nid", dev)
+    p_stats = need(stats, torch.float32, (N, 3), "stats", dev)
     out = torch.zeros((Lh, F, B, 3), dtype=torch.float32, device=dev)
-    node_chunk = max(1, HIST_SLAB_BYTES // (B * 12))
-    n_chunks = -(-Lh // node_chunk)
-    sms = torch.cuda.get_device_properties(dev).multi_processor_count
-    row_blocks = max(1, -(-8 * sms // (F * n_chunks)))
-    rows_per_block = max(256, -(-N // row_blocks))
+    rows_per_block, node_chunk = slab_geometry(dev, N, F, Lh, B,
+                                               HIST_SLAB_BYTES)
     rc = _lib().tree_hist(p_bins, is8, p_nid, p_stats, out.data_ptr(), N,
                           F, B, Lh, int(d > 0), rows_per_block, node_chunk,
-                          _stream(dev))
-    _launched(rc, "tree_hist")
+                          stream(dev))
+    launched(_lib(), rc, "tree_hist")
     return out
 
 
@@ -167,7 +122,7 @@ def tree_split(lh, prev, col_mask, nb, is_cat, constraints, lo, hi, knobs,
     histogram (None at d=0); ``col_mask`` int8 [1|L, F]; ``nb`` int32
     [F]; ``is_cat``/``constraints`` int8 [F] or None; ``lo``/``hi``
     float32 [1|L]; ``knobs`` float32 [3]; ``depth_limit`` int32 [1]."""
-    if not _on_cuda(lh, "tree_split"):
+    if not on_cuda(lh, "tree_split"):
         return split_plain(lh, prev, col_mask, nb, is_cat, constraints, lo,
                            hi, knobs, depth_limit, d=d, n_nodes=n_nodes,
                            n_bins=n_bins)
@@ -178,17 +133,17 @@ def tree_split(lh, prev, col_mask, nb, is_cat, constraints, lo, hi, knobs,
         raise ValueError("tree_split: d > 0 needs the previous histogram")
     cm_rows, bound_rows = col_mask.shape[0], lo.shape[0]
     ptrs = [
-        _need(lh, torch.float32, (Lh, F, B, 3), "lh", dev),
-        _need(prev if d > 0 else None, torch.float32, (Lh, F, B, 3),
+        need(lh, torch.float32, (Lh, F, B, 3), "lh", dev),
+        need(prev if d > 0 else None, torch.float32, (Lh, F, B, 3),
               "prev", dev),
-        _need(col_mask, torch.int8, (cm_rows, F), "col_mask", dev),
-        _need(nb, torch.int32, (F,), "nb", dev),
-        _need(is_cat, torch.int8, (F,), "is_cat", dev),
-        _need(constraints, torch.int8, (F,), "constraints", dev),
-        _need(lo, torch.float32, (bound_rows,), "lo", dev),
-        _need(hi, torch.float32, (bound_rows,), "hi", dev),
-        _need(knobs, torch.float32, (3,), "knobs", dev),
-        _need(depth_limit, torch.int32, (1,), "depth_limit", dev),
+        need(col_mask, torch.int8, (cm_rows, F), "col_mask", dev),
+        need(nb, torch.int32, (F,), "nb", dev),
+        need(is_cat, torch.int8, (F,), "is_cat", dev),
+        need(constraints, torch.int8, (F,), "constraints", dev),
+        need(lo, torch.float32, (bound_rows,), "lo", dev),
+        need(hi, torch.float32, (bound_rows,), "hi", dev),
+        need(knobs, torch.float32, (3,), "knobs", dev),
+        need(depth_limit, torch.int32, (1,), "depth_limit", dev),
     ]
     if cm_rows not in (1, L) or bound_rows not in (1, L):
         raise ValueError("tree_split: col_mask and lo/hi take 1 or L rows")
@@ -204,8 +159,8 @@ def tree_split(lh, prev, col_mask, nb, is_cat, constraints, lo, hi, knobs,
     if n_warps < 1:
         raise ValueError(f"tree_split: {B} bins exceed shared memory")
     rc = _lib().tree_split(*ptrs, *(o.data_ptr() for o in outs), d, L, F,
-                           B, cm_rows, bound_rows, n_warps, _stream(dev))
-    _launched(rc, "tree_split")
+                           B, cm_rows, bound_rows, n_warps, stream(dev))
+    launched(_lib(), rc, "tree_split")
     return outs
 
 
@@ -230,32 +185,32 @@ def partition_plain(bins, nid, feat, thresh, na_left, split, cat_split,
 def tree_partition(bins, nid, feat, thresh, na_left, split, cat_split,
                    leftmask, *, n_bins: int):
     """Routed node ids [N] int32: ``2·nid`` (left) or ``2·nid + 1``."""
-    if not _on_cuda(bins, "tree_partition"):
+    if not on_cuda(bins, "tree_partition"):
         return partition_plain(bins, nid, feat, thresh, na_left, split,
                                cat_split, leftmask, n_bins=n_bins)
     dev = bins.device
     N, F = bins.shape
     L = feat.shape[0]
-    is8 = _bin_dtype(bins)
+    is8 = bin_dtype(bins)
     ptrs = [
-        _need(bins, bins.dtype, (N, F), "bins", dev),
-        _need(nid, torch.int32, (N,), "nid", dev),
+        need(bins, bins.dtype, (N, F), "bins", dev),
+        need(nid, torch.int32, (N,), "nid", dev),
     ]
     out = torch.empty(N, dtype=torch.int32, device=dev)
     tables = [
-        _need(feat, torch.int32, (L,), "feat", dev),
-        _need(thresh, torch.int32, (L,), "thresh", dev),
-        _need(na_left, torch.bool, (L,), "na_left", dev),
-        _need(split, torch.bool, (L,), "split", dev),
-        _need(cat_split, torch.bool, (L,), "cat_split", dev),
-        _need(leftmask, torch.bool, (L, n_bins - 1), "leftmask", dev),
+        need(feat, torch.int32, (L,), "feat", dev),
+        need(thresh, torch.int32, (L,), "thresh", dev),
+        need(na_left, torch.bool, (L,), "na_left", dev),
+        need(split, torch.bool, (L,), "split", dev),
+        need(cat_split, torch.bool, (L,), "cat_split", dev),
+        need(leftmask, torch.bool, (L, n_bins - 1), "leftmask", dev),
     ]
     sms = torch.cuda.get_device_properties(dev).multi_processor_count
     n_blocks = max(1, min(-(-N // 256), 8 * sms))
     rc = _lib().tree_partition(ptrs[0], is8, ptrs[1], out.data_ptr(),
                                *tables, N, F, n_bins, L, n_blocks,
-                               _stream(dev))
-    _launched(rc, "tree_partition")
+                               stream(dev))
+    launched(_lib(), rc, "tree_partition")
     return out
 
 

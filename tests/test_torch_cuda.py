@@ -8,10 +8,11 @@ Run on a machine with an NVIDIA GPU, from the repository root:
 (``--noconftest``: tests/conftest.py boots the JAX reference cloud, and
 these tests use neither JAX nor the reference package.)
 
-The checks are those of chip_smoke.py phase 2 at small shapes: with
-small-integer stats every output is EXACTLY equal; with real-valued stats
-histograms agree within the float32 summation bound (2·n·2^-24·Σ|x| for
-a cell of n rows) and a split decision may differ only at a near-tie."""
+The checks are those of chip_smoke.py phases 2, 3, 6 and 7 at small
+shapes: with small-integer stats every output is EXACTLY equal; with
+real-valued stats histograms agree within the float32 summation bound
+(2·n·2^-24·Σ|x| for a cell of n rows) and a split decision may differ
+only at a near-tie."""
 
 import sys
 from pathlib import Path
@@ -69,7 +70,7 @@ def test_flagship_levels_kernels_vs_plain(dev, label):
     kernels.reset_counts()
     _chain(bm.bins, stats, ops, bm.nbins_total, 6, exact=label == "dyadic")
     assert kernels.LAUNCHES == {"tree_hist": 6, "tree_split": 6,
-                                "tree_partition": 6}
+                                "tree_partition": 6, "histogram": 0}
 
 
 def test_constraints_bounds_and_node_masks(dev):
@@ -197,7 +198,7 @@ def test_gbm_on_card_goes_through_kernels(dev):
         fr, y="IsDepDelayed")
     # depth 4 lays out at bucket 6: every bucket level launches
     assert kernels.LAUNCHES == {"tree_hist": 18, "tree_split": 18,
-                                "tree_partition": 18}
+                                "tree_partition": 18, "histogram": 0}
     m_cpu = h2o.GBMEstimator(ntrees=3, max_depth=4, seed=1).train(
         h2o.Frame.from_numpy(cols, domains=domains, device="cpu"),
         y="IsDepDelayed")
@@ -235,3 +236,123 @@ def test_boost_step_makes_no_host_sync(dev):
     finally:
         torch.cuda.set_sync_debug_mode(0)
     assert torch.isfinite(margin).all()
+
+
+def _uplift(dev, n=N):
+    cols, domains = cs.criteo_arrays(n)
+    return cs.uplift_inputs(torch, dev, cols, domains, n)
+
+
+@pytest.mark.parametrize("L", [1, 8, 64])
+def test_histogram_kernel_vs_plain(dev, L):
+    """The full histogram, exact on 0/1 stats (int8 and int32 bins),
+    within the summation bound on real-valued stats; rows outside
+    [0, L) are skipped."""
+    bm, _, _ = _uplift(dev)
+    bins, B = bm.bins, bm.nbins_total
+    r = np.random.RandomState(L)
+    nid = r.randint(0, L, N).astype(np.int32)
+    nid[::50] = L
+    nid = torch.from_numpy(nid).to(dev)
+    kernels.reset_counts()
+    cs.compare_histogram(bins, nid, cs.binary_stats(N, 1, torch, dev), L=L,
+                         B=B, exact=True)
+    cs.compare_histogram(bins.to(torch.int32).contiguous(), nid,
+                         cs.binary_stats(N, 2, torch, dev), L=L, B=B,
+                         exact=True)
+    cs.compare_histogram(bins, nid, cs.real_stats(N, 3, torch, dev), L=L,
+                         B=B, exact=False)
+    assert kernels.LAUNCHES["histogram"] == 3
+    assert kernels.LAUNCHES["tree_hist"] == 0
+
+
+def test_histogram_node_chunks(dev, monkeypatch):
+    """L = 512 with the slab budget cut so the histogram runs in many
+    node chunks."""
+    from h2o3_tpu_torch.ops.kernels import histogram as kh
+    bm, _, _ = _uplift(dev)
+    nid = torch.from_numpy(np.random.RandomState(7).randint(
+        0, 512, N).astype(np.int32)).to(dev)
+    st = cs.binary_stats(N, 4, torch, dev)
+    for slab in (kh.HIST_SLAB_BYTES, 5 * bm.nbins_total * 12):
+        monkeypatch.setattr(kh, "HIST_SLAB_BYTES", slab)
+        cs.compare_histogram(bm.bins, nid, st, L=512, B=bm.nbins_total,
+                             exact=True)
+
+
+def test_tree_split_per_node_mtries_masks(dev):
+    """DRF's [L, F] mtries masks through tree_split, levels 0..5, exact
+    on dyadic stats."""
+    from h2o3_tpu_torch.models.tree import _mtries_mask
+    bm = _bm(dev)
+    _, sc, is_cat, _, lo, hi = cs.level_plan(bm, torch, dev)
+    F, B = bm.bins.shape[1], bm.nbins_total
+    gen = torch.Generator(device=dev).manual_seed(5)
+    stats = cs.dyadic_stats(bm.bins.shape[0], 11, torch, dev)
+    nid = torch.zeros(bm.bins.shape[0], dtype=torch.int32, device=dev)
+    prev = None
+    for d in range(6):
+        L = 2 ** d
+        cm = _mtries_mask(gen, L, F, 3, dev)
+        ops = tk.level_operands(cm, bm.nbins, is_cat, None, lo, hi, sc, dev)
+        assert ops[0].shape == (L, F)
+        _, _, out_p, nid = cs.compare_level(tk, bm.bins, nid, stats, prev,
+                                            ops, d=d, L=L, B=B, exact=True)
+        prev = out_p[0]
+
+
+def test_grow_tree_with_mtries_kernels_equal_plain(dev):
+    from h2o3_tpu_torch.models.gbm import tree_generator
+    from h2o3_tpu_torch.models.tree import grow_tree
+    bm = _bm(dev)
+    tp, sc, _, cm, _, _ = cs.level_plan(bm, torch, dev)
+    st = cs.dyadic_stats(bm.bins.shape[0], 12, torch, dev)
+    w = st[:, 0].contiguous()
+    g, h = st[:, 1] / w.clamp_min(1.0), st[:, 2] / w.clamp_min(1.0)
+    t_k, nid_k, _ = grow_tree(bm.bins, bm.nbins, w, g, h, cm, params=tp,
+                              scalars=sc, mtries=3,
+                              generator=tree_generator(2, 0, dev))
+    t_p, nid_p, _ = grow_tree(bm.bins, bm.nbins, w, g, h, cm, params=tp,
+                              scalars=sc, mtries=3,
+                              generator=tree_generator(2, 0, dev),
+                              level_fn=tk.plain_level)
+    cs.equal_trees(t_k, t_p, "grow_tree with mtries")
+    assert torch.equal(nid_k, nid_p)
+
+
+def test_grow_uplift_tree_kernel_equals_plain(dev):
+    from h2o3_tpu_torch.models.uplift import _grow_uplift_tree
+    from h2o3_tpu_torch.ops.histogram import plain_histogram
+    bm, y, treat = _uplift(dev)
+    w = torch.ones_like(y)
+    kw = dict(depth=6, B=bm.nbins_total, mtries=12, metric="kl",
+              min_rows=10.0)
+    kernels.reset_counts()
+    t_k, pt_k, pc_k = _grow_uplift_tree(bm.bins, bm.nbins, w, y, treat,
+                                        None, **kw)
+    assert kernels.LAUNCHES["histogram"] == 12
+    t_p, pt_p, pc_p = _grow_uplift_tree(bm.bins, bm.nbins, w, y, treat,
+                                        None, hist_fn=plain_histogram, **kw)
+    cs.equal_trees(t_k, t_p, "_grow_uplift_tree")
+    assert torch.equal(pt_k, pt_p) and torch.equal(pc_k, pc_p)
+
+
+def test_drf_and_uplift_on_card_go_through_kernels(dev):
+    import h2o3_tpu_torch as h2o
+    cols, domains = cs.airlines_arrays(N)
+    fr = h2o.Frame.from_numpy(cols, domains=domains, device=dev)
+    kernels.reset_counts()
+    m = h2o.DRFEstimator(ntrees=2, max_depth=5, seed=1).train(
+        fr, y="IsDepDelayed")
+    # depth 5 lays out at bucket 6
+    assert kernels.LAUNCHES == {"tree_hist": 12, "tree_split": 12,
+                                "tree_partition": 12, "histogram": 0}
+    assert np.isfinite(m.training_metrics["AUC"])
+    ucols, udomains = cs.criteo_arrays(N)
+    ufr = h2o.Frame.from_numpy(ucols, domains=udomains, device=dev)
+    kernels.reset_counts()
+    um = h2o.UpliftDRFEstimator(treatment_column="treatment", ntrees=2,
+                                max_depth=4, seed=1).train(ufr, y="visit")
+    assert kernels.LAUNCHES == {"tree_hist": 0, "tree_split": 0,
+                                "tree_partition": 0, "histogram": 16}
+    assert np.isfinite(um.training_metrics["auuc"])
