@@ -43,10 +43,28 @@ Phases, in order; any failure exits non-zero and no phase carries on:
    alone, the training metrics alone, a 2-tree fit under torch.profiler);
    AUUC and Qini checked against the CPU plain path on a 50K-row sample.
 9. ``histogram`` timed at the uplift path's shapes (d=0..9), as phase 5.
+10. The sharded tree level over W = 2 ranks (spawned processes, one
+    rank each, joined by ``core.cloud.init``: gloo with both ranks on one
+    card, NCCL with one card per rank where there are two), each rank
+    ingesting only its own 2.5M of phase 4's rows through
+    ``Frame.from_numpy_partitioned``. At d=0..5 with dyadic stats:
+    ``shard_hist`` == ``hist_plain`` and ``shard_partition`` ==
+    ``partition_plain`` on every rank; the all-reduced histogram, the
+    splits (identical on every rank) and the concatenated routing ==
+    one card's ``tree_hist``/``tree_split``/``tree_partition`` over all
+    5M rows. All EXACT.
+11. The main path over the W ranks: the flagship GBM on the partitioned
+    frame, ``train`` → ``predict`` → ``model_performance``; per rank the
+    train seconds, launches (``shard_hist``, ``tree_split``,
+    ``shard_partition`` 60 each, every other kernel 0), the all-reduce
+    count, bytes and seconds, and peak memory; every rank's forest equal;
+    AUC within 5e-3 of phase 4's.
+12. ``shard_hist`` and ``shard_partition`` timed at one rank's shapes
+    (2.5M rows, d=0..5) on the card alone, as phase 5.
 
 Launch counts are read per path: each path sets every count to 0 just
 before it runs and reads them just after. The line before the last is
-the ``{"kernels": [...]}`` record (all four kernels, each with its own
+the ``{"kernels": [...]}`` record (every kernel, each with its own
 source, the TPU kernel it replaces and its launches on the path that
 runs it); the last is ``{"ok": true, "device": {...}}``.
 """
@@ -80,8 +98,18 @@ KERNELS = {
     "tree_partition": _TREEKERNEL,
     "histogram": dict(source="h2o3_tpu_torch/ops/kernels/csrc/histogram.cu",
                       replaces="h2o3_tpu/ops/pallas_histogram.py:94"),
+    # the per-shard kernels launch tree_hist's and tree_partition's device
+    # code (treekernel.cu, hist_slab.cuh) on one rank's rows
+    "shard_hist": dict(source="h2o3_tpu_torch/ops/kernels/csrc/treekernel.cu",
+                       replaces="h2o3_tpu/ops/pallas/treekernel.py:318"),
+    "shard_partition": dict(
+        source="h2o3_tpu_torch/ops/kernels/csrc/treekernel.cu",
+        replaces="h2o3_tpu/ops/pallas/treekernel.py:351"),
 }
 LEVEL_KERNELS = ("tree_hist", "tree_split", "tree_partition")
+MESH_KERNELS = ("shard_hist", "tree_split", "shard_partition")
+W_MESH = 2                       # ranks of the data-parallel path
+RANK_TIMEOUT_S = 600.0
 CARD = ""
 
 
@@ -212,6 +240,13 @@ def check_within_bound(got, want, plain, stats, label):
     return float((diff / mass.clamp_min(1e-30)).max())
 
 
+def identical(a, b) -> bool:
+    """Equal element for element, NaN equal to NaN."""
+    import torch
+    return torch.equal(a, b) or (a.dtype.is_floating_point and bool(
+        ((a == b) | (torch.isnan(a) & torch.isnan(b))).all()))
+
+
 def compare_level(tk, bins, nid, stats, prev, ops, *, d, L, B, exact):
     """Hold the three kernels against their plain versions at one level.
     Returns (max_abs_err per kernel, split flips, plain outputs)."""
@@ -244,9 +279,7 @@ def compare_level(tk, bins, nid, stats, prev, ops, *, d, L, B, exact):
         if finite.any() else 0.0
     if exact:
         for nm, a, b in zip(names, out_k, out_p):
-            check(torch.equal(a, b) or (a.dtype.is_floating_point and bool(
-                ((a == b) | (torch.isnan(a) & torch.isnan(b))).all())),
-                f"tree_split d={d} output {nm} not exact")
+            check(identical(a, b), f"tree_split d={d} output {nm} not exact")
     else:
         check(torch.equal(out_k[0], out_p[0]), f"tree_split d={d} hist")
         same = (out_k[2] == out_p[2]) & (out_k[3] == out_p[3]) & \
@@ -534,22 +567,28 @@ def _hist_bytes(N, F, Lh, B, bin_bytes):
     return N * (F * bin_bytes + 4 + 12) + Lh * F * B * 12
 
 
-def phase_timing(torch, dev, model, counts):
-    """Kernel times at the main path's shapes, averaged over d=0..5."""
+# what each level kernel computes: the shard variants run the same device
+# code as their one-card kernels, on one rank's rows
+ROLE = {"tree_hist": "hist", "shard_hist": "hist", "tree_split": "split",
+        "tree_partition": "partition", "shard_partition": "partition"}
+
+
+def level_timing(torch, dev, bm, names, n_rows):
+    """Per-kernel sums over d=0..5 of the first ``n_rows`` rows of ``bm``
+    (dyadic stats, the plain path's node ids): ms per launch, plain ms,
+    library ms and the bound's two terms."""
     from h2o3_tpu_torch.ops.kernels import treekernel as tk
-    bm = model.bm
-    bins = bm.bins
+    bins = bm.bins[:n_rows].contiguous()
     N, F = bins.shape
     B = bm.nbins_total
     tp, sc, is_cat, cm, lo, hi = level_plan(bm, torch, dev)
     ops = tk.level_operands(cm, bm.nbins, is_cat, None, lo, hi, sc, dev)
     stats = dyadic_stats(N, 9, torch, dev)
     acc = {k: dict(ms=0.0, plain_ms=0.0, library_ms=0.0, bytes_ms=0.0,
-                   ops_ms=0.0) for k in LEVEL_KERNELS}
+                   ops_ms=0.0) for k in names}
     nid = torch.zeros(N, dtype=torch.int32, device=dev)
     prev = None
-    levels = 6
-    for d in range(levels):
+    for d in range(6):
         L, Lh = 2 ** d, max(2 ** d // 2, 1)
         lh = tk.hist_plain(bins, nid, stats, d=d, n_nodes_h=Lh, n_bins=B)
         out = tk.split_plain(lh, prev, *ops, d=d, n_nodes=L, n_bins=B)
@@ -566,61 +605,73 @@ def phase_timing(torch, dev, model, counts):
         src = stats[:, None, :].expand(N, F, 3).reshape(N * F, 3)
         slots = Lh * F * B + 1
         runs = {
-            "tree_hist": (
-                lambda: tk.tree_hist(bins, nid, stats, d=d, n_nodes_h=Lh,
-                                     n_bins=B),
+            "hist": (
+                lambda k: getattr(tk, k)(bins, nid, stats, d=d,
+                                         n_nodes_h=Lh, n_bins=B),
                 lambda: tk.hist_plain(bins, nid, stats, d=d, n_nodes_h=Lh,
                                       n_bins=B),
                 lambda: torch.zeros((slots, 3), device=dev).index_add_(
                     0, cell, src)),
-            "tree_split": (
-                lambda: tk.tree_split(lh, prev, *ops, d=d, n_nodes=L,
-                                      n_bins=B),
+            "split": (
+                lambda k: tk.tree_split(lh, prev, *ops, d=d, n_nodes=L,
+                                        n_bins=B),
                 lambda: tk.split_plain(lh, prev, *ops, d=d, n_nodes=L,
                                        n_bins=B),
                 None),
-            "tree_partition": (
-                lambda: tk.tree_partition(bins, nid, *dec, n_bins=B),
+            "partition": (
+                lambda k: getattr(tk, k)(bins, nid, *dec, n_bins=B),
                 lambda: tk.partition_plain(bins, nid, *dec, n_bins=B),
                 None),
         }
         ncat = int(is_cat.sum())
         bound_bytes = {
-            "tree_hist": _hist_bytes(N, F, Lh, B, bins.element_size()),
-            "tree_split": (Lh * F * B * 12 * (2 if d else 1)
-                           + L * F * B * 12 + L * (B - 1) + L * 26),
-            "tree_partition": N * (F * bins.element_size() + 4 + 4)
+            "hist": _hist_bytes(N, F, Lh, B, bins.element_size()),
+            "split": (Lh * F * B * 12 * (2 if d else 1)
+                      + L * F * B * 12 + L * (B - 1) + L * 26),
+            "partition": N * (F * bins.element_size() + 4 + 4)
             + L * (B + 12),
         }
         bound_ops = {
-            "tree_hist": 3 * N * F,
+            "hist": 3 * N * F,
             # per (node, feature, threshold, direction) ~20 flops, plus
             # the categorical ranks' (B-1)^2 compares per (node, feature)
-            "tree_split": L * F * (B - 1) * 2 * 20 + L * ncat * (B - 1) ** 2,
-            "tree_partition": 4 * N,
+            "split": L * F * (B - 1) * 2 * 20 + L * ncat * (B - 1) ** 2,
+            "partition": 4 * N,
         }
-        for k, (kern, plain, lib) in runs.items():
+        for k in names:
+            kern, plain, lib = runs[ROLE[k]]
             a = acc[k]
-            ms = time_ms(torch, kern)
-            say(f"  {k} d={d}: {ms:.6g} ms")
+            ms = time_ms(torch, lambda: kern(k))
+            say(f"  {k} d={d} ({N} rows): {ms:.6g} ms")
             a["ms"] += ms
             a["plain_ms"] += time_ms(torch, plain, reps=3)
             if lib is not None:
                 a["library_ms"] += time_ms(torch, lib, reps=3)
-            a["bytes_ms"] += bound_bytes[k] / HBM_BYTES_PER_S * 1e3
-            a["ops_ms"] += bound_ops[k] / F32_OPS_PER_S * 1e3
+            a["bytes_ms"] += bound_bytes[ROLE[k]] / HBM_BYTES_PER_S * 1e3
+            a["ops_ms"] += bound_ops[ROLE[k]] / F32_OPS_PER_S * 1e3
         prev, nid = out[0], tk.partition_plain(bins, nid, *dec, n_bins=B)
         del cell, src
+    return acc
+
+
+def timing_records(acc, counts, n_rows, label):
     records = []
     for k, a in acc.items():
-        rec = kernel_record(k, counts[k], a, levels,
-                            has_library=k == "tree_hist")
+        rec = kernel_record(k, counts[k], a, 6,
+                            has_library=ROLE[k] == "hist")
         records.append(rec)
-        say(f"phase5 {k}: {rec['ms']:.6g} ms per launch (mean of d=0..5 at "
-            f"{N} rows), plain {rec['plain_ms']:.6g} ms, bound "
+        say(f"{label} {k}: {rec['ms']:.6g} ms per launch (mean of d=0..5 "
+            f"at {n_rows} rows), plain {rec['plain_ms']:.6g} ms, bound "
             f"{rec['bound_ms']:.6g} ms ({rec['bound_by']}), library "
             f"{rec['library_ms']}")
     return records
+
+
+def phase_timing(torch, dev, model, counts):
+    """Kernel times at the main path's shapes, averaged over d=0..5."""
+    n = model.bm.bins.shape[0]
+    return timing_records(level_timing(torch, dev, model.bm, LEVEL_KERNELS,
+                                       n), counts, n, "phase5")
 
 
 def kernel_record(name, launches, a, levels, *, has_library):
@@ -888,6 +939,252 @@ def phase_hist_timing(torch, dev, model, fr, counts):
     return rec
 
 
+def mesh_layout(torch):
+    """(backend, devices, text): NCCL with one card per rank where there
+    are W cards; else gloo with every rank on card 0 (NCCL refuses two
+    ranks on one card; gloo all-reduces CUDA tensors through the host)."""
+    if torch.cuda.device_count() >= W_MESH:
+        return "nccl", [f"cuda:{r}" for r in range(W_MESH)], \
+            f"{W_MESH} ranks, one card each, NCCL"
+    return "gloo", ["cuda:0"] * W_MESH, \
+        f"{W_MESH} ranks on one card (time-sliced), gloo"
+
+
+def rank_sharded_level(torch, mesh, bm, lo_row):
+    """Phase 10 on one rank: the sharded level at the flagship shapes,
+    d=0..5, dyadic stats. ``shard_hist`` == ``hist_plain`` and
+    ``shard_partition`` == ``partition_plain`` on the rank's rows, EXACT;
+    the splits on the all-reduced histogram identical on every rank.
+    Returns per level the summed histogram, the split outputs and the
+    routed node ids, for the parent to hold against one card."""
+    from h2o3_tpu_torch.frame.partition import allgather_objects
+    from h2o3_tpu_torch.ops.kernels import treekernel as tk
+    from h2o3_tpu_torch.parallel.map_reduce import all_reduce
+    dev = mesh.device
+    bins, B = bm.bins, bm.nbins_total
+    N = bins.shape[0]
+    tp, sc, is_cat, cm, lo, hi = level_plan(bm, torch, dev)
+    ops = tk.level_operands(cm, bm.nbins, is_cat, None, lo, hi, sc, dev)
+    stats = dyadic_stats(N_MAIN, 9, torch, dev)[lo_row:lo_row + N]
+    nid = torch.zeros(N, dtype=torch.int32, device=dev)
+    prev, levels = None, []
+    errs = {"shard_hist": 0.0, "shard_partition": 0.0}
+    for d in range(6):
+        L, Lh = 2 ** d, max(2 ** d // 2, 1)
+        lh = tk.shard_hist(bins, nid, stats, d=d, n_nodes_h=Lh, n_bins=B)
+        lh_p = tk.hist_plain(bins, nid, stats, d=d, n_nodes_h=Lh, n_bins=B)
+        torch.cuda.synchronize(dev)
+        errs["shard_hist"] = max(errs["shard_hist"],
+                                 float((lh - lh_p).abs().max()))
+        check(torch.equal(lh, lh_p), f"rank {mesh.rank} shard_hist d={d} "
+                                     f"!= hist_plain")
+        all_reduce(lh, mesh)
+        out = tk.tree_split(lh, prev, *ops, d=d, n_nodes=L, n_bins=B)
+        seen = allgather_objects([out[i].cpu() for i in (2, 3, 4, 8, 9)],
+                                 mesh)
+        check(all(torch.equal(a, b) for other in seen
+                  for a, b in zip(seen[0], other)),
+              f"d={d}: the ranks' split decisions differ")
+        dec = (out[2], out[3], out[4], out[8], out[9], out[7])
+        new = tk.shard_partition(bins, nid, *dec, n_bins=B)
+        new_p = tk.partition_plain(bins, nid, *dec, n_bins=B)
+        torch.cuda.synchronize(dev)
+        errs["shard_partition"] = max(errs["shard_partition"],
+                                      float((new - new_p).abs().max()))
+        check(torch.equal(new, new_p), f"rank {mesh.rank} shard_partition "
+                                       f"d={d} != partition_plain")
+        levels.append(dict(hist=lh.cpu(), split=[o.cpu() for o in out],
+                           nid=new.cpu()))
+        prev, nid = out[0], new
+    say(f"phase10 rank {mesh.rank}: shard_hist == hist_plain and "
+        f"shard_partition == partition_plain on its {N} rows, d=0..5, "
+        "exact; split decisions identical on every rank")
+    return levels, errs
+
+
+def rank_main_path(torch, mesh, fr):
+    """Phase 11 on one rank: the flagship GBM on the partitioned frame."""
+    import h2o3_tpu_torch as h2o
+    from h2o3_tpu_torch.ops import kernels
+    from h2o3_tpu_torch.parallel import map_reduce
+    dev = mesh.device
+    torch.cuda.synchronize(dev)
+    torch.cuda.reset_peak_memory_stats(dev)
+    kernels.reset_counts()
+    map_reduce.reset_collectives()
+    t0 = time.perf_counter()
+    model = h2o.GBMEstimator(**FLAGSHIP).train(fr, y="IsDepDelayed")
+    torch.cuda.synchronize(dev)
+    t_train = time.perf_counter() - t0
+    coll = dict(map_reduce.COLLECTIVES)
+    t1 = time.perf_counter()
+    pred = model.predict(fr)
+    torch.cuda.synchronize(dev)
+    t_pred = time.perf_counter() - t1
+    counts = dict(kernels.LAUNCHES)
+    peak = torch.cuda.max_memory_allocated(dev)
+    want = FLAGSHIP["ntrees"] * FLAGSHIP["max_depth"]
+    check_launches(counts, {k: want for k in MESH_KERNELS},
+                   f"GBM mesh (rank {mesh.rank})")
+    tm = model.training_metrics
+    p1 = pred.col("p1").host_view()
+    check(pred.partitioned and pred.span == fr.span, "predict partitioned "
+                                                     "like its input")
+    check(p1.shape == (N_MAIN,) and np.isfinite(p1).all()
+          and (p1 > 0).all() and (p1 < 1).all(), "mesh p1 finite in (0, 1)")
+    perf = model.model_performance(fr)
+    check(abs(perf["AUC"] - tm["AUC"]) < 1e-9, "mesh model_performance on "
+                                               "the training frame")
+    return dict(t_train=t_train, t_pred=t_pred, auc=tm["AUC"],
+                logloss=tm["logloss"], counts=counts, collectives=coll,
+                peak=peak, feat=model.forest.feat.cpu(),
+                leaf=model.forest.leaf.cpu())
+
+
+def rank_entry(rank, init_method, backend, devices, card, out_dir):
+    """One rank of phases 10-11 (a spawned process): join the group,
+    ingest its own rows, run both phases, save what the parent checks."""
+    global CARD
+    CARD = card
+    import torch
+    import h2o3_tpu_torch as h2o
+    from h2o3_tpu_torch.core import cloud
+    from h2o3_tpu_torch.frame.binning import bin_frame
+    from h2o3_tpu_torch.parallel.mesh import owned_rows
+    mesh = cloud.init(backend, rank, W_MESH, init_method,
+                      device=devices[rank])
+    try:
+        cols, domains = airlines_arrays(N_MAIN)
+        lo, hi = owned_rows(N_MAIN, mesh, 8)
+        t0 = time.perf_counter()
+        fr = h2o.Frame.from_numpy_partitioned(
+            {k: v[lo:hi] for k, v in cols.items()}, N_MAIN, domains=domains,
+            mesh=mesh)
+        t_ingest = time.perf_counter() - t0
+        del cols
+        check(fr.span == (lo, hi), f"rank {rank} span {fr.span}")
+        x = [c for c in fr.names if c != "IsDepDelayed"]
+        t0 = time.perf_counter()
+        bm = bin_frame(fr, x, nbins=64, nbins_cats=1024)
+        torch.cuda.synchronize(mesh.device)
+        t_bin = time.perf_counter() - t0
+        levels, errs = rank_sharded_level(torch, mesh, bm, lo)
+        res = dict(levels=levels, errs=errs, bins=bm.bins.cpu(), span=fr.span,
+                   t_ingest=t_ingest, t_bin=t_bin)
+        del bm
+        res.update(rank_main_path(torch, mesh, fr))
+        torch.save(res, f"{out_dir}/rank{rank}.pt")
+    finally:
+        cloud.shutdown()
+
+
+def spawn_ranks(torch, out_dir):
+    """Start the W ranks of phases 10-11, wait for them (at most
+    RANK_TIMEOUT_S; a rank that raises stops all), and return each
+    rank's saved results."""
+    import socket
+    import torch.multiprocessing as mp
+    backend, devices, layout = mesh_layout(torch)
+    with socket.socket() as sk:
+        sk.bind(("localhost", 0))
+        port = sk.getsockname()[1]
+    say(f"phase10-11 layout: {layout}; backend {backend}; rendezvous "
+        f"tcp://localhost:{port}")
+    ctx = mp.start_processes(
+        rank_entry, args=(f"tcp://localhost:{port}", backend, devices, CARD,
+                          out_dir), nprocs=W_MESH, join=False,
+        start_method="spawn")
+    deadline = time.monotonic() + RANK_TIMEOUT_S
+    try:
+        while not ctx.join(timeout=5):
+            check(time.monotonic() < deadline,
+                  f"ranks still running after {RANK_TIMEOUT_S} s")
+    finally:
+        for proc in ctx.processes:
+            if proc.is_alive():
+                proc.kill()
+            proc.join()
+    return [torch.load(f"{out_dir}/rank{r}.pt", weights_only=False)
+            for r in range(W_MESH)], backend, layout
+
+
+def phase_mesh(torch, dev, fr, auc_one_card):
+    """Phases 10-11: the sharded level and the flagship GBM over W ranks,
+    held against one card. Returns (rank 0's launch counts, the largest
+    |err| of each shard kernel against its plain version over the ranks,
+    the full frame's bins for phase 12)."""
+    import tempfile
+    from h2o3_tpu_torch.frame.binning import bin_frame
+    from h2o3_tpu_torch.ops.kernels import treekernel as tk
+    x = [c for c in fr.names if c != "IsDepDelayed"]
+    bm = bin_frame(fr, x, nbins=64, nbins_cats=1024)
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as out_dir:
+        ranks, backend, layout = spawn_ranks(torch, out_dir)
+    say(f"phase10-11 ranks done in {time.perf_counter() - t0:.3f} s "
+        "(spawn, ingest, both phases)")
+    # phase 10 against one card over all rows
+    check(torch.equal(torch.cat([r["bins"] for r in ranks]).to(dev),
+                      bm.bins), "partitioned bins != one-card bins")
+    tp, sc, is_cat, cm, lo, hi = level_plan(bm, torch, dev)
+    ops = tk.level_operands(cm, bm.nbins, is_cat, None, lo, hi, sc, dev)
+    B = bm.nbins_total
+    stats = dyadic_stats(N_MAIN, 9, torch, dev)
+    nid = torch.zeros(N_MAIN, dtype=torch.int32, device=dev)
+    prev = None
+    for d in range(6):
+        L, Lh = 2 ** d, max(2 ** d // 2, 1)
+        lh = tk.tree_hist(bm.bins, nid, stats, d=d, n_nodes_h=Lh, n_bins=B)
+        out = tk.tree_split(lh, prev, *ops, d=d, n_nodes=L, n_bins=B)
+        dec = (out[2], out[3], out[4], out[8], out[9], out[7])
+        new = tk.tree_partition(bm.bins, nid, *dec, n_bins=B)
+        for r, res in enumerate(ranks):
+            lev = res["levels"][d]
+            check(torch.equal(lev["hist"].to(dev), lh),
+                  f"d={d}: rank {r}'s all-reduced histogram != one card")
+            for i, (a, b) in enumerate(zip(lev["split"], out)):
+                check(identical(a.to(dev), b),
+                      f"d={d}: rank {r}'s split output {i} != one card")
+        cat = torch.cat([res["levels"][d]["nid"] for res in ranks]).to(dev)
+        check(torch.equal(cat, new), f"d={d}: concatenated nids != one card")
+        prev, nid = out[0], new
+    say(f"phase10 sharded level, {W_MESH} ranks x {N_MAIN // W_MESH} rows, "
+        "d=0..5: all-reduced histograms == one card's over all "
+        f"{N_MAIN} rows, splits identical on every rank and == one card, "
+        "concatenated routing == one card (all EXACT)")
+    # phase 11: the main path over W ranks
+    for r, res in enumerate(ranks):
+        coll = res["collectives"]
+        say(f"phase11 rank {r} rows [{res['span'][0]}, {res['span'][1]}): "
+            f"ingest {res['t_ingest']:.3f} s, train {res['t_train']:.3f} s "
+            f"({N_MAIN * FLAGSHIP['ntrees'] / res['t_train']:.6g} "
+            f"rows*trees/s; bin_frame alone {res['t_bin']:.3f} s), predict "
+            f"{res['t_pred']:.3f} s, AUC "
+            f"{res['auc']:.6f}, logloss {res['logloss']:.6f}, peak device "
+            f"memory {res['peak'] / 2**30:.3f} GiB; all-reduce "
+            f"{int(coll['all_reduce'])} calls, {int(coll['bytes'])} bytes, "
+            f"{coll['seconds']:.3f} s per fit; launches {res['counts']}")
+        check(torch.equal(res["feat"], ranks[0]["feat"]) and torch.equal(
+            res["leaf"], ranks[0]["leaf"]), f"rank {r}'s forest differs")
+    d_auc = abs(ranks[0]["auc"] - auc_one_card)
+    check(d_auc < 5e-3, f"mesh AUC {ranks[0]['auc']} vs one card "
+                        f"{auc_one_card}")
+    say(f"phase11 main path over {W_MESH} ranks ({layout}, backend "
+        f"{backend}): every rank holds the same forest; |AUC - phase 4 "
+        f"AUC| {d_auc:.3g} (tolerance 5e-3)")
+    errs = {k: max(r["errs"][k] for r in ranks) for k in ranks[0]["errs"]}
+    return ranks[0]["counts"], errs, bm
+
+
+def phase_shard_timing(torch, dev, bm, counts):
+    """Phase 12: ``shard_hist`` and ``shard_partition`` at the shard
+    shapes (one rank's N/W rows), d=0..5, on one card alone."""
+    n = N_MAIN // W_MESH
+    return timing_records(level_timing(
+        torch, dev, bm, ("shard_hist", "shard_partition"), n), counts, n,
+        "phase12")
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -911,18 +1208,25 @@ def main() -> int:
     worst = phase_kernels(torch, dev, bm)
     phase_grow_tree(torch, dev, bm)
     model, fr, counts_gbm = phase_main(torch, dev, cols, domains)
+    auc_one_card = model.training_metrics["AUC"]
     phase_profile(torch, dev, fr)
     records = phase_timing(torch, dev, model, counts_gbm)
     phase_drf_grow_tree(torch, dev, bm)
     del fr_k, bm, model
     counts_drf = phase_drf(torch, dev, fr)
-    del fr, cols
+    del cols
 
     ucols, udomains = criteo_arrays(N_UPLIFT)
     worst["histogram"] = phase_hist_kernel(torch, dev, ucols, udomains)
     umodel, ufr, counts_up = phase_uplift(torch, dev, ucols, udomains)
     records.append(phase_hist_timing(torch, dev, umodel, ufr, counts_up))
-    paths = {"gbm": counts_gbm, "drf": counts_drf, "uplift": counts_up}
+    del umodel, ufr, ucols
+
+    counts_mesh, errs, bm = phase_mesh(torch, dev, fr, auc_one_card)
+    worst.update(errs)
+    records += phase_shard_timing(torch, dev, bm, counts_mesh)
+    paths = {"gbm": counts_gbm, "drf": counts_drf, "uplift": counts_up,
+             "gbm_mesh": counts_mesh}
     for rec in records:
         rec["max_abs_err"] = worst[rec["name"]]
         rec["launches_by_path"] = {p: c[rec["name"]]

@@ -3,6 +3,10 @@
 Reference: h2o3_tpu/frame/binning.py. Binning runs ONCE up front into an
 int8/int32 [N, F] device matrix, so every tree level is integer work.
 
+A partitioned frame (``Frame.from_numpy_partitioned``) takes its edges
+from the full host views, so every rank gets the same edges, and bins
+only its own rows on its device.
+
 Layout per feature f with ``nb[f]`` real bins: bin ids 0..nb[f]-1 hold
 values, bin id B-1 (shared max) holds NAs; unused ids between are empty
 and never win a split because their counts are zero.
@@ -198,8 +202,8 @@ def bin_frame(frame: Frame, features: Sequence[str], nbins: int = 64,
                            B=B, is_cat=[bool(v) for v in is_cat],
                            div=[int(v) for v in div])
     else:
-        bins = torch.zeros((frame.nrows_padded, 0), dtype=torch.int32,
-                           device=device)
+        lo, hi = frame.span
+        bins = torch.zeros((hi - lo, 0), dtype=torch.int32, device=device)
     return BinnedMatrix(bins=bins, nbins=torch.from_numpy(nb).to(device),
                         edges=edges_dev, is_cat=is_cat, names=names,
                         nbins_total=B, nrows=frame.nrows, domains=domains,

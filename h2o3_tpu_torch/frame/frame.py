@@ -1,29 +1,44 @@
 """Frame — a named list of device columns of one padded row count.
 
-Reference: h2o3_tpu/frame/frame.py (``Frame.from_numpy``, ``col``,
-``names``, ``nrows_padded``, ``valid_weights``). Here a plain object on
-one device: no DKV key, no durability hooks, no derived-matrix caches.
+Reference: h2o3_tpu/frame/frame.py (``Frame.from_numpy``,
+``Frame.from_numpy_partitioned``, ``col``, ``names``, ``nrows_padded``,
+``valid_weights``). Here a plain object: no DKV key, no durability
+hooks, no derived-matrix caches.
+
+A frame built by ``from_numpy`` holds all its rows on one device. A
+frame built by ``from_numpy_partitioned`` on a sharded mesh holds, on
+each rank's device, only that rank's padded rows ``span = [lo, hi)``;
+every column's exact float64 host view still covers all rows.
 """
 
 from __future__ import annotations
 
-from typing import Dict, List, Optional, Sequence, Union
+import dataclasses
+from typing import Dict, List, Optional, Sequence, Tuple, Union
 
 import numpy as np
 import torch
 
+from h2o3_tpu_torch.frame import partition as part_mod
 from h2o3_tpu_torch.frame.column import (Column, column_from_numpy,
                                          factorize_numeric)
 from h2o3_tpu_torch.parallel import device as dev_mod
+from h2o3_tpu_torch.parallel import mesh as mesh_mod
 
 
 class Frame:
     def __init__(self, columns: List[Column], nrows: int,
-                 device: torch.device):
+                 device: torch.device, *, npad: Optional[int] = None,
+                 mesh: Optional[mesh_mod.Mesh] = None,
+                 span: Optional[Tuple[int, int]] = None, block: int = 8):
         self._cols: Dict[str, Column] = {c.name: c for c in columns}
         self._order: List[str] = [c.name for c in columns]
         self.nrows = nrows
         self.device = device
+        self.nrows_padded = nrows if npad is None else npad
+        self.mesh = mesh             # None: all rows on one device
+        self.span = (0, self.nrows_padded) if span is None else span
+        self.block = block
 
     @staticmethod
     def from_numpy(arrays: Dict[str, np.ndarray],
@@ -38,7 +53,7 @@ class Frame:
         device = dev_mod.resolve_device(device)
         names = list(arrays.keys())
         n = len(next(iter(arrays.values()))) if names else 0
-        npad = dev_mod.padded_rows(n, block=block)
+        npad = mesh_mod.padded_rows(n, mesh_mod.LOCAL, block)
         cols = []
         for name in names:
             v = np.asarray(arrays[name])
@@ -48,7 +63,68 @@ class Frame:
                 dom, v = factorize_numeric(v)
             cols.append(column_from_numpy(name, v, npad, device,
                                           domain=dom))
-        return Frame(cols, n, device)
+        return Frame(cols, n, device, npad=npad, block=block)
+
+    @staticmethod
+    def from_numpy_partitioned(local_cols: Dict[str, np.ndarray],
+                               nrows: int, categorical: Sequence[str] = (),
+                               domains: Optional[Dict[str, List[str]]] = None,
+                               block: int = 8,
+                               mesh: Optional[mesh_mod.Mesh] = None
+                               ) -> "Frame":
+        """Collective partitioned ingest: every rank calls this at the
+        same point with ONLY its ``mesh.owned_rows(nrows, mesh, block)``
+        slice of each column, and its device gets only its own padded
+        rows. The decisions ``from_numpy`` makes from all rows (string
+        and numeric-categorical domains) are agreed in one exchange
+        (``frame/partition.py``), and every rank gets the full float64
+        host views from one batched all-gather, so the frame equals
+        ``from_numpy`` of the concatenated rows: the same domains and
+        host views, and the same device bytes for the rank's rows. The
+        device is the mesh's; world 1 is ``from_numpy``."""
+        mesh = mesh or mesh_mod.get_mesh()
+        device = dev_mod.resolve_device(mesh.device)
+        nrows = int(nrows)
+        npad = mesh_mod.padded_rows(nrows, mesh, block)
+        lo, hi = mesh_mod.partition_bounds(npad, mesh)
+        n_local = max(min(hi, nrows) - lo, 0)   # this rank's logical rows
+        names = list(local_cols.keys())
+        facts = {}
+        for name in names:
+            v = np.asarray(local_cols[name])
+            if v.shape[0] != n_local:
+                raise ValueError(
+                    f"column {name!r}: got {v.shape[0]} rows; rank "
+                    f"{mesh.rank} owns logical rows [{min(lo, nrows)}, "
+                    f"{min(hi, nrows)})")
+            if (domains or {}).get(name) is not None:
+                continue                  # coded already: nothing to agree
+            if v.dtype == object or v.dtype.kind in "US":
+                facts[name] = part_mod.local_str_levels(v)
+            elif name in categorical:
+                facts[name] = part_mod.local_num_levels(v)
+        per_rank = part_mod.allgather_objects(facts, mesh)
+        cols = []
+        for name in names:
+            v = np.asarray(local_cols[name])
+            dom = (domains or {}).get(name)
+            if name in facts:
+                merged = [f[name] for f in per_rank]
+                if isinstance(facts[name], list):
+                    dom = part_mod.merge_str_levels(merged)
+                else:
+                    levels = part_mod.merge_num_levels(merged)
+                    dom = [str(u) for u in levels]
+                    ok = np.isfinite(v.astype(np.float64))
+                    v = np.where(ok, np.searchsorted(
+                        levels, v.astype(levels.dtype)), -1).astype(np.int32)
+            cols.append(column_from_numpy(name, v, hi - lo, device,
+                                          domain=dom))
+        hosts = part_mod.allgather_rows({c.name: c.host for c in cols}, mesh)
+        cols = [dataclasses.replace(c, nrows=nrows, host=hosts[c.name])
+                for c in cols]
+        return Frame(cols, nrows, device, npad=npad, mesh=mesh,
+                     span=(lo, hi), block=block)
 
     @property
     def names(self) -> List[str]:
@@ -59,10 +135,9 @@ class Frame:
         return len(self._order)
 
     @property
-    def nrows_padded(self) -> int:
-        for c in self._cols.values():
-            return c.data.shape[0]
-        return self.nrows
+    def partitioned(self) -> bool:
+        """True when this rank's device holds only its own rows."""
+        return mesh_mod.is_sharded(self.mesh)
 
     def col(self, name_or_idx: Union[str, int]) -> Column:
         if isinstance(name_or_idx, int):
@@ -73,9 +148,23 @@ class Frame:
         return name in self._cols
 
     def valid_weights(self) -> torch.Tensor:
-        """1.0 for logical rows, 0.0 for padding rows."""
-        return dev_mod.valid_mask(self.nrows, self.nrows_padded,
-                                  self.device)
+        """1.0 for logical rows, 0.0 for padding rows, over the rows on
+        this rank's device."""
+        return mesh_mod.valid_mask(self.nrows, self.span, self.device)
+
+    @property
+    def local_nrows(self) -> int:
+        """Logical (unpadded) rows on this rank's device."""
+        lo, hi = self.span
+        return max(min(hi, self.nrows) - lo, 0)
+
+    def local_rows(self, host: np.ndarray, fill=0) -> np.ndarray:
+        """This rank's padded rows ``span`` of a full host column
+        ``host`` [nrows]; padding rows hold ``fill``."""
+        lo, hi = self.span
+        part = np.asarray(host)[lo:lo + self.local_nrows]
+        return np.pad(part, (0, hi - lo - part.shape[0]),
+                      constant_values=fill)
 
     def __repr__(self) -> str:
         return (f"<Frame {self.nrows}x{self.ncols} on {self.device} "

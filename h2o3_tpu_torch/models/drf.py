@@ -33,7 +33,8 @@ from h2o3_tpu_torch.frame.frame import Frame
 from h2o3_tpu_torch.models import metrics as mm
 from h2o3_tpu_torch.models.gbm import _sample_columns, tree_generator
 from h2o3_tpu_torch.models.model import (Model, ModelBuilder, ModelCategory,
-                                         adapt_domain, infer_category)
+                                         adapt_domain, infer_category,
+                                         require_local)
 from h2o3_tpu_torch.models.tree import (Tree, TreeParams, bucket_depth,
                                         grow_tree, predict_forest,
                                         scalars_of, stack_trees)
@@ -86,6 +87,7 @@ class DRFModel(Model):
         return torch.stack([1.0 - p1, p1], dim=1)
 
     def _score_raw(self, frame: Frame) -> Dict[str, np.ndarray]:
+        require_local(frame, self.algo)
         bm = rebin_for_scoring(self.bm, frame)
         n = frame.nrows
         if self.output["category"] == ModelCategory.REGRESSION:
@@ -96,6 +98,7 @@ class DRFModel(Model):
                 "p0": p[:, 0], "p1": p[:, 1]}
 
     def model_performance(self, frame: Frame):
+        require_local(frame, self.algo)
         y = self.output["response"]
         bm = rebin_for_scoring(self.bm, frame)
         w = frame.valid_weights()

@@ -12,6 +12,14 @@ Random numbers: each tree draws its row and column samples from a
 ``torch.Generator`` seeded from (seed, tree index) — the reference's
 ``_tree_keys`` contract that a tree's randomness depends on its global
 index only. The draws differ from the reference's ``jax.random`` bits.
+
+Data-parallel fit: on a frame partitioned over a sharded mesh
+(``Frame.from_numpy_partitioned``) every rank runs this same loop on its
+own rows; ``grow_tree`` sums each level's histogram and the leaf sums
+over the ranks, so every rank grows the same trees. What must agree
+across ranks comes from host views of all rows (f0, the bin edges) or
+from the tree's generator, seeded alike on every rank (the column
+masks); row draws come from a generator seeded from (seed, tree, rank).
 """
 
 from __future__ import annotations
@@ -32,13 +40,15 @@ from h2o3_tpu_torch.models.tree import (Tree, TreeParams, bucket_depth,
                                         grow_tree, predict_forest,
                                         scalars_of, stack_trees)
 from h2o3_tpu_torch.parallel.device import fetch
+from h2o3_tpu_torch.parallel.mesh import fetch_replicated
 
 
-def tree_generator(seed: int, tree_index: int,
-                   device: torch.device) -> torch.Generator:
-    """The generator of one tree's draws, seeded from (seed, index)."""
-    state = np.random.SeedSequence([seed, tree_index]).generate_state(
-        1, np.uint64)[0]
+def tree_generator(seed: int, tree_index: int, device: torch.device,
+                   *stream: int) -> torch.Generator:
+    """The generator of one tree's draws, seeded from (seed, index) and
+    any further ``stream`` numbers (a rank's own row draws)."""
+    state = np.random.SeedSequence([seed, tree_index, *stream]
+                                   ).generate_state(1, np.uint64)[0]
     gen = torch.Generator(device=device)
     gen.manual_seed(int(state) & ((1 << 63) - 1))
     return gen
@@ -57,22 +67,25 @@ def _sample_columns(gen: torch.Generator, F: int, rate: float,
 
 def boost_step(bm: BinnedMatrix, y, w, margin, gen: torch.Generator, *,
                dist, tp: TreeParams, sc, learn_rate: torch.Tensor,
-               sample_rate: float):
-    """One boosting iteration on the device, with no host sync:
-    gradients → row/column samples → one tree → learning-rate-scaled
-    leaves → margin update. Returns (tree, margin, gain_by_feature)."""
+               sample_rate: float, row_gen: Optional[torch.Generator] = None,
+               mesh=None):
+    """One boosting iteration on the device, with no host sync on one
+    device: gradients → row/column samples → one tree → learning-rate-
+    scaled leaves → margin update. Returns (tree, margin,
+    gain_by_feature). Row draws come from ``row_gen`` (default ``gen``);
+    on a sharded ``mesh`` the rows are this rank's."""
     dev = margin.device
     g = dist.grad(y, margin)
     h = dist.hess(y, margin)
     ws = w
     if sample_rate < 1.0:
-        keep = torch.rand(margin.shape[0], generator=gen, device=dev) \
-            < max(sample_rate, 0.0)
+        keep = torch.rand(margin.shape[0], generator=row_gen or gen,
+                          device=dev) < max(sample_rate, 0.0)
         ws = w * keep.to(torch.float32)
     col_mask = _sample_columns(gen, bm.bins.shape[1], tp.col_sample_rate,
                                dev)
     tree, nid, gain = grow_tree(bm.bins, bm.nbins, ws, g, h, col_mask,
-                                params=tp, scalars=sc)
+                                params=tp, scalars=sc, mesh=mesh)
     tree = tree._replace(leaf=learn_rate * tree.leaf)
     return tree, margin + tree.leaf[nid.long()], gain
 
@@ -97,10 +110,21 @@ class GBMModel(Model):
             return get_distribution("bernoulli").link_inv
         return get_distribution(self.dist_name).link_inv
 
+    def _predictions(self, frame: Frame) -> torch.Tensor:
+        """Predictions of the rows on this rank's device."""
+        return self._link_inv()(self._margins(
+            rebin_for_scoring(self.bm, frame)))
+
     def _score_raw(self, frame: Frame) -> Dict[str, np.ndarray]:
-        bm = rebin_for_scoring(self.bm, frame)
-        n = frame.nrows
-        pred = fetch(self._link_inv()(self._margins(bm)))[:n]
+        pred = fetch_replicated(self._predictions(frame),
+                                frame.mesh)[:frame.nrows]
+        return self._columns(pred)
+
+    def _score_local(self, frame: Frame) -> Dict[str, np.ndarray]:
+        return self._columns(
+            fetch(self._predictions(frame))[:frame.local_nrows])
+
+    def _columns(self, pred: np.ndarray) -> Dict[str, np.ndarray]:
         if self.output["category"] == ModelCategory.BINOMIAL:
             t = self.output.get("default_threshold", 0.5)
             return {"predict": (pred >= t).astype(np.int32),
@@ -116,21 +140,21 @@ class GBMModel(Model):
         if wc_name and wc_name in frame:
             wc = frame.col(wc_name).numeric_view()
             w = w * torch.where(torch.isnan(wc), 0.0, wc)
-        npad = bm.bins.shape[0]
         if self.output["category"] == ModelCategory.BINOMIAL:
-            yv = adapt_domain(frame.col(y), self.output["domain"])
-            yv = np.pad(yv, (0, npad - frame.nrows), constant_values=-1)
+            yv = frame.local_rows(adapt_domain(frame.col(y),
+                                               self.output["domain"]), -1)
             w = w * torch.from_numpy((yv >= 0).astype(np.float32)).to(w.device)
             yt = torch.from_numpy(np.maximum(yv, 0).astype(np.float32))
             return mm.binomial_metrics(self._link_inv()(marg),
-                                       yt.to(w.device), w)
+                                       yt.to(w.device), w, mesh=frame.mesh)
         dist = get_distribution(self.dist_name)
         yv = frame.col(y).numeric_view()
         w = w * torch.where(torch.isnan(yv), 0.0, 1.0)
         yv = torch.where(torch.isnan(yv), 0.0, yv)
         return mm.regression_metrics(
             dist.link_inv(marg), yv, w,
-            deviance_fn=lambda yy, pp: dist.deviance(yy, marg))
+            deviance_fn=lambda yy, pp: dist.deviance(yy, marg),
+            mesh=frame.mesh)
 
 
 class GBMEstimator(ModelBuilder):
@@ -140,6 +164,7 @@ class GBMEstimator(ModelBuilder):
     ``NotImplementedError``."""
 
     algo = "gbm"
+    SHARDED = True
 
     DEFAULTS = dict(
         max_runtime_secs=0.0,
@@ -193,6 +218,7 @@ class GBMEstimator(ModelBuilder):
     def _fit(self, frame: Frame, x: Sequence[str], y: Optional[str]):
         p = self.params
         dev = frame.device
+        mesh = frame.mesh
         category = infer_category(frame, y)
         if category == ModelCategory.MULTINOMIAL:
             raise NotImplementedError(
@@ -215,8 +241,7 @@ class GBMEstimator(ModelBuilder):
         wh_host = self._host_weights(frame, y)
         resp_na_host = np.isnan(rc.host_view())
         if resp_na_host.any():
-            keep = np.pad((~resp_na_host).astype(np.float32),
-                          (0, frame.nrows_padded - frame.nrows))
+            keep = frame.local_rows((~resp_na_host).astype(np.float32))
             w = w * torch.from_numpy(keep).to(dev)
         # weighted edges: the row-weight ≡ row-multiplicity contract must
         # hold through the bin sketch too
@@ -255,20 +280,22 @@ class GBMEstimator(ModelBuilder):
         # host weighted mean from the weight mirror — no device sync
         mean_y = (float(np.sum(yv * wh_host))
                   / max(float(np.sum(wh_host)), 1e-12))
-        npad = bm.bins.shape[0]
-        y_dev = torch.from_numpy(np.pad(yv, (0, npad - frame.nrows))).to(dev)
+        y_dev = torch.from_numpy(frame.local_rows(yv)).to(dev)
         f0 = np.float32(dist.init_margin(mean_y))
         output["init_f"] = float(f0)
-        margin = torch.full((npad,), float(f0), dtype=torch.float32,
-                            device=dev)
+        margin = torch.full((bm.bins.shape[0],), float(f0),
+                            dtype=torch.float32, device=dev)
 
         trees: List[Tree] = []
         gains = torch.zeros(len(x), dtype=torch.float32, device=dev)
         for t in range(ntrees):
+            gen = tree_generator(seed, t, dev)
+            row_gen = (tree_generator(seed, t, dev, mesh.rank)
+                       if frame.partitioned else gen)
             tree, margin, gain = boost_step(
-                bm, y_dev, w, margin, tree_generator(seed, t, dev),
-                dist=dist, tp=tp, sc=sc, learn_rate=learn_rate,
-                sample_rate=sample_rate)
+                bm, y_dev, w, margin, gen, dist=dist, tp=tp, sc=sc,
+                learn_rate=learn_rate, sample_rate=sample_rate,
+                row_gen=row_gen, mesh=mesh)
             gains = gains + gain
             trees.append(tree)
         forest = stack_trees(trees)
@@ -277,13 +304,14 @@ class GBMEstimator(ModelBuilder):
         mfin = model._margins(bm)
         if category == ModelCategory.BINOMIAL:
             model.training_metrics = mm.binomial_metrics(
-                dist.link_inv(mfin), y_dev, w)
+                dist.link_inv(mfin), y_dev, w, mesh=mesh)
             model.output["default_threshold"] = \
                 model.training_metrics["max_f1_threshold"]
         else:
             model.training_metrics = mm.regression_metrics(
                 dist.link_inv(mfin), y_dev, w,
-                deviance_fn=lambda yy, pp: dist.deviance(yy, mfin))
+                deviance_fn=lambda yy, pp: dist.deviance(yy, mfin),
+                mesh=mesh)
         model.output["scoring_history"] = []
         # scaled relative importance (hex/VarImp semantics)
         vi = fetch(gains)

@@ -4,7 +4,8 @@ Reference: h2o3_tpu/models/metrics.py (hex/ModelMetrics*.java, exact AUC
 from a 400-bin score histogram, hex/AUC2.java:24). One device pass builds
 the weighted sums and the score histogram (per-row terms in float32 as
 the reference forms them, sums in float64); the host finishes the
-scalars.
+scalars. On a sharded mesh each rank passes its own rows and the sums
+and the histogram are all-reduced before the host finishes them.
 """
 
 from __future__ import annotations
@@ -13,6 +14,8 @@ from typing import Dict
 
 import numpy as np
 import torch
+
+from h2o3_tpu_torch.parallel.map_reduce import all_reduce
 
 AUC_NBINS = 400  # hex/AUC2.java:24
 
@@ -90,15 +93,16 @@ def _as_f32(x, like: torch.Tensor = None) -> torch.Tensor:
     return torch.as_tensor(np.asarray(x), dtype=torch.float32, device=dev)
 
 
-def binomial_metrics(p, y, w=None) -> ModelMetrics:
+def binomial_metrics(p, y, w=None, mesh=None) -> ModelMetrics:
     """hex/ModelMetricsBinomial.java: AUC/logloss/Brier from one pass.
 
     p: P(class 1) [N]; y: 0/1 labels; w: weights (0 on padding rows).
+    On a sharded ``mesh`` the metrics cover every rank's rows.
     """
     p = _as_f32(p)
     y = _as_f32(y, p)
     w = torch.ones_like(p) if w is None else _as_f32(w, p)
-    sums, hist = _binomial_pass(p, y, w)
+    sums, hist = (all_reduce(t, mesh) for t in _binomial_pass(p, y, w))
     tot, sse, ll, pos = (float(x) for x in sums.cpu().numpy())
     hist = hist.cpu().numpy()
     pos_h, neg_h = hist[:, 0], hist[:, 1]
@@ -122,8 +126,10 @@ def binomial_metrics(p, y, w=None) -> ModelMetrics:
     return mm
 
 
-def regression_metrics(pred, y, w=None, deviance_fn=None) -> ModelMetrics:
-    """hex/ModelMetricsRegression.java: MSE/MAE/RMSLE/deviance/R2."""
+def regression_metrics(pred, y, w=None, deviance_fn=None,
+                       mesh=None) -> ModelMetrics:
+    """hex/ModelMetricsRegression.java: MSE/MAE/RMSLE/deviance/R2; on a
+    sharded ``mesh`` over every rank's rows."""
     pred = _as_f32(pred)
     y = _as_f32(y, pred)
     w = torch.ones_like(y) if w is None else _as_f32(w, pred)
@@ -135,8 +141,8 @@ def regression_metrics(pred, y, w=None, deviance_fn=None) -> ModelMetrics:
     terms = torch.stack([w, w * (y - pred) ** 2, w * torch.abs(y - pred),
                          w * rmsle_term, w * y, w * y * y,
                          w * dev.to(torch.float32)], dim=1)
-    tot, sse, sae, sle, sy, syy, sdev = (
-        float(x) for x in terms.to(torch.float64).sum(dim=0).cpu().numpy())
+    sums = all_reduce(terms.to(torch.float64).sum(dim=0), mesh)
+    tot, sse, sae, sle, sy, syy, sdev = (float(x) for x in sums.cpu().numpy())
     mse = sse / max(tot, 1e-12)
     var_y = syy / max(tot, 1e-12) - (sy / max(tot, 1e-12)) ** 2
     return ModelMetrics(

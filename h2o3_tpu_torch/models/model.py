@@ -7,7 +7,9 @@ Reference: h2o3_tpu/models/model.py. The same lifecycle:
     mm    = model.model_performance(frame)    # ModelMetrics
 
 The port keeps only the fit: no Job, DKV, memory governor, recovery,
-telemetry or cross-validation around it.
+telemetry or cross-validation around it. A ``ModelBuilder`` with ``SHARDED``
+trains on a frame partitioned over a sharded mesh; its model scores one
+(``predict`` returns a frame partitioned like its input).
 """
 
 from __future__ import annotations
@@ -61,18 +63,39 @@ class Model:
         self.training_metrics = None
 
     def _score_raw(self, frame: Frame) -> Dict[str, np.ndarray]:
+        """Prediction columns of all the frame's rows, on the host."""
         raise NotImplementedError
 
+    def _score_local(self, frame: Frame) -> Dict[str, np.ndarray]:
+        """Prediction columns of the logical rows on this rank's device."""
+        raise NotImplementedError(
+            f"{self.algo}: scoring a frame partitioned over a sharded mesh "
+            "is not ported yet")
+
     def predict(self, frame: Frame) -> Frame:
-        """Bulk scoring → prediction Frame on the scored frame's device."""
-        cols = self._score_raw(frame)
+        """Bulk scoring → prediction Frame on the scored frame's device,
+        partitioned like the scored frame."""
         domains = {}
         if self.output.get("domain"):
             domains["predict"] = self.output["domain"]
-        return Frame.from_numpy(cols, domains=domains, device=frame.device)
+        if frame.partitioned:
+            return Frame.from_numpy_partitioned(
+                self._score_local(frame), frame.nrows, domains=domains,
+                block=frame.block, mesh=frame.mesh)
+        return Frame.from_numpy(self._score_raw(frame), domains=domains,
+                                device=frame.device)
 
     def model_performance(self, frame: Frame):
         raise NotImplementedError
+
+
+def require_local(frame: Frame, algo: str) -> None:
+    """Raise for a frame partitioned over a sharded mesh: ``algo`` does
+    not run on one yet."""
+    if frame.partitioned:
+        raise NotImplementedError(
+            f"{algo} on a frame partitioned over a sharded mesh is not "
+            "ported yet")
 
 
 class ModelBuilder:
@@ -80,6 +103,7 @@ class ModelBuilder:
     the predictors and runs ``_fit``."""
 
     algo: str = "base"
+    SHARDED = False     # trains on a frame partitioned over ranks
 
     def __init__(self, **params):
         self.params = params
@@ -126,5 +150,7 @@ class ModelBuilder:
     def train(self, training_frame: Frame, y: Optional[str] = None,
               x: Optional[Sequence[str]] = None):
         """Fit on ``training_frame`` (on its device) → Model."""
+        if not self.SHARDED:
+            require_local(training_frame, self.algo)
         return self._fit(training_frame, self.resolve_x(training_frame, x, y),
                          y)

@@ -5,7 +5,8 @@ static depth D: level d has 2^d node slots (empty nodes have zero
 histograms and never split). Per level: histogram → split scan → row
 routing (one ``fused_level``: three CUDA kernels on the card, their
 plain versions on the CPU), then the leaves get Newton values. No host
-round trips inside a tree.
+round trips inside a tree on one device; on a sharded mesh over gloo,
+each level's all-reduce waits on the host.
 
 Forests are laid out at ``bucket_depth(max_depth)`` with the actual depth
 as a traced limit that masks deeper splits, exactly as the reference
@@ -145,7 +146,7 @@ def grow_tree(bins, nb, w, g, h, col_mask, *, params: TreeParams,
               scalars: TreeScalars, mtries: int = 0,
               generator: Optional[torch.Generator] = None,
               constraints=None, interaction_sets=None,
-              level_fn=fused_level):
+              level_fn=fused_level, mesh=None):
     """Grow one tree; returns (Tree, final_leaf_id_per_row, gain_by_feat).
 
     bins [Npad, F] int8/int32; w zero on padding rows; col_mask [F] bool
@@ -159,7 +160,10 @@ def grow_tree(bins, nb, w, g, h, col_mask, *, params: TreeParams,
     features sharing a set with every feature on its path).
     ``level_fn`` is ``fused_level`` (kernels on CUDA tensors) or
     ``plain_level`` (the plain versions, for holding one against the
-    other).
+    other). On a sharded ``mesh`` the rows are this rank's: each level's
+    histogram and the leaf sums are summed over the ranks, so every rank
+    makes the same decisions and gets the same Tree; the returned leaf
+    ids are its own rows'.
     """
     D = params.max_depth
     sc = scalars
@@ -204,7 +208,7 @@ def grow_tree(bins, nb, w, g, h, col_mask, *, params: TreeParams,
         (hist, bg, bf, bt, bnal, blv, brv, leftmask, split,
          nid_next) = level_fn(
             bins, nid, stats3, prev_hist, cm, nb, is_cat, constraints, lo,
-            hi, sc, d=d, n_nodes=L, n_bins=B)
+            hi, sc, d=d, n_nodes=L, n_bins=B, mesh=mesh)
         prev_hist = hist
         feats[d, :L] = torch.where(split, bf, 0)
         threshs[d, :L] = torch.where(split, bt, B)
@@ -245,7 +249,7 @@ def grow_tree(bins, nb, w, g, h, col_mask, *, params: TreeParams,
 
     # leaf Newton values from the final assignment (GammaPass analogue)
     nleaf = 2 ** D
-    leaf_stats = segment_sum(nid, stats3, n_nodes=nleaf)
+    leaf_stats = segment_sum(nid, stats3, n_nodes=nleaf, mesh=mesh)
     G, H = leaf_stats[:, 1], leaf_stats[:, 2]
     leaf = torch.where(leaf_stats[:, 0] > 0,
                        -G / (H + sc.reg_lambda + 1e-10), 0.0)

@@ -30,7 +30,8 @@ from h2o3_tpu_torch.frame.binning import (BinnedMatrix, bin_frame,
 from h2o3_tpu_torch.frame.frame import Frame
 from h2o3_tpu_torch.models import metrics as mm
 from h2o3_tpu_torch.models.gbm import tree_generator
-from h2o3_tpu_torch.models.model import Model, ModelBuilder, adapt_domain
+from h2o3_tpu_torch.models.model import (Model, ModelBuilder, adapt_domain,
+                                         require_local)
 from h2o3_tpu_torch.models.tree import (Tree, _mtries_mask, predict_forest,
                                         row_feature_values, stack_trees,
                                         zero_catsplit)
@@ -211,6 +212,7 @@ class UpliftDRFModel(Model):
         self.bm = bm
 
     def _score_raw(self, frame: Frame) -> Dict[str, np.ndarray]:
+        require_local(frame, self.algo)
         bm = rebin_for_scoring(self.bm, frame)
         B = self.bm.nbins_total
         T = self.forest.feat.shape[0]

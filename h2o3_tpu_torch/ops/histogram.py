@@ -2,7 +2,8 @@
 
 Reference: h2o3_tpu/ops/histogram.py. ``histogram`` is the reference-
 shaped entry point: it builds the {w, w·g, w·h} stats and sums them per
-(node, feature, bin) over ALL nodes (no sibling subtraction). On CUDA
+(node, feature, bin) over ALL nodes (no sibling subtraction), and over
+every rank of a sharded mesh. On CUDA
 tensors it runs the ``histogram`` kernel (ops/kernels/histogram.py, the
 port of ``pallas_local_histogram``); on CPU tensors its plain version.
 
@@ -15,6 +16,8 @@ also the plain version of the ``tree_hist`` kernel.
 from __future__ import annotations
 
 import torch
+
+from h2o3_tpu_torch.parallel.map_reduce import all_reduce
 
 
 def local_histogram(bins: torch.Tensor, nid: torch.Tensor,
@@ -44,14 +47,15 @@ def _stats(w, g, h) -> torch.Tensor:
     return torch.stack([w, w * g, w * h], dim=1).to(torch.float32)
 
 
-def histogram(bins, nid, w, g, h, *, n_nodes: int,
-              n_bins: int) -> torch.Tensor:
+def histogram(bins, nid, w, g, h, *, n_nodes: int, n_bins: int,
+              mesh=None) -> torch.Tensor:
     """[n_nodes, F, n_bins, {w, w·g, w·h}] over all rows: the ``histogram``
-    kernel on CUDA tensors, ``local_histogram`` on CPU tensors. Padding
-    rows must have w == 0."""
+    kernel on CUDA tensors, ``local_histogram`` on CPU tensors, summed
+    over the ranks of a sharded ``mesh``. Padding rows must have
+    w == 0."""
     from h2o3_tpu_torch.ops.kernels.histogram import full_histogram
-    return full_histogram(bins, nid, _stats(w, g, h), n_nodes=n_nodes,
-                          n_bins=n_bins)
+    return all_reduce(full_histogram(bins, nid, _stats(w, g, h),
+                                     n_nodes=n_nodes, n_bins=n_bins), mesh)
 
 
 def plain_histogram(bins, nid, w, g, h, *, n_nodes: int,

@@ -40,7 +40,8 @@ FLAGS = ["-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
 EXTRA = {"treekernel": ["-fmad=false"]}
 
 LAUNCHES: Dict[str, int] = {"tree_hist": 0, "tree_split": 0,
-                            "tree_partition": 0, "histogram": 0}
+                            "tree_partition": 0, "histogram": 0,
+                            "shard_hist": 0, "shard_partition": 0}
 
 _LIBS: Dict[str, ctypes.CDLL] = {}
 

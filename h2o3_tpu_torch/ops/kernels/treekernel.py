@@ -18,6 +18,17 @@ A wrapper given CUDA tensors launches its kernel on the current stream
 runs its plain version. ``fused_level`` composes the three wrappers;
 ``plain_level`` composes the three plain versions on any device and is
 the reference the kernels are held against on the card.
+
+On a sharded mesh (``parallel/mesh.py``, W ranks each holding its own
+rows) the level runs as the reference's two-kernel variant
+(``_hist_call`` → ``psum`` → ``_level_boundary`` → ``_partition_call``):
+
+- ``shard_hist``      the rank's histogram (``tree_hist``'s device code
+                      on the rank's rows, counted under its own name);
+- ``all_reduce``      the sum over the ranks (``torch.distributed``);
+- ``tree_split``      on the summed histogram, identical on every rank;
+- ``shard_partition`` the rank's rows routed (``tree_partition``'s
+                      device code, counted under its own name).
 """
 
 from __future__ import annotations
@@ -31,6 +42,8 @@ from h2o3_tpu_torch.ops.histogram import local_histogram
 from h2o3_tpu_torch.ops.kernels import (bin_dtype, launched, need, on_cuda,
                                         slab_geometry, stream)
 from h2o3_tpu_torch.ops.split_scan import best_splits
+from h2o3_tpu_torch.parallel.map_reduce import all_reduce
+from h2o3_tpu_torch.parallel.mesh import is_sharded
 
 _VP, _I, _LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 
@@ -69,7 +82,17 @@ def hist_plain(bins, nid, stats, *, d: int, n_nodes_h: int, n_bins: int):
 
 def tree_hist(bins, nid, stats, *, d: int, n_nodes_h: int, n_bins: int):
     """[Lh, F, B, 3] level histogram of ``stats`` [N, 3]."""
-    if not on_cuda(bins, "tree_hist"):
+    return _hist(bins, nid, stats, d, n_nodes_h, n_bins, "tree_hist")
+
+
+def shard_hist(bins, nid, stats, *, d: int, n_nodes_h: int, n_bins: int):
+    """``tree_hist`` of this rank's rows, before the sum over ranks (the
+    port of the reference's per-shard ``_hist_call``)."""
+    return _hist(bins, nid, stats, d, n_nodes_h, n_bins, "shard_hist")
+
+
+def _hist(bins, nid, stats, d, n_nodes_h, n_bins, name):
+    if not on_cuda(bins, name):
         return hist_plain(bins, nid, stats, d=d, n_nodes_h=n_nodes_h,
                           n_bins=n_bins)
     dev = bins.device
@@ -85,7 +108,7 @@ def tree_hist(bins, nid, stats, *, d: int, n_nodes_h: int, n_bins: int):
     rc = _lib().tree_hist(p_bins, is8, p_nid, p_stats, out.data_ptr(), N,
                           F, B, Lh, int(d > 0), rows_per_block, node_chunk,
                           stream(dev))
-    launched(_lib(), rc, "tree_hist")
+    launched(_lib(), rc, name)
     return out
 
 
@@ -185,7 +208,21 @@ def partition_plain(bins, nid, feat, thresh, na_left, split, cat_split,
 def tree_partition(bins, nid, feat, thresh, na_left, split, cat_split,
                    leftmask, *, n_bins: int):
     """Routed node ids [N] int32: ``2·nid`` (left) or ``2·nid + 1``."""
-    if not on_cuda(bins, "tree_partition"):
+    return _partition(bins, nid, feat, thresh, na_left, split, cat_split,
+                      leftmask, n_bins, "tree_partition")
+
+
+def shard_partition(bins, nid, feat, thresh, na_left, split, cat_split,
+                    leftmask, *, n_bins: int):
+    """``tree_partition`` of this rank's rows on the replicated decisions
+    (the port of the reference's per-shard ``_partition_call``)."""
+    return _partition(bins, nid, feat, thresh, na_left, split, cat_split,
+                      leftmask, n_bins, "shard_partition")
+
+
+def _partition(bins, nid, feat, thresh, na_left, split, cat_split, leftmask,
+               n_bins, name):
+    if not on_cuda(bins, name):
         return partition_plain(bins, nid, feat, thresh, na_left, split,
                                cat_split, leftmask, n_bins=n_bins)
     dev = bins.device
@@ -210,7 +247,7 @@ def tree_partition(bins, nid, feat, thresh, na_left, split, cat_split,
     rc = _lib().tree_partition(ptrs[0], is8, ptrs[1], out.data_ptr(),
                                *tables, N, F, n_bins, L, n_blocks,
                                stream(dev))
-    launched(_lib(), rc, "tree_partition")
+    launched(_lib(), rc, name)
     return out
 
 
@@ -243,12 +280,13 @@ def level_operands(col_mask, nb, is_cat, constraints, lo, hi, scalars,
 
 
 def _level(hist_fn, split_fn, part_fn, bins, nid, stats, prev_hist,
-           col_mask, nb, is_cat, constraints, lo, hi, scalars, *, d,
+           col_mask, nb, is_cat, constraints, lo, hi, scalars, mesh, *, d,
            n_nodes, n_bins):
     cm, nb, ic, cons, lo, hi, knobs, dl = level_operands(
         col_mask, nb, is_cat, constraints, lo, hi, scalars, bins.device)
     lh = hist_fn(bins, nid, stats, d=d, n_nodes_h=max(n_nodes // 2, 1),
                  n_bins=n_bins)
+    all_reduce(lh, mesh)
     hist, bg, bf, bt, bnal, blv, brv, lmask, split, cs = split_fn(
         lh, prev_hist, cm, nb, ic, cons, lo, hi, knobs, dl, d=d,
         n_nodes=n_nodes, n_bins=n_bins)
@@ -259,7 +297,7 @@ def _level(hist_fn, split_fn, part_fn, bins, nid, stats, prev_hist,
 
 def fused_level(bins, nid, stats, prev_hist, col_mask, nb, is_cat,
                 constraints, lo, hi, scalars, *, d: int, n_nodes: int,
-                n_bins: int):
+                n_bins: int, mesh=None):
     """One tree level: returns (hist [L,F,B,3], gain, feat, thresh,
     na_left, left_val, right_val, leftmask, split, new_nid).
 
@@ -267,19 +305,24 @@ def fused_level(bins, nid, stats, prev_hist, col_mask, nb, is_cat,
     ``prev_hist`` the previous level's histogram (None at the root), and
     ``split`` already folds in the min-split-improvement and depth-limit
     masks. CUDA inputs run the three kernels; CPU inputs their plain
-    versions. The reference's ``block_rows``/``mesh``/``interpret``
-    arguments have no counterpart on one device."""
-    return _level(tree_hist, tree_split, tree_partition, bins, nid, stats,
-                  prev_hist, col_mask, nb, is_cat, constraints, lo, hi,
-                  scalars, d=d, n_nodes=n_nodes, n_bins=n_bins)
+    versions. On a sharded ``mesh`` the rows are this rank's: the
+    histogram is ``shard_hist`` summed over the ranks, ``new_nid`` routes
+    the rank's rows by ``shard_partition``, and every other output is the
+    same on every rank. The reference's ``block_rows``/``interpret``
+    arguments have no counterpart."""
+    hist_fn, part_fn = ((shard_hist, shard_partition) if is_sharded(mesh)
+                        else (tree_hist, tree_partition))
+    return _level(hist_fn, tree_split, part_fn, bins, nid, stats, prev_hist,
+                  col_mask, nb, is_cat, constraints, lo, hi, scalars, mesh,
+                  d=d, n_nodes=n_nodes, n_bins=n_bins)
 
 
 def plain_level(bins, nid, stats, prev_hist, col_mask, nb, is_cat,
                 constraints, lo, hi, scalars, *, d: int, n_nodes: int,
-                n_bins: int):
+                n_bins: int, mesh=None):
     """``fused_level`` through the plain versions on any device — the
     reference the kernels are held against on the card (the counterpart
     of the reference package's ``xla_level``)."""
     return _level(hist_plain, split_plain, partition_plain, bins, nid,
                   stats, prev_hist, col_mask, nb, is_cat, constraints, lo,
-                  hi, scalars, d=d, n_nodes=n_nodes, n_bins=n_bins)
+                  hi, scalars, mesh, d=d, n_nodes=n_nodes, n_bins=n_bins)

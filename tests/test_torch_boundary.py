@@ -8,7 +8,9 @@ import subprocess
 import sys
 from pathlib import Path
 
+import numpy as np
 import pytest
+import torch
 
 ROOT = Path(__file__).resolve().parents[1]
 PKG = ROOT / "h2o3_tpu_torch"
@@ -24,6 +26,10 @@ SLICE_MODULES = (
     "h2o3_tpu_torch/models/drf.py",
     "h2o3_tpu_torch/models/uplift.py",
     "h2o3_tpu_torch/models/convert.py",
+    "h2o3_tpu_torch/core/cloud.py",
+    "h2o3_tpu_torch/parallel/mesh.py",
+    "h2o3_tpu_torch/parallel/map_reduce.py",
+    "h2o3_tpu_torch/frame/partition.py",
 )
 
 
@@ -69,3 +75,18 @@ def test_no_forbidden_import_statement(path):
             continue
         for n in names:
             assert not _forbidden(n), f"{path}:{node.lineno} imports {n}"
+
+
+def test_mesh_entry_points_default_to_cuda_and_raise_without_card(
+        monkeypatch, tmp_path):
+    """``cloud.init`` and ``Frame.from_numpy_partitioned`` without a
+    ``device=`` resolve to CUDA and raise without a card, before joining
+    any process group."""
+    from h2o3_tpu_torch.core import cloud
+    from h2o3_tpu_torch.frame.frame import Frame
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        cloud.init("gloo", 0, 1, f"file://{tmp_path / 'rendezvous'}")
+    assert not torch.distributed.is_initialized()
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        Frame.from_numpy_partitioned({"a": np.arange(4.0)}, 4)

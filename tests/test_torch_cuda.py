@@ -8,7 +8,7 @@ Run on a machine with an NVIDIA GPU, from the repository root:
 (``--noconftest``: tests/conftest.py boots the JAX reference cloud, and
 these tests use neither JAX nor the reference package.)
 
-The checks are those of chip_smoke.py phases 2, 3, 6 and 7 at small
+The checks are those of chip_smoke.py phases 2, 3, 6, 7 and 10 at small
 shapes: with small-integer stats every output is EXACTLY equal; with
 real-valued stats histograms agree within the float32 summation bound
 (2·n·2^-24·Σ|x| for a cell of n rows) and a split decision may differ
@@ -70,7 +70,8 @@ def test_flagship_levels_kernels_vs_plain(dev, label):
     kernels.reset_counts()
     _chain(bm.bins, stats, ops, bm.nbins_total, 6, exact=label == "dyadic")
     assert kernels.LAUNCHES == {"tree_hist": 6, "tree_split": 6,
-                                "tree_partition": 6, "histogram": 0}
+                                "tree_partition": 6, "histogram": 0,
+                                "shard_hist": 0, "shard_partition": 0}
 
 
 def test_constraints_bounds_and_node_masks(dev):
@@ -198,7 +199,8 @@ def test_gbm_on_card_goes_through_kernels(dev):
         fr, y="IsDepDelayed")
     # depth 4 lays out at bucket 6: every bucket level launches
     assert kernels.LAUNCHES == {"tree_hist": 18, "tree_split": 18,
-                                "tree_partition": 18, "histogram": 0}
+                                "tree_partition": 18, "histogram": 0,
+                                "shard_hist": 0, "shard_partition": 0}
     m_cpu = h2o.GBMEstimator(ntrees=3, max_depth=4, seed=1).train(
         h2o.Frame.from_numpy(cols, domains=domains, device="cpu"),
         y="IsDepDelayed")
@@ -346,7 +348,8 @@ def test_drf_and_uplift_on_card_go_through_kernels(dev):
         fr, y="IsDepDelayed")
     # depth 5 lays out at bucket 6
     assert kernels.LAUNCHES == {"tree_hist": 12, "tree_split": 12,
-                                "tree_partition": 12, "histogram": 0}
+                                "tree_partition": 12, "histogram": 0,
+                                "shard_hist": 0, "shard_partition": 0}
     assert np.isfinite(m.training_metrics["AUC"])
     ucols, udomains = cs.criteo_arrays(N)
     ufr = h2o.Frame.from_numpy(ucols, domains=udomains, device=dev)
@@ -354,5 +357,68 @@ def test_drf_and_uplift_on_card_go_through_kernels(dev):
     um = h2o.UpliftDRFEstimator(treatment_column="treatment", ntrees=2,
                                 max_depth=4, seed=1).train(ufr, y="visit")
     assert kernels.LAUNCHES == {"tree_hist": 0, "tree_split": 0,
-                                "tree_partition": 0, "histogram": 16}
+                                "tree_partition": 0, "histogram": 16,
+                                "shard_hist": 0, "shard_partition": 0}
     assert np.isfinite(um.training_metrics["auuc"])
+
+
+def test_shard_kernels_equal_plain_and_count_apart(dev):
+    """``shard_hist``/``shard_partition`` launch the level kernels'
+    device code on one rank's rows: EXACT against the plain versions on
+    dyadic stats, counted under their own names."""
+    bm = _bm(dev)
+    _, sc, is_cat, cm, lo, hi = cs.level_plan(bm, torch, dev)
+    ops = tk.level_operands(cm, bm.nbins, is_cat, None, lo, hi, sc, dev)
+    bins = bm.bins[: N // 2].contiguous()
+    B = bm.nbins_total
+    stats = cs.dyadic_stats(bins.shape[0], 2, torch, dev)
+    nid = torch.zeros(bins.shape[0], dtype=torch.int32, device=dev)
+    prev = None
+    kernels.reset_counts()
+    for d in range(4):
+        L, Lh = 2 ** d, max(2 ** d // 2, 1)
+        lh = tk.shard_hist(bins, nid, stats, d=d, n_nodes_h=Lh, n_bins=B)
+        assert torch.equal(lh, tk.hist_plain(bins, nid, stats, d=d,
+                                             n_nodes_h=Lh, n_bins=B))
+        out = tk.split_plain(lh, prev, *ops, d=d, n_nodes=L, n_bins=B)
+        dec = (out[2], out[3], out[4], out[8], out[9], out[7])
+        new = tk.shard_partition(bins, nid, *dec, n_bins=B)
+        assert torch.equal(new, tk.partition_plain(bins, nid, *dec,
+                                                   n_bins=B))
+        prev, nid = out[0], new
+    assert kernels.LAUNCHES == {"tree_hist": 0, "tree_split": 0,
+                                "tree_partition": 0, "histogram": 0,
+                                "shard_hist": 4, "shard_partition": 4}
+
+
+def test_sharded_level_two_ranks_on_one_card(dev, tmp_path):
+    """Two gloo ranks on one card run the sharded level (shard kernels,
+    the all-reduce of CUDA tensors, ``tree_split``): the outputs equal
+    one process's ``fused_level`` over all rows, EXACTLY."""
+    import torch_ranks as tr
+    from h2o3_tpu_torch.models.tree import TreeScalars
+    ranks = tr.run_ranks("level", tmp_path, device="cuda")
+    t = lambda a: None if a is None else torch.from_numpy(  # noqa: E731
+        np.ascontiguousarray(a)).to(dev)
+    for case in tr.LEVEL_CASES:
+        bins, stats, B, is_cat, cons, lo, hi, masks, scal = \
+            tr.level_case(case)
+        min_rows, lam, msi, dl = scal
+        sc = TreeScalars(*(torch.tensor(v, device=dev)
+                           for v in (min_rows, lam, msi)),
+                         torch.tensor(dl, dtype=torch.int32, device=dev))
+        nb = np.full(bins.shape[1], B - 1, np.int32)
+        nid = torch.zeros(bins.shape[0], dtype=torch.int32, device=dev)
+        prev = None
+        for d in range(tr.LEVEL_DEPTH + 1):
+            o = tk.fused_level(t(bins), nid, t(stats), prev, t(masks[d]),
+                               t(nb), t(is_cat), t(cons), t(lo), t(hi), sc,
+                               d=d, n_nodes=2 ** d, n_bins=B)
+            want = [x.cpu().numpy() for x in o]
+            for res in ranks:
+                for a, b in zip(res[case][d][:-1], want[:-1]):
+                    np.testing.assert_array_equal(a, b, err_msg=case)
+            np.testing.assert_array_equal(
+                np.concatenate([res[case][d][-1] for res in ranks]),
+                want[-1], err_msg=case)
+            prev, nid = o[0], o[-1]

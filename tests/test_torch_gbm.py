@@ -21,34 +21,11 @@ from h2o3_tpu_torch.models import metrics as mm
 from h2o3_tpu_torch.models.convert import gbm_model_from_arrays
 from h2o3_tpu_torch.models.tree import Tree
 
+from torch_ranks import mixed_cols as _mixed_cols
+from torch_ranks import regression_cols as _regression_cols
+
 INT_FIELDS = ("feat", "thresh", "na_left", "is_split", "cat_split",
               "left_words")
-
-
-def _mixed_cols(n=700, seed=0):
-    """tests/test_tree_kernels.py _mixed_frame: NAs and a categorical."""
-    r = np.random.RandomState(seed)
-    X = r.randn(n, 4)
-    X[r.rand(n) < 0.05, 0] = np.nan
-    cat = r.choice(["a", "b", "c", "d"], n)
-    y = (X[:, 1] + (cat == "a") * 1.5 + 0.3 * r.randn(n) > 0).astype(int)
-    cols = {f"x{i}": X[:, i] for i in range(4)}
-    cols["c"] = cat
-    cols["y"] = np.array(["N", "Y"], object)[y]
-    return cols, ["c", "y"]
-
-
-def _regression_cols(n=600, seed=1):
-    r = np.random.RandomState(seed)
-    X = r.randn(n, 3)
-    X[r.rand(n) < 0.05, 2] = np.nan
-    k = r.choice(["p", "q", "r"], n)
-    y = 2.0 * X[:, 0] + np.sin(2 * X[:, 1]) + (k == "q") * 1.5 \
-        + 0.1 * r.randn(n)
-    cols = {f"x{i}": X[:, i] for i in range(3)}
-    cols["k"] = k
-    cols["y"] = y
-    return cols, ["k"]
 
 
 def _train_both(cols, categorical, **params):

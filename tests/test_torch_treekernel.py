@@ -22,23 +22,14 @@ from h2o3_tpu_torch.models.tree import TreeScalars
 from h2o3_tpu_torch.ops.kernels import treekernel as tk
 from h2o3_tpu_torch.ops.split_scan import best_splits
 
+import torch_ranks as tr
+
 OUT_NAMES = ("hist", "gain", "feat", "thresh", "na_left", "left_val",
              "right_val", "leftmask", "split", "new_nid")
 
 
 def _mesh1():
     return Mesh(np.array(jax.devices()[:1]).reshape(1, 1), ("data", "model"))
-
-
-def _dyadic_inputs(n=400, F=4, B=17, seed=0, na_frac=0.1):
-    r = np.random.RandomState(seed)
-    bins = r.randint(0, B - 1, (n, F))
-    bins[r.rand(n, F) < na_frac] = B - 1                # NA lane
-    w = (r.rand(n) > 0.05).astype(np.float32)
-    g = r.randint(-4, 5, n).astype(np.float32)
-    h = r.randint(1, 5, n).astype(np.float32)
-    stats = np.stack([w, w * g, w * h], axis=1).astype(np.float32)
-    return bins.astype(np.int8), stats, r
 
 
 def _sweep(bins, stats, B, depth, is_cat, cons, lo, hi, cm_of, scal):
@@ -91,36 +82,13 @@ def _assert_equal(ref, port):
                 b, a, err_msg=f"level {d} output '{name}' diverged")
 
 
-_INF = np.array([np.inf], np.float32)
-
-
 @pytest.mark.parametrize("case", ["numeric", "categorical",
                                   "constraints_depth_limit",
                                   "per_node_col_mask"])
 def test_level_parity_with_pallas_kernel(case):
-    F, B = 4, 17
-    is_cat = cons = None
-    lo, hi = -_INF, _INF
-    scal = (3.0, 1.0, 1e-5, 30)
-    cm_of = lambda d: np.ones(F, bool)                      # noqa: E731
-    seed = 0
-    if case == "categorical":
-        B, seed = 9, 3
-        is_cat = np.array([True, False, True, False])
-    elif case == "constraints_depth_limit":
-        seed = 5
-        cons = np.array([1, -1, 0, 0], np.int8)
-        lo = np.array([-0.5], np.float32)
-        hi = np.array([0.5], np.float32)
-        scal = (3.0, 1.0, 1e-5, 2)     # d=2 splits masked by the limit
-    elif case == "per_node_col_mask":
-        seed = 7
-        rm = np.random.RandomState(17)
-        masks = {d: (rm.rand(2 ** d, F) > 0.4) | (np.arange(F) == 0)
-                 for d in range(3)}
-        cm_of = masks.__getitem__
-    bins, stats, _ = _dyadic_inputs(F=F, B=B, seed=seed)
-    ref, port = _sweep(bins, stats, B, 2, is_cat, cons, lo, hi, cm_of, scal)
+    bins, stats, B, is_cat, cons, lo, hi, masks, scal = tr.level_case(case)
+    ref, port = _sweep(bins, stats, B, 2, is_cat, cons, lo, hi,
+                       masks.__getitem__, scal)
     _assert_equal(ref, port)
 
 
@@ -176,7 +144,7 @@ def test_plain_histogram_matches_reference_xla_histogram():
     into the parent slot) equals the reference's XLA histogram of the
     same rows with odd-node weights zeroed."""
     from h2o3_tpu.ops.histogram import histogram as ref_histogram
-    bins, stats, r = _dyadic_inputs(n=512, seed=9)
+    bins, stats, r = tr.dyadic_inputs(n=512, seed=9)
     B = 17
     nid = r.randint(0, 4, bins.shape[0]).astype(np.int32)
     w, wg, wh = stats[:, 0], stats[:, 1], stats[:, 2]
