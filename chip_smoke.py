@@ -23,7 +23,8 @@ Phases, in order; any failure exits non-zero and no phase carries on:
    torch.profiler (where the time goes).
 5. Kernel timings at the main path's shapes (5M rows, d=0..5) with CUDA
    events, beside their plain versions, a library yardstick and the
-   bound from bytes and operations.
+   bound from bytes and operations; then ``tree_hist`` at the DRF path's
+   deeper levels d=6..9 (Lh = 32..256) of the same rows.
 6. The DRF path on phase 4's frame: ``DRFEstimator(ntrees=10,
    max_depth=10, seed=1)`` with the default mtries (sqrt(F) columns per
    node, so ``tree_split`` takes [L, F] masks) and sample_rate 0.632;
@@ -65,8 +66,9 @@ Phases, in order; any failure exits non-zero and no phase carries on:
 Launch counts are read per path: each path sets every count to 0 just
 before it runs and reads them just after. The line before the last is
 the ``{"kernels": [...]}`` record (every kernel, each with its own
-source, the TPU kernel it replaces and its launches on the path that
-runs it); the last is ``{"ok": true, "device": {...}}``.
+source, the TPU kernel it replaces, the path and levels it was timed at
+and its launches on that path; ``tree_hist`` twice, at the GBM and the
+DRF levels); the last is ``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
@@ -82,6 +84,7 @@ HBM_BYTES_PER_S = 3.35e12        # H100 SXM device memory rate
 F32_OPS_PER_S = 67e12            # H100 SXM float32 rate outside tensor cores
 FLAGSHIP = dict(ntrees=10, max_depth=6, seed=1)
 DRF = dict(ntrees=10, max_depth=10, seed=1)
+DRF_DEPTHS = range(6, 10)        # the DRF levels GBM's depth 6 never reaches
 # Criteo Uplift Prediction v2.1 (Diemert et al., arXiv:2111.10106): its
 # rows and widths; ntrees cut from the reference default 50 to 10
 N_UPLIFT = 13_979_592
@@ -202,10 +205,10 @@ def real_stats(n: int, seed: int, torch, device):
 # ------------------------------------------------------------- helpers
 
 
-def level_plan(bm, torch, device):
+def level_plan(bm, torch, device, max_depth: int = 6):
     """Per-level small operands of the flagship fit (no sampling)."""
     from h2o3_tpu_torch.models.tree import TreeParams, scalars_of
-    tp = TreeParams(max_depth=6, min_rows=10.0, reg_lambda=0.0,
+    tp = TreeParams(max_depth=max_depth, min_rows=10.0, reg_lambda=0.0,
                     min_split_improvement=1e-5, nbins_total=bm.nbins_total,
                     cat_feats=tuple(bool(v) for v in bm.is_cat))
     sc = scalars_of(tp, device)
@@ -573,26 +576,31 @@ ROLE = {"tree_hist": "hist", "shard_hist": "hist", "tree_split": "split",
         "tree_partition": "partition", "shard_partition": "partition"}
 
 
-def level_timing(torch, dev, bm, names, n_rows):
-    """Per-kernel sums over d=0..5 of the first ``n_rows`` rows of ``bm``
-    (dyadic stats, the plain path's node ids): ms per launch, plain ms,
+def level_timing(torch, dev, bm, names, n_rows, depths=range(6)):
+    """Per-kernel sums over the levels ``depths`` of the first ``n_rows``
+    rows of ``bm`` (dyadic stats, the plain path's node ids from d=0, a
+    tree as deep as the last of ``depths``): ms per launch, plain ms,
     library ms and the bound's two terms."""
     from h2o3_tpu_torch.ops.kernels import treekernel as tk
     bins = bm.bins[:n_rows].contiguous()
     N, F = bins.shape
     B = bm.nbins_total
-    tp, sc, is_cat, cm, lo, hi = level_plan(bm, torch, dev)
+    tp, sc, is_cat, cm, lo, hi = level_plan(bm, torch, dev,
+                                            max_depth=max(6, depths[-1] + 1))
     ops = tk.level_operands(cm, bm.nbins, is_cat, None, lo, hi, sc, dev)
     stats = dyadic_stats(N, 9, torch, dev)
     acc = {k: dict(ms=0.0, plain_ms=0.0, library_ms=0.0, bytes_ms=0.0,
                    ops_ms=0.0) for k in names}
     nid = torch.zeros(N, dtype=torch.int32, device=dev)
     prev = None
-    for d in range(6):
+    for d in range(depths[-1] + 1):
         L, Lh = 2 ** d, max(2 ** d // 2, 1)
         lh = tk.hist_plain(bins, nid, stats, d=d, n_nodes_h=Lh, n_bins=B)
         out = tk.split_plain(lh, prev, *ops, d=d, n_nodes=L, n_bins=B)
         dec = (out[2], out[3], out[4], out[8], out[9], out[7])
+        if d not in depths:
+            prev, nid = out[0], tk.partition_plain(bins, nid, *dec, n_bins=B)
+            continue
         n = nid.long()
         cell = (n[:, None] * F + torch.arange(F, device=dev)) * B \
             + bins.long()
@@ -654,36 +662,48 @@ def level_timing(torch, dev, bm, names, n_rows):
     return acc
 
 
-def timing_records(acc, counts, n_rows, label):
+def timing_records(acc, counts, n_rows, label, path, depths=range(6)):
     records = []
     for k, a in acc.items():
-        rec = kernel_record(k, counts[k], a, 6,
+        rec = kernel_record(k, counts[k], a, len(depths), path=path,
+                            levels=f"d={depths[0]}..{depths[-1]}",
                             has_library=ROLE[k] == "hist")
         records.append(rec)
-        say(f"{label} {k}: {rec['ms']:.6g} ms per launch (mean of d=0..5 "
-            f"at {n_rows} rows), plain {rec['plain_ms']:.6g} ms, bound "
+        say(f"{label} {k}: {rec['ms']:.6g} ms per launch (mean of "
+            f"{rec['levels']} at {n_rows} rows), plain {rec['plain_ms']:.6g} "
+            f"ms, bound "
             f"{rec['bound_ms']:.6g} ms ({rec['bound_by']}), library "
             f"{rec['library_ms']}")
     return records
 
 
 def phase_timing(torch, dev, model, counts):
-    """Kernel times at the main path's shapes, averaged over d=0..5."""
+    """Kernel times at the main path's shapes, averaged over d=0..5; then
+    ``tree_hist`` over the DRF path's deeper levels d=6..9 (Lh = 32..256)
+    of the same rows. The DRF record's launches are set once phase 6 has
+    counted them."""
     n = model.bm.bins.shape[0]
-    return timing_records(level_timing(torch, dev, model.bm, LEVEL_KERNELS,
-                                       n), counts, n, "phase5")
+    records = timing_records(level_timing(torch, dev, model.bm,
+                                          LEVEL_KERNELS, n),
+                             counts, n, "phase5", "gbm")
+    records += timing_records(
+        level_timing(torch, dev, model.bm, ("tree_hist",), n, DRF_DEPTHS),
+        {"tree_hist": None}, n, "phase5 DRF depths", "drf", DRF_DEPTHS)
+    return records
 
 
-def kernel_record(name, launches, a, levels, *, has_library):
+def kernel_record(name, launches, a, n_levels, *, path, levels,
+                  has_library):
     """One entry of the ``{"kernels": [...]}`` line from per-level sums
     of measured times and of the bound's two terms."""
-    return {"name": name, "route": "cuda", **KERNELS[name],
-            "launches": launches,
-            "ms": a["ms"] / levels, "plain_ms": a["plain_ms"] / levels,
-            "bound_ms": max(a["bytes_ms"], a["ops_ms"]) / levels,
+    return {"name": name, "route": "cuda", **KERNELS[name], "path": path,
+            "levels": levels, "launches": launches,
+            "ms": a["ms"] / n_levels, "plain_ms": a["plain_ms"] / n_levels,
+            "bound_ms": max(a["bytes_ms"], a["ops_ms"]) / n_levels,
             "bound_by": "bytes" if a["bytes_ms"] >= a["ops_ms"]
             else "operations",
-            "library_ms": a["library_ms"] / levels if has_library else None}
+            "library_ms": a["library_ms"] / n_levels if has_library
+            else None}
 
 
 def phase_drf_grow_tree(torch, dev, bm):
@@ -931,6 +951,7 @@ def phase_hist_timing(torch, dev, model, fr, counts):
         acc["ops_ms"] += 3 * N * F / F32_OPS_PER_S * 1e3
         del cell, src
     rec = kernel_record("histogram", counts["histogram"], acc, D,
+                        path="uplift", levels=f"d=0..{D - 1}",
                         has_library=True)
     say(f"phase9 histogram: {rec['ms']:.6g} ms per launch (mean of d=0..9 "
         f"at {N} rows, F={F}, B={B}), plain {rec['plain_ms']:.6g} ms, bound "
@@ -1182,7 +1203,7 @@ def phase_shard_timing(torch, dev, bm, counts):
     n = N_MAIN // W_MESH
     return timing_records(level_timing(
         torch, dev, bm, ("shard_hist", "shard_partition"), n), counts, n,
-        "phase12")
+        "phase12", "gbm_mesh")
 
 
 def main() -> int:
@@ -1214,6 +1235,9 @@ def main() -> int:
     phase_drf_grow_tree(torch, dev, bm)
     del fr_k, bm, model
     counts_drf = phase_drf(torch, dev, fr)
+    for rec in records:
+        if rec["path"] == "drf":
+            rec["launches"] = counts_drf[rec["name"]]
     del cols
 
     ucols, udomains = criteo_arrays(N_UPLIFT)

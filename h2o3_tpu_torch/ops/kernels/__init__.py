@@ -25,7 +25,7 @@ import os
 import shutil
 import subprocess
 from pathlib import Path
-from typing import Dict, List, Optional
+from typing import Dict, List, NamedTuple, Optional
 
 import torch
 
@@ -174,6 +174,10 @@ def launched(lib: ctypes.CDLL, rc: int, name: str) -> None:
     count(name)
 
 
+def ptr(t: Optional[torch.Tensor]) -> Optional[int]:
+    return None if t is None else t.data_ptr()
+
+
 def stream(device) -> int:
     return torch.cuda.current_stream(device).cuda_stream
 
@@ -185,14 +189,110 @@ def bin_dtype(bins: torch.Tensor) -> int:
     return int(bins.dtype == torch.int8)
 
 
-def slab_geometry(device, n_rows: int, n_feat: int, n_nodes: int,
-                  n_bins: int, slab_bytes: int):
-    """(rows_per_block, node_chunk) of a slab histogram launch
-    (csrc/hist_slab.cuh): node chunks whose [nodes, B, 3] slab fits
-    ``slab_bytes`` of shared memory, and enough row blocks for about
-    eight blocks per SM over the (feature, node chunk) grid."""
-    node_chunk = max(1, slab_bytes // (n_bins * 12))
-    n_chunks = -(-n_nodes // node_chunk)
-    sms = torch.cuda.get_device_properties(device).multi_processor_count
-    row_blocks = max(1, -(-8 * sms // (n_feat * n_chunks)))
-    return max(256, -(-n_rows // row_blocks)), node_chunk
+# The slab histogram's plan (csrc/hist_slab.cuh). One block of
+# SLAB_THREADS threads per SM, whose slab copies and row queues may take
+# SLAB_BYTES of shared memory: the 227 KB (232,448 B) of dynamic shared
+# memory a block may take. An SM holds SM_SMEM_BYTES (228 KB) for its
+# blocks, plus 1 KB the runtime keeps per block. SLAB_WAVES blocks per
+# SM slot over a launch.
+SLAB_BYTES = 232_448
+SLAB_THREADS = 1024
+SM_SMEM_BYTES = 233_472
+SLAB_WAVES = 1
+SLAB_QUEUE = 32                 # kSlabQueue: row offsets queued per warp
+SLAB_LIST_CHUNKS = 2            # kSlabListChunks: past it, rows are sorted
+SLAB_MAX_NODES = 65_535         # a row's node is a 16-bit key (kSlabSkip)
+
+
+class SlabPlan(NamedTuple):
+    """The launch of one slab histogram: a (row blocks, feature groups)
+    grid of ``threads``-thread blocks, each walking the ``n_chunks`` node
+    chunks in turn and taking ``smem`` bytes: ``replicas`` copies of a
+    slab of at most ``chunk_nodes`` nodes × ``group_feats`` features × B
+    bins × 3 floats, then ``queue`` bytes of row queues. ``listed``: the
+    block sorts its rows by chunk first, into scratch the caller gives it
+    (a 16-bit key and a 32-bit list entry a row)."""
+    rows_per_block: int
+    row_blocks: int
+    n_chunks: int
+    n_groups: int
+    chunk_nodes: int
+    group_feats: int
+    replicas: int
+    threads: int
+    smem: int
+    queue: int
+    listed: bool
+
+    def tiles(self, n_rows: int, n_feat: int, n_nodes: int):
+        """Every (block, chunk) tile (r0, r1, c0, c1, f0, f1): the rows
+        [r0, r1), nodes [c0, c1) and features [f0, f1), as the kernel
+        computes them from its block index and chunk."""
+        for x in range(self.row_blocks):
+            r0 = x * self.rows_per_block
+            r1 = min(n_rows, r0 + self.rows_per_block)
+            for z in range(self.n_groups):
+                for c in range(self.n_chunks):
+                    yield (r0, r1, c * n_nodes // self.n_chunks,
+                           (c + 1) * n_nodes // self.n_chunks,
+                           z * n_feat // self.n_groups,
+                           (z + 1) * n_feat // self.n_groups)
+
+
+def slab_geometry(n_rows: int, n_feat: int, n_nodes: int, n_bins: int, *,
+                  sms: int, budget: Optional[int] = None,
+                  threads: Optional[int] = None) -> SlabPlan:
+    """Plan a slab histogram launch (csrc/hist_slab.cuh) on a card of
+    ``sms`` SMs, the slab copies and the warps' row queues within
+    ``budget`` bytes of shared memory a block (SLAB_BYTES by default;
+    ``threads`` SLAB_THREADS). Features split into balanced groups only
+    when one node's F*B*12 bytes exceed the room beside the queues; nodes
+    into the fewest balanced chunks whose slab fits; a slab of at most
+    half the room is held min(warps, room // slab) times; and the row
+    blocks fill every SM slot about SLAB_WAVES times over, each walking
+    every node chunk."""
+    budget = SLAB_BYTES if budget is None else budget
+    threads = SLAB_THREADS if threads is None else threads
+    queue = threads // 32 * SLAB_QUEUE * 4
+    room = budget - queue
+    cell = n_bins * 12
+    if n_nodes > SLAB_MAX_NODES:
+        raise ValueError(f"slab histogram: {n_nodes} nodes exceed "
+                         f"{SLAB_MAX_NODES}")
+    if cell > room:
+        raise ValueError(f"slab histogram: one feature's {n_bins} bins "
+                         f"({cell} B) exceed the {room} B left of the "
+                         f"{budget} B budget beside the row queues")
+    n_groups = -(-n_feat // (room // cell))
+    group_feats = -(-n_feat // n_groups)
+    per_node = group_feats * cell
+    n_chunks = max(1, -(-n_nodes // (room // per_node)))
+    chunk_nodes = -(-n_nodes // n_chunks)
+    slab = max(chunk_nodes, 1) * per_node
+    replicas = min(threads // 32, room // slab) if 2 * slab <= room else 1
+    smem = replicas * slab + queue
+    per_sm = max(1, min(2048 // threads, SM_SMEM_BYTES // (smem + 1024)))
+    want = max(1, -(-sms * per_sm * SLAB_WAVES // n_groups))
+    # at least kSlabRows (8) rows a thread
+    rows_per_block = max(threads * 8, -(-n_rows // want))
+    return SlabPlan(rows_per_block, -(-n_rows // rows_per_block), n_chunks,
+                    n_groups, chunk_nodes, group_feats, replicas, threads,
+                    smem, queue,
+                    SLAB_LIST_CHUNKS < n_chunks
+                    and 2 * n_chunks <= threads // 32 * SLAB_QUEUE)
+
+
+def scratch(plan: SlabPlan, n_rows: int, device):
+    """The (keys, list) scratch a listed plan sorts its rows into (a key
+    a row; a list entry a row and feature group), else (None, None).
+    Freed after the launch is enqueued: the caching allocator hands it
+    out again only to work ordered after the kernel on the same stream."""
+    if not plan.listed:
+        return None, None
+    return (torch.empty(n_rows, dtype=torch.int16, device=device),
+            torch.empty(n_rows * plan.n_groups, dtype=torch.int32,
+                        device=device))
+
+
+def sm_count(device) -> int:
+    return torch.cuda.get_device_properties(device).multi_processor_count

@@ -18,22 +18,31 @@
 // [0, B) contribute nothing.
 //
 // Bound: bytes. One launch must read N*(F*bin bytes + 4 + 12) bytes and
-// write L*F*B*12; the work is 3*N*F adds. Design: a block owns one (row
-// chunk, feature, node chunk) and sums into a [nodes, B, 3] shared slab;
-// the node chunk keeps the slab inside the shared-memory budget up to
-// L = 512 (the deepest uplift level: 5 MB of output), at the price of
-// reading every row once per (feature, node chunk). Rows whose stats are
-// all zero (out of bag, or the other arm of an uplift split) are skipped
-// before their bin is read.
+// write L*F*B*12; the work is 3*N*F adds. What sets its time on the card
+// is neither: it is the shared-memory float atomics (a load, an add and
+// a compare-and-swap retried until it lands, about 1.6 lanes a clock an
+// SM), three per (row, feature) that counts.
+// Design: slab_hist_kernel (hist_slab.cuh) with the left-child path off.
+// One block per SM covers all F features of its rows, walking the node
+// chunks of a [nodes, F, B, 3] slab of up to 227 KB: 24 nodes at F = 12,
+// B = 65, so L <= 16 runs in one chunk and L = 512 (the deepest uplift
+// level: 5 MB of output) in 22. Past two chunks the block first sorts its
+// rows by chunk, so a chunk reads only its own rows. At shallow levels
+// each warp adds into its own copy of the slab (24 copies at L = 1).
+// Rows whose stats are all zero (out of bag, or the other arm of an
+// uplift split) are skipped before their bin is read, and the scatter
+// runs on full warps of rows that count.
 
 #include "hist_slab.cuh"
 
 extern "C" int histogram(const void* bins, int bins_int8, const void* nid,
-                         const void* stats, void* out, long long n_rows,
-                         int n_feat, int n_bins, int n_nodes,
-                         long long rows_per_block, int node_chunk,
+                         const void* stats, void* keys, void* list,
+                         void* out, long long n_rows, int n_feat, int n_bins,
+                         int n_nodes, long long rows_per_block, int n_chunks, int n_groups,
+                         int replicas, int threads, long long smem,
                          void* stream) {
-  return launch_slab_hist(bins, bins_int8, nid, stats, out, n_rows, n_feat,
-                          n_bins, n_nodes, /*left_only=*/0, rows_per_block,
-                          node_chunk, stream);
+  return launch_slab_hist(bins, bins_int8, nid, stats, keys, list, out,
+                          n_rows, n_feat, n_bins, n_nodes, /*left_only=*/0,
+                          rows_per_block, n_chunks, n_groups, replicas,
+                          threads, smem, stream);
 }

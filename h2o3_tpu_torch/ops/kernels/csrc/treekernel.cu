@@ -30,23 +30,32 @@
 // nid) count, into their parent's slot nid >> 1 (sibling subtraction
 // derives the right child in tree_split).
 //
-// Bound: bytes. Each row is read once per feature block (bins byte, nid,
-// 12 bytes of stats) and scattered into shared memory; the work per byte
-// is a few shared atomics, far below the card's arithmetic rate.
-// Design: slab_hist_kernel (hist_slab.cuh). A block owns one (row chunk,
-// feature, node chunk) triple and accumulates its [nodes, B, 3] slab in
-// shared memory; the node chunk keeps the slab under the shared-memory
-// budget at any depth (depth bucket 10 has Lh = 256 parents: 387 KB at
-// B = 126, cut into chunks).
+// Bound: bytes. Each row's bins row, nid and 12 bytes of stats must be
+// read once (26 bytes a row at F = 10, int8) and the [Lh, F, B, 3] result
+// written once; the work is a few shared atomics a byte, far below the
+// card's arithmetic rate, but the shared-memory float atomics (a
+// compare-and-swap loop, about 1.6 lanes a clock an SM) set its time.
+// Design: slab_hist_kernel (hist_slab.cuh). One block per SM covers all
+// F features of its rows, walking the node chunks of a [nodes, F, B, 3]
+// slab of up to 227 KB (15 nodes at B = 126: the flagship's depths run
+// in one chunk each, then two of 8 at Lh = 16; depth bucket 10's
+// Lh = 256 in 18, its rows sorted by chunk first). Right-child rows never
+// reach the scatter, which runs on full warps of left-child rows. Where
+// the slab fits twice or more, each warp adds into its own copy of it
+// (15 copies at d = 0), so warps do not collide on a shallow level's hot
+// bins.
 
 extern "C" int tree_hist(const void* bins, int bins_int8, const void* nid,
-                         const void* stats, void* out, long long n_rows,
-                         int n_feat, int n_bins, int n_parents, int left_only,
-                         long long rows_per_block, int node_chunk,
+                         const void* stats, void* keys, void* list,
+                         void* out, long long n_rows, int n_feat, int n_bins,
+                         int n_parents, int left_only,
+                         long long rows_per_block, int n_chunks, int n_groups,
+                         int replicas, int threads, long long smem,
                          void* stream) {
-  return launch_slab_hist(bins, bins_int8, nid, stats, out, n_rows, n_feat,
-                          n_bins, n_parents, left_only, rows_per_block,
-                          node_chunk, stream);
+  return launch_slab_hist(bins, bins_int8, nid, stats, keys, list, out,
+                          n_rows, n_feat, n_bins, n_parents, left_only,
+                          rows_per_block, n_chunks, n_groups, replicas,
+                          threads, smem, stream);
 }
 
 // ----------------------------------------------------------- tree_split

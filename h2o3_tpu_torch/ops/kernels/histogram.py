@@ -20,13 +20,15 @@ import torch
 from h2o3_tpu_torch.ops import kernels
 from h2o3_tpu_torch.ops.histogram import local_histogram
 from h2o3_tpu_torch.ops.kernels import (bin_dtype, launched, need, on_cuda,
-                                        slab_geometry, stream)
+                                        ptr, scratch, slab_geometry,
+                                        sm_count, stream)
 
 _VP, _I, _LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 
-# shared-memory budget of one block's [nodes, B, 3] slab: 84 nodes at
-# B = 65, so the deepest uplift level (L = 512) runs in 7 node chunks
-HIST_SLAB_BYTES = 64 * 1024
+# shared-memory budget of one block's [nodes, F, B, 3] slab: 24 nodes at
+# F = 12, B = 65, so the deepest uplift level (L = 512) runs in 22 node
+# chunks
+HIST_SLAB_BYTES = kernels.SLAB_BYTES
 
 _LIB = None
 
@@ -35,8 +37,8 @@ def _lib():
     global _LIB
     if _LIB is None:
         _LIB = kernels.bind("histogram", {
-            "histogram": [_VP, _I, _VP, _VP, _VP, _LL, _I, _I, _I, _LL, _I,
-                          _VP]})
+            "histogram": [_VP, _I, _VP, _VP, _VP, _VP, _VP, _LL, _I, _I, _I, _LL,
+                          _I, _I, _I, _I, _LL, _VP]})
     return _LIB
 
 
@@ -58,9 +60,12 @@ def full_histogram(bins: torch.Tensor, nid: torch.Tensor,
     p_nid = need(nid, torch.int32, (N,), "nid", dev)
     p_stats = need(stats, torch.float32, (N, 3), "stats", dev)
     out = torch.zeros((L, F, B, 3), dtype=torch.float32, device=dev)
-    rows_per_block, node_chunk = slab_geometry(dev, N, F, L, B,
-                                               HIST_SLAB_BYTES)
-    rc = _lib().histogram(p_bins, is8, p_nid, p_stats, out.data_ptr(), N, F,
-                          B, L, rows_per_block, node_chunk, stream(dev))
+    plan = slab_geometry(N, F, L, B, sms=sm_count(dev),
+                         budget=HIST_SLAB_BYTES)
+    keys, rows = scratch(plan, N, dev)
+    rc = _lib().histogram(p_bins, is8, p_nid, p_stats, ptr(keys), ptr(rows),
+                          out.data_ptr(), N, F, B, L, plan.rows_per_block,
+                          plan.n_chunks, plan.n_groups, plan.replicas,
+                          plan.threads, plan.smem, stream(dev))
     launched(_lib(), rc, "histogram")
     return out

@@ -40,15 +40,16 @@ import torch
 from h2o3_tpu_torch.ops import kernels
 from h2o3_tpu_torch.ops.histogram import local_histogram
 from h2o3_tpu_torch.ops.kernels import (bin_dtype, launched, need, on_cuda,
-                                        slab_geometry, stream)
+                                        ptr, scratch, slab_geometry,
+                                        sm_count, stream)
 from h2o3_tpu_torch.ops.split_scan import best_splits
 from h2o3_tpu_torch.parallel.map_reduce import all_reduce
 from h2o3_tpu_torch.parallel.mesh import is_sharded
 
 _VP, _I, _LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 
-# shared-memory budget of one tree_hist block's [nodes, B, 3] slab
-HIST_SLAB_BYTES = 64 * 1024
+# shared-memory budget of one tree_hist block's [nodes, F, B, 3] slab
+HIST_SLAB_BYTES = kernels.SLAB_BYTES
 # tree_split: at most this many warps per node block, within this budget
 SPLIT_WARPS, SPLIT_SMEM_BYTES = 8, 200 * 1024
 
@@ -59,8 +60,8 @@ def _lib():
     global _LIB
     if _LIB is None:
         _LIB = kernels.bind("treekernel", {
-            "tree_hist": [_VP, _I, _VP, _VP, _VP, _LL, _I, _I, _I, _I, _LL,
-                          _I, _VP],
+            "tree_hist": [_VP, _I, _VP, _VP, _VP, _VP, _VP, _LL, _I, _I, _I, _I,
+                          _LL, _I, _I, _I, _I, _LL, _VP],
             "tree_split": [_VP] * 20 + [_I] * 7 + [_VP],
             "tree_partition": [_VP, _I, _VP, _VP, _VP, _VP, _VP, _VP, _VP,
                                _VP, _LL, _I, _I, _I, _I, _VP],
@@ -103,10 +104,13 @@ def _hist(bins, nid, stats, d, n_nodes_h, n_bins, name):
     p_nid = need(nid, torch.int32, (N,), "nid", dev)
     p_stats = need(stats, torch.float32, (N, 3), "stats", dev)
     out = torch.zeros((Lh, F, B, 3), dtype=torch.float32, device=dev)
-    rows_per_block, node_chunk = slab_geometry(dev, N, F, Lh, B,
-                                               HIST_SLAB_BYTES)
-    rc = _lib().tree_hist(p_bins, is8, p_nid, p_stats, out.data_ptr(), N,
-                          F, B, Lh, int(d > 0), rows_per_block, node_chunk,
+    plan = slab_geometry(N, F, Lh, B, sms=sm_count(dev),
+                         budget=HIST_SLAB_BYTES)
+    keys, rows = scratch(plan, N, dev)
+    rc = _lib().tree_hist(p_bins, is8, p_nid, p_stats, ptr(keys), ptr(rows),
+                          out.data_ptr(), N, F, B, Lh, int(d > 0),
+                          plan.rows_per_block, plan.n_chunks, plan.n_groups,
+                          plan.replicas, plan.threads, plan.smem,
                           stream(dev))
     launched(_lib(), rc, name)
     return out

@@ -12,7 +12,10 @@ The checks are those of chip_smoke.py phases 2, 3, 6, 7 and 10 at small
 shapes: with small-integer stats every output is EXACTLY equal; with
 real-valued stats histograms agree within the float32 summation bound
 (2·n·2^-24·Σ|x| for a cell of n rows) and a split decision may differ
-only at a near-tie."""
+only at a near-tie. The slab histogram (``tree_hist``/``histogram``) is
+also held at the plan's edges: many node chunks (rows sorted by chunk),
+feature groups, slab copies, NaN stats, out-of-range ids and bins, and
+views that start off a 16-byte boundary."""
 
 import sys
 from pathlib import Path
@@ -30,6 +33,8 @@ from h2o3_tpu_torch.ops.kernels import treekernel as tk  # noqa: E402
 pytestmark = pytest.mark.gpu
 
 N = 20_000
+# shared memory of the warps' row queues beside the slab (slab_geometry)
+QUEUE = kernels.SLAB_THREADS // 32 * kernels.SLAB_QUEUE * 4
 
 
 @pytest.fixture
@@ -99,7 +104,8 @@ def test_constraints_bounds_and_node_masks(dev):
 
 def test_node_chunked_histogram_depth_bucket_10(dev, monkeypatch):
     """Lh = 256 parents (depth bucket 10), with the slab budget cut so the
-    histogram runs in many node chunks."""
+    histogram runs in many node chunks (7 nodes a chunk: 37 chunks), then
+    so that one node's features split into groups (3 features a group)."""
     bm = _bm(dev)
     _, sc, is_cat, cm, lo, hi = cs.level_plan(bm, torch, dev)
     B = bm.nbins_total
@@ -109,7 +115,9 @@ def test_node_chunked_histogram_depth_bucket_10(dev, monkeypatch):
     stats = cs.dyadic_stats(N, 5, torch, dev)
     prev = tk.hist_plain(bm.bins, nid >> 1, stats, d=0, n_nodes_h=256,
                          n_bins=B)
-    for slab in (tk.HIST_SLAB_BYTES, 7 * B * 12):
+    F = bm.bins.shape[1]
+    for slab in (tk.HIST_SLAB_BYTES, 7 * F * B * 12 + QUEUE,
+                 3 * B * 12 + QUEUE):
         monkeypatch.setattr(tk, "HIST_SLAB_BYTES", slab)
         cs.compare_level(tk, bm.bins, nid, stats, prev, ops, d=9, L=512,
                          B=B, exact=True)
@@ -270,13 +278,16 @@ def test_histogram_kernel_vs_plain(dev, L):
 
 def test_histogram_node_chunks(dev, monkeypatch):
     """L = 512 with the slab budget cut so the histogram runs in many
-    node chunks."""
+    node chunks (5 nodes a chunk: 103 chunks), then in feature groups
+    (4 features a group)."""
     from h2o3_tpu_torch.ops.kernels import histogram as kh
     bm, _, _ = _uplift(dev)
     nid = torch.from_numpy(np.random.RandomState(7).randint(
         0, 512, N).astype(np.int32)).to(dev)
     st = cs.binary_stats(N, 4, torch, dev)
-    for slab in (kh.HIST_SLAB_BYTES, 5 * bm.nbins_total * 12):
+    F, B = bm.bins.shape[1], bm.nbins_total
+    for slab in (kh.HIST_SLAB_BYTES, 5 * F * B * 12 + QUEUE,
+                 4 * B * 12 + QUEUE):
         monkeypatch.setattr(kh, "HIST_SLAB_BYTES", slab)
         cs.compare_histogram(bm.bins, nid, st, L=512, B=bm.nbins_total,
                              exact=True)
@@ -422,3 +433,96 @@ def test_sharded_level_two_ranks_on_one_card(dev, tmp_path):
                 np.concatenate([res[case][d][-1] for res in ranks]),
                 want[-1], err_msg=case)
             prev, nid = o[0], o[-1]
+
+
+def _both_hists(bins, nid, stats, *, n_nodes, n_bins, d=0):
+    """(kernel, plain) pairs of ``histogram`` and ``tree_hist`` (at level
+    ``d``) on the same inputs, synchronised."""
+    from h2o3_tpu_torch.ops.histogram import local_histogram
+    from h2o3_tpu_torch.ops.kernels.histogram import full_histogram
+    pairs = [(full_histogram(bins, nid, stats, n_nodes=n_nodes,
+                             n_bins=n_bins),
+              local_histogram(bins, nid, stats, n_nodes=n_nodes,
+                              n_bins=n_bins)),
+             (tk.tree_hist(bins, nid, stats, d=d, n_nodes_h=n_nodes,
+                           n_bins=n_bins),
+              tk.hist_plain(bins, nid, stats, d=d, n_nodes_h=n_nodes,
+                            n_bins=n_bins))]
+    torch.cuda.synchronize()
+    return pairs
+
+
+@pytest.mark.parametrize("d", [0, 1])
+def test_wide_frame_feature_groups(dev, d):
+    """F = 300 int32 features at B = 256: one node's slab (921,600 B)
+    exceeds the budget, so the plan splits the features into groups;
+    EXACT on dyadic stats through ``histogram`` and ``tree_hist``."""
+    n, F, B, L = 20_000, 300, 256, 4
+    plan = kernels.slab_geometry(n, F, L, B, sms=kernels.sm_count(dev))
+    assert plan.n_groups > 1
+    r = np.random.RandomState(31)
+    bins = torch.from_numpy(r.randint(0, B, (n, F)).astype(np.int32)).to(dev)
+    nid = torch.from_numpy(r.randint(0, 2 * L, n).astype(np.int32)).to(dev)
+    stats = cs.dyadic_stats(n, 32, torch, dev)
+    for got, want in _both_hists(bins, nid if d else nid % L, stats,
+                                 n_nodes=L, n_bins=B, d=d):
+        assert torch.equal(got, want)
+
+
+def test_one_node_one_bin_replicas(dev):
+    """L = 1 with every row in the same bin of every feature: all warps
+    add into the same cells, each into its own copy of the slab; EXACT
+    on 0/1 and dyadic stats."""
+    n, F, B = 200_000, 12, 65
+    plan = kernels.slab_geometry(n, F, 1, B, sms=kernels.sm_count(dev))
+    assert plan.replicas > 1
+    bins = torch.full((n, F), 7, dtype=torch.int8, device=dev)
+    nid = torch.zeros(n, dtype=torch.int32, device=dev)
+    for stats in (cs.binary_stats(n, 33, torch, dev),
+                  cs.dyadic_stats(n, 34, torch, dev)):
+        for got, want in _both_hists(bins, nid, stats, n_nodes=1, n_bins=B):
+            assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("dtype", [torch.int8, torch.int32])
+def test_nan_stats_and_out_of_range_ids_and_bins(dev, dtype):
+    """NaN stats stay in their own slot; nids outside [0, L) (negative,
+    L, large; odd ones on the left-child path) and bins outside [0, B)
+    (negative, B, the type's largest) are skipped: equal to the plain
+    versions, NaN for NaN."""
+    n, F, B, L = 30_000, 10, 126, 8
+    r = np.random.RandomState(35)
+    b = r.randint(0, B, (n, F))
+    b[::13, 2] = -1
+    b[::17, 5] = B
+    b[::19, 7] = 127
+    bins = torch.from_numpy(b.astype(np.int32)).to(dtype).to(dev)
+    ids = r.randint(0, 2 * L, n)
+    ids[::11] = -1
+    ids[::23] = 2 * L
+    ids[::29] = 1 << 30
+    nid = torch.from_numpy(ids.astype(np.int32)).to(dev)
+    stats = cs.dyadic_stats(n, 36, torch, dev)
+    stats[::31, 1] = float("nan")
+    stats[::37, 0] = float("inf")
+    for d, ids_d in ((0, nid.clamp_max(L)), (1, nid)):
+        for got, want in _both_hists(bins, ids_d, stats, n_nodes=L,
+                                     n_bins=B, d=d):
+            assert bool(torch.isnan(want).any())
+            assert cs.identical(got, want)
+
+
+def test_unaligned_views(dev):
+    """Contiguous views that start 3 rows in (``bins[3:]``, ``nid[3:]``,
+    ``stats[3:]``: not 16-byte aligned) give what the plain versions
+    give on the same views."""
+    n, F, B, L = 40_003, 10, 126, 4
+    r = np.random.RandomState(37)
+    bins = torch.from_numpy(r.randint(0, B, (n, F)).astype(np.int8)).to(dev)
+    nid = torch.from_numpy(r.randint(0, 2 * L, n).astype(np.int32)).to(dev)
+    stats = cs.dyadic_stats(n, 38, torch, dev)
+    views = bins[3:], nid[3:], stats[3:]
+    assert all(v.is_contiguous() for v in views)
+    assert views[0].data_ptr() % 16 and views[2].data_ptr() % 16
+    for got, want in _both_hists(*views, n_nodes=L, n_bins=B, d=1):
+        assert torch.equal(got, want)
