@@ -22,9 +22,12 @@ Phases, in order; any failure exits non-zero and no phase carries on:
    sample; then the binning pass alone and one more fit under
    torch.profiler (where the time goes).
 5. Kernel timings at the main path's shapes (5M rows, d=0..5) with CUDA
-   events, beside their plain versions, a library yardstick and the
-   bound from bytes and operations; then ``tree_hist`` at the DRF path's
-   deeper levels d=6..9 (Lh = 32..256) of the same rows.
+   events (``time_ms``: device time with L2 flushed, host-paced time and
+   the wrapper's host time), beside their plain versions, a library yardstick and the bound from
+   bytes and operations, each output EXACT against its plain version;
+   then the three level kernels at the DRF path's deeper levels d=6..9
+   (L = 64..512) of the same rows with DRF's per-node mtries masks, and
+   ``tree_split``'s floor (L = 1, F = 1, B = 3).
 6. The DRF path on phase 4's frame: ``DRFEstimator(ntrees=10,
    max_depth=10, seed=1)`` with the default mtries (sqrt(F) columns per
    node, so ``tree_split`` takes [L, F] masks) and sample_rate 0.632;
@@ -67,8 +70,10 @@ Launch counts are read per path: each path sets every count to 0 just
 before it runs and reads them just after. The line before the last is
 the ``{"kernels": [...]}`` record (every kernel, each with its own
 source, the TPU kernel it replaces, the path and levels it was timed at
-and its launches on that path; ``tree_hist`` twice, at the GBM and the
-DRF levels); the last is ``{"ok": true, "device": {...}}``.
+and its launches on that path; ``ms`` is device time, ``host_paced_ms``
+and ``host_us`` as ``time_ms`` says; the three level kernels twice, at
+the GBM and the DRF levels, ``tree_split``'s with its floor); the last is
+``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
@@ -113,6 +118,7 @@ LEVEL_KERNELS = ("tree_hist", "tree_split", "tree_partition")
 MESH_KERNELS = ("shard_hist", "tree_split", "shard_partition")
 W_MESH = 2                       # ranks of the data-parallel path
 RANK_TIMEOUT_S = 600.0
+L2_FLUSH_BYTES = 128 << 20       # over twice the H100's 50 MB L2
 CARD = ""
 
 
@@ -338,17 +344,42 @@ def equal_trees(t_a, t_b, label: str) -> None:
               f"{label}: field {f} differs kernels vs plain")
 
 
-def time_ms(torch, fn, reps: int = 10) -> float:
+def time_ms(torch, fn, reps: int = 10) -> dict:
+    """What a call of ``fn`` costs, the mean of ``reps`` calls, three
+    ways. ``ms``: the card's time. The calls queue behind a sleep kernel
+    that outlasts their host side, each after a read of L2_FLUSH_BYTES
+    (its inputs come from device memory, as the byte bound assumes, and
+    L2 holds no dirty lines to write back) and between its own two
+    events. ``host_paced_ms``: calls back to back between two events, as
+    this script first timed kernels; where a wrapper takes longer on the
+    host than its kernel on the card, this is the wrapper's time, which a
+    fit pays a launch while the card waits on the host. ``host_us``: the host's
+    time to make one call."""
+    flush = torch.zeros(L2_FLUSH_BYTES // 4, dtype=torch.int32,
+                        device="cuda")
     fn()
     torch.cuda.synchronize()
-    e0 = torch.cuda.Event(enable_timing=True)
-    e1 = torch.cuda.Event(enable_timing=True)
-    e0.record()
+    ev = [(torch.cuda.Event(enable_timing=True),
+           torch.cuda.Event(enable_timing=True)) for _ in range(reps + 1)]
+    t0 = time.perf_counter()
+    ev[reps][0].record()
     for _ in range(reps):
         fn()
-    e1.record()
+    ev[reps][1].record()
+    host_s = (time.perf_counter() - t0) / reps
     torch.cuda.synchronize()
-    return e0.elapsed_time(e1) / reps
+    # cycles at up to 2 GHz: 1.5x the calls' host time (each with a flush
+    # and two events) plus 1 ms
+    torch.cuda._sleep(int((1.5 * reps * (host_s + 50e-6) + 1e-3) * 2e9))
+    for e0, e1 in ev[:reps]:
+        flush.sum()
+        e0.record()
+        fn()
+        e1.record()
+    torch.cuda.synchronize()
+    return dict(ms=sum(e0.elapsed_time(e1) for e0, e1 in ev[:reps]) / reps,
+                host_paced_ms=ev[reps][0].elapsed_time(ev[reps][1]) / reps,
+                host_us=host_s * 1e6)
 
 
 # --------------------------------------------------------------- phases
@@ -576,31 +607,59 @@ ROLE = {"tree_hist": "hist", "shard_hist": "hist", "tree_split": "split",
         "tree_partition": "partition", "shard_partition": "partition"}
 
 
-def level_timing(torch, dev, bm, names, n_rows, depths=range(6)):
-    """Per-kernel sums over the levels ``depths`` of the first ``n_rows``
-    rows of ``bm`` (dyadic stats, the plain path's node ids from d=0, a
-    tree as deep as the last of ``depths``): ms per launch, plain ms,
-    library ms and the bound's two terms."""
+def level_chain(torch, bm, n_rows, depth, mtries=None):
+    """The plain level chain on the first ``n_rows`` rows of ``bm``
+    (dyadic stats, node ids from d=0, the flagship's parameters; with
+    ``mtries``, DRF's per-node [L, F] masks of that many columns at every
+    level). Yields per level d < depth a dict of the level's inputs
+    (bins, stats, nid, prev, ops, lh: the plain histogram) and the plain
+    outputs (out: ``split_plain``'s, dec: the routing decisions, new:
+    ``partition_plain``'s ids)."""
+    from h2o3_tpu_torch.models.tree import _mtries_mask
     from h2o3_tpu_torch.ops.kernels import treekernel as tk
+    dev = bm.bins.device
     bins = bm.bins[:n_rows].contiguous()
     N, F = bins.shape
     B = bm.nbins_total
-    tp, sc, is_cat, cm, lo, hi = level_plan(bm, torch, dev,
-                                            max_depth=max(6, depths[-1] + 1))
-    ops = tk.level_operands(cm, bm.nbins, is_cat, None, lo, hi, sc, dev)
+    _, sc, is_cat, cm, lo, hi = level_plan(bm, torch, dev,
+                                           max_depth=max(6, depth))
+    gen = torch.Generator(device=dev).manual_seed(1)
     stats = dyadic_stats(N, 9, torch, dev)
-    acc = {k: dict(ms=0.0, plain_ms=0.0, library_ms=0.0, bytes_ms=0.0,
-                   ops_ms=0.0) for k in names}
     nid = torch.zeros(N, dtype=torch.int32, device=dev)
     prev = None
-    for d in range(depths[-1] + 1):
+    for d in range(depth):
         L, Lh = 2 ** d, max(2 ** d // 2, 1)
+        ops = tk.level_operands(
+            cm if mtries is None else _mtries_mask(gen, L, F, mtries, dev),
+            bm.nbins, is_cat, None, lo, hi, sc, dev)
         lh = tk.hist_plain(bins, nid, stats, d=d, n_nodes_h=Lh, n_bins=B)
         out = tk.split_plain(lh, prev, *ops, d=d, n_nodes=L, n_bins=B)
         dec = (out[2], out[3], out[4], out[8], out[9], out[7])
-        if d not in depths:
-            prev, nid = out[0], tk.partition_plain(bins, nid, *dec, n_bins=B)
+        new = tk.partition_plain(bins, nid, *dec, n_bins=B)
+        yield dict(d=d, L=L, Lh=Lh, B=B, bins=bins, stats=stats, nid=nid,
+                   prev=prev, ops=ops, is_cat=is_cat, lh=lh, out=out,
+                   dec=dec, new=new)
+        prev, nid = out[0], new
+
+
+def level_timing(torch, dev, bm, names, n_rows, depths=range(6),
+                 mtries=None):
+    """Per-kernel sums over the levels ``depths`` of ``level_chain``'s
+    chain on the first ``n_rows`` rows of ``bm``: ms per launch, plain
+    ms, library ms and the bound's two terms. Each kernel's output at
+    each timed level must equal its plain version's EXACTLY."""
+    from h2o3_tpu_torch.ops.kernels import treekernel as tk
+    acc = {k: dict(ms=0.0, host_paced_ms=0.0, host_us=0.0, plain_ms=0.0,
+                   library_ms=0.0, bytes_ms=0.0, ops_ms=0.0) for k in names}
+    for lev in level_chain(torch, bm, n_rows, depths[-1] + 1, mtries):
+        if lev["d"] not in depths:
             continue
+        d, L, Lh, B = lev["d"], lev["L"], lev["Lh"], lev["B"]
+        bins, stats, nid, prev = (lev["bins"], lev["stats"], lev["nid"],
+                                  lev["prev"])
+        ops, lh, out, dec, new_p = (lev["ops"], lev["lh"], lev["out"],
+                                    lev["dec"], lev["new"])
+        N, F = bins.shape
         n = nid.long()
         cell = (n[:, None] * F + torch.arange(F, device=dev)) * B \
             + bins.long()
@@ -619,19 +678,22 @@ def level_timing(torch, dev, bm, names, n_rows, depths=range(6)):
                 lambda: tk.hist_plain(bins, nid, stats, d=d, n_nodes_h=Lh,
                                       n_bins=B),
                 lambda: torch.zeros((slots, 3), device=dev).index_add_(
-                    0, cell, src)),
+                    0, cell, src), (lh,)),
             "split": (
                 lambda k: tk.tree_split(lh, prev, *ops, d=d, n_nodes=L,
                                         n_bins=B),
                 lambda: tk.split_plain(lh, prev, *ops, d=d, n_nodes=L,
                                        n_bins=B),
-                None),
+                None, out),
             "partition": (
                 lambda k: getattr(tk, k)(bins, nid, *dec, n_bins=B),
                 lambda: tk.partition_plain(bins, nid, *dec, n_bins=B),
-                None),
+                None, (new_p,)),
         }
-        ncat = int(is_cat.sum())
+        # (node, feature) pairs the column masks keep, and the
+        # categorical ones among them (sorted by a comparison sort)
+        keep = ops[0].bool().expand(L, F)
+        kept, kept_cat = int(keep.sum()), int((keep & lev["is_cat"]).sum())
         bound_bytes = {
             "hist": _hist_bytes(N, F, Lh, B, bins.element_size()),
             "split": (Lh * F * B * 12 * (2 if d else 1)
@@ -641,25 +703,59 @@ def level_timing(torch, dev, bm, names, n_rows, depths=range(6)):
         }
         bound_ops = {
             "hist": 3 * N * F,
-            # per (node, feature, threshold, direction) ~20 flops, plus
-            # the categorical ranks' (B-1)^2 compares per (node, feature)
-            "split": L * F * (B - 1) * 2 * 20 + L * ncat * (B - 1) ** 2,
+            # per kept (node, feature, threshold, direction) ~20 flops,
+            # plus (B-1)·log2(B-1) compares per kept categorical pair
+            "split": kept * (B - 1) * 2 * 20
+            + kept_cat * (B - 1) * int(np.ceil(np.log2(B - 1))),
             "partition": 4 * N,
         }
         for k in names:
-            kern, plain, lib = runs[ROLE[k]]
+            kern, plain, lib, want = runs[ROLE[k]]
+            got = kern(k)
+            got = got if isinstance(got, tuple) else (got,)
+            torch.cuda.synchronize()
+            check(all(identical(a, b) for a, b in zip(got, want)),
+                  f"{k} d={d} != its plain version")
             a = acc[k]
-            ms = time_ms(torch, lambda: kern(k))
-            say(f"  {k} d={d} ({N} rows): {ms:.6g} ms")
-            a["ms"] += ms
-            a["plain_ms"] += time_ms(torch, plain, reps=3)
+            t = time_ms(torch, lambda: kern(k))
+            say(f"  {k} d={d} ({N} rows, L={L}): {t['ms']:.6g} ms, "
+                f"host-paced {t['host_paced_ms']:.6g} ms, host "
+                f"{t['host_us']:.4g} us a call, exact")
+            for key in ("ms", "host_paced_ms", "host_us"):
+                a[key] += t[key]
+            a["plain_ms"] += time_ms(torch, plain, reps=3)["ms"]
             if lib is not None:
-                a["library_ms"] += time_ms(torch, lib, reps=3)
+                a["library_ms"] += time_ms(torch, lib, reps=3)["ms"]
             a["bytes_ms"] += bound_bytes[ROLE[k]] / HBM_BYTES_PER_S * 1e3
             a["ops_ms"] += bound_ops[ROLE[k]] / F32_OPS_PER_S * 1e3
-        prev, nid = out[0], tk.partition_plain(bins, nid, *dec, n_bins=B)
         del cell, src
     return acc
+
+
+def split_floor_case(torch, dev, bm):
+    """``tree_split`` at its smallest level (L = 1, F = 1, B = 3): (a
+    call of the kernel, the plain version's outputs)."""
+    from h2o3_tpu_torch.ops.kernels import treekernel as tk
+    _, sc, _, _, lo, hi = level_plan(bm, torch, dev)
+    lh = torch.tensor([[[[4.0, -4.0, 4.0], [4.0, 8.0, 4.0],
+                         [0.0, 0.0, 0.0]]]], device=dev)
+    ops = tk.level_operands(torch.ones(1, dtype=torch.bool, device=dev),
+                            torch.full((1,), 2, dtype=torch.int32), None,
+                            None, lo, hi, sc, dev)
+    return (lambda: tk.tree_split(lh, None, *ops, d=0, n_nodes=1, n_bins=3),
+            tk.split_plain(lh, None, *ops, d=0, n_nodes=1, n_bins=3))
+
+
+def split_floor_ms(torch, dev, bm) -> dict:
+    """What a ``tree_split`` launch costs with next to no work
+    (``time_ms``'s three times), checked EXACT against the plain version
+    first."""
+    fn, want = split_floor_case(torch, dev, bm)
+    got = fn()
+    torch.cuda.synchronize()
+    check(all(identical(a, b) for a, b in zip(got, want)),
+          "tree_split L=1 F=1 B=3 != its plain version")
+    return time_ms(torch, fn, reps=50)
 
 
 def timing_records(acc, counts, n_rows, label, path, depths=range(6)):
@@ -670,8 +766,9 @@ def timing_records(acc, counts, n_rows, label, path, depths=range(6)):
                             has_library=ROLE[k] == "hist")
         records.append(rec)
         say(f"{label} {k}: {rec['ms']:.6g} ms per launch (mean of "
-            f"{rec['levels']} at {n_rows} rows), plain {rec['plain_ms']:.6g} "
-            f"ms, bound "
+            f"{rec['levels']} at {n_rows} rows; host-paced "
+            f"{rec['host_paced_ms']:.6g} ms, host {rec['host_us']:.4g} us a "
+            f"call), plain {rec['plain_ms']:.6g} ms, bound "
             f"{rec['bound_ms']:.6g} ms ({rec['bound_by']}), library "
             f"{rec['library_ms']}")
     return records
@@ -679,16 +776,28 @@ def timing_records(acc, counts, n_rows, label, path, depths=range(6)):
 
 def phase_timing(torch, dev, model, counts):
     """Kernel times at the main path's shapes, averaged over d=0..5; then
-    ``tree_hist`` over the DRF path's deeper levels d=6..9 (Lh = 32..256)
-    of the same rows. The DRF record's launches are set once phase 6 has
-    counted them."""
+    ``tree_hist``, ``tree_split`` and ``tree_partition`` over the DRF
+    path's deeper levels d=6..9 (L = 64..512) of the same rows, with
+    DRF's per-node mtries masks (sqrt(F) columns a node); and
+    ``tree_split``'s floor. The DRF records' launches are set once phase
+    6 has counted them."""
     n = model.bm.bins.shape[0]
     records = timing_records(level_timing(torch, dev, model.bm,
                                           LEVEL_KERNELS, n),
                              counts, n, "phase5", "gbm")
+    mtries = max(1, int(np.sqrt(model.bm.bins.shape[1])))
     records += timing_records(
-        level_timing(torch, dev, model.bm, ("tree_hist",), n, DRF_DEPTHS),
-        {"tree_hist": None}, n, "phase5 DRF depths", "drf", DRF_DEPTHS)
+        level_timing(torch, dev, model.bm, LEVEL_KERNELS, n, DRF_DEPTHS,
+                     mtries=mtries),
+        {k: None for k in LEVEL_KERNELS}, n, "phase5 DRF depths", "drf",
+        DRF_DEPTHS)
+    floor = split_floor_ms(torch, dev, model.bm)
+    say(f"phase5 tree_split floor (L=1, F=1, B=3): {floor['ms']:.6g} ms, "
+        f"host-paced {floor['host_paced_ms']:.6g} ms, host "
+        f"{floor['host_us']:.4g} us a call")
+    for rec in records:
+        if rec["name"] == "tree_split":
+            rec["floor_ms"] = floor["ms"]
     return records
 
 
@@ -698,7 +807,10 @@ def kernel_record(name, launches, a, n_levels, *, path, levels,
     of measured times and of the bound's two terms."""
     return {"name": name, "route": "cuda", **KERNELS[name], "path": path,
             "levels": levels, "launches": launches,
-            "ms": a["ms"] / n_levels, "plain_ms": a["plain_ms"] / n_levels,
+            "ms": a["ms"] / n_levels,
+            "host_paced_ms": a["host_paced_ms"] / n_levels,
+            "host_us": a["host_us"] / n_levels,
+            "plain_ms": a["plain_ms"] / n_levels,
             "bound_ms": max(a["bytes_ms"], a["ops_ms"]) / n_levels,
             "bound_by": "bytes" if a["bytes_ms"] >= a["ops_ms"]
             else "operations",
@@ -929,8 +1041,8 @@ def phase_hist_timing(torch, dev, model, fr, counts):
     w = fr.valid_weights() * keep * fr.col("treatment").data
     y = fr.col("visit").data.to(torch.float32)
     stats = torch.stack([w, w * y, w], dim=1).contiguous()
-    acc = dict(ms=0.0, plain_ms=0.0, library_ms=0.0, bytes_ms=0.0,
-               ops_ms=0.0)
+    acc = dict(ms=0.0, host_paced_ms=0.0, host_us=0.0, plain_ms=0.0,
+               library_ms=0.0, bytes_ms=0.0, ops_ms=0.0)
     feat = torch.arange(F, device=dev)
     for d in range(D):
         L = 2 ** d
@@ -938,14 +1050,17 @@ def phase_hist_timing(torch, dev, model, fr, counts):
         cell = ((nid.long()[:, None] * F + feat) * B
                 + bins.long()).reshape(-1)
         src = stats[:, None, :].expand(N, F, 3).reshape(N * F, 3)
-        ms = time_ms(torch, lambda: full_histogram(bins, nid, stats,
-                                                   n_nodes=L, n_bins=B))
-        say(f"  histogram d={d} (L={L}): {ms:.6g} ms")
-        acc["ms"] += ms
+        t = time_ms(torch, lambda: full_histogram(bins, nid, stats,
+                                                  n_nodes=L, n_bins=B))
+        say(f"  histogram d={d} (L={L}): {t['ms']:.6g} ms, host-paced "
+            f"{t['host_paced_ms']:.6g} ms")
+        for key in ("ms", "host_paced_ms", "host_us"):
+            acc[key] += t[key]
         acc["plain_ms"] += time_ms(torch, lambda: local_histogram(
-            bins, nid, stats, n_nodes=L, n_bins=B), reps=3)
+            bins, nid, stats, n_nodes=L, n_bins=B), reps=3)["ms"]
         acc["library_ms"] += time_ms(torch, lambda: torch.zeros(
-            (L * F * B, 3), device=dev).index_add_(0, cell, src), reps=3)
+            (L * F * B, 3), device=dev).index_add_(0, cell, src),
+            reps=3)["ms"]
         acc["bytes_ms"] += _hist_bytes(N, F, L, B, bins.element_size()) \
             / HBM_BYTES_PER_S * 1e3
         acc["ops_ms"] += 3 * N * F / F32_OPS_PER_S * 1e3

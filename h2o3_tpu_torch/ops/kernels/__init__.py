@@ -20,6 +20,7 @@ path went through the kernels.
 from __future__ import annotations
 
 import ctypes
+import functools
 import hashlib
 import os
 import shutil
@@ -179,7 +180,12 @@ def ptr(t: Optional[torch.Tensor]) -> Optional[int]:
 
 
 def stream(device) -> int:
-    return torch.cuda.current_stream(device).cuda_stream
+    """The raw handle of ``device``'s current CUDA stream, read without
+    building a ``torch.cuda.Stream`` (which costs a wrapper several µs a
+    call)."""
+    index = torch.cuda.current_device() if device.index is None \
+        else device.index
+    return torch._C._cuda_getCurrentRawStream(index)
 
 
 def bin_dtype(bins: torch.Tensor) -> int:
@@ -294,5 +300,6 @@ def scratch(plan: SlabPlan, n_rows: int, device):
                         device=device))
 
 
+@functools.lru_cache(maxsize=None)
 def sm_count(device) -> int:
     return torch.cuda.get_device_properties(device).multi_processor_count

@@ -34,6 +34,8 @@ rows) the level runs as the reference's two-kernel variant
 from __future__ import annotations
 
 import ctypes
+import functools
+from typing import Dict, List, NamedTuple, Tuple
 
 import torch
 
@@ -50,8 +52,15 @@ _VP, _I, _LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 
 # shared-memory budget of one tree_hist block's [nodes, F, B, 3] slab
 HIST_SLAB_BYTES = kernels.SLAB_BYTES
-# tree_split: at most this many warps per node block, within this budget
-SPLIT_WARPS, SPLIT_SMEM_BYTES = 8, 200 * 1024
+# tree_split: threads of a (node, feature) block at most (kSplitThreads,
+# the kernel's launch bound), and the shared memory a block may take
+SPLIT_THREADS, SPLIT_SMEM_BYTES = 1024, kernels.SLAB_BYTES
+# tree_partition: the shared memory of a block's node records and left
+# sets; threads a block and blocks an SM (kRouteThreads,
+# kRouteBlocksPerSm: the kernel's launch bound keeps its registers within
+# that many), for a grid of one wave
+ROUTE_SMEM_BYTES = kernels.SLAB_BYTES
+ROUTE_THREADS, ROUTE_BLOCKS_PER_SM = 512, 2
 
 _LIB = None
 
@@ -62,9 +71,10 @@ def _lib():
         _LIB = kernels.bind("treekernel", {
             "tree_hist": [_VP, _I, _VP, _VP, _VP, _VP, _VP, _LL, _I, _I, _I, _I,
                           _LL, _I, _I, _I, _I, _LL, _VP],
-            "tree_split": [_VP] * 20 + [_I] * 7 + [_VP],
+            "tree_split": [_VP] * 23 + [_I] * 9 + [_LL, _VP],
             "tree_partition": [_VP, _I, _VP, _VP, _VP, _VP, _VP, _VP, _VP,
-                               _VP, _LL, _I, _I, _I, _I, _VP],
+                               _VP, _LL, _I, _I, _I, _LL, _LL, _I, _I, _LL,
+                               _I, _VP],
         })
     return _LIB
 
@@ -141,6 +151,64 @@ def split_plain(lh, prev, col_mask, nb, is_cat, constraints, lo, hi, knobs,
     return hist, bg, bf, bt, bnal, blv, brv, leftmask, split, cs
 
 
+class SplitPlan(NamedTuple):
+    """The launch of ``tree_split``: one block of ``threads`` threads per
+    (node, feature), each thread a run of ``per`` bins; a bitonic sort of
+    ``n_sort`` (a power of two) (key, bin) pairs, held in registers where
+    a thread has one pair; ``words`` 32-bit words of a left set; ``smem``
+    bytes of shared memory a block (orig and scan-order w/g/h, the sort's
+    keys and bins, warp totals, one candidate a warp, as
+    csrc/treekernel.cu lays them out)."""
+    threads: int
+    per: int
+    n_sort: int
+    words: int
+    smem: int
+
+
+@functools.lru_cache(maxsize=None)
+def split_plan(n_bins: int) -> SplitPlan:
+    """Plan ``tree_split`` for ``n_bins`` bins (NA included): a thread
+    per slot of the sort (the B-1 value bins rounded up to a power of
+    two, at least a warp), at most SPLIT_THREADS threads, a longer run a
+    thread beyond that; raises when a block's shared memory exceeds
+    SPLIT_SMEM_BYTES."""
+    bm = n_bins - 1
+    if bm < 2:
+        raise ValueError(f"tree_split: needs at least 3 bins, got {n_bins}")
+    n_sort = 1 << (bm - 1).bit_length()
+    threads = min(SPLIT_THREADS, max(32, n_sort))
+    per = -(-bm // threads)
+    smem = 4 * (3 * n_bins + 3 * threads * per + 2 * n_sort + 96) + 16 * 32
+    if smem > SPLIT_SMEM_BYTES:
+        raise ValueError(f"tree_split: {n_bins} bins need {smem} B of shared "
+                         f"memory, over {SPLIT_SMEM_BYTES}")
+    return SplitPlan(threads, per, n_sort, -(-bm // 32), smem)
+
+
+# tree_split's scratch per (device, stream), raw 32-bit words: the
+# per-node arrival counters (zeros that every launch leaves at zero: the
+# node's last block resets its own), then each (node, feature)'s
+# candidate {gain, index, lv, rv} and left set, which every launch writes
+# before it reads them
+_SCRATCH: Dict[Tuple[int, int], List[torch.Tensor]] = {}
+
+
+def split_scratch(n_nodes: int, n_pairs: int, words: int, device,
+                  strm: int) -> List[torch.Tensor]:
+    """[arrivals, cands, bits] for launches on stream ``strm`` of
+    ``device``: at least ``n_nodes`` zeroed counters, ``4 * n_pairs``
+    candidate words and ``n_pairs * words`` left-set words, each
+    allocated once per power-of-two size. Work on one stream runs in
+    order, so launches there may share them."""
+    bufs = _SCRATCH.setdefault((device.index, strm), [None, None, None])
+    for i, n in enumerate((n_nodes, 4 * n_pairs, n_pairs * words)):
+        if bufs[i] is None or bufs[i].numel() < n:
+            bufs[i] = torch.zeros(max(64, 1 << (n - 1).bit_length()),
+                                  dtype=torch.int32, device=device)
+    return bufs
+
+
 def tree_split(lh, prev, col_mask, nb, is_cat, constraints, lo, hi, knobs,
                depth_limit, *, d: int, n_nodes: int, n_bins: int):
     """Level boundary → (hist [L,F,B,3], gain, feat, thresh, na_left,
@@ -174,6 +242,7 @@ def tree_split(lh, prev, col_mask, nb, is_cat, constraints, lo, hi, knobs,
     ]
     if cm_rows not in (1, L) or bound_rows not in (1, L):
         raise ValueError("tree_split: col_mask and lo/hi take 1 or L rows")
+    plan = split_plan(B)
     f32 = dict(dtype=torch.float32, device=dev)
     i32 = dict(dtype=torch.int32, device=dev)
     b8 = dict(dtype=torch.bool, device=dev)
@@ -182,11 +251,13 @@ def tree_split(lh, prev, col_mask, nb, is_cat, constraints, lo, hi, knobs,
             torch.empty(L, **b8), torch.empty(L, **f32),
             torch.empty(L, **f32), torch.empty((L, B - 1), **b8),
             torch.empty(L, **b8), torch.empty(L, **b8))
-    n_warps = min(SPLIT_WARPS, F, SPLIT_SMEM_BYTES // (28 * B + 16))
-    if n_warps < 1:
-        raise ValueError(f"tree_split: {B} bins exceed shared memory")
-    rc = _lib().tree_split(*ptrs, *(o.data_ptr() for o in outs), d, L, F,
-                           B, cm_rows, bound_rows, n_warps, stream(dev))
+    strm = stream(dev)
+    scr = split_scratch(L, L * F, plan.words, dev, strm)
+    rc = _lib().tree_split(*ptrs, *(o.data_ptr() for o in outs),
+                           scr[1].data_ptr(), scr[2].data_ptr(),
+                           scr[0].data_ptr(), d, L, F, B, cm_rows,
+                           bound_rows, plan.threads, plan.per, plan.n_sort,
+                           plan.smem, strm)
     launched(_lib(), rc, "tree_split")
     return outs
 
@@ -224,6 +295,48 @@ def shard_partition(bins, nid, feat, thresh, na_left, split, cat_split,
                       leftmask, n_bins, "shard_partition")
 
 
+class RoutePlan(NamedTuple):
+    """The launch of ``tree_partition``: rows [head, head + 4·n_vec) are
+    routed four at a time from 16-byte nid loads (nid + head is 16-byte
+    aligned), the ``head`` rows before and ``tail`` rows after one at a
+    time; ``vec_out``: the new ids are stored 16 bytes at a time (out is
+    aligned like nid). ``smem`` bytes of shared memory a block: an 8-byte
+    record a node, then, where ``bits_in_smem``, ``words`` 32-bit words
+    of left set a node. ``blocks`` of ROUTE_THREADS threads: one wave, as
+    many as the SMs hold, fewer where the rows need fewer."""
+    head: int
+    n_vec: int
+    tail: int
+    vec_out: bool
+    words: int
+    bits_in_smem: bool
+    smem: int
+    blocks: int
+
+
+def route_plan(n_rows: int, n_nodes: int, n_bins: int, nid_addr: int,
+               out_addr: int, *, sms: int) -> RoutePlan:
+    """Plan ``tree_partition`` over ``n_rows`` rows whose int32 node ids
+    start at address ``nid_addr`` and whose new ids go to ``out_addr``, on
+    a card of ``sms`` SMs; raises when the node records alone exceed
+    ROUTE_SMEM_BYTES."""
+    head = min(n_rows, (-nid_addr % 16) // 4)
+    n_vec = (n_rows - head) // 4
+    words = -(-(n_bins - 1) // 32)
+    rec, bits = 8 * n_nodes, 4 * n_nodes * words
+    if rec > ROUTE_SMEM_BYTES:
+        raise ValueError(f"tree_partition: {n_nodes} nodes' records exceed "
+                         f"{ROUTE_SMEM_BYTES} B of shared memory")
+    in_smem = rec + bits <= ROUTE_SMEM_BYTES
+    smem = rec + bits if in_smem else rec
+    per_sm = max(1, min(ROUTE_BLOCKS_PER_SM,
+                        kernels.SM_SMEM_BYTES // (smem + 1024)))
+    blocks = max(1, min(-(-n_vec // ROUTE_THREADS), per_sm * sms))
+    return RoutePlan(head, n_vec, n_rows - head - 4 * n_vec,
+                     (out_addr - nid_addr) % 16 == 0, words, in_smem, smem,
+                     blocks)
+
+
 def _partition(bins, nid, feat, thresh, na_left, split, cat_split, leftmask,
                n_bins, name):
     if not on_cuda(bins, name):
@@ -246,10 +359,12 @@ def _partition(bins, nid, feat, thresh, na_left, split, cat_split, leftmask,
         need(cat_split, torch.bool, (L,), "cat_split", dev),
         need(leftmask, torch.bool, (L, n_bins - 1), "leftmask", dev),
     ]
-    sms = torch.cuda.get_device_properties(dev).multi_processor_count
-    n_blocks = max(1, min(-(-N // 256), 8 * sms))
+    plan = route_plan(N, L, n_bins, ptrs[1], out.data_ptr(),
+                      sms=sm_count(dev))
     rc = _lib().tree_partition(ptrs[0], is8, ptrs[1], out.data_ptr(),
-                               *tables, N, F, n_bins, L, n_blocks,
+                               *tables, N, F, n_bins, L, plan.head,
+                               plan.n_vec, int(plan.vec_out), plan.blocks,
+                               plan.smem, int(plan.bits_in_smem),
                                stream(dev))
     launched(_lib(), rc, name)
     return out

@@ -526,3 +526,190 @@ def test_unaligned_views(dev):
     assert views[0].data_ptr() % 16 and views[2].data_ptr() % 16
     for got, want in _both_hists(*views, n_nodes=L, n_bins=B, d=1):
         assert torch.equal(got, want)
+
+
+# --------------------------- tree_split (node, feature) blocks, the router
+
+
+def _scalars(dev, min_rows=1.0, lam=0.0):
+    from h2o3_tpu_torch.models.tree import TreeScalars
+    return TreeScalars(torch.tensor(min_rows, device=dev),
+                       torch.tensor(lam, device=dev),
+                       torch.tensor(1e-5, device=dev),
+                       torch.tensor(30, dtype=torch.int32, device=dev))
+
+
+@pytest.mark.parametrize("B,F", [(3, 40), (65, 40), (126, 40), (257, 24),
+                                 (1025, 12), (2049, 6)])
+def test_split_and_route_every_width_exact(dev, B, F):
+    """``tree_split`` (one block per (node, feature), one thread per bin)
+    and ``tree_partition`` EXACT on dyadic stats at every bin width: B = 3
+    (one warp), 65, 126, 257 (int32 bins past 127), 1025
+    (nbins_cats = 1024: 1024 threads, the sort in registers) and 2049 (two
+    bins a thread, the sort in shared memory); F up to 40, half the
+    features categorical, per-node mtries masks, levels 0..3."""
+    from h2o3_tpu_torch.models.tree import _mtries_mask
+    r = np.random.RandomState(B)
+    dtype = np.int8 if B <= 128 else np.int32
+    bins = torch.from_numpy(r.randint(0, B, (N, F)).astype(dtype)).to(dev)
+    nb = torch.full((F,), B - 1, dtype=torch.int32, device=dev)
+    ic = torch.from_numpy(np.arange(F) % 2 == 0).to(dev)
+    inf = torch.full((1,), np.inf, device=dev)
+    sc = _scalars(dev)
+    stats = cs.dyadic_stats(N, B, torch, dev)
+    gen = torch.Generator(device=dev).manual_seed(B)
+    nid = torch.zeros(N, dtype=torch.int32, device=dev)
+    prev = None
+    for d in range(4):
+        L = 2 ** d
+        cm = _mtries_mask(gen, L, F, max(1, F // 3), dev)
+        ops = tk.level_operands(cm, nb, ic, None, -inf, inf, sc, dev)
+        _, _, out_p, nid = cs.compare_level(tk, bins, nid, stats, prev, ops,
+                                            d=d, L=L, B=B, exact=True)
+        prev = out_p[0]
+
+
+def _level_hists(r, Lh, F, B, empty=0.0):
+    """(lh, prev) [Lh, F, B, 3] dyadic: the left children and their
+    parents (left + right), ``empty`` of the cells with w = 0."""
+    def side():
+        w = r.randint(1, 5, (Lh, F, B)).astype(np.float32)
+        w[r.rand(Lh, F, B) < empty] = 0.0
+        g = r.randint(-6, 7, (Lh, F, B)).astype(np.float32)
+        h = r.randint(1, 4, (Lh, F, B)).astype(np.float32)
+        return np.stack([w, w * g, w * h], axis=-1)
+    left, right = side(), side()
+    return left, left + right
+
+
+def _split_both(dev, lh, prev, cm, ic, lam=0.0, min_rows=1.0):
+    L, F, B = 2 * lh.shape[0], lh.shape[1], lh.shape[2]
+    t = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(dev)  # noqa
+    inf = torch.full((1,), np.inf, device=dev)
+    ops = tk.level_operands(t(cm), torch.full((F,), B - 1, dtype=torch.int32),
+                            None if ic is None else t(ic), None, -inf, inf,
+                            _scalars(dev, min_rows, lam), dev)
+    lh, prev = t(lh), t(prev)
+    out_k = tk.tree_split(lh, prev, *ops, d=1, n_nodes=L, n_bins=B)
+    out_p = tk.split_plain(lh, prev, *ops, d=1, n_nodes=L, n_bins=B)
+    torch.cuda.synchronize()
+    for i, (a, b) in enumerate(zip(out_k, out_p)):
+        assert cs.identical(a, b), f"output {i}"
+    return out_k
+
+
+@pytest.mark.parametrize("cats", ["numeric", "categorical"])
+def test_split_ties_across_features_lowest_index_wins(dev, cats):
+    """Every feature of a node holds the same histogram row, so their best
+    gains tie: feature 0 (the lowest flat index) must win whichever
+    (node, feature) block of the node arrives last. Run 20 times."""
+    r = np.random.RandomState(41)
+    Lh, F, B = 32, 40, 126
+    lh, prev = _level_hists(r, Lh, 1, B)
+    lh, prev = np.repeat(lh, F, axis=1), np.repeat(prev, F, axis=1)
+    ic = None if cats == "numeric" else np.ones(F, bool)
+    for _ in range(20):
+        out = _split_both(dev, lh, prev, np.ones(F, bool), ic)
+        assert bool((out[2] == 0).all())
+        assert bool(torch.isfinite(out[1]).all())
+
+
+def test_split_all_masked_nodes_and_mtries(dev):
+    """Per-node [L, F] masks of 3 of 40 columns, a quarter of the nodes
+    with every column masked: those nodes take index 0 (feature 0, t = 0,
+    NA right) with its child values, gain -inf; EXACT against the plain
+    version, categorical and numeric features mixed."""
+    r = np.random.RandomState(42)
+    Lh, F, B = 64, 40, 126
+    lh, prev = _level_hists(r, Lh, F, B, empty=0.2)
+    cm = np.zeros((2 * Lh, F), bool)
+    for n in range(2 * Lh):
+        if n % 4:
+            cm[n, r.choice(F, 3, replace=False)] = True
+    out = _split_both(dev, lh, prev, cm, np.arange(F) % 3 == 0)
+    masked = torch.from_numpy(~cm.any(1)).to(dev)
+    assert bool(torch.isneginf(out[1][masked]).all())
+    assert bool((out[2][masked] == 0).all() and (out[3][masked] == 0).all())
+    assert bool(torch.isfinite(out[1][~masked]).any())
+
+
+def test_split_nan_keys_and_empty_bins_wide(dev):
+    """NaN Newton keys (0/0: g = 0, h + λ + 1e-10 = 0) sort last and NaN
+    gains win; empty bins key to +inf; at B = 126 and 257 over 24
+    features: EXACT against the plain version."""
+    r = np.random.RandomState(43)
+    for B in (126, 257):
+        Lh, F = 8, 24
+        lh, prev = _level_hists(r, Lh, F, B, empty=0.3)
+        nan_cells = r.rand(Lh, F, B) < 0.1
+        for a in (lh, prev):
+            a[..., 0][nan_cells] = 1.0
+            a[..., 1][nan_cells] = 0.0
+            a[..., 2][nan_cells] = np.float32(-1e-10)
+        prev[..., 0][nan_cells] = 2.0
+        _split_both(dev, lh, prev, np.ones(F, bool), np.arange(F) % 2 == 0,
+                    lam=0.0)
+
+
+def test_stream_is_the_current_stream(dev):
+    """The wrappers launch on the caller's current stream: ``stream``
+    reads its raw handle, inside and outside a ``torch.cuda.stream``
+    block."""
+    assert kernels.stream(dev) == torch.cuda.current_stream(dev).cuda_stream
+    side = torch.cuda.Stream(dev)
+    with torch.cuda.stream(side):
+        assert kernels.stream(dev) == side.cuda_stream
+        assert kernels.stream(torch.device("cuda")) == side.cuda_stream
+    assert kernels.stream(dev) == torch.cuda.current_stream(dev).cuda_stream
+
+
+def test_split_arrival_counters_return_to_zero(dev):
+    """Every launch leaves its per-node arrival counters at 0 for the
+    next one (no memset, no host sync), and launches on one stream share
+    one scratch."""
+    r = np.random.RandomState(44)
+    lh, prev = _level_hists(r, 256, 10, 126)
+    _split_both(dev, lh, prev, np.ones(10, bool), np.arange(10) < 3)
+    scr = tk.split_scratch(512, 5120, 4, dev, kernels.stream(dev))
+    before = [t.data_ptr() for t in scr]
+    _split_both(dev, lh, prev, np.ones(10, bool), np.arange(10) < 3)
+    scr = tk.split_scratch(512, 5120, 4, dev, kernels.stream(dev))
+    assert [t.data_ptr() for t in scr] == before
+    assert scr[0].numel() >= 512 and int(scr[0].abs().sum()) == 0
+
+
+@pytest.mark.parametrize("in_smem", [True, False])
+def test_route_l512_categorical_unaligned(dev, monkeypatch, in_smem):
+    """``tree_partition`` and ``shard_partition`` at L = 512 with
+    categorical splits on most nodes: N = 4k + 1, + 2, + 3, views that
+    start 1, 2, 3 rows in (nid and bins off their 16-byte boundary, the
+    new ids then stored one by one), NA bins; the left sets staged as
+    bits, then (budget cut) read from the byte mask. EXACT against the
+    plain version."""
+    if not in_smem:
+        monkeypatch.setattr(tk, "ROUTE_SMEM_BYTES", 512 * 8)
+    r = np.random.RandomState(45)
+    L, F, B = 512, 10, 126
+    feat = torch.from_numpy(r.randint(0, F, L).astype(np.int32)).to(dev)
+    thresh = torch.from_numpy(r.randint(0, B - 1, L).astype(np.int32)).to(dev)
+    nal = torch.from_numpy(r.rand(L) < 0.5).to(dev)
+    split = torch.from_numpy(r.rand(L) < 0.9).to(dev)
+    cat = torch.from_numpy(r.rand(L) < 0.8).to(dev) & split
+    lm = torch.from_numpy(r.rand(L, B - 1) < 0.5).to(dev)
+    dec = (feat, thresh, nal, split, cat, lm)
+    for n in (40_001, 40_002, 40_003):
+        b = r.randint(0, B, (n + 3, F))
+        b[::7, :] = B - 1
+        bins = torch.from_numpy(b.astype(np.int8)).to(dev)
+        nid = torch.from_numpy(r.randint(0, L, n + 3).astype(np.int32)).to(
+            dev)
+        for k in range(4):
+            bv, nv = bins[k:k + n - k], nid[k:k + n - k]
+            plan = tk.route_plan(nv.shape[0], L, B, nv.data_ptr(), 0,
+                                 sms=kernels.sm_count(dev))
+            assert plan.bits_in_smem == in_smem
+            want = tk.partition_plain(bv, nv, *dec, n_bins=B)
+            for fn in (tk.tree_partition, tk.shard_partition):
+                got = fn(bv, nv, *dec, n_bins=B)
+                torch.cuda.synchronize()
+                assert torch.equal(got, want), (n, k, fn.__name__)
