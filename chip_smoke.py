@@ -65,14 +65,40 @@ Phases, in order; any failure exits non-zero and no phase carries on:
     AUC within 5e-3 of phase 4's.
 12. ``shard_hist`` and ``shard_partition`` timed at one rank's shapes
     (2.5M rows, d=0..5) on the card alone, as phase 5.
+13. Multinomial GBM on the UCI Forest CoverType schema (581,012 rows, 54
+    numeric features, 7 classes with the published counts; generated from
+    a seed): ``GBMEstimator(ntrees=10, max_depth=6, seed=1).train`` →
+    ``predict`` → ``model_performance``, each level kernel launched
+    10 x 7 x 6 = 420 times; the 50K-row fit within 5e-3 of the CPU plain
+    fit in logloss and weighted-OVR AUC; then the level kernels timed at
+    its shapes (F = 54), as phase 5.
+14. Multinomial DRF on phase 13's frame (as phase 6): 10 x 7 x 10 = 700
+    launches a level kernel, OOB logloss and AUC; the 50K-row forest
+    without bagging (sample_rate=1, mtries=54) EXACTLY the CPU plain
+    forest.
+15. One GBM for each new family (poisson, gamma, tweedie(1.5), laplace,
+    quantile(0.5), quantile(0.9), huber(0.9)) on the first 1M airlines
+    rows with a response of the family's domain: 60 launches a level
+    kernel a fit; the level kernels held on the log-link families'
+    exp-scaled hessians as phase 2 holds real-valued stats; on the
+    50K-row sample the laplace and quantile(0.5) forests (statistics in
+    halves and ones) EXACTLY the CPU plain forests, the others' mean
+    residual deviance within 5e-3 relative.
+16. The flagship GBM with early stopping (``ntrees=50,
+    stopping_rounds=2, score_tree_interval=1``) on an 80/20 split of
+    those rows: (trees kept) x 6 launches a level kernel, the scoring
+    history and the validation AUC.
 
 Launch counts are read per path: each path sets every count to 0 just
-before it runs and reads them just after. The line before the last is
+before it runs and reads them just after (phase 15's, over its seven
+fits, are their sum). The line before the last is
 the ``{"kernels": [...]}`` record (every kernel, each with its own
 source, the TPU kernel it replaces, the path and levels it was timed at
 and its launches on that path; ``ms`` is device time, ``host_paced_ms``
-and ``host_us`` as ``time_ms`` says; the three level kernels twice, at
-the GBM and the DRF levels, ``tree_split``'s with its floor); the last is
+and ``host_us`` as ``time_ms`` says; the three level kernels three
+times, at the GBM, the DRF and the multinomial GBM levels,
+``tree_split``'s with its floor; ``launches_by_path`` gives each
+kernel's launches on every path); the last is
 ``{"ok": true, "device": {...}}``.
 """
 
@@ -99,6 +125,21 @@ UPLIFT = dict(treatment_column="treatment", ntrees=10, max_depth=10,
 N_MAIN = 5_000_000
 N_KERNEL = 1_000_000
 N_SAMPLE = 50_000
+# phase 13: multinomial GBM on the Covertype schema (ntrees cut from the
+# default 50, as phase 4 cuts it); phase 14 runs DRF (as phase 6) on it
+MULTI_GBM = dict(ntrees=10, max_depth=6, seed=1)
+# phase 15: one GBM a family on the first N_DIST airlines rows
+N_DIST = 1_000_000
+DIST_GBM = dict(ntrees=10, max_depth=6, seed=1)
+FAMILIES = (("poisson", {}), ("gamma", {}), ("tweedie", {"tweedie_power": 1.5}),
+            ("laplace", {}), ("quantile", {"quantile_alpha": 0.5}),
+            ("quantile", {"quantile_alpha": 0.9}),
+            ("huber", {"huber_alpha": 0.9}))
+# statistics that sum exactly in any order: these fits must be EXACT
+DYADIC_FAMILIES = (("laplace", {}), ("quantile", {"quantile_alpha": 0.5}))
+# phase 16: the flagship with early stopping on an 80/20 split of N_DIST
+STOPPING = dict(FLAGSHIP, ntrees=50, stopping_rounds=2,
+                score_tree_interval=1)
 _TREEKERNEL = dict(source="h2o3_tpu_torch/ops/kernels/csrc/treekernel.cu",
                    replaces="h2o3_tpu/ops/pallas/treekernel.py:250")
 KERNELS = {
@@ -159,6 +200,77 @@ def airlines_arrays(n: int, seed: int = 7):
     domains = {"UniqueCarrier": carriers, "Origin": origins,
                "Dest": origins, "IsDepDelayed": ["NO", "YES"]}
     return cols, domains
+
+
+def airlines_delay(n: int, seed: int = 7) -> np.ndarray:
+    """The departure delay (minutes) behind ``airlines_arrays``'
+    IsDepDelayed, from the same draws: IsDepDelayed = delay > 15."""
+    r = np.random.RandomState(seed)
+    dep = r.randint(0, 2400, n)
+    r.randint(-10, 60, n)                    # CRSDepTime's offsets
+    month = r.randint(1, 13, n)
+    car_i = r.randint(0, 8, n)
+    return (0.03 * (dep - 1000) + np.isin(car_i, [0, 5]) * 15
+            + np.isin(month, [12, 1, 6]) * 8 + r.randn(n) * 25)
+
+
+# UCI Forest CoverType (Blackard & Dean 1999, covtype.info): the ten
+# quantitative attributes with their published ranges, then 4 one-hot
+# Wilderness_Area and 40 one-hot Soil_Type columns; Cover_Type's 7 class
+# counts over the 581,012 rows
+COVTYPE_RANGES = (
+    ("Elevation", 1859, 3858), ("Aspect", 0, 360), ("Slope", 0, 66),
+    ("Horizontal_Distance_To_Hydrology", 0, 1397),
+    ("Vertical_Distance_To_Hydrology", -173, 601),
+    ("Horizontal_Distance_To_Roadways", 0, 7117),
+    ("Hillshade_9am", 0, 254), ("Hillshade_Noon", 0, 254),
+    ("Hillshade_3pm", 0, 254),
+    ("Horizontal_Distance_To_Fire_Points", 0, 7173))
+COVTYPE_COUNTS = (211_840, 283_301, 35_754, 2_747, 9_493, 17_367, 20_510)
+N_COVTYPE = sum(COVTYPE_COUNTS)          # 581,012
+
+
+def covtype_arrays(n: int = N_COVTYPE, seed: int = 5):
+    """The Covertype schema and class counts, generated from a seed (no
+    download): Cover_Type drawn with the published counts (the first
+    ``n`` of a random permutation), integer attributes in their published
+    ranges, and a signal on them — a class mean of Elevation, class
+    shifts of Slope and the distances, class-dependent Wilderness_Area
+    and Soil_Type draws. Returns (int32 columns, domains)."""
+    rng = np.random.default_rng(seed)
+    y = rng.permutation(np.repeat(np.arange(7, dtype=np.int32),
+                                  COVTYPE_COUNTS))[:n]
+    k = y.astype(np.float64)
+    draw = {
+        "Elevation": rng.normal(np.array([3128, 2920, 2394, 2223, 2787,
+                                          2419, 3361])[y], 160),
+        "Aspect": rng.uniform(0, 360, n),
+        "Slope": rng.gamma(2.0, 6.0, n) + 4 * np.isin(y, [2, 5]),
+        "Horizontal_Distance_To_Hydrology": rng.exponential(270, n)
+        + 40 * k,
+        "Vertical_Distance_To_Hydrology": rng.normal(45, 58, n) + 8 * k,
+        "Horizontal_Distance_To_Roadways": rng.exponential(2350, n)
+        + 900 * (y == 0),
+        "Hillshade_9am": rng.normal(212, 27, n),
+        "Hillshade_Noon": rng.normal(223, 20, n) - 6 * (y == 2),
+        "Hillshade_3pm": rng.normal(142, 38, n),
+        "Horizontal_Distance_To_Fire_Points": rng.exponential(1980, n)
+        + 700 * np.isin(y, [0, 1]),
+    }
+    cols = {name: np.clip(np.rint(draw[name]), lo, hi).astype(np.int32)
+            for name, lo, hi in COVTYPE_RANGES}
+    wild = np.array([[.45, .06, .44, .05], [.52, .03, .38, .07],
+                     [0, 0, .1, .9], [0, 0, 0, 1], [.9, 0, .1, 0],
+                     [0, 0, .4, .6], [.25, .08, .67, 0]])
+    soil = rng.dirichlet(np.full(40, 0.3), 7)
+    for name, table in (("Wilderness_Area", wild), ("Soil_Type", soil)):
+        cum = np.cumsum(table, axis=1)[y]
+        pick = np.minimum((rng.random(n)[:, None] > cum).sum(axis=1),
+                          table.shape[1] - 1)
+        for j in range(table.shape[1]):
+            cols[f"{name}{j + 1}"] = (pick == j).astype(np.int32)
+    cols["Cover_Type"] = y
+    return cols, {"Cover_Type": [str(c) for c in range(1, 8)]}
 
 
 def dyadic_stats(n: int, seed: int, torch, device):
@@ -297,6 +409,7 @@ def compare_level(tk, bins, nid, stats, prev, ops, *, d, L, B, exact):
         # a flipped decision must be a near-tie: its gain equals the
         # plain best within float32 rounding of the prefix sums
         rel = ((gk - gp).abs() / gp.abs().clamp_min(1.0))[finite]
+        errs["tree_split_rel"] = float(rel.max()) if rel.numel() else 0.0
         check(bool((rel <= 1e-3).all()), f"tree_split d={d} gain rtol")
     # partition on the plain decisions, both ways: integer-exact
     dec = (out_p[2], out_p[3], out_p[4], out_p[8], out_p[9], out_p[7])
@@ -1321,6 +1434,295 @@ def phase_shard_timing(torch, dev, bm, counts):
         "phase12", "gbm_mesh")
 
 
+def on_cpu(forest):
+    """A forest's fields copied to the host."""
+    return type(forest)(*(a.cpu() for a in forest))
+
+
+def card_and_cpu(build, small, domains, dev, **train_kw):
+    """``build()`` estimator trained on the ``small`` columns on the card
+    and on the CPU (the plain versions): (card model, CPU model)."""
+    import h2o3_tpu_torch as h2o
+    return tuple(build().train(h2o.Frame.from_numpy(
+        small, domains=domains, device=d), **train_kw) for d in (dev, "cpu"))
+
+
+def timed_fit(torch, fit):
+    """(model, train seconds, launches, peak device bytes) of ``fit()``,
+    every launch count set to 0 just before it."""
+    from h2o3_tpu_torch.ops import kernels
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    kernels.reset_counts()
+    t0 = time.perf_counter()
+    model = fit()
+    torch.cuda.synchronize()
+    return (model, time.perf_counter() - t0, dict(kernels.LAUNCHES),
+            torch.cuda.max_memory_allocated())
+
+
+def class_probs(pred, K: int) -> np.ndarray:
+    return np.stack([pred.col(f"p{k}").host_view() for k in range(K)], 1)
+
+
+def phase_multinomial(torch, dev, cols, domains):
+    """Phase 13: multinomial GBM on the Covertype frame, train → predict
+    → model_performance; K class trees an iteration through the level
+    kernels; the fit against the CPU plain path on a 50K-row sample."""
+    import h2o3_tpu_torch as h2o
+    K = len(COVTYPE_COUNTS)
+    n = len(cols["Cover_Type"])
+    fr = h2o.Frame.from_numpy(cols, domains=domains, device=dev)
+    model, t_train, counts, peak = timed_fit(torch, lambda: h2o.GBMEstimator(
+        **MULTI_GBM).train(fr, y="Cover_Type"))
+    t0 = time.perf_counter()
+    pred = model.predict(fr)
+    torch.cuda.synchronize()
+    t_pred = time.perf_counter() - t0
+    T = MULTI_GBM["ntrees"] * K
+    check_launches(counts, {k: T * MULTI_GBM["max_depth"]
+                            for k in LEVEL_KERNELS}, "GBM multinomial")
+    check(model.forest.feat.shape[0] == T and model.f0.shape == (K,),
+          f"multinomial forest {tuple(model.forest.feat.shape)}")
+    p = class_probs(pred, K)
+    check(p.shape == (n, K) and np.isfinite(p).all() and (p >= 0).all()
+          and np.abs(p.sum(1) - 1).max() < 1e-5,
+          "class probabilities finite, in [0, 1], summing to 1")
+    check(np.array_equal(pred.col("predict").host_view(), p.argmax(1)),
+          "predict = the most probable class")
+    tm = model.training_metrics
+    perf = model.model_performance(fr)
+    check(abs(perf["logloss"] - tm["logloss"]) < 1e-9
+          and abs(perf["AUC"] - tm["AUC"]) < 1e-9,
+          "model_performance on the training frame = training metrics")
+    prior = np.asarray(COVTYPE_COUNTS) / N_COVTYPE
+    check(np.isfinite(tm["logloss"]) and tm["logloss"]
+          < -np.sum(prior * np.log(prior)) and tm["AUC"] > 0.8,
+          f"multinomial logloss {tm['logloss']} AUC {tm['AUC']}")
+    say(f"phase13 multinomial GBM ntrees={MULTI_GBM['ntrees']} max_depth="
+        f"{MULTI_GBM['max_depth']} on the Covertype schema ({n} rows x 54 "
+        f"features, {K} classes: {T} class trees): train {t_train:.3f} s, "
+        f"{n * MULTI_GBM['ntrees'] / t_train:.6g} rows*iterations/s "
+        f"({n * T / t_train:.6g} rows*trees/s), predict {t_pred:.3f} s, "
+        f"logloss {tm['logloss']:.6f}, mean per-class error "
+        f"{tm['mean_per_class_error']:.6f}, weighted-OVR AUC "
+        f"{tm['AUC']:.6f}, peak device memory {peak / 2**30:.3f} GiB")
+    say(f"phase13 launches: {counts}")
+    from h2o3_tpu_torch.frame.binning import bin_frame
+    t0 = time.perf_counter()
+    bin_frame(fr, [c for c in cols if c != "Cover_Type"], nbins=64,
+              nbins_cats=1024, weights=np.ones(n, np.float32))
+    torch.cuda.synchronize()
+    say(f"phase13 breakdown: bin_frame alone {time.perf_counter() - t0:.3f} "
+        "s")
+    small = {k: v[:N_SAMPLE] for k, v in cols.items()}
+    a, b = (m.training_metrics for m in card_and_cpu(
+        lambda: h2o.GBMEstimator(**MULTI_GBM), small, domains, dev,
+        y="Cover_Type"))
+    d_ll, d_auc = abs(a["logloss"] - b["logloss"]), abs(a["AUC"] - b["AUC"])
+    check(d_ll < 5e-3 and d_auc < 5e-3, f"{N_SAMPLE}-row multinomial fit "
+                                        f"card vs CPU: dlogloss {d_ll} "
+                                        f"dAUC {d_auc}")
+    say(f"phase13 {N_SAMPLE}-row multinomial fit card vs CPU plain: "
+        f"|dlogloss| {d_ll:.3g}, |dAUC| {d_auc:.3g} (tolerance 5e-3)")
+    return model, fr, counts
+
+
+def phase_multinomial_drf(torch, dev, fr, cols, domains):
+    """Phase 14: multinomial DRF on phase 13's frame (as phase 6: the
+    default mtries, sample_rate 0.632); on a 50K-row sample without
+    bagging or column sampling, the card forest EXACTLY equals the CPU
+    plain forest (0/1 statistics, no draws)."""
+    import h2o3_tpu_torch as h2o
+    K = len(COVTYPE_COUNTS)
+    model, t_train, counts, peak = timed_fit(torch, lambda: h2o.DRFEstimator(
+        **DRF).train(fr, y="Cover_Type"))
+    T = DRF["ntrees"] * K
+    check(model.forest.feat.shape[:2] == (T, DRF["max_depth"]),
+          f"multinomial DRF forest {tuple(model.forest.feat.shape)}")
+    check_launches(counts, {k: T * DRF["max_depth"] for k in LEVEL_KERNELS},
+                   "DRF multinomial")
+    tm = model.training_metrics
+    check(np.isfinite(tm["logloss"]) and tm["AUC"] > 0.8,
+          f"multinomial DRF OOB logloss {tm['logloss']} AUC {tm['AUC']}")
+    p = class_probs(model.predict(fr), K)
+    check(np.isfinite(p).all() and (p >= 0).all() and (p <= 1).all()
+          and np.abs(p.sum(1) - 1).max() < 1e-4, "DRF class probabilities")
+    n = len(cols["Cover_Type"])
+    say(f"phase14 multinomial DRF ntrees={DRF['ntrees']} max_depth="
+        f"{DRF['max_depth']} on {n} rows ({T} class trees): train "
+        f"{t_train:.3f} s, {n * DRF['ntrees'] / t_train:.6g} "
+        f"rows*iterations/s, OOB logloss {tm['logloss']:.6f}, OOB "
+        f"weighted-OVR AUC {tm['AUC']:.6f} (nobs {tm.nobs}), peak device "
+        f"memory {peak / 2**30:.3f} GiB")
+    say(f"phase14 launches: {counts}")
+    small = {k: v[:N_SAMPLE] for k, v in cols.items()}
+    m_gpu, m_cpu = card_and_cpu(
+        lambda: h2o.DRFEstimator(**DRF, sample_rate=1.0, mtries=54), small,
+        domains, dev, y="Cover_Type")
+    equal_trees(on_cpu(m_gpu.forest), m_cpu.forest,
+                f"{N_SAMPLE}-row multinomial DRF, card vs CPU plain")
+    splits = int(m_gpu.forest.is_split.sum())
+    say(f"phase14 {N_SAMPLE}-row multinomial DRF (sample_rate=1, mtries=54) "
+        f"card forest == CPU plain forest, EXACT ({splits} splits)")
+    return counts
+
+
+def family_columns(cols, delay, seed: int = 13):
+    """The airlines features with one response a family, made from the
+    delay signal s = delay / 25: counts (poisson), positive values
+    (gamma), zero-inflated positive values (tweedie) and the delay in
+    minutes (laplace, quantile, huber)."""
+    rng = np.random.default_rng(seed)
+    n = len(delay)
+    s = delay / 25.0
+    scale = np.exp(0.3 * s) / 2.0
+    out = {k: v for k, v in cols.items() if k != "IsDepDelayed"}
+    out["y_poisson"] = rng.poisson(np.exp(0.3 * s)).astype(np.float32)
+    out["y_gamma"] = rng.gamma(2.0, scale).astype(np.float32)
+    out["y_tweedie"] = ((rng.random(n) < 1 / (1 + np.exp(-s)))
+                        * rng.gamma(2.0, scale)).astype(np.float32)
+    out["y_real"] = delay.astype(np.float32)
+    return out
+
+
+def family_response(name: str) -> str:
+    return f"y_{name}" if name in ("poisson", "gamma", "tweedie") \
+        else "y_real"
+
+
+def split_on_family_stats(torch, model, fr, name, kw):
+    """The level kernels on a family's own statistics {w, w·g, w·h} at
+    the fitted margins, d=0..5, held against their plain versions as
+    phase 2 holds real-valued stats: ``tree_hist`` within the summation
+    bound, ``tree_split``'s gains within 1e-3 relative on the same
+    histogram and its decisions equal but at near-ties (the kernel's
+    block-wide prefix scans add the bins in another order than the plain
+    ``cumsum``), ``tree_partition`` EXACT. Returns (the largest node
+    hessian sum, max |gain diff|, max |gain diff| / max(|gain|, 1),
+    split flips)."""
+    from h2o3_tpu_torch.models.distribution import get_distribution
+    from h2o3_tpu_torch.ops.kernels import treekernel as tk
+    dist = get_distribution(name, **kw)
+    bm = model.bm
+    dev = bm.bins.device
+    y = fr.col(family_response(name)).data.to(torch.float32)
+    marg = model._margins(bm)
+    w = fr.valid_weights()
+    stats = torch.stack([w, w * dist.grad(y, marg), w * dist.hess(y, marg)],
+                        dim=1).contiguous()
+    # DIST_GBM's min_rows, reg_lambda, min_split_improvement and depth
+    _, sc, is_cat, cm, lo, hi = level_plan(bm, torch, dev)
+    ops = tk.level_operands(cm, bm.nbins, is_cat, None, lo, hi, sc, dev)
+    B = bm.nbins_total
+    nid = torch.zeros(bm.bins.shape[0], dtype=torch.int32, device=dev)
+    prev, h_max, err, rel, flips = None, 0.0, 0.0, 0.0, 0
+    for d in range(DIST_GBM["max_depth"]):
+        errs, f, out_p, nid_next = compare_level(
+            tk, bm.bins, nid, stats, prev, ops, d=d, L=2 ** d, B=B,
+            exact=False)
+        err = max(err, errs["tree_split"])
+        rel = max(rel, errs.get("tree_split_rel", 0.0))
+        flips += f
+        # node H: the hessian sums of any one feature's bins
+        h_max = max(h_max, float(out_p[0][:, 0, :, 2].sum(dim=1).max()))
+        prev, nid = out_p[0], nid_next
+    return h_max, err, rel, flips
+
+
+def phase_distributions(torch, dev, cols, delay, domains):
+    """Phase 15: one GBM a family on the first N_DIST airlines rows, each
+    launching every level kernel 60 times; ``tree_split`` EXACT against
+    its plain version on the log-link families' exp-scaled hessians; on a
+    50K-row sample the dyadic families' card forests EXACTLY equal the
+    CPU plain forests, the others' mean residual deviance within 5e-3
+    relative. Returns the launches summed over the fits."""
+    import h2o3_tpu_torch as h2o
+    fcols = family_columns(cols, delay)
+    x = [c for c in cols if c != "IsDepDelayed"]
+    fr = h2o.Frame.from_numpy(fcols, domains=domains, device=dev)
+    small = {k: v[:N_SAMPLE] for k, v in fcols.items()}
+    total = {}
+    for name, kw in FAMILIES:
+        label = name + "".join(f"({v})" for v in kw.values())
+        y = family_response(name)
+        params = dict(DIST_GBM, distribution=name, **kw)
+        model, t_train, counts, peak = timed_fit(
+            torch, lambda: h2o.GBMEstimator(**params).train(fr, y=y, x=x))
+        check_launches(counts, {k: DIST_GBM["ntrees"] * DIST_GBM["max_depth"]
+                                for k in LEVEL_KERNELS}, f"GBM {label}")
+        for k, v in counts.items():
+            total[k] = total.get(k, 0) + v
+        tm = model.training_metrics
+        pred = model.predict(fr).col("predict").host_view()
+        check(np.isfinite(pred).all() and np.isfinite(
+            tm["mean_residual_deviance"]), f"{label}: predictions finite")
+        if name in ("poisson", "gamma", "tweedie"):
+            check((pred > 0).all(), f"{label}: log-link predictions > 0")
+        extra = ""
+        if name in ("poisson", "gamma", "tweedie"):
+            h_max, err, rel, flips = split_on_family_stats(torch, model, fr,
+                                                           name, kw)
+            extra = (f"; level kernels on its exp-scaled hessians (largest "
+                     f"node H {h_max:.6g}), d=0..5: tree_split max |gain "
+                     f"diff| {err:.3g} ({rel:.3g} of max(|gain|, 1)), "
+                     f"{flips} split flip(s) at near-ties, tree_hist within "
+                     f"the summation bound, tree_partition EXACT")
+        m_gpu, m_cpu = card_and_cpu(lambda: h2o.GBMEstimator(**params),
+                                    small, domains, dev, y=y, x=x)
+        if (name, kw) in DYADIC_FAMILIES:
+            equal_trees(on_cpu(m_gpu.forest), m_cpu.forest,
+                        f"{label}: {N_SAMPLE}-row fit, card vs CPU plain")
+            cmp = "card forest == CPU plain forest, EXACT"
+        else:
+            a = m_gpu.training_metrics["mean_residual_deviance"]
+            b = m_cpu.training_metrics["mean_residual_deviance"]
+            rel = abs(a - b) / max(abs(b), 1e-12)
+            check(rel <= 5e-3, f"{label}: {N_SAMPLE}-row mean residual "
+                               f"deviance card {a} vs CPU {b}")
+            cmp = f"relative |d deviance| card vs CPU {rel:.3g}"
+        say(f"phase15 GBM {label} on {N_DIST} rows: train {t_train:.3f} s, "
+            f"{N_DIST * DIST_GBM['ntrees'] / t_train:.6g} rows*trees/s, "
+            f"mean residual deviance {tm['mean_residual_deviance']:.6g}, "
+            f"peak device memory {peak / 2**30:.3f} GiB; {N_SAMPLE} rows: "
+            f"{cmp}{extra}")
+    say(f"phase15 launches over {len(FAMILIES)} fits: {total}")
+    return total
+
+
+def phase_stopping(torch, dev, cols, domains):
+    """Phase 16: the flagship GBM with early stopping on the validation
+    part of an 80/20 split of the first N_DIST airlines rows: every level
+    kernel launches (trees kept) x 6 times."""
+    import h2o3_tpu_torch as h2o
+    cut = N_DIST * 4 // 5
+    fr_t, fr_v = (h2o.Frame.from_numpy({k: v[a:b] for k, v in cols.items()},
+                                       domains=domains, device=dev)
+                  for a, b in ((0, cut), (cut, N_DIST)))
+    model, t_train, counts, peak = timed_fit(torch, lambda: h2o.GBMEstimator(
+        **STOPPING).train(fr_t, y="IsDepDelayed", validation_frame=fr_v))
+    kept = model.forest.feat.shape[0]
+    hist = model.output["scoring_history"]
+    check_launches(counts, {k: kept * STOPPING["max_depth"]
+                            for k in LEVEL_KERNELS}, "GBM early stopping")
+    check(len(hist) == kept and hist[-1]["ntrees"] == kept
+          and kept <= STOPPING["ntrees"], f"scoring history {hist}")
+    vm = model.validation_metrics
+    check(vm is not None and vm.nobs == N_DIST - cut and vm["AUC"] > 0.7,
+          f"validation metrics {vm}")
+    stopped = kept < STOPPING["ntrees"]
+    say(f"phase16 GBM early stopping (stopping_rounds=2, "
+        f"score_tree_interval=1, validation {N_DIST - cut} of {N_DIST} "
+        f"rows): {'stopped after tree' if stopped else 'ran all'} {kept} of "
+        f"{STOPPING['ntrees']}, train {t_train:.3f} s, validation AUC "
+        f"{vm['AUC']:.6f}, logloss {vm['logloss']:.6f}, peak device memory "
+        f"{peak / 2**30:.3f} GiB")
+    say("phase16 scoring history (ntrees: validation deviance): " + ", ".join(
+        f"{e['ntrees']}: {e['deviance']:.6f}" for e in hist))
+    say(f"phase16 launches: {counts}")
+    return counts
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -1331,6 +1733,10 @@ def main() -> int:
     torch.backends.cudnn.allow_tf32 = False
     dev = torch.device("cuda")
     t_all = time.perf_counter()
+
+    def mark(label: str) -> None:
+        say(f"-- {label} at {time.perf_counter() - t_all:.1f} s")
+
     phase_toolchain(torch)
 
     from h2o3_tpu_torch.frame.binning import bin_frame
@@ -1341,31 +1747,57 @@ def main() -> int:
     x = [c for c in cols if c != "IsDepDelayed"]
     bm = bin_frame(fr_k, x, nbins=64, nbins_cats=1024)
 
+    mark("phases 2-3")
     worst = phase_kernels(torch, dev, bm)
     phase_grow_tree(torch, dev, bm)
+    mark("phase 4")
     model, fr, counts_gbm = phase_main(torch, dev, cols, domains)
     auc_one_card = model.training_metrics["AUC"]
     phase_profile(torch, dev, fr)
+    mark("phase 5")
     records = phase_timing(torch, dev, model, counts_gbm)
     phase_drf_grow_tree(torch, dev, bm)
     del fr_k, bm, model
+    mark("phase 6")
     counts_drf = phase_drf(torch, dev, fr)
     for rec in records:
         if rec["path"] == "drf":
             rec["launches"] = counts_drf[rec["name"]]
+    head = {k: v[:N_DIST].copy() for k, v in cols.items()}
     del cols
 
+    mark("phases 7-9")
     ucols, udomains = criteo_arrays(N_UPLIFT)
     worst["histogram"] = phase_hist_kernel(torch, dev, ucols, udomains)
     umodel, ufr, counts_up = phase_uplift(torch, dev, ucols, udomains)
     records.append(phase_hist_timing(torch, dev, umodel, ufr, counts_up))
     del umodel, ufr, ucols
 
+    mark("phases 10-12")
     counts_mesh, errs, bm = phase_mesh(torch, dev, fr, auc_one_card)
     worst.update(errs)
     records += phase_shard_timing(torch, dev, bm, counts_mesh)
+    del fr, bm
+
+    mark("phase 13")
+    ccols, cdomains = covtype_arrays()
+    mmodel, cfr, counts_gm = phase_multinomial(torch, dev, ccols, cdomains)
+    records += timing_records(
+        level_timing(torch, dev, mmodel.bm, LEVEL_KERNELS, N_COVTYPE),
+        counts_gm, N_COVTYPE, "phase13 timing", "gbm_multinomial")
+    del mmodel
+    mark("phase 14")
+    counts_dm = phase_multinomial_drf(torch, dev, cfr, ccols, cdomains)
+    del cfr, ccols
+    mark("phase 15")
+    counts_dist = phase_distributions(
+        torch, dev, head, airlines_delay(N_MAIN)[:N_DIST], domains)
+    mark("phase 16")
+    counts_stop = phase_stopping(torch, dev, head, domains)
     paths = {"gbm": counts_gbm, "drf": counts_drf, "uplift": counts_up,
-             "gbm_mesh": counts_mesh}
+             "gbm_mesh": counts_mesh, "gbm_multinomial": counts_gm,
+             "drf_multinomial": counts_dm, "gbm_distributions": counts_dist,
+             "gbm_stopping": counts_stop}
     for rec in records:
         rec["max_abs_err"] = worst[rec["name"]]
         rec["launches_by_path"] = {p: c[rec["name"]]

@@ -61,10 +61,12 @@ def _binned(d: Arrays, dev) -> BinnedMatrix:
 
 
 def _output(d: Arrays) -> dict:
-    return {"category": str(d["category"]),
-            "domain": None if d["domain"] is None else list(d["domain"]),
+    domain = None if d["domain"] is None else list(d["domain"])
+    return {"category": str(d["category"]), "domain": domain,
             "response": d.get("response"),
             "names": list(d["names"]),
+            "nclasses": int(d.get("nclasses") or
+                            (len(domain) if domain else 1)),
             "default_threshold": float(d.get("default_threshold", 0.5))}
 
 
@@ -74,18 +76,23 @@ def gbm_model_from_arrays(d: Arrays, device: DeviceLike = None) -> GBMModel:
     Required keys: the ``Tree`` fields (``left_words`` as the reference's
     uint32 words), ``edges``, ``nbins``, ``is_cat``, ``names``,
     ``domains``, ``nbins_total``, ``nbins_cats``, ``f0``, ``dist_name``,
-    ``category``, ``domain``. Optional: ``response``,
-    ``default_threshold`` (0.5), ``params``."""
+    ``category``, ``domain``. Optional: ``response``, ``nclasses`` (the
+    domain's length), ``default_threshold`` (0.5), ``params`` (a
+    family's shape parameter). A multinomial model's ``f0`` is the [K]
+    vector and its forest the t-major [T·K] stack (tree t, class k at
+    row t·K + k)."""
     dev = resolve_device(device)
+    f0 = np.asarray(d["f0"], np.float32)
     return GBMModel(dict(d.get("params") or {}), _output(d), _forest(d, dev),
-                    _binned(d, dev), np.float32(d["f0"]),
+                    _binned(d, dev), f0 if f0.ndim else np.float32(f0),
                     str(d["dist_name"]))
 
 
 def drf_model_from_arrays(d: Arrays, device: DeviceLike = None) -> DRFModel:
-    """Port ``DRFModel`` (binomial or regression) on ``device`` from the
-    reference model's images: the keys of ``gbm_model_from_arrays``
-    without ``f0``/``dist_name``."""
+    """Port ``DRFModel`` (binomial, multinomial or regression) on
+    ``device`` from the reference model's images: the keys of
+    ``gbm_model_from_arrays`` without ``f0``/``dist_name`` (a
+    multinomial forest is the t-major [T·K] stack)."""
     dev = resolve_device(device)
     return DRFModel(dict(d.get("params") or {}), _output(d),
                     _forest(d, dev), _binned(d, dev))

@@ -1,14 +1,17 @@
-"""DRF — distributed random forest, binomial and regression.
+"""DRF — distributed random forest: binomial, multinomial and regression.
 
 Reference: h2o3_tpu/models/drf.py (hex/tree/drf/DRF.java). What differs
 from GBM, as the reference has it:
 - each tree is an independent regression tree on the raw response (the
-  class-1 indicator for a binomial response), trained on a bagged row
-  sample (``sample_rate``, default 0.632) — no shrinkage, no margins;
+  class-1 indicator for a binomial response; for a multinomial one, K
+  class trees on the K class indicators, sharing one bag and one column
+  sample), trained on a bagged row sample (``sample_rate``, default
+  0.632) — no shrinkage, no margins;
 - per-NODE column subsampling of exactly ``mtries`` columns (-1: sqrt(F)
   for classification, F/3 for regression), so every level hands the
   split kernel an [L, F] column mask;
-- prediction = average of the per-tree leaf means (votes);
+- prediction = average of the per-tree leaf means (votes); multinomial
+  class probabilities are the votes clipped to [0, 1] over their sum;
 - training metrics are out-of-bag: every row is scored only by the trees
   whose bag excluded it.
 
@@ -43,27 +46,40 @@ from h2o3_tpu_torch.parallel.device import fetch
 MAX_COMPLETE_DEPTH = 14  # complete-tree layout: histograms are 2^d·F·B·3
 
 
-def bag_step(bm: BinnedMatrix, y, w, oob_sum, oob_cnt,
+def bag_step(bm: BinnedMatrix, ys, w, oob_sum, oob_cnt,
              gen: torch.Generator, *, tp: TreeParams, sc,
              sample_rate: float, mtries: int):
     """One tree of the forest on the device, with no host sync: bag mask,
-    per-tree column sample, ``grow_tree`` with g = -y, h = 1 (so the
-    Newton leaf is the bag-weighted mean of y) and per-node ``mtries``
-    masks, then the out-of-bag accumulators. Returns (tree, oob_sum,
-    oob_cnt, gain_by_feature)."""
+    per-tree column sample, then for each column k of the targets ys
+    [N, K] a ``grow_tree`` with g = -y_k, h = 1 (so the Newton leaf is
+    the bag-weighted mean of y_k) and per-node ``mtries`` masks drawn from
+    ``gen`` in class order, and the out-of-bag accumulators. Returns (the
+    K trees, oob_sum [N, K], oob_cnt, gain_by_feature)."""
     dev = w.device
     keep = torch.rand(w.shape[0], generator=gen, device=dev) < sample_rate
     wbag = w * keep.to(torch.float32)
     oob = (w > 0) & ~keep
     col_mask = _sample_columns(gen, bm.bins.shape[1], tp.col_sample_rate,
                                dev)
-    tree, nid, gains = grow_tree(bm.bins, bm.nbins, wbag, -y,
-                                 torch.ones_like(y), col_mask, params=tp,
-                                 scalars=sc, mtries=mtries, generator=gen)
-    pred = tree.leaf[nid.long()]       # routing nid is bag-independent
-    oob_sum = oob_sum + torch.where(oob, pred, 0.0)
-    oob_cnt = oob_cnt + oob.to(torch.float32)
-    return tree, oob_sum, oob_cnt, gains
+    oob_sum = oob_sum.clone()
+    ones = torch.ones_like(w)
+    trees, gains = [], 0.0
+    for k in range(ys.shape[1]):
+        tree, nid, gain = grow_tree(bm.bins, bm.nbins, wbag, -ys[:, k], ones,
+                                    col_mask, params=tp, scalars=sc,
+                                    mtries=mtries, generator=gen)
+        # routing nid is bag-independent
+        oob_sum[:, k] += torch.where(oob, tree.leaf[nid.long()], 0.0)
+        trees.append(tree)
+        gains = gains + gain
+    return trees, oob_sum, oob_cnt + oob.to(torch.float32), gains
+
+
+def vote_probs(votes: torch.Tensor) -> torch.Tensor:
+    """Multinomial class probabilities from mean votes [N, K]: clipped to
+    [0, 1], over the unclipped sum."""
+    s = torch.sum(votes, dim=1, keepdim=True)
+    return torch.clamp(votes, 0.0, 1.0) / torch.clamp_min(s, 1e-12)
 
 
 class DRFModel(Model):
@@ -71,28 +87,48 @@ class DRFModel(Model):
 
     def __init__(self, params, output, forest: Tree, bm: BinnedMatrix):
         super().__init__(params, output)
-        self.forest = forest           # [T, D, Lmax]
+        self.forest = forest           # [T(*K), D, Lmax], t-major
         self.bm = bm
 
+    @property
+    def n_class_trees(self) -> int:
+        """Trees an iteration: K for multinomial, else 1."""
+        if self.output["category"] == ModelCategory.MULTINOMIAL:
+            return self.output["nclasses"]
+        return 1
+
     def _mean_votes(self, bm: BinnedMatrix) -> torch.Tensor:
-        """Average tree output [N]."""
-        T = self.forest.feat.shape[0]
+        """Per-class average tree output [N, K] (K = 1 unless
+        multinomial)."""
+        K = self.n_class_trees
+        T = self.forest.feat.shape[0] // K
         # an explicit reciprocal multiply, as the reference spells it
         inv_t = torch.tensor(1.0 / T, dtype=torch.float32)
-        return predict_forest(self.forest, bm.bins,
-                              self.bm.nbins_total) * inv_t
+        return torch.stack([
+            predict_forest(Tree(*(a.reshape((T, K) + a.shape[1:])[:, k]
+                                  for a in self.forest)), bm.bins,
+                           self.bm.nbins_total) * inv_t
+            for k in range(K)], dim=1)
 
     def _probs(self, bm: BinnedMatrix) -> torch.Tensor:
-        p1 = torch.clamp(self._mean_votes(bm), 0.0, 1.0)
+        votes = self._mean_votes(bm)
+        if self.output["category"] == ModelCategory.MULTINOMIAL:
+            return vote_probs(votes)
+        p1 = torch.clamp(votes[:, 0], 0.0, 1.0)
         return torch.stack([1.0 - p1, p1], dim=1)
 
     def _score_raw(self, frame: Frame) -> Dict[str, np.ndarray]:
         require_local(frame, self.algo)
         bm = rebin_for_scoring(self.bm, frame)
         n = frame.nrows
-        if self.output["category"] == ModelCategory.REGRESSION:
-            return {"predict": fetch(self._mean_votes(bm))[:n]}
+        cat = self.output["category"]
+        if cat == ModelCategory.REGRESSION:
+            return {"predict": fetch(self._mean_votes(bm)[:, 0])[:n]}
         p = fetch(self._probs(bm))[:n]
+        if cat == ModelCategory.MULTINOMIAL:
+            out = {"predict": p.argmax(axis=1).astype(np.int32)}
+            out.update({f"p{k}": p[:, k] for k in range(p.shape[1])})
+            return out
         t = self.output.get("default_threshold", 0.5)
         return {"predict": (p[:, 1] >= t).astype(np.int32),
                 "p0": p[:, 0], "p1": p[:, 1]}
@@ -106,17 +142,22 @@ class DRFModel(Model):
         if wc and wc in frame:
             v = frame.col(wc).numeric_view()
             w = w * torch.where(torch.isnan(v), 0.0, v)
-        if self.output["category"] == ModelCategory.REGRESSION:
+        cat = self.output["category"]
+        if cat == ModelCategory.REGRESSION:
             yv = frame.col(y).numeric_view()
             w = w * torch.where(torch.isnan(yv), 0.0, 1.0)
             yv = torch.where(torch.isnan(yv), 0.0, yv)
-            return mm.regression_metrics(self._mean_votes(bm), yv, w)
+            return mm.regression_metrics(self._mean_votes(bm)[:, 0], yv, w)
         yv = adapt_domain(frame.col(y), self.output["domain"])
         yv = np.pad(yv, (0, bm.bins.shape[0] - frame.nrows),
                     constant_values=-1)
         w = w * torch.from_numpy((yv >= 0).astype(np.float32)).to(w.device)
-        yt = torch.from_numpy(np.maximum(yv, 0).astype(np.float32))
-        return mm.binomial_metrics(self._probs(bm)[:, 1], yt.to(w.device), w)
+        yv = torch.from_numpy(np.maximum(yv, 0)).to(w.device)
+        if cat == ModelCategory.MULTINOMIAL:
+            return mm.multinomial_metrics(self._probs(bm), yv, w,
+                                          domain=self.output["domain"])
+        return mm.binomial_metrics(self._probs(bm)[:, 1],
+                                   yv.to(torch.float32), w)
 
     @property
     def varimp_table(self) -> List:
@@ -124,10 +165,10 @@ class DRFModel(Model):
 
 
 class DRFEstimator(ModelBuilder):
-    """h2o-py H2ORandomForestEstimator-compatible surface, binomial and
-    regression. Parameters outside ``PORTED`` keep the reference's names
-    and defaults; setting one away from its default raises
-    ``NotImplementedError`` (multinomial DRF does too)."""
+    """h2o-py H2ORandomForestEstimator-compatible surface: binomial,
+    multinomial and regression. Parameters outside ``PORTED`` keep the
+    reference's names and defaults; setting one away from its default
+    raises ``NotImplementedError``."""
 
     algo = "drf"
 
@@ -163,14 +204,11 @@ class DRFEstimator(ModelBuilder):
         merged.update(params)
         super().__init__(**merged)
 
-    def _fit(self, frame: Frame, x: Sequence[str], y: Optional[str]):
+    def _fit(self, frame: Frame, x: Sequence[str], y: Optional[str],
+             validation_frame: Optional[Frame] = None):
         p = self.params
         dev = frame.device
         category = infer_category(frame, y)
-        if category == ModelCategory.MULTINOMIAL:
-            raise NotImplementedError(
-                "multinomial DRF is not ported yet (binomial and "
-                "regression are)")
         w = frame.valid_weights()
         if p.get("weights_column"):
             wc = frame.col(p["weights_column"]).numeric_view()
@@ -213,25 +251,33 @@ class DRFEstimator(ModelBuilder):
             cat_feats=tuple(bool(v) for v in bm.is_cat))
         sc = scalars_of(tp, dev, depth_limit=depth)
 
+        # targets [Npad, K]: the response, the class-1 indicator, or the
+        # K class indicators
         npad = bm.bins.shape[0]
+        yv = np.nan_to_num(rc.to_numpy())
         if category == ModelCategory.REGRESSION:
-            yv = np.nan_to_num(rc.to_numpy()).astype(np.float32)
+            ys = yv.astype(np.float32)[:, None]
+        elif category == ModelCategory.BINOMIAL:
+            ys = (yv == 1).astype(np.float32)[:, None]
         else:
-            yv = (np.nan_to_num(rc.to_numpy()) == 1).astype(np.float32)
-        y_dev = torch.from_numpy(np.pad(yv, (0, npad - frame.nrows))).to(dev)
+            ys = (yv.astype(np.int32)[:, None]
+                  == np.arange(rc.cardinality)[None, :]).astype(np.float32)
+        ys = torch.from_numpy(np.pad(ys, ((0, npad - frame.nrows),
+                                          (0, 0)))).to(dev)
 
         seed = int(p["seed"]) if int(p["seed"]) >= 0 else 0xD2F
         ntrees = int(p["ntrees"])
         sample_rate = float(p["sample_rate"])
-        oob_sum = torch.zeros(npad, dtype=torch.float32, device=dev)
+        oob_sum = torch.zeros((npad, ys.shape[1]), dtype=torch.float32,
+                              device=dev)
         oob_cnt = torch.zeros(npad, dtype=torch.float32, device=dev)
         gains = torch.zeros(F, dtype=torch.float32, device=dev)
         trees: List[Tree] = []
         for t in range(ntrees):
-            tree, oob_sum, oob_cnt, gain = bag_step(
-                bm, y_dev, w, oob_sum, oob_cnt, tree_generator(seed, t, dev),
+            step, oob_sum, oob_cnt, gain = bag_step(
+                bm, ys, w, oob_sum, oob_cnt, tree_generator(seed, t, dev),
                 tp=tp, sc=sc, sample_rate=sample_rate, mtries=mtries)
-            trees.append(tree)
+            trees += step
             gains = gains + gain
         output = {"category": category, "response": y, "names": list(x),
                   "nclasses": rc.cardinality if rc.is_categorical else 1,
@@ -240,15 +286,19 @@ class DRFEstimator(ModelBuilder):
 
         # OOB training metrics (rows never out of bag drop out by weight)
         w_oob = w * (oob_cnt > 0).to(torch.float32)
-        mean_oob = oob_sum / torch.clamp_min(oob_cnt, 1.0)
+        mean_oob = oob_sum / torch.clamp_min(oob_cnt, 1.0)[:, None]
         if category == ModelCategory.REGRESSION:
-            model.training_metrics = mm.regression_metrics(mean_oob, y_dev,
-                                                           w_oob)
-        else:
+            model.training_metrics = mm.regression_metrics(
+                mean_oob[:, 0], ys[:, 0], w_oob)
+        elif category == ModelCategory.BINOMIAL:
             model.training_metrics = mm.binomial_metrics(
-                torch.clamp(mean_oob, 0.0, 1.0), y_dev, w_oob)
+                torch.clamp(mean_oob[:, 0], 0.0, 1.0), ys[:, 0], w_oob)
             model.output["default_threshold"] = \
                 model.training_metrics["max_f1_threshold"]
+        else:
+            model.training_metrics = mm.multinomial_metrics(
+                vote_probs(mean_oob), torch.argmax(ys, dim=1), w_oob,
+                domain=rc.domain)
         # scaled relative importance (hex/VarImp semantics)
         vi = fetch(gains)
         order = np.argsort(-vi)

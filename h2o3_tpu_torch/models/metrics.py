@@ -1,4 +1,4 @@
-"""Model metrics — binomial and regression.
+"""Model metrics — binomial, multinomial and regression.
 
 Reference: h2o3_tpu/models/metrics.py (hex/ModelMetrics*.java, exact AUC
 from a 400-bin score histogram, hex/AUC2.java:24). One device pass builds
@@ -10,7 +10,7 @@ and the histogram are all-reduced before the host finishes them.
 
 from __future__ import annotations
 
-from typing import Dict
+from typing import Dict, List, Optional
 
 import numpy as np
 import torch
@@ -124,6 +124,120 @@ def binomial_metrics(p, y, w=None, mesh=None) -> ModelMetrics:
         positive_fraction=pos / max(tot, 1e-12))
     mm.hist = (pos_h, neg_h)
     return mm
+
+
+def _multinomial_pass(probs, y, w, hists: bool):
+    """The multinomial sums [w, -w·log p_y, w·error, w·Σ(p - onehot)²],
+    the K×K confusion matrix (true × predicted) and, with ``hists``, the
+    [K(prob), K(true), AUC_NBINS] score histograms — weight of rows of
+    true class j whose class-k probability lands in each bin
+    (hex/MultinomialAUC.java; one structure serves one-vs-rest and
+    one-vs-one)."""
+    N, K = probs.shape
+    yl = y.long()
+    py = torch.clamp(probs.gather(1, yl[:, None])[:, 0], 1e-7, 1.0)
+    pred = torch.argmax(probs, dim=1)
+    err = (pred != yl).to(torch.float32)
+    onehot = (torch.arange(K, device=probs.device)[None, :]
+              == yl[:, None]).to(torch.float32)
+    sse = torch.sum((probs - onehot) ** 2, dim=1)
+    sums = torch.stack([w, -w * torch.log(py), w * err, w * sse],
+                       dim=1).to(torch.float64).sum(dim=0)
+    wd = w.to(torch.float64)
+    cm = torch.zeros(K * K, dtype=torch.float64, device=probs.device)
+    cm.index_add_(0, yl * K + pred, wd)
+    if not hists:
+        return sums, cm, None
+    b = torch.clamp((probs * AUC_NBINS).to(torch.int32), 0, AUC_NBINS - 1)
+    cell = ((torch.arange(K, device=probs.device)[None, :] * K
+             + yl[:, None]) * AUC_NBINS + b.long()).reshape(-1)
+    hist = torch.zeros(K * K * AUC_NBINS, dtype=torch.float64,
+                       device=probs.device)
+    hist.index_add_(0, cell, wd[:, None].expand(N, K).reshape(-1))
+    return sums, cm, hist
+
+
+def _multinomial_auc_tables(H: np.ndarray, row: np.ndarray,
+                            domain: List[str]) -> dict:
+    """One-vs-rest and one-vs-one AUC / PR-AUC tables from the score
+    histograms; the scalar AUC and PR-AUC are the weighted OVR."""
+    K = H.shape[0]
+    frac = row / max(row.sum(), 1e-12)
+    auc_rows, pr_rows = [], []
+    ovr_auc, ovr_pr = np.zeros(K), np.zeros(K)
+    for k in range(K):
+        pos = H[k, k]
+        r = _auc_from_hist(pos, H[k].sum(axis=0) - pos)
+        ovr_auc[k], ovr_pr[k] = r["auc"], r["pr_auc"]
+        auc_rows.append([f"{domain[k]} vs Rest", domain[k], "",
+                         float(r["auc"])])
+        pr_rows.append([f"{domain[k]} vs Rest", domain[k], "",
+                        float(r["pr_auc"])])
+    for rows, v in ((auc_rows, ovr_auc), (pr_rows, ovr_pr)):
+        rows.append(["Macro OVR", "", "", float(v.mean())])
+        rows.append(["Weighted OVR", "", "", float((v * frac).sum())])
+    ovo_auc, ovo_pr, ovo_w = [], [], []
+    for i in range(K):
+        for j in range(i + 1, K):
+            # symmetric pairwise AUC: the mean of the i-scored and the
+            # j-scored directions
+            ri = _auc_from_hist(H[i, i], H[i, j])
+            rj = _auc_from_hist(H[j, j], H[j, i])
+            a = 0.5 * (ri["auc"] + rj["auc"])
+            pr = 0.5 * (ri["pr_auc"] + rj["pr_auc"])
+            ovo_auc.append(a)
+            ovo_pr.append(pr)
+            ovo_w.append(frac[i] + frac[j])
+            auc_rows.append([f"{domain[i]} vs {domain[j]}", domain[i],
+                             domain[j], float(a)])
+            pr_rows.append([f"{domain[i]} vs {domain[j]}", domain[i],
+                            domain[j], float(pr)])
+    ow = np.asarray(ovo_w) / max(sum(ovo_w), 1e-12)
+    for rows, v in ((auc_rows, ovo_auc), (pr_rows, ovo_pr)):
+        rows.append(["Macro OVO", "", "", float(np.mean(v))])
+        rows.append(["Weighted OVO", "", "",
+                     float((np.asarray(v) * ow).sum())])
+    return {"multinomial_auc_rows": auc_rows,
+            "multinomial_aucpr_rows": pr_rows,
+            "AUC": float((ovr_auc * frac).sum()),
+            "pr_auc": float((ovr_pr * frac).sum())}
+
+
+def multinomial_metrics(probs, y, w=None, mesh=None,
+                        domain: Optional[List[str]] = None) -> ModelMetrics:
+    """hex/ModelMetricsMultinomial.java: logloss, MSE, error rate, the
+    confusion matrix and mean per-class error from one pass; for
+    2 <= K <= 30 also the one-vs-rest and one-vs-one AUC / PR-AUC tables
+    (hex/MultinomialAUC.java), the scalar ``AUC`` and ``pr_auc`` being
+    the weighted one-vs-rest.
+
+    probs: [N, K] class probabilities; y: class codes [N]; w: weights (0
+    on padding rows). On a sharded ``mesh`` the metrics cover every
+    rank's rows.
+    """
+    probs = _as_f32(probs)
+    K = probs.shape[1]
+    y = torch.as_tensor(y).to(probs.device)
+    w = (torch.ones(probs.shape[0], dtype=torch.float32,
+                    device=probs.device) if w is None else _as_f32(w, probs))
+    sums, cm, hist = _multinomial_pass(probs, y, w, hists=2 <= K <= 30)
+    tot, ll, err, sse = (float(v) for v in all_reduce(sums, mesh).cpu())
+    cm = all_reduce(cm, mesh).cpu().numpy().reshape(K, K)
+    row = cm.sum(axis=1)
+    per_class_err = np.where(row > 0, 1.0 - np.diag(cm)
+                             / np.maximum(row, 1e-12), 0.0)
+    extra = {}
+    if hist is not None:
+        H = all_reduce(hist, mesh).cpu().numpy().reshape(K, K, AUC_NBINS)
+        extra = _multinomial_auc_tables(
+            H, row, domain or [f"class_{i}" for i in range(K)])
+    return ModelMetrics(
+        "Multinomial", int(tot), sse / max(tot, 1e-12),
+        logloss=ll / max(tot, 1e-12),
+        mean_per_class_error=float(per_class_err[row > 0].mean())
+        if (row > 0).any() else 0.0,
+        error_rate=err / max(tot, 1e-12),
+        confusion_matrix=cm.tolist(), domain=domain, **extra)
 
 
 def regression_metrics(pred, y, w=None, deviance_fn=None,

@@ -61,6 +61,7 @@ class Model:
         self.params = params
         self.output = output           # domains, names, varimp, ...
         self.training_metrics = None
+        self.validation_metrics = None
 
     def _score_raw(self, frame: Frame) -> Dict[str, np.ndarray]:
         """Prediction columns of all the frame's rows, on the host."""
@@ -98,9 +99,37 @@ def require_local(frame: Frame, algo: str) -> None:
             "ported yet")
 
 
+class EarlyStopper:
+    """Metric-based early stopping (reference hex/ScoreKeeper.stopEarly +
+    the stopping_rounds/stopping_tolerance contract of SharedTree).
+
+    Lower-is-better metric; stops when the best of the last ``rounds``
+    scoring events fails to improve on the prior best by a relative
+    ``tol``.
+    """
+
+    def __init__(self, rounds: int, tol: float = 1e-3):
+        self.rounds = int(rounds)
+        self.tol = float(tol)
+        self.history: List[float] = []
+
+    @property
+    def enabled(self) -> bool:
+        return self.rounds > 0
+
+    def should_stop(self, value: float) -> bool:
+        self.history.append(float(value))
+        if not self.enabled or len(self.history) <= self.rounds:
+            return False
+        recent = min(self.history[-self.rounds:])
+        before = min(self.history[: -self.rounds])
+        denom = abs(before) if before else 1.0
+        return (before - recent) / denom < self.tol
+
+
 class ModelBuilder:
     """Training lifecycle base (hex/ModelBuilder.java): ``train`` resolves
-    the predictors and runs ``_fit``."""
+    the predictors, runs ``_fit`` and scores the validation frame."""
 
     algo: str = "base"
     SHARDED = False     # trains on a frame partitioned over ranks
@@ -108,7 +137,10 @@ class ModelBuilder:
     def __init__(self, **params):
         self.params = params
 
-    def _fit(self, frame: Frame, x: Sequence[str], y: str):
+    def _fit(self, frame: Frame, x: Sequence[str], y: str,
+             validation_frame: Optional[Frame] = None):
+        """The fit; ``validation_frame`` is for estimators that watch it
+        while they train (GBM's early stopping)."""
         raise NotImplementedError
 
     def _host_weights(self, frame: Frame, y: Optional[str]) -> np.ndarray:
@@ -148,9 +180,16 @@ class ModelBuilder:
         return [n for n in x if n not in drop]
 
     def train(self, training_frame: Frame, y: Optional[str] = None,
-              x: Optional[Sequence[str]] = None):
-        """Fit on ``training_frame`` (on its device) → Model."""
+              x: Optional[Sequence[str]] = None,
+              validation_frame: Optional[Frame] = None):
+        """Fit on ``training_frame`` (on its device) → Model; with a
+        ``validation_frame`` the model's ``validation_metrics`` score it."""
         if not self.SHARDED:
             require_local(training_frame, self.algo)
-        return self._fit(training_frame, self.resolve_x(training_frame, x, y),
-                         y)
+        model = self._fit(training_frame,
+                          self.resolve_x(training_frame, x, y), y,
+                          validation_frame=validation_frame)
+        if validation_frame is not None:
+            model.validation_metrics = model.model_performance(
+                validation_frame)
+        return model

@@ -279,7 +279,8 @@ class UpliftDRFEstimator(ModelBuilder):
         x = super().resolve_x(frame, x, y)
         return [n for n in x if n != self.params["treatment_column"]]
 
-    def _fit(self, frame: Frame, x: Sequence[str], y: Optional[str]):
+    def _fit(self, frame: Frame, x: Sequence[str], y: Optional[str],
+             validation_frame: Optional[Frame] = None):
         p = self.params
         dev = frame.device
         rc = frame.col(y)

@@ -198,6 +198,34 @@ def test_grow_tree_kernels_equal_plain(dev):
     assert torch.equal(nid_k, nid_p)
 
 
+def test_multinomial_class_trees_kernels_equal_plain(dev):
+    """One multinomial iteration's K = 4 class trees (g_k = p_k - 1[y=k],
+    h_k = p_k(1 - p_k), one column mask) through the kernels and through
+    the plain versions: equal Trees. Each row's class probabilities are a
+    permutation of (1/2, 1/4, 1/8, 1/8), so every statistic is dyadic and
+    every float32 sum exact in any order."""
+    from h2o3_tpu_torch.models.tree import grow_tree
+    bm = _bm(dev)
+    tp, sc, _, cm, _, _ = cs.level_plan(bm, torch, dev)
+    n, K = bm.bins.shape[0], 4
+    r = np.random.RandomState(21)
+    p = np.array([0.5, 0.25, 0.125, 0.125], np.float32)[
+        np.argsort(r.rand(n, K), axis=1)]
+    p = torch.from_numpy(p).to(dev)
+    y = torch.from_numpy(r.randint(0, K, n)).to(dev)
+    w = torch.ones(n, device=dev)
+    for k in range(K):
+        pk, yk = p[:, k], (y == k).to(torch.float32)
+        g, h = pk - yk, pk * (1.0 - pk)
+        t_k, nid_k, _ = grow_tree(bm.bins, bm.nbins, w, g, h, cm, params=tp,
+                                  scalars=sc)
+        t_p, nid_p, _ = grow_tree(bm.bins, bm.nbins, w, g, h, cm, params=tp,
+                                  scalars=sc, level_fn=tk.plain_level)
+        cs.equal_trees(t_k, t_p, f"class {k} tree")
+        assert torch.equal(nid_k, nid_p), k
+        assert t_k.is_split.any(), k
+
+
 def test_gbm_on_card_goes_through_kernels(dev):
     import h2o3_tpu_torch as h2o
     cols, domains = cs.airlines_arrays(N)
@@ -220,7 +248,8 @@ def test_gbm_on_card_goes_through_kernels(dev):
 
 def test_boost_step_makes_no_host_sync(dev):
     """The boosting iteration (gradients, samples, one tree through the
-    kernels, margin update) runs with CUDA sync debugging set to error."""
+    kernels, margin update), and a multinomial one, run with CUDA sync
+    debugging set to error."""
     from h2o3_tpu_torch.models import gbm
     from h2o3_tpu_torch.models.distribution import get_distribution
     from h2o3_tpu_torch.models.tree import TreeParams, scalars_of
@@ -234,18 +263,24 @@ def test_boost_step_makes_no_host_sync(dev):
     y = (torch.rand(n, device=dev) > 0.5).to(torch.float32)
     w = torch.ones(n, device=dev)
     margin = torch.zeros(n, device=dev)
-    gens = [gbm.tree_generator(1, t, dev) for t in range(2)]
+    gens = [gbm.tree_generator(1, t, dev) for t in range(3)]
+    # a 3-class iteration too: softmax, K class trees, margin columns
+    y3 = torch.randint(0, 3, (n,), device=dev)
+    margins = torch.zeros((n, 3), device=dev)
     tk._lib()                                  # build + load first
     torch.cuda.synchronize()
     torch.cuda.set_sync_debug_mode("error")
     try:
-        for gen in gens:
+        for gen in gens[:2]:
             _, margin, _ = gbm.boost_step(
                 bm, y, w, margin, gen, dist=get_distribution("bernoulli"),
                 tp=tp, sc=sc, learn_rate=lr, sample_rate=0.8)
+        _, margins, _ = gbm.boost_step_multi(
+            bm, y3, w, margins, gens[2], tp=tp, sc=sc, learn_rate=lr,
+            sample_rate=0.8)
     finally:
         torch.cuda.set_sync_debug_mode(0)
-    assert torch.isfinite(margin).all()
+    assert torch.isfinite(margin).all() and torch.isfinite(margins).all()
 
 
 def _uplift(dev, n=N):

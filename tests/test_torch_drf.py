@@ -191,5 +191,11 @@ def test_drf_surface_errors():
     fr = h2o3_tpu_torch.Frame.from_numpy(
         {"x": r.randn(60), "y": np.array(["a", "b", "c"], object)[
             r.randint(0, 3, 60)]}, device="cpu")
-    with pytest.raises(NotImplementedError, match="multinomial DRF"):
+    # multinomial DRF trains on one device; on a partitioned frame (a
+    # sharded mesh) it raises, as binomial and regression DRF do
+    m = h2o3_tpu_torch.DRFEstimator(ntrees=1).train(fr, y="y")
+    assert m.predict(fr).names == ["predict", "p0", "p1", "p2"]
+    from h2o3_tpu_torch.parallel import mesh as mesh_mod
+    fr.mesh = mesh_mod.Mesh(None, None, 0, 2)       # as if sharded
+    with pytest.raises(NotImplementedError, match="sharded mesh"):
         h2o3_tpu_torch.DRFEstimator(ntrees=1).train(fr, y="y")

@@ -157,7 +157,9 @@ def test_unported_parameter_raises():
     with pytest.raises(NotImplementedError, match="nfolds"):
         h2o3_tpu_torch.GBMEstimator(nfolds=3)
     with pytest.raises(NotImplementedError, match="distribution"):
-        h2o3_tpu_torch.GBMEstimator(distribution="poisson")
+        h2o3_tpu_torch.GBMEstimator(distribution="custom")
+    with pytest.raises(NotImplementedError, match="stopping_metric"):
+        h2o3_tpu_torch.GBMEstimator(stopping_metric="AUC")
     with pytest.raises(ValueError, match="unknown GBM params"):
         h2o3_tpu_torch.GBMEstimator(not_a_param=1)
     h2o3_tpu_torch.GBMEstimator(nfolds=0, stopping_rounds=0)  # defaults ok
@@ -206,3 +208,143 @@ def test_concat_forests_matches_reference():
         np.testing.assert_array_equal(getattr(out, f).numpy(),
                                       np.asarray(getattr(ref, f)))
     assert concat_forests([m.forest]) is m.forest
+
+
+def family_cols(dist, n=600, seed=1):
+    """``regression_cols``' features with a response of the family's
+    domain made from its signal s: counts for poisson, positive values for
+    gamma, zero-inflated positive values for tweedie, s plus heavy-tailed
+    noise otherwise."""
+    cols, cats = _regression_cols(n=n, seed=seed)
+    s = cols["y"]
+    r = np.random.RandomState(seed + 100)
+    if dist == "poisson":
+        y = r.poisson(np.exp(0.4 * s)).astype(float)
+    elif dist == "gamma":
+        y = r.gamma(2.0, np.exp(0.3 * s) / 2.0)
+    elif dist == "tweedie":
+        y = (r.rand(n) < 1 / (1 + np.exp(-s))) \
+            * r.gamma(2.0, np.exp(0.3 * s) / 2.0)
+    else:
+        y = s + r.standard_t(3, n) * 0.3
+    cols["y"] = y
+    return cols, cats
+
+
+# (family, shape parameters off their defaults, tie-free data seed): each
+# family's forests compare EXACTLY on its seed; on other seeds a plateau of
+# equal-gain thresholds may break the other way in either summation order
+FAMILIES = [("poisson", {}, 1), ("gamma", {}, 2),
+            ("tweedie", {"tweedie_power": 1.3}, 2), ("laplace", {}, 1),
+            ("quantile", {"quantile_alpha": 0.8}, 3),
+            ("huber", {"huber_alpha": 0.5}, 1)]
+
+
+@pytest.mark.parametrize("family,shape,seed", FAMILIES,
+                         ids=[f[0] for f in FAMILIES])
+def test_gbm_family_fit_parity(family, shape, seed):
+    """Whole GBM regression fits of the six new families: forests' integer
+    fields EXACT, leaves within rtol 1e-5, f0 bit-equal, predictions and
+    the mean residual deviance within 1e-5."""
+    cols, cats = family_cols(family, seed=seed)
+    m_r, m_p, fr_r, fr_p = _train_both(cols, cats, distribution=family,
+                                       min_rows=5.0, **shape, **PARAMS)
+    _assert_forests(m_r, m_p)
+    assert m_p.f0 == m_r.f0 and m_p.dist_name == family
+    assert m_p.output["init_f"] == m_r.output["init_f"]
+    pr = m_r.predict(fr_r).col("predict").to_numpy()
+    pp = m_p.predict(fr_p).col("predict").to_numpy()
+    np.testing.assert_allclose(pp, pr, rtol=1e-5, atol=1e-6)
+    for k in ("mean_residual_deviance", "MSE", "mae"):
+        assert m_p.training_metrics[k] == pytest.approx(
+            m_r.training_metrics[k], rel=1e-5, abs=1e-6), k
+    mr, mp = m_r.model_performance(fr_r), m_p.model_performance(fr_p)
+    assert mp["mean_residual_deviance"] == pytest.approx(
+        mr["mean_residual_deviance"], rel=1e-5)
+
+
+def _with_weights(cols, seed=0):
+    cols = dict(cols)
+    cols["wt"] = np.random.RandomState(seed).randint(1, 4, len(cols["y"])
+                                                     ).astype(float)
+    return cols
+
+
+@pytest.mark.parametrize("param,value", [
+    ("weights_column", "wt"), ("min_split_improvement", 0.05),
+    ("learn_rate", 0.5), ("nbins_cats", 2)])
+def test_ported_parameter_off_default(param, value):
+    """Each ported parameter no other test sets, off its default. These
+    move near-tie splits (a threshold of a plateau), so the fits are held
+    by predictions and metrics within 1e-6, not by their forests."""
+    cols, cats = _mixed_cols(seed=6)
+    if param == "weights_column":
+        cols = _with_weights(cols)
+    m_r, m_p, fr_r, fr_p = _train_both(cols, cats, **{param: value},
+                                       **PARAMS)
+    np.testing.assert_allclose(m_p.predict(fr_p).col("p1").to_numpy(),
+                               m_r.predict(fr_r).col("p1").to_numpy(),
+                               atol=1e-6)
+    for k in ("AUC", "logloss", "MSE"):
+        assert m_p.training_metrics[k] == pytest.approx(
+            m_r.training_metrics[k], abs=1e-6), k
+        assert m_p.model_performance(fr_p)[k] == pytest.approx(
+            m_r.model_performance(fr_r)[k], abs=1e-6), k
+    if param == "weights_column":
+        assert m_p.training_metrics.nobs == m_r.training_metrics.nobs
+
+
+def _stopping_case(case):
+    """(training columns, validation columns, categorical, parameters):
+    learn_rate 0.3 and a tolerance at which every case stops early, with
+    and without a validation frame."""
+    from torch_ranks import multi_cols
+    kw = dict(ntrees=20, max_depth=3, seed=11, learn_rate=0.3,
+              stopping_rounds=2, score_tree_interval=2,
+              stopping_tolerance=0.2)
+    if case == "binomial":
+        (cols, cats), (vcols, _) = _mixed_cols(seed=2), _mixed_cols(seed=9)
+    elif case == "gaussian":
+        (cols, cats), (vcols, _) = (_regression_cols(seed=2),
+                                    _regression_cols(seed=9))
+        kw.update(distribution="gaussian", min_rows=5.0,
+                  stopping_tolerance=0.4)
+    else:
+        (cols, cats), (vcols, _) = multi_cols(seed=2), multi_cols(seed=9)
+    return cols, vcols, cats, kw
+
+
+@pytest.mark.parametrize("validate", [False, True],
+                         ids=["training", "validation"])
+@pytest.mark.parametrize("case", ["binomial", "gaussian", "multinomial"])
+def test_early_stopping_matches_reference(case, validate):
+    """stopping_rounds=2, score_tree_interval=2: the same trees kept, the
+    same scoring history (deviances within 1e-5) and, with a validation
+    frame, its metrics within 1e-5."""
+    cols, vcols, cats, kw = _stopping_case(case)
+    m_r, m_p, fr_r, fr_p = _train_both(cols, cats, **kw)
+    if validate:
+        v_r = h2o3_tpu.Frame.from_numpy(vcols, categorical=cats)
+        v_p = h2o3_tpu_torch.Frame.from_numpy(vcols, categorical=cats,
+                                              device="cpu")
+        m_r = RefGBM(**kw).train(fr_r, y="y", validation_frame=v_r)
+        m_p = h2o3_tpu_torch.GBMEstimator(**kw).train(
+            fr_p, y="y", validation_frame=v_p)
+    K = m_p.output["nclasses"] if case == "multinomial" else 1
+    n_trees = m_p.forest.feat.shape[0]
+    assert n_trees == m_r.forest.feat.shape[0]
+    assert n_trees < kw["ntrees"] * K, "no early stop"
+    h_r, h_p = m_r.output["scoring_history"], m_p.output["scoring_history"]
+    assert [e["ntrees"] for e in h_p] == [e["ntrees"] for e in h_r]
+    assert h_p[-1]["ntrees"] * K == n_trees
+    for a, b in zip(h_p, h_r):
+        assert a["deviance"] == pytest.approx(b["deviance"], rel=1e-5)
+    if validate:
+        keys = {"binomial": ("AUC", "logloss", "MSE"),
+                "gaussian": ("MSE", "mean_residual_deviance", "r2"),
+                "multinomial": ("logloss", "MSE", "AUC")}[case]
+        for k in keys:
+            assert m_p.validation_metrics[k] == pytest.approx(
+                m_r.validation_metrics[k], rel=1e-5, abs=1e-5), k
+    else:
+        assert m_p.validation_metrics is None

@@ -1,11 +1,12 @@
-"""Data-parallel GBM: the port's fit on W = 2 gloo ranks, each holding
-only its own rows of a partitioned frame (``Frame.from_numpy_partitioned``
-→ ``GBMEstimator.train`` → ``predict`` / ``training_metrics``), against
-the reference ``GBMEstimator`` on a data = 2 mesh and against the port's
-own world-1 fit.
+"""Data-parallel GBM (binomial, gaussian and multinomial): the port's fit
+on W = 2 gloo ranks, each holding only its own rows of a partitioned
+frame (``Frame.from_numpy_partitioned`` → ``GBMEstimator.train`` →
+``predict`` / ``training_metrics``), against the reference
+``GBMEstimator`` on a data = 2 mesh and against the port's own world-1
+fit.
 
-Sampling is off and the data is tie-free (tests/test_torch_gbm.py's
-columns; row counts that do not split evenly): forests' integer fields
+Sampling is off and the data is tie-free (tests/test_torch_gbm.py's and
+tests/torch_ranks.py's columns; row counts that do not split evenly): forests' integer fields
 EXACTLY equal, leaf values within rtol 1e-5, training metrics and
 predictions within 1e-5. Every rank must hold the same forest bit for
 bit. A reference model carried across (``models/convert.py``) scores the
@@ -28,7 +29,8 @@ import torch_ranks as tr
 from test_torch_gbm import INT_FIELDS, _ref_arrays
 
 METRICS = {"binomial": ("AUC", "logloss", "MSE"),
-           "gaussian": ("MSE", "mae", "mean_residual_deviance", "r2")}
+           "gaussian": ("MSE", "mae", "mean_residual_deviance", "r2"),
+           "multinomial": ("logloss", "MSE", "AUC", "mean_per_class_error")}
 
 
 def _ref_fit(case):
@@ -41,8 +43,8 @@ def _ref_fit(case):
         fr = h2o3_tpu.Frame.from_numpy(cols, categorical=cats)
         m = RefGBM(**tr.FIT_PARAMS, **extra).train(fr, y="y")
         pred = m.predict(fr)
-        col = "p1" if case == "binomial" else "predict"
-        return m, pred.col(col).to_numpy()
+        return m, _pred({c: pred.col(c).to_numpy() for c in pred.names},
+                        case)
     finally:
         ref_mesh.set_global_mesh(old)
 
@@ -73,6 +75,10 @@ def _assert_forest(forest, want, label):
 
 
 def _pred(raw, case):
+    """What a case predicts: p1, the class probabilities [N, K], or the
+    response."""
+    if case == "multinomial":
+        return np.stack([raw[f"p{k}"] for k in range(len(raw) - 1)], 1)
     return raw["p1"] if case == "binomial" else raw["predict"]
 
 
@@ -109,7 +115,8 @@ def test_two_rank_fit_equals_world_one_fit(fits, case):
         for k in METRICS[case]:
             assert res[case]["metrics"][k] == pytest.approx(
                 m_p.training_metrics[k], rel=1e-5, abs=1e-5), k
-        assert res[case]["output"]["init_f"] == m_p.output["init_f"]
+        assert res[case]["output"].get("init_f") == m_p.output.get("init_f")
+        np.testing.assert_array_equal(res[case]["f0"], np.asarray(m_p.f0))
         assert [v[0] for v in res[case]["output"]["varimp"]] == \
             [v[0] for v in m_p.output["varimp"]]
         np.testing.assert_allclose(_pred(res[case]["raw"], case),

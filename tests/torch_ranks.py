@@ -14,7 +14,7 @@ port only, so a rank never loads JAX or the reference package.
 
 Scenarios: ``mesh`` (collectives, partitioned ingest and binning),
 ``level`` (the sharded tree level, levels 0..2) and ``fit`` (W-rank GBM
-fits, scoring and metrics).
+fits — binomial, gaussian and multinomial — scoring and metrics).
 """
 
 from __future__ import annotations
@@ -169,6 +169,24 @@ def regression_cols(n=600, seed=1):
     return cols, ["k"]
 
 
+def multi_cols(n=600, K=3, seed=2):
+    """Multinomial columns: three integer-valued features of six levels
+    (so few bins lie empty inside a node: no plateau of equal-gain
+    thresholds), NAs in x0, a categorical, and a K-level response from a
+    per-class signal."""
+    r = np.random.RandomState(seed)
+    X = r.randint(0, 6, (n, 3)).astype(float)
+    X[r.rand(n) < 0.05, 0] = np.nan
+    cat = r.choice(["a", "b", "c", "d"], n)
+    z = np.stack([X[:, 1] * (k - 1) + (cat == "abcd"[k % 4]) * 1.2
+                  + 0.5 * np.nan_to_num(X[:, 0]) * (k % 2)
+                  for k in range(K)], 1) + 0.4 * r.randn(n, K)
+    cols = {f"x{i}": X[:, i] for i in range(3)}
+    cols["c"] = cat
+    cols["y"] = np.array([f"k{k}" for k in range(K)], object)[z.argmax(1)]
+    return cols, ["c", "y"]
+
+
 FIT_PARAMS = dict(ntrees=4, max_depth=4, seed=11, sample_rate=1.0,
                   col_sample_rate_per_tree=1.0)
 # seed 6: binomial data without near-tie splits (test_torch_gbm.py)
@@ -176,6 +194,8 @@ FIT_CASES = {
     "binomial": (lambda: mixed_cols(seed=6), {}),
     "gaussian": (regression_cols, dict(distribution="gaussian",
                                        min_rows=5.0)),
+    # seed 3: tie-free against the reference's data = 2 fit too
+    "multinomial": (lambda: multi_cols(seed=3), {}),
 }
 
 
@@ -272,8 +292,10 @@ def scenario_fit(mesh, run_dir):
             forest={f: getattr(m.forest, f).numpy() for f in Tree._fields},
             metrics=m.training_metrics.to_dict(),
             perf=m.model_performance(fr).to_dict(),
-            output={k: m.output[k] for k in ("init_f", "varimp")
-                    + (("default_threshold",) if case == "binomial" else ())},
+            output={k: m.output[k] for k in ("init_f", "varimp",
+                                             "default_threshold")
+                    if k in m.output},
+            f0=np.asarray(m.f0),
             raw=m._score_raw(fr), span=fr.span,
             pred={c: pred.col(c).host_view() for c in pred.names},
             pred_local={c: pred.col(c).data.numpy() for c in pred.names})
