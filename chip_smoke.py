@@ -88,6 +88,24 @@ Phases, in order; any failure exits non-zero and no phase carries on:
     stopping_rounds=2, score_tree_interval=1``) on an 80/20 split of
     those rows: (trees kept) x 6 launches a level kernel, the scoring
     history and the validation AUC.
+17. The training surface on phase 4's frame and settings: (a) monotone
+    (DepTime up, Distance down) and interaction constraints: 60 launches
+    a level kernel, p1 monotone on 200-point grids, no tree path mixing
+    two interaction sets, one constrained ``grow_tree`` on dyadic stats
+    through the kernels equal to the plain versions', the 50K-row fit
+    within 5e-3 AUC of the CPU's; (b) an offset column 0.002 *
+    (DepTime - 1200): 60 launches, the 50K-row f0 within 1e-6 relative of
+    the CPU's and predict's AUC within 5e-3; (c) checkpoint restarts
+    5 -> 10 trees: GBM keeps the donor's trees (how it compares with
+    phase 4's forest is printed), DRF bit-equal to phase 6's forest and
+    OOB AUC; (d) 5-fold CV: 6 x 60 launches and ONE ``bin_frame`` call;
+    (e) Platt and isotonic calibration on a 1M-row frame, Platt's (a, b)
+    equal to numpy's fit on the fetched p1; (f) ``max_runtime_secs``: a
+    3600 s cap leaves DRF's and a sampled laplace GBM's forests bit-equal
+    to the uncapped fits' (statistics that sum exactly, so the card's
+    fits are deterministic), a 0.05 s cap keeps a prefix of 1-9 trees;
+    the flagship refit under the loose cap against phase 4 and the cost
+    of the device wait after each tree are printed.
 
 Launch counts are read per path: each path sets every count to 0 just
 before it runs and reads them just after (phase 15's, over its seven
@@ -98,7 +116,9 @@ and its launches on that path; ``ms`` is device time, ``host_paced_ms``
 and ``host_us`` as ``time_ms`` says; the three level kernels three
 times, at the GBM, the DRF and the multinomial GBM levels,
 ``tree_split``'s with its floor; ``launches_by_path`` gives each
-kernel's launches on every path); the last is
+kernel's launches on every path, phase 17's as ``gbm_constraints``,
+``gbm_offset``, ``gbm_checkpoint`` (donor and restart), ``drf_checkpoint``
+and ``gbm_cv``); the last is
 ``{"ok": true, "device": {...}}``.
 """
 
@@ -140,6 +160,18 @@ DYADIC_FAMILIES = (("laplace", {}), ("quantile", {"quantile_alpha": 0.5}))
 # phase 16: the flagship with early stopping on an 80/20 split of N_DIST
 STOPPING = dict(FLAGSHIP, ntrees=50, stopping_rounds=2,
                 score_tree_interval=1)
+# phase 17: the training surface on phase 4's frame and settings
+MONOTONE = {"DepTime": 1, "Distance": -1}
+INTERACTIONS = [["DepTime", "CRSDepTime"], ["UniqueCarrier", "Month"]]
+N_GRID = 200                     # monotonicity probe points
+N_CAL = 1_000_000                # calibration frame rows
+CV = dict(FLAGSHIP, nfolds=5)
+CAP_LOOSE_S, CAP_TIGHT_S = 3600.0, 0.05
+# a GBM whose statistics sum exactly (sign gradients, unit hessians), with
+# row and column sampling: deterministic on the card
+LAPLACE = dict(FLAGSHIP, distribution="laplace", sample_rate=0.7,
+               col_sample_rate_per_tree=0.8)
+Y = "IsDepDelayed"
 _TREEKERNEL = dict(source="h2o3_tpu_torch/ops/kernels/csrc/treekernel.cu",
                    replaces="h2o3_tpu/ops/pallas/treekernel.py:250")
 KERNELS = {
@@ -660,7 +692,7 @@ def phase_main(torch, dev, cols, domains):
     say(f"phase4 50K-row fit card vs CPU plain: |dAUC| {d_auc:.3g} "
         f"|dlogloss| {d_ll:.3g}, split features equal at {agree:.4f} of "
         "slots")
-    return model, fr, counts
+    return model, fr, counts, t_train
 
 
 def profiled_fit(torch, label: str, fit) -> None:
@@ -995,7 +1027,7 @@ def phase_drf(torch, dev, fr):
         f"{tm['AUC']:.6f} (nobs {tm.nobs}), OOB logloss "
         f"{tm['logloss']:.6f}, peak device memory {peak / 2**30:.3f} GiB")
     say(f"phase6 launches: {counts}")
-    return counts
+    return counts, model
 
 
 def uplift_inputs(torch, dev, cols, domains, n):
@@ -1723,6 +1755,359 @@ def phase_stopping(torch, dev, cols, domains):
     return counts
 
 
+def forests_equal(a, b) -> bool:
+    """Every field of two forests equal (compared on the host)."""
+    import torch
+    return all(torch.equal(getattr(a, f).cpu(), getattr(b, f).cpu())
+               for f in a._fields)
+
+
+def forest_prefix(forest, n: int):
+    return type(forest)(*(a[:n] for a in forest))
+
+
+INT_FIELDS = ("feat", "thresh", "na_left", "is_split", "cat_split",
+              "left_words", "leaf_w")
+
+
+def leaf_gap(a, b):
+    """How two GBM forests on the card compare: None when a split (any
+    integer field, or a leaf's row weight) differs, else the largest leaf
+    difference over the largest leaf (0.0: bit-equal). The slab histogram
+    adds real-valued cells with float atomics in an order that varies
+    from run to run, so two fits of one GBM agree in their splits and in
+    their leaves' leading bits, not always in every bit."""
+    import torch
+    if not all(torch.equal(getattr(a, f).cpu(), getattr(b, f).cpu())
+               for f in INT_FIELDS):
+        return None
+    la, lb = a.leaf.cpu(), b.leaf.cpu()
+    return float((la - lb).abs().max() / lb.abs().max().clamp_min(1e-30))
+
+
+def host_auc(p1, y) -> float:
+    """AUC of host scores against 0/1 labels, by the port's metrics."""
+    from h2o3_tpu_torch.models.metrics import binomial_metrics
+    return binomial_metrics(np.asarray(p1, np.float32),
+                            np.asarray(y, np.float32))["AUC"]
+
+
+def path_sets_ok(forest, names, groups) -> int:
+    """Check that no root-to-node path of any tree splits on features of
+    two different interaction sets; returns the split nodes checked."""
+    feat = forest.feat.cpu().numpy()
+    split = forest.is_split.cpu().numpy()
+    group_of = {c: i for i, g in enumerate(groups) for c in g}
+    checked = 0
+    for t in range(feat.shape[0]):
+        for d in range(feat.shape[1]):
+            for node in np.nonzero(split[t, d, :2 ** d])[0]:
+                path = {group_of.get(names[feat[t, a, node >> (d - a)]],
+                                     names[feat[t, a, node >> (d - a)]])
+                        for a in range(d + 1)
+                        if split[t, a, node >> (d - a)]}
+                check(len(path) == 1, f"tree {t} node ({d}, {node}) path "
+                                      f"mixes interaction sets {path}")
+                checked += 1
+    return checked
+
+
+def monotone_probe(model, cols, domains, dev, feature: str) -> np.ndarray:
+    """p1 on an N_GRID-point grid over ``feature``'s range, every other
+    column held at the values of row 0."""
+    import h2o3_tpu_torch as h2o
+    grid = {k: np.repeat(v[:1], N_GRID) for k, v in cols.items()}
+    lo, hi = float(cols[feature].min()), float(cols[feature].max())
+    grid[feature] = np.linspace(lo, hi, N_GRID)
+    fr = h2o.Frame.from_numpy(grid, domains=domains, device=dev)
+    return model.predict(fr).col("p1").host_view()
+
+
+def phase_constraints(torch, dev, fr, cols, domains):
+    """Phase 17(a): monotone and interaction constraints at full width."""
+    import h2o3_tpu_torch as h2o
+    from h2o3_tpu_torch.models.gbm import (build_constraints,
+                                           build_interaction_sets)
+    from h2o3_tpu_torch.models.tree import grow_tree
+    from h2o3_tpu_torch.ops.kernels.treekernel import plain_level
+    kw = dict(FLAGSHIP, monotone_constraints=MONOTONE,
+              interaction_constraints=INTERACTIONS)
+    model, t_train, counts, peak = timed_fit(
+        torch, lambda: h2o.GBMEstimator(**kw).train(fr, y=Y))
+    want = FLAGSHIP["ntrees"] * FLAGSHIP["max_depth"]
+    check_launches(counts, {k: want for k in LEVEL_KERNELS},
+                   "GBM constraints")
+    tm = model.training_metrics
+    check(tm["AUC"] > 0.7, f"constrained AUC {tm['AUC']}")
+    up = monotone_probe(model, cols, domains, dev, "DepTime")
+    down = monotone_probe(model, cols, domains, dev, "Distance")
+    check((np.diff(up) >= 0).all(), "p1 decreases along DepTime: "
+                                    f"{np.diff(up).min()}")
+    check((np.diff(down) <= 0).all(), "p1 increases along Distance: "
+                                      f"{np.diff(down).max()}")
+    names = model.bm.names
+    groups = INTERACTIONS + [[c] for c in names
+                             if not any(c in g for g in INTERACTIONS)]
+    n_paths = path_sets_ok(model.forest, names, groups)
+    # one grow_tree with these constraints and sets on dyadic stats,
+    # through the kernels and through the plain versions
+    bm = model.bm
+    tp, sc, _, cm, _, _ = level_plan(bm, torch, dev)
+    cons = build_constraints(kw, names, fr, "Binomial", dev)
+    sets = build_interaction_sets(kw, names, dev)
+    st = dyadic_stats(N_KERNEL, 17, torch, dev)
+    w = st[:, 0].contiguous()
+    g = (st[:, 1] / torch.where(w > 0, w, 1.0)).contiguous()
+    h = (st[:, 2] / torch.where(w > 0, w, 1.0)).contiguous()
+    bins = bm.bins[:N_KERNEL].contiguous()
+    (t_k, nid_k, gain_k), (t_p, nid_p, gain_p) = (
+        grow_tree(bins, bm.nbins, w, g, h, cm, params=tp, scalars=sc,
+                  constraints=cons, interaction_sets=sets, **lv)
+        for lv in ({}, {"level_fn": plain_level}))
+    torch.cuda.synchronize()
+    equal_trees(t_k, t_p, "constrained grow_tree")
+    check(torch.equal(nid_k, nid_p) and torch.equal(gain_k, gain_p),
+          "constrained grow_tree: leaf ids or gains differ")
+    small = {k: v[:N_SAMPLE] for k, v in cols.items()}
+    a, b = (m.training_metrics["AUC"] for m in card_and_cpu(
+        lambda: h2o.GBMEstimator(**kw), small, domains, dev, y=Y))
+    check(abs(a - b) < 5e-3, f"{N_SAMPLE}-row constrained fit card vs "
+                             f"CPU: dAUC {abs(a - b)}")
+    say(f"phase17a constraints (monotone {MONOTONE}, interaction sets "
+        f"{INTERACTIONS}) on {N_MAIN} rows: train {t_train:.3f} s, AUC "
+        f"{tm['AUC']:.6f}, peak {peak / 2**30:.3f} GiB; p1 monotone on "
+        f"{N_GRID}-point grids (DepTime up, Distance down); {n_paths} split "
+        "paths each within one interaction set; constrained grow_tree "
+        f"kernels == plain ({int(t_k.is_split.sum())} splits); "
+        f"{N_SAMPLE}-row fit |dAUC| card vs CPU {abs(a - b):.3g}")
+    say(f"phase17a launches: {counts}")
+    return counts
+
+
+def phase_offset(torch, dev, cols, domains):
+    """Phase 17(b): an offset column, its f0 and scoring with it."""
+    import h2o3_tpu_torch as h2o
+    ocols = dict(cols, Offset=0.002 * (cols["DepTime"] - 1200.0))
+    fro = h2o.Frame.from_numpy(ocols, domains=domains, device=dev)
+    kw = dict(FLAGSHIP, offset_column="Offset")
+    model, t_train, counts, peak = timed_fit(
+        torch, lambda: h2o.GBMEstimator(**kw).train(fro, y=Y))
+    want = FLAGSHIP["ntrees"] * FLAGSHIP["max_depth"]
+    check_launches(counts, {k: want for k in LEVEL_KERNELS}, "GBM offset")
+    tm = model.training_metrics
+    check(np.isfinite(float(model.f0)) and tm["AUC"] > 0.7,
+          f"offset fit f0 {model.f0} AUC {tm['AUC']}")
+    small = {k: v[:N_SAMPLE] for k, v in ocols.items()}
+    frs = [h2o.Frame.from_numpy(small, domains=domains, device=d)
+           for d in (dev, "cpu")]
+    a, b = (h2o.GBMEstimator(**kw).train(f, y=Y) for f in frs)
+    rel = abs(float(a.f0) - float(b.f0)) / max(abs(float(b.f0)), 1e-30)
+    check(rel < 1e-6, f"offset f0 card {a.f0} vs CPU {b.f0}")
+    y = small[Y]
+    auc_a, auc_b = (host_auc(m.predict(f).col("p1").host_view(), y)
+                    for m, f in ((a, frs[0]), (b, frs[1])))
+    check(abs(auc_a - auc_b) < 5e-3, f"offset predict AUC card {auc_a} "
+                                     f"vs CPU {auc_b}")
+    say(f"phase17b offset 0.002*(DepTime-1200) on {N_MAIN} rows: train "
+        f"{t_train:.3f} s, f0 {float(model.f0):.9g}, AUC {tm['AUC']:.6f}, "
+        f"peak {peak / 2**30:.3f} GiB; {N_SAMPLE}-row f0 card "
+        f"{float(a.f0):.9g} vs CPU {float(b.f0):.9g} (rel {rel:.3g}), "
+        f"predict AUC card {auc_a:.6f} vs CPU {auc_b:.6f}")
+    say(f"phase17b launches: {counts}")
+    return counts
+
+
+def phase_checkpoint(torch, dev, fr, gbm_forest, drf_forest, drf_auc):
+    """Phase 17(c): 5 trees, then a checkpoint restart to 10, for GBM
+    (held to the donor's prefix; whether it equals phase 4's forest is
+    reported) and DRF (bit-equal to phase 6's forest and OOB AUC)."""
+    import h2o3_tpu_torch as h2o
+
+    def restart(est, kw):
+        donor = est(**dict(kw, ntrees=5)).train(fr, y=Y)
+        return donor, est(**dict(kw, checkpoint=donor)).train(fr, y=Y)
+
+    (donor, model), t_gbm, counts_gbm, _ = timed_fit(
+        torch, lambda: restart(h2o.GBMEstimator, FLAGSHIP))
+    check_launches(counts_gbm, {k: 60 for k in LEVEL_KERNELS},
+                   "GBM checkpoint")
+    check(model.forest.feat.shape[0] == 10 and forests_equal(
+        forest_prefix(model.forest, 5), donor.forest),
+        "GBM restart: trees 1-5 are not the donor's")
+    gap = leaf_gap(model.forest, gbm_forest)
+    same = (f"splits first differ at tree "
+            f"{first_split_diff(model.forest, gbm_forest) + 1}"
+            if gap is None else "bit-equal" if gap == 0
+            else f"splits equal, leaves within {gap:.3g} of the largest")
+    (ddonor, dmodel), t_drf, counts_drf, _ = timed_fit(
+        torch, lambda: restart(h2o.DRFEstimator, DRF))
+    check_launches(counts_drf, {k: 100 for k in LEVEL_KERNELS},
+                   "DRF checkpoint")
+    check(forests_equal(dmodel.forest, drf_forest),
+          "DRF 5 -> 10 restart differs from phase 6's forest")
+    auc = dmodel.training_metrics["AUC"]
+    check(auc == drf_auc, f"DRF restart OOB AUC {auc} vs phase 6 {drf_auc}")
+    say(f"phase17c GBM checkpoint 5 -> 10 trees: {t_gbm:.3f} s both fits, "
+        f"trees 1-5 == donor's; against phase 4's 10-tree forest: {same}")
+    say(f"phase17c DRF checkpoint 5 -> 10 trees: {t_drf:.3f} s both fits, "
+        f"forest == phase 6's bit for bit, OOB AUC {auc:.9f} == phase 6's")
+    say(f"phase17c launches: GBM {counts_gbm}, DRF {counts_drf}")
+    return counts_gbm, counts_drf
+
+
+def phase_cv(torch, dev, fr, t_main):
+    """Phase 17(d): 5-fold CV of the flagship GBM on the fast path: the
+    main model's binning shared by the folds, so one bin_frame a fit."""
+    import h2o3_tpu_torch as h2o
+    from h2o3_tpu_torch.frame import binning
+    from h2o3_tpu_torch.models import gbm as gbm_mod
+    calls = []
+    real = binning.bin_frame
+
+    def counted(*a, **k):
+        calls.append(1)
+        return real(*a, **k)
+
+    binning.bin_frame = gbm_mod.bin_frame = counted
+    try:
+        model, t_cv, counts, peak = timed_fit(
+            torch, lambda: h2o.GBMEstimator(**CV).train(fr, y=Y))
+    finally:
+        binning.bin_frame = gbm_mod.bin_frame = real
+    nf = CV["nfolds"]
+    want = (nf + 1) * FLAGSHIP["ntrees"] * FLAGSHIP["max_depth"]
+    check_launches(counts, {k: want for k in LEVEL_KERNELS}, "GBM CV")
+    check(len(calls) == 1, f"bin_frame ran {len(calls)} times in a CV fit")
+    cvm = model.cross_validation_metrics
+    check(len(model._cv_models) == nf and cvm.nobs == N_MAIN
+          and cvm["AUC"] > 0.7 and np.isfinite(cvm["logloss"]),
+          f"CV metrics {cvm}")
+    rows = {r[0]: r for r in model.output["cv_summary_rows"]}
+    check(len(rows["AUC"]) == 3 + nf, "cv_summary_rows: a slot per fold")
+    say(f"phase17d GBM {nf}-fold CV (random folds, seed 1) on {N_MAIN} "
+        f"rows: train {t_cv:.3f} s ({t_cv / (nf + 1):.3f} s a fit, "
+        f"against phase 4's {t_main:.3f} s; {t_cv / (t_main * (nf + 1)):.3f}"
+        f" of {nf + 1} x phase 4), bin_frame calls {len(calls)}, CV AUC "
+        f"{cvm['AUC']:.6f}, CV logloss {cvm['logloss']:.6f}, fold AUCs "
+        + " ".join(f"{v:.6f}" for v in rows["AUC"][3:])
+        + f", peak {peak / 2**30:.3f} GiB")
+    say(f"phase17d launches: {counts}")
+    return counts
+
+
+def phase_calibration(torch, dev, fr, domains):
+    """Phase 17(e): Platt scaling and isotonic regression fitted on a
+    1M-row calibration frame."""
+    import h2o3_tpu_torch as h2o
+    from h2o3_tpu_torch.ml import calibration as cal
+    ccols, _ = airlines_arrays(N_CAL, seed=8)
+    frc = h2o.Frame.from_numpy(ccols, domains=domains, device=dev)
+    kw = dict(FLAGSHIP, calibrate_model=True, calibration_frame=frc)
+    model, t_train, counts, _ = timed_fit(
+        torch, lambda: h2o.GBMEstimator(**kw).train(fr, y=Y))
+    p1 = np.asarray(model._score_raw(frc)["p1"], np.float64)
+    y = ccols[Y].astype(float)
+    a, b = model.calibrator.params
+    a_np, b_np = cal.fit_platt(p1, y)
+    check(abs(a - a_np) < 1e-9 and abs(b - b_np) < 1e-9,
+          f"Platt (a, b) = ({a}, {b}), numpy ({a_np}, {b_np})")
+    out = {}
+    for method in ("PlattScaling", "IsotonicRegression"):
+        t0 = time.perf_counter()
+        if method != "PlattScaling":
+            cal.calibrate_model(model, frc, method)
+        t_fit = time.perf_counter() - t0
+        pred = model.predict(frc)
+        cp1 = pred.col("cal_p1").host_view()
+        check(np.isfinite(cp1).all() and (cp1 >= 0).all()
+              and (cp1 <= 1).all(), f"{method}: cal_p1 outside [0, 1]")
+        out[method] = (host_auc(cp1, y), float(np.mean(cp1)), t_fit)
+    xs, ys = model.calibrator.params
+    check((np.diff(xs) >= 0).all() and (np.diff(ys) >= 0).all(),
+          "isotonic steps not monotone")
+    say(f"phase17e calibration on {N_CAL} rows: fit + Platt {t_train:.3f} "
+        f"s, Platt (a, b) = ({a:.9g}, {b:.9g}) == numpy's, isotonic "
+        f"{len(xs)} steps in {out['IsotonicRegression'][2]:.3f} s; cal_p1 "
+        "AUC / mean: " + ", ".join(f"{k} {v[0]:.6f} / {v[1]:.6f}"
+                                   for k, v in out.items())
+        + f", raw p1 mean {p1.mean():.6f}, labels mean {y.mean():.6f}")
+    say(f"phase17e launches: {counts}")
+
+
+def first_split_diff(a, b):
+    """The first tree whose splits (integer fields) differ, or None."""
+    import torch
+    for t in range(a.feat.shape[0]):
+        if not all(torch.equal(getattr(a, f)[t].cpu(), getattr(b, f)[t].cpu())
+                   for f in INT_FIELDS):
+            return t
+    return None
+
+
+def phase_runtime_cap(torch, dev, fr, cols, domains, gbm_forest, auc_main,
+                      drf_forest):
+    """Phase 17(f): ``max_runtime_secs``. Where the card's fits are
+    deterministic (statistics that sum exactly in any order: DRF's 0/1
+    targets, a laplace GBM's sign gradients), a cap that does not bind
+    leaves the forest bit-equal to the uncapped fit's and a tight one
+    keeps a bit-equal prefix; both sample rows and columns, so this holds
+    the per-tree draws too. The flagship (real-valued gradients, which
+    the slab histogram's float atomics add in a varying order) is refit
+    under the loose cap and compared with phase 4 for the record. Then
+    the flagship's tree loop timed alone (the binning shared) without a
+    cap and under the loose cap: what the device wait after each tree
+    costs."""
+    import h2o3_tpu_torch as h2o
+    drf = h2o.DRFEstimator(**dict(DRF, max_runtime_secs=CAP_LOOSE_S)
+                           ).train(fr, y=Y)
+    check(forests_equal(drf.forest, drf_forest),
+          "a non-binding max_runtime_secs changed phase 6's DRF forest")
+    lcols = {k: v for k, v in cols.items() if k != Y}
+    lcols["Delay"] = airlines_delay(N_MAIN)
+    frl = h2o.Frame.from_numpy(lcols, domains=domains, device=dev)
+    lap = {cap: h2o.GBMEstimator(**dict(LAPLACE, max_runtime_secs=cap)
+                                 ).train(frl, y="Delay")
+           for cap in (0.0, CAP_LOOSE_S, CAP_TIGHT_S)}
+    check(forests_equal(lap[CAP_LOOSE_S].forest, lap[0.0].forest),
+          "a non-binding max_runtime_secs changed the laplace GBM")
+    n = lap[CAP_TIGHT_S].forest.feat.shape[0]
+    check(1 <= n < LAPLACE["ntrees"] and forests_equal(
+        lap[CAP_TIGHT_S].forest, forest_prefix(lap[0.0].forest, n)),
+        f"max_runtime_secs={CAP_TIGHT_S:g}: {n} trees, or not a prefix")
+    loose = h2o.GBMEstimator(**dict(FLAGSHIP, max_runtime_secs=CAP_LOOSE_S)
+                             ).train(fr, y=Y)
+    d_auc = abs(loose.training_metrics["AUC"] - auc_main)
+    check(d_auc < 5e-3, f"flagship under a loose cap: dAUC {d_auc}")
+    t_diff = first_split_diff(loose.forest, gbm_forest)
+
+    def loop_s(cap):
+        est = h2o.GBMEstimator(**dict(FLAGSHIP, max_runtime_secs=cap))
+        est._cv_shared_bm = loose.bm      # the tree loop alone
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        est.train(fr, y=Y)
+        torch.cuda.synchronize()
+        return time.perf_counter() - t0
+
+    times = {0.0: [], CAP_LOOSE_S: []}
+    for cap in (0.0, CAP_LOOSE_S, CAP_LOOSE_S, 0.0, 0.0, CAP_LOOSE_S):
+        times[cap].append(loop_s(cap))
+    free, capped = (float(np.median(times[c])) for c in (0.0, CAP_LOOSE_S))
+    say(f"phase17f max_runtime_secs={CAP_LOOSE_S:g}: DRF forest == phase "
+        f"6's, laplace GBM (sample_rate {LAPLACE['sample_rate']}, "
+        f"col_sample_rate_per_tree {LAPLACE['col_sample_rate_per_tree']}) "
+        f"== its uncapped fit; ={CAP_TIGHT_S:g}: the laplace GBM stopped "
+        f"after {n} of {LAPLACE['ntrees']} trees, its uncapped fit's "
+        f"first {n} bit for bit")
+    say(f"phase17f flagship refit under the loose cap against phase 4: "
+        + ("splits equal" if t_diff is None else
+           f"splits first differ at tree {t_diff + 1}")
+        + f", |dAUC| {d_auc:.3g}; tree loop alone (median of 3): "
+        f"{free:.4f} s uncapped, {capped:.4f} s capped, the device wait "
+        f"after each tree {1e3 * (capped - free) / FLAGSHIP['ntrees']:.3f} "
+        f"ms a tree (runs: {times})")
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -1751,20 +2136,23 @@ def main() -> int:
     worst = phase_kernels(torch, dev, bm)
     phase_grow_tree(torch, dev, bm)
     mark("phase 4")
-    model, fr, counts_gbm = phase_main(torch, dev, cols, domains)
+    model, fr, counts_gbm, t_main = phase_main(torch, dev, cols, domains)
     auc_one_card = model.training_metrics["AUC"]
+    gbm_forest = on_cpu(model.forest)
     phase_profile(torch, dev, fr)
     mark("phase 5")
     records = phase_timing(torch, dev, model, counts_gbm)
     phase_drf_grow_tree(torch, dev, bm)
     del fr_k, bm, model
     mark("phase 6")
-    counts_drf = phase_drf(torch, dev, fr)
+    counts_drf, drf_model = phase_drf(torch, dev, fr)
+    drf_forest = on_cpu(drf_model.forest)
+    drf_auc = drf_model.training_metrics["AUC"]
+    del drf_model
     for rec in records:
         if rec["path"] == "drf":
             rec["launches"] = counts_drf[rec["name"]]
     head = {k: v[:N_DIST].copy() for k, v in cols.items()}
-    del cols
 
     mark("phases 7-9")
     ucols, udomains = criteo_arrays(N_UPLIFT)
@@ -1777,7 +2165,7 @@ def main() -> int:
     counts_mesh, errs, bm = phase_mesh(torch, dev, fr, auc_one_card)
     worst.update(errs)
     records += phase_shard_timing(torch, dev, bm, counts_mesh)
-    del fr, bm
+    del bm
 
     mark("phase 13")
     ccols, cdomains = covtype_arrays()
@@ -1794,10 +2182,21 @@ def main() -> int:
         torch, dev, head, airlines_delay(N_MAIN)[:N_DIST], domains)
     mark("phase 16")
     counts_stop = phase_stopping(torch, dev, head, domains)
+    mark("phase 17")
+    counts_cons = phase_constraints(torch, dev, fr, cols, domains)
+    counts_off = phase_offset(torch, dev, cols, domains)
+    counts_ckg, counts_ckd = phase_checkpoint(torch, dev, fr, gbm_forest,
+                                              drf_forest, drf_auc)
+    counts_cv = phase_cv(torch, dev, fr, t_main)
+    phase_calibration(torch, dev, fr, domains)
+    phase_runtime_cap(torch, dev, fr, cols, domains, gbm_forest,
+                      auc_one_card, drf_forest)
     paths = {"gbm": counts_gbm, "drf": counts_drf, "uplift": counts_up,
              "gbm_mesh": counts_mesh, "gbm_multinomial": counts_gm,
              "drf_multinomial": counts_dm, "gbm_distributions": counts_dist,
-             "gbm_stopping": counts_stop}
+             "gbm_stopping": counts_stop, "gbm_constraints": counts_cons,
+             "gbm_offset": counts_off, "gbm_checkpoint": counts_ckg,
+             "drf_checkpoint": counts_ckd, "gbm_cv": counts_cv}
     for rec in records:
         rec["max_abs_err"] = worst[rec["name"]]
         rec["launches_by_path"] = {p: c[rec["name"]]

@@ -45,15 +45,19 @@ class Frame:
                    categorical: Sequence[str] = (),
                    domains: Optional[Dict[str, List[str]]] = None,
                    device: dev_mod.DeviceLike = None,
-                   block: int = 8) -> "Frame":
+                   block: int = 8, pad_to: Optional[int] = None) -> "Frame":
         """Build a Frame from host columns on ``device`` (CUDA unless the
         caller names another). ``categorical`` forces listed numeric
         columns to categorical; ``domains`` supplies level lists for
-        integer-coded categorical columns; string columns intern."""
+        integer-coded categorical columns; string columns intern.
+        ``pad_to`` pads to at least that many rows (cross-validation
+        pads its fold frames to the parent frame's shape)."""
         device = dev_mod.resolve_device(device)
         names = list(arrays.keys())
         n = len(next(iter(arrays.values()))) if names else 0
         npad = mesh_mod.padded_rows(n, mesh_mod.LOCAL, block)
+        if pad_to is not None:
+            npad = max(npad, int(pad_to))
         cols = []
         for name in names:
             v = np.asarray(arrays[name])

@@ -5,7 +5,10 @@
 and lists — every ``Tree`` field of the stacked forest, the training
 binning (``edges``, ``nbins``, ``is_cat``, ``names``, ``domains``,
 ``nbins_total``, ``nbins_cats``) and the model's own fields — so both
-packages score the same forest. Nothing here imports the reference
+packages score the same forest. What a ``checkpoint`` restart reads comes
+across too: the training ``params`` (the non-modifiable fields are
+checked against them), GBM's f0 and ``init_f``, DRF's out-of-bag
+accumulators; and a calibrator. Nothing here imports the reference
 package: the caller hands over numpy.
 """
 
@@ -17,6 +20,7 @@ import numpy as np
 import torch
 
 from h2o3_tpu_torch.frame.binning import BinnedMatrix
+from h2o3_tpu_torch.ml.calibration import Calibrator
 from h2o3_tpu_torch.models.drf import DRFModel
 from h2o3_tpu_torch.models.gbm import GBMModel
 from h2o3_tpu_torch.models.tree import Tree
@@ -70,6 +74,15 @@ def _output(d: Arrays) -> dict:
             "default_threshold": float(d.get("default_threshold", 0.5))}
 
 
+def _calibrated(model, d: Arrays):
+    """Attach ``d["calibrator"]``, the reference calibrator's
+    ``(method, params)``, if there is one."""
+    cal = d.get("calibrator")
+    if cal is not None:
+        model.calibrator = Calibrator(str(cal[0]), cal[1])
+    return model
+
+
 def gbm_model_from_arrays(d: Arrays, device: DeviceLike = None) -> GBMModel:
     """Port ``GBMModel`` on ``device`` from the reference model's images.
 
@@ -77,25 +90,36 @@ def gbm_model_from_arrays(d: Arrays, device: DeviceLike = None) -> GBMModel:
     uint32 words), ``edges``, ``nbins``, ``is_cat``, ``names``,
     ``domains``, ``nbins_total``, ``nbins_cats``, ``f0``, ``dist_name``,
     ``category``, ``domain``. Optional: ``response``, ``nclasses`` (the
-    domain's length), ``default_threshold`` (0.5), ``params`` (a
-    family's shape parameter). A multinomial model's ``f0`` is the [K]
+    domain's length), ``default_threshold`` (0.5), ``params`` (the
+    training parameters: a family's shape parameter, the offset column,
+    what a checkpoint restart checks), ``init_f``, ``calibrator``
+    (``(method, params)``). A multinomial model's ``f0`` is the [K]
     vector and its forest the t-major [T·K] stack (tree t, class k at
     row t·K + k)."""
     dev = resolve_device(device)
     f0 = np.asarray(d["f0"], np.float32)
-    return GBMModel(dict(d.get("params") or {}), _output(d), _forest(d, dev),
-                    _binned(d, dev), f0 if f0.ndim else np.float32(f0),
-                    str(d["dist_name"]))
+    output = _output(d)
+    if d.get("init_f") is not None:
+        output["init_f"] = float(d["init_f"])
+    return _calibrated(
+        GBMModel(dict(d.get("params") or {}), output, _forest(d, dev),
+                 _binned(d, dev), f0 if f0.ndim else np.float32(f0),
+                 str(d["dist_name"])), d)
 
 
 def drf_model_from_arrays(d: Arrays, device: DeviceLike = None) -> DRFModel:
     """Port ``DRFModel`` (binomial, multinomial or regression) on
     ``device`` from the reference model's images: the keys of
-    ``gbm_model_from_arrays`` without ``f0``/``dist_name`` (a
-    multinomial forest is the t-major [T·K] stack)."""
+    ``gbm_model_from_arrays`` without ``f0``/``dist_name``/``init_f``
+    (a multinomial forest is the t-major [T·K] stack), and optionally
+    ``oob_sum`` [Npad, K] and ``oob_cnt`` [Npad], the out-of-bag
+    accumulators a checkpoint restart continues."""
     dev = resolve_device(device)
-    return DRFModel(dict(d.get("params") or {}), _output(d),
-                    _forest(d, dev), _binned(d, dev))
+    model = DRFModel(dict(d.get("params") or {}), _output(d),
+                     _forest(d, dev), _binned(d, dev))
+    if d.get("oob_sum") is not None:
+        model._oob = (_f32(d["oob_sum"], dev), _f32(d["oob_cnt"], dev))
+    return _calibrated(model, d)
 
 
 def uplift_model_from_arrays(d: Arrays,

@@ -21,6 +21,13 @@ host sync inside it, each tree through the level kernels. Each tree draws
 its bag, column and per-node samples from a ``torch.Generator`` seeded
 from (seed, tree index); the draws differ from the reference's
 ``jax.random`` bits.
+
+Around the loop (drf.py:321-558 of the reference): a ``checkpoint``
+restart draws tree t of its new part as tree prior_T + t and continues
+the donor's out-of-bag accumulators (``_oob``), so it is bit-equal to
+one longer fit, forest and OOB metrics; ``max_runtime_secs`` stops after
+a tree; cross-validation runs ``ml/cv.py``'s fast path; calibration
+``ml/calibration.py``.
 """
 
 from __future__ import annotations
@@ -33,17 +40,27 @@ import torch
 from h2o3_tpu_torch.frame.binning import (BinnedMatrix, bin_frame,
                                           rebin_for_scoring)
 from h2o3_tpu_torch.frame.frame import Frame
+from h2o3_tpu_torch.ml.calibration import maybe_calibrate
 from h2o3_tpu_torch.models import metrics as mm
-from h2o3_tpu_torch.models.gbm import _sample_columns, tree_generator
-from h2o3_tpu_torch.models.model import (Model, ModelBuilder, ModelCategory,
-                                         adapt_domain, infer_category,
-                                         require_local)
+from h2o3_tpu_torch.models.gbm import (CHECKPOINT_NON_MODIFIABLE as
+                                       _TREE_NON_MODIFIABLE,
+                                       _sample_columns, tree_generator)
+from h2o3_tpu_torch.models.model import (Deadline, Model, ModelBuilder,
+                                         ModelCategory, adapt_domain,
+                                         check_donor, checkpoint_error,
+                                         infer_category, masked_weights,
+                                         prior_trees, require_local,
+                                         resolve_checkpoint_model)
 from h2o3_tpu_torch.models.tree import (Tree, TreeParams, bucket_depth,
-                                        grow_tree, predict_forest,
-                                        scalars_of, stack_trees)
+                                        concat_forests, grow_tree,
+                                        predict_forest, scalars_of,
+                                        stack_trees)
 from h2o3_tpu_torch.parallel.device import fetch
 
 MAX_COMPLETE_DEPTH = 14  # complete-tree layout: histograms are 2^d·F·B·3
+# SharedTree's checkpoint-non-modifiable fields plus DRF's own knobs
+CHECKPOINT_NON_MODIFIABLE = _TREE_NON_MODIFIABLE + (
+    "mtries", "histogram_type", "binomial_double_trees")
 
 
 def bag_step(bm: BinnedMatrix, ys, w, oob_sum, oob_cnt,
@@ -89,6 +106,9 @@ class DRFModel(Model):
         super().__init__(params, output)
         self.forest = forest           # [T(*K), D, Lmax], t-major
         self.bm = bm
+        # (oob_sum [N, K], oob_cnt [N]) on the device: a checkpoint
+        # restart continues them
+        self._oob = None
 
     @property
     def n_class_trees(self) -> int:
@@ -117,6 +137,17 @@ class DRFModel(Model):
         p1 = torch.clamp(votes[:, 0], 0.0, 1.0)
         return torch.stack([1.0 - p1, p1], dim=1)
 
+    def _score_dev(self, frame: Frame) -> torch.Tensor:
+        """Predictions left on the device: p1, [N, K] class
+        probabilities, or the response."""
+        require_local(frame, self.algo)
+        bm = rebin_for_scoring(self.bm, frame)
+        cat = self.output["category"]
+        if cat == ModelCategory.REGRESSION:
+            return self._mean_votes(bm)[:, 0]
+        p = self._probs(bm)
+        return p[:, 1] if cat == ModelCategory.BINOMIAL else p
+
     def _score_raw(self, frame: Frame) -> Dict[str, np.ndarray]:
         require_local(frame, self.algo)
         bm = rebin_for_scoring(self.bm, frame)
@@ -133,7 +164,7 @@ class DRFModel(Model):
         return {"predict": (p[:, 1] >= t).astype(np.int32),
                 "p0": p[:, 0], "p1": p[:, 1]}
 
-    def model_performance(self, frame: Frame):
+    def model_performance(self, frame: Frame, mask_weights=None):
         require_local(frame, self.algo)
         y = self.output["response"]
         bm = rebin_for_scoring(self.bm, frame)
@@ -142,6 +173,7 @@ class DRFModel(Model):
         if wc and wc in frame:
             v = frame.col(wc).numeric_view()
             w = w * torch.where(torch.isnan(v), 0.0, v)
+        w = masked_weights(w, mask_weights)
         cat = self.output["category"]
         if cat == ModelCategory.REGRESSION:
             yv = frame.col(y).numeric_view()
@@ -166,11 +198,14 @@ class DRFModel(Model):
 
 class DRFEstimator(ModelBuilder):
     """h2o-py H2ORandomForestEstimator-compatible surface: binomial,
-    multinomial and regression. Parameters outside ``PORTED`` keep the
-    reference's names and defaults; setting one away from its default
-    raises ``NotImplementedError``."""
+    multinomial and regression, with cross-validation, checkpoint
+    restarts, a runtime cap and calibration. Parameters outside
+    ``PORTED`` keep the reference's names and defaults; setting one away
+    from its default raises ``NotImplementedError``."""
 
     algo = "drf"
+    label = "DRF"
+    cv_fold_masking = True
 
     DEFAULTS = dict(
         max_runtime_secs=0.0,
@@ -190,29 +225,30 @@ class DRFEstimator(ModelBuilder):
     PORTED = frozenset((
         "ntrees", "max_depth", "min_rows", "nbins", "nbins_cats", "mtries",
         "sample_rate", "col_sample_rate_per_tree", "min_split_improvement",
-        "seed", "weights_column", "ignored_columns"))
-
-    def __init__(self, **params):
-        unknown = set(params) - set(self.DEFAULTS)
-        if unknown:
-            raise ValueError(f"unknown DRF params: {sorted(unknown)}")
-        for k, v in params.items():
-            if k not in self.PORTED and v != self.DEFAULTS[k]:
-                raise NotImplementedError(
-                    f"DRF parameter '{k}' is not ported yet")
-        merged = dict(self.DEFAULTS)
-        merged.update(params)
-        super().__init__(**merged)
+        "seed", "weights_column", "ignored_columns", "max_runtime_secs",
+        "nfolds", "fold_column", "fold_assignment",
+        "keep_cross_validation_models", "checkpoint", "calibrate_model",
+        "calibration_frame", "calibration_method"))
 
     def _fit(self, frame: Frame, x: Sequence[str], y: Optional[str],
              validation_frame: Optional[Frame] = None):
         p = self.params
         dev = frame.device
         category = infer_category(frame, y)
+        # near leave-one-out CV folds (ml/cv.py): no OOB metrics, varimp
+        # or calibration, and a depth slack of 1 level, not 3
+        light = bool(getattr(self, "_cv_light", False))
+        ckpt = None
+        if p.get("checkpoint") is not None:
+            ckpt = resolve_checkpoint_model("drf", p["checkpoint"],
+                                            DRFModel)
+            check_donor("drf", ckpt, y=y, x=x, category=category, params=p,
+                        fields=CHECKPOINT_NON_MODIFIABLE)
         w = frame.valid_weights()
         if p.get("weights_column"):
             wc = frame.col(p["weights_column"]).numeric_view()
             w = w * torch.where(torch.isnan(wc), 0.0, wc)
+        w = self._cv_masked_weights(w, frame)
         rc = frame.col(y)
         wh_host = self._host_weights(frame, y)
         resp_na_host = np.isnan(rc.host_view())
@@ -220,15 +256,23 @@ class DRFEstimator(ModelBuilder):
             keep = np.pad((~resp_na_host).astype(np.float32),
                           (0, frame.nrows_padded - frame.nrows))
             w = w * torch.from_numpy(keep).to(dev)
-        bm = bin_frame(frame, x, nbins=p["nbins"], nbins_cats=p["nbins_cats"],
-                       weights=wh_host)
+        shared_bm = getattr(self, "_cv_shared_bm", None)
+        if ckpt is not None:
+            bm = rebin_for_scoring(ckpt.bm, frame)
+        elif shared_bm is not None:
+            bm = shared_bm
+        else:
+            bm = bin_frame(frame, x, nbins=p["nbins"],
+                           nbins_cats=p["nbins_cats"], weights=wh_host)
 
         # complete-tree layout: a level costs 2^d histogram node slots
         # whether or not rows reach them, so the depth is capped by the
-        # data size too (log2(rows) + 3 leaves room for unbalanced trees);
+        # data size too (log2(rows) + 3 leaves room for unbalanced trees;
+        # + 1 for light CV folds, whose models are dropped after scoring);
         # trees are laid out at the depth bucket, never past the caps
         depth = int(p["max_depth"])
-        data_cap = int(np.ceil(np.log2(max(frame.nrows_padded, 4)))) + 3
+        data_cap = int(np.ceil(np.log2(max(frame.nrows_padded, 4)))) \
+            + (1 if light else 3)
         depth = min(depth, MAX_COMPLETE_DEPTH, data_cap)
         layout_depth = min(bucket_depth(depth), MAX_COMPLETE_DEPTH, data_cap)
         F = len(x)
@@ -271,18 +315,45 @@ class DRFEstimator(ModelBuilder):
         oob_sum = torch.zeros((npad, ys.shape[1]), dtype=torch.float32,
                               device=dev)
         oob_cnt = torch.zeros(npad, dtype=torch.float32, device=dev)
+        prior_T = 0
+        if ckpt is not None:
+            prior_T = prior_trees("drf", ckpt, ckpt.n_class_trees, ntrees)
+            ntrees -= prior_T
+            if ckpt.forest.feat.shape[1] != tp.max_depth:
+                raise checkpoint_error(
+                    "drf", "training_frame",
+                    "checkpoint restart requires a compatible training "
+                    f"frame (donor trees laid out at depth "
+                    f"{ckpt.forest.feat.shape[1]}, here {tp.max_depth})")
+            if ckpt._oob is not None and \
+                    ckpt._oob[0].shape == oob_sum.shape:
+                # the accumulators continue, in one longer fit's order
+                oob_sum = ckpt._oob[0].to(dev, copy=True)
+                oob_cnt = ckpt._oob[1].to(dev, copy=True)
+        deadline = Deadline(p.get("max_runtime_secs"), dev)
         gains = torch.zeros(F, dtype=torch.float32, device=dev)
         trees: List[Tree] = []
         for t in range(ntrees):
             step, oob_sum, oob_cnt, gain = bag_step(
-                bm, ys, w, oob_sum, oob_cnt, tree_generator(seed, t, dev),
-                tp=tp, sc=sc, sample_rate=sample_rate, mtries=mtries)
+                bm, ys, w, oob_sum, oob_cnt,
+                tree_generator(seed, prior_T + t, dev), tp=tp, sc=sc,
+                sample_rate=sample_rate, mtries=mtries)
             trees += step
             gains = gains + gain
+            if deadline.passed():
+                break
+        forest = stack_trees(trees)
+        if ckpt is not None:
+            forest = concat_forests([ckpt.forest, forest])
         output = {"category": category, "response": y, "names": list(x),
                   "nclasses": rc.cardinality if rc.is_categorical else 1,
                   "domain": rc.domain}
-        model = DRFModel(p, output, stack_trees(trees), bm)
+        model = DRFModel(p, output, forest, bm)
+        if light:
+            model.output["default_threshold"] = 0.5
+            model.output["varimp"] = []
+            return model
+        model._oob = (oob_sum, oob_cnt)
 
         # OOB training metrics (rows never out of bag drop out by weight)
         w_oob = w * (oob_cnt > 0).to(torch.float32)
@@ -306,4 +377,5 @@ class DRFEstimator(ModelBuilder):
         model.output["varimp"] = [
             (x[i], float(vi[i]), float(vi[i] / max(vi.max(), 1e-12)),
              float(vi[i] / tot)) for i in order]
+        maybe_calibrate(model, p, category)
         return model

@@ -259,19 +259,14 @@ class UpliftDRFEstimator(ModelBuilder):
         ignored_columns=None, nfolds=0, fold_assignment="auto",
         weights_column=None, fold_column=None,
     )
-    NOT_PORTED = frozenset(("nfolds", "fold_assignment", "fold_column"))
+    # cross-validation stays unported: the reference's CV reads a "p1"
+    # column that uplift scoring does not make (it scores uplift_predict)
+    PORTED = frozenset(DEFAULTS) - {"nfolds", "fold_assignment",
+                                    "fold_column"}
+    label = "UpliftDRF"
 
     def __init__(self, **params):
-        unknown = set(params) - set(self.DEFAULTS)
-        if unknown:
-            raise ValueError(f"unknown UpliftDRF params: {sorted(unknown)}")
-        for k, v in params.items():
-            if k in self.NOT_PORTED and v != self.DEFAULTS[k]:
-                raise NotImplementedError(
-                    f"UpliftDRF parameter '{k}' is not ported yet")
-        merged = dict(self.DEFAULTS)
-        merged.update(params)
-        super().__init__(**merged)
+        super().__init__(**params)
         if not self.params.get("treatment_column"):
             raise ValueError("UpliftDRF requires treatment_column")
 

@@ -30,6 +30,8 @@ SLICE_MODULES = (
     "h2o3_tpu_torch/parallel/mesh.py",
     "h2o3_tpu_torch/parallel/map_reduce.py",
     "h2o3_tpu_torch/frame/partition.py",
+    "h2o3_tpu_torch/ml/calibration.py",
+    "h2o3_tpu_torch/ml/cv.py",
 )
 
 

@@ -174,11 +174,53 @@ def test_drf_depth_caps():
     assert not m.forest.is_split[0, 3:].any()    # levels past 3 never split
 
 
+def _drf_parameter_trains(param):
+    """What each parameter the port took on in slice 7 does on a small
+    fit (the case names of ``test_drf_unported_parameters_raise``)."""
+    cols, cats = _mixed_cols(n=400, seed=4)
+    fr = h2o3_tpu_torch.Frame.from_numpy(cols, categorical=cats,
+                                         device="cpu")
+    kw = dict(ntrees=3, max_depth=4, seed=7)
+    plain = h2o3_tpu_torch.DRFEstimator(**kw).train(fr, y="y")
+    if param == "nfolds":
+        m = h2o3_tpu_torch.DRFEstimator(nfolds=3, **kw).train(fr, y="y")
+        assert len(m._cv_models) == 3 and m._cv_folds.max() == 2
+        assert 0.5 < m.cross_validation_metrics["AUC"] <= 1.0
+    elif param == "checkpoint":
+        m = h2o3_tpu_torch.DRFEstimator(
+            **dict(kw, ntrees=5, checkpoint=plain)).train(fr, y="y")
+        assert m.forest.feat.shape[0] == 5
+        # a key is not a model: keys live in the KV layer
+        with pytest.raises(NotImplementedError, match="checkpoint"):
+            h2o3_tpu_torch.DRFEstimator(
+                **dict(kw, ntrees=5, checkpoint="m")).train(fr, y="y")
+    elif param == "max_runtime_secs":
+        # a cap that does not bind leaves the bagged forest as it is
+        m = h2o3_tpu_torch.DRFEstimator(max_runtime_secs=5.0, **kw).train(
+            fr, y="y")
+        for f in Tree._fields:
+            assert torch.equal(getattr(m.forest, f),
+                               getattr(plain.forest, f)), f
+    else:
+        m = h2o3_tpu_torch.DRFEstimator(calibrate_model=True,
+                                        calibration_frame=fr, **kw).train(
+            fr, y="y")
+        assert m.predict(fr).names[-2:] == ["cal_p0", "cal_p1"]
+
+
 @pytest.mark.parametrize("param,value", [
     ("nfolds", 3), ("checkpoint", "m"), ("max_runtime_secs", 5.0),
     ("calibrate_model", True), ("histogram_type", "random"),
     ("binomial_double_trees", True), ("stopping_rounds", 2)])
 def test_drf_unported_parameters_raise(param, value):
+    """histogram_type, binomial_double_trees and stopping_rounds are not
+    ported and raise. nfolds, checkpoint, max_runtime_secs and
+    calibrate_model are ported now: their cases hold that DRF accepts
+    each and trains with it."""
+    if param in ("nfolds", "checkpoint", "max_runtime_secs",
+                 "calibrate_model"):
+        _drf_parameter_trains(param)
+        return
     with pytest.raises(NotImplementedError, match=param):
         h2o3_tpu_torch.DRFEstimator(**{param: value})
 

@@ -48,7 +48,8 @@ def _ref_arrays(m_r) -> dict:
              nbins_cats=bm.nbins_cats, f0=np.asarray(m_r.f0),
              dist_name=m_r.dist_name, category=m_r.output["category"],
              domain=m_r.output["domain"], response=m_r.output["response"],
-             default_threshold=m_r.output.get("default_threshold", 0.5))
+             default_threshold=m_r.output.get("default_threshold", 0.5),
+             params=m_r.params)
     return d
 
 
@@ -154,8 +155,19 @@ def test_regression_metrics_parity(weighted):
 
 
 def test_unported_parameter_raises():
-    with pytest.raises(NotImplementedError, match="nfolds"):
-        h2o3_tpu_torch.GBMEstimator(nfolds=3)
+    # nfolds is ported: a 3-fold CV fit trains; the frame keys of its
+    # predictions are not (keys live in the KV layer)
+    cols, cats = _mixed_cols(n=300, seed=2)
+    fr = h2o3_tpu_torch.Frame.from_numpy(cols, categorical=cats,
+                                         device="cpu")
+    m = h2o3_tpu_torch.GBMEstimator(nfolds=3, ntrees=2, max_depth=3,
+                                    seed=1).train(fr, y="y")
+    assert len(m._cv_models) == 3
+    assert 0.5 < m.cross_validation_metrics["AUC"] <= 1.0
+    with pytest.raises(NotImplementedError,
+                       match="keep_cross_validation_predictions"):
+        h2o3_tpu_torch.GBMEstimator(nfolds=3,
+                                    keep_cross_validation_predictions=True)
     with pytest.raises(NotImplementedError, match="distribution"):
         h2o3_tpu_torch.GBMEstimator(distribution="custom")
     with pytest.raises(NotImplementedError, match="stopping_metric"):

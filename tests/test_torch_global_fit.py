@@ -30,7 +30,8 @@ from test_torch_gbm import INT_FIELDS, _ref_arrays
 
 METRICS = {"binomial": ("AUC", "logloss", "MSE"),
            "gaussian": ("MSE", "mae", "mean_residual_deviance", "r2"),
-           "multinomial": ("logloss", "MSE", "AUC", "mean_per_class_error")}
+           "multinomial": ("logloss", "MSE", "AUC", "mean_per_class_error"),
+           "binomial_offset_monotone": ("AUC", "logloss", "MSE")}
 
 
 def _ref_fit(case):
@@ -79,7 +80,7 @@ def _pred(raw, case):
     response."""
     if case == "multinomial":
         return np.stack([raw[f"p{k}"] for k in range(len(raw) - 1)], 1)
-    return raw["p1"] if case == "binomial" else raw["predict"]
+    return raw["p1"] if case.startswith("binomial") else raw["predict"]
 
 
 @pytest.mark.parametrize("case", list(tr.FIT_CASES))
@@ -193,3 +194,24 @@ def test_unported_estimators_raise_on_a_partitioned_frame():
                lambda: model.model_performance(fr)):
         with pytest.raises(NotImplementedError, match="sharded mesh"):
             fn()
+
+
+@pytest.mark.parametrize("param", ["nfolds", "checkpoint", "calibrate_model",
+                                   "max_runtime_secs"])
+def test_local_only_gbm_parameters_raise_on_a_partitioned_frame(param):
+    """Cross-validation and a checkpoint need fold masks or a donor on
+    every rank, calibration scores a frame of its own, and ranks reading
+    a wall-clock cap on their own clocks would stop at different trees:
+    on a partitioned frame each raises."""
+    cols, cats = tr.mixed_cols(n=64)
+    fr = h2o3_tpu_torch.Frame.from_numpy(cols, categorical=cats,
+                                         device="cpu")
+    donor = h2o3_tpu_torch.GBMEstimator(ntrees=1, max_depth=2).train(
+        fr, y="y")
+    value = {"nfolds": 3, "checkpoint": donor, "calibrate_model": True,
+             "max_runtime_secs": 10.0}[param]
+    fr.mesh = mesh_mod.Mesh(None, None, 0, 2)       # as if sharded
+    with pytest.raises(NotImplementedError, match=f"'{param}' on a frame "
+                                                  "partitioned"):
+        h2o3_tpu_torch.GBMEstimator(ntrees=2, **{param: value}).train(
+            fr, y="y")

@@ -273,3 +273,18 @@ def test_sampled_uplift_fit_is_seeded_by_tree_index():
         assert torch.equal(getattr(a.forest, f), getattr(b.forest, f)), f
     assert not all(torch.equal(getattr(a.forest, f), getattr(c.forest, f))
                    for f in Tree._fields)
+
+
+def test_uplift_cv_stays_unported_as_the_reference_fails_it():
+    """The reference's UpliftDRF cross-validation reads a "p1" holdout
+    column that uplift scoring does not make (it scores uplift_predict):
+    its nfolds=2 fit fails with KeyError 'p1'. The port keeps raising
+    NotImplementedError for nfolds."""
+    cols, cats = _uplift_cols(n=200)
+    fr = h2o3_tpu.Frame.from_numpy(cols, categorical=cats)
+    with pytest.raises(Exception, match="'p1'"):
+        RefUplift(treatment_column="treatment", nfolds=2, ntrees=2,
+                  max_depth=3, seed=1).train(fr, y="conversion")
+    with pytest.raises(NotImplementedError, match="nfolds"):
+        h2o3_tpu_torch.UpliftDRFEstimator(treatment_column="treatment",
+                                          nfolds=2)

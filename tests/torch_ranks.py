@@ -14,7 +14,8 @@ port only, so a rank never loads JAX or the reference package.
 
 Scenarios: ``mesh`` (collectives, partitioned ingest and binning),
 ``level`` (the sharded tree level, levels 0..2) and ``fit`` (W-rank GBM
-fits — binomial, gaussian and multinomial — scoring and metrics).
+fits — binomial, gaussian, multinomial, and binomial with an offset
+column and a monotone constraint — scoring and metrics).
 """
 
 from __future__ import annotations
@@ -187,6 +188,13 @@ def multi_cols(n=600, K=3, seed=2):
     return cols, ["c", "y"]
 
 
+def offset_cols(n=700, seed=6):
+    """``mixed_cols`` with an offset column ``off``."""
+    cols, cats = mixed_cols(n=n, seed=seed)
+    cols["off"] = 0.3 * np.random.RandomState(seed + 1).randn(n)
+    return cols, cats
+
+
 FIT_PARAMS = dict(ntrees=4, max_depth=4, seed=11, sample_rate=1.0,
                   col_sample_rate_per_tree=1.0)
 # seed 6: binomial data without near-tie splits (test_torch_gbm.py)
@@ -196,6 +204,9 @@ FIT_CASES = {
                                        min_rows=5.0)),
     # seed 3: tie-free against the reference's data = 2 fit too
     "multinomial": (lambda: multi_cols(seed=3), {}),
+    # each rank's own offset rows; the monotone bounds replicated
+    "binomial_offset_monotone": (offset_cols, dict(
+        offset_column="off", monotone_constraints={"x1": 1})),
 }
 
 
