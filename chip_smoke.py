@@ -7,12 +7,15 @@ CUDA kernel against its plain PyTorch version.
 Phases, in order; any failure exits non-zero and no phase carries on:
 
 1. Toolchain: torch / CUDA / nvcc versions and the card's name and power
-   limit; build the kernels (one nvcc per source, in parallel).
+   limit; build the kernels (one nvcc per source) and the native CSV
+   tokenizer (g++), all in parallel.
 2. Each level kernel against its plain version on the card, at the
    flagship width (F=10, B=126, int8 bins, 1M rows, levels d=0..5), one
    level at Lh=256 (depth bucket 10) and one int32-bin level at B=200.
    Small-integer ("dyadic") stats must match EXACTLY; real-valued stats
-   within the stated tolerance, split flips only at near-ties.
+   within the stated tolerance, split flips only at near-ties; with
+   real-valued stats ``tree_hist`` on the rows permuted (bins, nid and
+   stats alike) gives bit-identical histograms (64-bit fixed point).
 3. One ``grow_tree`` on the airlines bins with dyadic g/h, through the
    kernels and through the plain versions: the Trees must be equal.
 4. The main path: a 5M-row airlines-schema frame, ``GBMEstimator(
@@ -53,7 +56,8 @@ Phases, in order; any failure exits non-zero and no phase carries on:
     ingesting only its own 2.5M of phase 4's rows through
     ``Frame.from_numpy_partitioned``. At d=0..5 with dyadic stats:
     ``shard_hist`` == ``hist_plain`` and ``shard_partition`` ==
-    ``partition_plain`` on every rank; the all-reduced histogram, the
+    ``partition_plain`` on every rank, and ``shard_hist`` over the mesh
+    (its int64 cells all-reduced) == the plain sum; the histogram, the
     splits (identical on every rank) and the concatenated routing ==
     one card's ``tree_hist``/``tree_split``/``tree_partition`` over all
     5M rows. All EXACT.
@@ -62,14 +66,16 @@ Phases, in order; any failure exits non-zero and no phase carries on:
     train seconds, launches (``shard_hist``, ``tree_split``,
     ``shard_partition`` 60 each, every other kernel 0), the all-reduce
     count, bytes and seconds, and peak memory; every rank's forest equal;
-    AUC within 5e-3 of phase 4's.
+    AUC within 5e-3 of phase 4's; whether its forest is phase 4's bit
+    for bit is printed.
 12. ``shard_hist`` and ``shard_partition`` timed at one rank's shapes
     (2.5M rows, d=0..5) on the card alone, as phase 5.
 13. Multinomial GBM on the UCI Forest CoverType schema (581,012 rows, 54
     numeric features, 7 classes with the published counts; generated from
     a seed): ``GBMEstimator(ntrees=10, max_depth=6, seed=1).train`` →
     ``predict`` → ``model_performance``, each level kernel launched
-    10 x 7 x 6 = 420 times; the 50K-row fit within 5e-3 of the CPU plain
+    10 x 7 x 6 = 420 times; a refit bit-equal (forest, training logloss
+    and AUC); the 50K-row fit within 5e-3 of the CPU plain
     fit in logloss and weighted-OVR AUC; then the level kernels timed at
     its shapes (F = 54), as phase 5.
 14. Multinomial DRF on phase 13's frame (as phase 6): 10 x 7 x 10 = 700
@@ -79,7 +85,8 @@ Phases, in order; any failure exits non-zero and no phase carries on:
 15. One GBM for each new family (poisson, gamma, tweedie(1.5), laplace,
     quantile(0.5), quantile(0.9), huber(0.9)) on the first 1M airlines
     rows with a response of the family's domain: 60 launches a level
-    kernel a fit; the level kernels held on the log-link families'
+    kernel a fit; the poisson GBM's refit bit-equal (forest, deviance);
+    the level kernels held on the log-link families'
     exp-scaled hessians as phase 2 holds real-valued stats; on the
     50K-row sample the laplace and quantile(0.5) forests (statistics in
     halves and ones) EXACTLY the CPU plain forests, the others' mean
@@ -102,10 +109,19 @@ Phases, in order; any failure exits non-zero and no phase carries on:
     (e) Platt and isotonic calibration on a 1M-row frame, Platt's (a, b)
     equal to numpy's fit on the fetched p1; (f) ``max_runtime_secs``: a
     3600 s cap leaves DRF's and a sampled laplace GBM's forests bit-equal
-    to the uncapped fits' (statistics that sum exactly, so the card's
-    fits are deterministic), a 0.05 s cap keeps a prefix of 1-9 trees;
-    the flagship refit under the loose cap against phase 4 and the cost
-    of the device wait after each tree are printed.
+    to the uncapped fits', a 0.05 s cap keeps a prefix of 1-9 trees, and
+    the flagship refit under the loose cap is bit-equal to phase 4's
+    forest and training AUC and logloss (every sum of a fit on the card
+    is 64-bit fixed point, so fits are deterministic); the cost of the
+    device wait after each tree is printed.
+18. CSV ingest → the flagship GBM: phase 4's 5M rows written as CSV
+    (numpy byte operations; categoricals as levels, the response as
+    NO/YES), read by ``stream_import_csv`` at the default worker count
+    and with ``workers=1`` (bit-identical frames) and by
+    ``import_file``, each frame held against the written arrays; ingest
+    seconds, MB/s and rows/s; the flagship trained on the streamed frame
+    (60 launches a level kernel) with binning and forest bit-equal to
+    the fit on ``Frame.from_numpy`` of the same values.
 
 Launch counts are read per path: each path sets every count to 0 just
 before it runs and reads them just after (phase 15's, over its seven
@@ -118,7 +134,7 @@ times, at the GBM, the DRF and the multinomial GBM levels,
 ``tree_split``'s with its floor; ``launches_by_path`` gives each
 kernel's launches on every path, phase 17's as ``gbm_constraints``,
 ``gbm_offset``, ``gbm_checkpoint`` (donor and restart), ``drf_checkpoint``
-and ``gbm_cv``); the last is
+and ``gbm_cv``, phase 18's as ``gbm_csv``); the last is
 ``{"ok": true, "device": {...}}``.
 """
 
@@ -544,10 +560,16 @@ def phase_toolchain(torch):
     say(f"torch {torch.__version__} cuda {torch.version.cuda} "
         f"python {sys.version.split()[0]} | nvcc: {nv[-1]} | "
         f"{torch.cuda.get_device_name(0)} x{torch.cuda.device_count()}")
+    from concurrent.futures import ThreadPoolExecutor
+    from h2o3_tpu_torch import native
     t0 = time.perf_counter()
-    logs = kernels.build()
-    say(f"kernels built in {time.perf_counter() - t0:.3f} s "
-        f"({', '.join(kernels.sources())})")
+    with ThreadPoolExecutor(1) as pool:
+        tokenizer = pool.submit(native.build)   # g++, beside the nvccs
+        logs = kernels.build()
+        tokenizer.result()
+    say(f"kernels and the CSV tokenizer built in "
+        f"{time.perf_counter() - t0:.3f} s ({', '.join(kernels.sources())}, "
+        f"{native.SRC.name})")
     for name, log in logs.items():
         for ln in log.splitlines():
             if "registers" in ln or "Compiling entry" in ln or \
@@ -572,7 +594,20 @@ def phase_kernels(torch, dev, bm):
         nid = torch.zeros(N_KERNEL, dtype=torch.int32, device=dev)
         prev = None
         total_flips = 0
+        perm = torch.from_numpy(np.random.RandomState(12).permutation(
+            N_KERNEL)).to(dev)
         for d in range(6):
+            if not exact:
+                # fixed point: the rows in another order, the same bits
+                Lh = max(2 ** d // 2, 1)
+                lh = tk.tree_hist(bins, nid, stats, d=d, n_nodes_h=Lh,
+                                  n_bins=B)
+                lh_perm = tk.tree_hist(
+                    bins[perm].contiguous(), nid[perm].contiguous(),
+                    stats[perm].contiguous(), d=d, n_nodes_h=Lh, n_bins=B)
+                torch.cuda.synchronize()
+                check(torch.equal(lh, lh_perm), f"tree_hist d={d}: rows "
+                      "permuted give other bits with real-valued stats")
             errs, flips, out_p, nid_next = compare_level(
                 tk, bins, nid, stats, prev, ops, d=d, L=2 ** d, B=B,
                 exact=exact)
@@ -586,7 +621,8 @@ def phase_kernels(torch, dev, bm):
         if not exact:
             say(f"phase2 real-valued stats: {total_flips} split decision(s) "
                 "differ from the plain version, each at a near-tie "
-                "(gain within 1e-3 of max(|gain|, 1))")
+                "(gain within 1e-3 of max(|gain|, 1)); tree_hist on the "
+                "rows permuted bit-identical at d=0..5")
     # depth bucket 10: Lh = 256 parents, the slab in node chunks
     r = np.random.RandomState(5)
     nid = torch.from_numpy(r.randint(0, 512, N_KERNEL).astype(np.int32)).to(dev)
@@ -793,6 +829,7 @@ def level_timing(torch, dev, bm, names, n_rows, depths=range(6),
     chain on the first ``n_rows`` rows of ``bm``: ms per launch, plain
     ms, library ms and the bound's two terms. Each kernel's output at
     each timed level must equal its plain version's EXACTLY."""
+    from h2o3_tpu_torch.ops.fixed_point import exponents
     from h2o3_tpu_torch.ops.kernels import treekernel as tk
     acc = {k: dict(ms=0.0, host_paced_ms=0.0, host_us=0.0, plain_ms=0.0,
                    library_ms=0.0, bytes_ms=0.0, ops_ms=0.0) for k in names}
@@ -816,10 +853,12 @@ def level_timing(torch, dev, bm, names, n_rows, depths=range(6),
         cell = cell.reshape(-1)
         src = stats[:, None, :].expand(N, F, 3).reshape(N * F, 3)
         slots = Lh * F * B + 1
+        # the stats' fixed-point exponents, once a tree as a fit has them
+        exps = exponents(stats)
         runs = {
             "hist": (
                 lambda k: getattr(tk, k)(bins, nid, stats, d=d,
-                                         n_nodes_h=Lh, n_bins=B),
+                                         n_nodes_h=Lh, n_bins=B, exps=exps),
                 lambda: tk.hist_plain(bins, nid, stats, d=d, n_nodes_h=Lh,
                                       n_bins=B),
                 lambda: torch.zeros((slots, 3), device=dev).index_add_(
@@ -936,6 +975,7 @@ def phase_timing(torch, dev, model, counts):
                      mtries=mtries),
         {k: None for k in LEVEL_KERNELS}, n, "phase5 DRF depths", "drf",
         DRF_DEPTHS)
+    leaf_sum_timing(torch, dev, model.bm, n)
     floor = split_floor_ms(torch, dev, model.bm)
     say(f"phase5 tree_split floor (L=1, F=1, B=3): {floor['ms']:.6g} ms, "
         f"host-paced {floor['host_paced_ms']:.6g} ms, host "
@@ -944,6 +984,45 @@ def phase_timing(torch, dev, model, counts):
         if rec["name"] == "tree_split":
             rec["floor_ms"] = floor["ms"]
     return records
+
+
+def leaf_sum_timing(torch, dev, bm, n_rows):
+    """The leaf sums a tree ends with (``segment_sum`` into the 64 leaves
+    of the level chain's last routing, fixed point), held EXACT against a
+    float64 sum of its dyadic stats, and timed beside the float
+    ``index_add_`` it replaced (its adds' order varies on the card) and
+    beside the first fixed-point design: an int64 ``index_add_`` and a
+    float one for the non-finite values, both into the 64 cells."""
+    from h2o3_tpu_torch.ops import fixed_point as fp
+    from h2o3_tpu_torch.ops.segments import segment_sum
+    for lev in level_chain(torch, bm, n_rows, 6):
+        pass
+    nid, stats = lev["new"], lev["stats"]
+    idx, n = nid.long(), 2 * lev["L"]
+    exps = fp.exponents(stats)
+    want = torch.zeros((n, 3), dtype=torch.float64, device=dev).index_add_(
+        0, idx, stats.double()).float()
+    got = segment_sum(nid, stats, n_nodes=n, e=exps)
+    torch.cuda.synchronize()
+    check(torch.equal(got, want), "leaf sums != the exact sums")
+
+    def two_passes():
+        acc = torch.zeros((n, 3), dtype=torch.int64, device=dev)
+        acc.index_add_(0, idx, fp.quantize(stats, exps))
+        side = torch.zeros((n, 3), device=dev)
+        side.index_add_(0, idx, torch.where(torch.isfinite(stats), 0,
+                                            stats))
+        return torch.where(side == 0, fp.dequantize(acc, exps,
+                                                    torch.float32), side)
+    t = {k: time_ms(torch, f)["ms"] for k, f in (
+        ("fixed", lambda: segment_sum(nid, stats, n_nodes=n, e=exps)),
+        ("float", lambda: torch.zeros((n, 3), device=dev).index_add_(
+            0, idx, stats)),
+        ("two", two_passes))}
+    say(f"phase5 leaf sums ({n_rows} rows into {n} leaves, EXACT): "
+        f"segment_sum {t['fixed']:.6g} ms; the float index_add_ it "
+        f"replaced {t['float']:.6g} ms; the int64 and float index_add_ "
+        f"pair of the first fixed-point design {t['two']:.6g} ms")
 
 
 def kernel_record(name, launches, a, n_levels, *, path, levels,
@@ -1173,6 +1252,7 @@ def phase_hist_timing(torch, dev, model, fr, counts):
     first tree's node ids and the treated arm's stats."""
     from h2o3_tpu_torch.models.gbm import tree_generator
     from h2o3_tpu_torch.models.tree import Tree, _route
+    from h2o3_tpu_torch.ops.fixed_point import exponents
     from h2o3_tpu_torch.ops.histogram import local_histogram
     from h2o3_tpu_torch.ops.kernels.histogram import full_histogram
     bm = model.bm
@@ -1189,6 +1269,7 @@ def phase_hist_timing(torch, dev, model, fr, counts):
     acc = dict(ms=0.0, host_paced_ms=0.0, host_us=0.0, plain_ms=0.0,
                library_ms=0.0, bytes_ms=0.0, ops_ms=0.0)
     feat = torch.arange(F, device=dev)
+    exps = exponents(stats)            # once a tree, as the fit has them
     for d in range(D):
         L = 2 ** d
         nid = (leaf >> (D - d)).to(torch.int32).contiguous()
@@ -1196,7 +1277,8 @@ def phase_hist_timing(torch, dev, model, fr, counts):
                 + bins.long()).reshape(-1)
         src = stats[:, None, :].expand(N, F, 3).reshape(N * F, 3)
         t = time_ms(torch, lambda: full_histogram(bins, nid, stats,
-                                                  n_nodes=L, n_bins=B))
+                                                  n_nodes=L, n_bins=B,
+                                                  exps=exps))
         say(f"  histogram d={d} (L={L}): {t['ms']:.6g} ms, host-paced "
             f"{t['host_paced_ms']:.6g} ms")
         for key in ("ms", "host_paced_ms", "host_us"):
@@ -1235,7 +1317,8 @@ def rank_sharded_level(torch, mesh, bm, lo_row):
     """Phase 10 on one rank: the sharded level at the flagship shapes,
     d=0..5, dyadic stats. ``shard_hist`` == ``hist_plain`` and
     ``shard_partition`` == ``partition_plain`` on the rank's rows, EXACT;
-    the splits on the all-reduced histogram identical on every rank.
+    ``shard_hist`` over the mesh (its int64 cells all-reduced) == the
+    plain histograms' sum; the splits on it identical on every rank.
     Returns per level the summed histogram, the split outputs and the
     routed node ids, for the parent to hold against one card."""
     from h2o3_tpu_torch.frame.partition import allgather_objects
@@ -1259,7 +1342,12 @@ def rank_sharded_level(torch, mesh, bm, lo_row):
                                  float((lh - lh_p).abs().max()))
         check(torch.equal(lh, lh_p), f"rank {mesh.rank} shard_hist d={d} "
                                      f"!= hist_plain")
-        all_reduce(lh, mesh)
+        # the level's form: int64 cells summed over the ranks, converted
+        lh = tk.shard_hist(bins, nid, stats, d=d, n_nodes_h=Lh, n_bins=B,
+                           mesh=mesh)
+        check(torch.equal(lh, all_reduce(lh_p, mesh)),
+              f"rank {mesh.rank} shard_hist d={d}: the sum over the ranks "
+              "!= the plain sum")
         out = tk.tree_split(lh, prev, *ops, d=d, n_nodes=L, n_bins=B)
         seen = allgather_objects([out[i].cpu() for i in (2, 3, 4, 8, 9)],
                                  mesh)
@@ -1389,7 +1477,7 @@ def spawn_ranks(torch, out_dir):
             for r in range(W_MESH)], backend, layout
 
 
-def phase_mesh(torch, dev, fr, auc_one_card):
+def phase_mesh(torch, dev, fr, auc_one_card, forest_one_card):
     """Phases 10-11: the sharded level and the flagship GBM over W ranks,
     held against one card. Returns (rank 0's launch counts, the largest
     |err| of each shard kernel against its plain version over the ranks,
@@ -1450,9 +1538,15 @@ def phase_mesh(torch, dev, fr, auc_one_card):
     d_auc = abs(ranks[0]["auc"] - auc_one_card)
     check(d_auc < 5e-3, f"mesh AUC {ranks[0]['auc']} vs one card "
                         f"{auc_one_card}")
+    # the histograms and leaf sums are integer sums all-reduced in int64,
+    # with exponents every rank shares: the ranks' forest is one card's
+    check(torch.equal(ranks[0]["feat"], forest_one_card.feat) and
+          torch.equal(ranks[0]["leaf"], forest_one_card.leaf),
+          f"the forest over {W_MESH} ranks differs from phase 4's")
     say(f"phase11 main path over {W_MESH} ranks ({layout}, backend "
         f"{backend}): every rank holds the same forest; |AUC - phase 4 "
-        f"AUC| {d_auc:.3g} (tolerance 5e-3)")
+        f"AUC| {d_auc:.3g} (tolerance 5e-3); splits and leaves bit-equal "
+        f"to phase 4's (checked)")
     errs = {k: max(r["errs"][k] for r in ranks) for k in ranks[0]["errs"]}
     return ranks[0]["counts"], errs, bm
 
@@ -1540,6 +1634,12 @@ def phase_multinomial(torch, dev, cols, domains):
         f"{tm['mean_per_class_error']:.6f}, weighted-OVR AUC "
         f"{tm['AUC']:.6f}, peak device memory {peak / 2**30:.3f} GiB")
     say(f"phase13 launches: {counts}")
+    refit = h2o.GBMEstimator(**MULTI_GBM).train(fr, y="Cover_Type")
+    check(forests_equal(refit.forest, model.forest) and all(
+        refit.training_metrics[k] == tm[k] for k in ("logloss", "AUC")),
+        "multinomial GBM refit differs from the first fit")
+    say("phase13 refit: forest and training logloss/AUC bit-equal to the "
+        "first fit")
     from h2o3_tpu_torch.frame.binning import bin_frame
     t0 = time.perf_counter()
     bin_frame(fr, [c for c in cols if c != "Cover_Type"], nbins=64,
@@ -1692,10 +1792,17 @@ def phase_distributions(torch, dev, cols, delay, domains):
         if name in ("poisson", "gamma", "tweedie"):
             check((pred > 0).all(), f"{label}: log-link predictions > 0")
         extra = ""
+        if name == "poisson":
+            refit = h2o.GBMEstimator(**params).train(fr, y=y, x=x)
+            check(forests_equal(refit.forest, model.forest) and
+                  refit.training_metrics["mean_residual_deviance"]
+                  == tm["mean_residual_deviance"],
+                  "poisson GBM refit differs from the first fit")
+            extra += "; refit bit-equal (forest, deviance)"
         if name in ("poisson", "gamma", "tweedie"):
             h_max, err, rel, flips = split_on_family_stats(torch, model, fr,
                                                            name, kw)
-            extra = (f"; level kernels on its exp-scaled hessians (largest "
+            extra += (f"; level kernels on its exp-scaled hessians (largest "
                      f"node H {h_max:.6g}), d=0..5: tree_split max |gain "
                      f"diff| {err:.3g} ({rel:.3g} of max(|gain|, 1)), "
                      f"{flips} split flip(s) at near-ties, tree_hist within "
@@ -1773,10 +1880,7 @@ INT_FIELDS = ("feat", "thresh", "na_left", "is_split", "cat_split",
 def leaf_gap(a, b):
     """How two GBM forests on the card compare: None when a split (any
     integer field, or a leaf's row weight) differs, else the largest leaf
-    difference over the largest leaf (0.0: bit-equal). The slab histogram
-    adds real-valued cells with float atomics in an order that varies
-    from run to run, so two fits of one GBM agree in their splits and in
-    their leaves' leading bits, not always in every bit."""
+    difference over the largest leaf (0.0: bit-equal)."""
     import torch
     if not all(torch.equal(getattr(a, f).cpu(), getattr(b, f).cpu())
                for f in INT_FIELDS):
@@ -2044,19 +2148,17 @@ def first_split_diff(a, b):
     return None
 
 
-def phase_runtime_cap(torch, dev, fr, cols, domains, gbm_forest, auc_main,
-                      drf_forest):
-    """Phase 17(f): ``max_runtime_secs``. Where the card's fits are
-    deterministic (statistics that sum exactly in any order: DRF's 0/1
-    targets, a laplace GBM's sign gradients), a cap that does not bind
-    leaves the forest bit-equal to the uncapped fit's and a tight one
-    keeps a bit-equal prefix; both sample rows and columns, so this holds
-    the per-tree draws too. The flagship (real-valued gradients, which
-    the slab histogram's float atomics add in a varying order) is refit
-    under the loose cap and compared with phase 4 for the record. Then
-    the flagship's tree loop timed alone (the binning shared) without a
-    cap and under the loose cap: what the device wait after each tree
-    costs."""
+def phase_runtime_cap(torch, dev, fr, cols, domains, gbm_forest,
+                      metrics_main, drf_forest):
+    """Phase 17(f): ``max_runtime_secs``. The card's fits are
+    deterministic (every sum of a fit is 64-bit fixed point), so a cap
+    that does not bind leaves a forest bit-equal to the uncapped fit's
+    and a tight one keeps a bit-equal prefix: DRF's and a laplace GBM's
+    (both sample rows and columns, so this holds the per-tree draws too),
+    and the flagship's refit under the loose cap, bit-equal to phase 4's
+    forest and training AUC and logloss. Then the flagship's tree loop
+    timed alone (the binning shared) without a cap and under the loose
+    cap: what the device wait after each tree costs."""
     import h2o3_tpu_torch as h2o
     drf = h2o.DRFEstimator(**dict(DRF, max_runtime_secs=CAP_LOOSE_S)
                            ).train(fr, y=Y)
@@ -2076,9 +2178,12 @@ def phase_runtime_cap(torch, dev, fr, cols, domains, gbm_forest, auc_main,
         f"max_runtime_secs={CAP_TIGHT_S:g}: {n} trees, or not a prefix")
     loose = h2o.GBMEstimator(**dict(FLAGSHIP, max_runtime_secs=CAP_LOOSE_S)
                              ).train(fr, y=Y)
-    d_auc = abs(loose.training_metrics["AUC"] - auc_main)
-    check(d_auc < 5e-3, f"flagship under a loose cap: dAUC {d_auc}")
     t_diff = first_split_diff(loose.forest, gbm_forest)
+    check(forests_equal(loose.forest, gbm_forest) and all(
+        loose.training_metrics[k] == v for k, v in metrics_main.items()),
+        "the flagship refit under a loose cap differs from phase 4's: "
+        + ("leaves" if t_diff is None else f"splits from tree {t_diff + 1}")
+        + f", {[(loose.training_metrics[k], v) for k, v in metrics_main.items()]}")
 
     def loop_s(cap):
         est = h2o.GBMEstimator(**dict(FLAGSHIP, max_runtime_secs=cap))
@@ -2099,13 +2204,168 @@ def phase_runtime_cap(torch, dev, fr, cols, domains, gbm_forest, auc_main,
         f"== its uncapped fit; ={CAP_TIGHT_S:g}: the laplace GBM stopped "
         f"after {n} of {LAPLACE['ntrees']} trees, its uncapped fit's "
         f"first {n} bit for bit")
-    say(f"phase17f flagship refit under the loose cap against phase 4: "
-        + ("splits equal" if t_diff is None else
-           f"splits first differ at tree {t_diff + 1}")
-        + f", |dAUC| {d_auc:.3g}; tree loop alone (median of 3): "
+    say(f"phase17f flagship refit under the loose cap: forest and training "
+        f"AUC/logloss bit-equal to phase 4's; tree loop alone (median of 3): "
         f"{free:.4f} s uncapped, {capped:.4f} s capped, the device wait "
         f"after each tree {1e3 * (capped - free) / FLAGSHIP['ntrees']:.3f} "
         f"ms a tree (runs: {times})")
+
+
+def csv_bytes(cols, domains) -> bytes:
+    """The columns as CSV text, as bench.py's airlines generator writes
+    them (a header; integers in decimal; categoricals, the response
+    included, as their level strings), built with vectorised numpy byte
+    operations: each column becomes an [n, width] byte matrix whose
+    unused (leading) bytes are 0, the matrices and the separators are
+    joined side by side, and the zero bytes dropped."""
+    names = list(cols)
+    n = len(cols[names[0]])
+    pieces = []
+    for j, nm in enumerate(names):
+        v = np.asarray(cols[nm])
+        if nm in domains:
+            lv = np.array(domains[nm], dtype=bytes)       # zero-padded
+            table = np.frombuffer(lv.tobytes(), np.uint8).reshape(
+                len(lv), lv.dtype.itemsize)
+            pieces.append(table[v])
+        else:
+            check(v.min() >= 0, f"csv_bytes: {nm} has negative values")
+            w = len(str(int(v.max())))
+            p10 = 10 ** np.arange(w - 1, -1, -1, dtype=np.int64)
+            v64 = v.astype(np.int64)[:, None]
+            digits = (v64 // p10 % 10 + 48).astype(np.uint8)
+            # a digit shows from the leading one on (the units always)
+            digits[(v64 < p10) & (p10 > 1)] = 0
+            pieces.append(digits)
+        sep = b"\n" if j == len(names) - 1 else b","
+        pieces.append(np.full((n, 1), sep[0], np.uint8))
+    mat = np.concatenate(pieces, axis=1)
+    return (",".join(names) + "\n").encode() + mat[mat != 0].tobytes()
+
+
+def same_frames(a, b) -> bool:
+    """Two port frames bit for bit: names, types, domains, device data,
+    NA masks, float64 host views."""
+    import torch
+    if a.names != b.names or a.nrows != b.nrows:
+        return False
+    for nm in a.names:
+        ca, cb = a.col(nm), b.col(nm)
+        if (ca.type, ca.domain) != (cb.type, cb.domain) or not (
+                torch.equal(ca.data, cb.data)
+                and torch.equal(ca.na_mask, cb.na_mask)
+                and np.array_equal(ca.host.view(np.int64),
+                                   cb.host.view(np.int64))):
+            return False
+    return True
+
+
+def check_csv_frame(fr, cols, domains, label: str) -> None:
+    """A frame read from ``csv_bytes(cols, domains)`` holds the arrays:
+    names in order, types, decoded levels, no NA, float64 host values."""
+    check(fr.names == list(cols) and fr.nrows == len(cols[Y]),
+          f"{label}: names/rows {fr.names} {fr.nrows}")
+    for nm, v in cols.items():
+        c = fr.col(nm)
+        n = fr.nrows
+        check(not bool(c.na_mask[:n].any()), f"{label} {nm}: NA found")
+        if nm in domains:
+            check(c.is_categorical, f"{label} {nm}: not categorical")
+            codes = c.host_view().astype(np.int64)
+            got = np.asarray(c.domain, dtype=object)[codes]
+            want = np.asarray(domains[nm], dtype=object)[v]
+            check(np.array_equal(got, want), f"{label} {nm}: levels")
+        else:
+            check(c.type == "numeric" and np.array_equal(
+                c.host_view(), v.astype(np.float64)), f"{label} {nm}: values")
+
+
+def recode(cols, domains, fr):
+    """The columns with each categorical's codes renumbered into ``fr``'s
+    domain of it (and that domain): ``Frame.from_numpy`` of them is the
+    same data as ``fr``."""
+    out, doms = {}, {}
+    for nm, v in cols.items():
+        if nm in domains:
+            lut = {lvl: i for i, lvl in enumerate(fr.col(nm).domain)}
+            remap = np.array([lut[lvl] for lvl in domains[nm]], np.int32)
+            out[nm], doms[nm] = remap[v], list(fr.col(nm).domain)
+        else:
+            out[nm] = v
+    return out, doms
+
+
+def phase_csv(torch, dev, cols, domains):
+    """Phase 18: CSV ingest → the flagship GBM at full size. Phase 4's
+    rows written as CSV (categoricals as their levels, the response as
+    NO/YES); read by ``stream_import_csv`` at the default worker count
+    and with ``workers=1`` (bit-identical frames) and by ``import_file``;
+    each frame holds the written arrays; the flagship trained on the
+    streamed frame launches every level kernel 60 times, and its binning
+    and forest equal the fit's on ``Frame.from_numpy`` of the same values
+    with the CSV frame's domains. Returns the fit's launches."""
+    import tempfile
+    import h2o3_tpu_torch as h2o
+    from h2o3_tpu_torch.io import chunking
+    from h2o3_tpu_torch.io.stream import stream_import_csv
+    n = len(cols[Y])
+    with tempfile.TemporaryDirectory() as tmp:
+        path = f"{tmp}/airlines.csv"
+        t0 = time.perf_counter()
+        data = csv_bytes(cols, domains)
+        with open(path, "wb") as f:
+            f.write(data)
+        t_write = time.perf_counter() - t0
+        mb = len(data) / 1e6
+        del data
+        say(f"phase18 wrote {n} airlines rows as CSV ({mb:.3f} MB) in "
+            f"{t_write:.3f} s")
+        frames, secs = {}, {}
+        workers = chunking.resolve_workers(None)
+        for label, read in (
+                (f"stream workers={workers}",
+                 lambda: stream_import_csv(path, device=dev)),
+                ("stream workers=1",
+                 lambda: stream_import_csv(path, workers=1, device=dev)),
+                ("import_file", lambda: h2o.import_file(path, device=dev))):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            frames[label] = read()
+            torch.cuda.synchronize()
+            secs[label] = time.perf_counter() - t0
+    par, seq, eager = frames.values()
+    check(same_frames(par, seq), "stream_import_csv: the parallel frame "
+                                 "differs from the sequential one")
+    for label, fr in frames.items():
+        check_csv_frame(fr, cols, domains, label)
+    say("phase18 ingest: " + "; ".join(
+        f"{label} {secs[label]:.3f} s, {mb / secs[label]:.6g} MB/s, "
+        f"{n / secs[label]:.6g} rows/s" for label in frames)
+        + f"; parallel frame == sequential frame bit for bit; every frame "
+        f"== the written arrays")
+    del seq, eager, frames
+    x = [c for c in cols if c != Y]
+    model, t_train, counts, _ = timed_fit(
+        torch, lambda: h2o.GBMEstimator(**FLAGSHIP).train(par, y=Y, x=x))
+    check_launches(counts, {k: FLAGSHIP["ntrees"] * FLAGSHIP["max_depth"]
+                            for k in LEVEL_KERNELS}, "GBM on the CSV frame")
+    rcols, rdoms = recode(cols, domains, par)
+    fr_np = h2o.Frame.from_numpy(rcols, domains=rdoms, device=dev)
+    ref = h2o.GBMEstimator(**FLAGSHIP).train(fr_np, y=Y, x=x)
+    for f in ("bins", "edges", "nbins", "is_cat"):
+        a, b = getattr(model.bm, f), getattr(ref.bm, f)
+        check(torch.equal(torch.as_tensor(a), torch.as_tensor(b)),
+              f"bin_frame of the CSV frame differs in {f}")
+    check(forests_equal(model.forest, ref.forest) and all(
+        model.training_metrics[k] == ref.training_metrics[k]
+        for k in ("AUC", "logloss")),
+        "the GBM on the CSV frame differs from the from_numpy fit")
+    say(f"phase18 GBM {FLAGSHIP} on the streamed CSV frame: train "
+        f"{t_train:.3f} s, AUC {model.training_metrics['AUC']:.6f}; "
+        "bin_frame and forest bit-equal to the fit on Frame.from_numpy "
+        "of the same values")
+    say(f"phase18 launches: {counts}")
+    return counts
 
 
 def main() -> int:
@@ -2138,6 +2398,7 @@ def main() -> int:
     mark("phase 4")
     model, fr, counts_gbm, t_main = phase_main(torch, dev, cols, domains)
     auc_one_card = model.training_metrics["AUC"]
+    metrics_main = {k: model.training_metrics[k] for k in ("AUC", "logloss")}
     gbm_forest = on_cpu(model.forest)
     phase_profile(torch, dev, fr)
     mark("phase 5")
@@ -2162,7 +2423,8 @@ def main() -> int:
     del umodel, ufr, ucols
 
     mark("phases 10-12")
-    counts_mesh, errs, bm = phase_mesh(torch, dev, fr, auc_one_card)
+    counts_mesh, errs, bm = phase_mesh(torch, dev, fr, auc_one_card,
+                                       gbm_forest)
     worst.update(errs)
     records += phase_shard_timing(torch, dev, bm, counts_mesh)
     del bm
@@ -2190,13 +2452,17 @@ def main() -> int:
     counts_cv = phase_cv(torch, dev, fr, t_main)
     phase_calibration(torch, dev, fr, domains)
     phase_runtime_cap(torch, dev, fr, cols, domains, gbm_forest,
-                      auc_one_card, drf_forest)
+                      metrics_main, drf_forest)
+    del fr
+    mark("phase 18")
+    counts_csv = phase_csv(torch, dev, cols, domains)
     paths = {"gbm": counts_gbm, "drf": counts_drf, "uplift": counts_up,
              "gbm_mesh": counts_mesh, "gbm_multinomial": counts_gm,
              "drf_multinomial": counts_dm, "gbm_distributions": counts_dist,
              "gbm_stopping": counts_stop, "gbm_constraints": counts_cons,
              "gbm_offset": counts_off, "gbm_checkpoint": counts_ckg,
-             "drf_checkpoint": counts_ckd, "gbm_cv": counts_cv}
+             "drf_checkpoint": counts_ckd, "gbm_cv": counts_cv,
+             "gbm_csv": counts_csv}
     for rec in records:
         rec["max_abs_err"] = worst[rec["name"]]
         rec["launches_by_path"] = {p: c[rec["name"]]

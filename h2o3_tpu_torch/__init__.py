@@ -6,7 +6,8 @@ JAX. Its TPU kernels are hand-written CUDA kernels under
 ``ops/kernels/csrc``, each with a plain PyTorch version beside it.
 
     import h2o3_tpu_torch as h2o
-    fr = h2o.Frame.from_numpy({...}, domains={...})        # on the card
+    fr = h2o.import_file("airlines.csv")                     # on the card
+    fr = h2o.Frame.from_numpy({...}, domains={...})        # or from numpy
     m = h2o.GBMEstimator(ntrees=10, max_depth=6).train(fr, y="label")
     preds = m.predict(fr)
     rf = h2o.DRFEstimator(ntrees=10, max_depth=10).train(fr, y="label")
@@ -18,8 +19,10 @@ is present; pass ``device="cpu"`` to run the plain versions on the CPU.
 """
 
 from h2o3_tpu_torch.frame.frame import Frame
+from h2o3_tpu_torch.io.parser import import_file
 from h2o3_tpu_torch.models.drf import DRFEstimator
 from h2o3_tpu_torch.models.gbm import GBMEstimator
 from h2o3_tpu_torch.models.uplift import UpliftDRFEstimator
 
-__all__ = ["Frame", "DRFEstimator", "GBMEstimator", "UpliftDRFEstimator"]
+__all__ = ["Frame", "import_file", "DRFEstimator", "GBMEstimator",
+           "UpliftDRFEstimator"]

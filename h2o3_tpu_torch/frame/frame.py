@@ -1,9 +1,11 @@
 """Frame — a named list of device columns of one padded row count.
 
 Reference: h2o3_tpu/frame/frame.py (``Frame.from_numpy``,
-``Frame.from_numpy_partitioned``, ``col``, ``names``, ``nrows_padded``,
-``valid_weights``). Here a plain object: no DKV key, no durability
-hooks, no derived-matrix caches.
+``Frame.from_numpy_partitioned``, ``Frame.from_blocks``, ``col``,
+``names``, ``nrows_padded``, ``valid_weights``). Here a plain
+object: no DKV key (a ``key`` raises ``NotImplementedError`` until the
+DKV is ported, ROADMAP A #9), no durability hooks, no derived-matrix
+caches.
 
 A frame built by ``from_numpy`` holds all its rows on one device. A
 frame built by ``from_numpy_partitioned`` on a sharded mesh holds, on
@@ -20,7 +22,8 @@ import numpy as np
 import torch
 
 from h2o3_tpu_torch.frame import partition as part_mod
-from h2o3_tpu_torch.frame.column import (Column, column_from_numpy,
+from h2o3_tpu_torch.frame.column import (T_STR, T_UUID, Column,
+                                         column_from_numpy,
                                          factorize_numeric)
 from h2o3_tpu_torch.parallel import device as dev_mod
 from h2o3_tpu_torch.parallel import mesh as mesh_mod
@@ -44,14 +47,20 @@ class Frame:
     def from_numpy(arrays: Dict[str, np.ndarray],
                    categorical: Sequence[str] = (),
                    domains: Optional[Dict[str, List[str]]] = None,
+                   strings: Sequence[str] = (),
+                   uuids: Sequence[str] = (),
                    device: dev_mod.DeviceLike = None,
-                   block: int = 8, pad_to: Optional[int] = None) -> "Frame":
+                   block: int = 8, pad_to: Optional[int] = None,
+                   key: Optional[str] = None) -> "Frame":
         """Build a Frame from host columns on ``device`` (CUDA unless the
         caller names another). ``categorical`` forces listed numeric
         columns to categorical; ``domains`` supplies level lists for
-        integer-coded categorical columns; string columns intern.
-        ``pad_to`` pads to at least that many rows (cross-validation
-        pads its fold frames to the parent frame's shape)."""
+        integer-coded categorical columns; other string columns intern;
+        ``strings`` and ``uuids`` keep listed columns as host-side string
+        or UUID columns (no interning, never on the device). ``pad_to``
+        pads to at least that many rows (cross-validation pads its fold
+        frames to the parent frame's shape)."""
+        _no_key(key)
         device = dev_mod.resolve_device(device)
         names = list(arrays.keys())
         n = len(next(iter(arrays.values()))) if names else 0
@@ -61,6 +70,12 @@ class Frame:
         cols = []
         for name in names:
             v = np.asarray(arrays[name])
+            if name in strings or name in uuids:
+                cols.append(Column(
+                    name=name, type=T_UUID if name in uuids else T_STR,
+                    data=None, na_mask=None, nrows=n,
+                    strings=v.astype(object)))
+                continue
             dom = (domains or {}).get(name)
             if name in categorical and dom is None and \
                     v.dtype.kind not in "OUS":
@@ -130,9 +145,26 @@ class Frame:
         return Frame(cols, nrows, device, npad=npad, mesh=mesh,
                      span=(lo, hi), block=block)
 
+    @staticmethod
+    def from_blocks(accs: Dict[str, "object"], names: List[str],
+                    nrows: int, key: Optional[str] = None,
+                    block: int = 1) -> "Frame":
+        """Assemble ``frame.column.BlockAccumulator`` columns into a
+        Frame — the block-assembly tail of the streamed-CSV ingest
+        (``io/stream.py``). Each accumulator's add_* calls already
+        arrived in window order; ``finish`` assembles and pads on the
+        accumulators' device."""
+        _no_key(key)
+        npad = mesh_mod.padded_rows(nrows, mesh_mod.LOCAL, block)
+        cols = [accs[nm].finish(nrows, npad) for nm in names]
+        device = accs[names[0]].device if names else \
+            dev_mod.resolve_device(None)
+        return Frame(cols, nrows, device, npad=npad, block=block)
+
     @property
     def names(self) -> List[str]:
         return list(self._order)
+
 
     @property
     def ncols(self) -> int:
@@ -173,3 +205,10 @@ class Frame:
     def __repr__(self) -> str:
         return (f"<Frame {self.nrows}x{self.ncols} on {self.device} "
                 f"{self._order[:8]}>")
+
+
+def _no_key(key: Optional[str]) -> None:
+    if key is not None:
+        raise NotImplementedError(
+            "frame keys (destination_frame / key=) need the DKV, which is "
+            "not ported yet (ROADMAP A #9)")

@@ -15,12 +15,24 @@ from typing import Dict, List, Optional
 import numpy as np
 import torch
 
+from h2o3_tpu_torch.ops.fixed_point import index_sum
 from h2o3_tpu_torch.parallel.map_reduce import all_reduce
 
 AUC_NBINS = 400  # hex/AUC2.java:24
 
 # numpy >= 2 renamed trapz; accept either
 _trapezoid = getattr(np, "trapezoid", None) or np.trapz
+
+
+def _scatter_sum(n: int, idx, vals):
+    """float64 sums of the rows of ``vals`` by ``idx`` in [0, n): one
+    ``index_add_`` on the CPU; fixed point on the card, where a float
+    ``index_add_`` adds in an order that changes from run to run."""
+    if vals.device.type == "cuda":
+        return index_sum(idx, vals, n)
+    out = torch.zeros((n,) + tuple(vals.shape[1:]), dtype=torch.float64,
+                      device=vals.device)
+    return out.index_add_(0, idx, vals)
 
 
 def _binomial_pass(p, y, w):
@@ -31,9 +43,8 @@ def _binomial_pass(p, y, w):
                          w * y], dim=1)
     sums = terms.to(torch.float64).sum(dim=0)
     bins = torch.clamp((pc * AUC_NBINS).to(torch.int32), 0, AUC_NBINS - 1)
-    hist = torch.zeros((AUC_NBINS, 2), dtype=torch.float64, device=p.device)
-    hist.index_add_(0, bins.long(),
-                    torch.stack([w * y, w * (1.0 - y)], dim=1).double())
+    hist = _scatter_sum(AUC_NBINS, bins.long(),
+                        torch.stack([w * y, w * (1.0 - y)], dim=1).double())
     return sums, hist
 
 
@@ -144,16 +155,14 @@ def _multinomial_pass(probs, y, w, hists: bool):
     sums = torch.stack([w, -w * torch.log(py), w * err, w * sse],
                        dim=1).to(torch.float64).sum(dim=0)
     wd = w.to(torch.float64)
-    cm = torch.zeros(K * K, dtype=torch.float64, device=probs.device)
-    cm.index_add_(0, yl * K + pred, wd)
+    cm = _scatter_sum(K * K, yl * K + pred, wd)
     if not hists:
         return sums, cm, None
     b = torch.clamp((probs * AUC_NBINS).to(torch.int32), 0, AUC_NBINS - 1)
     cell = ((torch.arange(K, device=probs.device)[None, :] * K
              + yl[:, None]) * AUC_NBINS + b.long()).reshape(-1)
-    hist = torch.zeros(K * K * AUC_NBINS, dtype=torch.float64,
-                       device=probs.device)
-    hist.index_add_(0, cell, wd[:, None].expand(N, K).reshape(-1))
+    hist = _scatter_sum(K * K * AUC_NBINS, cell,
+                        wd[:, None].expand(N, K).reshape(-1))
     return sums, cm, hist
 
 

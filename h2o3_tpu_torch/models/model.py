@@ -352,7 +352,9 @@ class ModelBuilder:
             x = frame.names
         else:
             x = [n if isinstance(n, str) else frame.names[n] for n in x]
-        return [n for n in x if n not in drop]
+        # strings can't enter math paths (the reference drops them)
+        return [n for n in x if n not in drop
+                and frame.col(n).type != "string"]
 
     def _check_folds(self, frame: Frame) -> int:
         """The fold count ``train`` runs (0 or 1: no cross-validation),

@@ -6,7 +6,9 @@ histograms and never split). Per level: histogram → split scan → row
 routing (one ``fused_level``: three CUDA kernels on the card, their
 plain versions on the CPU), then the leaves get Newton values. No host
 round trips inside a tree on one device; on a sharded mesh over gloo,
-each level's all-reduce waits on the host.
+each level's all-reduce waits on the host. On the card every sum of a
+tree is 64-bit fixed point (``ops/fixed_point.py``), so a fit gives the
+same bits on every run.
 
 Forests are laid out at ``bucket_depth(max_depth)`` with the actual depth
 as a traced limit that masks deeper splits, exactly as the reference
@@ -20,6 +22,7 @@ from typing import NamedTuple, Optional
 
 import torch
 
+from h2o3_tpu_torch.ops.fixed_point import exponents
 from h2o3_tpu_torch.ops.kernels.treekernel import fused_level
 from h2o3_tpu_torch.ops.segments import segment_sum
 
@@ -195,8 +198,11 @@ def grow_tree(bins, nb, w, g, h, col_mask, *, params: TreeParams,
     allowed = torch.ones((1, F), dtype=torch.bool, device=dev)
     pair_allow = None
 
-    # the {w, w·g, w·h} block is level-invariant: built once per tree
+    # the {w, w·g, w·h} block is level-invariant: built once per tree,
+    # with (on the card) its fixed-point exponents, the same for every
+    # level's histogram and the leaf sums, over every rank's rows
     stats3 = torch.stack([w, w * g, w * h], dim=1).to(torch.float32)
+    exps = exponents(stats3, mesh=mesh) if stats3.is_cuda else None
     prev_hist = None
     for d in range(D):
         L = 2 ** d
@@ -208,7 +214,7 @@ def grow_tree(bins, nb, w, g, h, col_mask, *, params: TreeParams,
         (hist, bg, bf, bt, bnal, blv, brv, leftmask, split,
          nid_next) = level_fn(
             bins, nid, stats3, prev_hist, cm, nb, is_cat, constraints, lo,
-            hi, sc, d=d, n_nodes=L, n_bins=B, mesh=mesh)
+            hi, sc, d=d, n_nodes=L, n_bins=B, mesh=mesh, exps=exps)
         prev_hist = hist
         feats[d, :L] = torch.where(split, bf, 0)
         threshs[d, :L] = torch.where(split, bt, B)
@@ -249,7 +255,7 @@ def grow_tree(bins, nb, w, g, h, col_mask, *, params: TreeParams,
 
     # leaf Newton values from the final assignment (GammaPass analogue)
     nleaf = 2 ** D
-    leaf_stats = segment_sum(nid, stats3, n_nodes=nleaf, mesh=mesh)
+    leaf_stats = segment_sum(nid, stats3, n_nodes=nleaf, mesh=mesh, e=exps)
     G, H = leaf_stats[:, 1], leaf_stats[:, 2]
     leaf = torch.where(leaf_stats[:, 0] > 0,
                        -G / (H + sc.reg_lambda + 1e-10), 0.0)

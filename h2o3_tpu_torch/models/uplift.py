@@ -35,7 +35,7 @@ from h2o3_tpu_torch.models.model import (Model, ModelBuilder, adapt_domain,
 from h2o3_tpu_torch.models.tree import (Tree, _mtries_mask, predict_forest,
                                         row_feature_values, stack_trees,
                                         zero_catsplit)
-from h2o3_tpu_torch.ops.histogram import histogram
+from h2o3_tpu_torch.ops.histogram import histogram, stat_exponents
 from h2o3_tpu_torch.ops.segments import segment_sum
 from h2o3_tpu_torch.parallel.device import fetch
 
@@ -135,10 +135,12 @@ def _grow_uplift_tree(bins, nb, w, y, treat, gen: Optional[torch.Generator],
     is_splits = torch.zeros((depth, Lmax), dtype=torch.bool, device=dev)
     ones = torch.ones_like(y)
     all_cols = torch.ones((1, F), dtype=torch.bool, device=dev)
+    # each arm's stats are the tree's: their exponents once a tree
+    et, ec = stat_exponents(wt, y, ones), stat_exponents(wc, y, ones)
     for d in range(depth):
         L = 2 ** d
-        ht = hist_fn(bins, nid, wt, y, ones, n_nodes=L, n_bins=B)
-        hc = hist_fn(bins, nid, wc, y, ones, n_nodes=L, n_bins=B)
+        ht = hist_fn(bins, nid, wt, y, ones, n_nodes=L, n_bins=B, exps=et)
+        hc = hist_fn(bins, nid, wc, y, ones, n_nodes=L, n_bins=B, exps=ec)
         cm = (_mtries_mask(gen, L, F, mtries, dev) if 0 < mtries < F
               else all_cols)
         bg, bf, bt, bnal = _best_uplift_splits(ht, hc, nb, cm, min_rows,

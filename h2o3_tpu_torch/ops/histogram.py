@@ -66,19 +66,32 @@ def _stats(w, g, h) -> torch.Tensor:
 
 
 def histogram(bins, nid, w, g, h, *, n_nodes: int, n_bins: int,
-              mesh=None) -> torch.Tensor:
+              mesh=None, exps=None) -> torch.Tensor:
     """[n_nodes, F, n_bins, {w, w·g, w·h}] over all rows: the ``histogram``
     kernel on CUDA tensors, ``local_histogram`` on CPU tensors, summed
     over the ranks of a sharded ``mesh``. Padding rows must have
-    w == 0."""
+    w == 0. ``exps`` are the kernel's fixed-point exponents of the
+    stats (``stat_exponents``), by default computed here."""
     from h2o3_tpu_torch.ops.kernels.histogram import full_histogram
     return all_reduce(full_histogram(bins, nid, _stats(w, g, h),
-                                     n_nodes=n_nodes, n_bins=n_bins), mesh)
+                                     n_nodes=n_nodes, n_bins=n_bins,
+                                     exps=exps), mesh)
+
+
+def stat_exponents(w, g, h):
+    """The kernel's fixed-point exponents of the {w, w·g, w·h} stats on
+    the card (None elsewhere): a caller whose stats stay fixed over many
+    histograms computes them once."""
+    if not w.is_cuda:
+        return None
+    from h2o3_tpu_torch.ops.fixed_point import exponents
+    return exponents(_stats(w, g, h))
 
 
 def plain_histogram(bins, nid, w, g, h, *, n_nodes: int,
-                    n_bins: int) -> torch.Tensor:
+                    n_bins: int, exps=None) -> torch.Tensor:
     """``histogram`` through its plain version on any device — the
-    reference the kernel is held against on the card."""
+    reference the kernel is held against on the card (``exps`` is the
+    kernel's and unused here)."""
     return local_histogram(bins, nid, _stats(w, g, h), n_nodes=n_nodes,
                            n_bins=n_bins)

@@ -167,11 +167,16 @@ def need(t: Optional[torch.Tensor], dtype, shape, name: str, device):
     return t.data_ptr()
 
 
-def launched(lib: ctypes.CDLL, rc: int, name: str) -> None:
-    """Raise if the launch was refused; else count it."""
+def refused(lib: ctypes.CDLL, rc: int, name: str) -> None:
+    """Raise if the launch was refused."""
     if rc != 0:
         msg = lib.h2o3_cuda_error_string(rc).decode()
         raise RuntimeError(f"{name} kernel failed to launch: {msg} ({rc})")
+
+
+def launched(lib: ctypes.CDLL, rc: int, name: str) -> None:
+    """Raise if the launch was refused; else count it."""
+    refused(lib, rc, name)
     count(name)
 
 
@@ -208,6 +213,7 @@ SLAB_WAVES = 1
 SLAB_QUEUE = 32                 # kSlabQueue: row offsets queued per warp
 SLAB_LIST_CHUNKS = 2            # kSlabListChunks: past it, rows are sorted
 SLAB_MAX_NODES = 65_535         # a row's node is a 16-bit key (kSlabSkip)
+SLAB_CELL_BYTES = 24            # a bin's three int64 fixed-point sums
 
 
 class SlabPlan(NamedTuple):
@@ -215,7 +221,7 @@ class SlabPlan(NamedTuple):
     grid of ``threads``-thread blocks, each walking the ``n_chunks`` node
     chunks in turn and taking ``smem`` bytes: ``replicas`` copies of a
     slab of at most ``chunk_nodes`` nodes × ``group_feats`` features × B
-    bins × 3 floats, then ``queue`` bytes of row queues. ``listed``: the
+    bins × 3 int64 cells, then ``queue`` bytes of row queues. ``listed``: the
     block sorts its rows by chunk first, into scratch the caller gives it
     (a 16-bit key and a 32-bit list entry a row)."""
     rows_per_block: int
@@ -252,16 +258,17 @@ def slab_geometry(n_rows: int, n_feat: int, n_nodes: int, n_bins: int, *,
     ``sms`` SMs, the slab copies and the warps' row queues within
     ``budget`` bytes of shared memory a block (SLAB_BYTES by default;
     ``threads`` SLAB_THREADS). Features split into balanced groups only
-    when one node's F*B*12 bytes exceed the room beside the queues; nodes
+    when one node's F*B*24 bytes exceed the room beside the queues; nodes
     into the fewest balanced chunks whose slab fits; a slab of at most
     half the room is held min(warps, room // slab) times; and the row
     blocks fill every SM slot about SLAB_WAVES times over, each walking
-    every node chunk."""
+    every node chunk. A bin of a node takes SLAB_CELL_BYTES (three int64
+    fixed-point sums)."""
     budget = SLAB_BYTES if budget is None else budget
     threads = SLAB_THREADS if threads is None else threads
     queue = threads // 32 * SLAB_QUEUE * 4
     room = budget - queue
-    cell = n_bins * 12
+    cell = n_bins * SLAB_CELL_BYTES
     if n_nodes > SLAB_MAX_NODES:
         raise ValueError(f"slab histogram: {n_nodes} nodes exceed "
                          f"{SLAB_MAX_NODES}")
@@ -286,6 +293,17 @@ def slab_geometry(n_rows: int, n_feat: int, n_nodes: int, n_bins: int, *,
                     smem, queue,
                     SLAB_LIST_CHUNKS < n_chunks
                     and 2 * n_chunks <= threads // 32 * SLAB_QUEUE)
+
+
+def slab_buffers(cells: int, device):
+    """(acc, out): a zeroed int64 accumulator of ``cells`` fixed-point
+    sums and a zeroed float32 output of ``cells`` (which also collects
+    the non-finite stats), both from one allocation and one memset; the
+    output starts on a 256-byte boundary."""
+    n64 = -(-cells // 32) * 32
+    buf = torch.zeros(2 * n64 + cells, dtype=torch.int32, device=device)
+    return buf[:2 * n64].view(torch.int64)[:cells], \
+        buf[2 * n64:].view(torch.float32)
 
 
 def scratch(plan: SlabPlan, n_rows: int, device):

@@ -9,11 +9,23 @@
 // Layouts (row-major, as the plain versions use them):
 //   bins [N, F] int8 or int32, nid [N] int32, stats [N, 3] float32
 //   histograms [nodes, F, B, 3] float32; NA is bin B-1.
+//
+// The sums are 64-bit fixed point (ops/fixed_point.py), so they do not
+// depend on the order of the adds and two runs give the same bits: stat k
+// of a row is rounded to the int64 round(s * 2^e_k), with e_k (exps[k],
+// on the device) chosen by the caller so that no cell can overflow; the
+// slab and the global accumulator add int64 cells with integer atomics;
+// one pass converts each cell to float32 as (double) sum * 2^-e_k. A
+// non-finite stat is added as a float into the output cell itself
+// (zero until then), whose value then stands: a float sum of values from
+// {0, +-inf, NaN} is the same in any order.
 
 #pragma once
 
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include <algorithm>
 
 extern "C" const char* h2o3_cuda_error_string(int err) {
   return cudaGetErrorString(static_cast<cudaError_t>(err));
@@ -24,6 +36,13 @@ static cudaError_t allow_smem(const void* kernel, size_t bytes) {
   return cudaFuncSetAttribute(kernel,
                               cudaFuncAttributeMaxDynamicSharedMemorySize,
                               static_cast<int>(bytes));
+}
+
+typedef unsigned long long u64;  // an int64 cell, added as two's complement
+
+// 2^e as a float, e in [-126, 127]
+__device__ __forceinline__ float pow2f(int e) {
+  return __int_as_float((e + 127) << 23);
 }
 
 // Rows a thread scans or marks at once (their loads in flight together);
@@ -76,36 +95,67 @@ struct SlabPass {
   const int32_t* __restrict__ nid;
   const float* __restrict__ stats;
   const unsigned short* keys;  // null: take the node from nid
-  float* mine;
+  u64* mine;
+  float* side;  // the output: non-finite stats, as floats
   int* queue;
   long long r0, n_rows;
   int n_feat, n_bins, f0, fg, per_node, per_feat, rot, left_only;
   unsigned c0, nc, below;
+  float q0, q1, q2;  // 2^e_k: the stats' fixed-point scales
   int queued;  // the same in every lane of the warp
 
-  // Stats (s0, s1, s2) into the cell of bin b of feature f of a node.
-  __device__ __forceinline__ void add(float* cells, int f, int b, float s0,
-                                      float s1, float s2) const {
+  // Quantised stats (s0, s1, s2) into the cell of bin b of feature f of
+  // a node.
+  __device__ __forceinline__ void add(u64* cells, int f, int b, u64 s0,
+                                      u64 s1, u64 s2) const {
     if (static_cast<unsigned>(b) >= static_cast<unsigned>(n_bins)) return;
-    float* cell = cells + f * per_feat + b * 3;
+    u64* cell = cells + f * per_feat + b * 3;
     atomicAdd(cell + 0, s0);
     atomicAdd(cell + 1, s1);
     atomicAdd(cell + 2, s2);
   }
 
+  // A row with a non-finite stat (rare): its finite stats into the slab,
+  // the others as floats into the output cells of node n of the chunk.
+  __device__ __noinline__ void poison(long long r, int n, float s0,
+                                      float s1, float s2) const {
+    const float s[3] = {s0, s1, s2};
+    const float q[3] = {q0, q1, q2};
+    for (int f = 0; f < fg; ++f) {
+      const int b = static_cast<int>(bins[r * n_feat + f0 + f]);
+      if (static_cast<unsigned>(b) >= static_cast<unsigned>(n_bins)) continue;
+      u64* cell = mine + n * per_node + f * per_feat + b * 3;
+      float* out = side +
+                   ((static_cast<long long>(c0) + n) * n_feat + f0 + f) *
+                       per_feat + b * 3;
+      for (int k = 0; k < 3; ++k) {
+        if (isfinite(s[k]))
+          atomicAdd(cell + k, static_cast<u64>(__float2ll_rn(s[k] * q[k])));
+        else
+          atomicAdd(out + k, s[k]);
+      }
+    }
+  }
+
   // Row r (in the chunk, stats not all zero) into the slab: its stats
   // into the (node, feature, bin) cell of each of its features. Lane l
   // starts at feature l % fg, so the lanes that share a feature at one
-  // step are a few, not 32, and seldom share a cell (a float shared
-  // atomic retries when lanes collide).
+  // step are a few, not 32, and seldom share a cell.
   __device__ __forceinline__ void scatter(long long r) const {
     const int n = keys ? static_cast<int>(keys[r] - c0)
                        : chunk_node(__ldg(nid + r), left_only, c0, nc);
-    const float s0 = __ldg(stats + r * 3 + 0);
-    const float s1 = __ldg(stats + r * 3 + 1);
-    const float s2 = __ldg(stats + r * 3 + 2);
+    const float f0s = __ldg(stats + r * 3 + 0);
+    const float f1s = __ldg(stats + r * 3 + 1);
+    const float f2s = __ldg(stats + r * 3 + 2);
+    if (!(isfinite(f0s) && isfinite(f1s) && isfinite(f2s))) {
+      poison(r, n, f0s, f1s, f2s);
+      return;
+    }
+    const u64 s0 = static_cast<u64>(__float2ll_rn(f0s * q0));
+    const u64 s1 = static_cast<u64>(__float2ll_rn(f1s * q1));
+    const u64 s2 = static_cast<u64>(__float2ll_rn(f2s * q2));
     const BinT* row = bins + r * n_feat + f0;
-    float* cells = mine + n * per_node;
+    u64* cells = mine + n * per_node;
     if (sizeof(BinT) == 1 && fg <= 13 &&
         r * n_feat + f0 + 16 <= n_rows * n_feat) {
       // an int8 row of up to 13 features: the 16 bytes from its 4-byte-
@@ -174,7 +224,8 @@ struct SlabPass {
 // A block owns one (row range, feature group) and walks the node chunks
 // in turn (each block from a different first chunk, so that their flushes
 // spread over the histogram), summing into a [nodes, features, B, 3] slab
-// in shared memory the rows of its range whose node falls in the chunk.
+// in shared memory (64-bit fixed-point cells) the rows of its range whose
+// node falls in the chunk.
 // The chunks and groups are balanced (chunk c holds nodes
 // [c*L/chunks, (c+1)*L/chunks)), and there is more than one feature group
 // only when one node's F*B*12 bytes exceed the budget. Every block covers
@@ -196,38 +247,39 @@ struct SlabPass {
 // With `replicas` > 1 the slab is held that many times and warp w adds
 // into copy w % replicas, so warps do not collide on the hot bins of a
 // shallow level; the copies are summed in shared memory before the flush,
-// which adds every 16-byte group of the chunk's cells that holds a
-// non-zero (NaN included) into `out` with one vector atomic add.
+// which adds every non-zero cell of the chunk into the int64 accumulator
+// `acc` with one 64-bit atomic add.
 //
 // With left_only, a row counts only if its nid is even (a left child),
 // into the parent slot nid >> 1. Rows whose node or bin lies outside the
 // histogram contribute nothing, and so do rows whose three stats are all
 // zero (adding +-0 to a sum that starts at +0 leaves it unchanged); their
 // bins are never read. Each stat goes into its own slot, so a NaN stat
-// never touches its neighbours. The float sums happen in no fixed order:
-// exact for small-integer stats, within rounding otherwise.
+// never touches its neighbours. The integer sums happen in no fixed
+// order, and give the same bits in any.
 template <typename BinT>
 __global__ void __launch_bounds__(kSlabMaxThreads)
     slab_hist_kernel(const BinT* __restrict__ bins,
                      const int32_t* __restrict__ nid,
-                     const float* __restrict__ stats, unsigned short* keys,
-                     int* list, float* __restrict__ out, long long n_rows,
-                     int n_feat, int n_bins, int n_nodes, int left_only,
-                     long long rows_per_block, int n_chunks, int n_groups,
-                     int replicas) {
-  extern __shared__ float slab[];
+                     const float* __restrict__ stats,
+                     const int* __restrict__ exps, unsigned short* keys,
+                     int* list, u64* __restrict__ acc, float* out,
+                     long long n_rows, int n_feat, int n_bins, int n_nodes,
+                     int left_only, long long rows_per_block, int n_chunks,
+                     int n_groups, int replicas) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  u64* slab = reinterpret_cast<u64*>(smem_raw);
   const int f0 = blockIdx.y * n_feat / n_groups;
   const int fg = (blockIdx.y + 1) * n_feat / n_groups - f0;
   const int per_feat = n_bins * 3;
   const int per_node = fg * per_feat;
-  // floats of one copy of the largest chunk's slab in the largest group
+  // cells of one copy of the largest chunk's slab in the largest group
   const int slab_stride = (n_nodes + n_chunks - 1) / n_chunks *
                           ((n_feat + n_groups - 1) / n_groups) * per_feat;
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const long long r0 = static_cast<long long>(blockIdx.x) * rows_per_block;
   const long long r1 = min(n_rows, r0 + rows_per_block);
   const long long step = blockDim.x;
-  const long long out_n = static_cast<long long>(n_nodes) * n_feat * per_feat;
   // the warps' queues, or with a list every chunk's count and start
   int* queues = reinterpret_cast<int*>(slab + replicas * slab_stride);
   const bool listed =
@@ -291,10 +343,11 @@ __global__ void __launch_bounds__(kSlabMaxThreads)
   }
 
   SlabPass<BinT> pass{bins, nid, stats, listed ? keys : nullptr,
-                      slab + (warp % replicas) * slab_stride,
+                      slab + (warp % replicas) * slab_stride, out,
                       queues + warp * kSlabQueue, r0, n_rows, n_feat, n_bins,
                       f0, fg, per_node, per_feat, lane % fg, left_only, 0u,
-                      0u, (1u << lane) - 1u, 0};
+                      0u, (1u << lane) - 1u, pow2f(__ldg(exps)),
+                      pow2f(__ldg(exps + 1)), pow2f(__ldg(exps + 2)), 0};
   for (int k = 0; k < n_chunks; ++k) {
     const int chunk = (k + blockIdx.x) % n_chunks;
     pass.c0 = static_cast<unsigned>(
@@ -303,7 +356,7 @@ __global__ void __launch_bounds__(kSlabMaxThreads)
         static_cast<long long>(chunk + 1) * n_nodes / n_chunks) - pass.c0;
     pass.queued = 0;
     for (int i = threadIdx.x; i < replicas * slab_stride; i += blockDim.x)
-      slab[i] = 0.f;
+      slab[i] = 0ull;
     __syncthreads();
     if (listed) {
       const int beg = start[chunk], end = count[chunk];
@@ -332,58 +385,79 @@ __global__ void __launch_bounds__(kSlabMaxThreads)
       pass.drain();
     }
     __syncthreads();
-    // flush: node nl's cells are out[g0, g0 + per_node), g0 below
-    const int quads = per_node / 4 + 2;
-    for (int t = threadIdx.x; t < static_cast<int>(pass.nc) * quads;
+    // flush: cell i of node nl goes to acc[g0 + i], g0 below
+    for (int t = threadIdx.x; t < static_cast<int>(pass.nc) * per_node;
          t += blockDim.x) {
-      const int nl = t / quads;
+      u64 v = 0;
+      for (int k = 0; k < replicas; ++k) v += slab[k * slab_stride + t];
+      if (v == 0) continue;
+      const int nl = t / per_node;
       const long long g0 =
           (static_cast<long long>(pass.c0) + nl) * n_feat * per_feat +
           static_cast<long long>(f0) * per_feat;
-      const long long q = (g0 >> 2) + (t - nl * quads);
-      float s[4];
-      bool any = false;
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const long long i = q * 4 + j - g0;
-        s[j] = 0.f;
-        if (i >= 0 && i < per_node) {
-          const int at = nl * per_node + static_cast<int>(i);
-          for (int k = 0; k < replicas; ++k)
-            s[j] += slab[k * slab_stride + at];
-        }
-        any |= s[j] != 0.f;  // NaN compares unequal, so it is flushed too
-      }
-      if (!any) continue;
-      if (q * 4 + 4 <= out_n) {
-        atomicAdd(reinterpret_cast<float4*>(out) + q,
-                  make_float4(s[0], s[1], s[2], s[3]));
-      } else {  // the last group of a histogram that is not whole groups
-        for (int j = 0; j < 4; ++j)
-          if (s[j] != 0.f) atomicAdd(out + q * 4 + j, s[j]);
-      }
+      atomicAdd(acc + g0 + (t - nl * per_node), v);
     }
     __syncthreads();  // the next chunk zeroes the slab
   }
 }
 
+// Each cell of the int64 accumulator `acc` into the float32 output
+// `out`, as (double) sum * 2^-e_k (k = the cell's stat), unless `out`
+// already holds the cell's non-finite sum.
+__global__ void slab_convert_kernel(const long long* __restrict__ acc,
+                                    float* __restrict__ out,
+                                    const int* __restrict__ exps,
+                                    long long cells) {
+  double inv[3];
+  for (int k = 0; k < 3; ++k)
+    inv[k] = __longlong_as_double(static_cast<long long>(1023 - exps[k])
+                                  << 52);
+  for (long long i = blockIdx.x * static_cast<long long>(blockDim.x) +
+                     threadIdx.x;
+       i < cells; i += static_cast<long long>(gridDim.x) * blockDim.x) {
+    if (out[i] == 0.f)
+      out[i] = __double2float_rn(__ll2double_rn(acc[i]) * inv[i % 3]);
+  }
+}
+
+static cudaError_t launch_slab_convert(const void* acc, void* out,
+                                       const void* exps, long long cells,
+                                       void* stream) {
+  if (cells <= 0) return cudaSuccess;
+  const long long blocks = std::min((cells + 255) / 256, 8192ll);
+  slab_convert_kernel<<<static_cast<unsigned>(blocks), 256, 0,
+                        static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const long long*>(acc), static_cast<float*>(out),
+      static_cast<const int*>(exps), cells);
+  return cudaGetLastError();
+}
+
+// The conversion alone, after the caller summed `acc` and `out` over the
+// ranks of a mesh (shard_hist).
+extern "C" int slab_convert(const void* acc, void* out, const void* exps,
+                            long long cells, void* stream) {
+  return launch_slab_convert(acc, out, exps, cells, stream);
+}
+
 // Launch over a (row blocks, feature groups) grid of `threads`-thread
 // blocks with `smem` bytes of shared memory each (`replicas` copies of
-// the largest chunk's slab, then a queue of kSlabQueue ints a warp), as
-// ops/kernels/__init__.py slab_geometry planned it. `out` must be zeroed
-// [n_nodes, F, B, 3], 16-byte aligned; `keys` holds N entries and `list`
-// N a feature group (both null where the plan sorts no rows);
-// n_nodes < 65536. Returns the
-// launch's cudaError_t.
+// the largest chunk's slab of 8-byte cells, then a queue of kSlabQueue
+// ints a warp), as ops/kernels/__init__.py slab_geometry planned it;
+// then, with `convert`, the conversion of `acc` into `out`. `acc` must be
+// zeroed int64 [n_nodes, F, B, 3] and `out` zeroed float32 of the same
+// shape; `exps` the three stats' exponents on the device; `keys` holds N
+// entries and `list` N a feature group (both null where the plan sorts
+// no rows); n_nodes < 65536. Returns the launches' cudaError_t.
 static cudaError_t launch_slab_hist(const void* bins, int bins_int8,
                                     const void* nid, const void* stats,
-                                    void* keys, void* list, void* out,
-                                    long long n_rows, int n_feat, int n_bins,
-                                    int n_nodes, int left_only,
-                                    long long rows_per_block, int n_chunks,
-                                    int n_groups, int replicas, int threads,
-                                    long long smem, void* stream) {
-  if (reinterpret_cast<uintptr_t>(out) % 16) return cudaErrorMisalignedAddress;
+                                    const void* exps, void* keys, void* list,
+                                    void* acc, void* out, long long n_rows,
+                                    int n_feat, int n_bins, int n_nodes,
+                                    int left_only, long long rows_per_block,
+                                    int n_chunks, int n_groups, int replicas,
+                                    int threads, long long smem, int convert,
+                                    void* stream) {
+  if (reinterpret_cast<uintptr_t>(acc) % 8) return cudaErrorMisalignedAddress;
   if (n_nodes > static_cast<int>(kSlabSkip)) return cudaErrorInvalidValue;
   const long long nrb = (n_rows + rows_per_block - 1) / rows_per_block;
   dim3 grid(static_cast<unsigned>(nrb), n_groups);
@@ -394,22 +468,30 @@ static cudaError_t launch_slab_hist(const void* bins, int bins_int8,
     err = allow_smem(reinterpret_cast<const void*>(&slab_hist_kernel<int8_t>),
                      bytes);
     if (err != cudaSuccess) return err;
-    slab_hist_kernel<int8_t><<<grid, threads, bytes, s>>>(
-        static_cast<const int8_t*>(bins), static_cast<const int32_t*>(nid),
-        static_cast<const float*>(stats), static_cast<unsigned short*>(keys),
-        static_cast<int*>(list), static_cast<float*>(out), n_rows, n_feat,
-        n_bins, n_nodes, left_only, rows_per_block, n_chunks, n_groups,
-        replicas);
+    if (nrb > 0)
+      slab_hist_kernel<int8_t><<<grid, threads, bytes, s>>>(
+          static_cast<const int8_t*>(bins), static_cast<const int32_t*>(nid),
+          static_cast<const float*>(stats), static_cast<const int*>(exps),
+          static_cast<unsigned short*>(keys), static_cast<int*>(list),
+          static_cast<u64*>(acc), static_cast<float*>(out), n_rows, n_feat,
+          n_bins, n_nodes, left_only, rows_per_block, n_chunks, n_groups,
+          replicas);
   } else {
     err = allow_smem(
         reinterpret_cast<const void*>(&slab_hist_kernel<int32_t>), bytes);
     if (err != cudaSuccess) return err;
-    slab_hist_kernel<int32_t><<<grid, threads, bytes, s>>>(
-        static_cast<const int32_t*>(bins), static_cast<const int32_t*>(nid),
-        static_cast<const float*>(stats), static_cast<unsigned short*>(keys),
-        static_cast<int*>(list), static_cast<float*>(out), n_rows, n_feat,
-        n_bins, n_nodes, left_only, rows_per_block, n_chunks, n_groups,
-        replicas);
+    if (nrb > 0)
+      slab_hist_kernel<int32_t><<<grid, threads, bytes, s>>>(
+          static_cast<const int32_t*>(bins), static_cast<const int32_t*>(nid),
+          static_cast<const float*>(stats), static_cast<const int*>(exps),
+          static_cast<unsigned short*>(keys), static_cast<int*>(list),
+          static_cast<u64*>(acc), static_cast<float*>(out), n_rows, n_feat,
+          n_bins, n_nodes, left_only, rows_per_block, n_chunks, n_groups,
+          replicas);
   }
-  return cudaGetLastError();
+  err = cudaGetLastError();
+  if (err != cudaSuccess || !convert) return err;
+  return launch_slab_convert(
+      acc, out, exps,
+      static_cast<long long>(n_nodes) * n_feat * n_bins * 3, stream);
 }

@@ -19,30 +19,32 @@
 //
 // Bound: bytes. One launch must read N*(F*bin bytes + 4 + 12) bytes and
 // write L*F*B*12; the work is 3*N*F adds. What sets its time on the card
-// is neither: it is the shared-memory float atomics (a load, an add and
-// a compare-and-swap retried until it lands, about 1.6 lanes a clock an
-// SM), three per (row, feature) that counts.
-// Design: slab_hist_kernel (hist_slab.cuh) with the left-child path off.
-// One block per SM covers all F features of its rows, walking the node
-// chunks of a [nodes, F, B, 3] slab of up to 227 KB: 24 nodes at F = 12,
-// B = 65, so L <= 16 runs in one chunk and L = 512 (the deepest uplift
-// level: 5 MB of output) in 22. Past two chunks the block first sorts its
-// rows by chunk, so a chunk reads only its own rows. At shallow levels
-// each warp adds into its own copy of the slab (24 copies at L = 1).
-// Rows whose stats are all zero (out of bag, or the other arm of an
-// uplift split) are skipped before their bin is read, and the scatter
-// runs on full warps of rows that count.
+// is neither: it is the shared-memory atomics, three per (row, feature)
+// that counts.
+// Design: slab_hist_kernel (hist_slab.cuh) with the left-child path off,
+// in 64-bit fixed point so that two runs give the same bits. One block
+// per SM covers all F features of its rows, walking the node chunks of a
+// [nodes, F, B, 3] slab of 8-byte cells of up to 227 KB: 12 nodes at
+// F = 12, B = 65, so L <= 8 runs in one chunk and L = 512 (the deepest
+// uplift level: 5 MB of output) in 43. Past two chunks the block first
+// sorts its rows by chunk, so a chunk reads only its own rows. At shallow
+// levels each warp adds into its own copy of the slab (12 copies at
+// L = 1). Rows whose stats are all zero (out of bag, or the other arm of
+// an uplift split) are skipped before their bin is read, and the scatter
+// runs on full warps of rows that count. A second, small launch converts
+// the int64 cells to float32.
 
 #include "hist_slab.cuh"
 
 extern "C" int histogram(const void* bins, int bins_int8, const void* nid,
-                         const void* stats, void* keys, void* list,
-                         void* out, long long n_rows, int n_feat, int n_bins,
-                         int n_nodes, long long rows_per_block, int n_chunks, int n_groups,
+                         const void* stats, const void* exps, void* keys,
+                         void* list, void* acc, void* out, long long n_rows,
+                         int n_feat, int n_bins, int n_nodes,
+                         long long rows_per_block, int n_chunks, int n_groups,
                          int replicas, int threads, long long smem,
                          void* stream) {
-  return launch_slab_hist(bins, bins_int8, nid, stats, keys, list, out,
-                          n_rows, n_feat, n_bins, n_nodes, /*left_only=*/0,
-                          rows_per_block, n_chunks, n_groups, replicas,
-                          threads, smem, stream);
+  return launch_slab_hist(bins, bins_int8, nid, stats, exps, keys, list, acc,
+                          out, n_rows, n_feat, n_bins, n_nodes,
+                          /*left_only=*/0, rows_per_block, n_chunks, n_groups,
+                          replicas, threads, smem, /*convert=*/1, stream);
 }

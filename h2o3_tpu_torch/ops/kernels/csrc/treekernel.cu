@@ -33,29 +33,30 @@
 // Bound: bytes. Each row's bins row, nid and 12 bytes of stats must be
 // read once (26 bytes a row at F = 10, int8) and the [Lh, F, B, 3] result
 // written once; the work is a few shared atomics a byte, far below the
-// card's arithmetic rate, but the shared-memory float atomics (a
-// compare-and-swap loop, about 1.6 lanes a clock an SM) set its time.
-// Design: slab_hist_kernel (hist_slab.cuh). One block per SM covers all
-// F features of its rows, walking the node chunks of a [nodes, F, B, 3]
-// slab of up to 227 KB (15 nodes at B = 126: the flagship's depths run
-// in one chunk each, then two of 8 at Lh = 16; depth bucket 10's
-// Lh = 256 in 18, its rows sorted by chunk first). Right-child rows never
-// reach the scatter, which runs on full warps of left-child rows. Where
-// the slab fits twice or more, each warp adds into its own copy of it
-// (15 copies at d = 0), so warps do not collide on a shallow level's hot
-// bins.
+// card's arithmetic rate, but the shared-memory atomics set its time.
+// Design: slab_hist_kernel (hist_slab.cuh), in 64-bit fixed point so
+// that two runs give the same bits. One block per SM covers all F
+// features of its rows, walking the node chunks of a [nodes, F, B, 3]
+// slab of 8-byte cells of up to 227 KB (7 nodes at B = 126: the
+// flagship's depths run in one chunk each up to Lh = 4, then 2 at Lh = 8
+// and 3 at Lh = 16; depth bucket 10's Lh = 256 in 37, rows sorted by chunk
+// first beyond 2). Right-child rows never reach the scatter, which runs
+// on full warps of left-child rows. Where the slab fits twice or more,
+// each warp adds into its own copy of it (7 copies at d = 0), so warps do
+// not collide on a shallow level's hot bins. A second, small launch
+// converts the int64 cells to float32.
 
 extern "C" int tree_hist(const void* bins, int bins_int8, const void* nid,
-                         const void* stats, void* keys, void* list,
-                         void* out, long long n_rows, int n_feat, int n_bins,
-                         int n_parents, int left_only,
+                         const void* stats, const void* exps, void* keys,
+                         void* list, void* acc, void* out, long long n_rows,
+                         int n_feat, int n_bins, int n_parents, int left_only,
                          long long rows_per_block, int n_chunks, int n_groups,
                          int replicas, int threads, long long smem,
-                         void* stream) {
-  return launch_slab_hist(bins, bins_int8, nid, stats, keys, list, out,
-                          n_rows, n_feat, n_bins, n_parents, left_only,
+                         int convert, void* stream) {
+  return launch_slab_hist(bins, bins_int8, nid, stats, exps, keys, list, acc,
+                          out, n_rows, n_feat, n_bins, n_parents, left_only,
                           rows_per_block, n_chunks, n_groups, replicas,
-                          threads, smem, stream);
+                          threads, smem, convert, stream);
 }
 
 // ----------------------------------------------------------- tree_split

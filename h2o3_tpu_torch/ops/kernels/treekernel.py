@@ -7,7 +7,9 @@ hand-written CUDA kernels (csrc/treekernel.cu), each with its plain
 PyTorch version beside it:
 
 - ``tree_hist``      phase 0: the [Lh, F, B, 3] {w, w·g, w·h} histogram
-                     (left children only at d >= 1, into the parent slot);
+                     (left children only at d >= 1, into the parent slot),
+                     summed in 64-bit fixed point (``ops/fixed_point.py``:
+                     the same bits on every run);
 - ``tree_split``     the boundary: sibling subtraction with the w/h >= 0
                      clamps, ``best_splits``, the min-split-improvement and
                      depth-limit masks, the categorical-split flags;
@@ -24,8 +26,11 @@ rows) the level runs as the reference's two-kernel variant
 (``_hist_call`` → ``psum`` → ``_level_boundary`` → ``_partition_call``):
 
 - ``shard_hist``      the rank's histogram (``tree_hist``'s device code
-                      on the rank's rows, counted under its own name);
-- ``all_reduce``      the sum over the ranks (``torch.distributed``);
+                      on the rank's rows, counted under its own name) and
+                      its sum over the ranks: the int64 fixed-point cells
+                      are all-reduced (``torch.distributed``) before they
+                      convert to float32, with exponents every rank
+                      shares;
 - ``tree_split``      on the summed histogram, identical on every rank;
 - ``shard_partition`` the rank's rows routed (``tree_partition``'s
                       device code, counted under its own name).
@@ -40,10 +45,11 @@ from typing import Dict, List, NamedTuple, Tuple
 import torch
 
 from h2o3_tpu_torch.ops import kernels
+from h2o3_tpu_torch.ops.fixed_point import exponents
 from h2o3_tpu_torch.ops.histogram import local_histogram
 from h2o3_tpu_torch.ops.kernels import (bin_dtype, launched, need, on_cuda,
-                                        ptr, scratch, slab_geometry,
-                                        sm_count, stream)
+                                        ptr, refused, scratch, slab_buffers,
+                                        slab_geometry, sm_count, stream)
 from h2o3_tpu_torch.ops.split_scan import best_splits
 from h2o3_tpu_torch.parallel.map_reduce import all_reduce
 from h2o3_tpu_torch.parallel.mesh import is_sharded
@@ -69,8 +75,10 @@ def _lib():
     global _LIB
     if _LIB is None:
         _LIB = kernels.bind("treekernel", {
-            "tree_hist": [_VP, _I, _VP, _VP, _VP, _VP, _VP, _LL, _I, _I, _I, _I,
-                          _LL, _I, _I, _I, _I, _LL, _VP],
+            "tree_hist": [_VP, _I, _VP, _VP, _VP, _VP, _VP, _VP, _VP, _LL,
+                          _I, _I, _I, _I, _LL, _I, _I, _I, _I, _LL, _I,
+                          _VP],
+            "slab_convert": [_VP, _VP, _VP, _LL, _VP],
             "tree_split": [_VP] * 23 + [_I] * 9 + [_LL, _VP],
             "tree_partition": [_VP, _I, _VP, _VP, _VP, _VP, _VP, _VP, _VP,
                                _VP, _LL, _I, _I, _I, _LL, _LL, _I, _I, _LL,
@@ -82,30 +90,42 @@ def _lib():
 # ------------------------------------------------------------ tree_hist
 
 
-def hist_plain(bins, nid, stats, *, d: int, n_nodes_h: int, n_bins: int):
+def hist_plain(bins, nid, stats, *, d: int, n_nodes_h: int, n_bins: int,
+               exps=None, mesh=None):
     """Plain version of ``tree_hist``: at d >= 1 odd (right-child) rows
-    are skipped and even rows land in their parent's slot."""
+    are skipped and even rows land in their parent's slot; float32 sums,
+    over every rank of a sharded ``mesh`` (``exps`` is the kernel's and
+    unused here)."""
     if d > 0:
         nid = torch.where(nid % 2 == 0, nid >> 1, -1)
-    return local_histogram(bins, nid, stats, n_nodes=n_nodes_h,
-                           n_bins=n_bins)
+    return all_reduce(local_histogram(bins, nid, stats, n_nodes=n_nodes_h,
+                                      n_bins=n_bins), mesh)
 
 
-def tree_hist(bins, nid, stats, *, d: int, n_nodes_h: int, n_bins: int):
-    """[Lh, F, B, 3] level histogram of ``stats`` [N, 3]."""
-    return _hist(bins, nid, stats, d, n_nodes_h, n_bins, "tree_hist")
+def tree_hist(bins, nid, stats, *, d: int, n_nodes_h: int, n_bins: int,
+              exps=None, mesh=None):
+    """[Lh, F, B, 3] level histogram of ``stats`` [N, 3]. ``exps`` (int32
+    [3] on the card) are the fixed-point exponents, by default those of
+    ``stats``; a grown tree passes its own, computed once a tree.
+    ``mesh`` is unused: a level runs ``tree_hist`` only unsharded."""
+    return _hist(bins, nid, stats, d, n_nodes_h, n_bins, exps, None,
+                 "tree_hist")
 
 
-def shard_hist(bins, nid, stats, *, d: int, n_nodes_h: int, n_bins: int):
-    """``tree_hist`` of this rank's rows, before the sum over ranks (the
-    port of the reference's per-shard ``_hist_call``)."""
-    return _hist(bins, nid, stats, d, n_nodes_h, n_bins, "shard_hist")
+def shard_hist(bins, nid, stats, *, d: int, n_nodes_h: int, n_bins: int,
+               exps=None, mesh=None):
+    """``tree_hist`` of this rank's rows, summed over the ranks of
+    ``mesh`` (the port of the reference's per-shard ``_hist_call`` and
+    its ``psum``). ``exps`` must be the same on every rank (by default
+    ``exponents`` over every rank's rows)."""
+    return _hist(bins, nid, stats, d, n_nodes_h, n_bins, exps, mesh,
+                 "shard_hist")
 
 
-def _hist(bins, nid, stats, d, n_nodes_h, n_bins, name):
+def _hist(bins, nid, stats, d, n_nodes_h, n_bins, exps, mesh, name):
     if not on_cuda(bins, name):
         return hist_plain(bins, nid, stats, d=d, n_nodes_h=n_nodes_h,
-                          n_bins=n_bins)
+                          n_bins=n_bins, mesh=mesh)
     dev = bins.device
     N, F = bins.shape
     B, Lh = n_bins, n_nodes_h
@@ -113,17 +133,29 @@ def _hist(bins, nid, stats, d, n_nodes_h, n_bins, name):
     p_bins = need(bins, bins.dtype, (N, F), "bins", dev)
     p_nid = need(nid, torch.int32, (N,), "nid", dev)
     p_stats = need(stats, torch.float32, (N, 3), "stats", dev)
-    out = torch.zeros((Lh, F, B, 3), dtype=torch.float32, device=dev)
+    if exps is None:
+        exps = exponents(stats, mesh=mesh)
+    p_exps = need(exps, torch.int32, (3,), "exps", dev)
+    cells = Lh * F * B * 3
+    acc, out = slab_buffers(cells, dev)
     plan = slab_geometry(N, F, Lh, B, sms=sm_count(dev),
                          budget=HIST_SLAB_BYTES)
     keys, rows = scratch(plan, N, dev)
-    rc = _lib().tree_hist(p_bins, is8, p_nid, p_stats, ptr(keys), ptr(rows),
-                          out.data_ptr(), N, F, B, Lh, int(d > 0),
-                          plan.rows_per_block, plan.n_chunks, plan.n_groups,
-                          plan.replicas, plan.threads, plan.smem,
-                          stream(dev))
+    sharded = is_sharded(mesh)
+    rc = _lib().tree_hist(p_bins, is8, p_nid, p_stats, p_exps, ptr(keys),
+                          ptr(rows), acc.data_ptr(), out.data_ptr(), N, F, B,
+                          Lh, int(d > 0), plan.rows_per_block, plan.n_chunks,
+                          plan.n_groups, plan.replicas, plan.threads,
+                          plan.smem, int(not sharded), stream(dev))
     launched(_lib(), rc, name)
-    return out
+    if sharded:
+        # integer cells sum exactly over the ranks, then convert once
+        all_reduce(acc, mesh)
+        all_reduce(out, mesh)
+        refused(_lib(), _lib().slab_convert(acc.data_ptr(), out.data_ptr(),
+                                            p_exps, cells, stream(dev)),
+                name)
+    return out.view(Lh, F, B, 3)
 
 
 # ----------------------------------------------------------- tree_split
@@ -399,13 +431,12 @@ def level_operands(col_mask, nb, is_cat, constraints, lo, hi, scalars,
 
 
 def _level(hist_fn, split_fn, part_fn, bins, nid, stats, prev_hist,
-           col_mask, nb, is_cat, constraints, lo, hi, scalars, mesh, *, d,
-           n_nodes, n_bins):
+           col_mask, nb, is_cat, constraints, lo, hi, scalars, mesh, exps,
+           *, d, n_nodes, n_bins):
     cm, nb, ic, cons, lo, hi, knobs, dl = level_operands(
         col_mask, nb, is_cat, constraints, lo, hi, scalars, bins.device)
     lh = hist_fn(bins, nid, stats, d=d, n_nodes_h=max(n_nodes // 2, 1),
-                 n_bins=n_bins)
-    all_reduce(lh, mesh)
+                 n_bins=n_bins, exps=exps, mesh=mesh)
     hist, bg, bf, bt, bnal, blv, brv, lmask, split, cs = split_fn(
         lh, prev_hist, cm, nb, ic, cons, lo, hi, knobs, dl, d=d,
         n_nodes=n_nodes, n_bins=n_bins)
@@ -416,7 +447,7 @@ def _level(hist_fn, split_fn, part_fn, bins, nid, stats, prev_hist,
 
 def fused_level(bins, nid, stats, prev_hist, col_mask, nb, is_cat,
                 constraints, lo, hi, scalars, *, d: int, n_nodes: int,
-                n_bins: int, mesh=None):
+                n_bins: int, mesh=None, exps=None):
     """One tree level: returns (hist [L,F,B,3], gain, feat, thresh,
     na_left, left_val, right_val, leftmask, split, new_nid).
 
@@ -427,21 +458,24 @@ def fused_level(bins, nid, stats, prev_hist, col_mask, nb, is_cat,
     versions. On a sharded ``mesh`` the rows are this rank's: the
     histogram is ``shard_hist`` summed over the ranks, ``new_nid`` routes
     the rank's rows by ``shard_partition``, and every other output is the
-    same on every rank. The reference's ``block_rows``/``interpret``
-    arguments have no counterpart."""
+    same on every rank. ``exps`` are the histogram's fixed-point
+    exponents (``ops/fixed_point.exponents`` of ``stats``, the same on
+    every rank), by default computed at each level. The reference's
+    ``block_rows``/``interpret`` arguments have no counterpart."""
     hist_fn, part_fn = ((shard_hist, shard_partition) if is_sharded(mesh)
                         else (tree_hist, tree_partition))
     return _level(hist_fn, tree_split, part_fn, bins, nid, stats, prev_hist,
                   col_mask, nb, is_cat, constraints, lo, hi, scalars, mesh,
-                  d=d, n_nodes=n_nodes, n_bins=n_bins)
+                  exps, d=d, n_nodes=n_nodes, n_bins=n_bins)
 
 
 def plain_level(bins, nid, stats, prev_hist, col_mask, nb, is_cat,
                 constraints, lo, hi, scalars, *, d: int, n_nodes: int,
-                n_bins: int, mesh=None):
+                n_bins: int, mesh=None, exps=None):
     """``fused_level`` through the plain versions on any device — the
     reference the kernels are held against on the card (the counterpart
     of the reference package's ``xla_level``)."""
     return _level(hist_plain, split_plain, partition_plain, bins, nid,
                   stats, prev_hist, col_mask, nb, is_cat, constraints, lo,
-                  hi, scalars, mesh, d=d, n_nodes=n_nodes, n_bins=n_bins)
+                  hi, scalars, mesh, exps, d=d, n_nodes=n_nodes,
+                  n_bins=n_bins)

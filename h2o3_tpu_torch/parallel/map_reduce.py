@@ -34,15 +34,18 @@ def reset_collectives() -> None:
     COLLECTIVES.update(all_reduce=0, bytes=0, seconds=0.0)
 
 
-def all_reduce(t: torch.Tensor, mesh: Optional[Mesh] = None) -> torch.Tensor:
-    """Sum ``t`` over the ranks of a sharded ``mesh``, in place; returns
-    ``t``. ``None`` or a world-1 mesh leaves ``t`` as it is."""
+def all_reduce(t: torch.Tensor, mesh: Optional[Mesh] = None,
+               op: str = "sum") -> torch.Tensor:
+    """Sum ``t`` over the ranks of a sharded ``mesh`` (or, with
+    ``op="max"``, take its maximum), in place; returns ``t``. ``None`` or
+    a world-1 mesh leaves ``t`` as it is."""
     if not is_sharded(mesh):
         return t
     if not t.is_contiguous():
         raise ValueError("all_reduce needs a contiguous tensor")
     t0 = time.perf_counter()
-    dist.all_reduce(t, op=dist.ReduceOp.SUM, group=mesh.group)
+    dist.all_reduce(t, op={"sum": dist.ReduceOp.SUM,
+                           "max": dist.ReduceOp.MAX}[op], group=mesh.group)
     COLLECTIVES["seconds"] += time.perf_counter() - t0
     COLLECTIVES["all_reduce"] += 1
     COLLECTIVES["bytes"] += t.numel() * t.element_size()

@@ -1,9 +1,12 @@
 """The PyTorch port's import boundary: ``h2o3_tpu_torch`` and
-``chip_smoke.py`` never import JAX or any module of the reference package
-``h2o3_tpu``."""
+``chip_smoke.py`` never import JAX, any module of the reference package
+``h2o3_tpu``, or pandas and pyarrow (the card's machine has neither), and
+no port file reaches into the reference package's directory by path
+(the native tokenizer is the port's own copy)."""
 
 import ast
 import os
+import re
 import subprocess
 import sys
 from pathlib import Path
@@ -14,7 +17,7 @@ import torch
 
 ROOT = Path(__file__).resolve().parents[1]
 PKG = ROOT / "h2o3_tpu_torch"
-FORBIDDEN = ("jax", "jaxlib", "h2o3_tpu")
+FORBIDDEN = ("jax", "jaxlib", "h2o3_tpu", "pandas", "pyarrow")
 PORT_FILES = sorted(str(p.relative_to(ROOT)) for p in PKG.rglob("*.py"))
 # the modules of each slice, so a rename cannot drop one from the scan
 SLICE_MODULES = (
@@ -32,7 +35,20 @@ SLICE_MODULES = (
     "h2o3_tpu_torch/frame/partition.py",
     "h2o3_tpu_torch/ml/calibration.py",
     "h2o3_tpu_torch/ml/cv.py",
+    "h2o3_tpu_torch/ops/fixed_point.py",
+    "h2o3_tpu_torch/ops/segments.py",
+    "h2o3_tpu_torch/native/__init__.py",
+    "h2o3_tpu_torch/io/chunking.py",
+    "h2o3_tpu_torch/io/stream.py",
+    "h2o3_tpu_torch/io/parser.py",
+    "h2o3_tpu_torch/frame/column.py",
+    "h2o3_tpu_torch/frame/frame.py",
 )
+# sources the port compiles: its kernels and its tokenizer
+NATIVE_FILES = sorted(str(p.relative_to(ROOT)) for p in PKG.rglob("*")
+                      if p.suffix in (".cu", ".cuh", ".cpp"))
+# a path component "h2o3_tpu" (not "h2o3_tpu_torch")
+_REF_PATH = re.compile(r"(^|[/\\])h2o3_tpu([/\\]|$)")
 
 
 def _forbidden(mod: str) -> bool:
@@ -79,6 +95,46 @@ def test_no_forbidden_import_statement(path):
             assert not _forbidden(n), f"{path}:{node.lineno} imports {n}"
 
 
+def _docstrings(tree):
+    """The ids of the docstring nodes of a module, class or function."""
+    out = set()
+    for node in ast.walk(tree):
+        if isinstance(node, (ast.Module, ast.ClassDef, ast.FunctionDef,
+                             ast.AsyncFunctionDef)) and node.body:
+            first = node.body[0]
+            if isinstance(first, ast.Expr) and \
+                    isinstance(first.value, ast.Constant):
+                out.add(id(first.value))
+    return out
+
+
+@pytest.mark.parametrize("path", PORT_FILES)
+def test_no_port_module_names_a_reference_path(path):
+    """No string a port module computes with (docstrings, which cite the
+    reference, aside) names a path in the reference package, so nothing
+    is read, built or loaded from it."""
+    tree = ast.parse((ROOT / path).read_text(), filename=path)
+    docs = _docstrings(tree)
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Constant) and isinstance(node.value, str) \
+                and id(node) not in docs:
+            assert not _REF_PATH.search(node.value), \
+                f"{path}:{node.lineno} names {node.value!r}"
+
+
+@pytest.mark.parametrize("path", NATIVE_FILES)
+def test_no_native_source_includes_a_reference_file(path):
+    for ln, line in enumerate((ROOT / path).read_text().splitlines(), 1):
+        if line.lstrip().startswith("#include"):
+            assert not _REF_PATH.search(line), f"{path}:{ln} {line}"
+
+
+def test_the_tokenizer_builds_from_the_ports_own_source():
+    from h2o3_tpu_torch import native
+    assert native.SRC == PKG / "native" / "csv_parser.cpp"
+    assert native.BUILD == PKG / "native" / "build"
+
+
 def test_mesh_entry_points_default_to_cuda_and_raise_without_card(
         monkeypatch, tmp_path):
     """``cloud.init`` and ``Frame.from_numpy_partitioned`` without a
@@ -92,3 +148,17 @@ def test_mesh_entry_points_default_to_cuda_and_raise_without_card(
     assert not torch.distributed.is_initialized()
     with pytest.raises(RuntimeError, match="no CUDA device"):
         Frame.from_numpy_partitioned({"a": np.arange(4.0)}, 4)
+
+
+def test_ingest_entry_points_default_to_cuda_and_raise_without_card(
+        monkeypatch, tmp_path):
+    """``import_file`` and ``stream_import_csv`` without a ``device=``
+    resolve to CUDA and raise without a card."""
+    from h2o3_tpu_torch import import_file
+    from h2o3_tpu_torch.io.stream import stream_import_csv
+    p = tmp_path / "a.csv"
+    p.write_text("a\n1\n")
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    for fn in (import_file, stream_import_csv):
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            fn(str(p))

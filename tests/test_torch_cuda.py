@@ -547,6 +547,67 @@ def test_nan_stats_and_out_of_range_ids_and_bins(dev, dtype):
             assert cs.identical(got, want)
 
 
+def _perm_inputs(dev, n, F, B, ids, seed):
+    r = np.random.RandomState(seed)
+    bins = torch.from_numpy(r.randint(0, B, (n, F)).astype(np.int8)).to(dev)
+    nid = torch.from_numpy(r.randint(0, ids, n).astype(np.int32)).to(dev)
+    stats = cs.real_stats(n, seed + 1, torch, dev)
+    stats[:, 0] = torch.from_numpy(r.rand(n).astype(np.float32)).to(dev)
+    perm = torch.from_numpy(r.permutation(n)).to(dev)
+    return bins, nid, stats, perm
+
+
+@pytest.mark.parametrize("kind", ["tree_hist", "shard_hist", "histogram"])
+@pytest.mark.parametrize("L", [1, 64])
+def test_slab_histograms_bit_identical_under_row_permutation(dev, kind, L):
+    """Real-valued stats: the same rows in another order (bins, nid and
+    stats permuted alike) give the same bits, as the slab sums in 64-bit
+    fixed point; and within the float32 summation bound of the plain
+    version. L = 64 runs in node chunks with the rows sorted by chunk."""
+    from h2o3_tpu_torch.ops.histogram import local_histogram
+    from h2o3_tpu_torch.ops.kernels.histogram import full_histogram
+    n, F, B = 300_000, 10, 126
+    bins, nid, stats, perm = _perm_inputs(dev, n, F, B, 2 * L, 43)
+    if kind == "histogram":
+        nid = nid % L
+        run = lambda b, i, s: full_histogram(  # noqa: E731
+            b, i, s, n_nodes=L, n_bins=B)
+        plain = lambda s: local_histogram(  # noqa: E731
+            bins, nid, s, n_nodes=L, n_bins=B)
+    else:
+        fn = getattr(tk, kind)
+        run = lambda b, i, s: fn(b, i, s, d=1, n_nodes_h=L,  # noqa: E731
+                                 n_bins=B)
+        plain = lambda s: tk.hist_plain(bins, nid, s, d=1,  # noqa: E731
+                                        n_nodes_h=L, n_bins=B)
+    a = run(bins, nid, stats)
+    b = run(bins[perm].contiguous(), nid[perm].contiguous(),
+            stats[perm].contiguous())
+    again = run(bins, nid, stats)
+    torch.cuda.synchronize()
+    assert torch.equal(a, b) and torch.equal(a, again)
+    cs.check_within_bound(a, plain(stats), plain, stats, kind)
+
+
+def test_segment_sum_bit_identical_under_row_permutation(dev):
+    """The leaf sums on the card (fixed point): the same bits in any row
+    order, within the float32 summation bound of a float sum."""
+    from h2o3_tpu_torch.ops.segments import segment_sum
+    n = 1_000_000
+    _, nid, stats, perm = _perm_inputs(dev, n, 1, 3, 64, 45)
+    a = segment_sum(nid, stats, n_nodes=64)
+    b = segment_sum(nid[perm], stats[perm], n_nodes=64)
+    torch.cuda.synchronize()
+    assert torch.equal(a, b)
+    exact = torch.zeros((64, 3), dtype=torch.float64, device=dev)
+    exact.index_add_(0, nid.long(), stats.double())
+    mass = torch.zeros((64, 3), dtype=torch.float64, device=dev)
+    mass.index_add_(0, nid.long(), stats.double().abs())
+    cnt = torch.bincount(nid.long(), minlength=64)[:, None].double()
+    assert bool(((a.double() - exact).abs()
+                 <= cnt * 2.0 ** -24 * mass).all())
+
+
 def test_unaligned_views(dev):
     """Contiguous views that start 3 rows in (``bins[3:]``, ``nid[3:]``,
     ``stats[3:]``: not 16-byte aligned) give what the plain versions

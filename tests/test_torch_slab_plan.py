@@ -29,9 +29,11 @@ CASES = (
     + [("wide", 1_000_000, 300, 256, 4, False)])
 
 # chunk counts at the full budget (one 1024-thread block per SM)
-WANT_CHUNKS = {("gbm", 16): 2, ("drf", 256): 18, ("uplift", 16): 1,
-               ("uplift", 32): 2, ("uplift", 64): 3, ("uplift", 128): 6,
-               ("uplift", 256): 11, ("uplift", 512): 22}
+# with 24-byte fixed-point cells (three int64 sums a bin)
+WANT_CHUNKS = {("gbm", 8): 2, ("gbm", 16): 3, ("drf", 256): 37,
+               ("uplift", 8): 1, ("uplift", 16): 2, ("uplift", 32): 3,
+               ("uplift", 64): 6, ("uplift", 128): 11, ("uplift", 256): 22,
+               ("uplift", 512): 43}
 
 
 def _ids(case):
@@ -44,7 +46,7 @@ def test_plan_fits_budget_balanced_and_covers(case):
     budget = kernels.SLAB_BYTES
     plan = kernels.slab_geometry(n, F, nodes, B, sms=H100_SMS,
                                  budget=budget)
-    slab = plan.chunk_nodes * plan.group_feats * B * 12
+    slab = plan.chunk_nodes * plan.group_feats * B * kernels.SLAB_CELL_BYTES
     assert plan.queue == plan.threads // 32 * kernels.SLAB_QUEUE * 4
     assert plan.smem == plan.replicas * slab + plan.queue <= budget
     assert plan.threads == kernels.SLAB_THREADS
@@ -52,10 +54,10 @@ def test_plan_fits_budget_balanced_and_covers(case):
     if plan.replicas > 1:
         assert 2 * slab <= budget - plan.queue
     assert plan.n_chunks == WANT_CHUNKS.get((path, nodes), plan.n_chunks)
-    if path in ("gbm", "uplift") and nodes <= 8:
+    if path == "gbm" and nodes <= 4 or path == "uplift" and nodes <= 8:
         assert plan.n_chunks == 1
-    # 74 features of 256 bins fit beside the queues: 5 groups of 60
-    assert plan.n_groups == (5 if path == "wide" else 1)
+    # 37 features of 256 bins fit beside the queues: 9 groups of 33-34
+    assert plan.n_groups == (9 if path == "wide" else 1)
     # the whole grid, counted without walking every tile
     assert plan.row_blocks * plan.rows_per_block >= n
     assert (plan.row_blocks - 1) * plan.rows_per_block < n
@@ -81,9 +83,9 @@ def test_plan_fits_budget_balanced_and_covers(case):
 def test_plan_shallow_levels_are_replicated():
     gbm = kernels.slab_geometry(5_000_000, 10, 1, 126, sms=H100_SMS)
     uplift = kernels.slab_geometry(13_979_592, 12, 1, 65, sms=H100_SMS)
-    assert gbm.replicas == 15 and uplift.replicas == 24
+    assert gbm.replicas == 7 and uplift.replicas == 12
     deep = kernels.slab_geometry(5_000_000, 10, 16, 126, sms=H100_SMS)
-    assert deep.replicas == 1 and deep.chunk_nodes == 8
+    assert deep.replicas == 1 and deep.chunk_nodes == 6
 
 
 def test_plan_rejects_a_feature_wider_than_the_budget():
@@ -112,9 +114,9 @@ EMULATED = [
     (3_001, 10, 126, 1, kernels.SLAB_BYTES, 132, False),
     (3_001, 10, 126, 16, kernels.SLAB_BYTES, 132, True),
     (2_999, 12, 65, 64, kernels.SLAB_BYTES, 132, False),
-    (5_000, 12, 65, 512, 5 * 65 * 12 * 12, 3, False),
-    (1_500, 10, 126, 256, 7 * 10 * 126 * 12, 4, True),
-    (2_000, 10, 126, 8, 3 * 126 * 12, 2, False),
+    (5_000, 12, 65, 512, 5 * 65 * 12 * kernels.SLAB_CELL_BYTES, 3, False),
+    (1_500, 10, 126, 256, 7 * 10 * 126 * kernels.SLAB_CELL_BYTES, 4, True),
+    (2_000, 10, 126, 8, 3 * 126 * kernels.SLAB_CELL_BYTES, 2, False),
     (1_000, 30, 256, 4, kernels.SLAB_BYTES // 4, 5, False),
 ]
 

@@ -13,6 +13,7 @@ own process. This module's top-level imports are numpy, torch and the
 port only, so a rank never loads JAX or the reference package.
 
 Scenarios: ``mesh`` (collectives, partitioned ingest and binning),
+``fixed`` (fixed-point exponents and sums over the ranks),
 ``level`` (the sharded tree level, levels 0..2) and ``fit`` (W-rank GBM
 fits — binomial, gaussian, multinomial, and binomial with an offset
 column and a monotone constraint — scoring and metrics).
@@ -256,6 +257,27 @@ def scenario_mesh(mesh):
     return out
 
 
+def fixed_cols(n=517, seed=12):
+    """[n, 3] float32 values whose magnitudes grow along the rows (the
+    ranks' maxima differ), an infinity and a NaN, and segment ids."""
+    r = np.random.RandomState(seed)
+    v = (r.randn(n, 3) * np.linspace(0.5, 300.0, n)[:, None]).astype(
+        np.float32)
+    v[3, 1], v[n - 5, 2] = np.inf, np.nan
+    return v, r.randint(0, 6, n).astype(np.int32)
+
+
+def scenario_fixed(mesh):
+    from h2o3_tpu_torch.ops import fixed_point as fp
+    v, ids = fixed_cols()
+    local, _ = _owned({"v": v, "ids": ids}, mesh)
+    vals = torch.from_numpy(local["v"])
+    return {"exps": fp.exponents(vals, mesh=mesh).numpy(),
+            "sums": fp.index_sum(torch.from_numpy(local["ids"]), vals, 6,
+                                 mesh=mesh).numpy(),
+            "rows": vals.shape[0]}
+
+
 def scenario_level(mesh):
     from h2o3_tpu_torch.models.tree import TreeScalars
     from h2o3_tpu_torch.ops.kernels import treekernel as tk
@@ -333,6 +355,8 @@ def main(argv) -> int:
     try:
         if scenario == "mesh":
             out = scenario_mesh(mesh)
+        elif scenario == "fixed":
+            out = scenario_fixed(mesh)
         elif scenario == "level":
             out = scenario_level(mesh)
         elif scenario == "fit":
