@@ -123,6 +123,36 @@ Phases, in order; any failure exits non-zero and no phase carries on:
     (60 launches a level kernel) with binning and forest bit-equal to
     the fit on ``Frame.from_numpy`` of the same values.
 
+19. The XGBoost facade and DRF's histogram types on phase 4's frame:
+    ``XGBoostEstimator`` with phase 4's settings in h2o-py's names (forest
+    bit-equal to phase 4's GBM, 60 launches a level kernel) and again with
+    ``reg_lambda`` and ``gamma`` set (AUC); DRF at phase 6's settings with
+    ``histogram_type`` UniformAdaptive and Random: edges, nbins and bins
+    EXACT against the CPU plain binning, 100 launches a level kernel, OOB
+    AUC, the 50K-row unbagged forest (mtries = F) EXACTLY the CPU plain
+    forest.
+20. The isolation forests on phase 4's rows with 5,000 anomalies planted
+    from a seed: one isolation tree (depth 8, a 256-row bag) grown from
+    fixed draws on the card equal to the CPU plain version's, and every
+    row's path length; ``IsolationForestEstimator`` at its defaults
+    (ntrees=50, sample_size=256, max_depth=8): ``tree_partition`` launched
+    50 x 8 times growing and as many again for the training metrics, 400
+    for ``predict``, the planted rows at AUC >= 0.95, a same-seed refit
+    bit-equal; ``tree_partition`` timed at its levels (d=0..7, B = 65);
+    ``ExtendedIsolationForestEstimator`` at its defaults (ntrees=100,
+    sample_size=256) on the 7 numeric columns with extension_level 0 and
+    6 (no kernel), AUC >= 0.9; train and predict seconds.
+21. The scoring surface of phase 4's GBM and phase 6's DRF over the 5M
+    rows: ``predict_leaf_node_assignment`` and ``feature_frequencies``
+    EXACT against the CPU plain versions on 20K rows, the leaf values at
+    the assigned ids adding up to the margin (mean vote); GBM's
+    ``staged_predict_proba``, its last stage equal to ``predict``;
+    ``predict_contributions`` (TreeSHAP, plain torch on the card) with
+    local accuracy on every row it covers (GBM all 5M rows, DRF 1M: the
+    cut and its reason are printed) and within 1e-5·max(1, |margin|) of
+    the CPU plain version's (GBM on 20K rows, DRF on 2K); seconds and
+    peak memory. No kernel runs on this path.
+
 Launch counts are read per path: each path sets every count to 0 just
 before it runs and reads them just after (phase 15's, over its seven
 fits, are their sum). The line before the last is
@@ -134,7 +164,11 @@ times, at the GBM, the DRF and the multinomial GBM levels,
 ``tree_split``'s with its floor; ``launches_by_path`` gives each
 kernel's launches on every path, phase 17's as ``gbm_constraints``,
 ``gbm_offset``, ``gbm_checkpoint`` (donor and restart), ``drf_checkpoint``
-and ``gbm_cv``, phase 18's as ``gbm_csv``); the last is
+and ``gbm_cv``, phase 18's as ``gbm_csv``, phase 19's as ``xgboost``,
+``xgboost_reg``, ``drf_uniform`` and ``drf_random``, phase 20's as
+``isofor`` (the fit), ``isofor_predict``, ``extisofor_0`` and
+``extisofor_6``, phase 21's as ``tree_scoring``; ``tree_partition`` has a
+fourth record, at the Isolation Forest levels); the last is
 ``{"ok": true, "device": {...}}``.
 """
 
@@ -187,6 +221,27 @@ CAP_LOOSE_S, CAP_TIGHT_S = 3600.0, 0.05
 # row and column sampling: deterministic on the card
 LAPLACE = dict(FLAGSHIP, distribution="laplace", sample_rate=0.7,
                col_sample_rate_per_tree=0.8)
+# phase 19: phase 4's settings in h2o-py's XGBoost names (the GBM
+# defaults spelled out), then with its regularisation; DRF's histogram
+# types beside phase 6's quantiles
+XGB = dict(nrounds=10, max_depth=6, seed=1, eta=0.1, max_bins=64,
+           min_child_weight=10.0)
+XGB_REG = dict(XGB, reg_lambda=1.0, gamma=1e-3)
+HISTOGRAM_TYPES = ("UniformAdaptive", "Random")
+# phase 20: anomalies planted among phase 4's rows; both forests at the
+# h2o-py defaults (IsolationForest ntrees=50, sample_size=256,
+# max_depth=8; ExtendedIsolationForest ntrees=100, sample_size=256)
+N_PLANT = 5_000
+ISOFOR = dict(seed=1)
+EXTISOFOR = dict(seed=1)
+NUMERIC = ("Year", "Month", "DayofMonth", "DayOfWeek", "DepTime",
+           "CRSDepTime", "Distance")
+# phase 21: rows held against the CPU plain versions; DRF contributions
+# on fewer rows (a depth-10 tree has ~1000 leaves), and fewer again on
+# the CPU
+N_CHECK = 20_000
+N_SHAP_DRF = 1_000_000
+N_SHAP_DRF_CPU = 2_000
 Y = "IsDepDelayed"
 _TREEKERNEL = dict(source="h2o3_tpu_torch/ops/kernels/csrc/treekernel.cu",
                    replaces="h2o3_tpu/ops/pallas/treekernel.py:250")
@@ -2368,6 +2423,352 @@ def phase_csv(torch, dev, cols, domains):
     return counts
 
 
+# ------------------------------------------- phases 19-21 (slice 9)
+
+
+def phase_xgboost_histogram_types(torch, dev, fr, cols, domains,
+                                  gbm_forest):
+    """Phase 19 on phase 4's frame: the XGBoost facade with phase 4's
+    settings in h2o-py's names (forest bit-equal to phase 4's GBM, 60
+    launches a level kernel), a second fit with ``reg_lambda`` and
+    ``gamma`` set; DRF at phase 6's settings with ``histogram_type``
+    UniformAdaptive and Random: edges and bins EXACT against the CPU plain
+    binning of the same rows, 100 launches a level kernel, OOB AUC, and
+    on a 50K-row sample without bagging or column sampling the card
+    forest EXACTLY the CPU plain forest. Returns the launches by path."""
+    import h2o3_tpu_torch as h2o
+    from h2o3_tpu_torch.frame.binning import bin_frame
+    from h2o3_tpu_torch.models.drf import edge_method
+    paths = {}
+    x = [c for c in cols if c != Y]
+    for label, kw in (("xgboost", XGB), ("xgboost_reg", XGB_REG)):
+        model, t_train, counts, peak = timed_fit(
+            torch, lambda: h2o.XGBoostEstimator(**kw).train(fr, y=Y))
+        check_launches(counts, {k: XGB["nrounds"] * XGB["max_depth"]
+                                for k in LEVEL_KERNELS}, label)
+        check(model.output["facade"] == "xgboost", "facade output")
+        auc = model.training_metrics["AUC"]
+        check(np.isfinite(auc) and auc > 0.7, f"{label} AUC {auc}")
+        same = forests_equal(model.forest, gbm_forest)
+        if label == "xgboost":
+            check(same, "the XGBoost forest differs from phase 4's GBM")
+        say(f"phase19 {label} {kw} on {N_MAIN} rows: train {t_train:.3f} s, "
+            f"AUC {auc:.6f}, forest == phase 4's GBM forest: {same}, peak "
+            f"device memory {peak / 2**30:.3f} GiB")
+        paths[label] = counts
+    fr_cpu = h2o.Frame.from_numpy(cols, domains=domains, device="cpu")
+    small = {k: v[:N_SAMPLE] for k, v in cols.items()}
+    for ht in HISTOGRAM_TYPES:
+        model, t_train, counts, peak = timed_fit(
+            torch, lambda: h2o.DRFEstimator(**DRF, histogram_type=ht).train(
+                fr, y=Y))
+        check_launches(counts, {k: DRF["ntrees"] * DRF["max_depth"]
+                                for k in LEVEL_KERNELS}, f"DRF {ht}")
+        ref = bin_frame(fr_cpu, x, nbins=20, nbins_cats=1024,
+                        histogram_type=edge_method(ht))
+        for f in ("edges", "nbins", "bins"):
+            check(torch.equal(getattr(model.bm, f).cpu(), getattr(ref, f)),
+                  f"DRF {ht}: {f} differ from the CPU plain binning")
+        auc = model.training_metrics["AUC"]
+        check(np.isfinite(auc) and auc > 0.7, f"DRF {ht} OOB AUC {auc}")
+        m_gpu, m_cpu = card_and_cpu(
+            lambda: h2o.DRFEstimator(**DRF, histogram_type=ht,
+                                     sample_rate=1.0, mtries=len(x)),
+            small, domains, dev, y=Y)
+        equal_trees(on_cpu(m_gpu.forest), m_cpu.forest,
+                    f"{N_SAMPLE}-row DRF {ht}, card vs CPU plain")
+        say(f"phase19 DRF {DRF} histogram_type={ht} on {N_MAIN} rows: "
+            f"train {t_train:.3f} s, OOB AUC {auc:.6f}, peak device memory "
+            f"{peak / 2**30:.3f} GiB; edges, nbins and bins == the CPU "
+            f"plain binning; {N_SAMPLE}-row unbagged forest (mtries="
+            f"{len(x)}) card == CPU plain, EXACT "
+            f"({int(m_gpu.forest.is_split.sum())} splits)")
+        say(f"phase19 DRF {ht} launches: {counts}")
+        paths[f"drf_{edge_method(ht)}"] = counts
+    return paths
+
+
+def planted_anomalies(cols, seed: int = 20):
+    """Phase 4's rows with N_PLANT of them moved far out of the airlines
+    ranges (Distance 9000-12000, DepTime and CRSDepTime 2600-2999):
+    (columns, is_anomaly)."""
+    r = np.random.RandomState(seed)
+    n = len(cols[Y])
+    out = {k: v.copy() for k, v in cols.items()}
+    idx = r.choice(n, N_PLANT, replace=False)
+    out["Distance"][idx] = r.randint(9000, 12000, N_PLANT)
+    out["DepTime"][idx] = r.randint(2600, 3000, N_PLANT)
+    out["CRSDepTime"][idx] = r.randint(2600, 3000, N_PLANT)
+    bad = np.zeros(n, bool)
+    bad[idx] = True
+    return out, bad
+
+
+def isofor_partition_timing(torch, bm, tree, counts):
+    """``tree_partition`` at the Isolation Forest levels d=0..D-1 (L up to
+    128, B = 65) of one grown tree over every row: EXACT against the plain
+    version, timed as phase 5 times it. Returns its kernels record."""
+    from h2o3_tpu_torch.ops.kernels import treekernel as tk
+    bins, B = bm.bins, bm.nbins_total
+    N, F = bins.shape
+    dev = bins.device
+    D = tree.feat.shape[0]
+    acc = dict(ms=0.0, host_paced_ms=0.0, host_us=0.0, plain_ms=0.0,
+               library_ms=0.0, bytes_ms=0.0, ops_ms=0.0)
+    nid = torch.zeros(N, dtype=torch.int32, device=dev)
+    for d in range(D):
+        L = 2 ** d
+        dec = (tree.feat[d, :L], tree.thresh[d, :L], tree.na_left[d, :L],
+               tree.is_split[d, :L],
+               torch.zeros(L, dtype=torch.bool, device=dev),
+               torch.zeros((L, B - 1), dtype=torch.bool, device=dev))
+        want = tk.partition_plain(bins, nid, *dec, n_bins=B)
+        got = tk.tree_partition(bins, nid, *dec, n_bins=B)
+        torch.cuda.synchronize()
+        check(torch.equal(got, want), f"tree_partition isofor d={d}")
+        t = time_ms(torch, lambda: tk.tree_partition(bins, nid, *dec,
+                                                     n_bins=B))
+        for key in ("ms", "host_paced_ms", "host_us"):
+            acc[key] += t[key]
+        acc["plain_ms"] += time_ms(torch, lambda: tk.partition_plain(
+            bins, nid, *dec, n_bins=B), reps=3)["ms"]
+        acc["bytes_ms"] += (N * (F * bins.element_size() + 8)
+                            + L * (B + 12)) / HBM_BYTES_PER_S * 1e3
+        acc["ops_ms"] += 4 * N / F32_OPS_PER_S * 1e3
+        nid = want
+    return timing_records({"tree_partition": acc}, counts, N,
+                          "phase20 timing", "isofor", range(D))[0]
+
+
+def phase_isolation_forests(torch, dev, cols, domains):
+    """Phase 20 on phase 4's rows with N_PLANT anomalies planted:
+    Isolation Forest at its defaults (ntrees=50, sample_size=256,
+    max_depth=8): one tree grown from fixed draws on the card equal to
+    the CPU plain version's (and the rows' path lengths), ``tree_partition``
+    launched ntrees x depth times growing and as many again for the
+    training metrics and for ``predict``, the planted rows scoring above
+    the rest (AUC >= 0.95), a same-seed refit bit-equal; Extended
+    Isolation Forest at its defaults (ntrees=100, sample_size=256) on the
+    7 numeric columns with extension_level 0 and 6 (no kernel). Returns
+    (launches by path, the tree_partition timing record)."""
+    import h2o3_tpu_torch as h2o
+    from h2o3_tpu_torch.frame.binning import bin_frame
+    from h2o3_tpu_torch.models import isofor
+    from h2o3_tpu_torch.models.gbm import tree_generator
+    from h2o3_tpu_torch.ops import kernels
+    pcols, bad = planted_anomalies(cols)
+    x = [c for c in cols if c != Y]
+    fr = h2o.Frame.from_numpy(pcols, domains=domains, device=dev)
+    n = len(bad)
+    depth = h2o.IsolationForestEstimator.DEFAULTS["max_depth"]
+    ntrees = h2o.IsolationForestEstimator.DEFAULTS["ntrees"]
+    # (a) growth from fixed draws: card vs CPU plain
+    bm = bin_frame(fr, x, nbins=64, nbins_cats=64, histogram_type="uniform")
+    check(bm.nbins_total == 65, f"isofor B {bm.nbins_total}")
+    gen = tree_generator(1, 0, dev)
+    w = fr.valid_weights() * (torch.rand(bm.bins.shape[0], generator=gen,
+                                         device=dev) < 256 / n).float()
+    dr = isofor.draw_tree(gen, bm.nbins, depth, dev)
+    t_card = isofor.grow_isolation_tree(bm.bins, w, dr["feat"],
+                                        dr["thresh"], dr["na_left"], B=65)
+    pl_card = isofor.tree_path_length(t_card, bm.bins, 65)
+    bins_cpu = bm.bins.cpu()
+    t_cpu = isofor.grow_isolation_tree(bins_cpu, w.cpu(),
+                                       *(dr[k].cpu() for k in (
+                                           "feat", "thresh", "na_left")),
+                                       B=65)
+    equal_trees(on_cpu(t_card), t_cpu, "isolation tree from fixed draws")
+    check(torch.equal(pl_card.cpu(), isofor.tree_path_length(
+        t_cpu, bins_cpu, 65)), "isolation path lengths card vs CPU plain")
+    say(f"phase20 isolation tree (depth {depth}, {int(w.sum())}-row bag) "
+        f"from fixed draws: card == CPU plain, field for field "
+        f"({int(t_card.is_split.sum())} splits), and every row's path "
+        "length")
+    # (b) the fit, predict, the planted rows, a refit
+    est = lambda: h2o.IsolationForestEstimator(**ISOFOR)  # noqa: E731
+    model, t_train, counts, peak = timed_fit(
+        torch, lambda: est().train(fr, x=x))
+    check_launches(counts, {"tree_partition": 2 * ntrees * depth},
+                   "Isolation Forest fit (growth and training metrics)")
+    kernels.reset_counts()
+    t0 = time.perf_counter()
+    pred = model.predict(fr)
+    torch.cuda.synchronize()
+    t_pred = time.perf_counter() - t0
+    counts_pred = dict(kernels.LAUNCHES)
+    check_launches(counts_pred, {"tree_partition": ntrees * depth},
+                   "Isolation Forest predict")
+    score = pred.col("predict").host_view()
+    check(np.isfinite(score).all() and score.shape == (n,),
+          "Isolation Forest scores")
+    auc = host_auc(score, bad)
+    check(auc >= 0.95, f"Isolation Forest planted-anomaly AUC {auc}")
+    again = est().train(fr, x=x)
+    check(forests_equal(again.forest, model.forest)
+          and again.training_metrics == model.training_metrics,
+          "Isolation Forest same-seed refit differs")
+    tm = model.training_metrics
+    say(f"phase20 IsolationForest {ISOFOR} (ntrees={ntrees}, sample_size="
+        f"256, max_depth={depth}) on {n} rows ({N_PLANT} planted): train "
+        f"{t_train:.3f} s, predict {t_pred:.3f} s, planted-anomaly AUC "
+        f"{auc:.6f}, mean score {tm['mean_score']:.6f}, mean length "
+        f"{tm['mean_length']:.6f}, path length bounds "
+        f"[{model.output['min_path_length']}, "
+        f"{model.output['max_path_length']}], peak device memory "
+        f"{peak / 2**30:.3f} GiB; same-seed refit bit-equal")
+    say(f"phase20 launches: fit {counts}, predict {counts_pred}")
+    record = isofor_partition_timing(torch, bm, t_card, counts)
+    paths = {"isofor": counts, "isofor_predict": counts_pred}
+    # (c) Extended Isolation Forest on the numeric columns
+    for ext in (0, len(NUMERIC) - 1):
+        model, t_train, counts, peak = timed_fit(
+            torch, lambda: h2o.ExtendedIsolationForestEstimator(
+                **EXTISOFOR, extension_level=ext).train(fr, x=list(NUMERIC)))
+        check_launches(counts, {}, f"Extended Isolation Forest ext={ext}")
+        t0 = time.perf_counter()
+        score = model.predict(fr).col("anomaly_score").host_view()
+        torch.cuda.synchronize()
+        t_pred = time.perf_counter() - t0
+        auc = host_auc(score, bad)
+        check(np.isfinite(score).all() and auc >= 0.9,
+              f"Extended Isolation Forest ext={ext} AUC {auc}")
+        say(f"phase20 ExtendedIsolationForest {EXTISOFOR} extension_level="
+            f"{ext} (ntrees=100, sample_size=256) on the {len(NUMERIC)} "
+            f"numeric columns: train {t_train:.3f} s, predict {t_pred:.3f} "
+            f"s, planted-anomaly AUC {auc:.6f}, peak device memory "
+            f"{peak / 2**30:.3f} GiB")
+        paths[f"extisofor_{ext}"] = counts
+    return paths, record
+
+
+def cpu_model(model):
+    """A shallow copy of a GBM or DRF model with its forest and binning
+    on the host (the CPU plain versions score it)."""
+    import copy
+    import dataclasses
+    m = copy.copy(model)
+    m.forest = on_cpu(model.forest)
+    m.bm = dataclasses.replace(model.bm, bins=model.bm.bins.cpu(),
+                               nbins=model.bm.nbins.cpu(),
+                               edges=model.bm.edges.cpu(), source_ref=None)
+    return m
+
+
+def host_columns(fr) -> np.ndarray:
+    return np.stack([fr.col(c).host_view() for c in fr.names], 1)
+
+
+def phase_scoring(torch, dev, fr, cols, domains, gbm, drf):
+    """Phase 21: the scoring surface of phase 4's GBM and phase 6's DRF.
+    Leaf assignment and feature frequencies over all 5M rows, EXACT
+    against the CPU plain versions on N_CHECK rows, the leaf values at the
+    assigned ids adding up to the margin (GBM) or mean vote (DRF); GBM's
+    staged probabilities, the last stage equal to ``predict``; TreeSHAP
+    contributions with local accuracy on every row they cover (GBM all
+    rows, DRF N_SHAP_DRF: see the printed cut) and within 1e-5·max(1,
+    |margin|) of the CPU plain version's. Returns the launches (none: the
+    surface is plain torch)."""
+    import h2o3_tpu_torch as h2o
+    from h2o3_tpu_torch.frame.binning import rebin_for_scoring
+    from h2o3_tpu_torch.ops import kernels
+    from h2o3_tpu_torch.parallel.device import fetch
+    n = len(cols[Y])
+    small = h2o.Frame.from_numpy({k: v[:N_CHECK] for k, v in cols.items()},
+                                 domains=domains, device="cpu")
+    kernels.reset_counts()
+    for label, model in (("GBM", gbm), ("DRF", drf)):
+        T = model.forest.feat.shape[0]
+        bm = rebin_for_scoring(model.bm, fr)
+        if label == "GBM":
+            margin = fetch(model._margins(bm))[:n]
+        else:
+            margin = fetch(model._mean_votes(bm)[:, 0])[:n]
+        cm = cpu_model(model)
+        secs = {}
+        outs = {}
+        for what in ("predict_leaf_node_assignment", "feature_frequencies"):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            outs[what] = getattr(model, what)(fr)
+            torch.cuda.synchronize()
+            secs[what] = time.perf_counter() - t0
+            want = getattr(cm, what)(small)
+            check(outs[what].names == want.names and np.array_equal(
+                host_columns(outs[what])[:N_CHECK], host_columns(want)),
+                f"{label} {what}: card != CPU plain on {N_CHECK} rows")
+        ids = host_columns(outs["predict_leaf_node_assignment"]).astype(
+            np.int64)
+        leaf = model.forest.leaf.cpu().numpy()
+        tot = np.zeros(n, np.float32)
+        for t in range(T):
+            tot = tot + leaf[t][ids[:, t]]
+        via_ids = (np.float32(model.f0) + tot if label == "GBM"
+                   else tot * np.float32(1.0 / T))
+        gap = float(np.abs(via_ids - margin).max())
+        check(gap <= 1e-6 * max(1.0, float(np.abs(margin).max())),
+              f"{label}: leaf values at the assigned ids miss the margin by "
+              f"{gap}")
+        ff = host_columns(outs["feature_frequencies"])
+        say(f"phase21 {label} on {n} rows: predict_leaf_node_assignment "
+            f"{secs['predict_leaf_node_assignment']:.3f} s, "
+            f"feature_frequencies {secs['feature_frequencies']:.3f} s, both "
+            f"== CPU plain on {N_CHECK} rows; leaf values at the ids add up "
+            f"to the {'margin' if label == 'GBM' else 'mean vote'} (max "
+            f"|gap| {gap:.3g}); mean splits a row {ff.sum(1).mean():.4f}")
+        del outs, ids, ff
+        if label == "GBM":
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            st = model.staged_predict_proba(fr)
+            torch.cuda.synchronize()
+            t_st = time.perf_counter() - t0
+            p0 = model.predict(fr).col("p0").host_view()
+            check(np.array_equal(st.col(f"T{T}.C1").host_view(), p0),
+                  "staged_predict_proba: the last stage != predict")
+            say(f"phase21 GBM staged_predict_proba over {T} stages: "
+                f"{t_st:.3f} s, the last stage == predict's p0")
+            del st
+        # contributions
+        rows = n if label == "GBM" else N_SHAP_DRF
+        sub = fr if rows == n else h2o.Frame.from_numpy(
+            {k: v[:rows] for k, v in cols.items()}, domains=domains,
+            device=dev)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        contrib = host_columns(model.predict_contributions(sub))
+        torch.cuda.synchronize()
+        t_c = time.perf_counter() - t0
+        peak = torch.cuda.max_memory_allocated()
+        tol = 1e-5 * np.maximum(1.0, np.abs(margin[:rows]))
+        acc_gap = np.abs(contrib.sum(1) - margin[:rows])
+        check((acc_gap <= tol).all(), f"{label} contributions: local "
+                                      f"accuracy off by {acc_gap.max()}")
+        n_cpu = N_CHECK if label == "GBM" else N_SHAP_DRF_CPU
+        t0 = time.perf_counter()
+        want = host_columns(cm.predict_contributions(
+            h2o.Frame.from_numpy({k: v[:n_cpu] for k, v in cols.items()},
+                                 domains=domains, device="cpu")))
+        t_cpu = time.perf_counter() - t0
+        err = np.abs(contrib[:n_cpu] - want)
+        check((err <= tol[:n_cpu, None]).all(),
+              f"{label} contributions card vs CPU plain: max |err| "
+              f"{err.max()}")
+        cut = "" if rows == n else (
+            f" (cut from {n} rows: the recursion streams every leaf's "
+            f"[rows, path] float32 weights ~90 times a tree, and a depth-"
+            f"{model.forest.feat.shape[1]} DRF tree has up to "
+            f"{2 ** model.forest.feat.shape[1]} leaves)")
+        say(f"phase21 {label} predict_contributions on {rows} rows{cut}: "
+            f"{t_c:.3f} s, peak device memory {peak / 2**30:.3f} GiB, local "
+            f"accuracy on every row (max |gap| {acc_gap.max():.3g}); card "
+            f"== CPU plain on {n_cpu} rows within 1e-5*max(1, |margin|) "
+            f"(max |err| {err.max():.3g}; CPU {t_cpu:.3f} s)")
+    counts = dict(kernels.LAUNCHES)
+    check_launches(counts, {}, "scoring surface")
+    return counts
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -2404,12 +2805,12 @@ def main() -> int:
     mark("phase 5")
     records = phase_timing(torch, dev, model, counts_gbm)
     phase_drf_grow_tree(torch, dev, bm)
+    gbm_model = model
     del fr_k, bm, model
     mark("phase 6")
     counts_drf, drf_model = phase_drf(torch, dev, fr)
     drf_forest = on_cpu(drf_model.forest)
     drf_auc = drf_model.training_metrics["AUC"]
-    del drf_model
     for rec in records:
         if rec["path"] == "drf":
             rec["launches"] = counts_drf[rec["name"]]
@@ -2453,7 +2854,6 @@ def main() -> int:
     phase_calibration(torch, dev, fr, domains)
     phase_runtime_cap(torch, dev, fr, cols, domains, gbm_forest,
                       metrics_main, drf_forest)
-    del fr
     mark("phase 18")
     counts_csv = phase_csv(torch, dev, cols, domains)
     paths = {"gbm": counts_gbm, "drf": counts_drf, "uplift": counts_up,
@@ -2463,6 +2863,25 @@ def main() -> int:
              "gbm_offset": counts_off, "gbm_checkpoint": counts_ckg,
              "drf_checkpoint": counts_ckd, "gbm_cv": counts_cv,
              "gbm_csv": counts_csv}
+    secs = {}
+    t19 = time.perf_counter()
+    mark("phase 19")
+    paths.update(phase_xgboost_histogram_types(torch, dev, fr, cols, domains,
+                                               gbm_forest))
+    secs[19] = time.perf_counter() - t19
+    mark("phase 20")
+    iso_paths, iso_record = phase_isolation_forests(torch, dev, cols, domains)
+    paths.update(iso_paths)
+    records.append(iso_record)
+    secs[20] = time.perf_counter() - t19 - secs[19]
+    mark("phase 21")
+    paths["tree_scoring"] = phase_scoring(torch, dev, fr, cols, domains,
+                                          gbm_model, drf_model)
+    secs[21] = time.perf_counter() - t19 - secs[19] - secs[20]
+    say("phases 19-21: " + ", ".join(f"phase {k} {v:.3f} s"
+                                     for k, v in secs.items())
+        + f", together {sum(secs.values()):.3f} s")
+    del fr, gbm_model, drf_model
     for rec in records:
         rec["max_abs_err"] = worst[rec["name"]]
         rec["launches_by_path"] = {p: c[rec["name"]]

@@ -13,6 +13,9 @@ JAX. Its TPU kernels are hand-written CUDA kernels under
     rf = h2o.DRFEstimator(ntrees=10, max_depth=10).train(fr, y="label")
     up = h2o.UpliftDRFEstimator(treatment_column="treatment").train(
         fr, y="visit")
+    xg = h2o.XGBoostEstimator(nrounds=10, eta=0.1).train(fr, y="label")
+    iso = h2o.IsolationForestEstimator(ntrees=50).train(fr)
+    m.predict_contributions(fr); m.predict_leaf_node_assignment(fr)
 
 Entry points default to ``torch.device("cuda")`` and raise when no card
 is present; pass ``device="cpu"`` to run the plain versions on the CPU.
@@ -21,8 +24,13 @@ is present; pass ``device="cpu"`` to run the plain versions on the CPU.
 from h2o3_tpu_torch.frame.frame import Frame
 from h2o3_tpu_torch.io.parser import import_file
 from h2o3_tpu_torch.models.drf import DRFEstimator
+from h2o3_tpu_torch.models.extisofor import ExtendedIsolationForestEstimator
 from h2o3_tpu_torch.models.gbm import GBMEstimator
+from h2o3_tpu_torch.models.isofor import IsolationForestEstimator
 from h2o3_tpu_torch.models.uplift import UpliftDRFEstimator
+from h2o3_tpu_torch.models.xgboost import XGBoostEstimator
 
-__all__ = ["Frame", "import_file", "DRFEstimator", "GBMEstimator",
-           "UpliftDRFEstimator"]
+__all__ = ["Frame", "import_file", "DRFEstimator",
+           "ExtendedIsolationForestEstimator", "GBMEstimator",
+           "IsolationForestEstimator", "UpliftDRFEstimator",
+           "XGBoostEstimator"]

@@ -133,14 +133,19 @@ def bin_frame(frame: Frame, features: Sequence[str], nbins: int = 64,
               edges_override: Optional[List[np.ndarray]] = None,
               nbins_total_override: Optional[int] = None,
               train_domains: Optional[List[Optional[List[str]]]] = None,
+              histogram_type: str = "quantiles",
               weights: Optional[np.ndarray] = None) -> BinnedMatrix:
     """Bin ``features`` of ``frame`` into a device int matrix on the
     frame's device.
 
     ``edges_override``/``train_domains`` re-bin a scoring frame with
     training-time edges and categorical domains (unseen test levels map
-    to the NA bin). ``weights`` (host [nrows]) makes the quantile sketch
-    weighted so the row-weight ≡ row-multiplicity contract holds.
+    to the NA bin). ``histogram_type`` is ``_numeric_edges``'s method
+    (``quantiles``, ``uniform`` or ``random``; any other spelling takes
+    the quantile branch). ``weights`` (host [nrows]) makes the quantile
+    sketch weighted so the row-weight ≡ row-multiplicity contract holds.
+    The port keeps no cache of binned matrices (the reference's is keyed
+    by ``histogram_type`` too); a CV fit shares its main model's.
     """
     F = len(features)
     names = list(features)
@@ -167,7 +172,8 @@ def bin_frame(frame: Frame, features: Sequence[str], nbins: int = 64,
             if edges_override is not None:
                 e = edges_override[i]
             else:
-                e = _numeric_edges(c.host_view(), nbins, w=weights)
+                e = _numeric_edges(c.host_view(), nbins, histogram_type,
+                                   w=weights)
             nb[i] = len(e) + 1
             edge_list.append(e)
 

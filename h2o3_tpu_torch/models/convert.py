@@ -1,7 +1,9 @@
 """Carry trained forests across from the reference package's numpy images.
 
-``gbm_model_from_arrays``, ``drf_model_from_arrays`` and
-``uplift_model_from_arrays`` build port models from plain numpy arrays
+``gbm_model_from_arrays`` (a reference XGBoost model is a GBM model and
+comes across by it), ``drf_model_from_arrays``,
+``uplift_model_from_arrays``, ``isofor_model_from_arrays`` and
+``extisofor_model_from_arrays`` build port models from plain numpy arrays
 and lists — every ``Tree`` field of the stacked forest, the training
 binning (``edges``, ``nbins``, ``is_cat``, ``names``, ``domains``,
 ``nbins_total``, ``nbins_cats``) and the model's own fields — so both
@@ -22,7 +24,10 @@ import torch
 from h2o3_tpu_torch.frame.binning import BinnedMatrix
 from h2o3_tpu_torch.ml.calibration import Calibrator
 from h2o3_tpu_torch.models.drf import DRFModel
+from h2o3_tpu_torch.models.extisofor import (ExtendedIsolationForestModel,
+                                             ExtTree)
 from h2o3_tpu_torch.models.gbm import GBMModel
+from h2o3_tpu_torch.models.isofor import ANOMALY, IsolationForestModel
 from h2o3_tpu_torch.models.tree import Tree
 from h2o3_tpu_torch.models.uplift import UpliftDRFModel
 from h2o3_tpu_torch.parallel.device import DeviceLike, resolve_device
@@ -142,3 +147,40 @@ def uplift_model_from_arrays(d: Arrays,
     return UpliftDRFModel(params, output, _forest(d, dev),
                           _f32(d["leaf_pt"], dev), _f32(d["leaf_pc"], dev),
                           _binned(d, dev))
+
+
+def isofor_model_from_arrays(
+        d: Arrays, device: DeviceLike = None) -> IsolationForestModel:
+    """Port ``IsolationForestModel`` on ``device`` from the reference
+    model's images: the ``Tree`` fields, the binning keys of
+    ``gbm_model_from_arrays``, ``c_norm``, and optionally
+    ``min_path_length`` / ``max_path_length`` (the training bounds of
+    the score; without them it is 2^(-l / c_norm)) and ``params``."""
+    dev = resolve_device(device)
+    output = {"category": ANOMALY, "response": None,
+              "names": list(d["names"]), "domain": None}
+    for k in ("min_path_length", "max_path_length"):
+        if d.get(k) is not None:
+            output[k] = int(d[k])
+    return IsolationForestModel(dict(d.get("params") or {}), output,
+                                _forest(d, dev), _binned(d, dev),
+                                float(d["c_norm"]))
+
+
+def extisofor_model_from_arrays(
+        d: Arrays, device: DeviceLike = None) -> ExtendedIsolationForestModel:
+    """Port ``ExtendedIsolationForestModel`` on ``device`` from the
+    reference model's images: ``normals`` [T, D, Lmax, F], ``offsets``
+    and ``is_split`` [T, D, Lmax], ``leaf`` [T, 2^D], ``means`` and
+    ``features`` (the numeric columns, in order), ``c_norm``, and
+    optionally ``params``."""
+    dev = resolve_device(device)
+    forest = ExtTree(_f32(d["normals"], dev), _f32(d["offsets"], dev),
+                     torch.from_numpy(np.array(d["is_split"], bool)).to(
+                         dev),
+                     _f32(d["leaf"], dev))
+    output = {"category": ANOMALY, "response": None,
+              "names": list(d["features"]), "domain": None}
+    return ExtendedIsolationForestModel(
+        dict(d.get("params") or {}), output, forest, float(d["c_norm"]),
+        [float(m) for m in d["means"]], list(d["features"]))

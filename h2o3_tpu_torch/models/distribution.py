@@ -96,6 +96,46 @@ def _log_f32(m: float) -> float:
     return float(_f32(x + _f32(_LOG_Q2 * e)))
 
 
+def log_f32(m: torch.Tensor) -> torch.Tensor:
+    """``_log_f32`` on a tensor of positive values: the same polynomial
+    in float32 ops, each fused multiply-add taken in float64 (the product
+    of two float32 values is exact there) and rounded once to float32,
+    so it gives the reference's float32 ``jnp.log`` bits, where the
+    correctly rounded ``torch.log`` differs in the last bit for some
+    inputs."""
+    f32, f64 = torch.float32, torch.float64
+    x = torch.clamp_min(m.to(f32), 1.17549435e-38)
+    bits = x.view(torch.int32)
+    e = (((bits >> 23) & 0xFF) - 0x7F).to(f32) + 1.0
+    x = ((bits & ~0x7F800000) | 0x3F000000).view(f32)
+    small = x < 0.707106781186547524
+    tmp = torch.where(small, x, 0.0)
+    x = x - 1.0
+    e = e - small.to(f32)
+    x = x + tmp
+    x2 = x * x
+    x3 = x2 * x
+
+    def fma(a, b, c):
+        b = b.to(f64) if isinstance(b, torch.Tensor) else float(b)
+        c = c.to(f64) if isinstance(c, torch.Tensor) else float(c)
+        return (a.to(f64) * b + c).to(f32)
+
+    p = _LOG_P
+    y = fma(x, p[0], p[1])
+    y1 = fma(x, p[3], p[4])
+    y2 = fma(x, p[6], p[7])
+    y = fma(y, x, p[2])
+    y1 = fma(y1, x, p[5])
+    y2 = fma(y2, x, p[8])
+    y = fma(y, x3, y1)
+    y = fma(y, x3, y2)
+    y = fma(y, x3, e * float(_LOG_Q1))
+    x = x - x2 * 0.5
+    x = x + y
+    return x + e * float(_LOG_Q2)
+
+
 def _logit_f32(m: float) -> float:
     """float32 log-odds of a host mean, as the reference takes it."""
     return _log_f32(max(m, EPS) / max(1.0 - m, EPS))

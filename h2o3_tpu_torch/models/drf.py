@@ -41,6 +41,7 @@ from h2o3_tpu_torch.frame.binning import (BinnedMatrix, bin_frame,
                                           rebin_for_scoring)
 from h2o3_tpu_torch.frame.frame import Frame
 from h2o3_tpu_torch.ml.calibration import maybe_calibrate
+from h2o3_tpu_torch.ml.shap import contributions_frame
 from h2o3_tpu_torch.models import metrics as mm
 from h2o3_tpu_torch.models.gbm import (CHECKPOINT_NON_MODIFIABLE as
                                        _TREE_NON_MODIFIABLE,
@@ -52,7 +53,9 @@ from h2o3_tpu_torch.models.model import (Deadline, Model, ModelBuilder,
                                          prior_trees, require_local,
                                          resolve_checkpoint_model)
 from h2o3_tpu_torch.models.tree import (Tree, TreeParams, bucket_depth,
-                                        concat_forests, grow_tree,
+                                        concat_forests,
+                                        feature_frequencies_frame,
+                                        grow_tree, leaf_assignment_frame,
                                         predict_forest, scalars_of,
                                         stack_trees)
 from h2o3_tpu_torch.parallel.device import fetch
@@ -61,6 +64,14 @@ MAX_COMPLETE_DEPTH = 14  # complete-tree layout: histograms are 2^d·F·B·3
 # SharedTree's checkpoint-non-modifiable fields plus DRF's own knobs
 CHECKPOINT_NON_MODIFIABLE = _TREE_NON_MODIFIABLE + (
     "mtries", "histogram_type", "binomial_double_trees")
+
+
+def edge_method(histogram_type) -> str:
+    """``_numeric_edges``'s method for a DRF ``histogram_type``, mapped
+    as the reference maps it (drf.py:306-308)."""
+    ht = str(histogram_type).lower()
+    return {"auto": "quantiles", "quantilesglobal": "quantiles",
+            "uniformadaptive": "uniform"}.get(ht, ht)
 
 
 def bag_step(bm: BinnedMatrix, ys, w, oob_sum, oob_cnt,
@@ -191,6 +202,23 @@ class DRFModel(Model):
         return mm.binomial_metrics(self._probs(bm)[:, 1],
                                    yv.to(torch.float32), w)
 
+    def predict_leaf_node_assignment(self, frame: Frame) -> Frame:
+        """Per-tree terminal node ids (h2o-py predict_leaf_node_assignment
+        with type Node_ID); per-class columns T{t}.C{k} for a classifier."""
+        return leaf_assignment_frame(self, frame)
+
+    def feature_frequencies(self, frame: Frame) -> Frame:
+        """Per-row feature usage counts on the decision paths (h2o-py
+        feature_frequencies)."""
+        return feature_frequencies_frame(self, frame)
+
+    def predict_contributions(self, frame: Frame) -> Frame:
+        """TreeSHAP contributions; a row sums to the (unclipped) mean
+        vote, the reference's DRF contract. Multinomial raises."""
+        return contributions_frame(
+            self, frame, scale=1.0 / (self.forest.feat.shape[0]
+                                      // self.n_class_trees))
+
     @property
     def varimp_table(self) -> List:
         return self.output.get("varimp") or []
@@ -199,7 +227,13 @@ class DRFModel(Model):
 class DRFEstimator(ModelBuilder):
     """h2o-py H2ORandomForestEstimator-compatible surface: binomial,
     multinomial and regression, with cross-validation, checkpoint
-    restarts, a runtime cap and calibration. Parameters outside
+    restarts, a runtime cap, calibration and ``histogram_type``
+    (``auto``/``QuantilesGlobal``: quantile edges, ``UniformAdaptive``:
+    equal widths, ``Random``: XRT's random edges; any other spelling, e.g.
+    ``RoundRobin``, takes the quantile branch, as in the reference).
+    ``stopping_rounds``, ``stopping_metric``, ``stopping_tolerance``,
+    ``binomial_double_trees`` and ``distribution`` are accepted and
+    inert: the reference's fit reads none of them. Parameters outside
     ``PORTED`` keep the reference's names and defaults; setting one away
     from its default raises ``NotImplementedError``."""
 
@@ -228,7 +262,10 @@ class DRFEstimator(ModelBuilder):
         "seed", "weights_column", "ignored_columns", "max_runtime_secs",
         "nfolds", "fold_column", "fold_assignment",
         "keep_cross_validation_models", "checkpoint", "calibrate_model",
-        "calibration_frame", "calibration_method"))
+        "calibration_frame", "calibration_method", "histogram_type",
+        # accepted and inert, as in the reference
+        "stopping_rounds", "stopping_metric", "stopping_tolerance",
+        "binomial_double_trees", "distribution"))
 
     def _fit(self, frame: Frame, x: Sequence[str], y: Optional[str],
              validation_frame: Optional[Frame] = None):
@@ -263,7 +300,9 @@ class DRFEstimator(ModelBuilder):
             bm = shared_bm
         else:
             bm = bin_frame(frame, x, nbins=p["nbins"],
-                           nbins_cats=p["nbins_cats"], weights=wh_host)
+                           nbins_cats=p["nbins_cats"],
+                           histogram_type=edge_method(p["histogram_type"]),
+                           weights=wh_host)
 
         # complete-tree layout: a level costs 2^d histogram node slots
         # whether or not rows reach them, so the depth is capped by the

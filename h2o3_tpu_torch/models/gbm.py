@@ -56,16 +56,19 @@ from h2o3_tpu_torch.frame.binning import (BinnedMatrix, bin_frame,
                                           rebin_for_scoring)
 from h2o3_tpu_torch.frame.frame import Frame
 from h2o3_tpu_torch.ml.calibration import maybe_calibrate
+from h2o3_tpu_torch.ml.shap import contributions_frame
 from h2o3_tpu_torch.models import metrics as mm
 from h2o3_tpu_torch.models.distribution import get_distribution
 from h2o3_tpu_torch.models.model import (Deadline, EarlyStopper, Model,
                                          ModelBuilder, ModelCategory,
                                          adapt_domain, check_donor,
                                          infer_category, masked_weights,
-                                         prior_trees,
+                                         prior_trees, require_local,
                                          resolve_checkpoint_model)
 from h2o3_tpu_torch.models.tree import (Tree, TreeParams, bucket_depth,
-                                        concat_forests, grow_tree,
+                                        concat_forests,
+                                        feature_frequencies_frame,
+                                        grow_tree, leaf_assignment_frame,
                                         predict_forest, predict_tree,
                                         scalars_of, stack_trees)
 from h2o3_tpu_torch.parallel.device import fetch
@@ -333,6 +336,66 @@ class GBMModel(Model):
             out.update({f"p{k}": pred[:, k] for k in range(pred.shape[1])})
             return out
         return {"predict": pred}
+
+    def predict_leaf_node_assignment(self, frame: Frame) -> Frame:
+        """Per-tree terminal node ids (h2o-py predict_leaf_node_assignment
+        with type Node_ID); per-class columns T{t}.C{k} for a classifier."""
+        return leaf_assignment_frame(self, frame)
+
+    def feature_frequencies(self, frame: Frame) -> Frame:
+        """Per-row feature usage counts on the decision paths (h2o-py
+        feature_frequencies)."""
+        return feature_frequencies_frame(self, frame)
+
+    def staged_predict_proba(self, frame: Frame) -> Frame:
+        """Probabilities (or the response) after each iteration (h2o-py
+        staged_predict_proba): T{t}.C{k} per class for multinomial, T{t}.C1
+        = p0 for binomial (the reference's first-class convention), T{t}
+        for regression; offsets added. The margins stay on the device,
+        with one fetch at the end; each stage adds f0 to the running sum
+        of the trees, as ``predict`` adds it to the forest's, so the last
+        stage is ``predict``'s."""
+        require_local(frame, self.algo)
+        bm = rebin_for_scoring(self.bm, frame)
+        n = frame.nrows
+        B = bm.nbins_total
+        K = self.n_class_trees
+        T = self.forest.feat.shape[0] // K
+        dev = bm.bins.device
+        f0 = torch.as_tensor(np.asarray(self.f0, np.float32), device=dev)
+        off = frame_offset(frame, self.params.get("offset_column"))
+        acc = torch.zeros((bm.bins.shape[0], K), dtype=torch.float32,
+                          device=dev)
+        stages = []
+        for t in range(T):
+            acc = acc + torch.stack([
+                predict_tree(Tree(*(a[t * K + k] for a in self.forest)),
+                             bm.bins, B) for k in range(K)], dim=1)
+            marg = f0 + acc if self.multinomial else f0 + acc[:, 0]
+            if off is not None:
+                marg = marg + (off[:, None] if self.multinomial else off)
+            stages.append(self._link(marg))
+        probs = fetch(torch.stack(stages))[:, :n]
+        cat = self.output["category"]
+        cols = {}
+        for t in range(T):
+            if self.multinomial:
+                for k in range(K):
+                    cols[f"T{t + 1}.C{k + 1}"] = probs[t, :, k]
+            elif cat == ModelCategory.BINOMIAL:
+                cols[f"T{t + 1}.C1"] = 1.0 - probs[t]       # p0
+            else:
+                cols[f"T{t + 1}"] = probs[t]
+        return Frame.from_numpy(cols, device=frame.device)
+
+    def predict_contributions(self, frame: Frame) -> Frame:
+        """TreeSHAP contributions (h2o-py predict_contributions): a column
+        a feature and BiasTerm, summing to the link-space margin."""
+        if self.multinomial:
+            raise ValueError("predict_contributions supports only "
+                             "regression and binomial models "
+                             "(got Multinomial)")
+        return contributions_frame(self, frame, bias_offset=float(self.f0))
 
     def model_performance(self, frame: Frame, mask_weights=None):
         y = self.output["response"]

@@ -20,6 +20,7 @@ from __future__ import annotations
 import dataclasses
 from typing import NamedTuple, Optional
 
+import numpy as np
 import torch
 
 from h2o3_tpu_torch.ops.fixed_point import exponents
@@ -132,15 +133,19 @@ def _level_goleft(feat_d, thresh_d, nal_d, isp_d, cat_d, lw_d, nid, bins,
     assignment. Numeric splits compare bin <= t; categorical subset
     splits test the row's bin bit in the node's packed left-set."""
     n = nid.long()
-    b_r = row_feature_values(bins, feat_d[n])
+
+    def at(t):          # t[n]: see partition_plain
+        return t.index_select(0, n)
+
+    b_r = row_feature_values(bins, at(feat_d))
     isna = b_r == (B - 1)
-    go_num = b_r <= thresh_d[n]
+    go_num = b_r <= at(thresh_d)
     W = lw_d.shape[1]
     widx = (b_r >> 5).clamp(0, W - 1).long()
-    word = lw_d[n, widx]
+    word = lw_d.reshape(-1).index_select(0, n * W + widx)
     inset = ((word >> (b_r & 31)) & 1) == 1
-    go_split = torch.where(cat_d[n], inset, go_num)
-    goleft = torch.where(isp_d[n], torch.where(isna, nal_d[n], go_split),
+    go_split = torch.where(at(cat_d), inset, go_num)
+    goleft = torch.where(at(isp_d), torch.where(isna, at(nal_d), go_split),
                          True)
     return (2 * nid + torch.where(goleft, 0, 1)).to(torch.int32)
 
@@ -279,7 +284,12 @@ def _route(tree: Tree, bins, B: int):
 
 def predict_tree(tree: Tree, bins, B: int):
     """Route binned rows through one tree → leaf values [N]."""
-    return tree.leaf[_route(tree, bins, B).long()]
+    return tree.leaf.index_select(0, _route(tree, bins, B).long())
+
+
+def _tree_at(stacked: Tree, t: int) -> Tree:
+    """Tree t of a stacked forest."""
+    return Tree(*(a[t] for a in stacked))
 
 
 def stack_trees(trees) -> Tree:
@@ -302,5 +312,83 @@ def predict_forest(stacked: Tree, bins, B: int):
     total = torch.zeros((bins.shape[0],), dtype=torch.float32,
                         device=bins.device)
     for t in range(stacked.feat.shape[0]):
-        total = total + predict_tree(Tree(*(a[t] for a in stacked)), bins, B)
+        total = total + predict_tree(_tree_at(stacked, t), bins, B)
     return total
+
+
+# ------------------------------------------------ scoring surface helpers
+
+
+def feature_path_counts(stacked: Tree, bins, B: int, F: int):
+    """Per-row counts of each feature's splits on the rows' decision
+    paths, summed over all trees: [N, F] int32 (hex/tree SharedTreeModel
+    feature_frequencies)."""
+    counts = torch.zeros((bins.shape[0], F), dtype=torch.int32,
+                         device=bins.device)
+    for t in range(stacked.feat.shape[0]):
+        tree = _tree_at(stacked, t)
+        nid = torch.zeros((bins.shape[0],), dtype=torch.int32,
+                          device=bins.device)
+        for d in range(tree.feat.shape[0]):
+            n = nid.long()
+            counts.scatter_add_(
+                1, tree.feat[d].index_select(0, n).long()[:, None],
+                tree.is_split[d].index_select(0, n).to(torch.int32)[:, None])
+            nid = _level_goleft(tree.feat[d], tree.thresh[d],
+                                tree.na_left[d], tree.is_split[d],
+                                tree.cat_split[d], tree.left_words[d], nid,
+                                bins, B)
+    return counts
+
+
+def leaf_assignments(stacked: Tree, bins, B: int):
+    """Per-tree terminal node id of every row, [N, T] int32 (hex/Model
+    scoreLeafNode: h2o-py predict_leaf_node_assignment, type Node_ID)."""
+    return torch.stack([_route(_tree_at(stacked, t), bins, B)
+                        for t in range(stacked.feat.shape[0])], dim=1)
+
+
+def feature_frequencies_frame(model, frame):
+    """Per-row feature usage counts as a Frame on the frame's device, one
+    float64 column a feature (h2o-py feature_frequencies)."""
+    from h2o3_tpu_torch.frame.binning import rebin_for_scoring
+    from h2o3_tpu_torch.frame.frame import Frame
+    from h2o3_tpu_torch.models.model import require_local
+    require_local(frame, model.algo)
+    bm = rebin_for_scoring(model.bm, frame)
+    F = bm.bins.shape[1]
+    counts = feature_path_counts(model.forest, bm.bins, model.bm.nbins_total,
+                                 F)[:frame.nrows].cpu().numpy()
+    return Frame.from_numpy({bm.names[j]: counts[:, j].astype(np.float64)
+                             for j in range(F)}, device=frame.device)
+
+
+def leaf_assignment_frame(model, frame):
+    """GBM/DRF predict_leaf_node_assignment: a column T{t} a tree, T{t}.C{k}
+    a class tree of a classifier (the h2o names)."""
+    from h2o3_tpu_torch.frame.binning import rebin_for_scoring
+    from h2o3_tpu_torch.frame.frame import Frame
+    from h2o3_tpu_torch.models.model import require_local
+    require_local(frame, model.algo)
+    bm = rebin_for_scoring(model.bm, frame)
+    ids = leaf_assignments(model.forest, bm.bins, model.bm.nbins_total)
+    # trees are laid out at the depth bucket, with the levels past the
+    # requested depth never splitting: rows go left through them, so the
+    # shift back to the requested depth's id space is exact
+    D = int(model.forest.feat.shape[1])
+    d_req = min(int(model.params.get("max_depth") or D), D)
+    if d_req < D:
+        ids = ids >> (D - d_req)
+    ids = ids[:frame.nrows].cpu().numpy()
+    category = model.output.get("category")
+    K = (model.output.get("nclasses", 1)
+         if category == "Multinomial" else 1)
+    # classifiers' columns carry .C{k}, binomial too (SharedTreeModel.java:
+    # 326 drops it only for a single tree an iteration: regression)
+    suffixed = category in ("Binomial", "Multinomial")
+    cols = {}
+    for j in range(ids.shape[1]):
+        name = (f"T{j // K + 1}.C{j % K + 1}" if suffixed
+                else f"T{j + 1}")
+        cols[name] = ids[:, j].astype(np.float64)
+    return Frame.from_numpy(cols, device=frame.device)

@@ -300,14 +300,21 @@ def tree_split(lh, prev, col_mask, nb, is_cat, constraints, lo, hi, knobs,
 def partition_plain(bins, nid, feat, thresh, na_left, split, cat_split,
                     leftmask, *, n_bins: int):
     """Plain version of ``tree_partition`` (``_level_goleft`` on the raw
-    per-node decisions, gated by ``split``)."""
+    per-node decisions, gated by ``split``). Per-node tables are read by
+    ``index_select``: on the CPU, indexing a small table by a long row
+    index (``table[n]``) is far slower."""
     n = nid.long()
-    b = bins.gather(1, feat.long()[n][:, None])[:, 0].to(torch.int32)
+
+    def at(t):
+        return t.index_select(0, n)
+
+    b = bins.gather(1, at(feat.long())[:, None])[:, 0].to(torch.int32)
     isna = b == n_bins - 1
     real = (b >= 0) & (b < n_bins - 1)
-    inset = leftmask[n, b.clamp(0, n_bins - 2).long()] & real
-    go_split = torch.where(cat_split[n], inset, b <= thresh[n])
-    goleft = torch.where(split[n], torch.where(isna, na_left[n], go_split),
+    inset = leftmask.reshape(-1).index_select(
+        0, n * (n_bins - 1) + b.clamp(0, n_bins - 2).long()) & real
+    go_split = torch.where(at(cat_split), inset, b <= at(thresh))
+    goleft = torch.where(at(split), torch.where(isna, at(na_left), go_split),
                          True)
     return (2 * nid + torch.where(goleft, 0, 1)).to(torch.int32)
 

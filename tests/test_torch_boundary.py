@@ -43,6 +43,11 @@ SLICE_MODULES = (
     "h2o3_tpu_torch/io/parser.py",
     "h2o3_tpu_torch/frame/column.py",
     "h2o3_tpu_torch/frame/frame.py",
+    "h2o3_tpu_torch/frame/rollups.py",
+    "h2o3_tpu_torch/models/xgboost.py",
+    "h2o3_tpu_torch/models/isofor.py",
+    "h2o3_tpu_torch/models/extisofor.py",
+    "h2o3_tpu_torch/ml/shap.py",
 )
 # sources the port compiles: its kernels and its tokenizer
 NATIVE_FILES = sorted(str(p.relative_to(ROOT)) for p in PKG.rglob("*")

@@ -809,3 +809,77 @@ def test_route_l512_categorical_unaligned(dev, monkeypatch, in_smem):
                 got = fn(bv, nv, *dec, n_bins=B)
                 torch.cuda.synchronize()
                 assert torch.equal(got, want), (n, k, fn.__name__)
+
+
+def _iso_inputs(dev, n=N):
+    """Airlines bins binned uniform (B = 65), a 256-row bag and one tree's
+    draws from a CPU generator, on ``dev``."""
+    import h2o3_tpu_torch as h2o
+    from h2o3_tpu_torch.frame.binning import bin_frame
+    from h2o3_tpu_torch.models import isofor
+    cols, domains = cs.airlines_arrays(n)
+    x = [c for c in cols if c != "IsDepDelayed"]
+    fr = h2o.Frame.from_numpy(cols, domains=domains, device=dev)
+    bm = bin_frame(fr, x, nbins=64, nbins_cats=64, histogram_type="uniform")
+    r = np.random.RandomState(46)
+    w = np.zeros(bm.bins.shape[0], np.float32)
+    w[r.choice(n, 256, replace=False)] = 1.0
+    dr = isofor.draw_tree(torch.Generator().manual_seed(3),
+                          bm.nbins.cpu(), 8, "cpu")
+    return bm, torch.from_numpy(w), dr
+
+
+def test_isolation_tree_growth_and_scoring_kernel_vs_plain(dev):
+    """One isolation tree grown from fixed draws through ``tree_partition``
+    on the card equals the plain version's field for field, and so do the
+    rows' path lengths (8 launches growing, 8 scoring)."""
+    from h2o3_tpu_torch.models import isofor
+    bm, w, dr = _iso_inputs(dev)
+    B = bm.nbins_total
+    kernels.reset_counts()
+    t_k = isofor.grow_isolation_tree(bm.bins, w.to(dev),
+                                     *(dr[k].to(dev) for k in (
+                                         "feat", "thresh", "na_left")), B=B)
+    pl_k = isofor.tree_path_length(t_k, bm.bins, B)
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES["tree_partition"] == 16
+    bins = bm.bins.cpu()
+    t_p = isofor.grow_isolation_tree(bins, w, dr["feat"], dr["thresh"],
+                                     dr["na_left"], B=B)
+    for f in t_p._fields:
+        assert torch.equal(getattr(t_k, f).cpu(), getattr(t_p, f)), f
+    assert torch.equal(pl_k.cpu(), isofor.tree_path_length(t_p, bins, B))
+    assert int(t_p.is_split.sum()) > 20
+
+
+def test_xgboost_forest_is_the_gbm_forest_on_the_card(dev):
+    import h2o3_tpu_torch as h2o
+    cols, domains = cs.airlines_arrays(N)
+    fr = h2o.Frame.from_numpy(cols, domains=domains, device=dev)
+    kw = dict(max_depth=5, seed=3, reg_lambda=1.0)
+    xg = h2o.XGBoostEstimator(nrounds=4, eta=0.2, gamma=1e-3, max_bins=40,
+                              subsample=0.8, **kw).train(fr, y=cs.Y)
+    gb = h2o.GBMEstimator(ntrees=4, learn_rate=0.2,
+                          min_split_improvement=1e-3, nbins=40,
+                          sample_rate=0.8, **kw).train(fr, y=cs.Y)
+    for a, b in zip(xg.forest, gb.forest):
+        assert torch.equal(a, b)
+
+
+def test_contributions_card_vs_cpu(dev):
+    """TreeSHAP of one GBM forest on the card and on the CPU: within
+    1e-5·max(1, |margin|), rows summing to the forest's output."""
+    import h2o3_tpu_torch as h2o
+    from h2o3_tpu_torch.ml import shap
+    from h2o3_tpu_torch.models.tree import predict_forest
+    cols, domains = cs.airlines_arrays(N)
+    m = h2o.GBMEstimator(ntrees=3, max_depth=6, seed=1).train(
+        h2o.Frame.from_numpy(cols, domains=domains, device=dev), y=cs.Y)
+    bins, B = m.bm.bins[:N], m.bm.nbins_total
+    got = shap.forest_contributions(m.forest, bins, B)
+    cpu = type(m.forest)(*(a.cpu() for a in m.forest))
+    want = shap.forest_contributions(cpu, bins.cpu(), B)
+    out = predict_forest(m.forest, bins, B).cpu().numpy()
+    tol = 1e-5 * np.maximum(1.0, np.abs(out))
+    assert (np.abs(got - want) <= tol[:, None]).all()
+    assert (np.abs(got.sum(1) - out) <= tol).all()

@@ -175,8 +175,8 @@ def test_drf_depth_caps():
 
 
 def _drf_parameter_trains(param):
-    """What each parameter the port took on in slice 7 does on a small
-    fit (the case names of ``test_drf_unported_parameters_raise``)."""
+    """What each parameter the port took on in slices 7 and 9 does on a
+    small fit (the case names of ``test_drf_unported_parameters_raise``)."""
     cols, cats = _mixed_cols(n=400, seed=4)
     fr = h2o3_tpu_torch.Frame.from_numpy(cols, categorical=cats,
                                          device="cpu")
@@ -201,11 +201,24 @@ def _drf_parameter_trains(param):
         for f in Tree._fields:
             assert torch.equal(getattr(m.forest, f),
                                getattr(plain.forest, f)), f
-    else:
+    elif param == "calibrate_model":
         m = h2o3_tpu_torch.DRFEstimator(calibrate_model=True,
                                         calibration_frame=fr, **kw).train(
             fr, y="y")
         assert m.predict(fr).names[-2:] == ["cal_p0", "cal_p1"]
+    elif param == "histogram_type":
+        m = h2o3_tpu_torch.DRFEstimator(histogram_type="random",
+                                        **kw).train(fr, y="y")
+        assert not torch.equal(m.bm.edges, plain.bm.edges)
+        assert m.training_metrics["AUC"] > 0.6
+    else:
+        # accepted and inert, as in the reference
+        value = {"binomial_double_trees": True, "stopping_rounds": 2}[param]
+        m = h2o3_tpu_torch.DRFEstimator(**{param: value}, **kw).train(
+            fr, y="y")
+        for f in Tree._fields:
+            assert torch.equal(getattr(m.forest, f),
+                               getattr(plain.forest, f)), f
 
 
 @pytest.mark.parametrize("param,value", [
@@ -213,16 +226,17 @@ def _drf_parameter_trains(param):
     ("calibrate_model", True), ("histogram_type", "random"),
     ("binomial_double_trees", True), ("stopping_rounds", 2)])
 def test_drf_unported_parameters_raise(param, value):
-    """histogram_type, binomial_double_trees and stopping_rounds are not
-    ported and raise. nfolds, checkpoint, max_runtime_secs and
-    calibrate_model are ported now: their cases hold that DRF accepts
-    each and trains with it."""
-    if param in ("nfolds", "checkpoint", "max_runtime_secs",
-                 "calibrate_model"):
-        _drf_parameter_trains(param)
-        return
-    with pytest.raises(NotImplementedError, match=param):
-        h2o3_tpu_torch.DRFEstimator(**{param: value})
+    """Every case is ported now, so each holds that DRF accepts the
+    parameter and trains with it: nfolds, checkpoint, max_runtime_secs
+    and calibrate_model since slice 7, histogram_type since slice 9 (its
+    edges change), and binomial_double_trees and stopping_rounds, which
+    the reference reads nowhere, accepted and inert (the forest is the
+    default fit's). A parameter still off the ported list raises."""
+    _drf_parameter_trains(param)
+    h2o3_tpu_torch.DRFEstimator(**{param: value})
+    with pytest.raises(NotImplementedError,
+                       match="keep_cross_validation_predictions"):
+        h2o3_tpu_torch.DRFEstimator(keep_cross_validation_predictions=True)
 
 
 def test_drf_surface_errors():
