@@ -148,10 +148,41 @@ Phases, in order; any failure exits non-zero and no phase carries on:
     the assigned ids adding up to the margin (mean vote); GBM's
     ``staged_predict_proba``, its last stage equal to ``predict``;
     ``predict_contributions`` (TreeSHAP, plain torch on the card) with
-    local accuracy on every row it covers (GBM all 5M rows, DRF 1M: the
-    cut and its reason are printed) and within 1e-5·max(1, |margin|) of
+    local accuracy on every row it covers (GBM all 5M rows, DRF 250K:
+    the cut and its reason are printed; 1M before phase 22 came) and within 1e-5·max(1, |margin|) of
     the CPU plain version's (GBM on 20K rows, DRF on 2K); seconds and
     peak memory. No kernel runs on this path.
+22. GLM (no kernel: the Gram is a cuBLAS SGEMM with TF32 held off, the
+    solvers plain torch). (a) bench.py's GLM benchmark at its shape,
+    nothing cut: 11,000,000 x 28 float32 from RandomState(3), binomial,
+    standardize, lambda 0; IRLSM (max_iterations=8) and L-BFGS (40):
+    train seconds, row-iterations/s, AUC and peak memory, each refit
+    bit-equal; the IRLSM fit's de-standardized coefficients within 0.02
+    of the generating beta, L-BFGS's AUC within 1e-3 of IRLSM's; the Gram
+    at the fit within 2^-16·Σ|w x x| of a float64 Gram, inside the
+    float32 summation bound (the error of a TF32 product printed beside
+    it); one Gram pass timed
+    against its bound, one IRLS iteration timed; on the first 1M rows the
+    card and the CPU plain fits agree (metric and coefficients, the
+    tolerances stated at GLM_TOL). (b) Elastic net with lambda search
+    (alpha 0.5, 30 lambdas) on the first 1M airlines rows, the gaussian
+    ``airlines_delay`` response, P = 263: path length, lambda_best,
+    nonzero count, R2, seconds; a 20K-row head against the CPU plain fit.
+    (c) Multinomial on phase 13's Covertype frame (K = 7, solver auto =
+    IRLSM): logloss and seconds (the block IRLS diverges on this design
+    as the reference's does: its logloss and largest coefficient are
+    printed), its margins on 20K rows within the float32 dot bound of the
+    CPU plain path's; L-BFGS beside it, its coefficients, probabilities
+    and training logloss held against the CPU plain fit's on a 20K-row
+    head, beside the same fit with the head's rows permuted on the CPU
+    and on the card (the witness of float32 order). (d) On 100K airlines
+    rows: ``non_negative`` and ``beta_constraints`` (COD), p-values
+    (gaussian, binomial), an ordinal fit, multinomial IRLSM on a 3-class
+    response with a ridge (Cholesky) and with L1 (ADMM), interactions
+    (DepTime x Distance, UniqueCarrier x Month), 3-fold CV with lambda
+    search (10 lambdas), each against the CPU plain fit on a 10K-row head
+    (the multinomial fits' probabilities too); one COD and one ADMM IRLS
+    iteration timed at P = 263.
 
 Launch counts are read per path: each path sets every count to 0 just
 before it runs and reads them just after (phase 15's, over its seven
@@ -167,7 +198,9 @@ kernel's launches on every path, phase 17's as ``gbm_constraints``,
 and ``gbm_cv``, phase 18's as ``gbm_csv``, phase 19's as ``xgboost``,
 ``xgboost_reg``, ``drf_uniform`` and ``drf_random``, phase 20's as
 ``isofor`` (the fit), ``isofor_predict``, ``extisofor_0`` and
-``extisofor_6``, phase 21's as ``tree_scoring``; ``tree_partition`` has a
+``extisofor_6``, phase 21's as ``tree_scoring``, phase 22's as
+``glm_irlsm``, ``glm_lbfgs``, ``glm_lambda_search``, ``glm_multinomial``
+and ``glm_surface``, every kernel 0 on each; ``tree_partition`` has a
 fourth record, at the Isolation Forest levels); the last is
 ``{"ok": true, "device": {...}}``.
 """
@@ -240,9 +273,81 @@ NUMERIC = ("Year", "Month", "DayofMonth", "DayOfWeek", "DepTime",
 # on fewer rows (a depth-10 tree has ~1000 leaves), and fewer again on
 # the CPU
 N_CHECK = 20_000
-N_SHAP_DRF = 1_000_000
+# cut from 1M (PR 9) to 250K rows when phase 22 (GLM) came: the run's
+# time, not the card, bounds it
+N_SHAP_DRF = 250_000
 N_SHAP_DRF_CPU = 2_000
 Y = "IsDepDelayed"
+# phase 22: GLM. (a) bench.py's GLM benchmark (BASELINE.json: "GLM
+# binomial IRLS + L-BFGS, HIGGS 11M rows") at its shape, nothing cut;
+# (b) elastic net with lambda search, (c) multinomial, (d) the surface
+N_HIGGS = 11_000_000
+P_HIGGS = 28
+HIGGS_GLM = dict(family="binomial", lambda_=0.0, standardize=True)
+HIGGS_FITS = (("irlsm", 8), ("l_bfgs", 40))
+N_HIGGS_CPU = 1_000_000
+N_ENET = 1_000_000
+N_ENET_CPU = 20_000
+ENET = dict(family="gaussian", alpha=0.5, lambda_search=True, nlambdas=30)
+P_AIRLINES = 263                 # 7 numeric + 7 + 124 + 124 levels + 1
+MULTI_GLM = dict(family="multinomial")
+N_SURFACE = 100_000
+N_SURFACE_CPU = 10_000
+# card vs CPU plain, each fit on the same head: the training logloss (or
+# MSE) within GLM_METRIC_TOL relative, and the raw-scale coefficients
+# within a tolerance a fit relative to max(1, |c|), set from the same
+# fits on the CPU with the head's rows permuted (float32 sums in another
+# order; 8-core CPU, torch 4 threads): IRLSM on HIGGS 5.5e-7, its
+# unpenalized gaussian at P = 263 8.2e-4 (Origin and Dest levels of ~160
+# rows each), COD 7.9e-5 (50 sweeps stop short), ADMM paths 2.4e-5,
+# L-BFGS 7.1e-5 (HIGGS); the ordinal fit's 200 L-BFGS iterations stop
+# short of its 265 parameters (1.3e-2): its coefficients are printed, its
+# logloss held. The converged multinomial IRLSM fits on the airlines
+# 3-class response (ridge and L1): coefficients 3.4e-5, probabilities
+# 9e-7, held at GLM_TOL and GLM_PROB_TOL. The multinomial L-BFGS fit on
+# the Covertype head stops short too (50 iterations, 385 parameters, the
+# one-hot groups collinear with the intercept): row permutations move
+# its coefficients and probabilities by up to 1.1e-2 and its logloss by
+# 9.7e-5 relative (torch 1 and 4 threads), so they are held at
+# GLM_MULTI_LBFGS_TOL and GLM_LBFGS_METRIC_TOL, and phase 22(c) prints
+# the same witness from a permuted fit on the CPU and on the card
+GLM_METRIC_TOL = 1e-6
+GLM_TOL = 1e-4
+GLM_PROB_TOL = 1e-5
+GLM_WIDE_TOL = 5e-3
+GLM_COD_TOL = 1e-3
+GLM_ADMM_TOL = 1e-3
+GLM_LBFGS_TOL = 2e-3
+GLM_MULTI_LBFGS_TOL = 3e-2
+GLM_LBFGS_METRIC_TOL = 3e-4
+# the Gram against float64, max |diff| / sum|w x x|: float32 sums stay
+# far inside 2^-16 (5.9e-7 at 11M rows); a TF32 product does not (6.2e-4)
+GRAM_F32_REL = 2.0 ** -16
+SURFACE_FITS = (
+    ("cod non_negative", "delay", GLM_COD_TOL,
+     dict(family="gaussian", lambda_=0.0, non_negative=True)),
+    ("cod beta_constraints", "delay", GLM_COD_TOL, dict(
+        family="gaussian", lambda_=0.0,
+        beta_constraints={"DepTime": (0.0, 5.0),
+                          "UniqueCarrier.DL": (-1.0, 1.0)})),
+    ("p-values gaussian", "delay", GLM_WIDE_TOL,
+     dict(family="gaussian", lambda_=0.0, compute_p_values=True)),
+    ("p-values binomial", Y, GLM_TOL,
+     dict(family="binomial", lambda_=0.0, compute_p_values=True)),
+    ("ordinal", "late", None, dict(family="ordinal", lambda_=0.0)),
+    ("multinomial irlsm ridge", "late", GLM_TOL,
+     dict(family="multinomial", solver="irlsm", lambda_=1e-3, alpha=0.0)),
+    ("multinomial irlsm l1 (ADMM)", "late", GLM_TOL,
+     dict(family="multinomial", solver="irlsm", lambda_=1e-3)),
+    ("interactions DepTime x Distance", "delay", GLM_WIDE_TOL,
+     dict(family="gaussian", lambda_=0.0,
+          interactions=["DepTime", "Distance"])),
+    ("interactions UniqueCarrier x Month", "delay", GLM_ADMM_TOL,
+     dict(family="gaussian", lambda_=0.05, alpha=0.0,
+          interactions=["UniqueCarrier", "Month"])),
+    ("cv lambda search", "delay", GLM_ADMM_TOL,
+     dict(family="gaussian", nfolds=3, seed=7, lambda_search=True,
+          nlambdas=10)))
 _TREEKERNEL = dict(source="h2o3_tpu_torch/ops/kernels/csrc/treekernel.cu",
                    replaces="h2o3_tpu/ops/pallas/treekernel.py:250")
 KERNELS = {
@@ -2758,7 +2863,9 @@ def phase_scoring(torch, dev, fr, cols, domains, gbm, drf):
             f" (cut from {n} rows: the recursion streams every leaf's "
             f"[rows, path] float32 weights ~90 times a tree, and a depth-"
             f"{model.forest.feat.shape[1]} DRF tree has up to "
-            f"{2 ** model.forest.feat.shape[1]} leaves)")
+            f"{2 ** model.forest.feat.shape[1]} leaves; from 1M to "
+            f"{rows} rows since phase 22 came, to keep the whole run near "
+            f"its PR 9 length)")
         say(f"phase21 {label} predict_contributions on {rows} rows{cut}: "
             f"{t_c:.3f} s, peak device memory {peak / 2**30:.3f} GiB, local "
             f"accuracy on every row (max |gap| {acc_gap.max():.3g}); card "
@@ -2767,6 +2874,454 @@ def phase_scoring(torch, dev, fr, cols, domains, gbm, drf):
     counts = dict(kernels.LAUNCHES)
     check_launches(counts, {}, "scoring surface")
     return counts
+
+
+# ---------------------------------------------------------------- GLM
+
+
+def higgs_arrays(n: int, p: int = P_HIGGS, seed: int = 3):
+    """bench.py's GLM benchmark data (the HIGGS shape): n x p standard
+    normal float32 features from RandomState(seed), beta = 0.3·N(0, 1),
+    a binomial response drawn from the logistic of X·beta (levels b, s).
+    Returns (columns, domains, beta)."""
+    r = np.random.RandomState(seed)
+    X = r.randn(n, p).astype(np.float32)
+    beta = r.randn(p) * 0.3
+    yv = (r.rand(n) < 1 / (1 + np.exp(-(X @ beta)))).astype(np.int32)
+    cols = {f"x{i}": X[:, i] for i in range(p)}
+    cols["y"] = yv
+    return cols, {"y": ["b", "s"]}, beta
+
+
+def glm_metric(model) -> float:
+    tm = model.training_metrics
+    return tm["MSE"] if tm.kind == "Regression" else tm["logloss"]
+
+
+def cpu_glm_check(build, cols, domains, y, n, tol, label, dev,
+                  metric_tol=None, prob_tol=None):
+    """Fit ``build()`` on the first ``n`` rows on the card and on the CPU
+    (the plain path): the training logloss (MSE for regression) within
+    ``metric_tol`` (GLM_METRIC_TOL) relative, unless ``tol`` is None the
+    raw-scale coefficients within ``tol``·max(1, |c|), and unless
+    ``prob_tol`` is None the scores (class probabilities or mu) on the
+    head within ``prob_tol``. Returns (card model, CPU model, the largest
+    relative coefficient gap, the largest score gap)."""
+    import h2o3_tpu_torch as h2o
+    head = {k: v[:n] for k, v in cols.items()}
+    frs = [h2o.Frame.from_numpy(head, domains=domains, device=d)
+           for d in (dev, "cpu")]
+    m_card, m_cpu = (build().train(fr, y=y) for fr in frs)
+    gap = coef_gap(m_card, m_cpu, label)
+    check(tol is None or gap <= tol,
+          f"{label}: card vs CPU plain on {n} rows, max relative "
+          f"coefficient gap {gap:.3g} > {tol}")
+    ma, mb = glm_metric(m_card), glm_metric(m_cpu)
+    check(abs(ma - mb) <= (metric_tol or GLM_METRIC_TOL) * abs(mb),
+          f"{label}: training metric card {ma} vs CPU plain {mb}")
+    p_gap = score_gap(m_card, frs[0], m_cpu, frs[1], n)
+    check(prob_tol is None or p_gap <= prob_tol,
+          f"{label}: scores card vs CPU plain on {n} rows {p_gap:.3g} > "
+          f"{prob_tol}")
+    return m_card, m_cpu, gap, p_gap
+
+
+def coef_gap(a_model, b_model, label) -> float:
+    """The largest gap of two GLMs' raw-scale coefficients relative to
+    max(1, |c|)."""
+    a, b = a_model.coefficients, b_model.coefficients
+    check(list(a) == list(b), f"{label}: coefficient names differ")
+    return max(abs(a[k] - b[k]) / max(1.0, abs(b[k])) for k in b)
+
+
+def score_gap(a_model, a_frame, b_model, b_frame, n) -> float:
+    """The largest gap of two GLMs' scores over the first ``n`` rows."""
+    from h2o3_tpu_torch.parallel.device import fetch
+    a = fetch(a_model._score_dev(a_frame))[:n]
+    b = fetch(b_model._score_dev(b_frame))[:n]
+    return float(np.abs(a - b).max())
+
+
+def permuted_gaps(build, cols, domains, y, n, dev, base, seed=1):
+    """The witness of float32 order: ``build()`` fit on ``dev`` on the
+    first ``n`` rows with their order permuted, against ``base`` (the
+    same fit on those rows in order). Returns (coefficient gap, score
+    gap on the rows in order)."""
+    import h2o3_tpu_torch as h2o
+    perm = np.random.default_rng(seed).permutation(n)
+    m = build().train(h2o.Frame.from_numpy(
+        {k: v[:n][perm] for k, v in cols.items()}, domains=domains,
+        device=dev), y=y)
+    fr = h2o.Frame.from_numpy({k: v[:n] for k, v in cols.items()},
+                              domains=domains, device=dev)
+    return coef_gap(m, base, "permuted"), score_gap(m, fr, base, fr, n)
+
+
+def gram_vs_float64(torch, X1, w, z):
+    """The card's float32 Gram at (w, z) against float64 on the card:
+    max |diff| / Σ|w x x| within GRAM_F32_REL (2^-16), which holds the
+    Gram. The worst-case float32 summation bound, (rows a block + blocks)
+    ·2^-24 relative, is 6.3e-2 at 1M-row blocks and so far looser: a
+    Gram within 2^-16 is within it too, and a TF32 product is not within
+    2^-16. Returns (max |diff| / Σ|w x x|, the same for a TF32 product of
+    the same rows, for comparison)."""
+    from h2o3_tpu_torch.ops.gram import gram
+    g32 = gram(X1, w, z)[0].double()
+    n = X1.shape[0]
+    g64 = torch.zeros_like(g32)
+    mass = torch.zeros_like(g32)
+    for lo in range(0, n, 1 << 21):
+        Xd = X1[lo:lo + (1 << 21)].double()
+        wd = w[lo:lo + (1 << 21)].double()
+        g64 += (Xd * wd[:, None]).T @ Xd
+        mass += (Xd.abs() * wd.abs()[:, None]).T @ Xd.abs()
+        del Xd
+    diff = (g32 - g64).abs()
+    rel = float((diff / mass.clamp_min(1e-30)).max())
+    check(rel <= GRAM_F32_REL, f"Gram vs float64: max |diff| / sum|w x x| "
+                               f"{rel:.3g} > 2^-16 (a TF32 product?)")
+    prev = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = True
+    try:
+        g_tf = ((X1 * w[:, None]).T @ X1).double()
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = prev
+    return rel, float(((g_tf - g64).abs() / mass.clamp_min(1e-30)).max())
+
+
+def phase_glm_higgs(torch, dev):
+    """Phase 22(a): bench.py's GLM benchmark at its shape, nothing cut:
+    binomial on 11M x 28 (standardize, lambda 0), IRLSM with 8 iterations
+    and L-BFGS with 40. Returns the launches of each fit's path."""
+    import h2o3_tpu_torch as h2o
+    from h2o3_tpu_torch.frame.datainfo import build_datainfo
+    from h2o3_tpu_torch.models import glm as glm_mod
+    from h2o3_tpu_torch.ops.gram import gram
+    t0 = time.perf_counter()
+    cols, domains, beta = higgs_arrays(N_HIGGS)
+    fr = h2o.Frame.from_numpy(cols, domains=domains, device=dev)
+    x = [c for c in cols if c != "y"]
+    say(f"phase22a HIGGS shape {N_HIGGS} x {P_HIGGS} float32 generated and "
+        f"on the card in {time.perf_counter() - t0:.3f} s")
+    paths, models = {}, {}
+    for solver, iters in HIGGS_FITS:
+        params = dict(HIGGS_GLM, solver=solver, max_iterations=iters)
+        model, secs, counts, peak = timed_fit(
+            torch, lambda: h2o.GLMEstimator(**params).train(fr, y="y"))
+        check_launches(counts, {}, f"GLM {solver}")
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        refit = h2o.GLMEstimator(**params).train(fr, y="y")
+        torch.cuda.synchronize()
+        t_re = time.perf_counter() - t1
+        tm = model.training_metrics
+        check(np.array_equal(refit.coef, model.coef)
+              and refit.training_metrics["AUC"] == tm["AUC"]
+              and refit.training_metrics["logloss"] == tm["logloss"],
+              f"GLM {solver}: the refit is not bit-equal")
+        check(np.isfinite(model.coef).all(), f"GLM {solver}: coefficients")
+        models[solver] = model
+        paths[f"glm_{solver.replace('l_bfgs', 'lbfgs')}"] = counts
+        say(f"phase22a GLM binomial {solver.upper()} max_iterations={iters} "
+            f"on {N_HIGGS} x {P_HIGGS}: train {secs:.3f} s (refit "
+            f"{t_re:.3f} s, bit-equal), {N_HIGGS * iters / secs:.6g} "
+            f"row-iterations/s ({N_HIGGS * iters / t_re:.6g} refit), AUC "
+            f"{tm['AUC']:.6f}, logloss {tm['logloss']:.6f}, peak device "
+            f"memory {peak / 2**30:.3f} GiB; launches {counts}")
+    irls, lb = models["irlsm"], models["l_bfgs"]
+    raw = irls.coefficients
+    want = dict({f"x{i}": float(b) for i, b in enumerate(beta)},
+                Intercept=0.0)
+    err = max(abs(raw[k] - want[k]) for k in want)
+    check(err <= 0.02, f"IRLSM coefficients miss the generating beta by "
+                       f"{err}")
+    d_auc = abs(lb.training_metrics["AUC"] - irls.training_metrics["AUC"])
+    check(d_auc <= 1e-3, f"L-BFGS AUC {lb.training_metrics['AUC']} vs "
+                         f"IRLSM {irls.training_metrics['AUC']}")
+    # the Gram at the IRLSM fit's coefficients, against float64; one
+    # Gram pass and one IRLS iteration timed
+    di = build_datainfo(fr, x, standardize=True)
+    X1 = di.X1
+    y = torch.from_numpy(cols["y"].astype(np.float32)).to(dev)
+    w = fr.valid_weights()
+    off = torch.zeros_like(w)
+    coef = torch.from_numpy(irls.coef.astype(np.float32)).to(dev)
+    _, z, w_irls = glm_mod._working(irls.family, X1, coef, y, w, off)
+    rel32, rel_tf32 = gram_vs_float64(torch, X1, w_irls, z)
+    t_gram = time_ms(torch, lambda: gram(X1, w_irls, z), reps=5)
+    n, P1 = X1.shape
+    b_bytes = (n * P1 + 2 * n) * 4 / HBM_BYTES_PER_S * 1e3
+    b_ops = 2.0 * n * P1 * P1 / F32_OPS_PER_S * 1e3
+    it_s = []
+    for _ in range(3):
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        glm_mod._irls_solve(X1, coef, y, w, off, glm_mod._f32(0.0, dev),
+                            glm_mod._f32(0.0, dev), 0.0, 1, irls.family,
+                            0.0, use_l1=False)
+        torch.cuda.synchronize()
+        it_s.append(time.perf_counter() - t1)
+    say(f"phase22a IRLSM de-standardized coefficients within {err:.4g} of "
+        f"the generating beta (<= 0.02); L-BFGS AUC within {d_auc:.3g} of "
+        f"IRLSM's (<= 1e-3); Gram at the fit vs float64: max |diff| / "
+        f"sum|w x x| {rel32:.3g} (<= 2^-16, inside the float32 bound; a TF32 "
+        f"product of the same rows {rel_tf32:.3g}); one Gram pass "
+        f"{t_gram['ms']:.4f}"
+        f" ms device (bound {max(b_bytes, b_ops):.4f} ms: bytes "
+        f"{b_bytes:.4f}, float32 operations {b_ops:.4f}); one IRLS "
+        f"iteration (Gram, Cholesky, the 9-step line search, one sync) "
+        f"{min(it_s) * 1e3:.3f} ms wall")
+    del X1, di, z, w_irls
+    # the first rows: card vs CPU plain
+    for solver, iters in HIGGS_FITS:
+        tol = GLM_TOL if solver == "irlsm" else GLM_LBFGS_TOL
+        params = dict(HIGGS_GLM, solver=solver, max_iterations=iters)
+        t1 = time.perf_counter()
+        m_card, m_cpu, gap, _ = cpu_glm_check(
+            lambda: h2o.GLMEstimator(**params), cols, domains, "y",
+            N_HIGGS_CPU, tol, f"GLM {solver}", dev)
+        d = abs(m_card.training_metrics["AUC"] - m_cpu.training_metrics["AUC"])
+        check(d <= 1e-5, f"GLM {solver} {N_HIGGS_CPU} rows: AUC card vs "
+                         f"CPU {d}")
+        say(f"phase22a {solver.upper()} on the first {N_HIGGS_CPU} rows: "
+            f"card vs CPU plain max relative coefficient gap {gap:.3g} "
+            f"(<= {tol}), |d AUC| {d:.3g} ({time.perf_counter() - t1:.3f} "
+            f"s for both fits)")
+    del fr, cols
+    return paths
+
+
+def phase_glm_enet(torch, dev, cols, domains, delay):
+    """Phase 22(b): elastic net with lambda search (alpha 0.5, 30
+    lambdas) on the first N_ENET airlines rows, the gaussian response
+    ``airlines_delay``, the one-hot width P = 263; coefficients against
+    the CPU plain fit on an N_ENET_CPU-row head. Returns the launches."""
+    import h2o3_tpu_torch as h2o
+    ecols = {k: v[:N_ENET] for k, v in cols.items() if k != Y}
+    ecols["delay"] = delay[:N_ENET]
+    edoms = {k: v for k, v in domains.items() if k != Y}
+    fr = h2o.Frame.from_numpy(ecols, domains=edoms, device=dev)
+    model, secs, counts, peak = timed_fit(
+        torch, lambda: h2o.GLMEstimator(**ENET).train(fr, y="delay"))
+    check_launches(counts, {}, "GLM lambda search")
+    P1 = len(model.output["coef_names"]) + 1
+    check(P1 == P_AIRLINES, f"airlines one-hot width {P1}")
+    check(len(model._lambda_path_vals) == ENET["nlambdas"], "path length")
+    nnz = int((np.abs(model.coef[:-1]) > 0).sum())
+    r2 = model.training_metrics["r2"]
+    check(np.isfinite(model.coef).all() and 0.0 < r2 < 1.0, f"R2 {r2}")
+    t1 = time.perf_counter()
+    _, _, gap, _ = cpu_glm_check(lambda: h2o.GLMEstimator(**ENET), ecols,
+                              edoms, "delay", N_ENET_CPU, GLM_ADMM_TOL,
+                              "GLM lambda search", dev)
+    say(f"phase22b GLM gaussian elastic net (alpha 0.5, lambda search) on "
+        f"{N_ENET} airlines rows, P = {P1}: train {secs:.3f} s, path "
+        f"{len(model._lambda_path_vals)} lambdas, lambda_best "
+        f"{model.output['lambda_best']:.6g}, {nnz} nonzero coefficients of "
+        f"{P1 - 1}, R2 {r2:.6f}, peak {peak / 2**30:.3f} GiB; "
+        f"{N_ENET_CPU}-row head card vs CPU plain max relative coefficient "
+        f"gap {gap:.3g} (<= {GLM_ADMM_TOL}; {time.perf_counter() - t1:.3f} "
+        f"s); launches {counts}")
+    return counts
+
+
+def margins_agree(model, fr_card, fr_cpu, n, label):
+    """The class margins X1·B of ``model`` on the card and on the CPU (the
+    plain path) over the first ``n`` rows: within twice the float32 dot
+    bound P·u·Σ|x b| a row and class."""
+    from h2o3_tpu_torch.parallel.device import fetch
+    X1 = model._design(fr_cpu)[:n]
+    got = fetch(model._eta(fr_card))[:n]
+    want = model._eta(fr_cpu)[:n].numpy()
+    B = np.abs(np.asarray(model.coef_multinomial, np.float64))
+    tol = 2.0 * X1.shape[1] * 2.0 ** -24 * (np.abs(X1.numpy()) @ B)
+    diff = np.abs(got - want)
+    check((diff <= tol).all(), f"{label}: margins card vs CPU beyond the "
+                               f"float32 bound (max {diff.max()})")
+    return float((diff / np.maximum(tol, 1e-30)).max())
+
+
+def phase_glm_multinomial(torch, dev, ccols, cdomains):
+    """Phase 22(c): multinomial GLM on phase 13's Covertype frame (K = 7),
+    solver auto (IRLSM at this width), then L-BFGS for comparison; the
+    IRLSM model's margins on N_CHECK rows on the card against the CPU
+    plain path; the L-BFGS fit against the CPU plain fit on an
+    N_CHECK-row head, beside the same fit with the head's rows permuted
+    on either device. Returns the launches of the IRLSM fit."""
+    import h2o3_tpu_torch as h2o
+    y = "Cover_Type"
+    fr = h2o.Frame.from_numpy(ccols, domains=cdomains, device=dev)
+    model, secs, counts, peak = timed_fit(
+        torch, lambda: h2o.GLMEstimator(**MULTI_GLM).train(fr, y=y))
+    check_launches(counts, {}, "GLM multinomial")
+    check(model.coef_multinomial.shape == (len(ccols), len(COVTYPE_COUNTS)),
+          f"multinomial coefficients {model.coef_multinomial.shape}")
+    small = {k: v[:N_CHECK] for k, v in ccols.items()}
+    fr_cpu = h2o.Frame.from_numpy(small, domains=cdomains, device="cpu")
+    rel = margins_agree(model, fr, fr_cpu, N_CHECK, "multinomial")
+    lb, s_lb, c_lb, _ = timed_fit(torch, lambda: h2o.GLMEstimator(
+        **dict(MULTI_GLM, solver="l_bfgs")).train(fr, y=y))
+    check_launches(c_lb, {}, "GLM multinomial L-BFGS")
+    # 50 L-BFGS iterations stop short of the optimum of 385 parameters
+    # (the one-hot groups Wilderness_Area and Soil_Type each add up to
+    # the intercept), so float32 order alone moves the iterates: the
+    # same head fit with its rows permuted, on the CPU and on the card,
+    # is the witness printed beside the card-vs-CPU gaps, which are held
+    # at GLM_MULTI_LBFGS_TOL (coefficients and probabilities) and
+    # GLM_LBFGS_METRIC_TOL (training logloss)
+    def build():
+        return h2o.GLMEstimator(**dict(MULTI_GLM, solver="l_bfgs"))
+    m_card, m_cpu, gap, p_gap = cpu_glm_check(
+        build, ccols, cdomains, y, N_CHECK, GLM_MULTI_LBFGS_TOL,
+        "GLM multinomial L-BFGS", dev, metric_tol=GLM_LBFGS_METRIC_TOL,
+        prob_tol=GLM_MULTI_LBFGS_TOL)
+    wit = {d: permuted_gaps(build, ccols, cdomains, y, N_CHECK, d, m)
+           for d, m in (("cpu", m_cpu), (dev, m_card))}
+    ll, ll_lb = (m.training_metrics["logloss"] for m in (model, lb))
+    bmax = float(np.abs(model.coef_multinomial).max())
+    check(np.isfinite(ll_lb) and ll_lb < np.log(7), f"L-BFGS logloss {ll_lb}")
+    say(f"phase22c GLM multinomial on {N_COVTYPE} Covertype rows (K = 7, "
+        f"P = {len(ccols)}): IRLSM (auto) train {secs:.3f} s, logloss "
+        f"{ll:.6f}, max |coefficient| {bmax:.6g} (the block IRLS takes "
+        f"full Newton steps and diverges here, as the reference's does; "
+        f"converged multinomial IRLSM fits are held in 22(d)), peak "
+        f"{peak / 2**30:.3f} GiB; margins on {N_CHECK} rows "
+        f"card vs CPU plain within {rel:.3g} of the float32 bound; L-BFGS "
+        f"train {s_lb:.3f} s, logloss {ll_lb:.6f}; {N_CHECK}-row head card "
+        f"vs CPU plain: coefficients {gap:.3g} and probabilities "
+        f"{p_gap:.3g} apart (<= {GLM_MULTI_LBFGS_TOL}), training logloss "
+        f"within {GLM_LBFGS_METRIC_TOL} relative; witness, the head's rows "
+        f"permuted: CPU coefficients {wit['cpu'][0]:.3g} and probabilities "
+        f"{wit['cpu'][1]:.3g}, card {wit[dev][0]:.3g} and {wit[dev][1]:.3g}"
+        f"; launches {counts}")
+    return counts
+
+
+def phase_glm_surface(torch, dev, cols, domains, delay):
+    """Phase 22(d): the rest of the surface on N_SURFACE airlines rows:
+    ``non_negative`` and ``beta_constraints`` (COD, its time an IRLS
+    iteration at P = 263), p-values (gaussian, binomial), an ordinal
+    fit, two multinomial IRLSM fits (ridge, L1), two interaction fits,
+    3-fold CV with lambda search; each against
+    the CPU plain fit on an N_SURFACE_CPU-row head. Returns the launches
+    over all of them."""
+    import h2o3_tpu_torch as h2o
+    from h2o3_tpu_torch.frame.datainfo import build_datainfo
+    from h2o3_tpu_torch.models import glm as glm_mod
+    from h2o3_tpu_torch.ops import kernels
+    n = N_SURFACE
+    scols = {k: v[:n] for k, v in cols.items()}
+    scols["delay"] = delay[:n]
+    scols["late"] = np.digitize(delay[:n], [0.0, 15.0]).astype(np.int32)
+    sdoms = dict(domains, late=["l0_early", "l1_ontime", "l2_late"])
+    x = [c for c in cols if c != Y]
+    fr = h2o.Frame.from_numpy(scols, domains=sdoms, device=dev)
+    kernels.reset_counts()
+    t0 = time.perf_counter()
+    lines = []
+    for label, y, tol, params in SURFACE_FITS:
+        def build(params=params, y=y):
+            drop = [c for c in ("delay", "late", Y) if c != y]
+            return h2o.GLMEstimator(**dict(params, ignored_columns=drop))
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        model = build().train(fr, y=y)
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t1
+        multi = params["family"] == "multinomial"
+        _, m_cpu, gap, p_gap = cpu_glm_check(
+            build, scols, sdoms, y, N_SURFACE_CPU, tol, f"GLM {label}", dev,
+            prob_tol=GLM_PROB_TOL if multi else None)
+        extra = ""
+        c = model.coefficients
+        if label == "cod non_negative":
+            check(min(v for k, v in c.items() if k != "Intercept") >= 0.0,
+                  "non_negative: a negative coefficient")
+        if label == "cod beta_constraints":
+            # the bounds hold in the standardized design's space
+            cm = dict(zip(model.output["coef_names"], model.coef))
+            for k, (lo, hi) in params["beta_constraints"].items():
+                check(lo <= cm[k] <= hi, f"{k} = {cm[k]} out of [{lo}, "
+                                         f"{hi}]")
+            extra = ", bounds binding: " + ", ".join(
+                f"{k} {cm[k]:.6g}" for k in params["beta_constraints"])
+        if "p-values" in label:
+            tab = model.output["coefficients_table"]
+            pv = np.array([r["p_value"] for r in tab])
+            check(np.isfinite(pv).all() and (pv >= 0).all() and
+                  (pv <= 1).all(), f"{label}: p-values")
+            extra = f", {int((pv < 0.05).sum())} of {len(pv)} p < 0.05"
+        if label == "cv lambda search":
+            cvm = model.cross_validation_metrics
+            check(np.isfinite(cvm["MSE"]) and len(model._cv_models) == 3,
+                  "CV metrics")
+            extra = (f", CV MSE {cvm['MSE']:.6g}, lambda_best "
+                     f"{model.output['lambda_best']:.6g}")
+        if label == "ordinal":
+            extra = f", logloss {model.training_metrics['logloss']:.6f}"
+        if multi:
+            ll = model.training_metrics["logloss"]
+            check(ll < np.log(3), f"{label}: logloss {ll} (diverged)")
+            extra = (f", probabilities {p_gap:.3g} <= {GLM_PROB_TOL}, "
+                     f"logloss {ll:.6f}")
+        lines.append(f"{label} {secs:.3f} s (head: coefficient gap "
+                     f"{gap:.3g}{'' if tol is None else f' <= {tol}'}"
+                     f"{extra})")
+    counts = dict(kernels.LAUNCHES)
+    check_launches(counts, {}, "GLM surface")
+    # one COD and one ADMM IRLS iteration at the airlines one-hot width
+    di = build_datainfo(fr, x, standardize=True)
+    X1 = di.X1
+    check(X1.shape[1] == P_AIRLINES, f"one-hot width {X1.shape[1]}")
+    yv = torch.from_numpy(scols["delay"].astype(np.float32)).to(dev)
+    w = fr.valid_weights()
+    off = torch.zeros_like(w)
+    fam = glm_mod.Family("gaussian")
+    coef = torch.zeros(X1.shape[1], device=dev)
+    f32 = glm_mod._f32
+    secs = {}
+    for what, fn in (
+            ("cod", lambda: glm_mod._irls_iter_cod(
+                X1, coef, yv, w, off, f32(0.0, dev), f32(0.0, dev), None,
+                None, fam)),
+            ("admm", lambda: glm_mod._irls_iter(
+                X1, coef, yv, w, off, f32(0.05, dev), f32(0.05, dev), fam,
+                use_l1=True))):
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        secs[what] = time.perf_counter() - t1
+    say(f"phase22d GLM surface on {n} airlines rows (P = {X1.shape[1]}) in "
+        f"{time.perf_counter() - t0:.3f} s: " + "; ".join(lines))
+    say(f"phase22d one IRLS iteration at P = {X1.shape[1]} on {n} rows: COD "
+        f"({glm_mod.COD_SWEEPS} sweeps x {X1.shape[1]} coordinates in plain "
+        f"torch) {secs['cod']:.3f} s, ADMM (lambda 0.05, alpha 0.5) "
+        f"{secs['admm'] * 1e3:.3f} ms (wall, host-paced loops)")
+    return counts
+
+
+def phase_glm(torch, dev, cols, domains, delay, ccols, cdomains):
+    """Phase 22: GLM. Returns the launches of its five paths (every
+    kernel 0 on each)."""
+    t0 = time.perf_counter()
+    paths = phase_glm_higgs(torch, dev)
+    secs = {"a": time.perf_counter() - t0}
+    paths["glm_lambda_search"] = phase_glm_enet(torch, dev, cols, domains,
+                                                delay)
+    secs["b"] = time.perf_counter() - t0 - sum(secs.values())
+    paths["glm_multinomial"] = phase_glm_multinomial(torch, dev, ccols,
+                                                     cdomains)
+    secs["c"] = time.perf_counter() - t0 - sum(secs.values())
+    paths["glm_surface"] = phase_glm_surface(torch, dev, cols, domains,
+                                             delay)
+    secs["d"] = time.perf_counter() - t0 - sum(secs.values())
+    for p, c in paths.items():
+        check(not any(c.values()), f"{p}: a kernel launched")
+    say("phase22: " + ", ".join(f"({k}) {v:.3f} s" for k, v in secs.items())
+        + f", together {sum(secs.values()):.3f} s; every kernel 0 launches "
+        f"on {', '.join(paths)}")
+    return paths
 
 
 def main() -> int:
@@ -2839,7 +3394,7 @@ def main() -> int:
     del mmodel
     mark("phase 14")
     counts_dm = phase_multinomial_drf(torch, dev, cfr, ccols, cdomains)
-    del cfr, ccols
+    del cfr
     mark("phase 15")
     counts_dist = phase_distributions(
         torch, dev, head, airlines_delay(N_MAIN)[:N_DIST], domains)
@@ -2882,6 +3437,12 @@ def main() -> int:
                                      for k, v in secs.items())
         + f", together {sum(secs.values()):.3f} s")
     del fr, gbm_model, drf_model
+    mark("phase 22")
+    t22 = time.perf_counter()
+    paths.update(phase_glm(torch, dev, cols, domains, airlines_delay(N_MAIN),
+                           ccols, cdomains))
+    say(f"phase 22: {time.perf_counter() - t22:.3f} s")
+    del ccols
     for rec in records:
         rec["max_abs_err"] = worst[rec["name"]]
         rec["launches_by_path"] = {p: c[rec["name"]]

@@ -5,15 +5,22 @@ train one model per fold on the rows outside it, score each fold's
 held-out rows, merge the holdout predictions into the CV metrics, and
 train the main model on all rows. Fold models run one after another.
 
-The fast path (builders with ``cv_fold_masking``: GBM and DRF) trains
-the main model first and then every fold model on the PARENT frame, its
-held-out rows at weight 0 and the main model's ``BinnedMatrix`` shared,
-so a CV fit bins once. Other builders, and checkpoint restarts, train
-each fold on a subset frame. Near leave-one-out CV (``light``) drops
-each fold's training metrics, varimp and holdout metrics, and fetches
-the holdout scores once for the whole sweep.
+The fast path (builders with ``cv_fold_masking``: GBM, DRF and GLM)
+trains the main model first and then every fold model on the PARENT
+frame, its held-out rows at weight 0 and the main model's
+``BinnedMatrix`` shared, so a CV fit bins once (GLM's folds share the
+full-frame standardization). Other builders, checkpoint restarts and
+penalized GLM (its folds standardize per fold: the penalty couples to
+the sigma scaling) train each fold on a subset frame. Near leave-one-out
+CV (``light``) drops each fold's training metrics, varimp and holdout
+metrics, and fetches the holdout scores once for the whole sweep.
 
-Not ported: the GLM lambda search under CV, the unsupervised branch and
+GLM's lambda search under CV fits the main model once to fix one
+full-frame lambda path, walks every fold along that same path, sums each
+lambda's holdout deviance over the folds, and refits the main model at
+the lambda of the least sum (GLM.java's xval-deviance selection).
+
+Not ported: the unsupervised branch and
 the cluster scheduler of the reference, and the frame keys it returns
 (``keep_cross_validation_predictions``, ``keep_cross_validation_fold_
 assignment``, ``cv_model_keys``): the fold models are ``_cv_models``.
@@ -109,6 +116,35 @@ def _summary_rows(fold_metrics) -> list:
     return rows
 
 
+def _glm_path_holdout_deviance(m, te: Frame, y: str, p: dict) -> np.ndarray:
+    """Per-lambda deviance of a GLM fold model's coefficient path on its
+    holdout frame, with the user weights and the offset column, as the
+    CV metrics weigh them."""
+    X1 = m._design(te)                           # [npad, P+1]
+    n = te.nrows
+    w = np.ones(n, np.float32)
+    wc = p.get("weights_column")
+    if wc and wc in te:
+        w = w * np.nan_to_num(te.col(wc).to_numpy()).astype(np.float32)
+    yc = te.col(y)
+    if m.output["category"] == ModelCategory.BINOMIAL:
+        yv = adapt_domain(yc, m.output["domain"])
+        w = w * (yv >= 0)
+        yv = np.maximum(yv, 0).astype(np.float32)
+    else:
+        yraw = yc.to_numpy()
+        w = w * (~np.isnan(yraw))
+        yv = np.nan_to_num(yraw).astype(np.float32)
+    dev = X1.device
+    etas = X1 @ torch.as_tensor(m._coef_path.T.astype(np.float32)).to(dev)
+    off = m._frame_offset(te)
+    if off is not None:
+        etas = etas + off[:, None]
+    yt = torch.from_numpy(te.local_rows(yv, 0.0)).to(dev)
+    devs = fetch(m.family.deviance(yt[:, None], m.family.linkinv(etas)))
+    return (te.local_rows(w, 0.0)[:, None] * devs).sum(axis=0)
+
+
 def train_with_cv(builder, frame: Frame, x: Sequence[str], y: str,
                   nfolds: int, validation_frame: Optional[Frame] = None):
     """Train ``nfolds`` fold models and the main model; the main model
@@ -142,15 +178,24 @@ def train_with_cv(builder, frame: Frame, x: Sequence[str], y: str,
         else 1
     holdout = np.zeros((n, K) if K > 1 else (n,), np.float32)
 
+    glm = builder.algo == "glm"
+    penalized_glm = glm and (p.get("lambda_search") or
+                             p.get("lambda_") not in (None, 0, 0.0))
     fast = bool(getattr(builder, "cv_fold_masking", False)) \
-        and p.get("checkpoint") is None
+        and p.get("checkpoint") is None and not penalized_glm
     final = shared_bm = None
     if fast:
         # the main model first: the folds reuse its binning
         final = builder.__class__(**main_params)._fit(
             frame, list(x), y, validation_frame=validation_frame)
-        shared_bm = final.bm
+        shared_bm = getattr(final, "bm", None)
     light = fast and nfolds >= max(100, 0.5 * n)
+    shared_path = None
+    if glm and p.get("lambda_search") and not fast:
+        # one full-frame lambda path for every fold
+        shared_path = getattr(builder.__class__(**sub_params)._fit(
+            frame, list(x), y), "_lambda_path_vals", None)
+    path_devs = []
 
     cv_models, fold_metrics, dev_scores = [], [], []
     max_fold = int(np.max(np.bincount(folds, minlength=nfolds)))
@@ -177,7 +222,12 @@ def train_with_cv(builder, frame: Frame, x: Sequence[str], y: str,
             tr = subset_frame(frame, mask_tr, pad_to=frame.nrows_padded)
             te = subset_frame(frame, ~mask_tr,
                               pad_to=padded_rows(max_fold, LOCAL, 8))
-            m = builder.__class__(**sub_params)._fit(tr, list(x), y)
+            sub = builder.__class__(**sub_params)
+            if shared_path:
+                sub.params["_lambda_path_override"] = shared_path
+            m = sub._fit(tr, list(x), y)
+            if shared_path and getattr(m, "_coef_path", None) is not None:
+                path_devs.append(_glm_path_holdout_deviance(m, te, y, p))
             preds = m._score_raw(te)
             fm = m.model_performance(te)
         cv_models.append(m)
@@ -189,8 +239,14 @@ def train_with_cv(builder, frame: Frame, x: Sequence[str], y: str,
             holdout[idx] = arr[idx]
 
     if final is None:
-        final = builder.__class__(**main_params)._fit(
-            frame, list(x), y, validation_frame=validation_frame)
+        fb = builder.__class__(**main_params)
+        if path_devs:
+            # the lambda of the least summed holdout deviance
+            tot = np.sum(np.stack(path_devs), axis=0)
+            fb.params["_lambda_path_override"] = shared_path
+            fb.params["_cv_selected_lambda"] = float(
+                shared_path[int(np.argmin(tot))])
+        final = fb._fit(frame, list(x), y, validation_frame=validation_frame)
 
     # CV metrics over the merged holdout predictions: NA responses out,
     # user weights in, as the training metrics weigh them

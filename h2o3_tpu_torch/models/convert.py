@@ -10,8 +10,9 @@ binning (``edges``, ``nbins``, ``is_cat``, ``names``, ``domains``,
 packages score the same forest. What a ``checkpoint`` restart reads comes
 across too: the training ``params`` (the non-modifiable fields are
 checked against them), GBM's f0 and ``init_f``, DRF's out-of-bag
-accumulators; and a calibrator. Nothing here imports the reference
-package: the caller hands over numpy.
+accumulators; and a calibrator. ``glm_model_from_arrays`` carries a GLM
+across: its coefficients, family and design statistics. Nothing here
+imports the reference package: the caller hands over numpy.
 """
 
 from __future__ import annotations
@@ -27,6 +28,7 @@ from h2o3_tpu_torch.models.drf import DRFModel
 from h2o3_tpu_torch.models.extisofor import (ExtendedIsolationForestModel,
                                              ExtTree)
 from h2o3_tpu_torch.models.gbm import GBMModel
+from h2o3_tpu_torch.models.glm import Family, GLMModel
 from h2o3_tpu_torch.models.isofor import ANOMALY, IsolationForestModel
 from h2o3_tpu_torch.models.tree import Tree
 from h2o3_tpu_torch.models.uplift import UpliftDRFModel
@@ -184,3 +186,27 @@ def extisofor_model_from_arrays(
     return ExtendedIsolationForestModel(
         dict(d.get("params") or {}), output, forest, float(d["c_norm"]),
         [float(m) for m in d["means"]], list(d["features"]))
+
+
+def glm_model_from_arrays(d: Arrays) -> GLMModel:
+    """Port ``GLMModel`` from the reference model's images: ``coef``
+    [P+1] (or ``coef_multinomial`` [P+1, K]), ``family`` (name),
+    ``link``, ``tweedie_power``, ``theta``, ``di_stats`` (``num_means``,
+    ``num_sigmas``, ``domains``), ``features``, ``output`` (the
+    reference's output dict: category, response, coef_names, domain,
+    coef_means, coef_sds, standardized, default_threshold and, for an
+    ordinal model, family and ``ordinal_alphas``) and ``params``. The
+    model scores on the device of the frame it is given."""
+    st = d["di_stats"]
+    stats = {"num_means": np.asarray(st["num_means"], np.float64),
+             "num_sigmas": np.asarray(st["num_sigmas"], np.float64),
+             "domains": [None if dom is None else list(dom)
+                         for dom in st["domains"]]}
+    cm = d.get("coef_multinomial")
+    return GLMModel(dict(d.get("params") or {}), dict(d["output"]),
+                    np.asarray(d["coef"]),
+                    Family(str(d["family"]), float(d.get("tweedie_power",
+                                                         1.5)),
+                           d.get("link"), theta=float(d.get("theta", 1e-5))),
+                    stats, list(d["features"]),
+                    coef_multinomial=None if cm is None else np.asarray(cm))

@@ -48,6 +48,10 @@ SLICE_MODULES = (
     "h2o3_tpu_torch/models/isofor.py",
     "h2o3_tpu_torch/models/extisofor.py",
     "h2o3_tpu_torch/ml/shap.py",
+    "h2o3_tpu_torch/frame/datainfo.py",
+    "h2o3_tpu_torch/ops/gram.py",
+    "h2o3_tpu_torch/ops/optimize.py",
+    "h2o3_tpu_torch/models/glm.py",
 )
 # sources the port compiles: its kernels and its tokenizer
 NATIVE_FILES = sorted(str(p.relative_to(ROOT)) for p in PKG.rglob("*")
@@ -167,3 +171,22 @@ def test_ingest_entry_points_default_to_cuda_and_raise_without_card(
     for fn in (import_file, stream_import_csv):
         with pytest.raises(RuntimeError, match="no CUDA device"):
             fn(str(p))
+
+
+def test_glm_entry_points_default_to_cuda_and_raise_without_card(
+        monkeypatch):
+    """A GLM fit starts from a frame: without a ``device=`` the frame
+    resolves to CUDA and raises without a card, before any fit; a frame
+    asked for on the card raises too, and a CPU frame's fit stays on the
+    CPU (no path moves between them on its own)."""
+    import h2o3_tpu_torch as h2o
+    cols = {"x": np.arange(8.0), "y": np.arange(8.0) % 3}
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    for kw in ({}, {"device": "cuda"}):
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            h2o.GLMEstimator(lambda_=0.0).train(
+                h2o.Frame.from_numpy(cols, **kw), y="y")
+    m = h2o.GLMEstimator(lambda_=0.0).train(
+        h2o.Frame.from_numpy(cols, device="cpu"), y="y")
+    assert m.predict(h2o.Frame.from_numpy(cols, device="cpu")).device.type \
+        == "cpu"

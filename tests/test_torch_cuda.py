@@ -883,3 +883,50 @@ def test_contributions_card_vs_cpu(dev):
     tol = 1e-5 * np.maximum(1.0, np.abs(out))
     assert (np.abs(got - want) <= tol[:, None]).all()
     assert (np.abs(got.sum(1) - out) <= tol).all()
+
+
+def glm_case(case):
+    """(columns, domains, response, estimator parameters, coefficient
+    tolerance, probability tolerance or None) of one card-vs-CPU GLM
+    case: binomial on the HIGGS generator (6 columns), or multinomial
+    IRLSM on a 3-class airlines response (P = 263; ridge: Cholesky, L1:
+    ADMM)."""
+    if case in ("irlsm", "l_bfgs"):
+        cols, domains, _ = cs.higgs_arrays(N, p=6)
+        tol = cs.GLM_TOL if case == "irlsm" else cs.GLM_LBFGS_TOL
+        return (cols, domains, "y", dict(cs.HIGGS_GLM, solver=case,
+                                         max_iterations=20), tol, None)
+    n = cs.N_SURFACE_CPU
+    cols, domains = cs.airlines_arrays(n)
+    cols.pop(cs.Y)
+    cols["late"] = np.digitize(cs.airlines_delay(n), [0.0, 15.0]).astype(
+        np.int32)
+    domains = dict(domains, late=["l0_early", "l1_ontime", "l2_late"])
+    domains.pop(cs.Y)
+    params = dict(family="multinomial", solver="irlsm", lambda_=1e-3)
+    if case == "multinomial_ridge":
+        params["alpha"] = 0.0
+    return cols, domains, "late", params, cs.GLM_TOL, cs.GLM_PROB_TOL
+
+
+@pytest.mark.parametrize("case", ["irlsm", "l_bfgs", "multinomial_ridge",
+                                  "multinomial_l1"])
+def test_glm_card_vs_cpu_and_refit_bit_equal(dev, case):
+    """GLM on the card (no kernel: cuBLAS Gram, TF32 off, plain torch
+    solvers): binomial IRLSM and L-BFGS fits and converged multinomial
+    IRLSM fits (ridge and L1) against the CPU plain fits of the same rows
+    (training logloss within 1e-6 relative, coefficients within
+    chip_smoke's GLM_TOL / GLM_LBFGS_TOL, multinomial probabilities
+    within GLM_PROB_TOL), a refit bit-equal, and no kernel launched."""
+    import h2o3_tpu_torch as h2o
+    cols, domains, y, params, tol, prob_tol = glm_case(case)
+    n = len(cols[y])
+    kernels.reset_counts()
+    m_card, _, _, _ = cs.cpu_glm_check(
+        lambda: h2o.GLMEstimator(**params), cols, domains, y, n, tol, case,
+        dev, prob_tol=prob_tol)
+    assert not any(kernels.LAUNCHES.values())
+    assert m_card.training_metrics["logloss"] < np.log(3)
+    refit = h2o.GLMEstimator(**params).train(h2o.Frame.from_numpy(
+        cols, domains=domains, device=dev), y=y)
+    assert refit.coefficients == m_card.coefficients

@@ -10,7 +10,18 @@ differ only at a near-tie, and this data has none. The NA-imputing means
 (float32 rollup sums, another add order) agree within 1e-6 relative. A
 reference forest carried across scores within 1e-6; whole fits of both
 packages find the planted anomalies (AUC >= 0.95) and rank the rows
-alike (Spearman >= 0.9)."""
+alike (Spearman >= 0.9).
+
+The reference's whole fits run on a one-device mesh (``_one_device``).
+Its tree loop dispatches every tree without waiting, and on the suite's
+8 virtual CPU devices those programs' all-reduces can be in flight
+together: XLA:CPU's rendezvous then waits on device threads that are
+busy in another collective and, after 40 s, aborts the process ("Fatal
+Python error: Aborted" in ``jnp.stack`` of the fit, a crashed xdist
+worker). On one device there is no collective to wait on, and the fit
+is the same algorithm on the same draws."""
+
+import contextlib
 
 import jax
 import jax.numpy as jnp
@@ -21,6 +32,7 @@ import torch
 import h2o3_tpu
 import h2o3_tpu_torch
 from h2o3_tpu.frame.rollups import rollups as ref_rollups
+from h2o3_tpu.parallel import mesh as ref_mesh
 from h2o3_tpu.models import extisofor as ref_ext
 from h2o3_tpu_torch.frame.rollups import rollup_mean
 from h2o3_tpu_torch.models import extisofor
@@ -29,6 +41,17 @@ from h2o3_tpu_torch.models.convert import extisofor_model_from_arrays
 from tests.test_torch_isofor import anomaly_cols, auc, spearman
 
 NUM = ["x0", "x1", "x2", "x3"]
+
+
+@contextlib.contextmanager
+def _one_device():
+    """The reference's frames and fits on a one-device mesh."""
+    token = ref_mesh._MESH_OVERRIDE.set(
+        ref_mesh.make_mesh(jax.devices()[:1]))
+    try:
+        yield
+    finally:
+        ref_mesh._MESH_OVERRIDE.reset(token)
 
 
 def _frames(cols, cats):
@@ -113,13 +136,15 @@ def _ref_arrays(m_r) -> dict:
 
 def test_reference_forest_carried_across_scores_alike():
     cols, cats, _ = anomaly_cols(n=5000)
-    fr_r, _ = _frames(cols, cats)
-    m_r = ref_ext.ExtendedIsolationForestEstimator(
-        ntrees=12, extension_level=2, seed=4).train(fr_r)
-    model = extisofor_model_from_arrays(_ref_arrays(m_r), device="cpu")
     test_cols, _, _ = anomaly_cols(n=3000, seed=9)
-    te_r, te_p = _frames(test_cols, cats)
-    p_r, p_p = m_r.predict(te_r), model.predict(te_p)
+    with _one_device():
+        fr_r, _ = _frames(cols, cats)
+        m_r = ref_ext.ExtendedIsolationForestEstimator(
+            ntrees=12, extension_level=2, seed=4).train(fr_r)
+        te_r, te_p = _frames(test_cols, cats)
+        p_r = m_r.predict(te_r)
+    model = extisofor_model_from_arrays(_ref_arrays(m_r), device="cpu")
+    p_p = model.predict(te_p)
     for c in ("anomaly_score", "mean_length"):
         np.testing.assert_allclose(p_p.col(c).to_numpy(),
                                    p_r.col(c).to_numpy(), rtol=1e-6,
@@ -129,13 +154,14 @@ def test_reference_forest_carried_across_scores_alike():
 @pytest.mark.parametrize("ext", [0, 3])
 def test_full_fits_find_the_planted_anomalies(ext):
     cols, cats, bad = anomaly_cols(n=10_000)
-    fr_r, fr_p = _frames(cols, cats)
-    m_r = ref_ext.ExtendedIsolationForestEstimator(
-        extension_level=ext, seed=1).train(fr_r)
+    with _one_device():
+        fr_r, fr_p = _frames(cols, cats)
+        m_r = ref_ext.ExtendedIsolationForestEstimator(
+            extension_level=ext, seed=1).train(fr_r)
+        s_r = m_r.predict(fr_r).col("anomaly_score").to_numpy()
     m_p = h2o3_tpu_torch.ExtendedIsolationForestEstimator(
         extension_level=ext, seed=1).train(fr_p)
     assert m_p.features == m_r.features == NUM       # categorical dropped
-    s_r = m_r.predict(fr_r).col("anomaly_score").to_numpy()
     s_p = m_p.predict(fr_p).col("anomaly_score").to_numpy()
     assert auc(s_r, bad) >= 0.95 and auc(s_p, bad) >= 0.95
     assert spearman(s_r, s_p) >= 0.9
