@@ -183,13 +183,37 @@ Phases, in order; any failure exits non-zero and no phase carries on:
     search (10 lambdas), each against the CPU plain fit on a 10K-row head
     (the multinomial fits' probabilities too); one COD and one ADMM IRLS
     iteration timed at P = 263.
+23. DeepLearning (no kernel: cuBLAS products with TF32 off, bf16 GEMMs
+    from a batch of 16,384, plain torch). (a) bench.py's DL benchmark at
+    its shape, nothing cut: 1,000,000 x 784 pixels rand > 0.8 from
+    RandomState(5) and a 10-class label, ``hidden=[200, 200]``,
+    rectifier, 8 epochs (batch 8192, float32) after a 0.1-epoch warm-up
+    fit: train seconds, samples/s beside the published 80K, peak memory,
+    the training error and the early-stopping history; a refit
+    bit-equal; one step timed (device, host-paced, host) and a 20-step
+    chunk under torch.profiler (no scatter or atomic kernel). (b) On a
+    16,384-row head, card vs CPU plain from the same initial weights,
+    every step held from the card's state (``dl_card_vs_cpu``), then the
+    same with TF32 on, which must fail. (c) bf16
+    (``mini_batch_size=16384``) on (a)'s frame: the route of the product
+    (it must be ``mm_out_dtype``), seconds and samples/s; on a
+    65,536-row head card vs CPU with bf16 on both sides, then with
+    bf16-rounded products, which must fail. (d) On 20,000 airlines rows
+    (P = 263): Tanh, Maxout (3
+    classes), both with dropout, momentum SGD with Nesterov and a ramp
+    under L1/L2, regression, the autoencoder and ``anomaly``, early
+    stopping with a validation frame, a ``checkpoint=`` restart (dropout
+    on: bit-equal to the straight fit) and 3-fold CV; each without
+    dropout against the CPU plain fit on the same rows.
 
 Launch counts are read per path: each path sets every count to 0 just
 before it runs and reads them just after (phase 15's, over its seven
 fits, are their sum). The line before the last is
 the ``{"kernels": [...]}`` record (every kernel, each with its own
 source, the TPU kernel it replaces, the path and levels it was timed at
-and its launches on that path; ``ms`` is device time, ``host_paced_ms``
+and its launches on that path; ``ms`` is device time (the mean over the
+levels of each level's median call, ``ms_min``/``ms_max`` the fastest
+and slowest call), ``host_paced_ms``
 and ``host_us`` as ``time_ms`` says; the three level kernels three
 times, at the GBM, the DRF and the multinomial GBM levels,
 ``tree_split``'s with its floor; ``launches_by_path`` gives each
@@ -200,17 +224,21 @@ and ``gbm_cv``, phase 18's as ``gbm_csv``, phase 19's as ``xgboost``,
 ``isofor`` (the fit), ``isofor_predict``, ``extisofor_0`` and
 ``extisofor_6``, phase 21's as ``tree_scoring``, phase 22's as
 ``glm_irlsm``, ``glm_lbfgs``, ``glm_lambda_search``, ``glm_multinomial``
-and ``glm_surface``, every kernel 0 on each; ``tree_partition`` has a
+and ``glm_surface``, phase 23's as ``deeplearning``,
+``deeplearning_bf16`` and ``deeplearning_surface``, every kernel 0 on
+each; ``tree_partition`` has a
 fourth record, at the Isolation Forest levels); the last is
 ``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
 
+import contextlib
 import json
 import subprocess
 import sys
 import time
+from unittest import mock
 
 import numpy as np
 
@@ -348,6 +376,58 @@ SURFACE_FITS = (
     ("cv lambda search", "delay", GLM_ADMM_TOL,
      dict(family="gaussian", nfolds=3, seed=7, lambda_search=True,
           nlambdas=10)))
+# Phase 23, DeepLearning: bench.py's benchmark (bench.py:336-386), nothing
+# cut: 1M x 784 0/1 pixels from RandomState(5), 10 classes, [200, 200]
+# rectifier, 8 epochs after a 0.1-epoch warm-up fit; the published H2O
+# rate beside it (hex/deeplearning/README.md:26, one node)
+N_DL = 1_000_000
+P_DL = 784
+DL = dict(hidden=[200, 200], activation="rectifier", seed=1)
+DL_EPOCHS, DL_WARMUP = 8.0, 0.1
+DL_PUBLISHED = 80_000.0          # samples/s
+N_DL_HEAD = 16_384               # (b) card vs CPU: batch 256, 64 steps
+N_DL_BF16_HEAD = 65_536          # (c) card vs CPU in bf16: batch 16,384
+DL_BF16_BATCH = 16_384
+N_DL_SURFACE = 20_000            # (d) the airlines head, P = 263
+DL_SURFACE = dict(hidden=[32, 16], epochs=2, seed=3)
+# card vs CPU plain (``dl_card_vs_cpu``). Every step of the card's fit is
+# held against the CPU plain step taken from the card's state before it,
+# on the card's design (``dl_replay``): each hidden pre-activation within
+# its float32 error bound of the CPU's (``dl_preactivations``), and the
+# update within DL_STEP_TOL (float32 products) or DL_BF16_STEP_TOL (bf16
+# products) relative RMS (``dl_step_gap``). A step over it passes only
+# where float32 order explains it: a hidden unit of the batch decided
+# the other way (a rectifier's sign, a maxout pair's order) within the
+# bound of the tie (``dl_tie_flips``), and the same step with those rows
+# at weight 0 within the tolerance. Where no step flips, a float32 fit
+# replayed whole on both devices is held too: weights (relative to
+# max(1, max|W|)) within DL_TOL and scores (relative to max(1,
+# max|score|)) within DL_PROB_TOL; a bf16 fit is held step by step only
+# (a bf16 rounding of a gradient element parts the fits at every step).
+# The card's scores against the CPU's scoring of the same net within
+# DL_SCORE_TOL. The estimator's own CPU fit takes its own design, which
+# the card's standardization parts in the last bits; its gaps are
+# printed, not held. A fit with TF32 left on (phase 23(b)) and one with
+# bf16-rounded products (23(c)) must fail. Readings from
+# ``scripts/dl_limits.py`` and phase 23 (NVIDIA H100 80GB HBM3, 700 W;
+# the largest sound fit, the smallest control): the bound 0.075 and
+# 0.85 of it; steps 9.7e-6 and 7.1e-4; replayed weights 1.7e-7 and
+# 1.8e-4, scores 3.1e-7 and 2.1e-4; the same net's scores 6.0e-7 and
+# 4.3e-6. bf16 steps read 1.5e-3 to 2.8e-3 sound (the same head reads
+# 1.7e-3 alone and 2.8e-3 after phase 23(a) in one process; the cause,
+# likely bf16 roundings of gradients that go two ways, is not verified)
+# and 4.2e-3 to 8.0e-3 with
+# bf16-rounded products: no step limit leaves both a margin, so
+# DL_BF16_STEP_TOL keeps 3.6x over the sound readings against gross step
+# errors and the pre-activation bound (7.5 against 0.075) catches that
+# control. DL_METRIC_TOL holds the early-stopping losses and the CV
+# metrics (relative; AUC absolute).
+DL_STEP_TOL = 1e-4
+DL_BF16_STEP_TOL = 1e-2
+DL_TOL = 5e-6
+DL_PROB_TOL = 1e-5
+DL_SCORE_TOL = 2e-6
+DL_METRIC_TOL = 1e-4
 _TREEKERNEL = dict(source="h2o3_tpu_torch/ops/kernels/csrc/treekernel.cu",
                    replaces="h2o3_tpu/ops/pallas/treekernel.py:250")
 KERNELS = {
@@ -666,16 +746,18 @@ def equal_trees(t_a, t_b, label: str) -> None:
 
 
 def time_ms(torch, fn, reps: int = 10) -> dict:
-    """What a call of ``fn`` costs, the mean of ``reps`` calls, three
-    ways. ``ms``: the card's time. The calls queue behind a sleep kernel
-    that outlasts their host side, each after a read of L2_FLUSH_BYTES
-    (its inputs come from device memory, as the byte bound assumes, and
-    L2 holds no dirty lines to write back) and between its own two
-    events. ``host_paced_ms``: calls back to back between two events, as
-    this script first timed kernels; where a wrapper takes longer on the
-    host than its kernel on the card, this is the wrapper's time, which a
-    fit pays a launch while the card waits on the host. ``host_us``: the host's
-    time to make one call."""
+    """What a call of ``fn`` costs, over ``reps`` calls, three ways.
+    ``ms``: the card's time, the median of the calls (``ms_min`` and
+    ``ms_max`` give their spread: one slow call, such as the first after
+    the profiler, moves a mean but not the median). The calls queue
+    behind a sleep kernel that outlasts their host side, each after a
+    read of L2_FLUSH_BYTES (its inputs come from device memory, as the
+    byte bound assumes, and L2 holds no dirty lines to write back) and
+    between its own two events. ``host_paced_ms``: calls back to back
+    between two events, as this script first timed kernels; where a
+    wrapper takes longer on the host than its kernel on the card, this
+    is the wrapper's time, which a fit pays a launch while the card waits
+    on the host. ``host_us``: the host's time to make one call."""
     flush = torch.zeros(L2_FLUSH_BYTES // 4, dtype=torch.int32,
                         device="cuda")
     fn()
@@ -698,9 +780,30 @@ def time_ms(torch, fn, reps: int = 10) -> dict:
         fn()
         e1.record()
     torch.cuda.synchronize()
-    return dict(ms=sum(e0.elapsed_time(e1) for e0, e1 in ev[:reps]) / reps,
+    dev_ms = [e0.elapsed_time(e1) for e0, e1 in ev[:reps]]
+    return dict(ms=float(np.median(dev_ms)), ms_min=min(dev_ms),
+                ms_max=max(dev_ms),
                 host_paced_ms=ev[reps][0].elapsed_time(ev[reps][1]) / reps,
                 host_us=host_s * 1e6)
+
+
+def timing_acc() -> dict:
+    """Per-level sums of ``time_ms``'s times (``add_time``), of the plain
+    and library times and of the bound's two terms."""
+    return dict(ms=0.0, ms_min=float("inf"), ms_max=0.0, host_paced_ms=0.0,
+                host_us=0.0, plain_ms=0.0, library_ms=0.0, bytes_ms=0.0,
+                ops_ms=0.0)
+
+
+def add_time(a: dict, t: dict) -> None:
+    for key in ("ms", "host_paced_ms", "host_us"):
+        a[key] += t[key]
+    a["ms_min"] = min(a["ms_min"], t["ms_min"])
+    a["ms_max"] = max(a["ms_max"], t["ms_max"])
+
+
+def spread(t: dict) -> str:
+    return f"{t['ms']:.6g} ms (calls {t['ms_min']:.6g}..{t['ms_max']:.6g})"
 
 
 # --------------------------------------------------------------- phases
@@ -891,10 +994,11 @@ def phase_main(torch, dev, cols, domains):
     return model, fr, counts, t_train
 
 
-def profiled_fit(torch, label: str, fit) -> None:
+def profiled_fit(torch, label: str, fit):
     """Run ``fit()`` under torch.profiler: device time by kernel, host
     time by op, and the device's busy share of the fit's wall time (the
-    profiler stretches the wall time, so the share is a floor)."""
+    profiler stretches the wall time, so the share is a floor). Returns
+    the profiler's ``key_averages()``."""
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -920,6 +1024,7 @@ def profiled_fit(torch, label: str, fit) -> None:
                     reverse=True)[:10]:
         say(f"  host   {e.self_cpu_time_total / 1e3:9.3f} ms  "
             f"x{e.count:<5d} {e.key[:90]}")
+    return ev
 
 
 def phase_profile(torch, dev, fr):
@@ -991,8 +1096,7 @@ def level_timing(torch, dev, bm, names, n_rows, depths=range(6),
     each timed level must equal its plain version's EXACTLY."""
     from h2o3_tpu_torch.ops.fixed_point import exponents
     from h2o3_tpu_torch.ops.kernels import treekernel as tk
-    acc = {k: dict(ms=0.0, host_paced_ms=0.0, host_us=0.0, plain_ms=0.0,
-                   library_ms=0.0, bytes_ms=0.0, ops_ms=0.0) for k in names}
+    acc = {k: timing_acc() for k in names}
     for lev in level_chain(torch, bm, n_rows, depths[-1] + 1, mtries):
         if lev["d"] not in depths:
             continue
@@ -1062,11 +1166,10 @@ def level_timing(torch, dev, bm, names, n_rows, depths=range(6),
                   f"{k} d={d} != its plain version")
             a = acc[k]
             t = time_ms(torch, lambda: kern(k))
-            say(f"  {k} d={d} ({N} rows, L={L}): {t['ms']:.6g} ms, "
+            say(f"  {k} d={d} ({N} rows, L={L}): {spread(t)}, "
                 f"host-paced {t['host_paced_ms']:.6g} ms, host "
                 f"{t['host_us']:.4g} us a call, exact")
-            for key in ("ms", "host_paced_ms", "host_us"):
-                a[key] += t[key]
+            add_time(a, t)
             a["plain_ms"] += time_ms(torch, plain, reps=3)["ms"]
             if lib is not None:
                 a["library_ms"] += time_ms(torch, lib, reps=3)["ms"]
@@ -1109,8 +1212,9 @@ def timing_records(acc, counts, n_rows, label, path, depths=range(6)):
                             levels=f"d={depths[0]}..{depths[-1]}",
                             has_library=ROLE[k] == "hist")
         records.append(rec)
-        say(f"{label} {k}: {rec['ms']:.6g} ms per launch (mean of "
-            f"{rec['levels']} at {n_rows} rows; host-paced "
+        say(f"{label} {k}: {rec['ms']:.6g} ms per launch (mean of the "
+            f"medians of {rec['levels']} at {n_rows} rows, calls "
+            f"{rec['ms_min']:.6g}..{rec['ms_max']:.6g}; host-paced "
             f"{rec['host_paced_ms']:.6g} ms, host {rec['host_us']:.4g} us a "
             f"call), plain {rec['plain_ms']:.6g} ms, bound "
             f"{rec['bound_ms']:.6g} ms ({rec['bound_by']}), library "
@@ -1137,7 +1241,7 @@ def phase_timing(torch, dev, model, counts):
         DRF_DEPTHS)
     leaf_sum_timing(torch, dev, model.bm, n)
     floor = split_floor_ms(torch, dev, model.bm)
-    say(f"phase5 tree_split floor (L=1, F=1, B=3): {floor['ms']:.6g} ms, "
+    say(f"phase5 tree_split floor (L=1, F=1, B=3): {spread(floor)}, "
         f"host-paced {floor['host_paced_ms']:.6g} ms, host "
         f"{floor['host_us']:.4g} us a call")
     for rec in records:
@@ -1192,6 +1296,7 @@ def kernel_record(name, launches, a, n_levels, *, path, levels,
     return {"name": name, "route": "cuda", **KERNELS[name], "path": path,
             "levels": levels, "launches": launches,
             "ms": a["ms"] / n_levels,
+            "ms_min": a["ms_min"], "ms_max": a["ms_max"],
             "host_paced_ms": a["host_paced_ms"] / n_levels,
             "host_us": a["host_us"] / n_levels,
             "plain_ms": a["plain_ms"] / n_levels,
@@ -1426,8 +1531,7 @@ def phase_hist_timing(torch, dev, model, fr, counts):
     w = fr.valid_weights() * keep * fr.col("treatment").data
     y = fr.col("visit").data.to(torch.float32)
     stats = torch.stack([w, w * y, w], dim=1).contiguous()
-    acc = dict(ms=0.0, host_paced_ms=0.0, host_us=0.0, plain_ms=0.0,
-               library_ms=0.0, bytes_ms=0.0, ops_ms=0.0)
+    acc = timing_acc()
     feat = torch.arange(F, device=dev)
     exps = exponents(stats)            # once a tree, as the fit has them
     for d in range(D):
@@ -1439,10 +1543,9 @@ def phase_hist_timing(torch, dev, model, fr, counts):
         t = time_ms(torch, lambda: full_histogram(bins, nid, stats,
                                                   n_nodes=L, n_bins=B,
                                                   exps=exps))
-        say(f"  histogram d={d} (L={L}): {t['ms']:.6g} ms, host-paced "
+        say(f"  histogram d={d} (L={L}): {spread(t)}, host-paced "
             f"{t['host_paced_ms']:.6g} ms")
-        for key in ("ms", "host_paced_ms", "host_us"):
-            acc[key] += t[key]
+        add_time(acc, t)
         acc["plain_ms"] += time_ms(torch, lambda: local_histogram(
             bins, nid, stats, n_nodes=L, n_bins=B), reps=3)["ms"]
         acc["library_ms"] += time_ms(torch, lambda: torch.zeros(
@@ -1455,8 +1558,9 @@ def phase_hist_timing(torch, dev, model, fr, counts):
     rec = kernel_record("histogram", counts["histogram"], acc, D,
                         path="uplift", levels=f"d=0..{D - 1}",
                         has_library=True)
-    say(f"phase9 histogram: {rec['ms']:.6g} ms per launch (mean of d=0..9 "
-        f"at {N} rows, F={F}, B={B}), plain {rec['plain_ms']:.6g} ms, bound "
+    say(f"phase9 histogram: {rec['ms']:.6g} ms per launch (mean of the "
+        f"medians of d=0..9 at {N} rows, F={F}, B={B}; calls "
+        f"{rec['ms_min']:.6g}..{rec['ms_max']:.6g}), plain {rec['plain_ms']:.6g} ms, bound "
         f"{rec['bound_ms']:.6g} ms ({rec['bound_by']}), library "
         f"{rec['library_ms']:.6g} ms (index_add_ on precomputed cells)")
     return rec
@@ -2618,8 +2722,7 @@ def isofor_partition_timing(torch, bm, tree, counts):
     N, F = bins.shape
     dev = bins.device
     D = tree.feat.shape[0]
-    acc = dict(ms=0.0, host_paced_ms=0.0, host_us=0.0, plain_ms=0.0,
-               library_ms=0.0, bytes_ms=0.0, ops_ms=0.0)
+    acc = timing_acc()
     nid = torch.zeros(N, dtype=torch.int32, device=dev)
     for d in range(D):
         L = 2 ** d
@@ -2633,8 +2736,7 @@ def isofor_partition_timing(torch, bm, tree, counts):
         check(torch.equal(got, want), f"tree_partition isofor d={d}")
         t = time_ms(torch, lambda: tk.tree_partition(bins, nid, *dec,
                                                      n_bins=B))
-        for key in ("ms", "host_paced_ms", "host_us"):
-            acc[key] += t[key]
+        add_time(acc, t)
         acc["plain_ms"] += time_ms(torch, lambda: tk.partition_plain(
             bins, nid, *dec, n_bins=B), reps=3)["ms"]
         acc["bytes_ms"] += (N * (F * bins.element_size() + 8)
@@ -3324,6 +3426,621 @@ def phase_glm(torch, dev, cols, domains, delay, ccols, cdomains):
     return paths
 
 
+def mnist_shape_arrays(n: int, seed: int = 5):
+    """bench.py's DL frame: ``n`` x 784 pixels rand > 0.8 as float32 and
+    a 10-class label, from RandomState(seed) in bench.py's order (drawn a
+    row block at a time: the same stream as one ``rand(n, 784)``)."""
+    r = np.random.RandomState(seed)
+    X = np.empty((n, P_DL), np.float32)
+    for lo in range(0, n, 1 << 16):
+        hi = min(n, lo + (1 << 16))
+        X[lo:hi] = r.rand(hi - lo, P_DL) > 0.8
+    cols = {f"p{i}": X[:, i] for i in range(P_DL)}
+    cols["label"] = r.randint(0, 10, n)
+    return cols, {"label": [str(k) for k in range(10)]}
+
+
+def same_net(a, b) -> bool:
+    import torch
+    return all(torch.equal(x[k].cpu(), y[k].cpu())
+               for x, y in zip(a.net, b.net) for k in ("W", "b"))
+
+
+def net_gap(a, b) -> float:
+    """The largest weight gap of two nets relative to max(1, max|W|)."""
+    from h2o3_tpu_torch.parallel.device import fetch
+    A = [{k: fetch(l[k]).astype(np.float64) for k in ("W", "b")} for l in a]
+    B = [{k: fetch(l[k]).astype(np.float64) for k in ("W", "b")} for l in b]
+    scale = max(1.0, max(np.abs(l["W"]).max() for l in B))
+    return max(np.abs(x[k] - y[k]).max() for x, y in zip(A, B)
+               for k in ("W", "b")) / scale
+
+
+def dl_scores(model, fr) -> np.ndarray:
+    """A DL model's scores: class probabilities, the prediction, or the
+    reconstruction error, [rows, columns]."""
+    cols = model._score_raw(fr)
+    keys = [k for k in cols if k != "predict"] or ["predict"]
+    return np.stack([np.asarray(cols[k], np.float64) for k in keys], 1)
+
+
+def dl_card_vs_cpu(build, cols, domains, y, dev, label, x=None,
+                   **train_kw) -> dict:
+    """``build()`` fit on ``cols`` on the card and on the CPU (the plain
+    path, the same initial weights), held as the comment at DL_STEP_TOL
+    says. Returns the verdict (``ok``, and ``why`` lists what failed)
+    and the readings: the card and CPU models, the card's frame,
+    ``dl_replay``'s, the replayed fits' weight and score gaps (``whole``:
+    whether they were held), the estimator fits' (each on its own
+    design; printed, not held), and the card net's scores on the card
+    against the CPU."""
+    import copy
+    import h2o3_tpu_torch as h2o
+    frs = [h2o.Frame.from_numpy(cols, domains=domains, device=d)
+           for d in (dev, "cpu")]
+    m_card, m_cpu = (build().train(fr, y=y, x=x, **train_kw) for fr in frs)
+    rep = dl_replay(build(), frs, m_card.features, y, m_card._steps_trained)
+    twin = copy.copy(m_card)
+    twin.net = rep["cpu_net"]
+    # scores relative to max(1, max|score|): probabilities as they are,
+    # a regression's predictions on their own scale; scoring designs
+    # take the card model's statistics, so both devices score the same
+    # inputs
+    sc, sp = dl_scores(m_card, frs[0]), dl_scores(m_cpu, frs[1])
+    scale = max(1.0, float(np.abs(sp).max()))
+
+    def gap_of(s):
+        return float(np.abs(sc - s).max()) / scale
+    ma, mb = m_card.training_metrics["MSE"], m_cpu.training_metrics["MSE"]
+    res = dict(rep, m_card=m_card, m_cpu=m_cpu, fr=frs[0],
+               gap=net_gap(m_card.net, rep["cpu_net"]),
+               p_gap=gap_of(dl_scores(twin, frs[1])),
+               own_gap=net_gap(m_card.net, m_cpu.net), own_p_gap=gap_of(sp),
+               score_gap=gap_of(dl_scores(m_card, frs[1])),
+               mse_gap=abs(ma - mb) / max(abs(mb), 1e-3))
+    why = list(rep["why"])
+    if not all(same_layer(u, v) for u, v in zip(m_card.net, rep["net"])):
+        why.append("the step-by-step replay is not the card's fit")
+    if res["score_gap"] > DL_SCORE_TOL:
+        why.append(f"the card's scores {res['score_gap']:.3g} from the "
+                   f"CPU's on the same net (<= {DL_SCORE_TOL})")
+    res["whole"] = not rep["flips"] and m_card.output["bf16"] is None
+    if res["whole"] and (res["gap"] > DL_TOL or res["p_gap"] > DL_PROB_TOL):
+        why.append(f"no flip, and the fits part: weights {res['gap']:.3g} "
+                   f"(<= {DL_TOL}), scores {res['p_gap']:.3g} (<= "
+                   f"{DL_PROB_TOL})")
+    res.update(ok=not why, why=why, label=label)
+    return res
+
+
+def dl_report(res) -> str:
+    """One line of ``dl_card_vs_cpu``'s readings."""
+    fl = res["flips"]
+    return (f"card vs CPU plain: {res['steps']} steps each held from the "
+            f"card's state, {res['held']:.3g} (<= {res['step_tol']}), "
+            f"pre-activations within {res['z_ratio']:.3g} of their float32 "
+            f"bound, {len(fl)} flip steps"
+            + (f" {[f[:2] for f in fl]} (first: step {fl[0][0]}, "
+               f"{fl[0][2]})" if fl else "")
+            + f"; replayed fits: weights {res['gap']:.3g}, scores "
+            f"{res['p_gap']:.3g}" + (" (held)" if res["whole"] else
+                                     " (not held: a flip)" if fl else
+                                     " (not held: bf16)")
+            + f"; the estimator's fits (own designs): weights "
+            f"{res['own_gap']:.3g}, scores {res['own_p_gap']:.3g}, training "
+            f"MSE {res['mse_gap']:.3g} relative; the card net's scores on "
+            f"the CPU {res['score_gap']:.3g}")
+
+
+def dl_check(res) -> None:
+    say(f"{res['label']}: {dl_report(res)}")
+    check(res["ok"], f"{res['label']}: {res['why']}")
+
+
+def dl_control(res, what: str) -> None:
+    """A control fit (``dl_card_vs_cpu`` with the card's products broken
+    on purpose) must come out as not correct."""
+    say(f"{res['label']} control ({what}): {dl_report(res)}; caught by "
+        f"{res['why']}")
+    check(not res["ok"], f"{res['label']}: the control ({what}) passed")
+
+
+def same_layer(a, b) -> bool:
+    import torch
+    return all(torch.equal(a[k].cpu(), b[k].cpu()) for k in ("W", "b"))
+
+
+def dl_replay(est, frs, x, y, steps: int) -> dict:
+    """Each of the first ``steps`` steps of ``est``'s fit on the card
+    (``frs[0]``) against the CPU plain step (``frs[1]``) taken from the
+    card's net and optimizer state before it, on the card's design
+    (``prepare`` on each frame, then ``train_steps`` one step at a
+    time), so gaps do not compound. Every step's hidden pre-activations
+    must lie within their float32 bound of the CPU's
+    (``dl_preactivations``). A step's gap is ``dl_step_gap``; a step over
+    the tolerance must be explained by ``dl_tie_flips``, and the same
+    step with the tied rows at weight 0 must be within it. Beside it the
+    CPU takes its own steps from the same start (``cpu_net``). Returns
+    ``why`` (the failures), ``gaps`` (every step's), ``held`` (the
+    largest gap held against the tolerance: a step's own, or where a
+    flip explains it the same step's without the tied rows),
+    ``z_ratio`` (the largest pre-activation gap over its bound),
+    ``flips`` [(step, gap, first flipped unit)], ``step_tol``, ``steps``
+    and the card's ``net`` after the last step."""
+    import torch
+    from h2o3_tpu_torch.models import deeplearning as dl
+    a, c = (est.prepare(fr, x, y) for fr in frs)
+    assert not a.cfg.dropout, "dl_replay: a fit with dropout"
+    # the same inputs on both sides: the card's design, target and weights
+    # (the two designs' standardization parts them in the last bits, and
+    # bf16 would round a column near a midpoint two ways)
+    c = c._replace(X=a.X.cpu(), y=a.y.cpu(), w=a.w.cpu())
+    tol = DL_BF16_STEP_TOL if a.cfg.bf16 else DL_STEP_TOL
+    out = dict(why=[], held=0.0, z_ratio=0.0, flips=[], step_tol=tol,
+               steps=steps - a.done, gaps=[])
+
+    def copy(net, opt, device):
+        return ([{k: v.detach().to(device).clone().requires_grad_(True)
+                  for k, v in l.items()} for l in net],
+                dl.opt_state_on(opt, device))
+
+    def step(t, net, opt, k, w=None):
+        with dl.exact_f32():
+            dl.train_steps(net, opt, t.X, t.y, t.w if w is None else w,
+                           t.gen, t.cfg, t.sched, k, 1, t.n)
+
+    for k in range(a.done, steps):
+        before = [{n: v.detach().clone() for n, v in l.items()}
+                  for l in a.net]
+        opt0 = dl.opt_state_on(a.opt, "cpu")
+        net_c, opt_c = copy(before, opt0, "cpu")
+        z = dl_preactivations(before, a, c, k)
+        ratio = max(float((za - zc).abs().div(bound).nan_to_num(
+            posinf=np.inf).max()) for za, zc, bound in z)
+        out["z_ratio"] = max(out["z_ratio"], ratio)
+        if ratio > 1:
+            out["why"].append(f"step {k}: a pre-activation {ratio:.3g} x "
+                              "its float32 bound from the CPU's")
+        step(a, a.net, a.opt, k)
+        step(c, net_c, opt_c, k)
+        step(c, c.net, c.opt, k)
+        r = dl_step_gap(before, a.net, net_c)
+        out["gaps"].append(r)
+        if r <= tol:
+            out["held"] = max(out["held"], r)
+            continue
+        rows, units, why = dl_tie_flips(z, a, k)
+        if why:
+            out["held"] = max(out["held"], r)
+            out["why"].append(f"step {k}: gap {r:.3g} > {tol}, {why}")
+            continue
+        lo = dl.batch_start(k, a.sched.batch, a.n, a.X.shape[0])
+        probe = []
+        for t in (a, c):
+            w = t.w.clone()
+            w[lo + torch.as_tensor(rows, device=w.device)] = 0.0
+            net_p, opt_p = copy(before, opt0, t.X.device)
+            step(t, net_p, opt_p, k, w)
+            probe.append(net_p)
+        rp = dl_step_gap(before, *probe)
+        out["held"] = max(out["held"], rp)
+        out["flips"].append((k, float(f"{r:.3g}"), units[0]))
+        if rp > tol:
+            out["why"].append(f"step {k}: gap {rp:.3g} > {tol} without "
+                              f"the {len(rows)} tied rows")
+    out["net"] = [{n: v.detach() for n, v in l.items()} for l in a.net]
+    out["cpu_net"] = [{n: v.detach() for n, v in l.items()} for l in c.net]
+    return out
+
+
+def dl_step_gap(before, A, C) -> float:
+    """The relative RMS gap of two steps' updates from the same net
+    ``before``: ||A - C|| / ||C - before|| over every W and b together
+    (a small tensor whose update cancels, such as an output bias, would
+    read its own rounding as a large relative gap)."""
+    from h2o3_tpu_torch.parallel.device import fetch
+
+    def flat(net):
+        return np.concatenate([fetch(l[k].detach()).astype(
+            np.float64).ravel() for l in net for k in ("W", "b")])
+    x0, xa, xc = flat(before), flat(A), flat(C)
+    num, den = np.linalg.norm(xa - xc), np.linalg.norm(xc - x0)
+    return num / den if den > 0 else (0.0 if num == 0 else np.inf)
+
+
+def dl_preactivations(before, a, c, k):
+    """Each hidden layer's pre-activations of step ``k``'s batch from the
+    net ``before``, on the card (``a``) and on the CPU (``c``,
+    ``prepare``'s states), as float64 on the CPU, with the error bound
+    of two float32 evaluations of the layer: 2·K·2^-24·(|h|·|W| + |b|)
+    for K = fan-in + 1 terms, plus |W| times its inputs' bound, from the
+    gap of the two designs up (bf16 products: the operands rounded to
+    bf16, and 2^-8·|h| more where an input's bound is not 0). Returns
+    [(z card, z CPU, bound)]."""
+    import torch
+    from h2o3_tpu_torch.models import deeplearning as dl
+    B, act = a.sched.batch, a.cfg.act
+    bf16 = a.cfg.bf16 is not None
+    lo = dl.batch_start(k, B, a.n, a.X.shape[0])
+    za, zc = [], []
+    with torch.no_grad(), dl.exact_f32():
+        dl.forward(before, a.X[lo:lo + B], act, bf16=a.cfg.bf16, record=za)
+        dl.forward([{n: v.cpu() for n, v in l.items()} for l in before],
+                   c.X[lo:lo + B], act, bf16=c.cfg.bf16, record=zc)
+
+    def f64(t):
+        t = t.detach().cpu()
+        return (t.to(torch.bfloat16) if bf16 else t).double()
+    h = f64(c.X[lo:lo + B])
+    e = (f64(a.X[lo:lo + B]) - h).abs()
+    out = []
+    for li, (z1, z2) in enumerate(zip(za, zc)):
+        W = f64(before[li]["W"]).abs()
+        eps = 2 * (W.shape[0] + 1) * 2.0 ** -24
+        bound = (eps * (h.abs() @ W + before[li]["b"].detach().cpu()
+                        .double().abs()) + e @ W)
+        z1, z2 = z1.detach().cpu().double(), z2.detach().cpu().double()
+        out.append((z1, z2, bound))
+        if act == "maxout":
+            h = torch.maximum(z2[:, 0::2], z2[:, 1::2])
+            e = torch.maximum(bound[:, 0::2], bound[:, 1::2])
+        else:
+            h = torch.relu(z2) if act == "rectifier" else torch.tanh(z2)
+            e = bound
+        if bf16:
+            e = e + 2.0 ** -8 * h.abs() * (e > 0)
+            h = h.to(torch.bfloat16).double()
+    return out
+
+
+def dl_tie_flips(z, a, k):
+    """The rows of step ``k``'s batch where the card and the CPU decide a
+    hidden unit the other way (``dl_preactivations`` ``z``): a
+    rectifier's sign, or a maxout pair's order (tanh decides nothing),
+    each within its float32 bound of the tie. Returns (rows of the batch,
+    the flipped units as text, why): ``why`` is set where nothing flips
+    or a flip lies outside its bound."""
+    import torch
+    from h2o3_tpu_torch.models import deeplearning as dl
+    lo = dl.batch_start(k, a.sched.batch, a.n, a.X.shape[0])
+    rows, units = set(), []
+    for li, (z1, z2, bound) in enumerate(z):
+        if a.cfg.act == "maxout":
+            d1 = torch.sign(z1[:, 0::2] - z1[:, 1::2])
+            d2 = torch.sign(z2[:, 0::2] - z2[:, 1::2])
+            margin = (z2[:, 0::2] - z2[:, 1::2]).abs()
+            bound = bound[:, 0::2] + bound[:, 1::2]
+        elif a.cfg.act == "rectifier":
+            d1, d2, margin = z1 > 0, z2 > 0, z2.abs()
+        else:
+            d1 = d2 = torch.zeros(z2.shape, dtype=torch.bool)
+            margin = z2.abs()
+        for r, u in (d1 != d2).nonzero().tolist():
+            if margin[r, u] > bound[r, u]:
+                return [], [], (f"layer {li} unit {u} of row {lo + r} "
+                                f"decided the other way at |z| "
+                                f"{float(margin[r, u]):.3g}, outside its "
+                                f"float32 bound {float(bound[r, u]):.3g}")
+            rows.add(r)
+            units.append(f"layer {li} unit {u}: |z| "
+                         f"{float(margin[r, u]):.3g} within "
+                         f"{float(bound[r, u]):.3g}")
+    if not rows:
+        return [], [], "no unit decided the other way"
+    return sorted(rows), units, ""
+
+
+def dl_step_timing(torch, fr, model) -> dict:
+    """One training step of ``model``'s fit continued (``prepare`` with
+    ``checkpoint=model``: its net, optimizer state and step count, the
+    next batch) timed with ``time_ms``, and one 20-step chunk under
+    torch.profiler: its kernels by device time, the device's busy share,
+    and no scatter or atomic kernel in the step's backward (the refit is
+    bit-equal)."""
+    from h2o3_tpu_torch.models import deeplearning as dl
+    p = {k: v for k, v in model.params.items() if k != "checkpoint"}
+    t = dl.DeepLearningEstimator(**dict(p, epochs=2 * p["epochs"]),
+                                 checkpoint=model).prepare(
+        fr, model.features, model.output["response"])
+    step = [t.done]
+
+    def one(k=1):
+        with dl.exact_f32():
+            dl.train_steps(t.net, t.opt, t.X, t.y, t.w, t.gen, t.cfg,
+                           t.sched, step[0], k, t.n)
+        step[0] += k
+    tm = time_ms(torch, one)
+    ev = profiled_fit(torch, f"phase23 20 steps at batch {t.sched.batch}",
+                      lambda: one(20))
+    names = [e.key for e in ev if getattr(
+        e, "self_device_time_total", getattr(e, "self_cuda_time_total", 0))
+        > 0]
+    bad = [k for k in names if any(s in k.lower() for s in (
+        "scatter", "index_add", "atomic"))]
+    check(not bad, f"DL step kernels that add through atomics: {bad}")
+    tm["launches"] = sum(e.count for e in ev
+                         if e.key.startswith("cudaLaunchKernel")) / 20
+    return tm
+
+
+def phase_dl_bench(torch, dev):
+    """Phase 23(a): bench.py's DL benchmark at its shape, nothing cut;
+    (c) the same frame at a batch of 16,384 (bf16). Returns (the paths'
+    launches, the frame's arrays)."""
+    import h2o3_tpu_torch as h2o
+    from h2o3_tpu_torch.models.deeplearning import (BF16_MIN_BATCH,
+                                                    batch_size, bf16_route)
+    t0 = time.perf_counter()
+    cols, domains = mnist_shape_arrays(N_DL)
+    t_gen = time.perf_counter() - t0
+    fr = h2o.Frame.from_numpy(cols, domains=domains, device=dev)
+    torch.cuda.synchronize()
+    say(f"phase23a MNIST shape {N_DL} x {P_DL} generated in {t_gen:.3f} s, "
+        f"on the card in {time.perf_counter() - t0 - t_gen:.3f} s")
+    paths = {}
+    _, t_warm, _, _ = timed_fit(torch, lambda: h2o.DeepLearningEstimator(
+        epochs=DL_WARMUP, **DL).train(fr, y="label"))
+    model, secs, counts, peak = timed_fit(
+        torch, lambda: h2o.DeepLearningEstimator(
+            epochs=DL_EPOCHS, **DL).train(fr, y="label"))
+    check_launches(counts, {}, "DeepLearning")
+    paths["deeplearning"] = counts
+    batch = batch_size(N_DL, fr.nrows_padded, 1)
+    check(batch < BF16_MIN_BATCH, f"DL batch {batch} at {N_DL} rows is "
+                                  "bf16's")
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    refit = h2o.DeepLearningEstimator(epochs=DL_EPOCHS, **DL).train(
+        fr, y="label")
+    torch.cuda.synchronize()
+    t_re = time.perf_counter() - t1
+    tm = model.training_metrics
+    check(same_net(model, refit) and refit.training_metrics["logloss"]
+          == tm["logloss"], "DL: the refit is not bit-equal")
+    check(np.isfinite(tm["logloss"]) and tm["error_rate"] < 0.9,
+          f"DL training error {tm['error_rate']}")
+    sps = N_DL * DL_EPOCHS / secs
+    hist = [(h["step"], round(h["loss"], 6))
+            for h in model.output["scoring_history"]]
+    say(f"phase23a DeepLearning [200,200] rectifier, {DL_EPOCHS} epochs on "
+        f"{N_DL} x {P_DL} ({CARD}): train {secs:.3f} s (warm-up fit of "
+        f"{DL_WARMUP} epochs {t_warm:.3f} s, refit {t_re:.3f} s, "
+        f"bit-equal), {sps:.6g} samples/s ({sps / DL_PUBLISHED:.4g}x the "
+        f"published {DL_PUBLISHED:.0f} samples/s of one H2O node, "
+        f"{N_DL * DL_EPOCHS / t_re:.6g} refit), batch {batch} (float32, "
+        f"TF32 off), {model._steps_trained} steps, peak device memory "
+        f"{peak / 2**30:.3f} GiB; training error {tm['error_rate']:.6f}, "
+        f"logloss {tm['logloss']:.6f}, mean per-class error "
+        f"{tm['mean_per_class_error']:.6f} on {tm['nobs']} sampled rows; "
+        f"early-stopping history (step, full-data loss) {hist}; launches "
+        f"{counts}")
+    t = dl_step_timing(torch, fr, model)
+    dev_s = t["ms"] * model._steps_trained / 1e3
+    say(f"phase23a one step at batch {batch}: {spread(t)} device, "
+        f"host-paced {t['host_paced_ms']:.4f} ms, host {t['host_us']:.1f} "
+        f"us a call ({t['launches']:.0f} launches a step); the fit's "
+        f"{model._steps_trained} steps are {dev_s:.3f} s of device time "
+        f"against {secs:.3f} s wall: the step loop is "
+        + ("paced by the host" if t["host_paced_ms"] > 1.2 * t["ms"]
+           else "paced by the card"))
+    del refit
+    # (c) the bf16 path on the same frame: one bf16 GEMM with a float32
+    # result on the card, not the upcast route
+    route = bf16_route(dev)
+    check(route == "mm_out_dtype", f"DL bf16 route on the card: {route}")
+    bmodel, bsecs, bcounts, bpeak = timed_fit(
+        torch, lambda: h2o.DeepLearningEstimator(
+            epochs=DL_EPOCHS, mini_batch_size=DL_BF16_BATCH, **DL).train(
+                fr, y="label"))
+    check_launches(bcounts, {}, "DeepLearning bf16")
+    paths["deeplearning_bf16"] = bcounts
+    btm = bmodel.training_metrics
+    check(np.isfinite(btm["logloss"]) and bmodel.output["bf16"] == route,
+          f"DL bf16: training logloss, route {bmodel.output['bf16']}")
+    tb = dl_step_timing(torch, fr, bmodel)
+    say(f"phase23c bf16 route {route}: mini_batch_size {DL_BF16_BATCH}, "
+        f"{bmodel._steps_trained} steps, train {bsecs:.3f} s, "
+        f"{N_DL * DL_EPOCHS / bsecs:.6g} samples/s, peak "
+        f"{bpeak / 2**30:.3f} GiB, training error {btm['error_rate']:.6f}, "
+        f"logloss {btm['logloss']:.6f}; one step {spread(tb)} device, "
+        f"host-paced {tb['host_paced_ms']:.4f} ms; launches {bcounts}")
+    del fr, model, bmodel
+    return paths, cols, domains
+
+
+@contextlib.contextmanager
+def dl_tf32_control(torch):
+    """A control: the DL module's float32 products on the card in TF32
+    (its ``exact_f32`` turns TF32 on instead of off)."""
+    from h2o3_tpu_torch.models import deeplearning as dl
+
+    @contextlib.contextmanager
+    def tf32():
+        prev = torch.backends.cuda.matmul.allow_tf32
+        torch.backends.cuda.matmul.allow_tf32 = True
+        try:
+            yield
+        finally:
+            torch.backends.cuda.matmul.allow_tf32 = prev
+    with mock.patch.object(dl, "exact_f32", tf32):
+        yield
+
+
+@contextlib.contextmanager
+def dl_bf16_rounded_control(torch):
+    """A control: the card's bf16 products rounded to bf16 (what a plain
+    ``bf16 @ bf16`` gives), not the reference's float32 result."""
+    from h2o3_tpu_torch.models import deeplearning as dl
+    plain = dl._Bf16Product.forward
+
+    def rounded(ctx, a, b, route):
+        out = plain(ctx, a, b, route)
+        return out.to(torch.bfloat16).float() if a.is_cuda else out
+    with mock.patch.object(dl._Bf16Product, "forward",
+                           staticmethod(rounded)):
+        yield
+
+
+def phase_dl_heads(torch, dev, cols, domains):
+    """Phase 23(b): card vs CPU plain on a head of (a)'s frame (1 epoch,
+    batch 256, the same initial weights), then the same with TF32 left
+    on, which must fail; (c): the same in bf16 (batch 16,384, 2 epochs
+    on a larger head), then with bf16-rounded products, which must
+    fail."""
+    import h2o3_tpu_torch as h2o
+    for label, n, params, control, what in (
+            ("b", N_DL_HEAD, dict(epochs=1.0), dl_tf32_control,
+             "TF32 on the card"),
+            ("c", N_DL_BF16_HEAD, dict(epochs=2.0,
+                                       mini_batch_size=DL_BF16_BATCH),
+             dl_bf16_rounded_control, "bf16-rounded products")):
+        head = {k: v[:n] for k, v in cols.items()}
+        t0 = time.perf_counter()
+
+        def run(label=label, params=params, head=head):
+            return dl_card_vs_cpu(
+                lambda: h2o.DeepLearningEstimator(**params, **DL), head,
+                domains, "label", dev, label)
+        dl_check(run(f"phase23{label} {n}-row head {params}"))
+        with control(torch):
+            dl_control(run(f"phase23{label} {n}-row head {params}"), what)
+        say(f"phase23{label}: {time.perf_counter() - t0:.3f} s")
+
+
+def dl_surface_fits(delay):
+    """Phase 23(d)'s fits: (label, response, parameters, held against
+    the CPU)."""
+    return (
+        ("tanh", Y, dict(activation="Tanh"), True),
+        ("maxout multinomial", "late", dict(activation="Maxout"), True),
+        ("tanh with dropout", Y, dict(activation="TanhWithDropout",
+                                      input_dropout_ratio=0.1), False),
+        ("maxout with dropout", "late", dict(
+            activation="MaxoutWithDropout"), False),
+        ("nesterov ramp l1 l2 regression", "delay", dict(
+            adaptive_rate=False, rate=0.002, momentum_start=0.5,
+            momentum_stable=0.9, momentum_ramp=2e4, l1=1e-5, l2=1e-4),
+         True),
+        ("regression", "delay", {}, True),
+        ("autoencoder", None, dict(autoencoder=True, hidden=[16]), True),
+    )
+
+
+def phase_dl_surface(torch, dev, cols, domains, delay):
+    """Phase 23(d): the DL surface on the first N_DL_SURFACE airlines rows
+    (P = 263 after one-hot): Tanh and Maxout, with dropout, momentum SGD
+    with Nesterov and a ramp under L1/L2, regression, the autoencoder and
+    ``anomaly``, early stopping with a validation frame, a ``checkpoint=``
+    restart and 3-fold CV; each on the card, and each without dropout
+    against the CPU plain fit on the same rows. Returns the launches."""
+    import h2o3_tpu_torch as h2o
+    from h2o3_tpu_torch.ops import kernels
+    n = N_DL_SURFACE
+    scols = {k: v[:n] for k, v in cols.items()}
+    scols["delay"] = delay[:n]
+    scols["late"] = np.digitize(delay[:n], [0.0, 15.0]).astype(np.int32)
+    sdoms = dict(domains, late=["l0_early", "l1_ontime", "l2_late"])
+    x = [c for c in cols if c != Y]
+    kernels.reset_counts()
+    t0 = time.perf_counter()
+    for label, y, params, held in dl_surface_fits(delay):
+        kw = {**DL_SURFACE, **params}
+
+        def build(kw=kw):
+            return h2o.DeepLearningEstimator(**kw)
+        if held:
+            res = dl_card_vs_cpu(build, scols, sdoms, y, dev,
+                                 f"phase23d {label}", x=x)
+            dl_check(res)
+            m, fr, extra = res["m_card"], res["fr"], "held against the CPU"
+        else:
+            fr = h2o.Frame.from_numpy(scols, domains=sdoms, device=dev)
+            m = build().train(fr, y=y, x=x)
+            extra = "dropout: card only"
+        tm = m.training_metrics
+        check(np.isfinite(tm["MSE"]), f"DL {label}: training MSE")
+        if params.get("autoencoder"):
+            err = m.anomaly(fr).col("reconstruction_error").host_view()
+            check(err.shape == (n,) and np.isfinite(err).all(),
+                  "DL autoencoder: anomaly scores")
+            extra += f", anomaly mean {err.mean():.6f}"
+        say(f"phase23d {label}: training MSE {tm['MSE']:.6f}, "
+            f"{m._steps_trained} steps; {extra}")
+    # early stopping with a validation frame
+    vcols = {k: v[n:n + n // 4] for k, v in cols.items()}
+    # Tanh: no rectifier tie flips, so card and CPU keep one history
+    stop = dict(DL_SURFACE, activation="Tanh", epochs=50, stopping_rounds=2,
+                stopping_tolerance=0.1)
+    ms = []
+    for d in (dev, "cpu"):
+        fr = h2o.Frame.from_numpy(scols, domains=sdoms, device=d)
+        vf = h2o.Frame.from_numpy(vcols, domains=domains, device=d)
+        ms.append(h2o.DeepLearningEstimator(**stop).train(
+            fr, y=Y, x=x, validation_frame=vf))
+    hc, hp = (m.output["scoring_history"] for m in ms)
+    check([h["step"] for h in hc] == [h["step"] for h in hp]
+          and all(abs(a["loss"] - b["loss"]) <= DL_METRIC_TOL * b["loss"]
+                  for a, b in zip(hc, hp)),
+          f"DL early stopping: card history {hc} vs CPU {hp}")
+    vm = ms[0].validation_metrics
+    check(vm is not None and abs(vm["AUC"] - ms[1].validation_metrics["AUC"])
+          <= DL_METRIC_TOL, "DL validation AUC card vs CPU")
+    say(f"phase23d early stopping (Tanh): stopped at step {ms[0]._steps_trained} "
+        f"of 50 epochs (history {[(h['step'], round(h['loss'], 6)) for h in hc]}"
+        f"), validation AUC {vm['AUC']:.6f} on {vm['nobs']} rows, equal "
+        f"card vs CPU within {DL_METRIC_TOL}")
+    # checkpoint restart on the card, dropout on: the continuation is the
+    # straight fit bit for bit (the generator state carries over)
+    fr = h2o.Frame.from_numpy(scols, domains=sdoms, device=dev)
+    ck = dict(DL_SURFACE, activation="RectifierWithDropout",
+              input_dropout_ratio=0.1)
+    donor = h2o.DeepLearningEstimator(**ck).train(fr, y=Y, x=x)
+    cont = h2o.DeepLearningEstimator(**dict(ck, epochs=4),
+                                     checkpoint=donor).train(fr, y=Y, x=x)
+    straight = h2o.DeepLearningEstimator(**dict(ck, epochs=4)).train(
+        fr, y=Y, x=x)
+    check(same_net(cont, straight) and cont._steps_trained
+          == straight._steps_trained > donor._steps_trained,
+          "DL checkpoint: the continuation is not the straight fit")
+    say(f"phase23d checkpoint: {donor._steps_trained} steps + restart to "
+        f"{cont._steps_trained} bit-equal to the straight 4-epoch fit "
+        "(dropout on)")
+    # 3-fold CV, card vs CPU
+    res = dl_card_vs_cpu(lambda: h2o.DeepLearningEstimator(**dict(
+        DL_SURFACE, activation="Tanh", nfolds=3)), scols, sdoms, Y, dev,
+        "phase23d 3-fold CV (Tanh), the main model", x=x)
+    dl_check(res)
+    a = res["m_card"].cross_validation_metrics
+    b = res["m_cpu"].cross_validation_metrics
+    check(abs(a["AUC"] - b["AUC"]) <= DL_METRIC_TOL
+          and abs(a["logloss"] - b["logloss"]) <= DL_METRIC_TOL * b["logloss"],
+          f"DL CV metrics card {a} vs CPU {b}")
+    say(f"phase23d 3-fold CV (Tanh): AUC {a['AUC']:.6f} (CPU {b['AUC']:.6f}), "
+        f"logloss {a['logloss']:.6f}; (d) {time.perf_counter() - t0:.3f} s")
+    return dict(kernels.LAUNCHES)
+
+
+def phase_dl(torch, dev, cols, domains, delay):
+    """Phase 23: DeepLearning (no kernel: cuBLAS products with TF32 off,
+    bf16 GEMMs at a batch of 16,384, plain torch). Returns the launches of
+    its three paths (every kernel 0 on each)."""
+    t0 = time.perf_counter()
+    paths, mcols, mdoms = phase_dl_bench(torch, dev)
+    secs = {"a, c": time.perf_counter() - t0}
+    phase_dl_heads(torch, dev, mcols, mdoms)
+    del mcols
+    secs["b, c heads"] = time.perf_counter() - t0 - sum(secs.values())
+    paths["deeplearning_surface"] = phase_dl_surface(torch, dev, cols,
+                                                     domains, delay)
+    secs["d"] = time.perf_counter() - t0 - sum(secs.values())
+    for p, c in paths.items():
+        check(not any(c.values()), f"{p}: a kernel launched")
+    say("phase23: " + ", ".join(f"({k}) {v:.3f} s" for k, v in secs.items())
+        + f", together {sum(secs.values()):.3f} s; every kernel 0 launches "
+        f"on {', '.join(paths)}")
+    return paths
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -3443,6 +4160,10 @@ def main() -> int:
                            ccols, cdomains))
     say(f"phase 22: {time.perf_counter() - t22:.3f} s")
     del ccols
+    mark("phase 23")
+    t23 = time.perf_counter()
+    paths.update(phase_dl(torch, dev, cols, domains, airlines_delay(N_MAIN)))
+    say(f"phase 23: {time.perf_counter() - t23:.3f} s")
     for rec in records:
         rec["max_abs_err"] = worst[rec["name"]]
         rec["launches_by_path"] = {p: c[rec["name"]]

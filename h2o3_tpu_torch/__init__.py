@@ -21,6 +21,11 @@ JAX. Its TPU kernels are hand-written CUDA kernels under
     glm.coefficients; glm.predict(fr)
     net = h2o.GLMEstimator(alpha=0.5, lambda_search=True,
                            nlambdas=30).train(fr, y="delay")
+    mlp = h2o.DeepLearningEstimator(hidden=[200, 200], epochs=8,
+                                    seed=1).train(fr, y="label")
+    ae = h2o.DeepLearningEstimator(autoencoder=True).train(fr)
+    ae.anomaly(fr)
+    h2o.models.get_builder("gbm")         # the algorithm registry
 
 Entry points default to ``torch.device("cuda")`` and raise when no card
 is present; pass ``device="cpu"`` to run the plain versions on the CPU.
@@ -28,6 +33,7 @@ is present; pass ``device="cpu"`` to run the plain versions on the CPU.
 
 from h2o3_tpu_torch.frame.frame import Frame
 from h2o3_tpu_torch.io.parser import import_file
+from h2o3_tpu_torch.models.deeplearning import DeepLearningEstimator
 from h2o3_tpu_torch.models.drf import DRFEstimator
 from h2o3_tpu_torch.models.extisofor import ExtendedIsolationForestEstimator
 from h2o3_tpu_torch.models.gbm import GBMEstimator
@@ -36,7 +42,7 @@ from h2o3_tpu_torch.models.isofor import IsolationForestEstimator
 from h2o3_tpu_torch.models.uplift import UpliftDRFEstimator
 from h2o3_tpu_torch.models.xgboost import XGBoostEstimator
 
-__all__ = ["Frame", "import_file", "DRFEstimator",
+__all__ = ["Frame", "import_file", "DeepLearningEstimator", "DRFEstimator",
            "ExtendedIsolationForestEstimator", "GBMEstimator", "GLMEstimator",
            "IsolationForestEstimator", "UpliftDRFEstimator",
            "XGBoostEstimator"]

@@ -11,8 +11,11 @@ packages score the same forest. What a ``checkpoint`` restart reads comes
 across too: the training ``params`` (the non-modifiable fields are
 checked against them), GBM's f0 and ``init_f``, DRF's out-of-bag
 accumulators; and a calibrator. ``glm_model_from_arrays`` carries a GLM
-across: its coefficients, family and design statistics. Nothing here
-imports the reference package: the caller hands over numpy.
+across: its coefficients, family and design statistics;
+``deeplearning_model_from_arrays`` a DeepLearning net with its design
+statistics and its optimizer state and step count (what ``checkpoint=``
+continues from). Nothing here imports the reference package: the caller
+hands over numpy.
 """
 
 from __future__ import annotations
@@ -24,6 +27,7 @@ import torch
 
 from h2o3_tpu_torch.frame.binning import BinnedMatrix
 from h2o3_tpu_torch.ml.calibration import Calibrator
+from h2o3_tpu_torch.models.deeplearning import DeepLearningModel
 from h2o3_tpu_torch.models.drf import DRFModel
 from h2o3_tpu_torch.models.extisofor import (ExtendedIsolationForestModel,
                                              ExtTree)
@@ -210,3 +214,30 @@ def glm_model_from_arrays(d: Arrays) -> GLMModel:
                            d.get("link"), theta=float(d.get("theta", 1e-5))),
                     stats, list(d["features"]),
                     coef_multinomial=None if cm is None else np.asarray(cm))
+
+
+def deeplearning_model_from_arrays(d: Arrays) -> DeepLearningModel:
+    """Port ``DeepLearningModel`` from the reference model's images:
+    ``net`` (each layer's ``W`` [fan_in, fan_out] and ``b``),
+    ``di_stats`` (``num_means``, ``num_sigmas``, ``domains``),
+    ``features``, ``act``, ``standardize``, ``resp_stats`` (a regression
+    target's mean and sigma, or None), ``output`` (the reference's output
+    dict), ``params``, and for a ``checkpoint=`` continuation
+    ``opt_state`` (per layer, ``W`` and ``b`` each ``{"eg2", "ex2"}`` or
+    ``{"v", "mu"}``) and ``steps_trained``. The net lives on the CPU and
+    scores on the device of the frame it is given."""
+    st = d["di_stats"]
+    stats = {"num_means": np.asarray(st["num_means"], np.float64),
+             "num_sigmas": np.asarray(st["num_sigmas"], np.float64),
+             "domains": [None if dom is None else list(dom)
+                         for dom in st["domains"]]}
+    net = [{k: torch.from_numpy(np.array(l[k], np.float32)) for k in ("W", "b")}
+           for l in d["net"]]
+    rs = d.get("resp_stats")
+    model = DeepLearningModel(
+        dict(d.get("params") or {}), dict(d["output"]), net, stats,
+        list(d["features"]), str(d["act"]), bool(d["standardize"]),
+        None if rs is None else (float(rs[0]), float(rs[1])))
+    model._opt_state = d.get("opt_state")   # numpy; the restart copies it
+    model._steps_trained = int(d.get("steps_trained") or 0)
+    return model

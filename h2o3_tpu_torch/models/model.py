@@ -405,7 +405,9 @@ class ModelBuilder:
         else:
             model = self._fit(training_frame, x, y,
                               validation_frame=validation_frame)
-        if validation_frame is not None:
+        if validation_frame is not None and model.validation_metrics is None:
+            # a fit that scored the frame itself (DeepLearning's
+            # score_validation_samples) keeps its metrics
             model.validation_metrics = model.model_performance(
                 validation_frame)
         return model

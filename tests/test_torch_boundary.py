@@ -52,6 +52,8 @@ SLICE_MODULES = (
     "h2o3_tpu_torch/ops/gram.py",
     "h2o3_tpu_torch/ops/optimize.py",
     "h2o3_tpu_torch/models/glm.py",
+    "h2o3_tpu_torch/models/deeplearning.py",
+    "h2o3_tpu_torch/models/__init__.py",
 )
 # sources the port compiles: its kernels and its tokenizer
 NATIVE_FILES = sorted(str(p.relative_to(ROOT)) for p in PKG.rglob("*")
@@ -190,3 +192,22 @@ def test_glm_entry_points_default_to_cuda_and_raise_without_card(
         h2o.Frame.from_numpy(cols, device="cpu"), y="y")
     assert m.predict(h2o.Frame.from_numpy(cols, device="cpu")).device.type \
         == "cpu"
+
+
+def test_deeplearning_entry_points_default_to_cuda_and_raise_without_card(
+        monkeypatch):
+    """A DeepLearning fit starts from a frame: without a ``device=`` the
+    frame resolves to CUDA and raises without a card, before any fit; a
+    frame asked for on the card raises too, and a CPU frame's fit and its
+    predictions stay on the CPU."""
+    import h2o3_tpu_torch as h2o
+    cols = {"x": np.arange(64.0), "y": np.arange(64.0) % 3}
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    for kw in ({}, {"device": "cuda"}):
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            h2o.DeepLearningEstimator(hidden=[2], epochs=1).train(
+                h2o.Frame.from_numpy(cols, **kw), y="y")
+    fr = h2o.Frame.from_numpy(cols, device="cpu")
+    m = h2o.DeepLearningEstimator(hidden=[2], epochs=1).train(fr, y="y")
+    assert m.predict(fr).device.type == "cpu"
+    assert all(t.device.type == "cpu" for l in m.net for t in l.values())

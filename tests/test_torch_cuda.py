@@ -930,3 +930,78 @@ def test_glm_card_vs_cpu_and_refit_bit_equal(dev, case):
     refit = h2o.GLMEstimator(**params).train(h2o.Frame.from_numpy(
         cols, domains=domains, device=dev), y=y)
     assert refit.coefficients == m_card.coefficients
+
+
+def dl_case(case):
+    """(columns, domains, response, estimator parameters) of one
+    card-vs-CPU DeepLearning case at a small size."""
+    if case in ("rectifier", "bf16"):
+        n = 32_768 if case == "bf16" else 8_192
+        cols, domains = cs.mnist_shape_arrays(n)
+        params = dict(cs.DL, epochs=1.0)
+        if case == "bf16":
+            params["mini_batch_size"] = cs.DL_BF16_BATCH
+        return cols, domains, "label", params
+    n = 10_000
+    cols, domains = cs.airlines_arrays(n)
+    delay = cs.airlines_delay(n)
+    cols["late"] = np.digitize(delay, [0.0, 15.0]).astype(np.int32)
+    domains = dict(domains, late=["l0_early", "l1_ontime", "l2_late"])
+    params = dict(cs.DL_SURFACE, activation="Maxout", adaptive_rate=False,
+                  rate=0.002, momentum_start=0.5, momentum_stable=0.9,
+                  momentum_ramp=2e4, l2=1e-4, ignored_columns=[cs.Y])
+    return cols, domains, "late", params
+
+
+@pytest.mark.parametrize("case", ["rectifier", "maxout_nesterov", "bf16"])
+def test_deeplearning_card_vs_cpu_and_refit_bit_equal(dev, case):
+    """DeepLearning on the card (no kernel: cuBLAS products with TF32 off,
+    bf16 GEMMs from a batch of 16,384, plain torch) against the CPU plain
+    fit from the same initial weights, as chip_smoke's
+    ``dl_card_vs_cpu`` holds it (every step from the card's state on the
+    card's design: pre-activations within their float32 bound, the
+    update within DL_STEP_TOL / DL_BF16_STEP_TOL or a tie flip within
+    the bound; a float32 fit replayed whole within DL_TOL and
+    DL_PROB_TOL where nothing flips), a refit bit-equal, and no kernel
+    launched."""
+    import h2o3_tpu_torch as h2o
+    cols, domains, y, params = dl_case(case)
+    kernels.reset_counts()
+    res = cs.dl_card_vs_cpu(lambda: h2o.DeepLearningEstimator(**params),
+                            cols, domains, y, dev, case)
+    print(f"{case}: {cs.dl_report(res)}")
+    assert res["ok"], res["why"]
+    assert not any(kernels.LAUNCHES.values())
+    m_card = res["m_card"]
+    assert all(t.is_cuda for l in m_card.net for t in l.values())
+    refit = h2o.DeepLearningEstimator(**params).train(res["fr"], y=y)
+    assert cs.same_net(refit, m_card)
+
+
+def test_bf16_product_on_the_card(dev):
+    """The bf16 product on the card (one bf16 GEMM with a float32
+    result, ``torch.mm(..., out_dtype=)``) against the upcast product on
+    the CPU: exact bf16 products summed in float32, and gradients that
+    are bf16 values."""
+    from h2o3_tpu_torch.models import deeplearning as dl
+    g = torch.Generator().manual_seed(0)
+    a = torch.randn(4096, 784, generator=g)
+    b = torch.randn(784, 200, generator=g)
+    up = torch.randn(4096, 200, generator=g)
+    assert dl.bf16_route(dev) == "mm_out_dtype"
+    outs = []
+    for d in (dev, torch.device("cpu")):
+        at, bt = (t.to(d).requires_grad_(True) for t in (a, b))
+        out = dl._Bf16Product.apply(at, bt, dl.bf16_route(d))
+        grads = torch.autograd.grad((out * up.to(d)).sum(), (at, bt))
+        outs.append([out.detach().cpu()] + [t.cpu() for t in grads])
+    scale = float(outs[1][0].abs().max())
+    assert float((outs[0][0] - outs[1][0]).abs().max()) <= 1e-5 * scale
+    a16, b16 = (t.to(torch.bfloat16).float().abs() for t in (a, b))
+    # the float32 sums may round to the neighbouring bf16 value, or, where
+    # they cancel, differ by their rounding: 2^-20 of the summed |terms|
+    sums = (up.abs() @ b16.T, a16.T @ up.abs())
+    for gc, gp, tot in zip(outs[0][1:], outs[1][1:], sums):
+        assert torch.equal(gc, gc.to(torch.bfloat16).float())
+        assert torch.all((gc - gp).abs()
+                         <= 2 ** -7 * gp.abs() + 2 ** -20 * tot)

@@ -21,8 +21,6 @@ Python error: Aborted" in ``jnp.stack`` of the fit, a crashed xdist
 worker). On one device there is no collective to wait on, and the fit
 is the same algorithm on the same draws."""
 
-import contextlib
-
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -32,26 +30,14 @@ import torch
 import h2o3_tpu
 import h2o3_tpu_torch
 from h2o3_tpu.frame.rollups import rollups as ref_rollups
-from h2o3_tpu.parallel import mesh as ref_mesh
 from h2o3_tpu.models import extisofor as ref_ext
 from h2o3_tpu_torch.frame.rollups import rollup_mean
 from h2o3_tpu_torch.models import extisofor
 from h2o3_tpu_torch.models.convert import extisofor_model_from_arrays
 
-from tests.test_torch_isofor import anomaly_cols, auc, spearman
+from tests.test_torch_isofor import _one_device, anomaly_cols, auc, spearman
 
 NUM = ["x0", "x1", "x2", "x3"]
-
-
-@contextlib.contextmanager
-def _one_device():
-    """The reference's frames and fits on a one-device mesh."""
-    token = ref_mesh._MESH_OVERRIDE.set(
-        ref_mesh.make_mesh(jax.devices()[:1]))
-    try:
-        yield
-    finally:
-        ref_mesh._MESH_OVERRIDE.reset(token)
 
 
 def _frames(cols, cats):

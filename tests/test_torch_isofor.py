@@ -10,7 +10,17 @@ float32 log is the reference's bit for bit) EXACT too. A reference
 forest carried across must score within 1e-6 (mean length, score) and
 keep its path-length bounds. Whole fits of both packages must find the
 planted anomalies (AUC >= 0.95) and rank the rows alike (Spearman >=
-0.9)."""
+0.9).
+
+The reference's whole fits run on a one-device mesh (``_one_device``):
+its tree loop dispatches every tree without waiting, and on the suite's
+8 virtual CPU devices those programs' all-reduces can be in flight
+together, where XLA:CPU's rendezvous can abort the process ("Fatal Python
+error: Aborted" in the fit, a crashed xdist worker). On one device there
+is no collective, and the fit is the same algorithm."""
+
+import contextlib
+
 
 import jax
 import jax.numpy as jnp
@@ -22,6 +32,7 @@ import h2o3_tpu
 import h2o3_tpu_torch
 from h2o3_tpu.frame.binning import bin_frame as ref_bin_frame
 from h2o3_tpu.models import isofor as ref_iso
+from h2o3_tpu.parallel import mesh as ref_mesh
 from h2o3_tpu_torch.frame.binning import bin_frame
 from h2o3_tpu_torch.models import isofor
 from h2o3_tpu_torch.models.convert import isofor_model_from_arrays
@@ -42,6 +53,17 @@ def anomaly_cols(n=8000, frac=0.01, seed=3):
     cols = {f"x{i}": X[:, i] for i in range(4)}
     cols["c"] = r.choice(["a", "b", "c"], n)
     return cols, ["c"], bad
+
+
+@contextlib.contextmanager
+def _one_device():
+    """The reference's frames and fits on a one-device mesh."""
+    token = ref_mesh._MESH_OVERRIDE.set(
+        ref_mesh.make_mesh(jax.devices()[:1]))
+    try:
+        yield
+    finally:
+        ref_mesh._MESH_OVERRIDE.reset(token)
 
 
 def _frames(cols, cats):
@@ -138,33 +160,39 @@ def _ref_arrays(m_r) -> dict:
 
 def test_reference_forest_carried_across_scores_alike():
     cols, cats, _ = anomaly_cols(n=5000)
-    fr_r, _ = _frames(cols, cats)
-    m_r = ref_iso.IsolationForestEstimator(ntrees=12, seed=4).train(fr_r)
+    test_cols, _, _ = anomaly_cols(n=3000, seed=9)
+    with _one_device():
+        fr_r, _ = _frames(cols, cats)
+        m_r = ref_iso.IsolationForestEstimator(ntrees=12, seed=4).train(
+            fr_r)
+        te_r, te_p = _frames(test_cols, cats)
+        p_r = m_r.predict(te_r)
+        mr = m_r.model_performance(te_r)
     model = isofor_model_from_arrays(_ref_arrays(m_r), device="cpu")
     assert (model.output["min_path_length"],
             model.output["max_path_length"]) == (
         m_r.output["min_path_length"], m_r.output["max_path_length"])
-    test_cols, _, _ = anomaly_cols(n=3000, seed=9)
-    te_r, te_p = _frames(test_cols, cats)
-    p_r, p_p = m_r.predict(te_r), model.predict(te_p)
+    p_p = model.predict(te_p)
     for c in ("predict", "mean_length"):
         np.testing.assert_allclose(p_p.col(c).to_numpy(),
                                    p_r.col(c).to_numpy(), rtol=1e-6,
                                    atol=1e-6, err_msg=c)
-    mr, mp = m_r.model_performance(te_r), model.model_performance(te_p)
+    mp = model.model_performance(te_p)
     for k in ("mean_score", "mean_length"):
         assert mp[k] == pytest.approx(mr[k], rel=1e-6), k
 
 
 def test_full_fits_find_the_planted_anomalies():
     cols, cats, bad = anomaly_cols(n=10_000)
-    fr_r, fr_p = _frames(cols, cats)
     # 100 trees: at 50 the two packages' forests, from their own draws,
     # rank the normal rows too differently for the 0.9 bound
-    m_r = ref_iso.IsolationForestEstimator(ntrees=100, seed=1).train(fr_r)
+    with _one_device():
+        fr_r, fr_p = _frames(cols, cats)
+        m_r = ref_iso.IsolationForestEstimator(ntrees=100, seed=1).train(
+            fr_r)
+        s_r = m_r.predict(fr_r).col("predict").to_numpy()
     m_p = h2o3_tpu_torch.IsolationForestEstimator(ntrees=100,
                                                   seed=1).train(fr_p)
-    s_r = m_r.predict(fr_r).col("predict").to_numpy()
     s_p = m_p.predict(fr_p).col("predict").to_numpy()
     assert auc(s_r, bad) >= 0.95 and auc(s_p, bad) >= 0.95
     assert spearman(s_r, s_p) >= 0.9
