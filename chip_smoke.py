@@ -205,6 +205,31 @@ Phases, in order; any failure exits non-zero and no phase carries on:
     stopping with a validation frame, a ``checkpoint=`` restart (dropout
     on: bit-equal to the straight fit) and 3-fold CV; each without
     dropout against the CPU plain fit on the same rows.
+24. The unsupervised and count-based algorithms (no kernel: cuBLAS
+    products with TF32 off, cuSOLVER factorizations, fixed-point
+    segment sums, plain torch); each fit with train seconds, peak
+    memory and a refit bit-equal, each held card vs CPU plain on a
+    20K-row head (tolerances at N_UNSUP_CPU). (a) KMeans on phase
+    22(a)'s HIGGS frame (11M x 28, nothing cut), k = 10, Furthest,
+    standardized, 20 steps at most: steps, row-steps/s, tot_withinss,
+    betweenss/totss; one Lloyd step timed against its byte bound; on 1M
+    rows PlusPlus, Random, estimate_k, 3-fold CV and user_points; the
+    host float64 ``cluster_size_constraints`` fit on 10,000 rows. (b)
+    PCA at MNIST's width (1M x 784 from RandomState(13), a rank-60
+    signal plus noise), k = 50, GramSVD and Randomized: the Gram timed
+    against its bound, ``eigh`` timed, Randomized's subspace against
+    GramSVD's; PCA (P = 262) and SVD (nv = 10, standardized) on 1M
+    airlines rows. (c) GLRM on 1M airlines rows (P = 265, all levels,
+    5% of the numeric cells NA): k = 10, standardized, quadratic
+    regularizers (0.1), 50 steps at most: steps, objective, peak memory
+    beside the reference's einsum form; the batched k x k solve timed;
+    L1 and NonNegative on the head. (d) Naive Bayes on phase 4's 5M
+    rows (laplace 1): AUC, train and predict seconds; the Covertype
+    schema: logloss; 3-fold CV on 1M rows. (e) The Target Encoder on
+    phase 4's 5M rows (Origin, Dest, UniqueCarrier; kfold over a 5-fold
+    modulo column, blending, noise 0.01, seed 1234): fit and
+    ``transform(as_training=True)`` seconds; ``none`` and ``loo`` on the
+    head, every head EXACT card vs CPU.
 
 Launch counts are read per path: each path sets every count to 0 just
 before it runs and reads them just after (phase 15's, over its seven
@@ -225,8 +250,9 @@ and ``gbm_cv``, phase 18's as ``gbm_csv``, phase 19's as ``xgboost``,
 ``extisofor_6``, phase 21's as ``tree_scoring``, phase 22's as
 ``glm_irlsm``, ``glm_lbfgs``, ``glm_lambda_search``, ``glm_multinomial``
 and ``glm_surface``, phase 23's as ``deeplearning``,
-``deeplearning_bf16`` and ``deeplearning_surface``, every kernel 0 on
-each; ``tree_partition`` has a
+``deeplearning_bf16`` and ``deeplearning_surface``, phase 24's as
+``kmeans``, ``pca``, ``svd``, ``glrm``, ``naivebayes`` and
+``targetencoder``, every kernel 0 on each; ``tree_partition`` has a
 fourth record, at the Isolation Forest levels); the last is
 ``{"ok": true, "device": {...}}``.
 """
@@ -428,6 +454,80 @@ DL_TOL = 5e-6
 DL_PROB_TOL = 1e-5
 DL_SCORE_TOL = 2e-6
 DL_METRIC_TOL = 1e-4
+# phase 24: the unsupervised and count-based algorithms (no kernel).
+# (a) KMeans on bench.py's GLM frame (the HIGGS shape, nothing cut); the
+# other inits, estimate_k, CV and user_points on its first N_KM_HEAD rows,
+# the host float64 constrained fit on N_KM_CONS rows
+KMEANS = dict(k=10, init="Furthest", standardize=True, max_iterations=20,
+              seed=1)
+N_KM_HEAD = 1_000_000
+N_KM_CONS = 10_000
+KM_CONS = dict(k=10, seed=1, cluster_size_constraints=[800] * 10)
+# (b) PCA at MNIST's width: a rank-60 signal whose singular values fall
+# by 0.95 a component, plus uniform noise at 1% of the smallest
+N_PCA = 1_000_000
+P_PCA = 784
+RANK_PCA = 60
+K_PCA = 50
+# (b) PCA and SVD (standardized: on the raw columns float32 resolves
+# only the top three singular values of this design, whose squares span
+# 1e8; two CPU fits of a 20K-row head on permuted rows put d4..d10 1e-4
+# to 0.15 apart, |Δλ| ~1e-7·λ1: ``scripts/unsup_witness.py``) and (c)
+# GLRM on airlines rows
+N_DIMRED = 1_000_000
+# (c) GLRM on all levels of the airlines predictors (P = 265), 5% of the
+# numeric cells planted NA; L1 and NonNegative on x on a head (Random
+# init: no eigenvector sign to differ between devices; NonNegative on
+# both sides is not reproducible in float32 at this shape: two CPU fits
+# on permuted rows stop at 49 and 50 steps, their A·Y 392x apart,
+# ``scripts/unsup_witness.py``)
+GLRM = dict(k=10, transform="standardize", loss="Quadratic",
+            regularization_x="Quadratic", regularization_y="Quadratic",
+            gamma_x=0.1, gamma_y=0.1, max_iterations=50)
+GLRM_NA = 0.05
+GLRM_HEAD_FITS = (("L1", dict(regularization_x="L1", gamma_x=0.05)),
+                  ("NonNegative", dict(regularization_x="NonNegative")))
+# (d) Naive Bayes: phase 4's rows, Covertype, 3-fold CV on N_NB_CV rows
+NB = dict(laplace=1.0)
+N_NB_CV = 1_000_000
+# (e) the Target Encoder on phase 4's rows
+TE = dict(data_leakage_handling="kfold", fold_column="fold", blending=True,
+          noise=0.01, seed=1234)
+TE_COLS = ("Origin", "Dest", "UniqueCarrier")
+N_TE_FOLDS = 5
+# card vs CPU plain on heads of N_UNSUP_CPU rows, at the tolerances of
+# tests/test_torch_{kmeans,dimred,naivebayes,targetencoder}.py: KMeans
+# centers within 1e-5·max(1, |c|), metrics 1e-5 relative, step counts
+# equal, assignments equal off near-ties; eigen- and singular values
+# 1e-4 relative, vectors 1e-4 up to sign where the eigenvalues lie 10%
+# apart and the top-k subspaces within 1e-4 (the least cosine); GLRM
+# objectives 1e-4 relative, archetypes 1e-3·max(1, |y|), steps equal,
+# and A·Y 3e-2·max(1, |A·Y|): the reconstruction's per-row solve (ridge
+# 1e-6) amplifies the archetypes' last bits on the airlines design (two
+# CPU fits of a 20K-row head on permuted rows: A·Y 9.4e-3 apart, the
+# archetypes 2.1e-4, the objective equal, ``scripts/unsup_witness.py``;
+# the tests' rank-3 data holds A·Y to 1e-3); Naive
+# Bayes priors and tables (from counts) 1e-6 relative; means and
+# deviations within the CPU's float32 summation bound over the head's n
+# rows, n·2^-24 of their scale (a mean within n·2^-24·√(μ² + σ²), a
+# deviation within n·2^-24·(μ² + σ²)/σ: the card's sums are fixed
+# point, the CPU's run in float32 over same-signed terms, beyond the
+# tests' 2e-6 at these row counts); the card's
+# probabilities within 1e-5 of the CPU's scoring of the same statistics
+# (the CPU's own float32 E[x²] − μ² of a raw column such as Year
+# cancels, so its fit's probabilities are printed, not held); Target
+# Encoder EXACT.
+N_UNSUP_CPU = 20_000
+KM_CENTER_TOL = 1e-5
+KM_METRIC_TOL = 1e-5
+EIG_TOL = 1e-4
+VEC_TOL = 1e-4
+GLRM_OBJ_TOL = 1e-4
+GLRM_Y_TOL = 1e-3
+GLRM_AY_TOL = 3e-2
+NB_STAT_TOL = 1e-6
+NB_PROB_TOL = 1e-5
+REF_EINSUM_GB = 10.6             # one [1M, 10, 265] float32 einsum
 _TREEKERNEL = dict(source="h2o3_tpu_torch/ops/kernels/csrc/treekernel.cu",
                    replaces="h2o3_tpu/ops/pallas/treekernel.py:250")
 KERNELS = {
@@ -3091,20 +3191,29 @@ def gram_vs_float64(torch, X1, w, z):
     return rel, float(((g_tf - g64).abs() / mass.clamp_min(1e-30)).max())
 
 
-def phase_glm_higgs(torch, dev):
+def higgs_frame(dev):
+    """bench.py's GLM frame (``higgs_arrays(N_HIGGS)``) on the card:
+    (columns, domains, beta, frame). Phases 22(a) and 24(a) share it."""
+    import h2o3_tpu_torch as h2o
+    t0 = time.perf_counter()
+    cols, domains, beta = higgs_arrays(N_HIGGS)
+    fr = h2o.Frame.from_numpy(cols, domains=domains, device=dev)
+    say(f"phase22a HIGGS shape {N_HIGGS} x {P_HIGGS} float32 generated and "
+        f"on the card in {time.perf_counter() - t0:.3f} s")
+    return cols, domains, beta, fr
+
+
+def phase_glm_higgs(torch, dev, higgs):
     """Phase 22(a): bench.py's GLM benchmark at its shape, nothing cut:
     binomial on 11M x 28 (standardize, lambda 0), IRLSM with 8 iterations
-    and L-BFGS with 40. Returns the launches of each fit's path."""
+    and L-BFGS with 40, on ``higgs_frame``'s data. Returns the launches
+    of each fit's path."""
     import h2o3_tpu_torch as h2o
     from h2o3_tpu_torch.frame.datainfo import build_datainfo
     from h2o3_tpu_torch.models import glm as glm_mod
     from h2o3_tpu_torch.ops.gram import gram
-    t0 = time.perf_counter()
-    cols, domains, beta = higgs_arrays(N_HIGGS)
-    fr = h2o.Frame.from_numpy(cols, domains=domains, device=dev)
+    cols, domains, beta, fr = higgs
     x = [c for c in cols if c != "y"]
-    say(f"phase22a HIGGS shape {N_HIGGS} x {P_HIGGS} float32 generated and "
-        f"on the card in {time.perf_counter() - t0:.3f} s")
     paths, models = {}, {}
     for solver, iters in HIGGS_FITS:
         params = dict(HIGGS_GLM, solver=solver, max_iterations=iters)
@@ -3189,7 +3298,6 @@ def phase_glm_higgs(torch, dev):
             f"card vs CPU plain max relative coefficient gap {gap:.3g} "
             f"(<= {tol}), |d AUC| {d:.3g} ({time.perf_counter() - t1:.3f} "
             f"s for both fits)")
-    del fr, cols
     return paths
 
 
@@ -3403,11 +3511,11 @@ def phase_glm_surface(torch, dev, cols, domains, delay):
     return counts
 
 
-def phase_glm(torch, dev, cols, domains, delay, ccols, cdomains):
-    """Phase 22: GLM. Returns the launches of its five paths (every
-    kernel 0 on each)."""
+def phase_glm(torch, dev, cols, domains, delay, ccols, cdomains, higgs):
+    """Phase 22: GLM (22(a) on ``higgs_frame``'s data). Returns the
+    launches of its five paths (every kernel 0 on each)."""
     t0 = time.perf_counter()
-    paths = phase_glm_higgs(torch, dev)
+    paths = phase_glm_higgs(torch, dev, higgs)
     secs = {"a": time.perf_counter() - t0}
     paths["glm_lambda_search"] = phase_glm_enet(torch, dev, cols, domains,
                                                 delay)
@@ -4041,6 +4149,610 @@ def phase_dl(torch, dev, cols, domains, delay):
     return paths
 
 
+# -------------------------------------------------------------- phase 24
+
+def same_output(a, b) -> bool:
+    """Two models' outputs, metrics or statistics equal bit for bit
+    (nested dicts, lists, numpy arrays and numbers)."""
+    if isinstance(a, dict) and isinstance(b, dict):
+        return a.keys() == b.keys() and all(same_output(a[k], b[k])
+                                            for k in a)
+    if isinstance(a, (list, tuple)) and isinstance(b, (list, tuple)):
+        return len(a) == len(b) and all(map(same_output, a, b))
+    if isinstance(a, np.ndarray) or isinstance(b, np.ndarray):
+        return np.array_equal(np.asarray(a), np.asarray(b))
+    return a == b
+
+
+def refit_check(torch, build, model, fit, label) -> float:
+    """A refit on the card bit-equal to ``model`` (output, training
+    metrics and, for Naive Bayes, statistics); returns its seconds."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    again = fit(build())
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    tm = (lambda m: None if m.training_metrics is None
+          else m.training_metrics.to_dict())
+    check(same_output(again.output, model.output)
+          and same_output(tm(again), tm(model))
+          and same_output(getattr(again, "stats", None),
+                          getattr(model, "stats", None)),
+          f"{label}: the refit is not bit-equal")
+    return secs
+
+
+def head_frames(cols, domains, n, dev):
+    """The first ``n`` rows as a frame on the card and on the CPU."""
+    import h2o3_tpu_torch as h2o
+    head = {k: v[:n] for k, v in cols.items()}
+    return [h2o.Frame.from_numpy(head, domains=domains, device=d)
+            for d in (dev, "cpu")]
+
+
+def rel_gap(a, b, floor: float = 0.0) -> float:
+    """max |a − b| / max(floor, |b|) (0 for empty inputs)."""
+    a, b = np.asarray(a, np.float64), np.asarray(b, np.float64)
+    if a.size == 0:
+        return 0.0
+    return float((np.abs(a - b) / np.maximum(floor, np.abs(b))).max())
+
+
+def near_ties(X, C) -> np.ndarray:
+    """Rows whose two smallest squared distances to the centers ``C``
+    differ by at most 1e-5 of their scale (float64)."""
+    X, C = X.astype(np.float64), C.astype(np.float64)
+    d2 = ((X[:, None, :] - C[None, :, :]) ** 2).sum(2)
+    s = np.sort(d2, axis=1)
+    return (s[:, 1] - s[:, 0]) <= 1e-5 * ((X * X).sum(1)
+                                          + (C * C).sum(1).max())
+
+
+def kmeans_card_vs_cpu(m_card, m_cpu, frs, label) -> str:
+    """KMeans card vs CPU plain at the tests' tolerances; returns what
+    was held, as a line."""
+    from h2o3_tpu_torch.parallel.device import fetch
+    check(m_card.output["iterations"] == m_cpu.output["iterations"],
+          f"{label}: steps card {m_card.output['iterations']} vs CPU "
+          f"{m_cpu.output['iterations']}")
+    gap = rel_gap(m_card.output["centers_std"], m_cpu.output["centers_std"],
+                  1.0)
+    check(gap <= KM_CENTER_TOL, f"{label}: centers {gap:.3g}")
+    a, b = m_card.training_metrics, m_cpu.training_metrics
+    mgap = max(rel_gap(a[k], b[k]) for k in
+               ("totss", "tot_withinss", "betweenss"))
+    check(mgap <= KM_METRIC_TOL, f"{label}: metrics {mgap:.3g}")
+    n = frs[1].nrows
+    got, want = (m.predict(fr).col("predict").host_view()
+                 for m, fr in zip((m_card, m_cpu), frs))
+    X = fetch(m_cpu._design(frs[1]).X)[:n]
+    ties = near_ties(X, fetch(m_cpu.centers_std))
+    check(np.array_equal(got[~ties], want[~ties]),
+          f"{label}: assignments differ off the near-ties")
+    return (f"{n}-row head card vs CPU plain: {m_card.output['iterations']}"
+            f" steps both, centers {gap:.3g} (<= {KM_CENTER_TOL}), metrics "
+            f"{mgap:.3g} (<= {KM_METRIC_TOL}), assignments equal off "
+            f"{int(ties.sum())} near-tie rows ({int((got != want).sum())} "
+            "differ)")
+
+
+def eig_gaps(vals) -> np.ndarray:
+    """Each leading eigenvalue's relative gap to its neighbours."""
+    v = np.asarray(vals, np.float64)
+    up = np.concatenate([[np.inf], 1 - v[1:] / v[:-1]])
+    down = np.concatenate([1 - v[1:] / v[:-1], [np.inf]])
+    return np.minimum(up, down)
+
+
+def signed_like(a, b) -> np.ndarray:
+    """``a``'s columns with the signs of ``b``'s."""
+    a, b = np.asarray(a, np.float64), np.asarray(b, np.float64)
+    s = np.sign((a * b).sum(0))
+    return a * np.where(s == 0, 1.0, s)
+
+
+def least_cosine(Va, Vb) -> float:
+    """The least cosine of the principal angles between two column
+    spaces."""
+    Va, Vb = np.asarray(Va, np.float64), np.asarray(Vb, np.float64)
+    return float(np.linalg.svd(np.linalg.qr(Va)[0].T @ np.linalg.qr(Vb)[0],
+                               compute_uv=False).min())
+
+
+def vectors_card_vs_cpu(vals_card, vals_cpu, V_card, V_cpu, label) -> str:
+    """Standard deviations or singular values (√λ) within EIG_TOL; each
+    vector within VEC_TOL up to sign where its eigenvalue lies 10% from
+    its neighbours; the whole column space within VEC_TOL."""
+    vgap = rel_gap(vals_card, vals_cpu)
+    check(vgap <= EIG_TOL, f"{label}: values {vgap:.3g}")
+    far = eig_gaps(np.asarray(vals_cpu, np.float64) ** 2) >= 0.1
+    vec = rel_gap(signed_like(V_card, V_cpu)[:, far],
+                  np.asarray(V_cpu)[:, far], 1.0)
+    check(vec <= VEC_TOL, f"{label}: vectors {vec:.3g}")
+    cos = least_cosine(V_card, V_cpu)
+    check(cos >= 1 - VEC_TOL, f"{label}: subspace least cosine {cos}")
+    return (f"values {vgap:.3g} (<= {EIG_TOL}), {int(far.sum())} of "
+            f"{len(far)} vectors 10% apart within {vec:.3g} up to sign "
+            f"(<= {VEC_TOL}), subspace least cosine 1 - {1 - cos:.3g}")
+
+
+def pca_frame_arrays(n: int, seed: int = 13):
+    """(b)'s rows: n x P_PCA float32, a rank-RANK_PCA signal U·S·V' with
+    singular values falling by 0.95 a component, plus uniform noise at 1%
+    of the smallest (256 levels: one random byte a cell, the cheapest
+    draw of 784M), all from RandomState(seed); built 64 columns at a
+    time, each column contiguous."""
+    r = np.random.RandomState(seed)
+    V = np.linalg.qr(r.randn(P_PCA, RANK_PCA))[0].astype(np.float32)
+    s = (0.95 ** np.arange(RANK_PCA)).astype(np.float32)
+    Us = r.randn(n, RANK_PCA).astype(np.float32) * s
+    amp = np.float32(0.01 * s[-1])
+    cols = {}
+    for lo in range(0, P_PCA, 64):
+        hi = min(P_PCA, lo + 64)
+        levels = np.frombuffer(r.bytes(n * (hi - lo)), np.uint8).reshape(
+            hi - lo, n)
+        blk = V[lo:hi] @ Us.T                 # [columns, n]
+        blk += amp * (levels * np.float32(1 / 127.5) - np.float32(1))
+        cols.update({f"x{lo + j}": blk[j] for j in range(hi - lo)})
+    return cols
+
+
+def phase_kmeans(torch, dev, higgs):
+    """Phase 24(a): KMeans on phase 22(a)'s HIGGS frame (11M x 28, the
+    response left out; k = 10, Furthest, standardized, 20 steps at
+    most): the fit, a refit, one Lloyd step timed against its byte
+    bound; on 1M rows PlusPlus, Random, estimate_k, 3-fold CV and
+    user_points; the host float64 constrained fit on 10,000 rows; a head
+    card vs CPU. Returns the path's launches."""
+    import h2o3_tpu_torch as h2o
+    from h2o3_tpu_torch.models import kmeans
+    cols = {k: v for k, v in higgs[0].items() if k != "y"}
+    domains = {}
+    fr = higgs[3]
+    x = list(cols)
+    build = lambda: h2o.KMeansEstimator(**KMEANS)  # noqa: E731
+    model, secs, counts, peak = timed_fit(torch,
+                                          lambda: build().train(fr, x=x))
+    check_launches(counts, {}, "KMeans")
+    t_re = refit_check(torch, build, model, lambda e: e.train(fr, x=x),
+                       "KMeans")
+    tm = model.training_metrics
+    steps = model.output["iterations"]
+    check(np.isfinite(np.asarray(model.output["centers"])).all()
+          and tm["nobs"] == N_HIGGS and 0 < tm["betweenss"] < tm["totss"],
+          "KMeans centers and metrics")
+    say(f"phase24a KMeans k={KMEANS['k']} {KMEANS['init']} on {N_HIGGS} x "
+        f"{P_HIGGS}: train {secs:.3f} s (refit {t_re:.3f} s, bit-equal), "
+        f"{steps} steps, {N_HIGGS * steps / secs:.6g} row-steps/s, "
+        f"tot_withinss {tm['tot_withinss']:.6g}, betweenss/totss "
+        f"{tm['betweenss'] / tm['totss']:.6f}, peak device memory "
+        f"{peak / 2**30:.3f} GiB; launches {counts}")
+    X = model._design(fr).X
+    w = fr.valid_weights()
+    C = model.centers_std
+    t = time_ms(torch, lambda: kmeans.lloyd_step(X, w, C, KMEANS["k"]),
+                reps=5)
+    b_bytes = N_HIGGS * P_HIGGS * 4 / HBM_BYTES_PER_S * 1e3
+    b_ops = 2.0 * N_HIGGS * P_HIGGS * KMEANS["k"] / F32_OPS_PER_S * 1e3
+    say(f"phase24a one Lloyd step: {spread(t)} device, host-paced "
+        f"{t['host_paced_ms']:.4f} ms (bound {max(b_bytes, b_ops):.4f} ms:"
+        f" X read once {b_bytes:.4f}, float32 operations {b_ops:.4f})")
+    del X, w, C, model, fr
+    head = {k: v[:N_KM_HEAD] for k, v in cols.items()}
+    fh = h2o.Frame.from_numpy(head, device=dev)
+    kmeans_fits = (
+        ("PlusPlus", dict(KMEANS, init="PlusPlus")),
+        ("Random", dict(KMEANS, init="Random")),
+        ("estimate_k", dict(KMEANS, estimate_k=True)),
+        ("3-fold CV", dict(KMEANS, nfolds=3)),
+        ("user_points", dict(KMEANS, user_points=h2o.Frame.from_numpy(
+            {k: v[:KMEANS["k"]] for k, v in head.items()}, device=dev))))
+    for label, params in kmeans_fits:
+        b = lambda p=params: h2o.KMeansEstimator(**p)  # noqa: E731
+        m, secs, c, _ = timed_fit(torch, lambda: b().train(fh))
+        check_launches(c, {}, f"KMeans {label}")
+        counts = {k: counts[k] + c[k] for k in counts}
+        refit_check(torch, b, m, lambda e: e.train(fh), f"KMeans {label}")
+        mt = m.training_metrics
+        check(np.isfinite(mt["tot_withinss"]) and mt["nobs"] == N_KM_HEAD,
+              f"KMeans {label} metrics")
+        extra = ""
+        if params.get("nfolds"):
+            check(m.cross_validation_metrics["centroid_stats"] is None
+                  and len(m._cv_models) == 3, "KMeans CV metrics")
+            extra = (f", CV tot_withinss "
+                     f"{m.cross_validation_metrics['tot_withinss']:.6g}")
+        say(f"phase24a KMeans {label} on {N_KM_HEAD} rows: {secs:.3f} s "
+            f"(refit bit-equal), k "
+            f"{m.output['k']}, {m.output['iterations']} steps, "
+            f"tot_withinss {mt['tot_withinss']:.6g}{extra}")
+    cons = {k: v[:N_KM_CONS] for k, v in cols.items()}
+    fc = h2o.Frame.from_numpy(cons, device=dev)
+    m, secs, c, _ = timed_fit(
+        torch, lambda: h2o.KMeansEstimator(**KM_CONS).train(fc))
+    counts = {k: counts[k] + c[k] for k in counts}
+    sizes = m.training_metrics["centroid_stats"]["size"]
+    check(min(sizes) >= KM_CONS["cluster_size_constraints"][0],
+          f"constrained sizes {sizes}")
+    m_cpu = h2o.KMeansEstimator(**KM_CONS).train(
+        h2o.Frame.from_numpy(cons, device="cpu"))
+    check(m_cpu.training_metrics["centroid_stats"]["size"] == sizes,
+          "constrained sizes card vs CPU")
+    say(f"phase24a KMeans cluster_size_constraints (>= "
+        f"{KM_CONS['cluster_size_constraints'][0]}) on {N_KM_CONS} rows: "
+        f"{secs:.3f} s, sizes {[int(v) for v in sizes]} (the CPU's "
+        "equal)")
+    frs = head_frames(cols, domains, N_UNSUP_CPU, dev)
+    ms = [build().train(f) for f in frs]
+    say("phase24a KMeans " + kmeans_card_vs_cpu(*ms, frs, "KMeans head"))
+    return counts
+
+
+def phase_pca(torch, dev, cols, domains):
+    """Phase 24(b): PCA at MNIST's width (1M x 784, k = 50) by GramSVD
+    and Randomized, the Gram timed against its bound and eigh timed; PCA
+    and SVD on 1M airlines rows through the one-hot design; each with a
+    refit and a head card vs CPU. Returns the launches of the PCA and
+    SVD paths."""
+    import h2o3_tpu_torch as h2o
+    from h2o3_tpu_torch.frame.datainfo import build_datainfo
+    from h2o3_tpu_torch.models import pca
+    t0 = time.perf_counter()
+    pcols = pca_frame_arrays(N_PCA)
+    fr = h2o.Frame.from_numpy(pcols, device=dev)
+    say(f"phase24b {N_PCA} x {P_PCA} rank-{RANK_PCA} rows on the card in "
+        f"{time.perf_counter() - t0:.3f} s")
+    paths = {"pca": {}, "svd": {}}
+    models = {}
+    for method in ("GramSVD", "Randomized"):
+        build = lambda m=method: h2o.PCAEstimator(  # noqa: E731
+            k=K_PCA, pca_method=m, seed=1)
+        model, secs, counts, peak = timed_fit(torch,
+                                              lambda: build().train(fr))
+        check_launches(counts, {}, f"PCA {method}")
+        paths["pca"] = {k: paths["pca"].get(k, 0) + v
+                        for k, v in counts.items()}
+        t_re = refit_check(torch, build, model, lambda e: e.train(fr),
+                           f"PCA {method}")
+        pv = np.asarray(model.output["pct_variance"])
+        check(np.isfinite(pv).all() and (np.diff(pv) <= 1e-6).all(),
+              f"PCA {method} pct_variance")
+        models[method] = model
+        say(f"phase24b PCA {method} k={K_PCA} on {N_PCA} x {P_PCA}: train "
+            f"{secs:.3f} s (refit {t_re:.3f} s, bit-equal), "
+            f"cum_pct_variance {model.output['cum_pct_variance'][-1]:.6f}"
+            f", pct_variance[:3] {[round(float(v), 6) for v in pv[:3]]}, "
+            f"peak {peak / 2**30:.3f} GiB")
+    cos = least_cosine(models["Randomized"].V.cpu(), models["GramSVD"].V.cpu())
+    X = build_datainfo(fr, fr.names, standardize=True).X
+    w = fr.valid_weights()
+    t_gram = time_ms(torch, lambda: pca.weighted_gram(X, w), reps=3)
+    xtx, wsum = pca.weighted_gram(X, w)
+    cov = xtx / (wsum - 1.0)
+    t_eigh = time_ms(torch, lambda: pca.eig_desc(cov), reps=3)
+    b_bytes = N_PCA * P_PCA * 4 / HBM_BYTES_PER_S * 1e3
+    b_ops = 2.0 * N_PCA * P_PCA * P_PCA / F32_OPS_PER_S * 1e3
+    say(f"phase24b Randomized vs GramSVD: top-{K_PCA} subspace least "
+        f"cosine {cos:.6f}; the Gram {spread(t_gram)} device (bound "
+        f"{max(b_bytes, b_ops):.4f} ms: bytes {b_bytes:.4f}, float32 "
+        f"operations {b_ops:.4f}); eigh of the {P_PCA} x {P_PCA} "
+        f"covariance {spread(t_eigh)}")
+    del X, w, xtx, cov, models, fr
+    for method in ("GramSVD", "Randomized"):
+        frs = head_frames(pcols, {}, N_UNSUP_CPU, dev)
+        ms = [h2o.PCAEstimator(k=K_PCA, pca_method=method, seed=1).train(f)
+              for f in frs]
+        say(f"phase24b PCA {method} {N_UNSUP_CPU}-row head card vs CPU "
+            "plain: " + vectors_card_vs_cpu(
+                ms[0].output["std_deviation"], ms[1].output["std_deviation"],
+                ms[0].output["eigenvectors"], ms[1].output["eigenvectors"],
+                f"PCA {method} head"))
+    del pcols, frs, ms
+    # the one-hot design on airlines rows
+    head = {k: v[:N_DIMRED] for k, v in cols.items() if k != Y}
+    fa = h2o.Frame.from_numpy(head, domains=domains, device=dev)
+    for algo, build in (
+            ("pca", lambda: h2o.PCAEstimator(k=10,
+                                             use_all_factor_levels=False)),
+            ("svd", lambda: h2o.SVDEstimator(nv=10,
+                                             transform="standardize"))):
+        model, secs, counts, _ = timed_fit(torch, lambda: build().train(fa))
+        check_launches(counts, {}, algo)
+        paths[algo] = {k: paths[algo].get(k, 0) + v
+                       for k, v in counts.items()}
+        t_re = refit_check(torch, build, model, lambda e: e.train(fa), algo)
+        P = len(model.output["coef_names"])
+        frs = head_frames(head, domains, N_UNSUP_CPU, dev)
+        ms = [build().train(f) for f in frs]
+        if algo == "pca":
+            got = vectors_card_vs_cpu(
+                ms[0].output["std_deviation"], ms[1].output["std_deviation"],
+                ms[0].output["eigenvectors"], ms[1].output["eigenvectors"],
+                "PCA airlines head")
+            what = ("cum_pct_variance "
+                    f"{model.output['cum_pct_variance'][-1]:.6f}")
+        else:
+            got = vectors_card_vs_cpu(ms[0].output["d"], ms[1].output["d"],
+                                      ms[0].output["v"], ms[1].output["v"],
+                                      "SVD airlines head")
+            what = f"d[:3] {[round(v, 3) for v in model.output['d'][:3]]}"
+        say(f"phase24b {algo.upper()} on {N_DIMRED} airlines rows (P = {P}):"
+            f" {secs:.3f} s (refit {t_re:.3f} s, bit-equal), {what}; "
+            f"{N_UNSUP_CPU}-row head card vs CPU plain: {got}")
+    return paths
+
+
+def reconstruction(model, fr) -> np.ndarray:
+    """A GLRM's A·Y of ``fr``'s rows, [nrows, P] on the host."""
+    rec = model.reconstruct(fr)
+    return np.stack([rec.col(c).host_view()
+                     for c in model.output["coef_names"]], 1)
+
+
+def glrm_card_vs_cpu(m_card, m_cpu, frs, label, signed: bool) -> str:
+    """GLRM card vs CPU plain at the tests' tolerances."""
+    check(m_card.output["iterations"] == m_cpu.output["iterations"],
+          f"{label}: steps card {m_card.output['iterations']} vs CPU "
+          f"{m_cpu.output['iterations']}")
+    og = rel_gap(m_card.output["objective"], m_cpu.output["objective"])
+    check(og <= GLRM_OBJ_TOL, f"{label}: objective {og:.3g}")
+    n = frs[1].nrows
+    ay = [reconstruction(m, fr) for m, fr in zip((m_card, m_cpu), frs)]
+    ag = rel_gap(ay[0], ay[1], 1.0)
+    check(ag <= GLRM_AY_TOL, f"{label}: A·Y {ag:.3g}")
+    Ya, Yb = (np.asarray(m.output["archetypes"]).T for m in (m_card, m_cpu))
+    yg = rel_gap(Ya if signed else signed_like(Ya, Yb), Yb, 1.0)
+    check(yg <= GLRM_Y_TOL, f"{label}: archetypes {yg:.3g}")
+    return (f"{n}-row head card vs CPU plain: {m_card.output['iterations']} "
+            f"steps both, objective {og:.3g} (<= {GLRM_OBJ_TOL}), A·Y "
+            f"{ag:.3g} (<= {GLRM_AY_TOL}), archetypes"
+            f"{'' if signed else ' up to sign'} {yg:.3g} (<= {GLRM_Y_TOL})")
+
+
+def glrm_columns(cols, n: int, seed: int = 24):
+    """The first ``n`` airlines rows without the response, GLRM_NA of
+    the numeric cells NA (float64 NaN) from RandomState(seed)."""
+    r = np.random.RandomState(seed)
+    out = {}
+    for k, v in cols.items():
+        if k == Y:
+            continue
+        v = v[:n]
+        if k in NUMERIC:
+            v = np.where(r.rand(n) < GLRM_NA, np.nan, v.astype(np.float64))
+        out[k] = v
+    return out
+
+
+def phase_glrm(torch, dev, cols, domains):
+    """Phase 24(c): GLRM on 1M airlines rows (P = 265, all levels), 5%
+    of the numeric cells NA: k = 10, standardized, quadratic, ridge 0.1
+    on both sides, 50 steps at most; a refit, the batched k x k solve
+    timed; L1 and NonNegative on a head, each card vs CPU. Returns the
+    path's launches."""
+    import h2o3_tpu_torch as h2o
+    from h2o3_tpu_torch.frame.datainfo import build_datainfo
+    from h2o3_tpu_torch.models import glrm
+    gcols = glrm_columns(cols, N_DIMRED)
+    fr = h2o.Frame.from_numpy(gcols, domains=domains, device=dev)
+    build = lambda: h2o.GLRMEstimator(**GLRM)  # noqa: E731
+    model, secs, counts, peak = timed_fit(torch, lambda: build().train(fr))
+    check_launches(counts, {}, "GLRM")
+    t_re = refit_check(torch, build, model, lambda e: e.train(fr), "GLRM")
+    P = len(model.output["coef_names"])
+    check(np.isfinite(model.output["objective"]), "GLRM objective")
+    di = build_datainfo(fr, model.features, standardize=True,
+                        use_all_factor_levels=True)
+    mask = glrm.cell_mask(fr, di)
+    G = mask @ glrm._pairs(model.Y.T)
+    b = (di.X * mask) @ model.Y.T
+    t_solve = time_ms(torch, lambda: glrm._ridge_solve(G, b, 0.1), reps=3)
+    say(f"phase24c GLRM k={GLRM['k']} on {N_DIMRED} airlines rows (P = {P}, "
+        f"{GLRM_NA:.0%} of the numeric cells NA): train {secs:.3f} s (refit "
+        f"{t_re:.3f} s, bit-equal), {model.output['iterations']} steps, "
+        f"objective {model.output['objective']:.6g}, peak device memory "
+        f"{peak / 2**30:.3f} GiB (one [N, k, P] float32 einsum of the "
+        f"reference's form: {REF_EINSUM_GB} GB); the batched {N_DIMRED} x "
+        f"{GLRM['k']} x {GLRM['k']} solve (LU, torch.linalg.solve) "
+        f"{spread(t_solve)}")
+    del di, mask, G, b, fr
+    frs = head_frames(gcols, domains, N_UNSUP_CPU, dev)
+    ms = [build().train(f) for f in frs]
+    say("phase24c GLRM quadratic " + glrm_card_vs_cpu(*ms, frs,
+                                                      "GLRM head", False))
+    for label, params in GLRM_HEAD_FITS:
+        kw = dict(GLRM, init="Random", seed=3, **params)
+        m, s, c, _ = timed_fit(torch, lambda k=kw: h2o.GLRMEstimator(
+            **k).train(frs[0]))
+        counts = {k: counts[k] + c[k] for k in counts}
+        m_cpu = h2o.GLRMEstimator(**kw).train(frs[1])
+        say(f"phase24c GLRM {label} ({s:.3f} s on the card): "
+            + glrm_card_vs_cpu(m, m_cpu, frs, f"GLRM {label}", True))
+    return counts
+
+
+def nb_card_vs_cpu(m_card, m_cpu, frs, label) -> str:
+    """Naive Bayes card vs CPU plain: the statistics at the tests'
+    tolerances, the card's probabilities against the CPU's scoring of
+    the same statistics; the CPU fit's probability gap printed."""
+    from h2o3_tpu_torch.parallel.device import fetch
+    a, b = m_card.stats, m_cpu.stats
+    sg = max([rel_gap(a["priors"], b["priors"])]
+             + [rel_gap(x, y) for x, y in zip(a["cat_tables"],
+                                              b["cat_tables"])])
+    check(sg <= NB_STAT_TOL, f"{label}: priors / tables {sg:.3g}")
+    mg = 0.0
+    for mu_a, sd_a, mu, sd in zip(a["num_mu"], a["num_sd"], b["num_mu"],
+                                  b["num_sd"]):
+        mu, sd = np.asarray(mu, np.float64), np.asarray(sd, np.float64)
+        ms = mu * mu + sd * sd
+        mg = max(mg, float((np.abs(mu_a - mu) / np.sqrt(ms)).max()),
+                 float((np.abs(sd_a - sd) * sd / ms).max()))
+    bound = frs[1].nrows * 2.0 ** -24
+    check(mg <= bound, f"{label}: moments {mg:.3g}")
+    p_card = fetch(m_card._probs(frs[0]))
+    pg = float(np.abs(p_card - fetch(m_card._probs(frs[1]))).max())
+    check(pg <= NB_PROB_TOL, f"{label}: probabilities {pg:.3g}")
+    fit_gap = float(np.abs(p_card - fetch(m_cpu._probs(frs[1]))).max())
+    return (f"{frs[1].nrows}-row head card vs CPU plain: priors and tables "
+            f"{sg:.3g} (<= {NB_STAT_TOL}), moments {mg:.3g} (<= "
+            f"{bound:.3g} of their scale), the same statistics "
+            f"scored {pg:.3g} (<= {NB_PROB_TOL}); the CPU fit's "
+            f"probabilities {fit_gap:.3g} away (printed)")
+
+
+def phase_naivebayes(torch, dev, cols, domains, ccols, cdomains):
+    """Phase 24(d): Naive Bayes on phase 4's 5M airlines rows →
+    IsDepDelayed (laplace 1): AUC, train and predict seconds, a refit;
+    the Covertype schema (7 classes): logloss; 3-fold CV on 1M rows;
+    heads card vs CPU. Returns the path's launches."""
+    import h2o3_tpu_torch as h2o
+    fr = h2o.Frame.from_numpy(cols, domains=domains, device=dev)
+    build = lambda: h2o.NaiveBayesEstimator(**NB)  # noqa: E731
+    model, secs, counts, peak = timed_fit(torch,
+                                          lambda: build().train(fr, y=Y))
+    check_launches(counts, {}, "Naive Bayes")
+    t_re = refit_check(torch, build, model, lambda e: e.train(fr, y=Y),
+                       "Naive Bayes")
+    t0 = time.perf_counter()
+    pred = model.predict(fr)
+    torch.cuda.synchronize()
+    t_pred = time.perf_counter() - t0
+    p1 = pred.col("p1").host_view()
+    auc = model.training_metrics["AUC"]
+    check(np.isfinite(p1).all() and abs(host_auc(p1, cols[Y] == 1) - auc)
+          <= 5e-3 and auc > 0.6, f"Naive Bayes AUC {auc}")
+    say(f"phase24d Naive Bayes laplace=1 on {N_MAIN} airlines rows: train "
+        f"{secs:.3f} s (refit {t_re:.3f} s, bit-equal), predict "
+        f"{t_pred:.3f} s, AUC {auc:.6f}, logloss "
+        f"{model.training_metrics['logloss']:.6f}, peak "
+        f"{peak / 2**30:.3f} GiB")
+    frs = head_frames(cols, domains, N_UNSUP_CPU, dev)
+    ms = [build().train(f, y=Y) for f in frs]
+    say("phase24d Naive Bayes airlines " + nb_card_vs_cpu(*ms, frs,
+                                                          "NB airlines"))
+    cfr = h2o.Frame.from_numpy(ccols, domains=cdomains, device=dev)
+    m, s, c, _ = timed_fit(torch, lambda: build().train(cfr, y="Cover_Type"))
+    counts = {k: counts[k] + c[k] for k in counts}
+    ll, err = m.training_metrics["logloss"], m.training_metrics["error_rate"]
+    majority = 1 - max(COVTYPE_COUNTS) / N_COVTYPE
+    check(np.isfinite(ll) and 0 <= err <= 1,
+          f"Covertype logloss {ll}, error {err}")
+    frs = head_frames(ccols, cdomains, N_UNSUP_CPU, dev)
+    ms = [build().train(f, y="Cover_Type") for f in frs]
+    say(f"phase24d Naive Bayes on the {N_COVTYPE}-row Covertype schema (7 "
+        f"classes): {s:.3f} s, logloss {ll:.6f}, error rate {err:.6f} "
+        f"(the majority class's {majority:.6f}; the 44 one-hot columns "
+        "enter as Gaussian numerics); " + nb_card_vs_cpu(
+            *ms, frs, "NB Covertype"))
+    del cfr
+    fh = h2o.Frame.from_numpy({k: v[:N_NB_CV] for k, v in cols.items()},
+                              domains=domains, device=dev)
+    m, s, c, _ = timed_fit(torch, lambda: h2o.NaiveBayesEstimator(
+        nfolds=3, seed=1, **NB).train(fh, y=Y))
+    counts = {k: counts[k] + c[k] for k in counts}
+    cv = m.cross_validation_metrics["AUC"]
+    check(abs(cv - m.training_metrics["AUC"]) <= 0.01, f"NB CV AUC {cv}")
+    say(f"phase24d Naive Bayes 3-fold CV on {N_NB_CV} rows: {s:.3f} s, CV "
+        f"AUC {cv:.6f} (training {m.training_metrics['AUC']:.6f})")
+    return counts
+
+
+def te_columns(cols, n: int):
+    """The first ``n`` airlines rows and a modulo fold column."""
+    out = {k: v[:n] for k, v in cols.items()}
+    out["fold"] = np.arange(n) % N_TE_FOLDS
+    return out
+
+
+def te_card_vs_cpu(m_card, m_cpu, frs, label) -> str:
+    """Target Encoder card vs CPU plain: maps and every transform
+    EXACT."""
+    for col, m in m_cpu.enc_maps.items():
+        q = m_card.enc_maps[col]
+        check(np.array_equal(q["sum"], m["sum"])
+              and np.array_equal(q["cnt"], m["cnt"])
+              and q["prior"] == m["prior"], f"{label}: {col} maps")
+    for kw in ({"as_training": True}, {}):
+        a, b = (m.transform(fr, **kw) for m, fr in zip((m_card, m_cpu), frs))
+        check(a.names == b.names and all(
+            np.array_equal(a.col(c).host_view(), b.col(c).host_view(),
+                           equal_nan=True) and a.col(c).domain ==
+            b.col(c).domain for c in b.names), f"{label}: transform {kw}")
+    return (f"{frs[1].nrows}-row head card vs CPU plain: maps and "
+            "encodings EXACT")
+
+
+def phase_targetencoder(torch, dev, cols, domains):
+    """Phase 24(e): the Target Encoder on phase 4's 5M airlines rows
+    (Origin, Dest, UniqueCarrier → IsDepDelayed; kfold over a 5-fold
+    modulo column, blending, noise 0.01, seed 1234): fit and
+    transform(as_training=True) seconds, a refit; ``none`` and ``loo`` on
+    a head; each head card vs CPU EXACT. Returns the path's launches."""
+    import h2o3_tpu_torch as h2o
+    from h2o3_tpu_torch.ops import kernels
+    tcols = te_columns(cols, N_MAIN)
+    fr = h2o.Frame.from_numpy(tcols, domains=domains, device=dev)
+    x = list(TE_COLS)
+    build = lambda: h2o.TargetEncoderEstimator(**TE)  # noqa: E731
+    model, secs, _, _ = timed_fit(torch, lambda: build().train(fr, y=Y, x=x))
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = model.transform(fr, as_training=True)
+    torch.cuda.synchronize()
+    t_tr = time.perf_counter() - t0
+    counts = dict(kernels.LAUNCHES)
+    check_launches(counts, {}, "Target Encoder")
+    again = build().train(fr, y=Y, x=x)
+    check(all(np.array_equal(again.enc_maps[c]["sum"],
+                             model.enc_maps[c]["sum"]) for c in x),
+          "Target Encoder: the refit is not bit-equal")
+    enc = [out.col(f"{c}_te").host_view() for c in x]
+    check(out.names == fr.names + [f"{c}_te" for c in x]
+          and all(np.isfinite(e).all() for e in enc),
+          "Target Encoder encodings")
+    say(f"phase24e Target Encoder kfold ({N_TE_FOLDS} folds) on {N_MAIN} "
+        f"airlines rows, {', '.join(x)}: fit {secs:.3f} s (refit bit-equal)"
+        f", transform(as_training=True) {t_tr:.3f} s, encodings' means "
+        f"{[round(float(e.mean()), 6) for e in enc]}")
+    del fr, out
+    frs = head_frames(tcols, domains, N_UNSUP_CPU, dev)
+    for handling in ("kfold", "none", "loo"):
+        kw = dict(TE, data_leakage_handling=handling)
+        ms = [h2o.TargetEncoderEstimator(**kw).train(f, y=Y, x=x)
+              for f in frs]
+        say(f"phase24e Target Encoder {handling}: " + te_card_vs_cpu(
+            *ms, frs, f"TE {handling}"))
+    return counts
+
+
+def phase_unsupervised(torch, dev, cols, domains, ccols, cdomains, higgs):
+    """Phase 24: KMeans (on ``higgs_frame``'s data), PCA and SVD, GLRM,
+    Naive Bayes and the Target Encoder (no kernel: cuBLAS products with
+    TF32 off, cuSOLVER factorizations, fixed-point segment sums, plain
+    torch). Returns the launches of its six paths (every kernel 0 on
+    each)."""
+    t0 = time.perf_counter()
+    paths = {"kmeans": phase_kmeans(torch, dev, higgs)}
+    secs = {"a": time.perf_counter() - t0}
+    paths.update(phase_pca(torch, dev, cols, domains))
+    secs["b"] = time.perf_counter() - t0 - sum(secs.values())
+    paths["glrm"] = phase_glrm(torch, dev, cols, domains)
+    secs["c"] = time.perf_counter() - t0 - sum(secs.values())
+    paths["naivebayes"] = phase_naivebayes(torch, dev, cols, domains, ccols,
+                                           cdomains)
+    secs["d"] = time.perf_counter() - t0 - sum(secs.values())
+    paths["targetencoder"] = phase_targetencoder(torch, dev, cols, domains)
+    secs["e"] = time.perf_counter() - t0 - sum(secs.values())
+    for p, c in paths.items():
+        check(not any(c.values()), f"{p}: a kernel launched")
+    say("phase24: " + ", ".join(f"({k}) {v:.3f} s" for k, v in secs.items())
+        + f", together {sum(secs.values()):.3f} s; every kernel 0 launches "
+        f"on {', '.join(paths)}")
+    return paths
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -4156,14 +4868,20 @@ def main() -> int:
     del fr, gbm_model, drf_model
     mark("phase 22")
     t22 = time.perf_counter()
+    higgs = higgs_frame(dev)
     paths.update(phase_glm(torch, dev, cols, domains, airlines_delay(N_MAIN),
-                           ccols, cdomains))
+                           ccols, cdomains, higgs))
     say(f"phase 22: {time.perf_counter() - t22:.3f} s")
-    del ccols
     mark("phase 23")
     t23 = time.perf_counter()
     paths.update(phase_dl(torch, dev, cols, domains, airlines_delay(N_MAIN)))
     say(f"phase 23: {time.perf_counter() - t23:.3f} s")
+    mark("phase 24")
+    t24 = time.perf_counter()
+    paths.update(phase_unsupervised(torch, dev, cols, domains, ccols,
+                                    cdomains, higgs))
+    say(f"phase 24: {time.perf_counter() - t24:.3f} s")
+    del ccols, higgs
     for rec in records:
         rec["max_abs_err"] = worst[rec["name"]]
         rec["launches_by_path"] = {p: c[rec["name"]]

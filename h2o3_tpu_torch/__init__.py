@@ -25,6 +25,12 @@ JAX. Its TPU kernels are hand-written CUDA kernels under
                                     seed=1).train(fr, y="label")
     ae = h2o.DeepLearningEstimator(autoencoder=True).train(fr)
     ae.anomaly(fr)
+    km = h2o.KMeansEstimator(k=10, init="Furthest").train(fr)   # y=None
+    pc = h2o.PCAEstimator(k=5, transform="standardize").train(fr)
+    lr = h2o.GLRMEstimator(k=4, transform="standardize").train(fr)
+    nb = h2o.NaiveBayesEstimator(laplace=1).train(fr, y="label")
+    te = h2o.TargetEncoderEstimator(blending=True).train(fr, y="label")
+    te.transform(fr)                      # appends <col>_te columns
     h2o.models.get_builder("gbm")         # the algorithm registry
 
 Entry points default to ``torch.device("cuda")`` and raise when no card
@@ -38,11 +44,18 @@ from h2o3_tpu_torch.models.drf import DRFEstimator
 from h2o3_tpu_torch.models.extisofor import ExtendedIsolationForestEstimator
 from h2o3_tpu_torch.models.gbm import GBMEstimator
 from h2o3_tpu_torch.models.glm import GLMEstimator
+from h2o3_tpu_torch.models.glrm import GLRMEstimator
 from h2o3_tpu_torch.models.isofor import IsolationForestEstimator
+from h2o3_tpu_torch.models.kmeans import KMeansEstimator
+from h2o3_tpu_torch.models.naivebayes import NaiveBayesEstimator
+from h2o3_tpu_torch.models.pca import PCAEstimator, SVDEstimator
+from h2o3_tpu_torch.models.targetencoder import TargetEncoderEstimator
 from h2o3_tpu_torch.models.uplift import UpliftDRFEstimator
 from h2o3_tpu_torch.models.xgboost import XGBoostEstimator
 
 __all__ = ["Frame", "import_file", "DeepLearningEstimator", "DRFEstimator",
            "ExtendedIsolationForestEstimator", "GBMEstimator", "GLMEstimator",
-           "IsolationForestEstimator", "UpliftDRFEstimator",
+           "GLRMEstimator", "IsolationForestEstimator", "KMeansEstimator",
+           "NaiveBayesEstimator", "PCAEstimator", "SVDEstimator",
+           "TargetEncoderEstimator", "UpliftDRFEstimator",
            "XGBoostEstimator"]

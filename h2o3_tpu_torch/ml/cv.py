@@ -20,14 +20,20 @@ full-frame lambda path, walks every fold along that same path, sums each
 lambda's holdout deviance over the folds, and refits the main model at
 the lambda of the least sum (GLM.java's xval-deviance selection).
 
-Not ported: the unsupervised branch and
-the cluster scheduler of the reference, and the frame keys it returns
-(``keep_cross_validation_predictions``, ``keep_cross_validation_fold_
-assignment``, ``cv_model_keys``): the fold models are ``_cv_models``.
+Unsupervised CV (KMeans with ``nfolds``, ``y`` None) trains a model on
+each fold's training rows and then the main model; its CV metrics are a
+copy of the main model's training metrics without ``centroid_stats``,
+as the reference serves them.
+
+Not ported: the cluster scheduler of the reference, and the frame keys
+it returns (``keep_cross_validation_predictions``,
+``keep_cross_validation_fold_assignment``, ``cv_model_keys``; ROADMAP
+A #9): the fold models are ``_cv_models``.
 """
 
 from __future__ import annotations
 
+import copy
 from typing import Optional, Sequence
 
 import numpy as np
@@ -145,6 +151,28 @@ def _glm_path_holdout_deviance(m, te: Frame, y: str, p: dict) -> np.ndarray:
     return (te.local_rows(w, 0.0)[:, None] * devs).sum(axis=0)
 
 
+def _unsupervised_cv(builder, frame: Frame, x: Sequence[str],
+                     folds: np.ndarray, nfolds: int, params: dict,
+                     validation_frame: Optional[Frame]):
+    """A model on each fold's training rows, then the main model; the CV
+    metrics are the main model's training metrics with
+    ``centroid_stats`` None (reference ``h2o3_tpu/ml/cv.py``'s
+    unsupervised branch)."""
+    cv_models = [builder.__class__(**params)._fit(
+        subset_frame(frame, folds != f, pad_to=frame.nrows_padded),
+        list(x), None) for f in range(nfolds)]
+    final = builder.__class__(**params)._fit(
+        frame, list(x), None, validation_frame=validation_frame)
+    cvm = copy.copy(final.training_metrics)
+    if cvm is not None:
+        cvm.extra = dict(cvm.extra, centroid_stats=None)
+    final.cross_validation_metrics = cvm
+    final.output["nfolds"] = nfolds
+    final._cv_models = cv_models
+    final._cv_folds = folds
+    return final
+
+
 def train_with_cv(builder, frame: Frame, x: Sequence[str], y: str,
                   nfolds: int, validation_frame: Optional[Frame] = None):
     """Train ``nfolds`` fold models and the main model; the main model
@@ -167,6 +195,9 @@ def train_with_cv(builder, frame: Frame, x: Sequence[str], y: str,
         folds = fold_assignment(n, nfolds, scheme, seed, yv)
 
     sub_params = {**p, "nfolds": 0, "fold_column": None}
+    if y is None:
+        return _unsupervised_cv(builder, frame, x, folds, nfolds,
+                                sub_params, validation_frame)
     main_params = dict(sub_params)
     cap = float(p.get("max_runtime_secs") or 0.0)
     if cap > 0:

@@ -15,9 +15,6 @@ from typing import Dict
 
 # the reference's algorithms the port has not ported yet, by ROADMAP item
 UNPORTED = {
-    "kmeans": "A #14(b)", "pca": "A #14(b)", "svd": "A #14(b)",
-    "glrm": "A #14(b)",
-    "naivebayes": "A #14(c)", "targetencoder": "A #14(c)",
     "gam": "A #14(d)", "rulefit": "A #14(d)", "modelselection": "A #14(d)",
     "anovaglm": "A #14(d)",
     "coxph": "A #14(e)", "psvm": "A #14(e)", "isotonicregression": "A #14(e)",
@@ -36,13 +33,19 @@ def _registry() -> Dict[str, type]:
         ExtendedIsolationForestEstimator
     from h2o3_tpu_torch.models.gbm import GBMEstimator
     from h2o3_tpu_torch.models.glm import GLMEstimator
+    from h2o3_tpu_torch.models.glrm import GLRMEstimator
     from h2o3_tpu_torch.models.isofor import IsolationForestEstimator
+    from h2o3_tpu_torch.models.kmeans import KMeansEstimator
+    from h2o3_tpu_torch.models.naivebayes import NaiveBayesEstimator
+    from h2o3_tpu_torch.models.pca import PCAEstimator, SVDEstimator
+    from h2o3_tpu_torch.models.targetencoder import TargetEncoderEstimator
     from h2o3_tpu_torch.models.uplift import UpliftDRFEstimator
     from h2o3_tpu_torch.models.xgboost import XGBoostEstimator
     return {cls.algo: cls for cls in (
         DeepLearningEstimator, DRFEstimator, ExtendedIsolationForestEstimator,
-        GBMEstimator, GLMEstimator, IsolationForestEstimator,
-        UpliftDRFEstimator, XGBoostEstimator)}
+        GBMEstimator, GLMEstimator, GLRMEstimator, IsolationForestEstimator,
+        KMeansEstimator, NaiveBayesEstimator, PCAEstimator, SVDEstimator,
+        TargetEncoderEstimator, UpliftDRFEstimator, XGBoostEstimator)}
 
 
 def get_builder(algo: str):

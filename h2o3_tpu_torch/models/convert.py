@@ -14,8 +14,13 @@ accumulators; and a calibrator. ``glm_model_from_arrays`` carries a GLM
 across: its coefficients, family and design statistics;
 ``deeplearning_model_from_arrays`` a DeepLearning net with its design
 statistics and its optimizer state and step count (what ``checkpoint=``
-continues from). Nothing here imports the reference package: the caller
-hands over numpy.
+continues from). ``kmeans_model_from_arrays``, ``pca_model_from_arrays``,
+``svd_model_from_arrays``, ``glrm_model_from_arrays``,
+``naivebayes_model_from_arrays`` and ``targetencoder_model_from_arrays``
+carry the unsupervised and count-based models across: their centers,
+eigenvectors, singular vectors or archetypes with the design statistics,
+or their statistics and encoding maps. Nothing here imports the reference
+package: the caller hands over numpy.
 """
 
 from __future__ import annotations
@@ -33,7 +38,12 @@ from h2o3_tpu_torch.models.extisofor import (ExtendedIsolationForestModel,
                                              ExtTree)
 from h2o3_tpu_torch.models.gbm import GBMModel
 from h2o3_tpu_torch.models.glm import Family, GLMModel
+from h2o3_tpu_torch.models.glrm import GLRMModel
 from h2o3_tpu_torch.models.isofor import ANOMALY, IsolationForestModel
+from h2o3_tpu_torch.models.kmeans import KMeansModel
+from h2o3_tpu_torch.models.naivebayes import NaiveBayesModel
+from h2o3_tpu_torch.models.pca import PCAModel, SVDModel
+from h2o3_tpu_torch.models.targetencoder import TargetEncoderModel
 from h2o3_tpu_torch.models.tree import Tree
 from h2o3_tpu_torch.models.uplift import UpliftDRFModel
 from h2o3_tpu_torch.parallel.device import DeviceLike, resolve_device
@@ -192,6 +202,14 @@ def extisofor_model_from_arrays(
         [float(m) for m in d["means"]], list(d["features"]))
 
 
+def _di_stats(st) -> dict:
+    """Design statistics (``num_means``, ``num_sigmas``, ``domains``)."""
+    return {"num_means": np.asarray(st["num_means"], np.float64),
+            "num_sigmas": np.asarray(st["num_sigmas"], np.float64),
+            "domains": [None if dom is None else list(dom)
+                        for dom in st["domains"]]}
+
+
 def glm_model_from_arrays(d: Arrays) -> GLMModel:
     """Port ``GLMModel`` from the reference model's images: ``coef``
     [P+1] (or ``coef_multinomial`` [P+1, K]), ``family`` (name),
@@ -201,11 +219,7 @@ def glm_model_from_arrays(d: Arrays) -> GLMModel:
     coef_means, coef_sds, standardized, default_threshold and, for an
     ordinal model, family and ``ordinal_alphas``) and ``params``. The
     model scores on the device of the frame it is given."""
-    st = d["di_stats"]
-    stats = {"num_means": np.asarray(st["num_means"], np.float64),
-             "num_sigmas": np.asarray(st["num_sigmas"], np.float64),
-             "domains": [None if dom is None else list(dom)
-                         for dom in st["domains"]]}
+    stats = _di_stats(d["di_stats"])
     cm = d.get("coef_multinomial")
     return GLMModel(dict(d.get("params") or {}), dict(d["output"]),
                     np.asarray(d["coef"]),
@@ -241,3 +255,72 @@ def deeplearning_model_from_arrays(d: Arrays) -> DeepLearningModel:
     model._opt_state = d.get("opt_state")   # numpy; the restart copies it
     model._steps_trained = int(d.get("steps_trained") or 0)
     return model
+
+
+def kmeans_model_from_arrays(d: Arrays) -> KMeansModel:
+    """Port ``KMeansModel`` from the reference model's images:
+    ``centers_std`` [k, P] (the design's space), ``di_stats``,
+    ``features``, ``standardize``, ``output`` and ``params``. The centers
+    live on the CPU; the model scores on the device of the frame it is
+    given."""
+    return KMeansModel(dict(d.get("params") or {}), dict(d["output"]),
+                       _f32(d["centers_std"], "cpu"),
+                       _di_stats(d["di_stats"]), list(d["features"]),
+                       bool(d["standardize"]))
+
+
+def pca_model_from_arrays(d: Arrays) -> PCAModel:
+    """Port ``PCAModel``: ``eigvecs`` [P, k], ``di_stats``,
+    ``features``, ``transform``, ``use_all_levels``, ``output`` and
+    ``params``."""
+    return PCAModel(dict(d.get("params") or {}), dict(d["output"]),
+                    _f32(d["eigvecs"], "cpu"), _di_stats(d["di_stats"]),
+                    list(d["features"]), str(d["transform"]),
+                    bool(d["use_all_levels"]))
+
+
+def svd_model_from_arrays(d: Arrays) -> SVDModel:
+    """Port ``SVDModel``: ``V`` [P, k], ``di_stats``, ``features``,
+    ``transform``, ``use_all_levels`` and ``output`` (with ``d``, the
+    singular values) and ``params``."""
+    return SVDModel(dict(d.get("params") or {}), dict(d["output"]),
+                    _f32(d["V"], "cpu"), _di_stats(d["di_stats"]),
+                    list(d["features"]), str(d["transform"]),
+                    bool(d["use_all_levels"]))
+
+
+def glrm_model_from_arrays(d: Arrays) -> GLRMModel:
+    """Port ``GLRMModel``: the archetypes ``Y`` [k, P], ``di_stats``,
+    ``features``, ``transform``, ``output`` and ``params``."""
+    return GLRMModel(dict(d.get("params") or {}), dict(d["output"]),
+                     _f32(d["Y"], "cpu"), _di_stats(d["di_stats"]),
+                     list(d["features"]), str(d["transform"]))
+
+
+def naivebayes_model_from_arrays(d: Arrays) -> NaiveBayesModel:
+    """Port ``NaiveBayesModel``: ``stats`` (``priors``, ``num_names``,
+    ``num_mu``, ``num_sd``, ``cat_names``, ``cat_tables``,
+    ``cat_domains``), ``output`` and ``params``."""
+    st = d["stats"]
+    stats = {"priors": np.asarray(st["priors"], np.float32),
+             "num_names": list(st["num_names"]),
+             "num_mu": [np.asarray(a, np.float32) for a in st["num_mu"]],
+             "num_sd": [np.asarray(a, np.float32) for a in st["num_sd"]],
+             "cat_names": list(st["cat_names"]),
+             "cat_tables": [np.asarray(a, np.float32)
+                            for a in st["cat_tables"]],
+             "cat_domains": [list(dom) for dom in st["cat_domains"]]}
+    return NaiveBayesModel(dict(d.get("params") or {}), dict(d["output"]),
+                           stats)
+
+
+def targetencoder_model_from_arrays(d: Arrays) -> TargetEncoderModel:
+    """Port ``TargetEncoderModel``: ``enc_maps`` (a column's ``sum`` and
+    ``cnt`` [nfolds, card], ``domain`` and ``prior``), ``output`` and
+    ``params``."""
+    maps = {col: {"sum": np.asarray(m["sum"], np.float64),
+                  "cnt": np.asarray(m["cnt"], np.float64),
+                  "domain": list(m["domain"]), "prior": float(m["prior"])}
+            for col, m in d["enc_maps"].items()}
+    return TargetEncoderModel(dict(d.get("params") or {}),
+                              dict(d["output"]), maps)

@@ -29,10 +29,15 @@ class ModelCategory:
     BINOMIAL = "Binomial"
     MULTINOMIAL = "Multinomial"
     REGRESSION = "Regression"
+    CLUSTERING = "Clustering"
+    DIMREDUCTION = "DimReduction"
 
 
 def infer_category(frame: Frame, y: Optional[str]) -> str:
-    """Response-type sniffing (reference ModelBuilder.init)."""
+    """Response-type sniffing (reference ModelBuilder.init); no response
+    is clustering."""
+    if y is None:
+        return ModelCategory.CLUSTERING
     c = frame.col(y)
     if c.is_categorical:
         return (ModelCategory.BINOMIAL if c.cardinality == 2
@@ -266,6 +271,9 @@ class ModelBuilder:
     # ml/cv.py fast path: fold models train on the parent frame with the
     # held-out rows weighted 0 and the main model's binning shared
     cv_fold_masking = False
+    # a fold_column turns cross-validation on (the Target Encoder reads
+    # it for its own leakage handling instead)
+    cv_from_fold_column = True
     DEFAULTS: Dict = {}
     PORTED = frozenset()
     UNPORTED_WHY = {
@@ -362,7 +370,7 @@ class ModelBuilder:
         forces cross-validation."""
         p = self.params
         nfolds = int(p.get("nfolds") or 0)
-        if p.get("fold_column") and nfolds < 2:
+        if p.get("fold_column") and nfolds < 2 and self.cv_from_fold_column:
             nfolds = 2      # the fold column gives the real count
         if nfolds == 1 or nfolds < 0:
             raise ValueError(
@@ -384,10 +392,11 @@ class ModelBuilder:
     def train(self, training_frame: Frame, y: Optional[str] = None,
               x: Optional[Sequence[str]] = None,
               validation_frame: Optional[Frame] = None):
-        """Fit on ``training_frame`` (on its device) → Model; with
-        ``nfolds`` >= 2 or a ``fold_column`` the model carries
-        ``cross_validation_metrics``; with a ``validation_frame`` its
-        ``validation_metrics`` score it."""
+        """Fit on ``training_frame`` (on its device) → Model (``y`` None
+        for the unsupervised builders); with ``nfolds`` >= 2 or a
+        ``fold_column`` the model carries ``cross_validation_metrics``;
+        with a ``validation_frame`` its ``validation_metrics`` score
+        it."""
         if training_frame.partitioned:
             if not self.SHARDED:
                 require_local(training_frame, self.algo)

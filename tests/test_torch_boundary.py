@@ -54,6 +54,11 @@ SLICE_MODULES = (
     "h2o3_tpu_torch/models/glm.py",
     "h2o3_tpu_torch/models/deeplearning.py",
     "h2o3_tpu_torch/models/__init__.py",
+    "h2o3_tpu_torch/models/kmeans.py",
+    "h2o3_tpu_torch/models/pca.py",
+    "h2o3_tpu_torch/models/glrm.py",
+    "h2o3_tpu_torch/models/naivebayes.py",
+    "h2o3_tpu_torch/models/targetencoder.py",
 )
 # sources the port compiles: its kernels and its tokenizer
 NATIVE_FILES = sorted(str(p.relative_to(ROOT)) for p in PKG.rglob("*")
@@ -211,3 +216,26 @@ def test_deeplearning_entry_points_default_to_cuda_and_raise_without_card(
     m = h2o.DeepLearningEstimator(hidden=[2], epochs=1).train(fr, y="y")
     assert m.predict(fr).device.type == "cpu"
     assert all(t.device.type == "cpu" for l in m.net for t in l.values())
+
+
+@pytest.mark.parametrize("algo,y", [
+    ("kmeans", None), ("pca", None), ("svd", None), ("glrm", None),
+    ("naivebayes", "c"), ("targetencoder", "y")])
+def test_unsupervised_and_count_entry_points_default_to_cuda(
+        monkeypatch, algo, y):
+    """The KMeans, PCA, SVD, GLRM, Naive Bayes and Target Encoder fits
+    start from a frame: without a ``device=`` it resolves to CUDA and
+    raises without a card; a CPU frame's fit and its scores stay on the
+    CPU."""
+    import h2o3_tpu_torch as h2o
+    r = np.random.RandomState(0)
+    cols = {"x": r.randn(64), "z": r.randn(64),
+            "c": np.array(["a", "b"], object)[np.arange(64) % 2],
+            "y": (np.arange(64) % 3 == 0).astype(np.float64)}
+    est = h2o.models.get_builder(algo)()
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        est.train(h2o.Frame.from_numpy(cols), y=y)
+    fr = h2o.Frame.from_numpy(cols, device="cpu")
+    m = est.train(fr, y=y)
+    assert m.predict(fr).device.type == "cpu"

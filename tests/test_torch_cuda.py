@@ -1005,3 +1005,62 @@ def test_bf16_product_on_the_card(dev):
         assert torch.equal(gc, gc.to(torch.bfloat16).float())
         assert torch.all((gc - gp).abs()
                          <= 2 ** -7 * gp.abs() + 2 ** -20 * tot)
+
+
+def unsupervised_case(case):
+    """(columns, domains, response, estimator factory, card-vs-CPU
+    check) of one small card-vs-CPU case of chip_smoke.py phase 24."""
+    import h2o3_tpu_torch as h2o
+    cols, domains = cs.airlines_arrays(8_000)
+    if case == "kmeans":
+        hcols, _, _ = cs.higgs_arrays(8_000)
+        hcols.pop("y")
+        return (hcols, {}, None, lambda: h2o.KMeansEstimator(**cs.KMEANS),
+                cs.kmeans_card_vs_cpu)
+    x_only = {k: v for k, v in cols.items() if k != cs.Y}
+    if case in ("pca", "svd"):
+        key = "std_deviation" if case == "pca" else "d"
+        vec = "eigenvectors" if case == "pca" else "v"
+        build = ((lambda: h2o.PCAEstimator(k=10)) if case == "pca"
+                 else (lambda: h2o.SVDEstimator(nv=10,
+                                                transform="standardize")))
+        return (x_only, domains, None, build,
+                lambda a, b, frs, label: cs.vectors_card_vs_cpu(
+                    a.output[key], b.output[key], a.output[vec],
+                    b.output[vec], label))
+    if case == "glrm":
+        return (cs.glrm_columns(cols, 8_000), domains, None,
+                lambda: h2o.GLRMEstimator(**dict(cs.GLRM, max_iterations=20)),
+                lambda a, b, frs, label: cs.glrm_card_vs_cpu(
+                    a, b, frs, label, False))
+    if case == "naivebayes":
+        return (cols, domains, cs.Y,
+                lambda: h2o.NaiveBayesEstimator(**cs.NB), cs.nb_card_vs_cpu)
+    return (cs.te_columns(cols, 8_000), domains, cs.Y,
+            lambda: h2o.TargetEncoderEstimator(**cs.TE), cs.te_card_vs_cpu)
+
+
+@pytest.mark.parametrize("case", ["kmeans", "pca", "svd", "glrm",
+                                  "naivebayes", "targetencoder"])
+def test_unsupervised_card_vs_cpu_and_refit_bit_equal(dev, case):
+    """KMeans, PCA, SVD, GLRM, Naive Bayes and the Target Encoder on the
+    card (no kernel: cuBLAS products with TF32 off, cuSOLVER, fixed-point
+    segment sums) against the CPU plain fit at the tolerances of
+    chip_smoke.py phase 24, a refit bit-equal, and no kernel launched."""
+    cols, domains, y, build, held = unsupervised_case(case)
+    frs = cs.head_frames(cols, domains, len(next(iter(cols.values()))), dev)
+    kw = {} if y is None else {"y": y}
+    if case == "targetencoder":
+        kw["x"] = list(cs.TE_COLS)
+    kernels.reset_counts()
+    ms = [build().train(f, **kw) for f in frs]
+    assert not any(kernels.LAUNCHES.values())
+    print(held(*ms, frs, case))
+    if case == "targetencoder":
+        again = build().train(frs[0], **kw)
+        assert all(np.array_equal(again.enc_maps[c]["sum"],
+                                  ms[0].enc_maps[c]["sum"])
+                   for c in cs.TE_COLS)
+    else:
+        cs.refit_check(torch, build, ms[0],
+                       lambda e: e.train(frs[0], **kw), case)

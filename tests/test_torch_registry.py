@@ -19,12 +19,17 @@ def test_every_ported_name_finds_the_references_estimator():
             ref.__module__.replace("h2o3_tpu.", "")
     assert models.all_algos() == sorted(
         ["deeplearning", "drf", "extendedisolationforest", "gbm", "glm",
-         "isolationforest", "upliftdrf", "xgboost"])
+         "glrm", "isolationforest", "kmeans", "naivebayes", "pca", "svd",
+         "targetencoder", "upliftdrf", "xgboost"])
+    assert not {"kmeans", "pca", "svd", "glrm", "naivebayes",
+                "targetencoder"} & set(models.UNPORTED)
 
 
 @pytest.mark.parametrize("name", ["Deep_Learning", "DEEPLEARNING", "gbm",
                                   "Uplift_DRF", "isolation_forest",
-                                  "extended_isolation_forest", "XGBoost"])
+                                  "extended_isolation_forest", "XGBoost",
+                                  "K_Means", "PCA", "SVD", "GLRM",
+                                  "Naive_Bayes", "Target_Encoder"])
 def test_names_normalize_as_in_the_reference(name):
     assert models.get_builder(name).algo == \
         ref_models.get_builder(name).algo
