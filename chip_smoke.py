@@ -230,6 +230,31 @@ Phases, in order; any failure exits non-zero and no phase carries on:
     modulo column, blending, noise 0.01, seed 1234): fit and
     ``transform(as_training=True)`` seconds; ``none`` and ``loo`` on the
     head, every head EXACT card vs CPU.
+25. GAM, RuleFit, ModelSelection and ANOVA-GLM, Isotonic Regression and
+    Infogram; each fit with train seconds, peak memory, a refit
+    bit-equal on the card and a head held card vs CPU plain at the
+    tolerances of their CPU tests. (a) GAM on phase 22(a)'s HIGGS frame
+    (11M x 28, nothing cut), binomial, x0..x2 as splines with 10 knots
+    each (P = 25 + 33 + 1): the basis seconds, PIRLS steps, AUC, one
+    Gram pass against its bound; a gaussian GAM on 1M rows with a
+    planted sin(1.7x) + 0.5·lin (RMSE to the truth < 0.15, a GLM's >
+    0.4). (b) RuleFit with the reference's defaults (GBM, rule length
+    3, 50 trees, sample_rate 0.8, rules and linear terms, lambda search)
+    on phase 4's first 1M rows (cut from 5M for the rule matrix): the
+    seconds of the trees, the rule frame and the GLM, the rule count,
+    AUC and the top five rules; ``algorithm="drf"`` and
+    ``model_type="linear"`` on a head; the head's rules EXACT card vs
+    CPU at sample_rate 1. (c) ModelSelection ``maxr`` (3 predictors of
+    28) on the first 1M HIGGS rows (cut for time): GLM fits, seconds a
+    fit, the chosen sets against the generating beta; ``backward`` and
+    ``allsubsets`` over x0..x6 on a head; ANOVA-GLM over x0..x6 with
+    pairwise products (28 terms, 29 fits). (d) Isotonic Regression of
+    phase 4's departure delay on DepTime (5M rows): thresholds, seconds,
+    MSE, thresholds EXACT card vs CPU. (e) Infogram, core and fair
+    (protected UniqueCarrier), on the first 1M airlines rows: the table,
+    admissible features, GBM fits. GAM, the two wrappers and Isotonic
+    launch no kernel; RuleFit's and Infogram's tree fits launch the
+    three level kernels once a level of every tree.
 
 Launch counts are read per path: each path sets every count to 0 just
 before it runs and reads them just after (phase 15's, over its seven
@@ -252,7 +277,9 @@ and ``gbm_cv``, phase 18's as ``gbm_csv``, phase 19's as ``xgboost``,
 and ``glm_surface``, phase 23's as ``deeplearning``,
 ``deeplearning_bf16`` and ``deeplearning_surface``, phase 24's as
 ``kmeans``, ``pca``, ``svd``, ``glrm``, ``naivebayes`` and
-``targetencoder``, every kernel 0 on each; ``tree_partition`` has a
+``targetencoder``, every kernel 0 on each, phase 25's as ``gam``,
+``rulefit``, ``modelselection``, ``anovaglm``, ``isotonic`` and
+``infogram``; ``tree_partition`` has a
 fourth record, at the Isolation Forest levels); the last is
 ``{"ok": true, "device": {...}}``.
 """
@@ -528,6 +555,43 @@ GLRM_AY_TOL = 3e-2
 NB_STAT_TOL = 1e-6
 NB_PROB_TOL = 1e-5
 REF_EINSUM_GB = 10.6             # one [1M, 10, 265] float32 einsum
+# phase 25: the GLM wrappers, Isotonic Regression and Infogram. Heads
+# card vs CPU plain of N_P25_HEAD rows (RuleFit's of N_RULEFIT_HEAD: its
+# CPU lambda search over ~400 columns) at the tolerances of
+# tests/test_torch_{gam,rulefit,model_selection,isotonic,infogram}.py.
+GAM_HIGGS = dict(family="binomial", gam_columns=["x0", "x1", "x2"],
+                 num_knots=[10, 10, 10])
+P_GAM = 59                       # 25 linear + 3 x 11 spline + 1
+# tests/test_torch_gam.py's GAM_COEF_TOL and GAM_PRED_TOL hold a head, or
+# 4x the CPU fit's own distance to the float64 PIRLS fixed point where
+# that is larger (gam_card_vs_cpu: the HIGGS head's A has cond ~1.3e4,
+# and LAPACK's and cuSOLVER's float32 Cholesky part by ~8e-4, while
+# row-permuted CPU fits part by 3.3e-6)
+# the HIGGS head's fit stops at beta_epsilon 1e-3: at the default 1e-4
+# the float32 floor of a step's largest coefficient change (1.1e-4 to
+# 2.7e-4 from step 5 on, on the CPU at 20K rows) sits at the threshold,
+# where the step count is a coin toss between two summation orders
+GAM_HIGGS_HEAD = dict(GAM_HIGGS, beta_epsilon=1e-3)
+N_GAM_SIN = 1_000_000
+GAM_SIN = dict(gam_columns=["x"], num_knots=[12], scale=[0.01])
+GAM_COEF_TOL = 3e-5
+GAM_PRED_TOL = 2e-5
+RULEFIT = dict(seed=1)           # the reference's DEFAULTS otherwise
+N_RULEFIT = 1_000_000
+N_RULEFIT_HEAD = 10_000
+RF_COEF_TOL = 2e-3
+RF_PRED_TOL = 2e-4
+N_SEL = 1_000_000
+SEL_MAXR = dict(mode="maxr", max_predictor_number=3)
+SEL_X = tuple(f"x{i}" for i in range(7))
+SEL_R2_TOL = 1e-5
+ANOVA_LR_TOL = 2.0 ** -16        # of the full deviance
+ANOVA_ALPHA = 0.01
+INFOGRAM = dict(seed=1)
+N_INFOGRAM = 1_000_000
+IG_REL_TOL = 1e-5
+IG_CMI_TOL = 2e-6
+N_P25_HEAD = 20_000
 _TREEKERNEL = dict(source="h2o3_tpu_torch/ops/kernels/csrc/treekernel.cu",
                    replaces="h2o3_tpu/ops/pallas/treekernel.py:250")
 KERNELS = {
@@ -4753,6 +4817,527 @@ def phase_unsupervised(torch, dev, cols, domains, ccols, cdomains, higgs):
     return paths
 
 
+# ---------------------------------------------------------------- phase 25
+
+
+@contextlib.contextmanager
+def stage_seconds(torch, stages):
+    """Seconds spent in named functions while the block runs: ``stages``
+    maps a label to (module or class, attribute) pairs; each call waits
+    for the device before and after. Yields the label → seconds dict."""
+    secs = {label: 0.0 for label in stages}
+    patches = []
+    for label, targets in stages.items():
+        for owner, name in targets:
+            fn = getattr(owner, name)
+
+            def timed(*a, _fn=fn, _label=label, **k):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                try:
+                    return _fn(*a, **k)
+                finally:
+                    torch.cuda.synchronize()
+                    secs[_label] += time.perf_counter() - t0
+            patches.append(mock.patch.object(owner, name, timed))
+    with contextlib.ExitStack() as stack:
+        for pt in patches:
+            stack.enter_context(pt)
+        yield secs
+
+
+def level_launches(n_trees: int, max_depth: int) -> dict:
+    """Each level kernel once a level of every tree (trees are laid out
+    at the depth bucket), the others 0."""
+    from h2o3_tpu_torch.models.tree import bucket_depth
+    n = n_trees * bucket_depth(max_depth)
+    return {k: n for k in LEVEL_KERNELS}
+
+
+def gam_f64_fixed_point(model, frame):
+    """The float64 PIRLS fixed point on ``model``'s float32 design of
+    ``frame`` (on the host; six steps from the model's coefficients):
+    (the model's coefficients' and scores' distances to it, cond(A))."""
+    from h2o3_tpu_torch.models.gam import penalty_matrix
+    from h2o3_tpu_torch.models.model import adapt_domain
+    X = model._design(frame).double().cpu()[:frame.nrows]
+    fam, rc = model.family, frame.col(model.output["response"])
+    yv = (np.maximum(adapt_domain(rc, model.output["domain"]), 0)
+          if model.output["category"] == "Binomial" else rc.host_view())
+    import torch
+    y = torch.from_numpy(np.asarray(yv, np.float64))
+    n_lin = X.shape[1] - 1 - sum(len(s["means"]) for s in model.gam_spec)
+    Pm = torch.from_numpy(penalty_matrix(n_lin, model.gam_spec,
+                                         model.params)).double()
+    Pm += 1e-7 * torch.eye(X.shape[1], dtype=torch.float64)
+    c = torch.from_numpy(np.asarray(model.coef, np.float64))
+    for _ in range(6):
+        eta = X @ c
+        mu = fam.linkinv(eta)
+        d = fam.dmu_deta(eta, mu)
+        z = eta + (y - mu) / d
+        wi = d * d / fam.variance(mu)
+        A = (X * wi[:, None]).T @ X / X.shape[0] + Pm
+        c = torch.linalg.solve(A, X.T @ (wi * z) / X.shape[0])
+    p64 = fam.linkinv(X @ c).numpy()
+    key = "p1" if model.output["category"] == "Binomial" else "predict"
+    return (float(np.abs(np.asarray(model.coef, np.float64)
+                         - c.numpy()).max()),
+            float(np.abs(model._score_raw(frame)[key] - p64).max()),
+            float(torch.linalg.cond(A)))
+
+
+def gam_card_vs_cpu(m_card, m_cpu, frs, label) -> str:
+    """GAM card vs CPU plain: knots EXACT, centering means within 1e-12,
+    PIRLS steps equal; coefficients and predictions within the tests'
+    tolerances or, on a worse-conditioned design, within 4x the CPU
+    fit's own distance to the float64 PIRLS fixed point (the float32
+    Cholesky's error, which LAPACK and cuSOLVER make apart; the card's
+    own distance is held to the same bound)."""
+    for a, b in zip(m_card.gam_spec, m_cpu.gam_spec):
+        check(np.array_equal(a["knots"], b["knots"])
+              and np.abs(a["means"] - b["means"]).max() <= 1e-12,
+              f"{label}: knots or means")
+    check(m_card.output["pirls_iterations"] ==
+          m_cpu.output["pirls_iterations"], f"{label}: PIRLS steps")
+    cg = float(np.abs(m_card.coef - m_cpu.coef).max())
+    key = "p1" if m_cpu.output["category"] == "Binomial" else "predict"
+    pg = float(np.abs(m_card._score_raw(frs[0])[key]
+                      - m_cpu._score_raw(frs[1])[key]).max())
+    ec, ep, cond = gam_f64_fixed_point(m_cpu, frs[1])
+    ec_card, ep_card, _ = gam_f64_fixed_point(m_card, frs[1])
+    ctol, ptol = max(GAM_COEF_TOL, 4 * ec), max(GAM_PRED_TOL, 4 * ep)
+    check(max(cg, ec_card) <= ctol and max(pg, ep_card) <= ptol,
+          f"{label}: coefficients {cg} (card to float64 {ec_card}), "
+          f"predictions {pg} (card {ep_card}); limits {ctol}, {ptol}")
+    return (f"{frs[1].nrows}-row head card vs CPU plain: knots EXACT, PIRLS "
+            f"steps equal ({m_cpu.output['pirls_iterations']}), "
+            f"coefficients {cg:.3g}, predictions {pg:.3g} (limits {ctol:.3g}"
+            f", {ptol:.3g}: the CPU fit {ec:.3g} and {ep:.3g} from the "
+            f"float64 fixed point, the card's {ec_card:.3g} and "
+            f"{ep_card:.3g}; cond(A) {cond:.3g})")
+
+
+def sin_columns(n: int, seed: int = 4):
+    """tests/test_gam.py's planted signal: x ~ U(-3, 3), lin ~ N(0, 1),
+    f = sin(1.7x) + 0.5·lin, y = f + N(0, 0.15²). Returns (cols, f)."""
+    r = np.random.RandomState(seed)
+    x = r.uniform(-3, 3, n)
+    lin = r.randn(n)
+    f = np.sin(1.7 * x) + 0.5 * lin
+    return {"x": x, "lin": lin, "y": f + r.randn(n) * 0.15}, f
+
+
+def phase_gam(torch, dev, higgs):
+    """Phase 25(a): GAM on phase 22(a)'s HIGGS frame (11M x 28, nothing
+    cut), binomial, x0..x2 as splines; the basis on its own; one Gram
+    pass against its bound; a head card vs CPU; the planted-signal
+    gaussian GAM on N_GAM_SIN rows. Returns the path's launches."""
+    import h2o3_tpu_torch as h2o
+    from h2o3_tpu_torch.models import gam as gam_mod
+    from h2o3_tpu_torch.ops.gram import gram
+    cols, domains, _, fr = higgs
+    x = [c for c in cols if c != "y"]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    blocks = [gam_mod._spline_block(fr, {"col": c, "knots": gam_mod.gam_knots(
+        fr.col(c).host_view(), k)}, fr.nrows_padded)[0]
+        for c, k in zip(GAM_HIGGS["gam_columns"], GAM_HIGGS["num_knots"])]
+    torch.cuda.synchronize()
+    t_basis = time.perf_counter() - t0
+    del blocks
+    build = lambda: h2o.GAMEstimator(**GAM_HIGGS)  # noqa: E731
+    model, secs, counts, peak = timed_fit(
+        torch, lambda: build().train(fr, y="y", x=x))
+    check_launches(counts, {}, "GAM")
+    t_re = refit_check(torch, build, model,
+                       lambda e: e.train(fr, y="y", x=x), "GAM")
+    auc = model.training_metrics["AUC"]
+    steps = model.output["pirls_iterations"]
+    check(len(model.coef) == P_GAM and np.isfinite(model.coef).all()
+          and auc > 0.8, f"GAM: P {len(model.coef)}, AUC {auc}")
+    say(f"phase25a GAM binomial on {N_HIGGS} x {P_HIGGS} (x0..x2 splines, "
+        f"10 knots, P = {P_GAM}): train {secs:.3f} s (refit {t_re:.3f} s, "
+        f"bit-equal), the three bases alone {t_basis:.3f} s, {steps} PIRLS "
+        f"steps, AUC {auc:.6f}, residual deviance "
+        f"{model.output['residual_deviance']:.8g}, peak "
+        f"{peak / 2**30:.3f} GiB; launches {counts}")
+    X1 = model._design(fr)
+    w = fr.valid_weights()
+    z = torch.ones_like(w)
+    t = time_ms(torch, lambda: gram(X1, w, z), reps=5)
+    n, P = X1.shape
+    b_bytes = n * (P + 2) * 4 / HBM_BYTES_PER_S * 1e3
+    b_ops = 2.0 * n * P * P / F32_OPS_PER_S * 1e3
+    say(f"phase25a one Gram pass [{n}, {P}]: {spread(t)} device, host-paced "
+        f"{t['host_paced_ms']:.4f} ms (bound {max(b_bytes, b_ops):.4f} ms: "
+        f"bytes {b_bytes:.4f}, float32 operations {b_ops:.4f})")
+    del X1, w, z
+    frs = head_frames(cols, domains, N_P25_HEAD, dev)
+    hb = lambda: h2o.GAMEstimator(**GAM_HIGGS_HEAD)  # noqa: E731
+    ms = [hb().train(f, y="y", x=x) for f in frs]
+    say("phase25a GAM HIGGS (beta_epsilon 1e-3) " + gam_card_vs_cpu(
+        *ms, frs, "GAM HIGGS"))
+    scols, f = sin_columns(N_GAM_SIN)
+    sfr = h2o.Frame.from_numpy(scols, device=dev)
+    sb = lambda: h2o.GAMEstimator(**GAM_SIN)  # noqa: E731
+    m, s, c, _ = timed_fit(torch, lambda: sb().train(sfr, y="y",
+                                                     x=["lin", "x"]))
+    check_launches(c, {}, "GAM gaussian")
+    counts = {k: counts[k] + c[k] for k in counts}
+    refit_check(torch, sb, m, lambda e: e.train(sfr, y="y", x=["lin", "x"]),
+                "GAM gaussian")
+    rmse = float(np.sqrt(np.mean((m.predict(sfr).col("predict").host_view()
+                                  - f) ** 2)))
+    g = h2o.GLMEstimator(lambda_=0.0).train(sfr, y="y", x=["lin", "x"])
+    g_rmse = float(np.sqrt(np.mean((g.predict(sfr).col("predict")
+                                    .host_view() - f) ** 2)))
+    check(rmse < 0.15 and g_rmse > 0.4,
+          f"GAM planted signal: RMSE {rmse}, GLM {g_rmse}")
+    frs = head_frames(scols, {}, N_P25_HEAD, dev)
+    ms = [sb().train(fh, y="y", x=["lin", "x"]) for fh in frs]
+    say(f"phase25a GAM gaussian on {N_GAM_SIN} rows, sin(1.7x) + 0.5·lin "
+        f"planted: {s:.3f} s (refit bit-equal), RMSE to the truth {rmse:.6f} "
+        f"(< 0.15; a GLM's {g_rmse:.6f} > 0.4); "
+        + gam_card_vs_cpu(*ms, frs, "GAM gaussian"))
+    return counts
+
+
+def rulefit_card_vs_cpu(m_card, m_cpu, frs, label) -> str:
+    """RuleFit card vs CPU plain (sample_rate 1): rules and winsor bounds
+    EXACT, GLM coefficients and predictions at the tests' tolerances."""
+    keys = ("model", "tree", "lo", "hi", "name", "lang", "support")
+    rules = [[{k: r[k] for k in keys} for r in m.rules]
+             for m in (m_card, m_cpu)]
+    check(rules[0] == rules[1] and m_card.winsor == m_cpu.winsor,
+          f"{label}: rules or winsor bounds differ")
+    ca, cb = (np.array(list(m.glm_model.coefficients.values()))
+              for m in (m_card, m_cpu))
+    key = "p1" if m_cpu.output["category"] == "Binomial" else "predict"
+    pa, pb = (m._score_raw(fr)[key] for m, fr in zip((m_card, m_cpu), frs))
+    cg, pg = float(np.abs(ca - cb).max()), float(np.abs(pa - pb).max())
+    check(cg <= RF_COEF_TOL and pg <= RF_PRED_TOL,
+          f"{label}: coefficients {cg}, predictions {pg}")
+    return (f"{frs[1].nrows}-row head card vs CPU plain at sample_rate 1: "
+            f"{len(m_cpu.rules)} rules and the winsor bounds EXACT, GLM "
+            f"coefficients {cg:.3g} (<= {RF_COEF_TOL}), predictions "
+            f"{pg:.3g} (<= {RF_PRED_TOL})")
+
+
+def rule_columns(n: int, seed: int = 3):
+    """tests/test_torch_rulefit.py's tie-free data: continuous x1, x2, x3
+    (3% NA), a 5-level c, y = 3 where x1 > 5 and x2 < 3, + 0.5·x3 + 1 on
+    level "c" + noise, as a binomial IsDepDelayed-like "y" (its sign
+    against the median). Returns (columns, domains)."""
+    r = np.random.RandomState(seed)
+    x1, x2 = r.uniform(0, 10, n), r.uniform(0, 10, n)
+    x3 = r.randn(n)
+    cat = r.randint(0, 5, n)
+    f = (np.where((x1 > 5) & (x2 < 3), 3.0, 0.0) + 0.5 * x3
+         + (cat == 2) * 1.0 + r.randn(n) * 0.3)
+    x3[r.rand(n) < 0.03] = np.nan
+    return ({"x1": x1, "x2": x2, "x3": x3, "c": cat,
+             "y": (f > np.median(f)).astype(np.int32)},
+            {"c": list("abcde"), "y": ["lo", "hi"]})
+
+
+def infogram_columns(n: int, seed: int = 12):
+    """tests/test_torch_infogram.py's tie-free data: y ~ logistic(1.6·x1
+    + x2 + 0.4·x3 + 0.8·[c = q]), x4 noise, g (protected) following x1.
+    Returns (columns, domains)."""
+    r = np.random.RandomState(seed)
+    x1, x2, x3, x4 = (r.uniform(-2, 2, n) for _ in range(4))
+    g = (x1 + 0.7 * r.randn(n) > 0).astype(int) + (r.rand(n) < 0.3)
+    c = r.randint(0, 4, n)
+    eta = 1.6 * x1 + 1.0 * x2 + 0.4 * x3 + 0.8 * (c == 1)
+    y = (r.rand(n) < 1 / (1 + np.exp(-eta))).astype(np.int32)
+    return ({"x1": x1, "x2": x2, "x3": x3, "x4": x4, "c": c, "g": g,
+             "y": y}, {"c": list("pqrs"), "g": ["u", "v", "w"],
+                       "y": ["no", "yes"]})
+
+
+def phase_rulefit(torch, dev, cols, domains):
+    """Phase 25(b): RuleFit with the reference's defaults on the first
+    N_RULEFIT airlines rows → IsDepDelayed: the seconds of its stages,
+    rules, AUC, the top five rules; DRF and linear-only on a head; the
+    head's rules card vs CPU. Returns the path's launches."""
+    import h2o3_tpu_torch as h2o
+    from h2o3_tpu_torch.models import rulefit as rf_mod
+    from h2o3_tpu_torch.models.gbm import GBMEstimator
+    from h2o3_tpu_torch.models.glm import GLMEstimator
+    head = {k: v[:N_RULEFIT] for k, v in cols.items()}
+    fr = h2o.Frame.from_numpy(head, domains=domains, device=dev)
+    build = lambda: h2o.RuleFitEstimator(**RULEFIT)  # noqa: E731
+    stages = {"trees": [(GBMEstimator, "train")],
+              "rule frame": [(rf_mod, "rule_masks"), (rf_mod, "rule_columns"),
+                             (rf_mod, "linear_columns")],
+              "GLM": [(GLMEstimator, "train")]}
+    with stage_seconds(torch, stages) as st:
+        model, secs, counts, peak = timed_fit(
+            torch, lambda: build().train(fr, y=Y))
+    want = level_launches(50, 3)
+    check_launches(counts, want, "RuleFit")
+    t_re = refit_check(torch, build, model, lambda e: e.train(fr, y=Y),
+                       "RuleFit")
+    auc = model.training_metrics["AUC"]
+    n_rules = model.output["n_rules"]
+    check(0 < n_rules <= 400 and auc > 0.6 and len(model.linear_cols) == 7,
+          f"RuleFit: {n_rules} rules, AUC {auc}")
+    say(f"phase25b RuleFit defaults (GBM, length 3, 50 trees, sample_rate "
+        f"0.8, rules and linear, lambda search) on {N_RULEFIT} airlines rows"
+        f": train {secs:.3f} s (refit {t_re:.3f} s, bit-equal): trees "
+        f"{st['trees']:.3f} s, rule frame {st['rule frame']:.3f} s, GLM "
+        f"{st['GLM']:.3f} s; {n_rules} rules, "
+        f"{len(model.rule_importance)} terms kept, AUC {auc:.6f}, peak "
+        f"{peak / 2**30:.3f} GiB; launches {counts}")
+    for d in model.rule_importance[:5]:
+        text = d["rule"] if len(d["rule"]) <= 160 else \
+            d["rule"][:157] + "..."
+        say(f"phase25b rule {d['coefficient']:+.6f} (support "
+            f"{d['support']:.4f}): {text}")
+    del fr
+    frs = head_frames(cols, domains, N_RULEFIT_HEAD, dev)
+    for label, kw in (("DRF", dict(algorithm="drf")),
+                      ("linear", dict(model_type="linear"))):
+        m, s, c, _ = timed_fit(torch, lambda: h2o.RuleFitEstimator(
+            **RULEFIT, **kw).train(frs[0], y=Y))
+        n_trees = 0 if label == "linear" else 50
+        check_launches(c, level_launches(n_trees, 3) if n_trees else {},
+                       f"RuleFit {label}")
+        check(np.isfinite(m._score_raw(frs[0])["p1"]).all(),
+              f"RuleFit {label} scores")
+        say(f"phase25b RuleFit {label} on {N_RULEFIT_HEAD} rows: {s:.3f} s, "
+            f"{m.output['n_rules']} rules, AUC "
+            f"{m.training_metrics['AUC']:.6f}")
+    # card vs CPU on tie-free data: airlines' integer columns hold
+    # near-tie splits, which fixed-point and float32 sums may order apart
+    frs = head_frames(*rule_columns(N_RULEFIT_HEAD), N_RULEFIT_HEAD, dev)
+    ms = [h2o.RuleFitEstimator(**RULEFIT, sample_rate=1.0).train(f, y="y")
+          for f in frs]
+    say("phase25b RuleFit (tests' data) " + rulefit_card_vs_cpu(
+        *ms, frs, "RuleFit"))
+    return counts
+
+
+def selection_card_vs_cpu(m_card, m_cpu, label) -> str:
+    """ModelSelection card vs CPU plain: the chosen set at every size
+    equal, r2 within 1e-5 relative."""
+    a, b = m_card.result(), m_cpu.result()
+    check([r["predictors"] for r in a] == [r["predictors"] for r in b],
+          f"{label}: chosen sets differ")
+    gap = rel_gap([r["r2"] for r in a], [r["r2"] for r in b])
+    check(gap <= SEL_R2_TOL, f"{label}: r2 {gap}")
+    return f"sets equal at {len(a)} sizes, r2 {gap:.3g} (<= {SEL_R2_TOL})"
+
+
+def anova_card_vs_cpu(m_card, m_cpu, label) -> str:
+    """ANOVA-GLM card vs CPU plain: df EXACT, each statistic within
+    2^-16 of the full deviance, each p-value between the chi-square
+    tails that bound allows."""
+    from scipy.stats import chi2
+    bound = ANOVA_LR_TOL * m_cpu.output["full_deviance"]
+    worst = 0.0
+    for a, b in zip(m_card.anova_table, m_cpu.anova_table):
+        check(a["term"] == b["term"] and a["df"] == b["df"],
+              f"{label}: terms or df")
+        gap = abs(a["deviance"] - b["deviance"])
+        worst = max(worst, gap)
+        lo, hi = (chi2.sf(max(b["deviance"] + s * bound, 0.0), b["df"])
+                  for s in (1, -1))
+        check(gap <= bound and lo <= a["p_value"] <= hi,
+              f"{label}: {a['term']} statistic {gap}")
+    return (f"{len(m_cpu.anova_table)} terms, df EXACT, statistics "
+            f"{worst:.3g} apart (<= {bound:.3g}, 2^-16 of the deviance)")
+
+
+def phase_selection(torch, dev, higgs):
+    """Phase 25(c): ModelSelection maxr and ANOVA-GLM on the first N_SEL
+    HIGGS rows; backward and allsubsets over x0..x6 and the ANOVA table
+    on a head card vs CPU. Returns the two paths' launches."""
+    import h2o3_tpu_torch as h2o
+    hcols, domains, beta, _ = higgs
+    cols = {k: v[:N_SEL] for k, v in hcols.items()}
+    fr = h2o.Frame.from_numpy(cols, domains=domains, device=dev)
+    x = [c for c in cols if c != "y"]
+    build = lambda: h2o.ModelSelectionEstimator(**SEL_MAXR)  # noqa: E731
+    model, secs, counts, peak = timed_fit(
+        torch, lambda: build().train(fr, y="y", x=x))
+    check_launches(counts, {}, "ModelSelection")
+    t_re = refit_check(torch, build, model,
+                       lambda e: e.train(fr, y="y", x=x), "ModelSelection")
+    fits = model.output["n_glm_fits"]
+    # the k largest |beta|, up to what 1M rows resolve: a tie within two
+    # standard errors of a coefficient may go either way
+    order = np.argsort(-np.abs(beta))
+    se = 2.0 / np.sqrt(N_SEL * 0.19)
+    for r in model.result():
+        k = r["size"]
+        sure = {f"x{i}" for i in order[:k]
+                if abs(beta[i]) - abs(beta[order[k]]) > se}
+        near = {f"x{i}" for i in order
+                if abs(abs(beta[i]) - abs(beta[order[k - 1]])) <= se}
+        got = set(r["predictors"])
+        check(sure <= got and got <= sure | near,
+              f"ModelSelection size {k}: {sorted(got)}, beta's "
+              f"{sorted(sure)} (+ one of {sorted(near)})")
+    say(f"phase25c ModelSelection maxr (3 of {len(x)}) on {N_SEL} HIGGS rows"
+        f": {fits} GLM fits in {secs:.3f} s ({secs / fits * 1e3:.2f} ms a "
+        f"fit; refit {t_re:.3f} s, bit-equal), peak {peak / 2**30:.3f} GiB; "
+        + "; ".join(f"size {r['size']} {r['predictors']} r2 {r['r2']:.6f}"
+                    for r in model.result())
+        + f"; the largest |beta|: "
+        + ", ".join(f"x{i} {beta[i]:+.3f}" for i in order[:4]))
+    ab = lambda: h2o.ANOVAGLMEstimator()  # noqa: E731
+    am, asecs, ac, apeak = timed_fit(
+        torch, lambda: ab().train(fr, y="y", x=list(SEL_X)))
+    check_launches(ac, {}, "ANOVA-GLM")
+    t_are = refit_check(torch, ab, am, lambda e: e.train(
+        fr, y="y", x=list(SEL_X)), "ANOVA-GLM")
+    check(fr.names == list(cols), "ANOVA-GLM changed the caller's frame")
+    for r in am.anova_table:
+        if ":" not in r["term"] and abs(beta[int(r["term"][1:])]) > 0.1:
+            check(r["p_value"] < 1e-6, f"ANOVA {r['term']} p {r['p_value']}")
+    n_terms = len(am.anova_table)
+    check(n_terms == 28 and am.output["n_glm_fits"] == 29, "ANOVA terms")
+    say(f"phase25c ANOVA-GLM over x0..x6 with pairwise products on {N_SEL} "
+        f"rows: {n_terms} terms, 29 GLM fits in {asecs:.3f} s (refit "
+        f"{t_are:.3f} s, bit-equal), peak {apeak / 2**30:.3f} GiB; "
+        + ", ".join(f"{r['term']} {r['deviance']:.6g} (p {r['p_value']:.3g})"
+                    for r in am.anova_table[:7]))
+    del fr
+    frs = head_frames(hcols, domains, N_P25_HEAD, dev)
+    for mode in ("backward", "allsubsets"):
+        ms = [h2o.ModelSelectionEstimator(mode=mode).train(
+            f, y="y", x=list(SEL_X)) for f in frs]
+        say(f"phase25c ModelSelection {mode} over x0..x6, {N_P25_HEAD}-row "
+            f"head card vs CPU plain: " + selection_card_vs_cpu(
+                *ms, f"ModelSelection {mode}"))
+    ms = [ab().train(f, y="y", x=list(SEL_X)) for f in frs]
+    say("phase25c ANOVA-GLM head card vs CPU plain: "
+        + anova_card_vs_cpu(*ms, "ANOVA-GLM"))
+    return counts, ac
+
+
+def phase_isotonic(torch, dev, cols):
+    """Phase 25(d): Isotonic Regression of the departure delay on
+    DepTime over phase 4's N_MAIN rows; thresholds EXACT card vs CPU at
+    full size. Returns the path's launches."""
+    import h2o3_tpu_torch as h2o
+    icols = {"DepTime": cols["DepTime"], "delay": airlines_delay(N_MAIN)}
+    frs = [h2o.Frame.from_numpy(icols, device=d) for d in (dev, "cpu")]
+    build = lambda: h2o.IsotonicRegressionEstimator()  # noqa: E731
+    model, secs, counts, _ = timed_fit(
+        torch, lambda: build().train(frs[0], y="delay", x=["DepTime"]))
+    check_launches(counts, {}, "Isotonic")
+    t_re = refit_check(torch, build, model, lambda e: e.train(
+        frs[0], y="delay", x=["DepTime"]), "Isotonic")
+    cpu = build().train(frs[1], y="delay", x=["DepTime"])
+    check(np.array_equal(model.tx, cpu.tx) and np.array_equal(model.ty,
+                                                               cpu.ty),
+          "Isotonic thresholds card vs CPU")
+    n_t = len(model.tx)
+    slope = np.polyfit(model.tx.astype(np.float64), model.ty, 1)[0]
+    mse = model.training_metrics["MSE"]
+    check(0 < n_t <= 2400 and np.all(np.diff(model.ty) >= 0)
+          and 0.02 < slope < 0.04, f"Isotonic: {n_t} thresholds, slope "
+                                   f"{slope}")
+    say(f"phase25d Isotonic Regression delay ~ DepTime on {N_MAIN} rows: "
+        f"{secs:.3f} s (refit {t_re:.3f} s, bit-equal), {n_t} thresholds, "
+        f"slope {slope:.5f} a minute (0.03 planted), MSE {mse:.6f}; "
+        "thresholds and fitted values EXACT card vs CPU plain")
+    return counts
+
+
+def infogram_card_vs_cpu(m_card, m_cpu, label) -> str:
+    """Infogram card vs CPU plain: relevance within 1e-5, raw CMI within
+    2e-6, admissible sets equal."""
+    ta, tb = (m.output["infogram_table"] for m in (m_card, m_cpu))
+    rel = max(abs(a["relevance"] - b["relevance"]) for a, b in zip(ta, tb))
+    cmi = max(abs(a["cmi_raw"] - b["cmi_raw"]) for a, b in zip(ta, tb))
+    check([r["column"] for r in ta] == [r["column"] for r in tb]
+          and rel <= IG_REL_TOL and cmi <= IG_CMI_TOL
+          and m_card.admissible_features == m_cpu.admissible_features,
+          f"{label}: relevance {rel}, cmi {cmi}, admissible "
+          f"{m_card.admissible_features} vs {m_cpu.admissible_features}")
+    return (f"relevance {rel:.3g} (<= {IG_REL_TOL}), raw CMI {cmi:.3g} "
+            f"(<= {IG_CMI_TOL}), admissible {m_cpu.admissible_features} "
+            "equal")
+
+
+def phase_infogram(torch, dev, cols, domains):
+    """Phase 25(e): the core and the fair Infogram on the first
+    N_INFOGRAM airlines rows → IsDepDelayed; heads card vs CPU. Returns
+    the path's launches (both fits)."""
+    import h2o3_tpu_torch as h2o
+    head = {k: v[:N_INFOGRAM] for k, v in cols.items()}
+    fr = h2o.Frame.from_numpy(head, domains=domains, device=dev)
+    # card vs CPU on tie-free data, as RuleFit's (phase 25(b))
+    frs = head_frames(*infogram_columns(N_P25_HEAD), N_P25_HEAD, dev)
+    counts = None
+    for label, kw in (("core", {}),
+                      ("fair", {"protected_columns": ["UniqueCarrier"]})):
+        build = lambda kw=kw: h2o.InfogramEstimator(**INFOGRAM, **kw)  # noqa
+        model, secs, c, peak = timed_fit(torch, lambda: build().train(fr,
+                                                                      y=Y))
+        fits = model.output["gbm_fits"]
+        check_launches(c, level_launches(fits * 10, 5), f"Infogram {label}")
+        counts = c if counts is None else {k: counts[k] + c[k]
+                                           for k in counts}
+        t_re = refit_check(torch, build, model, lambda e: e.train(fr, y=Y),
+                           f"Infogram {label}")
+        adm = model.admissible_features
+        # CRSDepTime is DepTime less U(-10, 60) minutes: in the core
+        # infogram each carries what the other would add, so neither's
+        # net information clears 0.1; the carrier's does. With the
+        # carrier protected, both times are admissible.
+        rel = {r["column"]: r for r in model.output["infogram_table"]}
+        if label == "core":
+            times = [rel[c] for c in ("DepTime", "CRSDepTime")]
+            check("UniqueCarrier" in adm
+                  and max(r["relevance"] for r in times) == 1.0
+                  and max(r["cmi"] for r in times) < 0.1,
+                  f"Infogram core: admissible {adm}")
+        else:
+            check({"DepTime", "CRSDepTime"} <= set(adm),
+                  f"Infogram fair: admissible {adm}")
+        say(f"phase25e Infogram {label} on {N_INFOGRAM} airlines rows: "
+            f"{fits} GBM fits in {secs:.3f} s (refit {t_re:.3f} s, "
+            f"bit-equal), peak {peak / 2**30:.3f} GiB, admissible {adm}; "
+            + ", ".join(f"{r['column']} {r['relevance']:.4f}/{r['cmi']:.4f}"
+                        for r in model.output["infogram_table"]))
+        hkw = {"protected_columns": ["g"]} if kw else {}
+        ms = [h2o.InfogramEstimator(**INFOGRAM, **hkw).train(f, y="y")
+              for f in frs]
+        say(f"phase25e Infogram {label} on {N_P25_HEAD} rows of the tests' "
+            "data, card vs CPU plain: " + infogram_card_vs_cpu(
+                *ms, f"Infogram {label}"))
+    return counts
+
+
+def phase_glm_wrappers(torch, dev, cols, domains, higgs):
+    """Phase 25: GAM (on ``higgs_frame``'s data), RuleFit, ModelSelection
+    and ANOVA-GLM, Isotonic Regression and Infogram. Returns the launches
+    of their six paths (the level kernels on RuleFit's and Infogram's,
+    every kernel 0 on the others)."""
+    t0 = time.perf_counter()
+    paths = {"gam": phase_gam(torch, dev, higgs)}
+    secs = {"a": time.perf_counter() - t0}
+    paths["rulefit"] = phase_rulefit(torch, dev, cols, domains)
+    secs["b"] = time.perf_counter() - t0 - sum(secs.values())
+    paths["modelselection"], paths["anovaglm"] = phase_selection(
+        torch, dev, higgs)
+    secs["c"] = time.perf_counter() - t0 - sum(secs.values())
+    paths["isotonic"] = phase_isotonic(torch, dev, cols)
+    secs["d"] = time.perf_counter() - t0 - sum(secs.values())
+    paths["infogram"] = phase_infogram(torch, dev, cols, domains)
+    secs["e"] = time.perf_counter() - t0 - sum(secs.values())
+    for p in ("gam", "modelselection", "anovaglm", "isotonic"):
+        check(not any(paths[p].values()), f"{p}: a kernel launched")
+    say("phase25: " + ", ".join(f"({k}) {v:.3f} s" for k, v in secs.items())
+        + f", together {sum(secs.values()):.3f} s")
+    return paths
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -4881,7 +5466,12 @@ def main() -> int:
     paths.update(phase_unsupervised(torch, dev, cols, domains, ccols,
                                     cdomains, higgs))
     say(f"phase 24: {time.perf_counter() - t24:.3f} s")
-    del ccols, higgs
+    del ccols
+    mark("phase 25")
+    t25 = time.perf_counter()
+    paths.update(phase_glm_wrappers(torch, dev, cols, domains, higgs))
+    say(f"phase 25: {time.perf_counter() - t25:.3f} s")
+    del higgs
     for rec in records:
         rec["max_abs_err"] = worst[rec["name"]]
         rec["launches_by_path"] = {p: c[rec["name"]]

@@ -31,6 +31,16 @@ JAX. Its TPU kernels are hand-written CUDA kernels under
     nb = h2o.NaiveBayesEstimator(laplace=1).train(fr, y="label")
     te = h2o.TargetEncoderEstimator(blending=True).train(fr, y="label")
     te.transform(fr)                      # appends <col>_te columns
+    gam = h2o.GAMEstimator(gam_columns=["x0"]).train(fr, y="label")
+    rf = h2o.RuleFitEstimator(max_rule_length=3).train(fr, y="label")
+    rf.rule_importance
+    sel = h2o.ModelSelectionEstimator(mode="maxr").train(fr, y="label")
+    sel.result()
+    av = h2o.ANOVAGLMEstimator().train(fr, y="label"); av.anova_table
+    iso = h2o.IsotonicRegressionEstimator().train(fr, y="delay",
+                                                  x=["DepTime"])
+    ig = h2o.InfogramEstimator().train(fr, y="label")
+    ig.admissible_features
     h2o.models.get_builder("gbm")         # the algorithm registry
 
 Entry points default to ``torch.device("cuda")`` and raise when no card
@@ -42,20 +52,29 @@ from h2o3_tpu_torch.io.parser import import_file
 from h2o3_tpu_torch.models.deeplearning import DeepLearningEstimator
 from h2o3_tpu_torch.models.drf import DRFEstimator
 from h2o3_tpu_torch.models.extisofor import ExtendedIsolationForestEstimator
+from h2o3_tpu_torch.models.gam import GAMEstimator
 from h2o3_tpu_torch.models.gbm import GBMEstimator
 from h2o3_tpu_torch.models.glm import GLMEstimator
 from h2o3_tpu_torch.models.glrm import GLRMEstimator
+from h2o3_tpu_torch.models.infogram import InfogramEstimator
 from h2o3_tpu_torch.models.isofor import IsolationForestEstimator
+from h2o3_tpu_torch.models.isotonic import IsotonicRegressionEstimator
 from h2o3_tpu_torch.models.kmeans import KMeansEstimator
+from h2o3_tpu_torch.models.model_selection import (ANOVAGLMEstimator,
+                                                   ModelSelectionEstimator)
 from h2o3_tpu_torch.models.naivebayes import NaiveBayesEstimator
 from h2o3_tpu_torch.models.pca import PCAEstimator, SVDEstimator
+from h2o3_tpu_torch.models.rulefit import RuleFitEstimator
 from h2o3_tpu_torch.models.targetencoder import TargetEncoderEstimator
 from h2o3_tpu_torch.models.uplift import UpliftDRFEstimator
 from h2o3_tpu_torch.models.xgboost import XGBoostEstimator
 
-__all__ = ["Frame", "import_file", "DeepLearningEstimator", "DRFEstimator",
-           "ExtendedIsolationForestEstimator", "GBMEstimator", "GLMEstimator",
-           "GLRMEstimator", "IsolationForestEstimator", "KMeansEstimator",
-           "NaiveBayesEstimator", "PCAEstimator", "SVDEstimator",
-           "TargetEncoderEstimator", "UpliftDRFEstimator",
+__all__ = ["Frame", "import_file", "ANOVAGLMEstimator",
+           "DeepLearningEstimator", "DRFEstimator",
+           "ExtendedIsolationForestEstimator", "GAMEstimator", "GBMEstimator",
+           "GLMEstimator", "GLRMEstimator", "InfogramEstimator",
+           "IsolationForestEstimator", "IsotonicRegressionEstimator",
+           "KMeansEstimator", "ModelSelectionEstimator",
+           "NaiveBayesEstimator", "PCAEstimator", "RuleFitEstimator",
+           "SVDEstimator", "TargetEncoderEstimator", "UpliftDRFEstimator",
            "XGBoostEstimator"]

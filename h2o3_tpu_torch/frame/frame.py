@@ -183,6 +183,21 @@ class Frame:
     def __contains__(self, name: str) -> bool:
         return name in self._cols
 
+    def add_column(self, col: Column) -> None:
+        """Append ``col``, or replace the column of its name. It must
+        hold the frame's rows and padding (this rank's padded rows on
+        the device); the frame keeps no derived caches to clear."""
+        lo, hi = self.span
+        if col.nrows != self.nrows or (
+                col.data is not None and col.data.shape[0] != hi - lo):
+            raise ValueError(
+                f"column {col.name!r}: {col.nrows} rows padded to "
+                f"{None if col.data is None else col.data.shape[0]}; the "
+                f"frame has {self.nrows} rows padded to {hi - lo}")
+        self._cols[col.name] = col
+        if col.name not in self._order:
+            self._order.append(col.name)
+
     def valid_weights(self) -> torch.Tensor:
         """1.0 for logical rows, 0.0 for padding rows, over the rows on
         this rank's device."""

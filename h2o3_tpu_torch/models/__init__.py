@@ -15,11 +15,8 @@ from typing import Dict
 
 # the reference's algorithms the port has not ported yet, by ROADMAP item
 UNPORTED = {
-    "gam": "A #14(d)", "rulefit": "A #14(d)", "modelselection": "A #14(d)",
-    "anovaglm": "A #14(d)",
-    "coxph": "A #14(e)", "psvm": "A #14(e)", "isotonicregression": "A #14(e)",
-    "aggregator": "A #14(e)", "infogram": "A #14(e)", "word2vec": "A #14(e)",
-    "generic": "A #10",
+    "coxph": "A #14(e)", "psvm": "A #14(e)", "aggregator": "A #14(e)",
+    "word2vec": "A #14(e)", "generic": "A #10",
 }
 
 
@@ -31,20 +28,29 @@ def _registry() -> Dict[str, type]:
     from h2o3_tpu_torch.models.drf import DRFEstimator
     from h2o3_tpu_torch.models.extisofor import \
         ExtendedIsolationForestEstimator
+    from h2o3_tpu_torch.models.gam import GAMEstimator
     from h2o3_tpu_torch.models.gbm import GBMEstimator
     from h2o3_tpu_torch.models.glm import GLMEstimator
     from h2o3_tpu_torch.models.glrm import GLRMEstimator
+    from h2o3_tpu_torch.models.infogram import InfogramEstimator
     from h2o3_tpu_torch.models.isofor import IsolationForestEstimator
+    from h2o3_tpu_torch.models.isotonic import IsotonicRegressionEstimator
     from h2o3_tpu_torch.models.kmeans import KMeansEstimator
+    from h2o3_tpu_torch.models.model_selection import (
+        ANOVAGLMEstimator, ModelSelectionEstimator)
     from h2o3_tpu_torch.models.naivebayes import NaiveBayesEstimator
     from h2o3_tpu_torch.models.pca import PCAEstimator, SVDEstimator
+    from h2o3_tpu_torch.models.rulefit import RuleFitEstimator
     from h2o3_tpu_torch.models.targetencoder import TargetEncoderEstimator
     from h2o3_tpu_torch.models.uplift import UpliftDRFEstimator
     from h2o3_tpu_torch.models.xgboost import XGBoostEstimator
     return {cls.algo: cls for cls in (
-        DeepLearningEstimator, DRFEstimator, ExtendedIsolationForestEstimator,
-        GBMEstimator, GLMEstimator, GLRMEstimator, IsolationForestEstimator,
-        KMeansEstimator, NaiveBayesEstimator, PCAEstimator, SVDEstimator,
+        ANOVAGLMEstimator, DeepLearningEstimator, DRFEstimator,
+        ExtendedIsolationForestEstimator, GAMEstimator, GBMEstimator,
+        GLMEstimator, GLRMEstimator, InfogramEstimator,
+        IsolationForestEstimator, IsotonicRegressionEstimator,
+        KMeansEstimator, ModelSelectionEstimator, NaiveBayesEstimator,
+        PCAEstimator, RuleFitEstimator, SVDEstimator,
         TargetEncoderEstimator, UpliftDRFEstimator, XGBoostEstimator)}
 
 

@@ -19,8 +19,14 @@ continues from). ``kmeans_model_from_arrays``, ``pca_model_from_arrays``,
 ``naivebayes_model_from_arrays`` and ``targetencoder_model_from_arrays``
 carry the unsupervised and count-based models across: their centers,
 eigenvectors, singular vectors or archetypes with the design statistics,
-or their statistics and encoding maps. Nothing here imports the reference
-package: the caller hands over numpy.
+or their statistics and encoding maps. ``gam_model_from_arrays``,
+``rulefit_model_from_arrays``, ``anovaglm_model_from_arrays``,
+``modelselection_model_from_arrays`` and ``isotonic_model_from_arrays``
+carry the GLM wrappers and Isotonic Regression across: a GAM's
+coefficients with its knots and centering means, RuleFit's tree models,
+GLM, rules and winsor bounds, the wrappers' GLMs, Isotonic's thresholds.
+Nothing here imports the reference package: the caller hands over
+numpy.
 """
 
 from __future__ import annotations
@@ -36,13 +42,18 @@ from h2o3_tpu_torch.models.deeplearning import DeepLearningModel
 from h2o3_tpu_torch.models.drf import DRFModel
 from h2o3_tpu_torch.models.extisofor import (ExtendedIsolationForestModel,
                                              ExtTree)
+from h2o3_tpu_torch.models.gam import GAMModel
 from h2o3_tpu_torch.models.gbm import GBMModel
 from h2o3_tpu_torch.models.glm import Family, GLMModel
 from h2o3_tpu_torch.models.glrm import GLRMModel
 from h2o3_tpu_torch.models.isofor import ANOMALY, IsolationForestModel
+from h2o3_tpu_torch.models.isotonic import IsotonicRegressionModel
 from h2o3_tpu_torch.models.kmeans import KMeansModel
+from h2o3_tpu_torch.models.model_selection import (ANOVAGLMModel,
+                                                   ModelSelectionModel)
 from h2o3_tpu_torch.models.naivebayes import NaiveBayesModel
 from h2o3_tpu_torch.models.pca import PCAModel, SVDModel
+from h2o3_tpu_torch.models.rulefit import RuleFitModel
 from h2o3_tpu_torch.models.targetencoder import TargetEncoderModel
 from h2o3_tpu_torch.models.tree import Tree
 from h2o3_tpu_torch.models.uplift import UpliftDRFModel
@@ -324,3 +335,69 @@ def targetencoder_model_from_arrays(d: Arrays) -> TargetEncoderModel:
             for col, m in d["enc_maps"].items()}
     return TargetEncoderModel(dict(d.get("params") or {}),
                               dict(d["output"]), maps)
+
+
+def gam_model_from_arrays(d: Arrays) -> GAMModel:
+    """Port ``GAMModel``: ``coef`` [P+1], ``family``, ``link``,
+    ``tweedie_power``, ``di_stats``, ``features``, ``gam_spec`` (per gam
+    column ``col``, ``knots``, ``means`` and ``scale``), ``output`` and
+    ``params``. The model scores on the device of the frame it is
+    given."""
+    spec = [{"col": str(s["col"]),
+             "knots": np.asarray(s["knots"], np.float64),
+             "means": np.asarray(s["means"], np.float64),
+             "scale": float(s.get("scale", 1.0))} for s in d["gam_spec"]]
+    return GAMModel(dict(d.get("params") or {}), dict(d["output"]),
+                    np.asarray(d["coef"], np.float32),
+                    Family(str(d["family"]),
+                           float(d.get("tweedie_power", 1.5)),
+                           d.get("link")),
+                    _di_stats(d["di_stats"]), list(d["features"]), spec)
+
+
+def rulefit_model_from_arrays(d: Arrays,
+                              device: DeviceLike = None) -> RuleFitModel:
+    """Port ``RuleFitModel``: ``tree_models`` (each the arrays of
+    ``gbm_model_from_arrays``, or of ``drf_model_from_arrays`` with
+    ``algo`` "drf"), ``glm`` (the arrays of ``glm_model_from_arrays``),
+    ``rules`` (each ``model``, ``tree``, ``lo``, ``hi``, ``name``, and
+    ``lang`` and ``support``), ``linear_cols``, ``winsor`` (name → (lo,
+    hi)), ``output`` and ``params``. The forests live on ``device``."""
+    tree_models = [drf_model_from_arrays(t, device) if t.get("algo") == "drf"
+                   else gbm_model_from_arrays(t, device)
+                   for t in d["tree_models"]]
+    rules = [{k: r[k] for k in ("model", "tree", "lo", "hi", "name", "lang",
+                                "support") if k in r} for r in d["rules"]]
+    return RuleFitModel(dict(d.get("params") or {}), dict(d["output"]),
+                        glm_model_from_arrays(d["glm"]), tree_models, rules,
+                        list(d["linear_cols"]),
+                        {k: (float(v[0]), float(v[1]))
+                         for k, v in d["winsor"].items()})
+
+
+def anovaglm_model_from_arrays(d: Arrays) -> ANOVAGLMModel:
+    """Port ``ANOVAGLMModel``: ``full`` (the full GLM's arrays, as
+    ``glm_model_from_arrays`` takes them), ``output`` (with the
+    ``anova_table``) and ``params``."""
+    return ANOVAGLMModel(dict(d.get("params") or {}), dict(d["output"]),
+                         glm_model_from_arrays(d["full"]))
+
+
+def modelselection_model_from_arrays(d: Arrays) -> ModelSelectionModel:
+    """Port ``ModelSelectionModel``: ``best_models`` (predictor count →
+    that GLM's arrays), ``output`` (with ``best_per_size``) and
+    ``params``."""
+    return ModelSelectionModel(
+        dict(d.get("params") or {}), dict(d["output"]),
+        {int(k): glm_model_from_arrays(g)
+         for k, g in d["best_models"].items()})
+
+
+def isotonic_model_from_arrays(d: Arrays) -> IsotonicRegressionModel:
+    """Port ``IsotonicRegressionModel``: ``thresholds_x`` (float32, as
+    the reference keeps them), ``thresholds_y``, ``output`` and
+    ``params``."""
+    return IsotonicRegressionModel(
+        dict(d.get("params") or {}), dict(d["output"]),
+        np.asarray(d["thresholds_x"], np.float32),
+        np.asarray(d["thresholds_y"], np.float64))

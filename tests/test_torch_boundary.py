@@ -59,6 +59,11 @@ SLICE_MODULES = (
     "h2o3_tpu_torch/models/glrm.py",
     "h2o3_tpu_torch/models/naivebayes.py",
     "h2o3_tpu_torch/models/targetencoder.py",
+    "h2o3_tpu_torch/models/gam.py",
+    "h2o3_tpu_torch/models/rulefit.py",
+    "h2o3_tpu_torch/models/model_selection.py",
+    "h2o3_tpu_torch/models/isotonic.py",
+    "h2o3_tpu_torch/models/infogram.py",
 )
 # sources the port compiles: its kernels and its tokenizer
 NATIVE_FILES = sorted(str(p.relative_to(ROOT)) for p in PKG.rglob("*")
@@ -239,3 +244,34 @@ def test_unsupervised_and_count_entry_points_default_to_cuda(
     fr = h2o.Frame.from_numpy(cols, device="cpu")
     m = est.train(fr, y=y)
     assert m.predict(fr).device.type == "cpu"
+
+
+@pytest.mark.parametrize("algo,kw,y,x", [
+    ("gam", {"gam_columns": ["x"]}, "y", None),
+    ("rulefit", {"rule_generation_ntrees": 2, "max_rule_length": 2}, "c",
+     None),
+    ("modelselection", {}, "y", ["x", "z"]),
+    ("anovaglm", {}, "y", ["x", "z"]),
+    ("isotonicregression", {}, "y", ["x"]),
+    ("infogram", {"ntrees": 2, "max_depth": 2}, "c", None)])
+def test_glm_wrapper_entry_points_default_to_cuda(monkeypatch, algo, kw, y,
+                                                  x):
+    """The GAM, RuleFit, ModelSelection, ANOVA-GLM, Isotonic Regression
+    and Infogram fits start from a frame: without a ``device=`` it
+    resolves to CUDA and raises without a card; a CPU frame's fit (and
+    its scores, Infogram's score frame) stays on the CPU."""
+    import h2o3_tpu_torch as h2o
+    r = np.random.RandomState(0)
+    cols = {"x": r.randn(64), "z": r.randn(64),
+            "c": np.array(["a", "b"], object)[(r.rand(64) < 0.5) * 1],
+            "y": r.randn(64)}
+    est = h2o.models.get_builder(algo)(**kw)
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        est.train(h2o.Frame.from_numpy(cols), y=y, x=x)
+    fr = h2o.Frame.from_numpy(cols, device="cpu")
+    m = est.train(fr, y=y, x=x)
+    if algo == "infogram":
+        assert m.get_admissible_score_frame().device.type == "cpu"
+    else:
+        assert m.predict(fr).device.type == "cpu"

@@ -1064,3 +1064,63 @@ def test_unsupervised_card_vs_cpu_and_refit_bit_equal(dev, case):
     else:
         cs.refit_check(torch, build, ms[0],
                        lambda e: e.train(frs[0], **kw), case)
+
+
+def glm_wrapper_case(case):
+    """(columns, domains, y, x, build, held) of a phase 25 case at a
+    small size."""
+    import h2o3_tpu_torch as h2o
+    if case in ("gam", "modelselection", "anovaglm"):
+        cols, domains, _ = cs.higgs_arrays(8_000)
+        x = list(cs.SEL_X)
+        if case == "gam":
+            return (cols, domains, "y", x,
+                    lambda: h2o.GAMEstimator(**cs.GAM_HIGGS_HEAD),
+                    cs.gam_card_vs_cpu)
+        if case == "modelselection":
+            return (cols, domains, "y", x,
+                    lambda: h2o.ModelSelectionEstimator(mode="backward"),
+                    lambda a, b, frs, label: cs.selection_card_vs_cpu(
+                        a, b, label))
+        return (cols, domains, "y", x, lambda: h2o.ANOVAGLMEstimator(),
+                lambda a, b, frs, label: cs.anova_card_vs_cpu(a, b, label))
+    if case == "rulefit":           # the tests' tie-free data
+        cols, domains = cs.rule_columns(8_000)
+        return (cols, domains, "y", None, lambda: h2o.RuleFitEstimator(
+            seed=1, sample_rate=1.0, rule_generation_ntrees=10),
+            cs.rulefit_card_vs_cpu)
+    if case == "infogram":
+        cols, domains = cs.infogram_columns(8_000)
+        return (cols, domains, "y", None,
+                lambda: h2o.InfogramEstimator(seed=1, ntrees=5),
+                lambda a, b, frs, label: cs.infogram_card_vs_cpu(
+                    a, b, label))
+    cols, _ = cs.airlines_arrays(8_000)
+    icols = {"DepTime": cols["DepTime"], "delay": cs.airlines_delay(8_000)}
+
+    def held(a, b, frs, label):
+        assert np.array_equal(a.tx, b.tx) and np.array_equal(a.ty, b.ty)
+        return "thresholds EXACT"
+    return (icols, {}, "delay", ["DepTime"],
+            lambda: h2o.IsotonicRegressionEstimator(), held)
+
+
+@pytest.mark.parametrize("case", ["gam", "rulefit", "modelselection",
+                                  "anovaglm", "isotonic", "infogram"])
+def test_glm_wrappers_card_vs_cpu_and_refit_bit_equal(dev, case):
+    """GAM, RuleFit, ModelSelection, ANOVA-GLM, Isotonic Regression and
+    Infogram on the card against the CPU plain fit at the tolerances of
+    chip_smoke.py phase 25, a refit bit-equal; the tree fits of RuleFit
+    and Infogram launch the level kernels, the others no kernel."""
+    cols, domains, y, x, build, held = glm_wrapper_case(case)
+    frs = cs.head_frames(cols, domains, len(next(iter(cols.values()))), dev)
+    kernels.reset_counts()
+    ms = [build().train(f, y=y, x=x) for f in frs]
+    if case in ("rulefit", "infogram"):
+        assert kernels.LAUNCHES["tree_hist"] > 0
+        assert kernels.LAUNCHES["histogram"] == 0
+    else:
+        assert not any(kernels.LAUNCHES.values())
+    print(held(*ms, frs, case))
+    cs.refit_check(torch, build, ms[0], lambda e: e.train(frs[0], y=y, x=x),
+                   case)

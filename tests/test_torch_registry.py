@@ -18,18 +18,26 @@ def test_every_ported_name_finds_the_references_estimator():
         assert port.__module__.replace("h2o3_tpu_torch.", "") == \
             ref.__module__.replace("h2o3_tpu.", "")
     assert models.all_algos() == sorted(
-        ["deeplearning", "drf", "extendedisolationforest", "gbm", "glm",
-         "glrm", "isolationforest", "kmeans", "naivebayes", "pca", "svd",
-         "targetencoder", "upliftdrf", "xgboost"])
+        ["anovaglm", "deeplearning", "drf", "extendedisolationforest",
+         "gam", "gbm", "glm", "glrm", "infogram", "isolationforest",
+         "isotonicregression", "kmeans", "modelselection", "naivebayes",
+         "pca", "rulefit", "svd", "targetencoder", "upliftdrf", "xgboost"])
     assert not {"kmeans", "pca", "svd", "glrm", "naivebayes",
-                "targetencoder"} & set(models.UNPORTED)
+                "targetencoder", "gam", "rulefit", "modelselection",
+                "anovaglm", "isotonicregression", "infogram"} & \
+        set(models.UNPORTED)
+    assert set(models.UNPORTED) == {"coxph", "psvm", "aggregator",
+                                    "word2vec", "generic"}
 
 
 @pytest.mark.parametrize("name", ["Deep_Learning", "DEEPLEARNING", "gbm",
                                   "Uplift_DRF", "isolation_forest",
                                   "extended_isolation_forest", "XGBoost",
                                   "K_Means", "PCA", "SVD", "GLRM",
-                                  "Naive_Bayes", "Target_Encoder"])
+                                  "Naive_Bayes", "Target_Encoder", "GAM",
+                                  "Rule_Fit", "Model_Selection",
+                                  "ANOVA_GLM", "Isotonic_Regression",
+                                  "InfoGram"])
 def test_names_normalize_as_in_the_reference(name):
     assert models.get_builder(name).algo == \
         ref_models.get_builder(name).algo
