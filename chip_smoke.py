@@ -255,6 +255,30 @@ Phases, in order; any failure exits non-zero and no phase carries on:
     admissible features, GBM fits. GAM, the two wrappers and Isotonic
     launch no kernel; RuleFit's and Infogram's tree fits launch the
     three level kernels once a level of every tree.
+26. CoxPH, PSVM, the Aggregator, Word2Vec, the device quantiles and
+    the sort, no kernel; each fit with a refit bit-equal on the card and
+    a head card vs CPU plain at the tolerances of their CPU tests. (a)
+    CoxPH on 1M seeded survival rows (``cox_columns``: 10 numeric and a
+    5-level covariate with a known beta, 4 strata, left truncation,
+    whole days), Efron then Breslow: the tie groups, the host risk
+    structure's seconds, Newton iterations, concordance, each
+    coefficient against beta in standard errors (Efron within 4); the
+    card's float32 ``cumsum`` and the port's float64 prefix sums against
+    a float64 ``cumsum``. (b) PSVM on phase 13's Covertype rows, class
+    "2" against the rest, at the defaults: ICF seconds, Newton steps, a
+    step against its bound, the support vectors, AUC (> 0.7) beside a
+    GLM's. (c) The Aggregator at its defaults on the first 1M HIGGS
+    rows (cut from 11M for its host loop): sweeps, radius, exemplars
+    (<= 5000, counts summing to the rows), the host loop's share. (d)
+    Word2Vec at its defaults, one epoch (cut from 5), on a 500K-token
+    Zipf(1.0) corpus over 30K types with two planted 8-word topics: the
+    vocabulary, pairs, steps/s, a step at batch 64 and 4096, the planted
+    words' synonyms (2 of the top 3 in their topic). (e) The device
+    quantiles of HIGGS x0 (11M rows) against ``np.quantile``,
+    ``frame_quantiles`` of phase 4's 5M rows, a 4,194,304-row head card
+    vs CPU EXACT. (f) ``device_sort`` of phase 4's 5M rows by
+    (UniqueCarrier, DepTime descending) against ``np.lexsort``, and a
+    5M × 1M ``device_join_index`` against a numpy join, EXACT.
 
 Launch counts are read per path: each path sets every count to 0 just
 before it runs and reads them just after (phase 15's, over its seven
@@ -279,7 +303,9 @@ and ``glm_surface``, phase 23's as ``deeplearning``,
 ``kmeans``, ``pca``, ``svd``, ``glrm``, ``naivebayes`` and
 ``targetencoder``, every kernel 0 on each, phase 25's as ``gam``,
 ``rulefit``, ``modelselection``, ``anovaglm``, ``isotonic`` and
-``infogram``; ``tree_partition`` has a
+``infogram``, phase 26's as ``coxph``, ``psvm``, ``aggregator``,
+``word2vec``, ``quantiles`` and ``sort``, every kernel 0 on each;
+``tree_partition`` has a
 fourth record, at the Isolation Forest levels); the last is
 ``{"ok": true, "device": {...}}``.
 """
@@ -592,6 +618,43 @@ N_INFOGRAM = 1_000_000
 IG_REL_TOL = 1e-5
 IG_CMI_TOL = 2e-6
 N_P25_HEAD = 20_000
+# phase 26: CoxPH, PSVM, the Aggregator, Word2Vec, the device quantiles
+# and the sort. Heads card vs CPU plain at the tolerances of
+# tests/test_torch_{coxph,psvm,aggregator,word2vec,quantiles_sort}.py.
+N_COX = 1_000_000
+COX_NUM_BETA = np.array([0.5, -0.4, 0.3, -0.2, 0.1, 0.25, -0.15, 0.05,
+                         0.0, 0.35])
+COX_CAT_BETA = np.array([0.3, -0.2, 0.1, 0.4])    # c5 levels 1..4 vs 0
+COX_MEDIAN = 1000.0              # days, the baseline's median survival
+COX_CENSOR_MEAN = 2200.0         # days after entry
+COX = dict(stop_column="stop", start_column="start", stratify_by=["s4"])
+COX_COEF_TOL = 2e-3
+COX_SE_REL = 1e-3
+COX_LOGLIK_REL = 1e-6
+COX_CONC_TOL = 1e-4
+N_P26_HEAD = 20_000
+N_PSVM_HEAD = 601                # the tests' data and size
+PSVM_WB_TOL = 1e-4
+PSVM_DEC_TOL = 1e-4
+PSVM_AUC_TOL = 1e-5
+N_AGG = 1_000_000                # of HIGGS's 11M rows: the host loop
+N_AGG_HEAD = 3_001               # the tests' data and size
+W2V_TOKENS = 500_000
+W2V_TYPES = 30_000
+W2V_SENT = 20
+W2V_TOPIC_FRAC = 0.05
+W2V = dict(epochs=1, seed=1)     # the reference's DEFAULTS otherwise
+W2V_TOPICS = [["cat", "dog", "pet", "fur"], ["car", "road", "wheel",
+                                            "drive"]]
+W2V_TOPIC = dict(vec_size=16, epochs=10, min_word_freq=2, window_size=3,
+                 sent_sample_rate=0.0, seed=42)
+W2V_REL = 1e-4
+Q_PROBS = (0.001, 0.01, 0.1, 0.25, 0.5, 0.75, 0.9, 0.99, 0.999)
+Q_HEAD = 4_194_304               # above the host path's 4,000,000 rows
+Q_GAP = 1e-3                     # a few order statistics of N(0, 1)
+JOIN_LEFT = 5_000_000
+JOIN_RIGHT = 1_000_000
+JOIN_KEYS = 2_000_000
 _TREEKERNEL = dict(source="h2o3_tpu_torch/ops/kernels/csrc/treekernel.cu",
                    replaces="h2o3_tpu/ops/pallas/treekernel.py:250")
 KERNELS = {
@@ -4228,9 +4291,10 @@ def same_output(a, b) -> bool:
     return a == b
 
 
-def refit_check(torch, build, model, fit, label) -> float:
+def refit_check(torch, build, model, fit, label, fields=()) -> float:
     """A refit on the card bit-equal to ``model`` (output, training
-    metrics and, for Naive Bayes, statistics); returns its seconds."""
+    metrics, for Naive Bayes statistics, and the model attributes named
+    in ``fields``); returns its seconds."""
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     again = fit(build())
@@ -4240,8 +4304,9 @@ def refit_check(torch, build, model, fit, label) -> float:
           else m.training_metrics.to_dict())
     check(same_output(again.output, model.output)
           and same_output(tm(again), tm(model))
-          and same_output(getattr(again, "stats", None),
-                          getattr(model, "stats", None)),
+          and all(same_output(getattr(again, f, None),
+                              getattr(model, f, None))
+                  for f in ("stats",) + tuple(fields)),
           f"{label}: the refit is not bit-equal")
     return secs
 
@@ -5338,6 +5403,485 @@ def phase_glm_wrappers(torch, dev, cols, domains, higgs):
     return paths
 
 
+# ---------------------------------------------------------------- phase 26
+
+
+def cox_columns(n: int, seed: int = 26):
+    """Survival data with a known beta: ten standard normal covariates,
+    a 5-level categorical ``c5`` (COX_CAT_BETA against its first level),
+    strata ``s4`` (4 levels) scaling an exponential baseline hazard with
+    a median near COX_MEDIAN days, entry times U(0, 300) days with only
+    rows surviving past their entry kept (left truncation: the
+    ``start`` column), censoring at entry + Exp(COX_CENSOR_MEAN) and at
+    3650 days, times rounded to whole days (many ties). Returns
+    (columns, domains, beta of the design's 14 columns)."""
+    r = np.random.RandomState(seed)
+    beta = np.r_[COX_NUM_BETA, COX_CAT_BETA]
+    m = int(n * 1.4) + 1000
+    X = r.randn(m, 10)
+    c5 = r.randint(0, 5, m)
+    s4 = r.randint(0, 4, m)
+    eta = X @ COX_NUM_BETA + np.r_[0.0, COX_CAT_BETA][c5]
+    lam = np.log(2) / COX_MEDIAN * np.array([1.0, 1.3, 0.8, 1.6])[s4]
+    t = -np.log(r.rand(m)) / (lam * np.exp(eta))
+    entry = r.uniform(0, 300, m)
+    cens = np.minimum(entry + r.exponential(COX_CENSOR_MEAN, m), 3650.0)
+    keep = np.flatnonzero((t > entry) & (cens > entry))[:n]
+    check(len(keep) == n, "cox_columns: too few rows survive their entry")
+    obs = np.minimum(t, cens)[keep]
+    cols = {f"x{i}": X[keep, i].astype(np.float32) for i in range(10)}
+    cols.update(c5=c5[keep].astype(np.int32), s4=s4[keep].astype(np.int32),
+                start=np.floor(entry[keep]),
+                stop=np.clip(np.ceil(obs), 1, 3650),
+                event=(t[keep] <= cens[keep]).astype(np.int32))
+    domains = {"c5": [f"c{i}" for i in range(5)],
+               "s4": [f"s{i}" for i in range(4)], "event": ["0", "1"]}
+    return cols, domains, beta
+
+
+def cox_risk_arrays(fr):
+    """The host inputs of ``coxph._risk_structure`` for ``fr``."""
+    codes = np.nan_to_num(fr.col("s4").host_view()).astype(np.int64)
+    return (fr.col("start").to_numpy(), fr.col("stop").to_numpy(),
+            np.nan_to_num(fr.col("event").to_numpy()), codes)
+
+
+def cox_card_vs_cpu(m_card, m_cpu, label) -> str:
+    """CoxPH card vs CPU plain at tests/test_torch_coxph.py's
+    tolerances: coefficients COX_COEF_TOL, se_coef COX_SE_REL,
+    loglik COX_LOGLIK_REL, concordance COX_CONC_TOL."""
+    se = lambda m: np.array([t["se_coef"]  # noqa: E731
+                             for t in m.output["coefficients_table"]])
+    dc = float(np.abs(m_card.coef - m_cpu.coef).max())
+    ds = rel_gap(se(m_card), se(m_cpu))
+    dl = abs(m_card.output["loglik"] / m_cpu.output["loglik"] - 1)
+    dk = abs(m_card.training_metrics["concordance"]
+             - m_cpu.training_metrics["concordance"])
+    check(dc <= COX_COEF_TOL and ds <= COX_SE_REL and dl <= COX_LOGLIK_REL
+          and dk <= COX_CONC_TOL,
+          f"{label}: coef {dc}, se {ds}, loglik {dl}, concordance {dk}")
+    return (f"coef {dc:.3g} (<= {COX_COEF_TOL}), se_coef {ds:.3g} "
+            f"(<= {COX_SE_REL}), loglik {dl:.3g} (<= {COX_LOGLIK_REL}), "
+            f"concordance {dk:.3g} (<= {COX_CONC_TOL})")
+
+
+def scan_gaps(torch, dev, fr) -> str:
+    """How far the card's prefix sums of w·exp(eta) over the rows sorted
+    by stop time are from float64 ``np.cumsum``: the port's float64
+    block products (``coxph.prefix_sums``) and a float32 ``cumsum``."""
+    from h2o3_tpu_torch.models.coxph import prefix_sums
+    order = np.lexsort((-fr.col("stop").to_numpy(),
+                        fr.col("s4").host_view()))
+    v = np.exp(0.3 * fr.col("x0").to_numpy())[order]
+    want = np.cumsum(v)
+    got64 = prefix_sums(torch.from_numpy(v[:, None]).to(dev))[:, 0]
+    got32 = torch.cumsum(torch.from_numpy(v.astype(np.float32)).to(dev), 0)
+    return (f"prefix sums over {len(v)} rows: float64 block products "
+            f"{rel_gap(got64.cpu().numpy(), want):.3g}, float32 cumsum "
+            f"{rel_gap(got32.cpu().numpy(), want):.3g} of the float64 "
+            "cumsum (relative)")
+
+
+def phase_coxph(torch, dev):
+    """Phase 26(a): CoxPH on N_COX rows from ``cox_columns`` (strata,
+    left truncation, heavy ties), Efron then Breslow; the risk structure
+    card vs CPU EXACT and a fit card vs CPU plain on a head. Returns the
+    path's launches (both fits)."""
+    import h2o3_tpu_torch as h2o
+    from h2o3_tpu_torch.models import coxph
+    cols, domains, beta = cox_columns(N_COX)
+    fr = h2o.Frame.from_numpy(cols, domains=domains, device=dev)
+    t0 = time.perf_counter()
+    rs = coxph._risk_structure(*cox_risk_arrays(fr))
+    t_rs = time.perf_counter() - t0
+    say(f"phase26a CoxPH data: {N_COX} rows, {int(cols['event'].sum())} "
+        f"events, {rs['n_groups']} tie groups (stratum, day); "
+        f"_risk_structure {t_rs:.3f} s on the host; " + scan_gaps(
+            torch, dev, fr))
+    counts = None
+    for ties in ("efron", "breslow"):
+        build = lambda ties=ties: h2o.CoxPHEstimator(  # noqa: E731
+            ties=ties, **COX)
+        model, secs, c, peak = timed_fit(
+            torch, lambda: build().train(fr, y="event"))
+        check_launches(c, {}, f"CoxPH {ties}")
+        counts = c if counts is None else {k: counts[k] + c[k]
+                                           for k in counts}
+        t_re = refit_check(torch, build, model,
+                           lambda e: e.train(fr, y="event"), f"CoxPH {ties}",
+                           fields=("coef",))
+        se = np.array([t["se_coef"]
+                       for t in model.output["coefficients_table"]])
+        z = (model.coef - beta) / se
+        if ties == "efron":
+            check(np.abs(z).max() <= 4.0,
+                  f"CoxPH efron: (coef - beta)/se {np.round(z, 2)}")
+        say(f"phase26a CoxPH {ties} on {N_COX} rows: "
+            f"{model.output['iterations']} Newton iterations in {secs:.3f} s "
+            f"(refit {t_re:.3f} s, bit-equal), peak {peak / 2**30:.3f} GiB, "
+            f"concordance {model.training_metrics['concordance']:.6f}, "
+            f"loglik {model.output['loglik']:.6f}; (coef - beta)/se_coef "
+            + " ".join(f"{v:+.2f}" for v in z)
+            + ("" if ties == "efron" else
+               f" (max |coef - beta| {np.abs(model.coef - beta).max():.4f}:"
+               " Breslow's pull toward 0 under heavy ties, not bounded)"))
+    hcols, hdomains, _ = cox_columns(N_P26_HEAD, seed=27)
+    frs = head_frames(hcols, hdomains, N_P26_HEAD, dev)
+    a, b = (coxph._risk_structure(*cox_risk_arrays(f)) for f in frs)
+    check(all(np.array_equal(np.asarray(a[k]), np.asarray(b[k])) for k in a),
+          "CoxPH risk structure card vs CPU")
+    ms = [h2o.CoxPHEstimator(**COX).train(f, y="event") for f in frs]
+    say(f"phase26a CoxPH efron on a {N_P26_HEAD}-row head, card vs CPU "
+        "plain: risk structure EXACT, " + cox_card_vs_cpu(*ms, "CoxPH head"))
+    return counts
+
+
+def svm_columns(n: int, seed: int = 3):
+    """tests/test_torch_psvm.py's data: a nonlinear two-class boundary in
+    x0, x1 with a categorical shift (x2, x3 noise). Returns (columns,
+    domains)."""
+    r = np.random.RandomState(seed)
+    X = r.randn(n, 4)
+    c = r.randint(0, 3, n)
+    f = np.sin(2 * X[:, 0]) + X[:, 1] ** 2 - 1 + 0.5 * (c == 2) \
+        + 0.3 * r.randn(n)
+    cols = {"x0": X[:, 0], "x1": X[:, 1], "x2": X[:, 2], "x3": X[:, 3],
+            "c": c.astype(np.int32), "y": (f > 0).astype(np.int32)}
+    return cols, {"c": ["u", "v", "w"], "y": ["neg", "pos"]}
+
+
+def psvm_card_vs_cpu(m_card, m_cpu, frs, label) -> str:
+    """PSVM card vs CPU plain at tests/test_torch_psvm.py's tolerances:
+    w_b PSVM_WB_TOL, decision values PSVM_DEC_TOL, AUC PSVM_AUC_TOL,
+    the support vector counts equal."""
+    dw = float(np.abs(m_card.w_b - m_cpu.w_b).max())
+    dd = float(np.abs(m_card._score_raw(frs[0])["decision_function"]
+                      - m_cpu._score_raw(frs[1])["decision_function"]).max())
+    da = abs(m_card.training_metrics["AUC"] - m_cpu.training_metrics["AUC"])
+    same = all(m_card.output[k] == m_cpu.output[k]
+               for k in ("rank", "svs_count", "bsv_count"))
+    check(dw <= PSVM_WB_TOL and dd <= PSVM_DEC_TOL and da <= PSVM_AUC_TOL
+          and same, f"{label}: w_b {dw}, decision {dd}, AUC {da}, counts "
+                    f"{same}")
+    return (f"w_b {dw:.3g} (<= {PSVM_WB_TOL}), decision values {dd:.3g} "
+            f"(<= {PSVM_DEC_TOL}), AUC {da:.3g} (<= {PSVM_AUC_TOL}), "
+            f"svs_count {m_card.output['svs_count']} equal")
+
+
+def phase_psvm(torch, dev, ccols, cdomains):
+    """Phase 26(b): PSVM on phase 13's Covertype rows, class "2" against
+    the rest, at the defaults (rank 256); a GLM's AUC beside it; ICF and
+    one Newton step timed; a head card vs CPU plain on the tests' data.
+    Returns the path's launches."""
+    import h2o3_tpu_torch as h2o
+    from h2o3_tpu_torch.frame.datainfo import build_datainfo
+    from h2o3_tpu_torch.models import psvm
+    cols = {k: v for k, v in ccols.items() if k != "Cover_Type"}
+    cols["y"] = (ccols["Cover_Type"] == 1).astype(np.int32)
+    fr = h2o.Frame.from_numpy(cols, domains={"y": ["rest", "2"]},
+                              device=dev)
+    x = [k for k in cols if k != "y"]
+    build = lambda: h2o.PSVMEstimator()  # noqa: E731
+    model, secs, counts, peak = timed_fit(
+        torch, lambda: build().train(fr, y="y"))
+    check_launches(counts, {}, "PSVM")
+    t_re = refit_check(torch, build, model, lambda e: e.train(fr, y="y"),
+                       "PSVM", fields=("w_b", "pivot_rows", "Linv_t"))
+    auc = model.training_metrics["AUC"]
+    check(auc > 0.7, f"PSVM AUC {auc}")
+    glm = h2o.GLMEstimator(family="binomial").train(fr, y="y")
+    # ICF and one Newton step, timed apart on the fit's design
+    di = build_datainfo(fr, x, standardize=True, use_all_factor_levels=True)
+    w = fr.valid_weights()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    V, _, rank = psvm.icf(di.X, w, model.gamma,
+                          model.output["rank"])
+    torch.cuda.synchronize()
+    t_icf = time.perf_counter() - t0
+    V1 = torch.cat([V, torch.ones_like(V[:, :1])], 1) * w[:, None]
+    y = torch.where(torch.from_numpy(np.pad(
+        cols["y"], (0, fr.nrows_padded - fr.nrows))).to(dev) == 1, 1.0, -1.0)
+    w_b = torch.from_numpy(model.w_b).to(dev)
+    step = time_ms(torch, lambda: psvm._newton_step(w_b, V1, y, w))
+    ops = 2.0 * N_COVTYPE * (rank + 1) ** 2
+    bound = max(ops / F32_OPS_PER_S, V1.numel() * 4 / HBM_BYTES_PER_S) * 1e3
+    say(f"phase26b PSVM on Covertype {N_COVTYPE} x {len(x)}, class 2 "
+        f"({int(cols['y'].sum())} rows) vs the rest: rank "
+        f"{model.output['rank']}, ICF {t_icf:.3f} s, "
+        f"{model.output['iterations']} Newton steps, a step "
+        f"{spread(step)} (host-paced {step['host_paced_ms']:.4g} ms) against "
+        f"its bound {bound:.4g} ms ({ops:.4g} float32 operations), "
+        f"svs_count {model.output['svs_count']}, bsv_count "
+        f"{model.output['bsv_count']}, AUC {auc:.6f} (a binomial GLM's "
+        f"{glm.training_metrics['AUC']:.6f}), train {secs:.3f} s (refit "
+        f"{t_re:.3f} s, bit-equal), peak {peak / 2**30:.3f} GiB")
+    hcols, hdomains = svm_columns(N_PSVM_HEAD)
+    frs = head_frames(hcols, hdomains, N_PSVM_HEAD, dev)
+    ms = [build().train(f, y="y") for f in frs]
+    say(f"phase26b PSVM on {N_PSVM_HEAD} rows of the tests' data, card vs "
+        "CPU plain: " + psvm_card_vs_cpu(*ms, frs, "PSVM head"))
+    del V, V1, di
+    return counts
+
+
+def agg_columns(n: int, seed: int = 5):
+    """tests/test_torch_aggregator.py's data: two Gaussian blobs in three
+    columns with NAs, and a categorical. Returns (columns, domains)."""
+    r = np.random.RandomState(seed)
+    X = np.concatenate([r.randn(n // 2, 3), r.randn(n - n // 2, 3) + 3])
+    X[r.rand(n) < 0.01, 1] = np.nan
+    return ({"a": X[:, 0], "b": X[:, 1], "c": X[:, 2],
+             "k": r.randint(0, 3, n).astype(np.int32)},
+            {"k": ["p", "q", "s"]})
+
+
+def phase_aggregator(torch, dev, higgs):
+    """Phase 26(c): the Aggregator at its defaults on the first N_AGG
+    rows of ``higgs_frame``'s features; a head card vs CPU plain on the
+    tests' data. Returns the path's launches."""
+    import h2o3_tpu_torch as h2o
+    hcols = higgs[0]
+    x = [f"x{i}" for i in range(P_HIGGS)]
+    fr = h2o.Frame.from_numpy({k: hcols[k][:N_AGG] for k in x}, device=dev)
+    build = lambda: h2o.AggregatorEstimator()  # noqa: E731
+    model, secs, counts, peak = timed_fit(torch, lambda: build().train(fr))
+    check_launches(counts, {}, "Aggregator")
+    t_re = refit_check(torch, build, model, lambda e: e.train(fr),
+                       "Aggregator", fields=("exemplar_assignment",))
+    n_ex = model.output["num_exemplars"]
+    total = model.aggregated_frame.col("counts").to_numpy().sum()
+    check(n_ex <= 5000 and total == N_AGG,
+          f"Aggregator: {n_ex} exemplars, counts sum {total}")
+    t = model.timing
+    say(f"phase26c Aggregator on {N_AGG} x {P_HIGGS} HIGGS rows: "
+        f"{model.output['sweeps']} sweeps, final radius "
+        f"{model.output['radius']:.6f}, {n_ex} exemplars (in [2500, 5000]: "
+        f"{2500 <= n_ex <= 5000}), counts sum {int(total)}, {secs:.3f} s "
+        f"(refit {t_re:.3f} s, bit-equal), peak {peak / 2**30:.3f} GiB; "
+        f"the batches' distances and argmin on the card {t['device']:.3f} s, "
+        f"the greedy loop on the host {t['host']:.3f} s "
+        f"({t['host'] / max(t['host'] + t['device'], 1e-12):.1%} of the "
+        "two)")
+    acols, adomains = agg_columns(N_AGG_HEAD)
+    frs = head_frames(acols, adomains, N_AGG_HEAD, dev)
+    ms = [h2o.AggregatorEstimator(target_num_exemplars=300).train(f)
+          for f in frs]
+    same = np.array_equal(ms[0].exemplar_assignment,
+                          ms[1].exemplar_assignment)
+    if same:
+        what = "exemplars, counts and assignment EXACT"
+    else:
+        flips = int((ms[0].exemplar_assignment
+                     != ms[1].exemplar_assignment).sum())
+        what = f"{flips} rows assigned apart (a distance at the radius)"
+        for m in ms:
+            check(m.aggregated_frame.col("counts").to_numpy().sum()
+                  == N_AGG_HEAD and m.output["num_exemplars"] <= 300,
+                  "Aggregator head: counts or exemplar count")
+    say(f"phase26c Aggregator on {N_AGG_HEAD} rows of the tests' data, card "
+        f"vs CPU plain: {ms[0].output['num_exemplars']} and "
+        f"{ms[1].output['num_exemplars']} exemplars, {what}")
+    return counts
+
+
+def zipf_corpus(n_tokens: int, n_types: int, sent: int, seed: int = 8):
+    """A Zipf(1.0) corpus over ``n_types`` words in sentences of ``sent``
+    words, NA between sentences; W2V_TOPIC_FRAC of the sentences draw
+    only from one of two planted 8-word topics. Returns (columns,
+    domains, topics)."""
+    r = np.random.RandomState(seed)
+    n_sent = n_tokens // sent
+    p = 1.0 / np.arange(1, n_types + 1)
+    words = r.choice(n_types, (n_sent, sent), p=p / p.sum())
+    topic = r.rand(n_sent) < W2V_TOPIC_FRAC
+    which = r.randint(0, 2, n_sent)
+    words[topic] = n_types + 8 * which[topic, None] + r.randint(
+        0, 8, (int(topic.sum()), sent))
+    codes = np.concatenate([words, np.full((n_sent, 1), -1)], 1).ravel()
+    names = [f"w{i}" for i in range(n_types)] + \
+        [f"t{k}_{j}" for k in range(2) for j in range(8)]
+    topics = [[f"t{k}_{j}" for j in range(8)] for k in range(2)]
+    return ({"words": codes.astype(np.int32)}, {"words": names}, topics)
+
+
+def topic_columns(n_sent: int = 400, seed: int = 0):
+    """tests/test_torch_word2vec.py's two-topic corpus (the reference
+    test's): six words of one topic a sentence. Returns (columns,
+    domains)."""
+    r = np.random.RandomState(seed)
+    words = []
+    for _ in range(n_sent):
+        words += list(r.choice(W2V_TOPICS[r.randint(2)], 6)) + [None]
+    names = sorted(W2V_TOPICS[0] + W2V_TOPICS[1])
+    codes = [names.index(w) if w else -1 for w in words]
+    return {"words": np.asarray(codes, np.int32)}, {"words": names}
+
+
+def w2v_step_timing(torch, dev, fr, batch: int) -> dict:
+    """``word2vec._sgd_step``'s time at ``batch`` pairs on the card, on
+    the fit's corpus and tree (W_in from the seed)."""
+    from h2o3_tpu_torch.frame.frame import raw_columns
+    from h2o3_tpu_torch.models import word2vec as w2v
+    p = dict(w2v.Word2VecEstimator.DEFAULTS, **W2V)
+    words = raw_columns(fr, ["words"])["words"]
+    vocab, vcount, cen, ctx = w2v.corpus(
+        words, p, np.random.RandomState(p["seed"]))
+    P, C, M = w2v._build_huffman(vcount)
+    W_in = w2v.draw_init_W_in(len(vocab), p["vec_size"], p["seed"]).to(dev)
+    W_out = torch.zeros((len(vocab) - 1, p["vec_size"]), device=dev)
+    t = lambda a, dt: torch.from_numpy(np.asarray(a)).to(dev, dt)  # noqa
+    c = t(cen[:batch], torch.int64)
+    k = t(ctx[:batch], torch.int64)
+    pts, cds, msk = (t(P, torch.int64)[k], t(C, torch.float32)[k],
+                     t(M, torch.bool)[k])
+    return time_ms(torch, lambda: w2v._sgd_step(W_in, W_out, c, pts, cds,
+                                                msk, 0.025))
+
+
+def phase_word2vec(torch, dev):
+    """Phase 26(d): Word2Vec at its defaults (one epoch) on a Zipf corpus
+    of W2V_TOKENS tokens with two planted topics; a step timed at batch
+    64 and 4096; the two-topic corpus of the tests card vs CPU plain.
+    Returns the path's launches."""
+    import h2o3_tpu_torch as h2o
+    cols, domains, topics = zipf_corpus(W2V_TOKENS, W2V_TYPES, W2V_SENT)
+    fr = h2o.Frame.from_numpy(cols, domains=domains, device=dev)
+    build = lambda: h2o.Word2VecEstimator(**W2V)  # noqa: E731
+    model, secs, counts, peak = timed_fit(torch, lambda: build().train(fr))
+    check_launches(counts, {}, "Word2Vec")
+    t_re = refit_check(torch, build, model, lambda e: e.train(fr),
+                       "Word2Vec", fields=("vectors",))
+    held = []
+    for topic in topics:
+        for w in topic:
+            syn = model.find_synonyms(w, count=3)
+            held.append(sum(s in topic for s in syn))
+    check(min(held) >= 2, f"Word2Vec planted topics: own-topic synonyms "
+                          f"{held}")
+    out = model.output
+    steps = {b: w2v_step_timing(torch, dev, fr, b) for b in (64, 4096)}
+    say(f"phase26d Word2Vec on a Zipf(1.0) corpus of {W2V_TOKENS} tokens "
+        f"over {W2V_TYPES} types: vocabulary {out['vocab_size']}, "
+        f"{out['pairs']} pairs, {out['steps']} steps at batch "
+        f"{model.params['batch_size']} in {secs:.3f} s "
+        f"({out['steps'] / secs:.1f} steps/s; refit {t_re:.3f} s, "
+        f"bit-equal), epoch loss {out['epoch_loss'][-1]:.6f}, peak "
+        f"{peak / 2**30:.3f} GiB; planted words' own-topic synonyms in "
+        f"the top 3: {held}; a step at batch "
+        + ", at batch ".join(
+            f"{b}: {spread(t)} on the card, host-paced "
+            f"{t['host_paced_ms']:.4g} ms" for b, t in steps.items()))
+    tcols, tdomains = topic_columns()
+    frs = [h2o.Frame.from_numpy(tcols, domains=tdomains, device=d)
+           for d in (dev, "cpu")]
+    ms = [h2o.Word2VecEstimator(**W2V_TOPIC).train(f) for f in frs]
+    gap = rel_gap(ms[0].vectors, ms[1].vectors,
+                  floor=float(np.abs(ms[1].vectors).max()))
+    own = [[sum(s in t for s in m.find_synonyms(w, 3))
+            for t in W2V_TOPICS for w in t] for m in ms]
+    check(gap <= W2V_REL and min(own[0]) >= 2 and min(own[1]) >= 2,
+          f"Word2Vec head: vectors {gap}, own-topic synonyms {own}")
+    say(f"phase26d Word2Vec on the tests' two-topic corpus "
+        f"({ms[0].output['steps']} steps), card vs CPU plain: vectors "
+        f"{gap:.3g} of the largest (<= {W2V_REL}); own-topic words in each "
+        f"word's top 3: card {own[0]}, CPU {own[1]}")
+    return counts
+
+
+def phase_quantiles(torch, dev, higgs, cols, domains):
+    """Phase 26(e): the device quantiles of HIGGS x0 (N_HIGGS rows)
+    against ``np.quantile``, ``frame_quantiles`` of phase 4's N_MAIN
+    airlines rows, a Q_HEAD-row head card vs CPU plain EXACT. Returns
+    the path's launches."""
+    import h2o3_tpu_torch as h2o
+    from h2o3_tpu_torch.frame.quantiles import (column_quantiles,
+                                                frame_quantiles)
+    col = higgs[3].col("x0")
+    q, secs, counts, _ = timed_fit(
+        torch, lambda: column_quantiles(col, Q_PROBS))
+    check_launches(counts, {}, "quantiles")
+    want = np.quantile(col.host_view(), Q_PROBS)
+    gap = float(np.abs(q - want).max())
+    check(gap <= Q_GAP, f"quantiles of x0: {gap} from np.quantile")
+    fr = h2o.Frame.from_numpy(cols, domains=domains, device=dev)
+    tab, secs_f, c, _ = timed_fit(torch, lambda: frame_quantiles(fr))
+    counts = {k: counts[k] + c[k] for k in counts}
+    check_launches(counts, {}, "quantiles")
+    head = {"x0": higgs[0]["x0"][:Q_HEAD]}
+    qs = [column_quantiles(h2o.Frame.from_numpy(head, device=d).col("x0"),
+                           Q_PROBS) for d in (dev, "cpu")]
+    check(np.array_equal(*qs), f"quantiles head card vs CPU: {qs}")
+    say(f"phase26e quantiles of HIGGS x0 ({N_HIGGS} rows, the device path): "
+        f"{secs:.3f} s, {gap:.3g} from np.quantile of the float64 view; "
+        f"frame_quantiles of {N_MAIN} airlines rows ({len(tab) - 1} "
+        f"numeric columns) {secs_f:.3f} s; a {Q_HEAD}-row head card vs CPU "
+        "plain EXACT")
+    return counts
+
+
+def phase_sort(torch, dev, cols, domains):
+    """Phase 26(f): ``device_sort`` of phase 4's N_MAIN airlines rows by
+    (UniqueCarrier, DepTime descending) against ``np.lexsort``, and a
+    dimension-table join of JOIN_LEFT left keys against JOIN_RIGHT
+    distinct right keys against a numpy join. Returns the path's
+    launches."""
+    import h2o3_tpu_torch as h2o
+    from h2o3_tpu_torch.ops.sort import device_join_index, device_sort
+    scols = dict(cols, rid=np.arange(N_MAIN, dtype=np.int32))
+    fr = h2o.Frame.from_numpy(scols, domains=domains, device=dev)
+    out, secs, counts, _ = timed_fit(torch, lambda: device_sort(
+        fr, ["UniqueCarrier", "DepTime"], [True, False]))
+    check_launches(counts, {}, "sort")
+    want = np.lexsort((-cols["DepTime"], cols["UniqueCarrier"]))
+    check(np.array_equal(out.col("rid").to_numpy(), want),
+          "device_sort permutation vs np.lexsort")
+    r = np.random.RandomState(31)
+    lk = r.randint(0, JOIN_KEYS, JOIN_LEFT).astype(np.float32)
+    rk = r.permutation(JOIN_KEYS)[:JOIN_RIGHT].astype(np.float32)
+    lt, rt = (torch.from_numpy(a).to(dev) for a in (lk, rk))
+    (li, ri), secs_j, c, _ = timed_fit(torch, lambda: device_join_index(
+        lt, rt, JOIN_LEFT, JOIN_RIGHT))
+    counts = {k: counts[k] + c[k] for k in counts}
+    check_launches(counts, {}, "sort")
+    pos = np.full(JOIN_KEYS, -1)
+    pos[rk.astype(np.int64)] = np.arange(JOIN_RIGHT)
+    hit = pos[lk.astype(np.int64)]
+    check(np.array_equal(li, np.flatnonzero(hit >= 0))
+          and np.array_equal(ri, hit[hit >= 0]), "join pairs vs numpy")
+    say(f"phase26f device_sort of {N_MAIN} airlines rows by (UniqueCarrier, "
+        f"DepTime descending): {secs:.3f} s, the permutation np.lexsort's "
+        f"EXACTLY; device_join_index of {JOIN_LEFT} keys in [0, {JOIN_KEYS}) "
+        f"against {JOIN_RIGHT} distinct keys: {len(li)} pairs in "
+        f"{secs_j:.3f} s, the numpy join's EXACTLY")
+    return counts
+
+
+def phase_models26(torch, dev, cols, domains, ccols, cdomains, higgs):
+    """Phase 26: CoxPH, PSVM, the Aggregator, Word2Vec, the device
+    quantiles and the sort (no kernel). Returns the launches of their
+    six paths (every kernel 0 on each)."""
+    t0 = time.perf_counter()
+    paths = {"coxph": phase_coxph(torch, dev)}
+    secs = {"a": time.perf_counter() - t0}
+    paths["psvm"] = phase_psvm(torch, dev, ccols, cdomains)
+    secs["b"] = time.perf_counter() - t0 - sum(secs.values())
+    paths["aggregator"] = phase_aggregator(torch, dev, higgs)
+    secs["c"] = time.perf_counter() - t0 - sum(secs.values())
+    paths["word2vec"] = phase_word2vec(torch, dev)
+    secs["d"] = time.perf_counter() - t0 - sum(secs.values())
+    paths["quantiles"] = phase_quantiles(torch, dev, higgs, cols, domains)
+    secs["e"] = time.perf_counter() - t0 - sum(secs.values())
+    paths["sort"] = phase_sort(torch, dev, cols, domains)
+    secs["f"] = time.perf_counter() - t0 - sum(secs.values())
+    for p, c in paths.items():
+        check(not any(c.values()), f"{p}: a kernel launched")
+    say("phase26: " + ", ".join(f"({k}) {v:.3f} s" for k, v in secs.items())
+        + f", together {sum(secs.values()):.3f} s; every kernel 0 launches "
+        f"on {', '.join(paths)}")
+    return paths
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -5466,12 +6010,16 @@ def main() -> int:
     paths.update(phase_unsupervised(torch, dev, cols, domains, ccols,
                                     cdomains, higgs))
     say(f"phase 24: {time.perf_counter() - t24:.3f} s")
-    del ccols
     mark("phase 25")
     t25 = time.perf_counter()
     paths.update(phase_glm_wrappers(torch, dev, cols, domains, higgs))
     say(f"phase 25: {time.perf_counter() - t25:.3f} s")
-    del higgs
+    mark("phase 26")
+    t26 = time.perf_counter()
+    paths.update(phase_models26(torch, dev, cols, domains, ccols, cdomains,
+                                higgs))
+    say(f"phase 26: {time.perf_counter() - t26:.3f} s")
+    del higgs, ccols
     for rec in records:
         rec["max_abs_err"] = worst[rec["name"]]
         rec["launches_by_path"] = {p: c[rec["name"]]

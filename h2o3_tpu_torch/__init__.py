@@ -41,6 +41,15 @@ JAX. Its TPU kernels are hand-written CUDA kernels under
                                                   x=["DepTime"])
     ig = h2o.InfogramEstimator().train(fr, y="label")
     ig.admissible_features
+    cox = h2o.CoxPHEstimator(stop_column="t", start_column="t0",
+                             stratify_by=["site"]).train(fr, y="event")
+    sv = h2o.PSVMEstimator(hyper_param=1.0).train(fr, y="label")
+    ag = h2o.AggregatorEstimator(target_num_exemplars=5000).train(fr)
+    ag.aggregated_frame
+    w2v = h2o.Word2VecEstimator(vec_size=100).train(words_fr)
+    w2v.find_synonyms("king"); w2v.transform(words_fr, "AVERAGE")
+    from h2o3_tpu_torch.frame.quantiles import frame_quantiles
+    from h2o3_tpu_torch.ops.sort import device_sort, device_join_index
     h2o.models.get_builder("gbm")         # the algorithm registry
 
 Entry points default to ``torch.device("cuda")`` and raise when no card
@@ -49,6 +58,8 @@ is present; pass ``device="cpu"`` to run the plain versions on the CPU.
 
 from h2o3_tpu_torch.frame.frame import Frame
 from h2o3_tpu_torch.io.parser import import_file
+from h2o3_tpu_torch.models.aggregator import AggregatorEstimator
+from h2o3_tpu_torch.models.coxph import CoxPHEstimator
 from h2o3_tpu_torch.models.deeplearning import DeepLearningEstimator
 from h2o3_tpu_torch.models.drf import DRFEstimator
 from h2o3_tpu_torch.models.extisofor import ExtendedIsolationForestEstimator
@@ -64,17 +75,19 @@ from h2o3_tpu_torch.models.model_selection import (ANOVAGLMEstimator,
                                                    ModelSelectionEstimator)
 from h2o3_tpu_torch.models.naivebayes import NaiveBayesEstimator
 from h2o3_tpu_torch.models.pca import PCAEstimator, SVDEstimator
+from h2o3_tpu_torch.models.psvm import PSVMEstimator
 from h2o3_tpu_torch.models.rulefit import RuleFitEstimator
 from h2o3_tpu_torch.models.targetencoder import TargetEncoderEstimator
 from h2o3_tpu_torch.models.uplift import UpliftDRFEstimator
+from h2o3_tpu_torch.models.word2vec import Word2VecEstimator
 from h2o3_tpu_torch.models.xgboost import XGBoostEstimator
 
-__all__ = ["Frame", "import_file", "ANOVAGLMEstimator",
-           "DeepLearningEstimator", "DRFEstimator",
+__all__ = ["Frame", "import_file", "AggregatorEstimator",
+           "ANOVAGLMEstimator", "CoxPHEstimator", "DeepLearningEstimator", "DRFEstimator",
            "ExtendedIsolationForestEstimator", "GAMEstimator", "GBMEstimator",
            "GLMEstimator", "GLRMEstimator", "InfogramEstimator",
            "IsolationForestEstimator", "IsotonicRegressionEstimator",
            "KMeansEstimator", "ModelSelectionEstimator",
-           "NaiveBayesEstimator", "PCAEstimator", "RuleFitEstimator",
-           "SVDEstimator", "TargetEncoderEstimator", "UpliftDRFEstimator",
-           "XGBoostEstimator"]
+           "NaiveBayesEstimator", "PCAEstimator", "PSVMEstimator",
+           "RuleFitEstimator", "SVDEstimator", "TargetEncoderEstimator",
+           "UpliftDRFEstimator", "Word2VecEstimator", "XGBoostEstimator"]

@@ -222,6 +222,26 @@ class Frame:
                 f"{self._order[:8]}>")
 
 
+def raw_columns(frame: Frame, names: Sequence[str]) -> Dict[str, np.ndarray]:
+    """Host columns of ``names``: a categorical's level strings as an
+    object array (None at NA), any other column's ``to_numpy()``.
+
+    Reference: h2o3_tpu/models/generic.py ``_frame_raw_columns``."""
+    out = {}
+    for n in names:
+        c = frame.col(n)
+        if c.is_categorical:
+            codes = c.host_view()                # float codes, NaN at NA
+            dom = np.asarray(c.domain or [], dtype=object)
+            ok = ~np.isnan(codes) & (codes >= 0) & (codes < len(dom))
+            vals = np.empty(c.nrows, dtype=object)
+            vals[ok] = dom[codes[ok].astype(np.int64)]
+            out[n] = vals
+        else:
+            out[n] = c.to_numpy()
+    return out
+
+
 def _no_key(key: Optional[str]) -> None:
     if key is not None:
         raise NotImplementedError(

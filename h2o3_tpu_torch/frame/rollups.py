@@ -5,9 +5,10 @@ Reference: h2o3_tpu/frame/rollups.py ``_rollup_kernel``
 rows over a float32 count of them (padding counts as NA) and whose sigma
 is the sample deviation sqrt(ss / max(n - 1, 1)), ss the float32 sum of
 squared deviations from that mean over the valid rows. The port keeps its
-own copy of the two statistics it uses: Extended Isolation Forest imputes
-NAs with the mean, and GLM's design (``frame/datainfo.py``) imputes and
-standardizes with both. One pass of torch reductions on the column's
+own copy of the statistics it uses: Extended Isolation Forest imputes
+NAs with the mean, GLM's design (``frame/datainfo.py``) imputes and
+standardizes with mean and sigma, and the device sort (``ops/sort.py``)
+reads a key's range. One pass of torch reductions on the column's
 device and one fetch.
 """
 
@@ -42,3 +43,14 @@ def rollup_mean_sigma(col: Column) -> Tuple[float, float]:
     sigma = torch.sqrt(ss / torch.clamp_min(n - 1.0, 1.0))
     m, s = torch.stack([mean, sigma]).tolist()
     return m, s
+
+
+def rollup_min_max(col: Column) -> Tuple[float, float]:
+    """(min, max) of the column's valid rows, exact for any stored type
+    ((inf, -inf) without a valid row)."""
+    valid = ~col.na_mask
+    x = col.data.to(torch.float64)
+    lo = torch.where(valid, x, torch.inf).min()
+    hi = torch.where(valid, x, -torch.inf).max()
+    m, M = torch.stack([lo, hi]).tolist()
+    return m, M

@@ -14,16 +14,15 @@ from functools import lru_cache
 from typing import Dict
 
 # the reference's algorithms the port has not ported yet, by ROADMAP item
-UNPORTED = {
-    "coxph": "A #14(e)", "psvm": "A #14(e)", "aggregator": "A #14(e)",
-    "word2vec": "A #14(e)", "generic": "A #10",
-}
+UNPORTED = {"generic": "A #10"}
 
 
 @lru_cache(maxsize=None)
 def _registry() -> Dict[str, type]:
     """The port's estimators by algo name, imported at the first lookup
     (the estimator modules import this package)."""
+    from h2o3_tpu_torch.models.aggregator import AggregatorEstimator
+    from h2o3_tpu_torch.models.coxph import CoxPHEstimator
     from h2o3_tpu_torch.models.deeplearning import DeepLearningEstimator
     from h2o3_tpu_torch.models.drf import DRFEstimator
     from h2o3_tpu_torch.models.extisofor import \
@@ -40,18 +39,22 @@ def _registry() -> Dict[str, type]:
         ANOVAGLMEstimator, ModelSelectionEstimator)
     from h2o3_tpu_torch.models.naivebayes import NaiveBayesEstimator
     from h2o3_tpu_torch.models.pca import PCAEstimator, SVDEstimator
+    from h2o3_tpu_torch.models.psvm import PSVMEstimator
     from h2o3_tpu_torch.models.rulefit import RuleFitEstimator
     from h2o3_tpu_torch.models.targetencoder import TargetEncoderEstimator
     from h2o3_tpu_torch.models.uplift import UpliftDRFEstimator
+    from h2o3_tpu_torch.models.word2vec import Word2VecEstimator
     from h2o3_tpu_torch.models.xgboost import XGBoostEstimator
     return {cls.algo: cls for cls in (
-        ANOVAGLMEstimator, DeepLearningEstimator, DRFEstimator,
+        AggregatorEstimator, ANOVAGLMEstimator, CoxPHEstimator,
+        DeepLearningEstimator, DRFEstimator,
         ExtendedIsolationForestEstimator, GAMEstimator, GBMEstimator,
         GLMEstimator, GLRMEstimator, InfogramEstimator,
         IsolationForestEstimator, IsotonicRegressionEstimator,
         KMeansEstimator, ModelSelectionEstimator, NaiveBayesEstimator,
-        PCAEstimator, RuleFitEstimator, SVDEstimator,
-        TargetEncoderEstimator, UpliftDRFEstimator, XGBoostEstimator)}
+        PCAEstimator, PSVMEstimator, RuleFitEstimator, SVDEstimator,
+        TargetEncoderEstimator, UpliftDRFEstimator, Word2VecEstimator,
+        XGBoostEstimator)}
 
 
 def get_builder(algo: str):

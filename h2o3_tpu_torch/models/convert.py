@@ -25,7 +25,10 @@ or their statistics and encoding maps. ``gam_model_from_arrays``,
 carry the GLM wrappers and Isotonic Regression across: a GAM's
 coefficients with its knots and centering means, RuleFit's tree models,
 GLM, rules and winsor bounds, the wrappers' GLMs, Isotonic's thresholds.
-Nothing here imports the reference package: the caller hands over
+``coxph_model_from_arrays``, ``psvm_model_from_arrays`` and
+``word2vec_model_from_arrays`` carry CoxPH's coefficients, PSVM's
+feature map and weights, and Word2Vec's vectors across (an Aggregator
+scores nothing and carries nothing across). Nothing here imports the reference package: the caller hands over
 numpy.
 """
 
@@ -38,6 +41,7 @@ import torch
 
 from h2o3_tpu_torch.frame.binning import BinnedMatrix
 from h2o3_tpu_torch.ml.calibration import Calibrator
+from h2o3_tpu_torch.models.coxph import CoxPHModel
 from h2o3_tpu_torch.models.deeplearning import DeepLearningModel
 from h2o3_tpu_torch.models.drf import DRFModel
 from h2o3_tpu_torch.models.extisofor import (ExtendedIsolationForestModel,
@@ -53,10 +57,12 @@ from h2o3_tpu_torch.models.model_selection import (ANOVAGLMModel,
                                                    ModelSelectionModel)
 from h2o3_tpu_torch.models.naivebayes import NaiveBayesModel
 from h2o3_tpu_torch.models.pca import PCAModel, SVDModel
+from h2o3_tpu_torch.models.psvm import PSVMModel
 from h2o3_tpu_torch.models.rulefit import RuleFitModel
 from h2o3_tpu_torch.models.targetencoder import TargetEncoderModel
 from h2o3_tpu_torch.models.tree import Tree
 from h2o3_tpu_torch.models.uplift import UpliftDRFModel
+from h2o3_tpu_torch.models.word2vec import Word2VecModel
 from h2o3_tpu_torch.parallel.device import DeviceLike, resolve_device
 
 Arrays = Dict[str, Union[np.ndarray, List]]
@@ -401,3 +407,31 @@ def isotonic_model_from_arrays(d: Arrays) -> IsotonicRegressionModel:
         dict(d.get("params") or {}), dict(d["output"]),
         np.asarray(d["thresholds_x"], np.float32),
         np.asarray(d["thresholds_y"], np.float64))
+
+
+def coxph_model_from_arrays(d: Arrays) -> CoxPHModel:
+    """Port ``CoxPHModel``: ``coef`` [P] (the design's coefficients),
+    ``di_stats``, ``features``, ``output`` (the reference's, with
+    ``eta_mean`` and ``response``) and ``params`` (``stop_column``)."""
+    return CoxPHModel(dict(d.get("params") or {}), dict(d["output"]),
+                      np.asarray(d["coef"], np.float64),
+                      _di_stats(d["di_stats"]), list(d["features"]))
+
+
+def psvm_model_from_arrays(d: Arrays) -> PSVMModel:
+    """Port ``PSVMModel``: ``w_b`` [r+1], ``pivot_rows`` [r, P] (the
+    standardized design's rows), ``Linv_t`` [r, r], ``gamma``,
+    ``di_stats``, ``features``, ``output`` and ``params``."""
+    return PSVMModel(dict(d.get("params") or {}), dict(d["output"]),
+                     np.asarray(d["w_b"], np.float32),
+                     np.asarray(d["pivot_rows"], np.float32),
+                     np.asarray(d["Linv_t"], np.float32), float(d["gamma"]),
+                     _di_stats(d["di_stats"]), list(d["features"]))
+
+
+def word2vec_model_from_arrays(d: Arrays) -> Word2VecModel:
+    """Port ``Word2VecModel``: ``vectors`` [V, D], ``vocab``, ``output``
+    and ``params``."""
+    return Word2VecModel(dict(d.get("params") or {}), dict(d["output"]),
+                         np.asarray(d["vectors"], np.float32),
+                         [str(w) for w in d["vocab"]])

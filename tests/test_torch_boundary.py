@@ -64,6 +64,12 @@ SLICE_MODULES = (
     "h2o3_tpu_torch/models/model_selection.py",
     "h2o3_tpu_torch/models/isotonic.py",
     "h2o3_tpu_torch/models/infogram.py",
+    "h2o3_tpu_torch/models/coxph.py",
+    "h2o3_tpu_torch/models/psvm.py",
+    "h2o3_tpu_torch/models/aggregator.py",
+    "h2o3_tpu_torch/models/word2vec.py",
+    "h2o3_tpu_torch/frame/quantiles.py",
+    "h2o3_tpu_torch/ops/sort.py",
 )
 # sources the port compiles: its kernels and its tokenizer
 NATIVE_FILES = sorted(str(p.relative_to(ROOT)) for p in PKG.rglob("*")
@@ -275,3 +281,35 @@ def test_glm_wrapper_entry_points_default_to_cuda(monkeypatch, algo, kw, y,
         assert m.get_admissible_score_frame().device.type == "cpu"
     else:
         assert m.predict(fr).device.type == "cpu"
+
+
+@pytest.mark.parametrize("algo", ["coxph", "psvm", "aggregator",
+                                  "word2vec"])
+def test_survival_svm_aggregator_word2vec_entry_points_default_to_cuda(
+        monkeypatch, algo):
+    """CoxPH, PSVM, the Aggregator and Word2Vec start from a frame:
+    without a ``device=`` it resolves to CUDA and raises without a card;
+    a CPU frame's fit and what it returns (predictions, the aggregated
+    frame, the embeddings) stay on the CPU."""
+    import h2o3_tpu_torch as h2o
+    r = np.random.RandomState(0)
+    if algo == "word2vec":
+        words = np.array(["a", "b", "c", None] * 40, object)
+        cols, kw, y = {"w": words}, dict(vec_size=4, min_word_freq=1), None
+    else:
+        cols = {"x": r.randn(64), "t": np.ceil(r.exponential(9, 64)),
+                "e": (r.rand(64) < 0.7) * 1.0,
+                "y": np.array(["n", "p"], object)[(r.rand(64) < 0.5) * 1]}
+        kw, y = {"coxph": (dict(stop_column="t"), "e"),
+                 "psvm": ({}, "y"),
+                 "aggregator": (dict(target_num_exemplars=10), None)}[algo]
+    est = h2o.models.get_builder(algo)(**kw)
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        est.train(h2o.Frame.from_numpy(cols), y=y)
+    fr = h2o.Frame.from_numpy(cols, device="cpu")
+    m = est.train(fr, y=y)
+    out = {"aggregator": lambda: m.aggregated_frame,
+           "word2vec": lambda: m.transform(fr, "AVERAGE")}.get(
+        algo, lambda: m.predict(fr))()
+    assert out.device.type == "cpu"

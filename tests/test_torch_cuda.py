@@ -1124,3 +1124,85 @@ def test_glm_wrappers_card_vs_cpu_and_refit_bit_equal(dev, case):
     print(held(*ms, frs, case))
     cs.refit_check(torch, build, ms[0], lambda e: e.train(frs[0], y=y, x=x),
                    case)
+
+
+def models26_case(case):
+    """(columns, domains, build, fit, held, fields) of a phase 26
+    case at a small size: ``held(card model, CPU model, frames)`` holds
+    the two at the CPU tests' tolerances."""
+    import h2o3_tpu_torch as h2o
+    if case == "coxph":
+        cols, domains, _ = cs.cox_columns(5_000)
+        return (cols, domains, lambda: h2o.CoxPHEstimator(**cs.COX),
+                lambda e, f: e.train(f, y="event"),
+                lambda a, b, frs: cs.cox_card_vs_cpu(a, b, case), ("coef",))
+    if case == "psvm":
+        cols, domains = cs.svm_columns(cs.N_PSVM_HEAD)
+        return (cols, domains, lambda: h2o.PSVMEstimator(),
+                lambda e, f: e.train(f, y="y"),
+                lambda a, b, frs: cs.psvm_card_vs_cpu(a, b, frs, case),
+                ("w_b", "pivot_rows", "Linv_t"))
+    if case == "aggregator":
+        cols, domains = cs.agg_columns(cs.N_AGG_HEAD)
+
+        def held(a, b, frs):
+            assert np.array_equal(a.exemplar_assignment,
+                                  b.exemplar_assignment)
+            return "assignment EXACT"
+        return (cols, domains,
+                lambda: h2o.AggregatorEstimator(target_num_exemplars=300),
+                lambda e, f: e.train(f), held, ("exemplar_assignment",))
+    cols, domains = cs.topic_columns()
+
+    def held(a, b, frs):
+        gap = cs.rel_gap(a.vectors, b.vectors,
+                         floor=float(np.abs(b.vectors).max()))
+        assert gap <= cs.W2V_REL
+        return f"vectors {gap:.3g} of the largest"
+    return (cols, domains, lambda: h2o.Word2VecEstimator(**cs.W2V_TOPIC),
+            lambda e, f: e.train(f), held, ("vectors",))
+
+
+@pytest.mark.parametrize("case", ["coxph", "psvm", "aggregator",
+                                  "word2vec"])
+def test_models26_card_vs_cpu_and_refit_bit_equal(dev, case):
+    """CoxPH, PSVM, the Aggregator and Word2Vec on the card against the
+    CPU plain fit at the tolerances of chip_smoke.py phase 26, a refit
+    bit-equal, no kernel launched."""
+    cols, domains, build, fit, held, fields = models26_case(case)
+    frs = cs.head_frames(cols, domains, len(next(iter(cols.values()))), dev)
+    kernels.reset_counts()
+    ms = [fit(build(), f) for f in frs]
+    assert not any(kernels.LAUNCHES.values())
+    print(held(*ms, frs))
+    cs.refit_check(torch, build, ms[0], lambda e: fit(e, frs[0]), case,
+                   fields=fields)
+
+
+def test_sort_join_and_quantiles_card_vs_cpu(dev):
+    """``device_sort``'s permutation, ``device_join_index``'s pairs and
+    the device-path quantiles on the card EXACTLY the CPU plain path's."""
+    import h2o3_tpu_torch as h2o
+    from h2o3_tpu_torch.frame import quantiles
+    from h2o3_tpu_torch.ops.sort import device_join_index, device_sort
+    cols, domains = cs.airlines_arrays(70_001)
+    cols["rid"] = np.arange(70_001, dtype=np.int32)
+    frs = cs.head_frames(cols, domains, 70_001, dev)
+    perms = [device_sort(f, ["UniqueCarrier", "DepTime"], [True, False])
+             .col("rid").to_numpy() for f in frs]
+    assert np.array_equal(*perms)
+    assert np.array_equal(perms[0], np.lexsort((-cols["DepTime"],
+                                                cols["UniqueCarrier"])))
+    r = np.random.RandomState(3)
+    lk = r.randint(0, 2000, 30_000).astype(np.float32)
+    rk = r.permutation(2000)[:1000].astype(np.float32)
+    pairs = [device_join_index(torch.from_numpy(lk).to(d),
+                               torch.from_numpy(rk).to(d), 30_000, 1000)
+             for d in (dev, "cpu")]
+    assert all(np.array_equal(a, b) for a, b in zip(*pairs))
+    x = frs[0].col("DepTime"), frs[1].col("DepTime")
+    ranks = np.arange(0, 70_001, 997, dtype=np.float64)
+    got = [quantiles._values_at_ranks(
+        torch.where(c.na_mask, 0.0, c.data), (~c.na_mask).float(), ranks,
+        0.0, 2399.0, 4) for c in x]
+    assert np.array_equal(*got)

@@ -7,7 +7,14 @@ than the reference's: within 1e-6 relative); the trees grow on the
 margins offset + f0 + the forest; ``predict`` and ``model_performance``
 add the scored frame's offset. On tie-free data the forests' integer
 fields are EXACTLY the reference's, predictions and metrics within 1e-6
-(absolute, or relative where a log link scales them)."""
+(absolute, or relative where a log link scales them).
+
+The reference's frames and fits of the parity test run on a one-device
+mesh (``_one_device``): on the suite's 8 virtual CPU devices the
+all-reduces of its fits can be in flight together, where XLA:CPU's
+rendezvous can abort the process (a crashed xdist worker). The early
+stopping test stays on the 8 devices: its seeds were chosen there, and
+on one device the reference's validation deviance moves by 1%."""
 
 import numpy as np
 import pytest
@@ -17,6 +24,7 @@ import h2o3_tpu_torch
 from h2o3_tpu.models.gbm import GBMEstimator as RefGBM
 
 from test_torch_gbm import _assert_forests, family_cols
+from test_torch_isofor import _one_device
 from torch_ranks import mixed_cols
 
 KW = dict(ntrees=4, max_depth=4, seed=11, sample_rate=1.0)
@@ -49,9 +57,16 @@ def test_offset_fit_matches_reference(family):
     make, extra, col, off_seed = CASES[family]
     cols, cats = make()
     cols = _with_offset(cols, off_seed, 0.3)
-    fr_r, fr_p = _frames(cols, cats)
     kw = dict(KW, offset_column="off", **extra)
-    m_r = RefGBM(**kw).train(fr_r, y="y")
+    test_cols = _with_offset(make()[0], 8, 0.5)
+    keys = ("AUC", "logloss", "MSE") if family == "bernoulli" else \
+        ("MSE", "mean_residual_deviance")
+    with _one_device():
+        fr_r, fr_p = _frames(cols, cats)
+        m_r = RefGBM(**kw).train(fr_r, y="y")
+        te_r, te_p = _frames(test_cols, cats)
+        pred_r = m_r.predict(te_r).col(col).to_numpy()
+        perf_r = m_r.model_performance(te_r)
     m_p = h2o3_tpu_torch.GBMEstimator(**kw).train(fr_p, y="y")
     assert "off" not in m_p.output["names"]
     assert float(m_p.f0) == pytest.approx(float(m_r.f0), rel=1e-6)
@@ -59,18 +74,13 @@ def test_offset_fit_matches_reference(family):
                                                  rel=1e-6)
     _assert_forests(m_r, m_p)
     # a fresh frame with its own offset
-    test_cols = _with_offset(make()[0], 8, 0.5)
-    te_r, te_p = _frames(test_cols, cats)
     np.testing.assert_allclose(m_p.predict(te_p).col(col).to_numpy(),
-                               m_r.predict(te_r).col(col).to_numpy(),
-                               rtol=1e-6, atol=1e-6)
-    keys = ("AUC", "logloss", "MSE") if family == "bernoulli" else \
-        ("MSE", "mean_residual_deviance")
+                               pred_r, rtol=1e-6, atol=1e-6)
     for k in keys:
         assert m_p.training_metrics[k] == pytest.approx(
             m_r.training_metrics[k], rel=1e-6, abs=1e-6), k
         assert m_p.model_performance(te_p)[k] == pytest.approx(
-            m_r.model_performance(te_r)[k], rel=1e-6, abs=1e-6), k
+            perf_r[k], rel=1e-6, abs=1e-6), k
 
 
 def test_offset_moves_the_margins():

@@ -18,16 +18,16 @@ def test_every_ported_name_finds_the_references_estimator():
         assert port.__module__.replace("h2o3_tpu_torch.", "") == \
             ref.__module__.replace("h2o3_tpu.", "")
     assert models.all_algos() == sorted(
-        ["anovaglm", "deeplearning", "drf", "extendedisolationforest",
-         "gam", "gbm", "glm", "glrm", "infogram", "isolationforest",
-         "isotonicregression", "kmeans", "modelselection", "naivebayes",
-         "pca", "rulefit", "svd", "targetencoder", "upliftdrf", "xgboost"])
+        ["aggregator", "anovaglm", "coxph", "deeplearning", "drf",
+         "extendedisolationforest", "gam", "gbm", "glm", "glrm",
+         "infogram", "isolationforest", "isotonicregression", "kmeans",
+         "modelselection", "naivebayes", "pca", "psvm", "rulefit", "svd",
+         "targetencoder", "upliftdrf", "word2vec", "xgboost"])
     assert not {"kmeans", "pca", "svd", "glrm", "naivebayes",
                 "targetencoder", "gam", "rulefit", "modelselection",
-                "anovaglm", "isotonicregression", "infogram"} & \
-        set(models.UNPORTED)
-    assert set(models.UNPORTED) == {"coxph", "psvm", "aggregator",
-                                    "word2vec", "generic"}
+                "anovaglm", "isotonicregression", "infogram", "coxph",
+                "psvm", "aggregator", "word2vec"} & set(models.UNPORTED)
+    assert set(models.UNPORTED) == {"generic"}
 
 
 @pytest.mark.parametrize("name", ["Deep_Learning", "DEEPLEARNING", "gbm",
@@ -37,7 +37,8 @@ def test_every_ported_name_finds_the_references_estimator():
                                   "Naive_Bayes", "Target_Encoder", "GAM",
                                   "Rule_Fit", "Model_Selection",
                                   "ANOVA_GLM", "Isotonic_Regression",
-                                  "InfoGram"])
+                                  "InfoGram", "CoxPH", "PSVM",
+                                  "Aggregator", "Word2Vec", "word_2_vec"])
 def test_names_normalize_as_in_the_reference(name):
     assert models.get_builder(name).algo == \
         ref_models.get_builder(name).algo
