@@ -12,6 +12,8 @@ Phases, in order; any failure exits non-zero and no phase carries on:
 2. Each level kernel against its plain version on the card, at the
    flagship width (F=10, B=126, int8 bins, 1M rows, levels d=0..5), one
    level at Lh=256 (depth bucket 10) and one int32-bin level at B=200.
+   Then a depth-20 tree's deep levels (``deep_levels``): d = 15 whole and
+   d = 19's histogram and routing, EXACT with dyadic stats.
    Small-integer ("dyadic") stats must match EXACTLY; real-valued stats
    within the stated tolerance, split flips only at near-ties; with
    real-valued stats ``tree_hist`` on the rows permuted (bins, nid and
@@ -22,7 +24,7 @@ Phases, in order; any failure exits non-zero and no phase carries on:
    ntrees=10, max_depth=6, seed=1).train`` and ``predict``, with every
    launch count = 10 trees x 6 levels; training metrics, throughput and
    peak memory; the output checked against the CPU plain path on a small
-   sample; then the binning pass alone and one more fit under
+   sample; then the binning pass alone and a 1-tree fit under
    torch.profiler (where the time goes).
 5. Kernel timings at the main path's shapes (5M rows, d=0..5) with CUDA
    events (``time_ms``: device time with L2 flushed, host-paced time and
@@ -47,8 +49,8 @@ Phases, in order; any failure exits non-zero and no phase carries on:
    schema, ``UpliftDRFEstimator(ntrees=10, max_depth=10, ...).train``,
    ``_score_raw`` and ``model_performance``; ``histogram`` launched
    2 x 10 x 10 times and no level kernel; where the time goes (binning
-   alone, the training metrics alone, a 2-tree fit under torch.profiler);
-   AUUC and Qini checked against the CPU plain path on a 50K-row sample.
+   alone, the training metrics alone, a 1-tree fit under torch.profiler);
+   AUUC and Qini checked against the CPU plain path on a 20K-row sample.
 9. ``histogram`` timed at the uplift path's shapes (d=0..9), as phase 5.
 10. The sharded tree level over W = 2 ranks (spawned processes, one
     rank each, joined by ``core.cloud.init``: gloo with both ranks on one
@@ -75,11 +77,11 @@ Phases, in order; any failure exits non-zero and no phase carries on:
     a seed): ``GBMEstimator(ntrees=10, max_depth=6, seed=1).train`` →
     ``predict`` → ``model_performance``, each level kernel launched
     10 x 7 x 6 = 420 times; a refit bit-equal (forest, training logloss
-    and AUC); the 50K-row fit within 5e-3 of the CPU plain
+    and AUC); the 20K-row fit within 5e-3 of the CPU plain
     fit in logloss and weighted-OVR AUC; then the level kernels timed at
     its shapes (F = 54), as phase 5.
 14. Multinomial DRF on phase 13's frame (as phase 6): 10 x 7 x 10 = 700
-    launches a level kernel, OOB logloss and AUC; the 50K-row forest
+    launches a level kernel, OOB logloss and AUC; the 20K-row forest
     without bagging (sample_rate=1, mtries=54) EXACTLY the CPU plain
     forest.
 15. One GBM for each new family (poisson, gamma, tweedie(1.5), laplace,
@@ -88,7 +90,7 @@ Phases, in order; any failure exits non-zero and no phase carries on:
     kernel a fit; the poisson GBM's refit bit-equal (forest, deviance);
     the level kernels held on the log-link families'
     exp-scaled hessians as phase 2 holds real-valued stats; on the
-    50K-row sample the laplace and quantile(0.5) forests (statistics in
+    20K-row sample the laplace and quantile(0.5) forests (statistics in
     halves and ones) EXACTLY the CPU plain forests, the others' mean
     residual deviance within 5e-3 relative.
 16. The flagship GBM with early stopping (``ntrees=50,
@@ -99,9 +101,9 @@ Phases, in order; any failure exits non-zero and no phase carries on:
     (DepTime up, Distance down) and interaction constraints: 60 launches
     a level kernel, p1 monotone on 200-point grids, no tree path mixing
     two interaction sets, one constrained ``grow_tree`` on dyadic stats
-    through the kernels equal to the plain versions', the 50K-row fit
+    through the kernels equal to the plain versions', the 20K-row fit
     within 5e-3 AUC of the CPU's; (b) an offset column 0.002 *
-    (DepTime - 1200): 60 launches, the 50K-row f0 within 1e-6 relative of
+    (DepTime - 1200): 60 launches, the 20K-row f0 within 1e-6 relative of
     the CPU's and predict's AUC within 5e-3; (c) checkpoint restarts
     5 -> 10 trees: GBM keeps the donor's trees (how it compares with
     phase 4's forest is printed), DRF bit-equal to phase 6's forest and
@@ -129,7 +131,7 @@ Phases, in order; any failure exits non-zero and no phase carries on:
     ``reg_lambda`` and ``gamma`` set (AUC); DRF at phase 6's settings with
     ``histogram_type`` UniformAdaptive and Random: edges, nbins and bins
     EXACT against the CPU plain binning, 100 launches a level kernel, OOB
-    AUC, the 50K-row unbagged forest (mtries = F) EXACTLY the CPU plain
+    AUC, the 20K-row unbagged forest (mtries = F) EXACTLY the CPU plain
     forest.
 20. The isolation forests on phase 4's rows with 5,000 anomalies planted
     from a seed: one isolation tree (depth 8, a 256-row bag) grown from
@@ -175,12 +177,14 @@ Phases, in order; any failure exits non-zero and no phase carries on:
     CPU plain path's; L-BFGS beside it, its coefficients, probabilities
     and training logloss held against the CPU plain fit's on a 20K-row
     head, beside the same fit with the head's rows permuted on the CPU
-    and on the card (the witness of float32 order). (d) On 100K airlines
-    rows: ``non_negative`` and ``beta_constraints`` (COD), p-values
+    and on the card (the witness of float32 order). (d) On 10K airlines
+    rows (cut from 100K when phase 27 came: the solvers are host-paced,
+    a fit takes as long on the head): ``non_negative`` and
+    ``beta_constraints`` (COD), p-values
     (gaussian, binomial), an ordinal fit, multinomial IRLSM on a 3-class
     response with a ridge (Cholesky) and with L1 (ADMM), interactions
     (DepTime x Distance, UniqueCarrier x Month), 3-fold CV with lambda
-    search (10 lambdas), each against the CPU plain fit on a 10K-row head
+    search (10 lambdas), each against the CPU plain fit on the same rows
     (the multinomial fits' probabilities too); one COD and one ADMM IRLS
     iteration timed at P = 263.
 23. DeepLearning (no kernel: cuBLAS products with TF32 off, bf16 GEMMs
@@ -192,13 +196,16 @@ Phases, in order; any failure exits non-zero and no phase carries on:
     the training error and the early-stopping history; a refit
     bit-equal; one step timed (device, host-paced, host) and a 20-step
     chunk under torch.profiler (no scatter or atomic kernel). (b) On a
-    16,384-row head, card vs CPU plain from the same initial weights,
+    8,192-row head (cut from 16,384 when phase 27 came), card vs CPU
+    plain from the same initial weights,
     every step held from the card's state (``dl_card_vs_cpu``), then the
-    same with TF32 on, which must fail. (c) bf16
+    same on its first quarter with TF32 on, which must fail. (c) bf16
     (``mini_batch_size=16384``) on (a)'s frame: the route of the product
     (it must be ``mm_out_dtype``), seconds and samples/s; on a
-    65,536-row head card vs CPU with bf16 on both sides, then with
-    bf16-rounded products, which must fail. (d) On 20,000 airlines rows
+    32,768-row head (cut from 65,536) card vs CPU with bf16 on both
+    sides, then on its
+    first half with bf16-rounded products, which must fail. (d) On 10,000
+    airlines rows (cut from 20,000 when phase 27 came)
     (P = 263): Tanh, Maxout (3
     classes), both with dropout, momentum SGD with Nesterov and a ramp
     under L1/L2, regression, the autoencoder and ``anomaly``, early
@@ -215,7 +222,8 @@ Phases, in order; any failure exits non-zero and no phase carries on:
     betweenss/totss; one Lloyd step timed against its byte bound; on 1M
     rows PlusPlus, Random, estimate_k, 3-fold CV and user_points; the
     host float64 ``cluster_size_constraints`` fit on 10,000 rows. (b)
-    PCA at MNIST's width (1M x 784 from RandomState(13), a rank-60
+    PCA at MNIST's width (500K x 784, cut from 1M when phase 27 came,
+    from RandomState(13), a rank-60
     signal plus noise), k = 50, GramSVD and Randomized: the Gram timed
     against its bound, ``eigh`` timed, Randomized's subspace against
     GramSVD's; PCA (P = 262) and SVD (nv = 10, standardized) on 1M
@@ -240,7 +248,8 @@ Phases, in order; any failure exits non-zero and no phase carries on:
     planted sin(1.7x) + 0.5·lin (RMSE to the truth < 0.15, a GLM's >
     0.4). (b) RuleFit with the reference's defaults (GBM, rule length
     3, 50 trees, sample_rate 0.8, rules and linear terms, lambda search)
-    on phase 4's first 1M rows (cut from 5M for the rule matrix): the
+    on phase 4's first 500K rows (cut from 5M for the rule matrix, from
+    1M when phase 27 came): the
     seconds of the trees, the rule frame and the GLM, the rule count,
     AUC and the top five rules; ``algorithm="drf"`` and
     ``model_type="linear"`` on a head; the head's rules EXACT card vs
@@ -271,7 +280,8 @@ Phases, in order; any failure exits non-zero and no phase carries on:
     rows (cut from 11M for its host loop): sweeps, radius, exemplars
     (<= 5000, counts summing to the rows), the host loop's share. (d)
     Word2Vec at its defaults, one epoch (cut from 5), on a 500K-token
-    Zipf(1.0) corpus over 30K types with two planted 8-word topics: the
+    Zipf(1.0) corpus over 30K types with two planted 8-word topics (the
+    refit held bit-equal on its first 50K tokens): the
     vocabulary, pairs, steps/s, a step at batch 64 and 4096, the planted
     words' synonyms (2 of the top 3 in their topic). (e) The device
     quantiles of HIGGS x0 (11M rows) against ``np.quantile``,
@@ -279,6 +289,41 @@ Phases, in order; any failure exits non-zero and no phase carries on:
     vs CPU EXACT. (f) ``device_sort`` of phase 4's 5M rows by
     (UniqueCarrier, DepTime descending) against ``np.lexsort``, and a
     5M × 1M ``device_join_index`` against a numpy join, EXACT.
+27. The job and orchestration layer (no new kernel; the DKV is emptied
+    at every phase's start, so each phase's models live only as long as
+    its locals). (a) bench.py's grid config: 500K rows x 6 numeric, 16
+    GBM combos (learn_rate x sample_rate x min_rows), ``ntrees=20,
+    max_depth=6, seed=1``, the sequential walk: models/s, every level
+    kernel launched 16 x 20 x 6 = 1,920 times, every grid model's forest
+    and training AUC bit-equal to a standalone fit of its combo;
+    RandomDiscrete with ``max_models=5, seed=42`` gives 5 models in the
+    reference's combo order (``GRID_RANDOM_ORDER``, computed from
+    ``h2o3_tpu/ml/grid.py``). (b) ``train_capped`` of a 400-tree GBM
+    under a 0.5 s cap returns a truncated forest; a DeepLearning fit
+    under a cap below its length is cancelled at a ``job.update`` and
+    raises ``TimeoutError``. (c) bench.py's AutoML config: 500K airlines
+    rows written as CSV and read by ``stream_import_csv``,
+    ``H2OAutoML(max_models=20, seed=1, nfolds=3,
+    max_runtime_secs=300)``, run last: wallclock, models trained (a
+    ``SHORTFALL`` line under 10), each leaderboard row (step, algo, CV
+    AUC and logloss, train seconds, peak memory), the timeouts, the
+    leader's AUC on the frame, launches and peak memory; no ``error``
+    event, every depth-15/20 step (GBM_5, DRF_1, XRT_1, XGBoost_2)
+    trained, the leaderboard sorted by CV AUC, both StackedEnsembles
+    where two or more families trained with CV, the leader predicts, the
+    level kernels launched and the others not. (d) Two runs of
+    ``H2OAutoML(max_models=4, seed=1, nfolds=3, include_algos=["glm",
+    "gbm", "stackedensemble"])`` on the first 100K rows of (c)'s CSV (the
+    default 3600 s budget does not bite): the same steps in the same
+    order, bit-equal leaderboards and leader p1. (e) (d)'s best-of-family
+    metalearner fit from the same level-one frame on the card and on the
+    CPU: coefficients within ``SE_COEF_TOL`` of max(1, |c|), or twice the
+    largest witness (the CPU fit on the rows permuted, five permutations)
+    where float32 order alone moves them more. (f) A depth-20 GBM (2
+    trees, kept as HeapTrees) on (d)'s rows: ``predict_contributions``
+    with local accuracy on every row and within 1e-5·max(1, |margin|) of
+    the CPU plain version on 2,000 rows. Later phases' host data is made
+    on a background thread while the earlier phases run (``make_ahead``).
 
 Launch counts are read per path: each path sets every count to 0 just
 before it runs and reads them just after (phase 15's, over its seven
@@ -304,7 +349,10 @@ and ``glm_surface``, phase 23's as ``deeplearning``,
 ``targetencoder``, every kernel 0 on each, phase 25's as ``gam``,
 ``rulefit``, ``modelselection``, ``anovaglm``, ``isotonic`` and
 ``infogram``, phase 26's as ``coxph``, ``psvm``, ``aggregator``,
-``word2vec``, ``quantiles`` and ``sort``, every kernel 0 on each;
+``word2vec``, ``quantiles`` and ``sort``, every kernel 0 on each,
+phase 27's as ``grid``, ``automl``, ``automl_repeat`` (both runs of
+(d)), ``stackedensemble`` (the card's metalearner fit of (e)) and
+``gbm_depth20`` ((f)'s fit);
 ``tree_partition`` has a
 fourth record, at the Isolation Forest levels); the last is
 ``{"ok": true, "device": {...}}``.
@@ -313,6 +361,7 @@ fourth record, at the Isolation Forest levels); the last is
 from __future__ import annotations
 
 import contextlib
+import gc
 import json
 import subprocess
 import sys
@@ -334,7 +383,11 @@ UPLIFT = dict(treatment_column="treatment", ntrees=10, max_depth=10,
               uplift_metric="KL", seed=1)
 N_MAIN = 5_000_000
 N_KERNEL = 1_000_000
-N_SAMPLE = 50_000
+# the card-vs-CPU samples of phases 8, 13-15, 17 and 19 (cut from 50K
+# when phase 27(c) took its fixed 300 s budget, for the run's time: the
+# CPU plain fits take most of those phases; the EXACT checks hold at any
+# size, the others keep their tolerances)
+N_SAMPLE = 20_000
 # phase 13: multinomial GBM on the Covertype schema (ntrees cut from the
 # default 50, as phase 4 cuts it); phase 14 runs DRF (as phase 6) on it
 MULTI_GBM = dict(ntrees=10, max_depth=6, seed=1)
@@ -380,10 +433,11 @@ NUMERIC = ("Year", "Month", "DayofMonth", "DayOfWeek", "DepTime",
 # on fewer rows (a depth-10 tree has ~1000 leaves), and fewer again on
 # the CPU
 N_CHECK = 20_000
-# cut from 1M (PR 9) to 250K rows when phase 22 (GLM) came: the run's
+# cut from 1M to 250K rows when phase 22 (GLM) came, and to 50K
+# (its CPU head from 2,000 to 500 rows) when phase 27 came: the run's
 # time, not the card, bounds it
-N_SHAP_DRF = 250_000
-N_SHAP_DRF_CPU = 2_000
+N_SHAP_DRF = 50_000
+N_SHAP_DRF_CPU = 500
 Y = "IsDepDelayed"
 # phase 22: GLM. (a) bench.py's GLM benchmark (BASELINE.json: "GLM
 # binomial IRLS + L-BFGS, HIGGS 11M rows") at its shape, nothing cut;
@@ -398,7 +452,10 @@ N_ENET_CPU = 20_000
 ENET = dict(family="gaussian", alpha=0.5, lambda_search=True, nlambdas=30)
 P_AIRLINES = 263                 # 7 numeric + 7 + 124 + 124 levels + 1
 MULTI_GLM = dict(family="multinomial")
-N_SURFACE = 100_000
+# cut from 100K to the CPU head's 10K rows when phase 27 came: the
+# surface's solvers are host-paced (COD's sweeps, ADMM's iterations), so
+# a fit took as long on the head, and the card's head fit now serves both
+N_SURFACE = 10_000
 N_SURFACE_CPU = 10_000
 # card vs CPU plain, each fit on the same head: the training logloss (or
 # MSE) within GLM_METRIC_TOL relative, and the raw-scale coefficients
@@ -464,10 +521,15 @@ P_DL = 784
 DL = dict(hidden=[200, 200], activation="rectifier", seed=1)
 DL_EPOCHS, DL_WARMUP = 8.0, 0.1
 DL_PUBLISHED = 80_000.0          # samples/s
-N_DL_HEAD = 16_384               # (b) card vs CPU: batch 256, 64 steps
-N_DL_BF16_HEAD = 65_536          # (c) card vs CPU in bf16: batch 16,384
+# (b) card vs CPU: batch 256, 32 steps; (c) card vs CPU in bf16: batch
+# 16,384, 4 steps (each cut to half when phase 27 came, for the run's
+# time)
+N_DL_HEAD = 8_192
+N_DL_BF16_HEAD = 32_768
 DL_BF16_BATCH = 16_384
-N_DL_SURFACE = 20_000            # (d) the airlines head, P = 263
+# (d) the airlines head, P = 263 (cut from 20,000 when phase 27 came, for
+# the run's time)
+N_DL_SURFACE = 10_000
 DL_SURFACE = dict(hidden=[32, 16], epochs=2, seed=3)
 # card vs CPU plain (``dl_card_vs_cpu``). Every step of the card's fit is
 # held against the CPU plain step taken from the card's state before it,
@@ -518,7 +580,7 @@ N_KM_CONS = 10_000
 KM_CONS = dict(k=10, seed=1, cluster_size_constraints=[800] * 10)
 # (b) PCA at MNIST's width: a rank-60 signal whose singular values fall
 # by 0.95 a component, plus uniform noise at 1% of the smallest
-N_PCA = 1_000_000
+N_PCA = 500_000                  # cut from 1M when phase 27 came (time)
 P_PCA = 784
 RANK_PCA = 60
 K_PCA = 50
@@ -603,7 +665,7 @@ GAM_SIN = dict(gam_columns=["x"], num_knots=[12], scale=[0.01])
 GAM_COEF_TOL = 3e-5
 GAM_PRED_TOL = 2e-5
 RULEFIT = dict(seed=1)           # the reference's DEFAULTS otherwise
-N_RULEFIT = 1_000_000
+N_RULEFIT = 500_000              # cut from 1M when phase 27 came (time)
 N_RULEFIT_HEAD = 10_000
 RF_COEF_TOL = 2e-3
 RF_PRED_TOL = 2e-4
@@ -640,6 +702,7 @@ PSVM_AUC_TOL = 1e-5
 N_AGG = 1_000_000                # of HIGGS's 11M rows: the host loop
 N_AGG_HEAD = 3_001               # the tests' data and size
 W2V_TOKENS = 500_000
+W2V_REFIT_TOKENS = 50_000        # the refit's head (phase 26(d))
 W2V_TYPES = 30_000
 W2V_SENT = 20
 W2V_TOPIC_FRAC = 0.05
@@ -655,6 +718,39 @@ Q_GAP = 1e-3                     # a few order statistics of N(0, 1)
 JOIN_LEFT = 5_000_000
 JOIN_RIGHT = 1_000_000
 JOIN_KEYS = 2_000_000
+N_GRID_ROWS = 500_000            # bench.py bench_grid
+GRID_HYPER = {"learn_rate": [0.05, 0.08, 0.1, 0.15],
+              "sample_rate": [0.7, 1.0], "min_rows": [5.0, 20.0]}
+GRID_FIXED = dict(ntrees=20, max_depth=6, seed=1)
+# the reference's RandomDiscrete walk of GRID_HYPER at seed 42, its first
+# five combos (h2o3_tpu/ml/grid.py GridSearch._combos)
+GRID_RANDOM_ORDER = (
+    {"learn_rate": 0.05, "min_rows": 5.0, "sample_rate": 0.7},
+    {"learn_rate": 0.05, "min_rows": 5.0, "sample_rate": 1.0},
+    {"learn_rate": 0.08, "min_rows": 5.0, "sample_rate": 1.0},
+    {"learn_rate": 0.15, "min_rows": 20.0, "sample_rate": 0.7},
+    {"learn_rate": 0.15, "min_rows": 5.0, "sample_rate": 1.0})
+CAP_GBM_SECS = 0.5
+CAP_DL_SECS = 2.0
+N_AUTOML = 500_000               # bench.py bench_automl
+AUTOML = dict(max_models=20, seed=1, nfolds=3, max_runtime_secs=300)
+AUTOML_REPEAT = dict(max_models=4, seed=1, nfolds=3,
+                     include_algos=["glm", "gbm", "stackedensemble"])
+# (d)-(f) run on the first rows of (c)'s CSV (cut from all 500K for the
+# run's time: bit-equality of two runs does not need them, and (d)'s two
+# runs took 108-132 s on all of them)
+N_AUTOML_HEAD = 100_000
+DEEP_STEPS = ("GBM_5", "DRF_1", "XRT_1", "XGBoost_2")   # depth 15 and 20
+SE_COEF_TOL = 1e-4               # tests/test_torch_glm.py COEF_TOL
+# (e)'s witness of float32 order: the CPU metalearner fit on the level-one
+# rows permuted by SE_WITNESS_PERMS seeds; the limit is COEF_TOL or twice
+# the largest of them, whichever is larger
+SE_WITNESS_PERMS = 5
+# (f) a depth-20 GBM (its trees kept as HeapTrees) explained by TreeSHAP:
+# min_rows keeps the trees to a few hundred leaves, so the recursion stays
+# short; the CPU plain version on the first DEEP_SHAP_CPU rows
+DEEP_SHAP = dict(ntrees=2, max_depth=20, min_rows=200.0, seed=1)
+DEEP_SHAP_CPU = 2_000
 _TREEKERNEL = dict(source="h2o3_tpu_torch/ops/kernels/csrc/treekernel.cu",
                    replaces="h2o3_tpu/ops/pallas/treekernel.py:250")
 KERNELS = {
@@ -685,6 +781,38 @@ def say(*parts) -> None:
 def check(cond, msg: str) -> None:
     if not cond:
         raise RuntimeError(f"check failed: {msg}")
+
+
+# later phases' host data (each made from its seed, as in place) is made
+# on one background thread while the card runs the earlier phases: numpy
+# draws and casts let go of the interpreter lock, so it costs the run
+# nothing but a core. A phase takes its data with ``made_ahead``.
+_AHEAD = {}
+
+
+def make_ahead(jobs) -> None:
+    """Queue ``(name, maker)`` pairs on one background thread, in order."""
+    from concurrent.futures import ThreadPoolExecutor
+    ex = ThreadPoolExecutor(1, thread_name_prefix="data")
+    for name, fn in jobs:
+        _AHEAD[name] = ex.submit(fn)
+    ex.shutdown(wait=False)
+
+
+def made_ahead(name: str, fn):
+    """The data ``name`` made ahead, or ``fn()`` made now; the seconds
+    this phase waited for it."""
+    t0 = time.perf_counter()
+    fut = _AHEAD.pop(name, None)
+    out = fn() if fut is None else fut.result()
+    return out, time.perf_counter() - t0
+
+
+def drop_ahead() -> None:
+    """Cancel what was not made yet (a run that stops early)."""
+    for fut in _AHEAD.values():
+        fut.cancel()
+    _AHEAD.clear()
 
 
 # ------------------------------------------------------------------ data
@@ -1122,6 +1250,7 @@ def phase_kernels(torch, dev, bm):
                                   L=512, B=B, exact=True)
     say("phase2 Lh=256 (d=9) exact: " + " ".join(
         f"{k}={v:.3g}" for k, v in errs.items()))
+    deep_levels(torch, dev, bm, bins, B)
     # int32 bins at B = 200
     B2, F2 = 200, 10
     bins32 = torch.from_numpy(r.randint(0, B2, (N_KERNEL, F2)).astype(
@@ -1138,6 +1267,74 @@ def phase_kernels(torch, dev, bm):
     say("phase2 int32 bins B=200 (d=2) exact: " + " ".join(
         f"{k}={v:.3g}" for k, v in errs.items()))
     return worst
+
+
+def deep_levels(torch, dev, bm, bins, B):
+    """Phase 2's deep levels (a depth-20 tree's, as AutoML's DRF, XRT and
+    XGBoost steps grow them): at d = 15 (L = 32,768: the global-atomic
+    histogram of 16,384 parents, the 32,768 nodes' records read from
+    global memory) the whole level EXACT with dyadic stats; at d = 19
+    (L = 524,288, 262,144 parents) ``tree_hist`` and ``tree_partition``
+    (random decisions, categorical ones among them) EXACT."""
+    from h2o3_tpu_torch.ops.kernels import treekernel as tk
+    tp, sc, is_cat, cm, lo, hi = level_plan(bm, torch, dev, max_depth=20)
+    ops = tk.level_operands(cm, bm.nbins, is_cat, None, lo, hi, sc, dev)
+    r = np.random.RandomState(8)
+    n = bins.shape[0]
+    stats = dyadic_stats(n, 9, torch, dev)
+    L = 2 ** 15
+    nid = torch.from_numpy(r.randint(0, L, n).astype(np.int32)).to(dev)
+    prev = tk.hist_plain(bins, nid >> 1, stats, d=0, n_nodes_h=L // 2,
+                         n_bins=B)
+    errs, _, out_p, _ = compare_level(tk, bins, nid, stats, prev, ops, d=15,
+                                      L=L, B=B, exact=True)
+    n_split = int(out_p[8].sum())
+    del prev, out_p
+    L = 2 ** 19
+    nid = torch.from_numpy(r.randint(0, L, n).astype(np.int32)).to(dev)
+    lh_p = tk.hist_plain(bins, nid, stats, d=19, n_nodes_h=L // 2, n_bins=B)
+    lh_k = tk.tree_hist(bins, nid, stats, d=19, n_nodes_h=L // 2, n_bins=B)
+    torch.cuda.synchronize()
+    check(torch.equal(lh_k, lh_p), "tree_hist d=19 not exact")
+    del lh_p, lh_k
+    F = bins.shape[1]
+    feat = torch.from_numpy(r.randint(0, F, L).astype(np.int32)).to(dev)
+    split = torch.from_numpy(r.rand(L) < 0.7).to(dev)
+    dec = (feat,
+           torch.from_numpy(r.randint(0, B - 1, L).astype(np.int32)).to(dev),
+           torch.from_numpy(r.rand(L) < 0.5).to(dev), split,
+           split & is_cat[feat.long()],
+           torch.from_numpy(r.rand(L, B - 1) < 0.5).to(dev))
+    new_p = tk.partition_plain(bins, nid, *dec, n_bins=B)
+    new_k = tk.tree_partition(bins, nid, *dec, n_bins=B)
+    torch.cuda.synchronize()
+    check(torch.equal(new_k, new_p), "tree_partition d=19 not exact")
+    say("phase2 deep levels exact: d=15 (L=32768, the global-atomic "
+        "tree_hist, tree_partition's records in global memory; "
+        f"{n_split} nodes split) " + " ".join(
+            f"{k}={v:.3g}" for k, v in errs.items())
+        + "; d=19 (L=524288) tree_hist and tree_partition")
+    del new_p, new_k
+    # what a depth-20 tree's last level costs (the dense layout: PERF.md
+    # section 7), each beside its byte bound
+    Lh, cell = L // 2, F * B * 3 * 4
+    lh = tk.tree_hist(bins, nid, stats, d=19, n_nodes_h=Lh, n_bins=B)
+    prev = lh.clone()
+    row_bytes = n * (bins.shape[1] * bins.element_size() + 4 + 12)
+    times = {
+        "tree_hist": (time_ms(torch, lambda: tk.tree_hist(
+            bins, nid, stats, d=19, n_nodes_h=Lh, n_bins=B), reps=5),
+            row_bytes + Lh * cell),
+        "tree_split": (time_ms(torch, lambda: tk.tree_split(
+            lh, prev, *ops, d=19, n_nodes=L, n_bins=B), reps=5),
+            2 * Lh * cell + L * cell + L * (B - 1)),
+        "tree_partition": (time_ms(torch, lambda: tk.tree_partition(
+            bins, nid, *dec, n_bins=B), reps=5), n * 9 + L * 11)}
+    say("phase2 a depth-20 tree's last level (d=19, L=524288, "
+        f"{n} rows): " + "; ".join(
+            f"{k} {t['ms']:.4g} ms (host-paced {t['host_paced_ms']:.4g}), "
+            f"bound {b / HBM_BYTES_PER_S * 1e3:.4g} ms (bytes)"
+            for k, (t, b) in times.items()))
 
 
 def phase_grow_tree(torch, dev, bm):
@@ -1255,8 +1452,10 @@ def profiled_fit(torch, label: str, fit):
 
 
 def phase_profile(torch, dev, fr):
-    """Where the main path's time goes: the binning pass alone, then one
-    more fit under torch.profiler."""
+    """Where the main path's time goes: the binning pass alone, then a
+    1-tree fit under torch.profiler (cut from the main path's 10 trees,
+    as phase 8's, when phase 27(c) took its fixed 300 s budget: the
+    profiler stretches a fit's host time tenfold)."""
     import h2o3_tpu_torch as h2o
     from h2o3_tpu_torch.frame.binning import bin_frame
     x = [c for c in fr.names if c != "IsDepDelayed"]
@@ -1266,8 +1465,9 @@ def phase_profile(torch, dev, fr):
               weights=np.ones(fr.nrows, np.float32))
     torch.cuda.synchronize()
     say(f"phase4 profile: bin_frame alone {time.perf_counter() - t0:.3f} s")
-    profiled_fit(torch, "phase4 profile", lambda: h2o.GBMEstimator(
-        **FLAGSHIP).train(fr, y="IsDepDelayed"))
+    profiled_fit(torch, "phase4 profile (ntrees=1)", lambda: h2o.
+                 GBMEstimator(**dict(FLAGSHIP, ntrees=1)).train(
+                     fr, y="IsDepDelayed"))
 
 
 def _hist_bytes(N, F, Lh, B, bin_bytes):
@@ -1713,8 +1913,10 @@ def phase_uplift(torch, dev, cols, domains):
     model.model_performance(fr)
     say(f"phase8 breakdown: bin_frame alone {t_bin:.3f} s, training "
         f"metrics alone {time.perf_counter() - t0:.3f} s")
-    profiled_fit(torch, "phase8 profile (ntrees=2)", lambda: h2o.
-                 UpliftDRFEstimator(**dict(UPLIFT, ntrees=2)).train(
+    # one tree under the profiler (cut from 2 when phase 27 came, for the
+    # run's time)
+    profiled_fit(torch, "phase8 profile (ntrees=1)", lambda: h2o.
+                 UpliftDRFEstimator(**dict(UPLIFT, ntrees=1)).train(
                      fr, y="visit"))
     # the fit against the CPU plain path on a sample, without bagging: the
     # card's and the CPU's generators draw different bags
@@ -2085,7 +2287,7 @@ def class_probs(pred, K: int) -> np.ndarray:
 def phase_multinomial(torch, dev, cols, domains):
     """Phase 13: multinomial GBM on the Covertype frame, train → predict
     → model_performance; K class trees an iteration through the level
-    kernels; the fit against the CPU plain path on a 50K-row sample."""
+    kernels; the fit against the CPU plain path on a 20K-row sample."""
     import h2o3_tpu_torch as h2o
     K = len(COVTYPE_COUNTS)
     n = len(cols["Cover_Type"])
@@ -2153,7 +2355,7 @@ def phase_multinomial(torch, dev, cols, domains):
 
 def phase_multinomial_drf(torch, dev, fr, cols, domains):
     """Phase 14: multinomial DRF on phase 13's frame (as phase 6: the
-    default mtries, sample_rate 0.632); on a 50K-row sample without
+    default mtries, sample_rate 0.632); on a 20K-row sample without
     bagging or column sampling, the card forest EXACTLY equals the CPU
     plain forest (0/1 statistics, no draws)."""
     import h2o3_tpu_torch as h2o
@@ -2257,7 +2459,7 @@ def phase_distributions(torch, dev, cols, delay, domains):
     """Phase 15: one GBM a family on the first N_DIST airlines rows, each
     launching every level kernel 60 times; ``tree_split`` EXACT against
     its plain version on the log-link families' exp-scaled hessians; on a
-    50K-row sample the dyadic families' card forests EXACTLY equal the
+    20K-row sample the dyadic families' card forests EXACTLY equal the
     CPU plain forests, the others' mean residual deviance within 5e-3
     relative. Returns the launches summed over the fits."""
     import h2o3_tpu_torch as h2o
@@ -2870,7 +3072,7 @@ def phase_xgboost_histogram_types(torch, dev, fr, cols, domains,
     ``gamma`` set; DRF at phase 6's settings with ``histogram_type``
     UniformAdaptive and Random: edges and bins EXACT against the CPU plain
     binning of the same rows, 100 launches a level kernel, OOB AUC, and
-    on a 50K-row sample without bagging or column sampling the card
+    on a 20K-row sample without bagging or column sampling the card
     forest EXACTLY the CPU plain forest. Returns the launches by path."""
     import h2o3_tpu_torch as h2o
     from h2o3_tpu_torch.frame.binning import bin_frame
@@ -3192,9 +3394,10 @@ def phase_scoring(torch, dev, fr, cols, domains, gbm, drf):
             f" (cut from {n} rows: the recursion streams every leaf's "
             f"[rows, path] float32 weights ~90 times a tree, and a depth-"
             f"{model.forest.feat.shape[1]} DRF tree has up to "
-            f"{2 ** model.forest.feat.shape[1]} leaves; from 1M to "
-            f"{rows} rows since phase 22 came, to keep the whole run near "
-            f"its PR 9 length)")
+            f"{2 ** model.forest.feat.shape[1]} leaves; from 1M to 250000 "
+            f"rows since phase 22 came and to {rows} since phase 27 came, "
+            f"the CPU head to {n_cpu} rows, to keep the whole run within "
+            f"its time limit)")
         say(f"phase21 {label} predict_contributions on {rows} rows{cut}: "
             f"{t_c:.3f} s, peak device memory {peak / 2**30:.3f} GiB, local "
             f"accuracy on every row (max |gap| {acc_gap.max():.3g}); card "
@@ -3228,19 +3431,22 @@ def glm_metric(model) -> float:
 
 
 def cpu_glm_check(build, cols, domains, y, n, tol, label, dev,
-                  metric_tol=None, prob_tol=None):
+                  metric_tol=None, prob_tol=None, m_card=None):
     """Fit ``build()`` on the first ``n`` rows on the card and on the CPU
     (the plain path): the training logloss (MSE for regression) within
     ``metric_tol`` (GLM_METRIC_TOL) relative, unless ``tol`` is None the
     raw-scale coefficients within ``tol``·max(1, |c|), and unless
     ``prob_tol`` is None the scores (class probabilities or mu) on the
-    head within ``prob_tol``. Returns (card model, CPU model, the largest
+    head within ``prob_tol``; ``m_card``: the card's fit on the head,
+    where the caller has it. Returns (card model, CPU model, the largest
     relative coefficient gap, the largest score gap)."""
     import h2o3_tpu_torch as h2o
     head = {k: v[:n] for k, v in cols.items()}
     frs = [h2o.Frame.from_numpy(head, domains=domains, device=d)
            for d in (dev, "cpu")]
-    m_card, m_cpu = (build().train(fr, y=y) for fr in frs)
+    if m_card is None:
+        m_card = build().train(frs[0], y=y)
+    m_cpu = build().train(frs[1], y=y)
     gap = coef_gap(m_card, m_cpu, label)
     check(tol is None or gap <= tol,
           f"{label}: card vs CPU plain on {n} rows, max relative "
@@ -3323,10 +3529,12 @@ def higgs_frame(dev):
     (columns, domains, beta, frame). Phases 22(a) and 24(a) share it."""
     import h2o3_tpu_torch as h2o
     t0 = time.perf_counter()
-    cols, domains, beta = higgs_arrays(N_HIGGS)
+    (cols, domains, beta), t_gen = made_ahead(
+        "higgs", lambda: higgs_arrays(N_HIGGS))
     fr = h2o.Frame.from_numpy(cols, domains=domains, device=dev)
-    say(f"phase22a HIGGS shape {N_HIGGS} x {P_HIGGS} float32 generated and "
-        f"on the card in {time.perf_counter() - t0:.3f} s")
+    say(f"phase22a HIGGS shape {N_HIGGS} x {P_HIGGS} float32 made ahead "
+        f"(waited {t_gen:.3f} s), on the card in "
+        f"{time.perf_counter() - t0 - t_gen:.3f} s")
     return cols, domains, beta, fr
 
 
@@ -3568,7 +3776,8 @@ def phase_glm_surface(torch, dev, cols, domains, delay):
         multi = params["family"] == "multinomial"
         _, m_cpu, gap, p_gap = cpu_glm_check(
             build, scols, sdoms, y, N_SURFACE_CPU, tol, f"GLM {label}", dev,
-            prob_tol=GLM_PROB_TOL if multi else None)
+            prob_tol=GLM_PROB_TOL if multi else None,
+            m_card=model if n == N_SURFACE_CPU else None)
         extra = ""
         c = model.coefficients
         if label == "cod non_negative":
@@ -3629,7 +3838,9 @@ def phase_glm_surface(torch, dev, cols, domains, delay):
         fn()
         torch.cuda.synchronize()
         secs[what] = time.perf_counter() - t1
-    say(f"phase22d GLM surface on {n} airlines rows (P = {X1.shape[1]}) in "
+    say(f"phase22d GLM surface on {n} airlines rows (P = {X1.shape[1]}; "
+        f"cut from 100000 rows when phase 27 came, for the run's time: "
+        f"its solvers are host-paced, a fit takes as long on the head) in "
         f"{time.perf_counter() - t0:.3f} s: " + "; ".join(lines))
     say(f"phase22d one IRLS iteration at P = {X1.shape[1]} on {n} rows: COD "
         f"({glm_mod.COD_SWEEPS} sweeps x {X1.shape[1]} coordinates in plain "
@@ -4006,12 +4217,13 @@ def phase_dl_bench(torch, dev):
     from h2o3_tpu_torch.models.deeplearning import (BF16_MIN_BATCH,
                                                     batch_size, bf16_route)
     t0 = time.perf_counter()
-    cols, domains = mnist_shape_arrays(N_DL)
-    t_gen = time.perf_counter() - t0
+    (cols, domains), t_gen = made_ahead(
+        "mnist", lambda: mnist_shape_arrays(N_DL))
     fr = h2o.Frame.from_numpy(cols, domains=domains, device=dev)
     torch.cuda.synchronize()
-    say(f"phase23a MNIST shape {N_DL} x {P_DL} generated in {t_gen:.3f} s, "
-        f"on the card in {time.perf_counter() - t0 - t_gen:.3f} s")
+    say(f"phase23a MNIST shape {N_DL} x {P_DL} made ahead (waited "
+        f"{t_gen:.3f} s), on the card in "
+        f"{time.perf_counter() - t0 - t_gen:.3f} s")
     paths = {}
     _, t_warm, _, _ = timed_fit(torch, lambda: h2o.DeepLearningEstimator(
         epochs=DL_WARMUP, **DL).train(fr, y="label"))
@@ -4118,10 +4330,10 @@ def dl_bf16_rounded_control(torch):
 
 def phase_dl_heads(torch, dev, cols, domains):
     """Phase 23(b): card vs CPU plain on a head of (a)'s frame (1 epoch,
-    batch 256, the same initial weights), then the same with TF32 left
-    on, which must fail; (c): the same in bf16 (batch 16,384, 2 epochs
-    on a larger head), then with bf16-rounded products, which must
-    fail."""
+    batch 256, the same initial weights), then the same on its first
+    quarter with TF32 left on, which must fail; (c): the same in bf16
+    (batch 16,384, 2 epochs on a larger head), then on its first half
+    with bf16-rounded products, which must fail."""
     import h2o3_tpu_torch as h2o
     for label, n, params, control, what in (
             ("b", N_DL_HEAD, dict(epochs=1.0), dl_tf32_control,
@@ -4137,8 +4349,15 @@ def phase_dl_heads(torch, dev, cols, domains):
                 lambda: h2o.DeepLearningEstimator(**params, **DL), head,
                 domains, "label", dev, label)
         dl_check(run(f"phase23{label} {n}-row head {params}"))
+        # each control on a part of its head (for the run's time since
+        # phase 27 came): the first quarter of (b)'s (16 steps of 64),
+        # half of (c)'s (4 steps of 8); both part from the CPU at step 0
+        part = 4 if label == "b" else 2
+        head = {k: v[:n // part] for k, v in head.items()}
+        n = n // part
         with control(torch):
-            dl_control(run(f"phase23{label} {n}-row head {params}"), what)
+            dl_control(run(f"phase23{label} {n}-row head {params}",
+                           head=head), what)
         say(f"phase23{label}: {time.perf_counter() - t0:.3f} s")
 
 
@@ -4291,10 +4510,23 @@ def same_output(a, b) -> bool:
     return a == b
 
 
+# output entries that hold DKV keys: a refit's are new keys (a process-wide
+# counter numbers them), so a refit is held on their count alone
+KEY_OUTPUTS = ("cv_model_keys", "cv_predictions_keys", "cv_holdout_frame_key",
+               "cv_fold_assignment_key", "output_frame", "weights_keys",
+               "biases_keys")
+
+
+def keyless(output: dict) -> dict:
+    """``output`` with each DKV-key entry replaced by its count of keys."""
+    return {k: (len(v) if isinstance(v, list) else v is not None)
+            if k in KEY_OUTPUTS else v for k, v in output.items()}
+
+
 def refit_check(torch, build, model, fit, label, fields=()) -> float:
-    """A refit on the card bit-equal to ``model`` (output, training
-    metrics, for Naive Bayes statistics, and the model attributes named
-    in ``fields``); returns its seconds."""
+    """A refit on the card bit-equal to ``model`` (output but its DKV
+    keys, training metrics, for Naive Bayes statistics, and the model
+    attributes named in ``fields``); returns its seconds."""
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     again = fit(build())
@@ -4302,7 +4534,7 @@ def refit_check(torch, build, model, fit, label, fields=()) -> float:
     secs = time.perf_counter() - t0
     tm = (lambda m: None if m.training_metrics is None
           else m.training_metrics.to_dict())
-    check(same_output(again.output, model.output)
+    check(same_output(keyless(again.output), keyless(model.output))
           and same_output(tm(again), tm(model))
           and all(same_output(getattr(again, f, None),
                               getattr(model, f, None))
@@ -4528,10 +4760,11 @@ def phase_pca(torch, dev, cols, domains):
     from h2o3_tpu_torch.frame.datainfo import build_datainfo
     from h2o3_tpu_torch.models import pca
     t0 = time.perf_counter()
-    pcols = pca_frame_arrays(N_PCA)
+    pcols, t_gen = made_ahead("pca", lambda: pca_frame_arrays(N_PCA))
     fr = h2o.Frame.from_numpy(pcols, device=dev)
-    say(f"phase24b {N_PCA} x {P_PCA} rank-{RANK_PCA} rows on the card in "
-        f"{time.perf_counter() - t0:.3f} s")
+    say(f"phase24b {N_PCA} x {P_PCA} rank-{RANK_PCA} rows made ahead "
+        f"(waited {t_gen:.3f} s), on the card in "
+        f"{time.perf_counter() - t0 - t_gen:.3f} s")
     paths = {"pca": {}, "svd": {}}
     models = {}
     for method in ("GramSVD", "Randomized"):
@@ -5745,13 +5978,23 @@ def phase_word2vec(torch, dev):
     64 and 4096; the two-topic corpus of the tests card vs CPU plain.
     Returns the path's launches."""
     import h2o3_tpu_torch as h2o
-    cols, domains, topics = zipf_corpus(W2V_TOKENS, W2V_TYPES, W2V_SENT)
+    (cols, domains, topics), _ = made_ahead(
+        "zipf", lambda: zipf_corpus(W2V_TOKENS, W2V_TYPES, W2V_SENT))
     fr = h2o.Frame.from_numpy(cols, domains=domains, device=dev)
     build = lambda: h2o.Word2VecEstimator(**W2V)  # noqa: E731
     model, secs, counts, peak = timed_fit(torch, lambda: build().train(fr))
     check_launches(counts, {}, "Word2Vec")
-    t_re = refit_check(torch, build, model, lambda e: e.train(fr),
+    # the refit on the corpus's first W2V_REFIT_TOKENS tokens (cut from
+    # all of them for the run's time since phase 27 came)
+    fr_head = h2o.Frame.from_numpy(
+        {"words": cols["words"][:W2V_REFIT_TOKENS]}, domains=domains,
+        device=dev)
+    head = build().train(fr_head)
+    t_re = refit_check(torch, build, head, lambda e: e.train(fr_head),
                        "Word2Vec", fields=("vectors",))
+    say(f"phase26d Word2Vec refit held on the first {W2V_REFIT_TOKENS} "
+        f"tokens (cut from {W2V_TOKENS} for the run's time since phase 27 "
+        f"came; the fit above is of all of them)")
     held = []
     for topic in topics:
         for w in topic:
@@ -5765,8 +6008,8 @@ def phase_word2vec(torch, dev):
         f"over {W2V_TYPES} types: vocabulary {out['vocab_size']}, "
         f"{out['pairs']} pairs, {out['steps']} steps at batch "
         f"{model.params['batch_size']} in {secs:.3f} s "
-        f"({out['steps'] / secs:.1f} steps/s; refit {t_re:.3f} s, "
-        f"bit-equal), epoch loss {out['epoch_loss'][-1]:.6f}, peak "
+        f"({out['steps'] / secs:.1f} steps/s; the head's refit "
+        f"{t_re:.3f} s, bit-equal), epoch loss {out['epoch_loss'][-1]:.6f}, peak "
         f"{peak / 2**30:.3f} GiB; planted words' own-topic synonyms in "
         f"the top 3: {held}; a step at batch "
         + ", at batch ".join(
@@ -5882,18 +6125,385 @@ def phase_models26(torch, dev, cols, domains, ccols, cdomains, higgs):
     return paths
 
 
+# ------------------------------------------------- 27: orchestration
+
+
+def grid_arrays():
+    """bench.py bench_grid's rows: 500K x 6 numeric, a noisy linear N/Y
+    response, from RandomState(9)."""
+    r = np.random.RandomState(9)
+    X = r.randn(N_GRID_ROWS, 6).astype(np.float32)
+    yv = (X[:, 0] + 0.5 * X[:, 1] + 0.5 * r.randn(N_GRID_ROWS) > 0)
+    cols = {f"x{i}": X[:, i] for i in range(6)}
+    cols["y"] = yv.astype(np.int32)
+    return cols
+
+
+def grid_frame(dev):
+    """bench.py bench_grid's frame (``grid_arrays``) on the card."""
+    import h2o3_tpu_torch as h2o
+    cols, _ = made_ahead("grid", grid_arrays)
+    return h2o.Frame.from_numpy(cols, domains={"y": ["N", "Y"]}, device=dev)
+
+
+def phase_grid(torch, dev, fr):
+    """Phase 27(a)-(b): the grid's sequential walk, its launches, each
+    model against a standalone fit, RandomDiscrete's order; the
+    per-model cap. Returns the walk's launches."""
+    import h2o3_tpu_torch as h2o
+    from h2o3_tpu_torch.automl.executor import Budget, train_capped
+    n_combos = int(np.prod([len(v) for v in GRID_HYPER.values()]))
+    grid, secs, counts, peak = timed_fit(torch, lambda: h2o.GridSearch(
+        h2o.GBMEstimator, GRID_HYPER, **GRID_FIXED).train(fr, y="y"))
+    check(len(grid.models) == n_combos and not grid.failures,
+          f"grid: {len(grid.models)} models, failures {grid.failures}")
+    per = n_combos * GRID_FIXED["ntrees"] * GRID_FIXED["max_depth"]
+    check_launches(counts, {k: per for k in LEVEL_KERNELS}, "grid")
+    say(f"phase27(a) grid: {n_combos} GBM combos on {N_GRID_ROWS} rows x 6 "
+        f"in {secs:.3f} s, {n_combos / secs:.6g} models/s, peak "
+        f"{peak / 2**30:.3f} GiB; each level kernel launched {per} times")
+    for m in grid.models:
+        alone = h2o.GBMEstimator(**GRID_FIXED, **m.output["grid_params"]
+                                 ).train(fr, y="y")
+        check(forests_equal(m.forest, alone.forest)
+              and m.training_metrics["AUC"] == alone.training_metrics["AUC"],
+              f"grid model {m.output['grid_params']} differs from its "
+              "standalone fit")
+    best = grid.sorted_models()[0]
+    say(f"phase27(a) every grid model bit-equal to its standalone fit "
+        f"(forest, training AUC); best {best.output['grid_params']} AUC "
+        f"{best.training_metrics['AUC']:.6f}")
+    rnd = h2o.GridSearch(h2o.GBMEstimator, GRID_HYPER, search_criteria={
+        "strategy": "RandomDiscrete", "max_models": 5, "seed": 42},
+        **GRID_FIXED).train(fr, y="y")
+    order = [m.output["grid_params"] for m in rnd.models]
+    check(order == list(GRID_RANDOM_ORDER),
+          f"RandomDiscrete walked {order}, the reference "
+          f"{list(GRID_RANDOM_ORDER)}")
+    say("phase27(a) RandomDiscrete max_models=5 seed=42: 5 models in the "
+        "reference's combo order")
+    t0 = time.perf_counter()
+    m = train_capped(h2o.GBMEstimator(ntrees=400, max_depth=6, seed=1), fr,
+                     "y", None, Budget(10, 0, CAP_GBM_SECS))
+    t_cap = time.perf_counter() - t0
+    n_trees = int(m.forest.feat.shape[0])
+    check(0 < n_trees < 400, f"the {CAP_GBM_SECS} s cap kept {n_trees} of "
+                             "400 trees")
+    t0 = time.perf_counter()
+    try:
+        train_capped(h2o.DeepLearningEstimator(hidden=[200, 200],
+                                               epochs=1000, seed=1),
+                     fr, "y", None, Budget(10, 0, CAP_DL_SECS))
+        check(False, "DeepLearning ran past its cap")
+    except TimeoutError as e:
+        t_dl = time.perf_counter() - t0
+        say(f"phase27(b) per-model cap: GBM(ntrees=400) under "
+            f"{CAP_GBM_SECS} s kept {n_trees} trees ({t_cap:.3f} s); "
+            f"DeepLearning(epochs=1000) under {CAP_DL_SECS} s cancelled at "
+            f"a job.update after {t_dl:.3f} s: {e}")
+    torch.cuda.synchronize()
+    return counts
+
+
+def automl_csv():
+    """bench.py bench_automl's rows as CSV: all N_AUTOML airlines rows
+    and their first N_AUTOML_HEAD."""
+    cols, domains = airlines_arrays(N_AUTOML)
+    head = {k: v[:N_AUTOML_HEAD] for k, v in cols.items()}
+    return csv_bytes(cols, domains), csv_bytes(head, domains)
+
+
+def automl_frames(torch, dev):
+    """bench.py bench_automl's frame and its head, each written as CSV
+    and read by ``stream_import_csv``."""
+    import tempfile
+    from h2o3_tpu_torch.io.stream import stream_import_csv
+    (full, head), _ = made_ahead("automl_csv", automl_csv)
+    frames = []
+    with tempfile.TemporaryDirectory() as tmp:
+        for name, data in (("airlines", full), ("head", head)):
+            path = f"{tmp}/{name}.csv"
+            with open(path, "wb") as f:
+                f.write(data)
+            frames.append(stream_import_csv(path, device=dev))
+    torch.cuda.synchronize()
+    return frames
+
+
+@contextlib.contextmanager
+def step_meter(torch):
+    """Each AutoML step's seconds and peak device memory, and the memory
+    held after it, read around ``run_step`` (the steps run one at a
+    time): yields {step id: (seconds, peak bytes, bytes after)}."""
+    from h2o3_tpu_torch import automl
+    real, seen = automl.run_step, {}
+
+    def metered(aml, step, *a, **kw):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        try:
+            return real(aml, step, *a, **kw)
+        finally:
+            torch.cuda.synchronize()
+            seen[step.id] = (time.perf_counter() - t0,
+                             torch.cuda.max_memory_allocated(),
+                             torch.cuda.memory_allocated())
+    with mock.patch.object(automl, "run_step", metered):
+        yield seen
+
+
+def leaderboard_rows(aml):
+    """(step, algo, CV AUC, CV logloss, train seconds) of each
+    leaderboard row, best first."""
+    out = []
+    for m in aml.leaderboard.sorted_models():
+        cvm = m.default_metrics
+        out.append((m.output.get("automl_step"), m.algo, cvm["AUC"],
+                    cvm["logloss"], m.run_time))
+    return out
+
+
+def phase_automl(torch, dev, fr):
+    """Phase 27(c): bench.py's AutoML config, its 300 s budget. Returns
+    its launches."""
+    import h2o3_tpu_torch as h2o
+    budget = AUTOML["max_runtime_secs"]
+    with step_meter(torch) as seen:
+        aml = h2o.H2OAutoML(**AUTOML)
+        leader, secs, counts, peak = timed_fit(
+            torch, lambda: aml.train(y=Y, training_frame=fr))
+    rows = leaderboard_rows(aml)
+    n_models = sum(r[1] != "stackedensemble" for r in rows)
+    say(f"phase27(c) AutoML max_models={AUTOML['max_models']} nfolds="
+        f"{AUTOML['nfolds']} max_runtime_secs={budget:.0f} "
+        f"on {N_AUTOML} airlines rows: wallclock {secs:.3f} s, {n_models} "
+        f"models trained of {AUTOML['max_models']} planned, "
+        f"{len(rows) - n_models} StackedEnsembles, peak "
+        f"{peak / 2**30:.3f} GiB")
+    if n_models < AUTOML["max_models"] // 2:
+        say(f"phase27(c) SHORTFALL: trained {n_models}/"
+            f"{AUTOML['max_models']} planned")
+    for step, algo, auc, ll, rt in rows:
+        s_, pk, after = seen.get(step, (None, None, None))
+        extra = ""
+        if s_ is not None:
+            extra = (f", step {s_:.3f} s, step peak {pk / 2**30:.3f} GiB, "
+                     f"held after {after / 2**30:.3f} GiB")
+        say(f"phase27(c)   {step:<30} {algo:<16} CV AUC {auc:.6f} logloss "
+            f"{ll:.6f} train {rt:.3f} s{extra}")
+    trained = {r[0] for r in rows}
+    for step in DEEP_STEPS:
+        check(step in trained, f"the depth-15/20 step {step} was not "
+                               f"trained in the {budget} s budget")
+        s_, pk, _ = seen[step]
+        say(f"phase27(c) depth-15/20 step {step}: {s_:.3f} s, peak "
+            f"{pk / 2**30:.3f} GiB")
+    for e in aml.event_log:
+        if e["stage"] in ("timeout", "budget", "error"):
+            say(f"phase27(c) event {e['stage']}: {e['message']}")
+    check(not [e for e in aml.event_log if e["stage"] == "error"],
+          "AutoML logged an error event")
+    aucs = [r[2] for r in rows]
+    check(aucs == sorted(aucs, reverse=True),
+          "the leaderboard is not sorted by CV AUC")
+    with_cv = {m.algo for m in aml.leaderboard.models
+               if getattr(m, "_cv_holdout", None) is not None}
+    if len(with_cv) >= 2:
+        check({"StackedEnsemble_BestOfFamily",
+               "StackedEnsemble_AllModels"} <= trained,
+              f"a StackedEnsemble is missing: {sorted(trained)}")
+    pred = aml.predict(fr)
+    check({"predict", "p0", "p1"} <= set(pred.names),
+          f"the leader's predictions have {pred.names}")
+    p1 = pred.col("p1").to_numpy()
+    check(np.isfinite(p1).all() and p1.shape == (N_AUTOML,),
+          "the leader's p1 is not finite of the frame's rows")
+    auc = leader.model_performance(fr)["AUC"]
+    say(f"phase27(c) leader {rows[0][0]} ({rows[0][1]}): CV AUC "
+        f"{rows[0][2]:.6f}, AUC on the frame {auc:.6f}; launches "
+        f"{counts}")
+    check(all(counts[k] > 0 for k in LEVEL_KERNELS)
+          and all(counts[k] == 0 for k in counts if k not in LEVEL_KERNELS),
+          f"AutoML launches {counts}")
+    return counts
+
+
+def phase_automl_repeat(torch, dev, fr):
+    """Phase 27(d)-(e) on the head of (c)'s CSV: two budget-free runs
+    bit-equal; the best-of-family metalearner card vs CPU. Returns (both
+    runs' launches, the card metalearner's launches)."""
+    import h2o3_tpu_torch as h2o
+    from h2o3_tpu_torch.ml.ensemble import _level_one_columns, _with_response
+    from h2o3_tpu_torch.ops import kernels
+    runs, t_runs = [], []
+    kernels.reset_counts()
+    for _ in range(2):
+        aml = h2o.H2OAutoML(**AUTOML_REPEAT)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        aml.train(y=Y, training_frame=fr)
+        torch.cuda.synchronize()
+        t_runs.append(time.perf_counter() - t0)
+        runs.append(aml)
+    counts = dict(kernels.LAUNCHES)
+    a, b = runs
+    steps_a = [m.output["automl_step"] for m in a.leaderboard.models]
+    steps_b = [m.output["automl_step"] for m in b.leaderboard.models]
+    check(steps_a == steps_b, f"AutoML steps differ: {steps_a} / {steps_b}")
+    tab_a = [{k: v for k, v in r.items() if k != "model_id"}
+             for r in a.leaderboard.as_table()]
+    tab_b = [{k: v for k, v in r.items() if k != "model_id"}
+             for r in b.leaderboard.as_table()]
+    check(tab_a == tab_b, "the two AutoML leaderboards differ")
+    pa = a.predict(fr).col("p1").to_numpy()
+    pb = b.predict(fr).col("p1").to_numpy()
+    check(np.array_equal(pa, pb), "the two leaders' p1 differ")
+    say(f"phase27(d) AutoML {AUTOML_REPEAT} twice on the first "
+        f"{fr.nrows} rows of (c)'s CSV (cut from {N_AUTOML} for the run's "
+        f"time): {t_runs[0]:.3f} / {t_runs[1]:.3f} s, steps {steps_a} in "
+        "the same order, leaderboards bit-equal (every metric), leader p1 "
+        "bit-equal")
+    se = next(m for m in a.leaderboard.models
+              if m.output["automl_step"] == "StackedEnsemble_BestOfFamily")
+    cols = {}
+    for m in se.base_models:
+        cols.update(_level_one_columns(m, None))
+    fits = {}
+    for d in (dev, "cpu"):
+        l1 = _with_response(cols, fr.col(Y), Y, fr.nrows, torch.device(d))
+        kernels.reset_counts()
+        fits[str(d)] = h2o.GLMEstimator(lambda_=0.0).train(l1, y=Y)
+        if d == dev:
+            se_counts = dict(kernels.LAUNCHES)
+    # the witness of float32 order: the CPU fit on the rows permuted, for
+    # SE_WITNESS_PERMS permutations
+    ycodes = fr.col(Y).host_view()
+    witnesses = []
+    for seed in range(1, SE_WITNESS_PERMS + 1):
+        perm = np.random.default_rng(seed).permutation(fr.nrows)
+        l1p = h2o.Frame.from_numpy(
+            {**{k: np.asarray(v)[perm] for k, v in cols.items()},
+             Y: np.where(np.isnan(ycodes[perm]), -1,
+                         ycodes[perm]).astype(np.int32)},
+            domains={Y: fr.col(Y).domain}, device="cpu")
+        witnesses.append(coef_gap(
+            h2o.GLMEstimator(lambda_=0.0).train(l1p, y=Y), fits["cpu"],
+            "permuted metalearner"))
+    gap = coef_gap(fits[str(dev)], fits["cpu"], "metalearner")
+    tol = max(SE_COEF_TOL, 2.0 * max(witnesses))
+    check(gap <= tol, f"metalearner card vs CPU: coefficients {gap:.3g} "
+                      f"apart, over {tol:.3g}")
+    check(all(v == 0 for v in se_counts.values()),
+          f"the metalearner launched {se_counts}")
+    say(f"phase27(e) best-of-family metalearner over "
+        f"{[m.algo for m in se.base_models]} on {fr.nrows} level-one rows: "
+        f"card vs CPU coefficients {gap:.3g} apart relative to max(1, |c|) "
+        f"(<= {tol:.3g}: COEF_TOL {SE_COEF_TOL}, or twice the largest "
+        f"witness, the CPU fit on the rows permuted by {SE_WITNESS_PERMS} "
+        f"seeds: {', '.join(f'{w:.3g}' for w in witnesses)}); card "
+        f"{fits[str(dev)].coefficients}, CPU {fits['cpu'].coefficients}")
+    return counts, se_counts
+
+
+def phase_deep_contributions(torch, dev, fr):
+    """Phase 27(f): TreeSHAP of a depth-20 GBM (DEEP_SHAP; its trees kept
+    as HeapTrees) on the head of (c)'s CSV: local accuracy on every row,
+    and within 1e-5·max(1, |margin|) of the CPU plain version on the
+    first DEEP_SHAP_CPU rows, as phase 21 holds the dense forests.
+    Returns the fit's launches."""
+    import h2o3_tpu_torch as h2o
+    from h2o3_tpu_torch.frame.binning import rebin_for_scoring
+    from h2o3_tpu_torch.frame.frame import raw_columns
+    from h2o3_tpu_torch.models.tree import HeapTree, tree_depth
+    from h2o3_tpu_torch.parallel.device import fetch
+    model, secs, counts, peak = timed_fit(
+        torch, lambda: h2o.GBMEstimator(**DEEP_SHAP).train(fr, y=Y))
+    check(isinstance(model.forest, HeapTree)
+          and tree_depth(model.forest) == DEEP_SHAP["max_depth"],
+          f"the depth-20 GBM's forest is a {type(model.forest).__name__}")
+    check(all(counts[k] > 0 for k in LEVEL_KERNELS)
+          and all(counts[k] == 0 for k in counts if k not in LEVEL_KERNELS),
+          f"depth-20 GBM launches {counts}")
+    margin = fetch(model._margins(rebin_for_scoring(model.bm, fr)))[
+        :fr.nrows]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    contrib = host_columns(model.predict_contributions(fr))
+    torch.cuda.synchronize()
+    t_c = time.perf_counter() - t0
+    tol = 1e-5 * np.maximum(1.0, np.abs(margin))
+    acc_gap = np.abs(contrib.sum(1) - margin)
+    check((acc_gap <= tol).all(), f"depth-20 contributions: local accuracy "
+                                  f"off by {acc_gap.max()}")
+    raw = raw_columns(fr, fr.names)
+    small = h2o.Frame.from_numpy({k: v[:DEEP_SHAP_CPU]
+                                  for k, v in raw.items()}, device="cpu")
+    want = host_columns(cpu_model(model).predict_contributions(small))
+    err = np.abs(contrib[:DEEP_SHAP_CPU] - want)
+    check((err <= tol[:DEEP_SHAP_CPU, None]).all(),
+          f"depth-20 contributions card vs CPU plain: max |err| "
+          f"{err.max()}")
+    leaves = int((fetch(model.forest.leaf_w) > 0).sum())
+    say(f"phase27(f) GBM {DEEP_SHAP} on {fr.nrows} rows: train {secs:.3f} "
+        f"s, peak {peak / 2**30:.3f} GiB, HeapTree forest "
+        f"{tuple(model.forest.feat.shape)}, {leaves} leaves with rows; "
+        f"launches {counts}; predict_contributions {t_c:.3f} s, local "
+        f"accuracy on every row (max |gap| {acc_gap.max():.3g}), card == "
+        f"CPU plain on {DEEP_SHAP_CPU} rows within 1e-5*max(1, |margin|) "
+        f"(max |err| {err.max():.3g})")
+    return counts
+
+
+def phase_orchestration(torch, dev):
+    """Phase 27: (a)-(b) on the grid frame; (d)-(f) on the head of the
+    AutoML CSV, then (c) on all of it. Returns the paths' launches."""
+    t27 = time.perf_counter()
+    fr = grid_frame(dev)
+    grid_counts = phase_grid(torch, dev, fr)
+    t_a = time.perf_counter() - t27
+    del fr
+    fr, head = automl_frames(torch, dev)
+    t0 = time.perf_counter()
+    repeat_counts, se_counts = phase_automl_repeat(torch, dev, head)
+    deep_counts = phase_deep_contributions(torch, dev, head)
+    t_d = time.perf_counter() - t0
+    del head
+    t0 = time.perf_counter()
+    automl_counts = phase_automl(torch, dev, fr)
+    t_c = time.perf_counter() - t0
+    say(f"phase27: (a, b) {t_a:.3f} s, (d, e, f) {t_d:.3f} s, (c) "
+        f"{t_c:.3f} s, together {time.perf_counter() - t27:.3f} s")
+    return {"grid": grid_counts, "automl": automl_counts,
+            "automl_repeat": repeat_counts, "stackedensemble": se_counts,
+            "gbm_depth20": deep_counts}
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
         return 2
     import h2o3_tpu_torch  # noqa: F401 - fails outside the repository
+    from h2o3_tpu_torch.core.kv import DKV
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     dev = torch.device("cuda")
     t_all = time.perf_counter()
+    make_ahead([("higgs", lambda: higgs_arrays(N_HIGGS)),
+                ("mnist", lambda: mnist_shape_arrays(N_DL)),
+                ("pca", lambda: pca_frame_arrays(N_PCA)),
+                ("zipf", lambda: zipf_corpus(W2V_TOKENS, W2V_TYPES,
+                                             W2V_SENT)),
+                ("grid", grid_arrays), ("automl_csv", automl_csv)])
 
     def mark(label: str) -> None:
+        # each phase starts with an empty DKV (the models a phase made
+        # live only as long as its locals), its garbage collected and
+        # the caching allocator's free blocks returned
+        DKV.clear()
+        gc.collect()
+        torch.cuda.empty_cache()
         say(f"-- {label} at {time.perf_counter() - t_all:.1f} s")
 
     phase_toolchain(torch)
@@ -6020,6 +6630,8 @@ def main() -> int:
                                 higgs))
     say(f"phase 26: {time.perf_counter() - t26:.3f} s")
     del higgs, ccols
+    mark("phase 27")
+    paths.update(phase_orchestration(torch, dev))
     for rec in records:
         rec["max_abs_err"] = worst[rec["name"]]
         rec["launches_by_path"] = {p: c[rec["name"]]
@@ -6034,4 +6646,7 @@ def main() -> int:
 
 
 if __name__ == "__main__":
-    sys.exit(main())
+    try:
+        sys.exit(main())
+    finally:
+        drop_ahead()

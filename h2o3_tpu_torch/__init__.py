@@ -51,13 +51,32 @@ JAX. Its TPU kernels are hand-written CUDA kernels under
     from h2o3_tpu_torch.frame.quantiles import frame_quantiles
     from h2o3_tpu_torch.ops.sort import device_sort, device_join_index
     h2o.models.get_builder("gbm")         # the algorithm registry
+    fr = h2o.import_file("airlines.csv", destination_frame="air")  # DKV key
+    grid = h2o.GridSearch(h2o.GBMEstimator, {"max_depth": [3, 6]},
+                          ntrees=20).train(fr, y="label")
+    grid.sorted_models()
+    se = h2o.StackedEnsembleEstimator(base_models=[m1, m2]).train(
+        fr, y="label")                    # m1, m2 trained with nfolds
+    aml = h2o.H2OAutoML(max_models=20, nfolds=3, seed=1,
+                        max_runtime_secs=300)
+    aml.train(y="label", training_frame=fr); aml.leaderboard.as_table()
+    ref = h2o.upload_custom_distribution(MyLoss())   # "python:<key>"
+    h2o.GBMEstimator(distribution="custom", custom_distribution_func=ref)
+    job = h2o.GBMEstimator().train(fr, y="label", background=True)
+    job.join().result                     # core/job.Job
 
 Entry points default to ``torch.device("cuda")`` and raise when no card
 is present; pass ``device="cpu"`` to run the plain versions on the CPU.
 """
 
+from h2o3_tpu_torch.automl import H2OAutoML
+from h2o3_tpu_torch.core.kv import DKV
+from h2o3_tpu_torch.core.udf import (upload_custom_distribution,
+                                     upload_custom_metric)
 from h2o3_tpu_torch.frame.frame import Frame
 from h2o3_tpu_torch.io.parser import import_file
+from h2o3_tpu_torch.ml.ensemble import StackedEnsembleEstimator
+from h2o3_tpu_torch.ml.grid import GridSearch
 from h2o3_tpu_torch.models.aggregator import AggregatorEstimator
 from h2o3_tpu_torch.models.coxph import CoxPHEstimator
 from h2o3_tpu_torch.models.deeplearning import DeepLearningEstimator
@@ -82,7 +101,9 @@ from h2o3_tpu_torch.models.uplift import UpliftDRFEstimator
 from h2o3_tpu_torch.models.word2vec import Word2VecEstimator
 from h2o3_tpu_torch.models.xgboost import XGBoostEstimator
 
-__all__ = ["Frame", "import_file", "AggregatorEstimator",
+__all__ = ["DKV", "Frame", "GridSearch", "H2OAutoML", "import_file",
+           "StackedEnsembleEstimator", "upload_custom_distribution",
+           "upload_custom_metric", "AggregatorEstimator",
            "ANOVAGLMEstimator", "CoxPHEstimator", "DeepLearningEstimator", "DRFEstimator",
            "ExtendedIsolationForestEstimator", "GAMEstimator", "GBMEstimator",
            "GLMEstimator", "GLRMEstimator", "InfogramEstimator",

@@ -2,9 +2,13 @@
 
 Reference: h2o3_tpu/frame/frame.py (``Frame.from_numpy``,
 ``Frame.from_numpy_partitioned``, ``Frame.from_blocks``, ``col``,
-``names``, ``nrows_padded``, ``valid_weights``). Here a plain
-object: no DKV key (a ``key`` raises ``NotImplementedError`` until the
-DKV is ported, ROADMAP A #9), no durability hooks, no derived-matrix
+``names``, ``nrows_padded``, ``valid_weights``). A frame built with a
+``key`` (or imported with a ``destination_frame``) is stored in the DKV
+under it, and the entry points that take a frame take its key too
+(``resolve_frame``). A frame built without one has ``key`` None and
+stays out of the store: dropping it frees its device memory (the
+reference keys every frame and spills cold ones, which waits for the
+Cleaner, ROADMAP A #13). No durability hooks, no derived-matrix
 caches.
 
 A frame built by ``from_numpy`` holds all its rows on one device. A
@@ -21,6 +25,7 @@ from typing import Dict, List, Optional, Sequence, Tuple, Union
 import numpy as np
 import torch
 
+from h2o3_tpu_torch.core.kv import DKV
 from h2o3_tpu_torch.frame import partition as part_mod
 from h2o3_tpu_torch.frame.column import (T_STR, T_UUID, Column,
                                          column_from_numpy,
@@ -42,6 +47,14 @@ class Frame:
         self.mesh = mesh             # None: all rows on one device
         self.span = (0, self.nrows_padded) if span is None else span
         self.block = block
+        self.key: Optional[str] = None
+
+    def _keyed(self, key: Optional[str]) -> "Frame":
+        """Store this frame in the DKV under ``key`` (None: no key)."""
+        if key is not None:
+            self.key = str(key)
+            DKV.put(self.key, self)
+        return self
 
     @staticmethod
     def from_numpy(arrays: Dict[str, np.ndarray],
@@ -59,8 +72,8 @@ class Frame:
         ``strings`` and ``uuids`` keep listed columns as host-side string
         or UUID columns (no interning, never on the device). ``pad_to``
         pads to at least that many rows (cross-validation pads its fold
-        frames to the parent frame's shape)."""
-        _no_key(key)
+        frames to the parent frame's shape). A ``key`` stores the frame
+        in the DKV under it."""
         device = dev_mod.resolve_device(device)
         names = list(arrays.keys())
         n = len(next(iter(arrays.values()))) if names else 0
@@ -82,7 +95,7 @@ class Frame:
                 dom, v = factorize_numeric(v)
             cols.append(column_from_numpy(name, v, npad, device,
                                           domain=dom))
-        return Frame(cols, n, device, npad=npad, block=block)
+        return Frame(cols, n, device, npad=npad, block=block)._keyed(key)
 
     @staticmethod
     def from_numpy_partitioned(local_cols: Dict[str, np.ndarray],
@@ -153,13 +166,13 @@ class Frame:
         Frame — the block-assembly tail of the streamed-CSV ingest
         (``io/stream.py``). Each accumulator's add_* calls already
         arrived in window order; ``finish`` assembles and pads on the
-        accumulators' device."""
-        _no_key(key)
+        accumulators' device. A ``key`` stores the frame in the DKV."""
         npad = mesh_mod.padded_rows(nrows, mesh_mod.LOCAL, block)
         cols = [accs[nm].finish(nrows, npad) for nm in names]
         device = accs[names[0]].device if names else \
             dev_mod.resolve_device(None)
-        return Frame(cols, nrows, device, npad=npad, block=block)
+        return Frame(cols, nrows, device, npad=npad,
+                     block=block)._keyed(key)
 
     @property
     def names(self) -> List[str]:
@@ -242,8 +255,12 @@ def raw_columns(frame: Frame, names: Sequence[str]) -> Dict[str, np.ndarray]:
     return out
 
 
-def _no_key(key: Optional[str]) -> None:
-    if key is not None:
-        raise NotImplementedError(
-            "frame keys (destination_frame / key=) need the DKV, which is "
-            "not ported yet (ROADMAP A #9)")
+def resolve_frame(fr, what: str) -> Frame:
+    """``fr`` itself, or the Frame the DKV holds under the key ``fr``;
+    raises ``ValueError`` naming ``what`` for a key with no frame."""
+    if isinstance(fr, Frame):
+        return fr
+    got = DKV.get(str(fr))
+    if not isinstance(got, Frame):
+        raise ValueError(f"{what}: no frame under the key {fr!r}")
+    return got

@@ -14,8 +14,9 @@ item it waits for): the pandas fallback and the formats that go through
 it or through Arrow (``.zip``, Parquet, ORC, Avro, XLSX, ARFF,
 SVMLight, multi-file CSVs whose files disagree on a column), and
 ``parse_setup``, ``export_file`` and ``parse_raw``, which use pandas
-(ROADMAP A #5); ``lazy=True`` and ``destination_frame`` need the DKV
-(A #9). Telemetry and the durability hooks wait with ``telemetry/`` and
+(ROADMAP A #5); ``lazy=True``, which needs ``io/lazy.py``'s file-backed
+frame (A #9′). ``destination_frame`` stores the frame in the DKV under
+that key. Telemetry and the durability hooks wait with ``telemetry/`` and
 ``core/durability.py`` (A #13).
 """
 
@@ -29,7 +30,7 @@ from typing import Dict, List, Optional
 
 import numpy as np
 
-from h2o3_tpu_torch.frame.frame import Frame, _no_key
+from h2o3_tpu_torch.frame.frame import Frame
 from h2o3_tpu_torch.native import parse_csv_bytes
 from h2o3_tpu_torch.parallel import device as dev_mod
 
@@ -108,14 +109,14 @@ def import_file(path: str, destination_frame: Optional[str] = None,
                 na_strings=None, device: dev_mod.DeviceLike = None) -> Frame:
     """h2o.import_file analogue (h2o-py/h2o/h2o.py:414), eager: a CSV or
     CSV.gz file path, glob or directory, parsed by the native tokenizer
-    into a Frame on ``device`` (CUDA unless the caller names another).
-    ``lazy=True`` and ``destination_frame`` need the DKV and raise
-    ``NotImplementedError``, as does any other format."""
+    into a Frame on ``device`` (CUDA unless the caller names another),
+    stored in the DKV under ``destination_frame`` when one is given.
+    ``lazy=True`` raises ``NotImplementedError``, as does any other
+    format."""
     if lazy:
         raise NotImplementedError(
-            "lazy=True registers a file-backed frame in the DKV, which is "
-            "not ported yet (ROADMAP A #9)")
-    _no_key(destination_frame)
+            "lazy=True registers a file-backed frame (io/lazy.py), which "
+            "is not ported yet (ROADMAP A #9′)")
     device = dev_mod.resolve_device(device)
     if os.path.isdir(path):
         paths = sorted(os.path.join(path, f) for f in os.listdir(path))
@@ -160,7 +161,7 @@ def import_file(path: str, destination_frame: Optional[str] = None,
                 and np.asarray(cols[c]).dtype == object]
     return Frame.from_numpy(cols, categorical=cats, domains=domains,
                             strings=str_cols, uuids=uuid_cols,
-                            device=device)
+                            device=device, key=destination_frame)
 
 
 def _na_by_name(na_strings, names_in_order: List[str]) -> Dict[str, List[str]]:

@@ -29,7 +29,7 @@ interning, ParseDataset.java:356-440). A three-stage pipeline:
 Because the merge stage is the SAME code consuming the SAME windows in
 the SAME order, the parallel path is bit-identical to the sequential
 one (workers=1). The reference's telemetry, cancellation points and
-memory-governor admission are not ported (ROADMAP A #9, #13).
+memory-governor admission are not ported (ROADMAP A #13).
 """
 
 from __future__ import annotations
@@ -46,7 +46,7 @@ import torch
 
 from h2o3_tpu_torch.frame.column import (BlockAccumulator, block_values_f64,
                                          narrow_numeric_block)
-from h2o3_tpu_torch.frame.frame import Frame, _no_key
+from h2o3_tpu_torch.frame.frame import Frame
 from h2o3_tpu_torch.io import chunking
 from h2o3_tpu_torch.io.chunking import iter_line_chunks
 from h2o3_tpu_torch.native import parse_csv_bytes
@@ -265,10 +265,8 @@ def stream_import_csv(path, destination_frame: Optional[str] = None,
     ``workers`` (default: H2O3TPU_PARSE_WORKERS / host cores) sizes the
     tokenizer pool; workers=1 runs the sequential path. Both paths
     produce bit-identical frames (data, dtypes, domains, NA masks).
-    ``destination_frame`` needs the DKV and raises
-    ``NotImplementedError``.
+    ``destination_frame`` stores the frame in the DKV under that key.
     """
-    _no_key(destination_frame)
     device = dev_mod.resolve_device(device)
     paths = chunking.expand_paths(path)
     if not paths or not all(os.path.exists(f) for f in paths):
@@ -286,4 +284,5 @@ def stream_import_csv(path, destination_frame: Optional[str] = None,
     finally:
         window.drain()
         transfer.close()
-    return Frame.from_blocks(state.accs, state.names, state.total)
+    return Frame.from_blocks(state.accs, state.names, state.total,
+                             key=destination_frame)

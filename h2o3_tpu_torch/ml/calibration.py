@@ -15,7 +15,7 @@ from typing import Tuple
 
 import numpy as np
 
-from h2o3_tpu_torch.frame.frame import Frame
+from h2o3_tpu_torch.frame.frame import Frame, resolve_frame
 
 
 def fit_platt(p_raw: np.ndarray, y01: np.ndarray,
@@ -91,10 +91,7 @@ def maybe_calibrate(model, params: dict, category: str) -> None:
     cf = params.get("calibration_frame")
     if cf is None:
         raise ValueError("calibrate_model requires calibration_frame")
-    if not isinstance(cf, Frame):
-        raise NotImplementedError(
-            "calibration_frame by frame key is not ported yet: keys live "
-            "in the KV layer; pass the Frame itself")
+    cf = resolve_frame(cf, "calibration_frame")
     calibrate_model(model, cf,
                     method=params.get("calibration_method", "PlattScaling"))
 

@@ -25,10 +25,13 @@ each fold's training rows and then the main model; its CV metrics are a
 copy of the main model's training metrics without ``centroid_stats``,
 as the reference serves them.
 
-Not ported: the cluster scheduler of the reference, and the frame keys
-it returns (``keep_cross_validation_predictions``,
-``keep_cross_validation_fold_assignment``, ``cv_model_keys``; ROADMAP
-A #9): the fold models are ``_cv_models``.
+The fold models are ``_cv_models``, named ``<main key>_cv_<i>``
+(``output["cv_model_keys"]``; ``train`` stores them with the main model);
+``keep_cross_validation_predictions`` stores each fold's holdout
+predictions and the merged ones as frames (``cv_predictions_keys``,
+``cv_holdout_frame_key``), ``keep_cross_validation_fold_assignment`` the
+fold of each row (``cv_fold_assignment_key``). Not ported: the cluster
+scheduler of the reference (ROADMAP A #12/#13).
 """
 
 from __future__ import annotations
@@ -39,6 +42,7 @@ from typing import Optional, Sequence
 import numpy as np
 import torch
 
+from h2o3_tpu_torch.core.kv import make_key
 from h2o3_tpu_torch.frame.frame import Frame
 from h2o3_tpu_torch.models import metrics as mm
 from h2o3_tpu_torch.models.model import (ModelCategory, adapt_domain,
@@ -168,9 +172,63 @@ def _unsupervised_cv(builder, frame: Frame, x: Sequence[str],
         cvm.extra = dict(cvm.extra, centroid_stats=None)
     final.cross_validation_metrics = cvm
     final.output["nfolds"] = nfolds
-    final._cv_models = cv_models
+    _name_cv_models(final, cv_models)
     final._cv_folds = folds
     return final
+
+
+def _name_cv_models(final, cv_models) -> None:
+    """Keep the fold models as ``_cv_models``, named ``<main key>_cv_<i>``
+    into ``output["cv_model_keys"]`` (``train`` stores them with the main
+    model)."""
+    final._cv_models = cv_models
+    final._key_folds()
+
+
+def _frame_key(cols: dict, device) -> str:
+    """A new keyed frame of host columns on ``device``; its key."""
+    return Frame.from_numpy(cols, device=device,
+                            key=make_key("frame")).key
+
+
+def _keep_cv_frames(final, p: dict, holdout: np.ndarray, folds: np.ndarray,
+                    fold_preds: list, category: str, device) -> None:
+    """``keep_cross_validation_predictions``: each fold's predictions
+    (all rows, zero off the fold) and the merged holdout predictions as
+    keyed frames; ``keep_cross_validation_fold_assignment``: the fold of
+    each row. Output keys as the reference names them."""
+    n = holdout.shape[0]
+    pred_keys = []
+    if p.get("keep_cross_validation_predictions"):
+        for idx, preds in fold_preds:
+            cols = {}
+            for name, arr in preds.items():
+                a = np.asarray(arr)
+                if a.dtype.kind not in "fiu":
+                    continue
+                full = np.zeros(n, np.float64)
+                full[idx] = a[:len(idx)]
+                cols[name] = full
+            pred_keys.append(_frame_key(cols, device))
+        if category == ModelCategory.MULTINOMIAL:
+            hcols = {"predict": holdout.argmax(axis=1).astype(np.float64),
+                     **{f"p{k}": holdout[:, k].astype(np.float64)
+                        for k in range(holdout.shape[1])}}
+        elif category == ModelCategory.BINOMIAL:
+            t = final.output.get("default_threshold", 0.5)
+            hcols = {"predict": (holdout >= t).astype(np.float64),
+                     "p0": (1.0 - holdout).astype(np.float64),
+                     "p1": holdout.astype(np.float64)}
+        else:
+            hcols = {"predict": holdout.astype(np.float64)}
+        final.output["cv_holdout_frame_key"] = _frame_key(hcols, device)
+    else:
+        final.output["cv_holdout_frame_key"] = None
+    final.output["cv_fold_assignment_key"] = (
+        _frame_key({"fold_assignment": folds.astype(np.float64)}, device)
+        if p.get("keep_cross_validation_fold_assignment") else None)
+    final.output["cv_holdout_predictions"] = None
+    final.output["cv_predictions_keys"] = pred_keys or None
 
 
 def train_with_cv(builder, frame: Frame, x: Sequence[str], y: str,
@@ -228,7 +286,8 @@ def train_with_cv(builder, frame: Frame, x: Sequence[str], y: str,
             frame, list(x), y), "_lambda_path_vals", None)
     path_devs = []
 
-    cv_models, fold_metrics, dev_scores = [], [], []
+    cv_models, fold_metrics, dev_scores, fold_preds = [], [], [], []
+    keep_preds = bool(p.get("keep_cross_validation_predictions"))
     max_fold = int(np.max(np.bincount(folds, minlength=nfolds)))
     for f in range(nfolds):
         mask_tr = folds != f
@@ -239,13 +298,18 @@ def train_with_cv(builder, frame: Frame, x: Sequence[str], y: str,
             sub._cv_shared_bm = shared_bm
             sub._cv_light = light
             m = sub._fit(frame, list(x), y)
-            if light:
+            if light and not keep_preds:
                 # kept on the device; one fetch after the sweep
                 dev_scores.append((idx, m._score_dev(frame)))
                 fold_metrics.append({})
                 continue
             preds = {k: np.asarray(v)[idx]
                      for k, v in m._score_raw(frame).items()}
+            if light:
+                fold_metrics.append({})
+                fold_preds.append((idx, preds))
+                holdout[idx] = _holdout_columns(preds, category, K)
+                continue
             hold_w = np.zeros(frame.nrows_padded, np.float32)
             hold_w[idx] = 1.0
             fm = m.model_performance(frame, mask_weights=hold_w)
@@ -263,6 +327,8 @@ def train_with_cv(builder, frame: Frame, x: Sequence[str], y: str,
             fm = m.model_performance(te)
         cv_models.append(m)
         fold_metrics.append(fm.to_dict())
+        if keep_preds:
+            fold_preds.append((idx, preds))
         holdout[idx] = _holdout_columns(preds, category, K)
     if dev_scores:
         fetched = fetch(torch.stack([s for _, s in dev_scores]))
@@ -304,7 +370,9 @@ def train_with_cv(builder, frame: Frame, x: Sequence[str], y: str,
     final.output["nfolds"] = nfolds
     final.output["cv_summary_rows"] = _summary_rows(fold_metrics)
     final.output["cv_summary_nfolds"] = nfolds
+    _keep_cv_frames(final, p, holdout, folds, fold_preds, category,
+                    frame.device)
+    _name_cv_models(final, cv_models)
     final._cv_holdout = holdout
-    final._cv_models = cv_models
     final._cv_folds = folds
     return final

@@ -62,17 +62,15 @@ def row_bytes(D: int, F: int) -> int:
 class _TreeShap:
     """One tree's contributions over one row block, added into ``phi``."""
 
-    def __init__(self, tree: Dict[str, np.ndarray], dev_tree, t: int,
-                 bins: torch.Tensor, B: int, phi: torch.Tensor, ext):
-        self.h = tree                 # host arrays of tree t
-        self.dv = dev_tree            # device forest (left_words)
-        self.t = t
+    def __init__(self, tree: Dict[str, list], bins: torch.Tensor, B: int,
+                 phi: torch.Tensor, ext):
+        self.h = tree                 # tree t's fields, [d][l] (_host_tree)
         self.bins = bins
         self.B = B
         self.phi = phi
         self.dev = bins.device
         self.N = bins.shape[0]
-        self.D = tree["feat"].shape[0]
+        self.D = len(tree["feat"])
         lw = tree["leaf_w"]
         # covers[d][l]: training weight reaching node (d, l)
         self.covers = [lw.reshape(1 << d, -1).sum(axis=1)
@@ -171,15 +169,15 @@ class _TreeShap:
     def go_left(self, d: int, l: int) -> torch.Tensor:
         """float32 [N]: 1 where a row goes left at node (d, l)."""
         h = self.h
-        f = int(h["feat"][d, l])
+        f = int(h["feat"][d][l])
         b = self.bins[:, f].to(torch.int32)
-        if bool(h["cat_split"][d, l]):
-            lw = self.dv.left_words[self.t, d, l]
+        if bool(h["cat_split"][d][l]):
+            lw = h["left_words"][d][l]
             word = lw[(b >> 5).clamp(0, lw.shape[0] - 1).long()]
             go = ((word >> (b & 31)) & 1) == 1
         else:
-            go = b <= int(h["thresh"][d, l])
-        return torch.where(b == self.B - 1, bool(h["na_left"][d, l]),
+            go = b <= int(h["thresh"][d][l])
+        return torch.where(b == self.B - 1, bool(h["na_left"][d][l]),
                            go).to(torch.float32)
 
     def recurse(self, d, l, ds, zs, os, W, ln, pz, po, pi):
@@ -190,12 +188,12 @@ class _TreeShap:
         ln += 1
         # a node that does not split sends its rows left, where a deeper
         # level may split them again (DRF's per-node column samples)
-        while d < self.D and not h["is_split"][d, l]:
+        while d < self.D and not h["is_split"][d][l]:
             d, l = d + 1, 2 * l
         if d == self.D:
             self.leaf(ds, zs, os, W, ln, float(h["leaf"][l]))
             return
-        f = int(h["feat"][d, l])
+        f = int(h["feat"][d][l])
         gl = self.go_left(d, l)
         r_j = max(float(self.covers[d][l]), 1e-30)
         r_l = float(self.covers[d + 1][2 * l])
@@ -239,18 +237,34 @@ def extend_consts(n: int, device):
     return out
 
 
+def _host_tree(forest, t: int, scale: float) -> Dict[str, list]:
+    """Tree t of a stacked forest, whatever its layout (models/tree.py):
+    its split fields level by level on the host ([d][l]; ``left_words``
+    stays on the device), its leaf values times ``scale`` and its leaf
+    weights as float64."""
+    from h2o3_tpu_torch.models.tree import _tree_at, level_arrays, \
+        tree_depth
+    tree = _tree_at(forest, t)
+    host = type(tree)(*(a if f == "left_words" else a.cpu().numpy()
+                        for f, a in zip(tree._fields, tree)))
+    levels = [level_arrays(host, d) for d in range(tree_depth(tree))]
+    fields = ("feat", "thresh", "na_left", "is_split", "cat_split",
+              "left_words")
+    out = {f: [lv[i] for lv in levels] for i, f in enumerate(fields)}
+    out["leaf"] = host.leaf.astype(np.float64) * scale
+    out["leaf_w"] = host.leaf_w.astype(np.float64)
+    return out
+
+
 def forest_contributions(forest, bins: torch.Tensor, B: int,
                          scale: float = 1.0, row_block=None) -> np.ndarray:
-    """SHAP contributions of a stacked forest → float64 [N, F+1] on the
-    host (the last column the bias). ``bins`` [N, F] on the device the
-    work runs on; ``scale`` multiplies every tree's output (1/T for DRF's
-    averaged votes); ``row_block`` rows at a time (default from
-    ``SHAP_BLOCK_BYTES``)."""
-    host = {f: getattr(forest, f).cpu().numpy()
-            for f in ("feat", "thresh", "na_left", "is_split", "cat_split")}
-    host["leaf"] = forest.leaf.cpu().numpy().astype(np.float64) * scale
-    host["leaf_w"] = forest.leaf_w.cpu().numpy().astype(np.float64)
-    T, D = host["feat"].shape[:2]
+    """SHAP contributions of a stacked forest (Trees or HeapTrees) →
+    float64 [N, F+1] on the host (the last column the bias). ``bins``
+    [N, F] on the device the work runs on; ``scale`` multiplies every
+    tree's output (1/T for DRF's averaged votes); ``row_block`` rows at
+    a time (default from ``SHAP_BLOCK_BYTES``)."""
+    from h2o3_tpu_torch.models.tree import tree_depth
+    T, D = forest.leaf.shape[0], tree_depth(forest)
     N, F = bins.shape
     blk = int(row_block or max(1, SHAP_BLOCK_BYTES // row_bytes(D, F)))
     out = np.zeros((N, F + 1), np.float64)
@@ -261,9 +275,8 @@ def forest_contributions(forest, bins: torch.Tensor, B: int,
                           device=bins.device)
         bias = 0.0
         for t in range(T):
-            tree = {k: v[t] for k, v in host.items()}
-            bias += _TreeShap(tree, forest, t, bins[lo:hi], B, phi,
-                              ext).run()
+            bias += _TreeShap(_host_tree(forest, t, scale), bins[lo:hi], B,
+                              phi, ext).run()
         out[lo:hi, :F] = phi.cpu().numpy()
         out[lo:hi, F] = bias
     return out
@@ -285,9 +298,9 @@ def contributions_frame(model, frame, forest=None, scale: float = 1.0,
             f"models (got {cat})")
     require_local(frame, model.algo)
     bm = rebin_for_scoring(model.bm, frame)
-    phi = forest_contributions(forest if forest is not None else model.forest,
-                               bm.bins[:frame.nrows], model.bm.nbins_total,
-                               scale=scale)
+    forest = forest if forest is not None else model.forest
+    phi = forest_contributions(forest, bm.bins[:frame.nrows],
+                               model.bm.nbins_total, scale=scale)
     phi[:, -1] += bias_offset
     cols = {n: phi[:, j] for j, n in enumerate(model.output["names"])}
     cols["BiasTerm"] = phi[:, -1]

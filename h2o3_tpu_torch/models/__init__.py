@@ -21,6 +21,7 @@ UNPORTED = {"generic": "A #10"}
 def _registry() -> Dict[str, type]:
     """The port's estimators by algo name, imported at the first lookup
     (the estimator modules import this package)."""
+    from h2o3_tpu_torch.ml.ensemble import StackedEnsembleEstimator
     from h2o3_tpu_torch.models.aggregator import AggregatorEstimator
     from h2o3_tpu_torch.models.coxph import CoxPHEstimator
     from h2o3_tpu_torch.models.deeplearning import DeepLearningEstimator
@@ -52,8 +53,8 @@ def _registry() -> Dict[str, type]:
         GLMEstimator, GLRMEstimator, InfogramEstimator,
         IsolationForestEstimator, IsotonicRegressionEstimator,
         KMeansEstimator, ModelSelectionEstimator, NaiveBayesEstimator,
-        PCAEstimator, PSVMEstimator, RuleFitEstimator, SVDEstimator,
-        TargetEncoderEstimator, UpliftDRFEstimator, Word2VecEstimator,
+        PCAEstimator, PSVMEstimator, RuleFitEstimator,
+        StackedEnsembleEstimator, SVDEstimator, TargetEncoderEstimator, UpliftDRFEstimator, Word2VecEstimator,
         XGBoostEstimator)}
 
 

@@ -17,8 +17,8 @@ decision depends on the ones before it). The row norms are the host's,
 so a decision differs from the reference's only where a distance equals
 the radius to the last bit of the matrix product.
 
-No DKV: the model holds the aggregated ``Frame`` (``aggregated_frame``)
-and its output has no ``output_frame`` key (ROADMAP A #9). Not ported:
+The aggregated frame is stored in the DKV under ``output["output_frame"]``
+and ``aggregated_frame`` reads it back by that key. Not ported:
 a partitioned frame (A #12). ``categorical_encoding`` is accepted and
 unread, as in the reference.
 """
@@ -31,6 +31,7 @@ from typing import Dict, List, Optional, Sequence
 import numpy as np
 import torch
 
+from h2o3_tpu_torch.core.kv import DKV, make_key
 from h2o3_tpu_torch.frame.datainfo import build_datainfo
 from h2o3_tpu_torch.frame.frame import Frame, raw_columns
 from h2o3_tpu_torch.models.model import Model, ModelBuilder, require_local
@@ -94,16 +95,16 @@ def _sweep(Xd: torch.Tensor, Xh: np.ndarray, x2: np.ndarray, radius: float,
 class AggregatorModel(Model):
     algo = "aggregator"
 
-    def __init__(self, params, output, aggregated: Frame,
+    def __init__(self, params, output, exemplar_frame_key: str,
                  exemplar_assignment: np.ndarray):
         super().__init__(params, output)
-        self.aggregated = aggregated
+        self.exemplar_frame_key = exemplar_frame_key
         self.exemplar_assignment = exemplar_assignment
         self.timing: Dict[str, float] = {}
 
     @property
     def aggregated_frame(self) -> Frame:
-        return self.aggregated
+        return DKV.get(self.exemplar_frame_key)
 
     def _score_raw(self, frame: Frame):
         raise NotImplementedError("Aggregator produces aggregated_frame")
@@ -168,11 +169,13 @@ class AggregatorEstimator(ModelBuilder):
         cols = {name: raw[name][ex_idx] for name in x}
         cols["counts"] = counts.astype(np.float64)
         cats = [name for name in x if frame.col(name).is_categorical]
-        agg = Frame.from_numpy(cols, categorical=cats, device=frame.device)
+        agg = Frame.from_numpy(cols, categorical=cats, device=frame.device,
+                               key=make_key("frame"))
         output = {"category": "Clustering", "response": None,
                   "names": list(x), "domain": None,
                   "num_exemplars": int(len(ex_idx)),
-                  "sweeps": sweeps, "radius": radius}
-        model = AggregatorModel(p, output, agg, assign)
+                  "sweeps": sweeps, "radius": radius,
+                  "output_frame": agg.key}
+        model = AggregatorModel(p, output, agg.key, assign)
         model.timing = clock
         return model

@@ -28,8 +28,11 @@ GLM, rules and winsor bounds, the wrappers' GLMs, Isotonic's thresholds.
 ``coxph_model_from_arrays``, ``psvm_model_from_arrays`` and
 ``word2vec_model_from_arrays`` carry CoxPH's coefficients, PSVM's
 feature map and weights, and Word2Vec's vectors across (an Aggregator
-scores nothing and carries nothing across). Nothing here imports the reference package: the caller hands over
-numpy.
+scores nothing and carries nothing across). A GBM, DRF, GLM or
+DeepLearning model trained with cross-validation brings its holdout
+predictions and fold ids (``cv_holdout``, ``cv_folds``: what a
+StackedEnsemble stacks). Nothing here imports the reference package:
+the caller hands over numpy.
 """
 
 from __future__ import annotations
@@ -60,7 +63,7 @@ from h2o3_tpu_torch.models.pca import PCAModel, SVDModel
 from h2o3_tpu_torch.models.psvm import PSVMModel
 from h2o3_tpu_torch.models.rulefit import RuleFitModel
 from h2o3_tpu_torch.models.targetencoder import TargetEncoderModel
-from h2o3_tpu_torch.models.tree import Tree
+from h2o3_tpu_torch.models.tree import Tree, keep_layout
 from h2o3_tpu_torch.models.uplift import UpliftDRFModel
 from h2o3_tpu_torch.models.word2vec import Word2VecModel
 from h2o3_tpu_torch.parallel.device import DeviceLike, resolve_device
@@ -121,6 +124,16 @@ def _calibrated(model, d: Arrays):
     return model
 
 
+def _cross_validated(model, d: Arrays):
+    """Set ``_cv_holdout`` (float32) and ``_cv_folds`` from
+    ``d["cv_holdout"]`` and ``d["cv_folds"]``, where the reference model
+    has them."""
+    if d.get("cv_holdout") is not None:
+        model._cv_holdout = np.asarray(d["cv_holdout"], np.float32)
+        model._cv_folds = np.asarray(d["cv_folds"], np.int32)
+    return model
+
+
 def gbm_model_from_arrays(d: Arrays, device: DeviceLike = None) -> GBMModel:
     """Port ``GBMModel`` on ``device`` from the reference model's images.
 
@@ -131,18 +144,19 @@ def gbm_model_from_arrays(d: Arrays, device: DeviceLike = None) -> GBMModel:
     domain's length), ``default_threshold`` (0.5), ``params`` (the
     training parameters: a family's shape parameter, the offset column,
     what a checkpoint restart checks), ``init_f``, ``calibrator``
-    (``(method, params)``). A multinomial model's ``f0`` is the [K]
-    vector and its forest the t-major [T·K] stack (tree t, class k at
-    row t·K + k)."""
+    (``(method, params)``), ``cv_holdout`` and ``cv_folds``. A
+    multinomial model's ``f0`` is the [K] vector and its forest the
+    t-major [T·K] stack (tree t, class k at row t·K + k)."""
     dev = resolve_device(device)
     f0 = np.asarray(d["f0"], np.float32)
     output = _output(d)
     if d.get("init_f") is not None:
         output["init_f"] = float(d["init_f"])
-    return _calibrated(
-        GBMModel(dict(d.get("params") or {}), output, _forest(d, dev),
-                 _binned(d, dev), f0 if f0.ndim else np.float32(f0),
-                 str(d["dist_name"])), d)
+    return _cross_validated(_calibrated(
+        GBMModel(dict(d.get("params") or {}), output,
+                 keep_layout(_forest(d, dev)), _binned(d, dev),
+                 f0 if f0.ndim else np.float32(f0), str(d["dist_name"])),
+        d), d)
 
 
 def drf_model_from_arrays(d: Arrays, device: DeviceLike = None) -> DRFModel:
@@ -157,7 +171,7 @@ def drf_model_from_arrays(d: Arrays, device: DeviceLike = None) -> DRFModel:
                      _forest(d, dev), _binned(d, dev))
     if d.get("oob_sum") is not None:
         model._oob = (_f32(d["oob_sum"], dev), _f32(d["oob_cnt"], dev))
-    return _calibrated(model, d)
+    return _cross_validated(_calibrated(model, d), d)
 
 
 def uplift_model_from_arrays(d: Arrays,
@@ -238,13 +252,12 @@ def glm_model_from_arrays(d: Arrays) -> GLMModel:
     model scores on the device of the frame it is given."""
     stats = _di_stats(d["di_stats"])
     cm = d.get("coef_multinomial")
-    return GLMModel(dict(d.get("params") or {}), dict(d["output"]),
-                    np.asarray(d["coef"]),
-                    Family(str(d["family"]), float(d.get("tweedie_power",
-                                                         1.5)),
-                           d.get("link"), theta=float(d.get("theta", 1e-5))),
-                    stats, list(d["features"]),
-                    coef_multinomial=None if cm is None else np.asarray(cm))
+    return _cross_validated(GLMModel(
+        dict(d.get("params") or {}), dict(d["output"]), np.asarray(d["coef"]),
+        Family(str(d["family"]), float(d.get("tweedie_power", 1.5)),
+               d.get("link"), theta=float(d.get("theta", 1e-5))),
+        stats, list(d["features"]),
+        coef_multinomial=None if cm is None else np.asarray(cm)), d)
 
 
 def deeplearning_model_from_arrays(d: Arrays) -> DeepLearningModel:
@@ -271,7 +284,7 @@ def deeplearning_model_from_arrays(d: Arrays) -> DeepLearningModel:
         None if rs is None else (float(rs[0]), float(rs[1])))
     model._opt_state = d.get("opt_state")   # numpy; the restart copies it
     model._steps_trained = int(d.get("steps_trained") or 0)
-    return model
+    return _cross_validated(model, d)
 
 
 def kmeans_model_from_arrays(d: Arrays) -> KMeansModel:

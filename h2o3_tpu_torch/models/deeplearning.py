@@ -35,11 +35,12 @@ rounded to bf16). ``bf16_route`` picks how the forward product runs,
 once a fit (``StepConfig.bf16``).
 
 Not ported: DL on a frame partitioned over a sharded mesh (the gradient
-all-reduce, ROADMAP A #12); ``export_weights_and_biases``, which writes
-frames into the KV layer (A #9); the in-fit checkpointer
+all-reduce, ROADMAP A #12); the in-fit checkpointer
 ``core/recovery`` (A #13); the serving halves ``_serve_dev`` /
 ``_serve_finish`` (A #10). The reference's one-slot design memo is not
 kept: the fit hands its design to the training metrics instead.
+``export_weights_and_biases`` stores each layer's weights and biases as
+frames in the DKV.
 """
 
 from __future__ import annotations
@@ -51,6 +52,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from h2o3_tpu_torch.core.job import job_update
 from h2o3_tpu_torch.frame.datainfo import build_datainfo, stats_of
 from h2o3_tpu_torch.frame.frame import Frame
 from h2o3_tpu_torch.models import metrics as mm
@@ -477,6 +479,25 @@ class DeepLearningModel(Model):
         return mm.regression_metrics(pred, yv, w)
 
 
+def _export_weights_and_biases(model, device) -> None:
+    """Each layer's weights (a column per input) and biases as frames in
+    the DKV under ``<model>_weights_<i>`` / ``<model>_biases_<i>``, their
+    keys in ``output["weights_keys"]`` / ``output["biases_keys"]``."""
+    wkeys, bkeys = [], []
+    for li, layer in enumerate(model.net):
+        Wh = fetch(layer["W"]).astype(np.float64)
+        wf = Frame.from_numpy({f"C{j + 1}": Wh[j]
+                               for j in range(Wh.shape[0])},
+                              device=device, key=f"{model.key}_weights_{li}")
+        bf = Frame.from_numpy({"C1": fetch(layer["b"]).astype(
+            np.float64).ravel()}, device=device,
+            key=f"{model.key}_biases_{li}")
+        wkeys.append(wf.key)
+        bkeys.append(bf.key)
+    model.output["weights_keys"] = wkeys
+    model.output["biases_keys"] = bkeys
+
+
 def opt_state_on(state, device):
     """A (nested) optimizer state's arrays as float32 tensors on
     ``device`` (copies), its scalars (momentum) as numpy float32."""
@@ -539,12 +560,7 @@ class DeepLearningEstimator(ModelBuilder):
         use_all_factor_levels=False, max_w2=3.4e38, reproducible=False,
         checkpoint=None,
     )
-    PORTED = frozenset(DEFAULTS) - {"export_weights_and_biases"}
-    UNPORTED_WHY = dict(
-        ModelBuilder.UNPORTED_WHY,
-        export_weights_and_biases="it writes each layer's weights and "
-        "biases as frames into the KV layer of the job and orchestration "
-        "layer (ROADMAP A #9)")
+    PORTED = frozenset(DEFAULTS)
 
     def _seed(self) -> int:
         s = int(self.params["seed"])
@@ -701,6 +717,7 @@ class DeepLearningEstimator(ModelBuilder):
             train_steps(net, t.opt, t.X, t.y, t.w, t.gen, cfg, t.sched, done,
                         k, t.n)
             done += k
+            job_update(k / total, f"step {done}/{total}")
             if stopper.enabled and (done >= next_score or done >= total):
                 next_score += stride
                 with torch.no_grad():
@@ -725,6 +742,8 @@ class DeepLearningEstimator(ModelBuilder):
         model._opt_state = t.opt
         model._steps_trained = int(done)
         model._gen_state = (t.X.device.type, t.gen.get_state())
+        if p.get("export_weights_and_biases"):
+            _export_weights_and_biases(model, t.X.device)
         nscore = int(p.get("score_training_samples") or 0)
         mask = None
         if nscore and t.n > nscore:

@@ -8,9 +8,11 @@ scalar), ``link_inv`` (margin → prediction) and ``deviance``.
 Families: gaussian, bernoulli, poisson, gamma, tweedie(p), laplace,
 quantile(alpha) and huber(delta), with the reference's own
 simplifications (laplace's prior is the mean; huber's delta is fixed at
-``huber_alpha``). Multinomial is resolved at the algorithm level, and
-``custom`` (an uploaded function resolved through the job/KV layer) is
-not ported.
+``huber_alpha``). Multinomial is resolved at the algorithm level.
+``custom`` wraps an object uploaded with
+``core/udf.upload_custom_distribution`` (``custom_distribution_func``):
+its ``gradient`` and optional ``hessian``, ``deviance``, ``init`` and
+``link`` take and return torch tensors on the fit's device.
 """
 
 from __future__ import annotations
@@ -239,6 +241,36 @@ def huber(delta: float = 0.9) -> Distribution:
             delta * (torch.abs(y - f) - 0.5 * delta)))
 
 
+_LINKS = {
+    "identity": (lambda f: f, lambda m: m),
+    "log": (torch.exp, lambda m: float(np.log(np.float32(max(m, EPS))))),
+    "logit": (_sigmoid, lambda m: float(np.log(np.float32(
+        max(m, EPS) / max(1.0 - m, EPS))))),
+}
+
+
+def custom(obj, ref: str) -> Distribution:
+    """An uploaded custom-distribution object as a family (the
+    CustomDistribution role): the hessian defaults to 1, the deviance to
+    |gradient| (a monotone progress measure for early stopping), the
+    prior to the link's."""
+    link_name = obj.link() if callable(getattr(obj, "link", None)) \
+        else "identity"
+    if link_name not in _LINKS:
+        raise ValueError(f"custom distribution link '{link_name}' must "
+                         f"be one of {sorted(_LINKS)}")
+    link_inv, default_init = _LINKS[link_name]
+    grad = obj.gradient
+    hess = (obj.hessian if callable(getattr(obj, "hessian", None))
+            else (lambda y, f: torch.ones_like(f)))
+    dev = (obj.deviance if callable(getattr(obj, "deviance", None))
+           else (lambda y, f: torch.abs(grad(y, f))))
+    init = (obj.init if callable(getattr(obj, "init", None))
+            else default_init)
+    return Distribution(f"custom:{ref}", grad=grad, hess=hess,
+                        init_margin=init, link_inv=link_inv, deviance=dev)
+
+
 _FACTORY = {"gaussian": gaussian, "bernoulli": bernoulli, "poisson": poisson,
             "gamma": gamma, "laplace": laplace}
 # families with a shape parameter: (factory, the GBM parameter, default)
@@ -257,9 +289,19 @@ def get_distribution(name: str, **kw) -> Distribution:
     if name in ("auto", "multinomial"):
         raise ValueError(f"{name} resolved at the algorithm level")
     if name == "custom":
-        raise NotImplementedError(
-            "distribution 'custom' is not ported yet: it resolves an "
-            "uploaded function through the job/KV layer")
+        ref = kw.get("custom_distribution_func")
+        if not ref:
+            raise ValueError("distribution='custom' requires "
+                             "custom_distribution_func (upload via "
+                             "h2o3_tpu_torch.upload_custom_distribution)")
+        from h2o3_tpu_torch.core.udf import resolve_udf
+        obj = resolve_udf(ref)
+        # one instance per uploaded object: a re-upload under the same
+        # key is a new family
+        key = ("custom", str(ref), id(obj))
+        if key not in _CACHE:
+            _CACHE[key] = custom(obj, str(ref))
+        return _CACHE[key]
     if name in _SHAPED:
         make, param, default = _SHAPED[name]
         key = (name, float(kw.get(param, default)))

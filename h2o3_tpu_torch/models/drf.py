@@ -37,6 +37,7 @@ from typing import Dict, List, Optional, Sequence
 import numpy as np
 import torch
 
+from h2o3_tpu_torch.core.job import job_update
 from h2o3_tpu_torch.frame.binning import (BinnedMatrix, bin_frame,
                                           rebin_for_scoring)
 from h2o3_tpu_torch.frame.frame import Frame
@@ -261,8 +262,10 @@ class DRFEstimator(ModelBuilder):
         "sample_rate", "col_sample_rate_per_tree", "min_split_improvement",
         "seed", "weights_column", "ignored_columns", "max_runtime_secs",
         "nfolds", "fold_column", "fold_assignment",
-        "keep_cross_validation_models", "checkpoint", "calibrate_model",
-        "calibration_frame", "calibration_method", "histogram_type",
+        "keep_cross_validation_models", "keep_cross_validation_predictions",
+        "keep_cross_validation_fold_assignment", "checkpoint",
+        "calibrate_model", "calibration_frame", "calibration_method",
+        "histogram_type",
         # accepted and inert, as in the reference
         "stopping_rounds", "stopping_metric", "stopping_tolerance",
         "binomial_double_trees", "distribution"))
@@ -379,6 +382,7 @@ class DRFEstimator(ModelBuilder):
                 sample_rate=sample_rate, mtries=mtries)
             trees += step
             gains = gains + gain
+            job_update(1.0 / ntrees, f"tree {t + 1}/{ntrees}")
             if deadline.passed():
                 break
         forest = stack_trees(trees)

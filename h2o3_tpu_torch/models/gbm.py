@@ -52,6 +52,7 @@ from typing import Dict, List, Optional, Sequence
 import numpy as np
 import torch
 
+from h2o3_tpu_torch.core.job import job_update
 from h2o3_tpu_torch.frame.binning import (BinnedMatrix, bin_frame,
                                           rebin_for_scoring)
 from h2o3_tpu_torch.frame.frame import Frame
@@ -65,10 +66,11 @@ from h2o3_tpu_torch.models.model import (Deadline, EarlyStopper, Model,
                                          infer_category, masked_weights,
                                          prior_trees, require_local,
                                          resolve_checkpoint_model)
-from h2o3_tpu_torch.models.tree import (Tree, TreeParams, bucket_depth,
-                                        concat_forests,
+from h2o3_tpu_torch.models.tree import (Tree, TreeParams, _tree_at,
+                                        bucket_depth, concat_forests,
                                         feature_frequencies_frame,
-                                        grow_tree, leaf_assignment_frame,
+                                        grow_tree, keep_layout,
+                                        leaf_assignment_frame,
                                         predict_forest, predict_tree,
                                         scalars_of, stack_trees)
 from h2o3_tpu_torch.parallel.device import fetch
@@ -261,7 +263,9 @@ class GBMModel(Model):
     def __init__(self, params, output, forest: Tree, bm: BinnedMatrix,
                  f0, dist_name: str):
         super().__init__(params, output)
-        self.forest = forest          # [T(*K), D, Lmax] stacked, t-major
+        # [T(*K), D, Lmax] stacked, t-major; past the last depth bucket
+        # a HeapTree forest [T(*K), 2^D - 1] (tree.keep_layout)
+        self.forest = forest
         self.bm = bm                  # training binning (edges reused to score)
         self.f0 = f0                  # np.float32, or [K] for multinomial
         self.dist_name = dist_name
@@ -285,9 +289,9 @@ class GBMModel(Model):
             return m if offset is None else m + offset
         K = self.output["nclasses"]
         T = self.forest.feat.shape[0] // K
-        outs = [predict_forest(Tree(*(a.reshape((T, K) + a.shape[1:])[:, k]
-                                      for a in self.forest)), bm.bins, B)
-                for k in range(K)]
+        outs = [predict_forest(type(self.forest)(
+            *(a.reshape((T, K) + a.shape[1:])[:, k] for a in self.forest)),
+            bm.bins, B) for k in range(K)]
         f0 = torch.as_tensor(np.asarray(self.f0, np.float32),
                              device=bm.bins.device)
         m = f0[None, :] + torch.stack(outs, dim=1)
@@ -369,8 +373,8 @@ class GBMModel(Model):
         stages = []
         for t in range(T):
             acc = acc + torch.stack([
-                predict_tree(Tree(*(a[t * K + k] for a in self.forest)),
-                             bm.bins, B) for k in range(K)], dim=1)
+                predict_tree(_tree_at(self.forest, t * K + k), bm.bins, B)
+                for k in range(K)], dim=1)
             marg = f0 + acc if self.multinomial else f0 + acc[:, 0]
             if off is not None:
                 marg = marg + (off[:, None] if self.multinomial else off)
@@ -474,14 +478,9 @@ class GBMEstimator(ModelBuilder):
         "nfolds", "fold_column", "fold_assignment",
         "keep_cross_validation_models", "checkpoint", "offset_column",
         "monotone_constraints", "interaction_constraints",
-        "calibrate_model", "calibration_frame", "calibration_method"))
-
-    def __init__(self, **params):
-        super().__init__(**params)
-        if str(self.params["distribution"]).lower() == "custom":
-            raise NotImplementedError(
-                "GBM parameter 'distribution'='custom' is not ported yet: "
-                "it resolves an uploaded function through the job/KV layer")
+        "calibrate_model", "calibration_frame", "calibration_method",
+        "custom_distribution_func", "keep_cross_validation_predictions",
+        "keep_cross_validation_fold_assignment"))
 
     def _resolve_distribution(self, category: str) -> str:
         d = str(self.params["distribution"]).lower()
@@ -685,7 +684,9 @@ class GBMEstimator(ModelBuilder):
                                                 constraints=constraints,
                                                 **kw)
                 step = [tree]
-            trees += step
+            # a tree past the last depth bucket is kept without its
+            # layout's padding (tree.keep_layout)
+            trees += [keep_layout(s) for s in step]
             gains = gains + gain
             if stopper.enabled:
                 if val is not None:
@@ -703,6 +704,7 @@ class GBMEstimator(ModelBuilder):
                     scoring_history.append({"ntrees": t + 1, "deviance": dv})
                     if stopper.should_stop(dv):
                         break
+            job_update(1.0 / ntrees, f"tree {t + 1}/{ntrees}")
             if deadline.passed():
                 break
         forest = stack_trees(trees)

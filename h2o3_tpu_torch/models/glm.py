@@ -24,10 +24,10 @@ Coefficients agree with the reference's within float32 summation order
 Scoring (``GLMModel``) computes the reference's ``_score_raw`` /
 ``_serve_dev`` math directly (the serving engine is ROADMAP A #10).
 Validation metrics are the base ``train``'s (the reference's
-``_finish``). Not ported: ``fit_glm_batched`` (the vmapped grid bucket)
-and a ``beta_constraints`` DKV key wait for the job and orchestration
-layer (ROADMAP A #9); GLM on a partitioned frame for A #12; the in-fit
-checkpointer and the telemetry spans for A #13.
+``_finish``). ``beta_constraints`` may be a Frame's DKV key. Not ported:
+``fit_glm_batched`` (the vmapped grid bucket) waits for
+``parallel/model_batch.py`` (ROADMAP A #9′); GLM on a partitioned frame
+for A #12; the in-fit checkpointer and the telemetry spans for A #13.
 """
 
 from __future__ import annotations
@@ -39,10 +39,11 @@ from typing import Dict, List, Optional, Sequence
 import numpy as np
 import torch
 
+from h2o3_tpu_torch.core.job import job_update
 from h2o3_tpu_torch.frame.column import T_NUM, Column, column_from_numpy
 from h2o3_tpu_torch.frame.datainfo import (build_datainfo, coef_stats,
                                            stats_of)
-from h2o3_tpu_torch.frame.frame import Frame
+from h2o3_tpu_torch.frame.frame import Frame, resolve_frame
 from h2o3_tpu_torch.models import metrics as mm
 from h2o3_tpu_torch.models.model import (Model, ModelBuilder, ModelCategory,
                                          adapt_domain, infer_category,
@@ -232,6 +233,7 @@ def _irls_solve(X1, coef, y, w, off, l1, l2, beta_eps, max_iter: int,
                                                           1e-10)
         if not bool((delta > beta_eps) & (rel > obj_eps)):
             break
+        job_update(0.0, "IRLS iteration")
         full, _ = _irls_iter(X1, coef, y, w, off, l1, l2, fam,
                              use_l1=use_l1)
         cands = coef[None, :] + steps[:, None] * (full - coef)[None, :]
@@ -325,6 +327,7 @@ def _multinomial_irls_solve(X1, B, y_int, w, l1, l2, beta_eps,
     for _ in range(max_iter):
         if not bool(delta > beta_eps):
             break
+        job_update(0.0, "IRLS sweep")
         Bn = B
         for c in range(K):
             eta = X1 @ Bn
@@ -605,8 +608,7 @@ class GLMEstimator(ModelBuilder):
         keep_cross_validation_predictions=False,
         keep_cross_validation_fold_assignment=False,
     )
-    PORTED = frozenset(DEFAULTS) - {"keep_cross_validation_predictions",
-                                    "keep_cross_validation_fold_assignment"}
+    PORTED = frozenset(DEFAULTS)
 
     def __init__(self, **params):
         for alias in ("Lambda", "lambda"):
@@ -614,11 +616,6 @@ class GLMEstimator(ModelBuilder):
                 params["lambda_"] = params.pop(alias)
         if "tweedie_variance_power" in params:
             params["tweedie_power"] = params.pop("tweedie_variance_power")
-        if isinstance(params.get("beta_constraints"), str):
-            raise NotImplementedError(
-                "GLM parameter 'beta_constraints' as a key is not ported "
-                "yet: keys live in the KV layer of the job and "
-                "orchestration layer (ROADMAP A #9); pass a Frame or a dict")
         super().__init__(**params)
 
     # ---- solvers -----------------------------------------------------
@@ -652,6 +649,7 @@ class GLMEstimator(ModelBuilder):
             for b in bounds)
         coef = _coef_on(coef0, dev)
         for _ in range(max_iter):
+            job_update(0.0, "IRLS-COD iteration")
             coef, delta = _irls_iter_cod(X1, coef, yv, w, off, _f32(l1, dev),
                                          _f32(l2, dev), lo, hi, fam)
             if float(delta) < beta_eps:
@@ -669,6 +667,8 @@ class GLMEstimator(ModelBuilder):
             lo[:-1] = 0.0
         bc = p.get("beta_constraints")
         if bc is not None:
+            if isinstance(bc, str):
+                bc = resolve_frame(bc, "beta_constraints")
             rows: Dict[str, tuple] = {}
             if isinstance(bc, Frame):
                 nm_col = bc.col("names")
@@ -1009,8 +1009,8 @@ def _p_values_table(X1, y, w, coef, fam: Family, names, nobs: float,
 def fit_glm_batched(builder_cls, params_list, frame: Frame, y=None, x=None,
                     validation_frame=None):
     """The reference trains a grid bucket's (alpha, lambda) product as one
-    vmapped IRLS program; here it waits for the grid and AutoML trainer
-    (``parallel/model_batch.py``) of the job and orchestration layer."""
+    vmapped IRLS program; here it waits for ``parallel/model_batch.py``
+    (the grid walks its combos one after another meanwhile)."""
     raise NotImplementedError(
-        "fit_glm_batched is not ported yet: it waits for the job and "
-        "orchestration layer with parallel/model_batch.py (ROADMAP A #9)")
+        "fit_glm_batched is not ported yet: it waits for "
+        "parallel/model_batch.py (ROADMAP A #9′)")

@@ -19,8 +19,8 @@ host in float64 from one fetch of the design (sequential by nature; the
 reference does the same). ``estimate_k`` sweeps k = 1.. and stops when a
 k cuts the within sum of squares by less than 20%.
 
-``max_runtime_secs`` is accepted and inert, as in the reference. Not
-ported: ``user_points`` as a key (the DKV, ROADMAP A #9); KMeans on a
+``max_runtime_secs`` is accepted and inert, as in the reference;
+``user_points`` is a Frame or its DKV key. Not ported: KMeans on a
 frame partitioned over a sharded mesh (A #12); MOJO export (A #10).
 """
 
@@ -33,7 +33,7 @@ import numpy as np
 import torch
 
 from h2o3_tpu_torch.frame.datainfo import DataInfo, build_datainfo, stats_of
-from h2o3_tpu_torch.frame.frame import Frame
+from h2o3_tpu_torch.frame.frame import Frame, resolve_frame
 from h2o3_tpu_torch.models.metrics import ModelMetrics
 from h2o3_tpu_torch.models.model import (Model, ModelBuilder, ModelCategory,
                                          masked_weights)
@@ -254,14 +254,6 @@ class KMeansEstimator(ModelBuilder):
     )
     PORTED = frozenset(DEFAULTS)
 
-    def __init__(self, **params):
-        if isinstance(params.get("user_points"), str):
-            raise NotImplementedError(
-                "KMeans parameter 'user_points' as a key is not ported "
-                "yet: keys live in the KV layer of the job and "
-                "orchestration layer (ROADMAP A #9); pass a Frame")
-        super().__init__(**params)
-
     def _mins(self, k: int) -> Optional[List[int]]:
         cons = self.params.get("cluster_size_constraints")
         if cons is None:
@@ -277,6 +269,9 @@ class KMeansEstimator(ModelBuilder):
         position) through the training design: [k, P] on the design's
         device."""
         up = self.params["user_points"]
+        if isinstance(up, str):
+            up = up.strip('"')
+        up = resolve_frame(up, "user_points")
         if len(up.names) != len(x):
             raise ValueError(
                 f"user_points must have one column per predictor "

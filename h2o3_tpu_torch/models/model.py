@@ -6,12 +6,20 @@ Reference: h2o3_tpu/models/model.py. The same lifecycle:
     preds = model.predict(frame)              # Frame of predictions
     mm    = model.model_performance(frame)    # ModelMetrics
 
-The port keeps the fit and n-fold cross-validation (``nfolds`` or a
-``fold_column``: ``ml/cv.py``): no Job, DKV, memory governor, recovery or
-telemetry around it, so a ``checkpoint`` or a ``calibration_frame`` is a
-Model or a Frame, never a key. A ``ModelBuilder`` with ``SHARDED`` trains
-on a frame partitioned over a sharded mesh; its model scores one
-(``predict`` returns a frame partitioned like its input).
+``train`` runs the fit, or n-fold cross-validation (``nfolds`` or a
+``fold_column``: ``ml/cv.py``), inside a ``core/job.Job`` (in the
+background with ``background=True``, which returns the Job), and stores
+the Model in the DKV under its ``key`` (its fold models under
+``<key>_cv_<i>``), so a ``checkpoint`` or a ``calibration_frame`` may be
+a key. ``DKV.remove(model.key)`` drops the model with its fold models and
+kept CV frames; the Job keeps only the key, so that frees them. A
+``train`` called inside another fit (a fold model, an ensemble's
+metalearner, an inner GLM or probe) runs in the outer fit's Job and
+stores nothing unless it is given a ``dest_key``: its model lives as
+long as whatever holds it. No memory governor, recovery or
+telemetry around the fit (ROADMAP A #13). A ``ModelBuilder`` with
+``SHARDED`` trains on a frame partitioned over a sharded mesh; its model
+scores one (``predict`` returns a frame partitioned like its input).
 """
 
 from __future__ import annotations
@@ -22,6 +30,8 @@ from typing import Dict, List, Optional, Sequence
 import numpy as np
 import torch
 
+from h2o3_tpu_torch.core.job import Job, current_job
+from h2o3_tpu_torch.core.kv import DKV, make_key
 from h2o3_tpu_torch.frame.frame import Frame
 
 
@@ -69,17 +79,15 @@ def validate_checkpoint_params(algo: str, donor_params: Dict,
 
 
 def resolve_checkpoint_model(algo: str, ck, model_cls):
-    """Type-check the donor model behind ``checkpoint=``: a Model
-    instance (the reference also takes its DKV key; keys need the KV
-    layer, which is not ported)."""
-    if isinstance(ck, str):
-        raise NotImplementedError(
-            f"{algo}: checkpoint by model key is not ported yet: keys live "
-            "in the KV layer; pass the Model itself")
+    """Fetch and type-check the donor model behind ``checkpoint=``: a
+    Model instance or its DKV key."""
+    if not isinstance(ck, model_cls):
+        ck = DKV.get(str(ck)) or ck
     if not isinstance(ck, model_cls) or getattr(ck, "algo", None) != algo:
         raise checkpoint_error(
             algo, "checkpoint",
-            f"Checkpoint model '{ck!r}' not found or not a {algo} model")
+            f"Checkpoint model '{getattr(ck, 'key', ck)}' not found or "
+            f"not a {algo} model")
     return ck
 
 
@@ -167,12 +175,49 @@ class Model:
     algo: str = "base"
 
     def __init__(self, params: dict, output: dict):
+        self.key = make_key(f"model_{self.algo}")
         self.params = params
         self.output = output           # domains, names, varimp, ...
         self.training_metrics = None
         self.validation_metrics = None
         self.cross_validation_metrics = None
         self.calibrator = None         # ml/calibration.Calibrator
+        self.run_time = None           # seconds of the fit (train sets it)
+
+    def _key_folds(self) -> None:
+        """Name the fold models ``<key>_cv_<i>`` (ModelBuilder.java's
+        naming) into ``output["cv_model_keys"]``."""
+        cvs = getattr(self, "_cv_models", None)
+        if cvs:
+            for i, m in enumerate(cvs):
+                m.key = f"{self.key}_cv_{i + 1}"
+            self.output["cv_model_keys"] = [m.key for m in cvs]
+
+    def _store(self, key: str) -> None:
+        """Store this model in the DKV under ``key``, its fold models
+        under their names."""
+        self.key = key
+        self._key_folds()
+        for m in getattr(self, "_cv_models", None) or ():
+            DKV.put(m.key, m)
+        DKV.put(key, self)
+
+    def _owned_keys(self) -> List[str]:
+        """The keys that go with this model when it is removed: its fold
+        models and its kept cross-validation frames."""
+        o = self.output
+        keys = list(o.get("cv_model_keys") or [])
+        keys += list(o.get("cv_predictions_keys") or [])
+        keys += [o.get(k) for k in ("cv_holdout_frame_key",
+                                    "cv_fold_assignment_key") if o.get(k)]
+        return keys
+
+    @property
+    def default_metrics(self):
+        """The metrics a leaderboard ranks by: cross-validation, then
+        validation, then training."""
+        return (self.cross_validation_metrics or self.validation_metrics
+                or self.training_metrics)
 
     def _score_raw(self, frame: Frame) -> Dict[str, np.ndarray]:
         """Prediction columns of all the frame's rows, on the host."""
@@ -276,14 +321,7 @@ class ModelBuilder:
     cv_from_fold_column = True
     DEFAULTS: Dict = {}
     PORTED = frozenset()
-    UNPORTED_WHY = {
-        "keep_cross_validation_predictions":
-            "the reference returns them as frame keys, and keys live in "
-            "the KV layer",
-        "keep_cross_validation_fold_assignment":
-            "the reference returns it as a frame key, and keys live in "
-            "the KV layer",
-    }
+    UNPORTED_WHY: Dict[str, str] = {}
     # parameters a fit on a partitioned frame does not take yet: fold
     # masks and a donor model would be needed on every rank, calibration
     # scores a frame of its own, and ranks reading a wall-clock cap on
@@ -304,10 +342,22 @@ class ModelBuilder:
                     + (f": {why}" if why else ""))
         self.params = {**self.DEFAULTS, **params}
 
+    @classmethod
+    def accepted_params(cls) -> set:
+        """The parameter names this builder takes."""
+        return set(cls.DEFAULTS)
+
+    def set_max_runtime(self, secs: float) -> None:
+        """Install a wall-clock cap where the builder takes one (the
+        AutoML executor's per-model cap)."""
+        if "max_runtime_secs" in self.accepted_params():
+            self.params["max_runtime_secs"] = float(secs)
+
     def _fit(self, frame: Frame, x: Sequence[str], y: str,
              validation_frame: Optional[Frame] = None):
         """The fit; ``validation_frame`` is for estimators that watch it
-        while they train (GBM's early stopping)."""
+        while they train (GBM's early stopping). The fit's loops reach
+        the job that runs it through ``core/job.job_update``."""
         raise NotImplementedError
 
     def _cv_masked_weights(self, w: torch.Tensor, frame: Frame):
@@ -391,12 +441,19 @@ class ModelBuilder:
 
     def train(self, training_frame: Frame, y: Optional[str] = None,
               x: Optional[Sequence[str]] = None,
-              validation_frame: Optional[Frame] = None):
+              validation_frame: Optional[Frame] = None,
+              background: bool = False, dest_key: Optional[str] = None,
+              custom_metric_func=None):
         """Fit on ``training_frame`` (on its device) → Model (``y`` None
-        for the unsupervised builders); with ``nfolds`` >= 2 or a
-        ``fold_column`` the model carries ``cross_validation_metrics``;
-        with a ``validation_frame`` its ``validation_metrics`` score
-        it."""
+        for the unsupervised builders), stored in the DKV under
+        ``dest_key`` (a new key by default). The fit runs in a Job: with
+        ``background`` on a thread of its own, and ``train`` returns the
+        Job. With ``nfolds`` >= 2 or a ``fold_column`` the model carries
+        ``cross_validation_metrics``; with a ``validation_frame`` its
+        ``validation_metrics`` score it. ``custom_metric_func`` (a
+        callable ``fn(y, preds, w) -> float`` or an uploaded reference,
+        ``core/udf.py``) is evaluated on the training frame into
+        ``output["custom_metric"]`` and the training metrics' "custom"."""
         if training_frame.partitioned:
             if not self.SHARDED:
                 require_local(training_frame, self.algo)
@@ -406,17 +463,56 @@ class ModelBuilder:
                         f"{self.label} parameter '{k}' on a frame "
                         "partitioned over a sharded mesh is not ported yet")
         x = self.resolve_x(training_frame, x, y)
-        nfolds = self._check_folds(training_frame)
-        if nfolds >= 2:
-            from h2o3_tpu_torch.ml.cv import train_with_cv
-            model = train_with_cv(self, training_frame, x, y, nfolds,
+
+        def _run(_job: Optional[Job]):
+            t0 = time.time()
+            nfolds = self._check_folds(training_frame)
+            if nfolds >= 2:
+                from h2o3_tpu_torch.ml.cv import train_with_cv
+                model = train_with_cv(self, training_frame, x, y, nfolds,
+                                      validation_frame=validation_frame)
+            else:
+                model = self._fit(training_frame, x, y,
                                   validation_frame=validation_frame)
-        else:
-            model = self._fit(training_frame, x, y,
-                              validation_frame=validation_frame)
-        if validation_frame is not None and model.validation_metrics is None:
-            # a fit that scored the frame itself (DeepLearning's
-            # score_validation_samples) keeps its metrics
-            model.validation_metrics = model.model_performance(
-                validation_frame)
-        return model
+            if validation_frame is not None and \
+                    model.validation_metrics is None:
+                # a fit that scored the frame itself (DeepLearning's
+                # score_validation_samples) keeps its metrics
+                model.validation_metrics = model.model_performance(
+                    validation_frame)
+            if custom_metric_func is not None and y is not None:
+                self._custom_metric(model, training_frame, y,
+                                    custom_metric_func)
+            # the fit's seconds (the reference's output["run_time"]), kept
+            # off the output so that two fits' outputs compare equal
+            model.run_time = time.time() - t0
+            if _job is not None:
+                model._store(dest_key)
+            return model
+
+        if dest_key is None and not background and \
+                current_job() is not None:
+            # inside another fit: its job, nothing stored
+            return _run(None)
+        # the model's key exists before the fit starts (h2o-py reads the
+        # job's dest at submission)
+        dest_key = dest_key or make_key(f"model_{self.algo}")
+        job = Job(f"{self.algo} train", work=1.0, dest=dest_key,
+                  device=training_frame.device)
+        job.start(_run, background=background)
+        return job if background else job.result
+
+    def _custom_metric(self, model, frame: Frame, y: str, fn) -> None:
+        """Evaluate an uploaded or callable metric on the training frame
+        (the water/udf CFunc role)."""
+        from h2o3_tpu_torch.core.udf import resolve_udf
+        cmf = resolve_udf(fn)
+        yv = frame.col(y).host_view()        # categorical: float codes
+        wv = np.ones(frame.nrows)
+        wc = self.params.get("weights_column")
+        if wc and wc in frame:
+            wv = np.nan_to_num(frame.col(wc).to_numpy())
+        val = float(cmf(yv, model._score_raw(frame), wv))
+        if model.training_metrics is not None:
+            model.training_metrics.extra["custom"] = val
+        model.output["custom_metric"] = val

@@ -38,41 +38,39 @@ from h2o3_tpu_torch.frame.column import Column, column_from_numpy, T_NUM
 from h2o3_tpu_torch.frame.frame import Frame
 from h2o3_tpu_torch.models.model import (Model, ModelBuilder, ModelCategory,
                                          infer_category, require_local)
-from h2o3_tpu_torch.models.tree import leaf_assignments
+from h2o3_tpu_torch.models.tree import (_tree_at, leaf_assignments,
+                                        level_arrays, tree_depth)
 from h2o3_tpu_torch.parallel.device import fetch
 
 
-def _extract_rules(forest: Dict[str, np.ndarray], tree_idx: int,
-                   D: int) -> List[dict]:
+def _extract_rules(forest, tree_idx: int, D: int) -> List[dict]:
     """One complete tree's root-to-leaf paths as rules with leaf-id
     ranges [lo, hi), from the forest's host arrays. Conditions are
     (feat, thresh, na_left, side, binset): binset is None for a numeric
     split, else the frozenset of the bins going left (a categorical
     subset split)."""
-    feat, thresh = forest["feat"][tree_idx], forest["thresh"][tree_idx]
-    na_left = forest["na_left"][tree_idx]
-    is_split = forest["is_split"][tree_idx]
-    cat_split = forest["cat_split"][tree_idx]
-    left_words = forest["left_words"][tree_idx]
+    # [d][idx] per field, whatever the forest's layout
+    feat, thresh, na_left, is_split, cat_split, left_words = zip(
+        *(level_arrays(_tree_at(forest, tree_idx), d) for d in range(D)))
     rules: List[dict] = []
 
     def _binset(d, idx):
-        if not bool(cat_split[d, idx]):
+        if not bool(cat_split[d][idx]):
             return None
-        words = left_words[d, idx]
+        words = left_words[d][idx]
         return frozenset(
             int(32 * k + b) for k in range(words.shape[0])
             for b in range(32) if (int(words[k]) >> b) & 1)
 
     def walk(d, idx, conds):
-        if d == D or not is_split[d, idx]:
+        if d == D or not is_split[d][idx]:
             if conds:
                 span = 2 ** (D - d)
                 rules.append({"tree": tree_idx, "conds": list(conds),
                               "lo": idx * span, "hi": (idx + 1) * span})
             return
-        f, t = int(feat[d, idx]), int(thresh[d, idx])
-        nal = bool(na_left[d, idx])
+        f, t = int(feat[d][idx]), int(thresh[d][idx])
+        nal = bool(na_left[d][idx])
         bs = _binset(d, idx)
         walk(d + 1, 2 * idx, conds + [(f, t, nal, "left", bs)])
         walk(d + 1, 2 * idx + 1, conds + [(f, t, nal, "right", bs)])
@@ -110,12 +108,11 @@ def _rule_language(rule: dict, bm: dict) -> str:
     return " & ".join(parts)
 
 
-def _host_forest(tm) -> Dict[str, np.ndarray]:
-    """A tree model's forest fields on the host (``left_words`` as the
-    reference's uint32 words)."""
-    out = {f: fetch(getattr(tm.forest, f)) for f in tm.forest._fields}
-    out["left_words"] = out["left_words"].view(np.uint32)
-    return out
+def _host_forest(tm):
+    """A tree model's forest on the host, in its layout (numpy arrays;
+    ``left_words`` as the reference's uint32 words)."""
+    out = type(tm.forest)(*(fetch(a) for a in tm.forest))
+    return out._replace(left_words=out.left_words.view(np.uint32))
 
 
 def _host_binning(bm) -> dict:
@@ -283,7 +280,7 @@ class RuleFitEstimator(ModelBuilder):
                 tree_models.append(tm)
                 forest = _host_forest(tm)
                 hbm = _host_binning(tm.bm)
-                T, D = forest["feat"].shape[:2]
+                T, D = forest.leaf.shape[0], tree_depth(forest)
                 cand = []
                 for t in range(T):
                     for r in _extract_rules(forest, t, D):

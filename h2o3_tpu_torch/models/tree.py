@@ -51,6 +51,8 @@ def scalars_of(params: "TreeParams", device,
 # static depth buckets: a tree is laid out at its bucket depth and
 # levels past the actual depth never split (reference DEPTH_BUCKETS)
 DEPTH_BUCKETS = (6, 10, 14)
+# a layout depth past the last bucket keeps its trees as HeapTrees
+HEAP_DEPTH = DEPTH_BUCKETS[-1]
 
 
 def bucket_depth(d: int) -> int:
@@ -73,6 +75,64 @@ class Tree(NamedTuple):
     left_words: torch.Tensor  # [D, Lmax, W] int32 bit pattern of the
     #                           reference's uint32 words: bit b of word k
     #                           set ⇔ bin 32k+b goes LEFT
+
+
+class HeapTree(NamedTuple):
+    """One tree of a layout depth past the last bucket, held level by
+    level: level d's 2^d slots at offset 2^d - 1 of flat arrays (stacked
+    [T, ...] for a forest). It holds what the Tree holds without the
+    padding: a Tree of depth D keeps D·2^(D-1) slots for its 2^D - 1
+    nodes, 10x over at depth 20 (280 MB a tree at B = 126), which a
+    depth-20 forest of 100 trees and its CV folds cannot fit on a card."""
+    feat: torch.Tensor        # [2^D - 1]
+    thresh: torch.Tensor      # [2^D - 1]
+    na_left: torch.Tensor     # [2^D - 1]
+    is_split: torch.Tensor    # [2^D - 1]
+    leaf: torch.Tensor        # [2^D]
+    leaf_w: torch.Tensor      # [2^D]
+    cat_split: torch.Tensor   # [2^D - 1]
+    left_words: torch.Tensor  # [2^D - 1, W]
+
+
+def to_heap(tree: Tree) -> HeapTree:
+    """A grown Tree's (or stacked forest's) nodes, level by level (the
+    padding dropped)."""
+    D = tree_depth(tree)
+
+    def flat(a, tail=0):
+        # level d's first 2^d slots; ``tail`` trailing dims per slot
+        ax = -1 - tail
+        return torch.cat([a.select(ax - 1, d).narrow(ax, 0, 2 ** d)
+                          for d in range(D)], dim=ax)
+    return HeapTree(flat(tree.feat), flat(tree.thresh), flat(tree.na_left),
+                    flat(tree.is_split), tree.leaf, tree.leaf_w,
+                    flat(tree.cat_split), flat(tree.left_words, 1))
+
+
+def keep_layout(tree):
+    """The layout a grown tree (or a stacked forest) is kept in: past
+    the last depth bucket a HeapTree, else the Tree itself. Every reader
+    goes through ``tree_depth`` and ``level_arrays``."""
+    if isinstance(tree, Tree) and tree_depth(tree) > HEAP_DEPTH:
+        return to_heap(tree)
+    return tree
+
+
+def tree_depth(tree) -> int:
+    """The layout depth D of a tree or a stacked forest (2^D leaves)."""
+    return int(tree.leaf.shape[-1]).bit_length() - 1
+
+
+def level_arrays(tree, d: int):
+    """(feat, thresh, na_left, is_split, cat_split, left_words) of level
+    ``d`` of one tree, Tree or HeapTree (the first 2^d slots of a Tree's
+    row are its nodes)."""
+    if isinstance(tree, HeapTree):
+        s = slice(2 ** d - 1, 2 ** (d + 1) - 1)
+        return (tree.feat[s], tree.thresh[s], tree.na_left[s],
+                tree.is_split[s], tree.cat_split[s], tree.left_words[s])
+    return (tree.feat[d], tree.thresh[d], tree.na_left[d],
+            tree.is_split[d], tree.cat_split[d], tree.left_words[d])
 
 
 def zero_catsplit(D: int, Lmax: int, device):
@@ -271,14 +331,12 @@ def grow_tree(bins, nb, w, g, h, col_mask, *, params: TreeParams,
     return tree, nid, gain_by_feat
 
 
-def _route(tree: Tree, bins, B: int):
-    """Terminal node id per row for one tree."""
+def _route(tree, bins, B: int):
+    """Terminal node id per row for one tree (Tree or HeapTree)."""
     nid = torch.zeros((bins.shape[0],), dtype=torch.int32,
                       device=bins.device)
-    for d in range(tree.feat.shape[0]):
-        nid = _level_goleft(tree.feat[d], tree.thresh[d], tree.na_left[d],
-                            tree.is_split[d], tree.cat_split[d],
-                            tree.left_words[d], nid, bins, B)
+    for d in range(tree_depth(tree)):
+        nid = _level_goleft(*level_arrays(tree, d), nid, bins, B)
     return nid
 
 
@@ -287,15 +345,16 @@ def predict_tree(tree: Tree, bins, B: int):
     return tree.leaf.index_select(0, _route(tree, bins, B).long())
 
 
-def _tree_at(stacked: Tree, t: int) -> Tree:
-    """Tree t of a stacked forest."""
-    return Tree(*(a[t] for a in stacked))
+def _tree_at(stacked, t: int):
+    """Tree t of a stacked forest (of Trees or HeapTrees)."""
+    return type(stacked)(*(a[t] for a in stacked))
 
 
-def stack_trees(trees) -> Tree:
-    """Stack per-iteration Trees into [T, ...] arrays."""
-    return Tree(*(torch.stack([getattr(t, f) for t in trees])
-                  for f in Tree._fields))
+def stack_trees(trees):
+    """Stack per-iteration Trees (or HeapTrees) into [T, ...] arrays."""
+    kind = type(trees[0])
+    return kind(*(torch.stack([getattr(t, f) for t in trees])
+                  for f in kind._fields))
 
 
 def concat_forests(chunks) -> Tree:
@@ -303,8 +362,9 @@ def concat_forests(chunks) -> Tree:
     chunks = list(chunks)
     if len(chunks) == 1:
         return chunks[0]
-    return Tree(*(torch.cat([getattr(c, f) for c in chunks])
-                  for f in Tree._fields))
+    kind = type(chunks[0])
+    return kind(*(torch.cat([getattr(c, f) for c in chunks])
+                  for f in kind._fields))
 
 
 def predict_forest(stacked: Tree, bins, B: int):
@@ -329,15 +389,13 @@ def feature_path_counts(stacked: Tree, bins, B: int, F: int):
         tree = _tree_at(stacked, t)
         nid = torch.zeros((bins.shape[0],), dtype=torch.int32,
                           device=bins.device)
-        for d in range(tree.feat.shape[0]):
+        for d in range(tree_depth(tree)):
+            lv = level_arrays(tree, d)
             n = nid.long()
             counts.scatter_add_(
-                1, tree.feat[d].index_select(0, n).long()[:, None],
-                tree.is_split[d].index_select(0, n).to(torch.int32)[:, None])
-            nid = _level_goleft(tree.feat[d], tree.thresh[d],
-                                tree.na_left[d], tree.is_split[d],
-                                tree.cat_split[d], tree.left_words[d], nid,
-                                bins, B)
+                1, lv[0].index_select(0, n).long()[:, None],
+                lv[3].index_select(0, n).to(torch.int32)[:, None])
+            nid = _level_goleft(*lv, nid, bins, B)
     return counts
 
 
@@ -375,7 +433,7 @@ def leaf_assignment_frame(model, frame):
     # trees are laid out at the depth bucket, with the levels past the
     # requested depth never splitting: rows go left through them, so the
     # shift back to the requested depth's id space is exact
-    D = int(model.forest.feat.shape[1])
+    D = tree_depth(model.forest)
     d_req = min(int(model.params.get("max_depth") or D), D)
     if d_req < D:
         ids = ids >> (D - d_req)

@@ -94,10 +94,20 @@ class XGBoostEstimator:
         self._gbm = GBMEstimator(**gbm_params)
         self.params = dict(params)
 
+    def set_max_runtime(self, secs: float) -> None:
+        self.params["max_runtime_secs"] = float(secs)
+        self._gbm.params["max_runtime_secs"] = float(secs)
+
     def train(self, training_frame: Frame, y: Optional[str] = None,
               x: Optional[Sequence[str]] = None,
-              validation_frame: Optional[Frame] = None):
+              validation_frame: Optional[Frame] = None,
+              background: bool = False, dest_key: Optional[str] = None):
+        """The GBM's ``train``; in the background it returns the GBM's
+        Job, whose model lacks ``output["facade"]`` (as in the
+        reference)."""
         model = self._gbm.train(training_frame, y=y, x=x,
-                                validation_frame=validation_frame)
-        model.output["facade"] = "xgboost"
+                                validation_frame=validation_frame,
+                                background=background, dest_key=dest_key)
+        if not background:
+            model.output["facade"] = "xgboost"
         return model

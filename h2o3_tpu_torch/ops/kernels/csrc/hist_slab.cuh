@@ -439,6 +439,90 @@ extern "C" int slab_convert(const void* acc, void* out, const void* exps,
   return launch_slab_convert(acc, out, exps, cells, stream);
 }
 
+// The deep-level route: where the nodes are too many for the slab's
+// chunks to be sorted into (more than a 16-bit key holds, or more chunks
+// than a block can list), a row per thread adds its fixed-point stats
+// straight into the int64 accumulator's (node, feature, bin) cells with
+// global atomics. At such a level a node holds few rows, so the atomics
+// seldom collide, and every row is read once (the slab walks every row
+// once a chunk there). The integer sums are the slab's, in another
+// order: the same bits. A non-finite stat goes as a float into its
+// output cell, as in the slab's poison().
+template <typename BinT>
+__global__ void global_hist_kernel(const BinT* __restrict__ bins,
+                                   const int32_t* __restrict__ nid,
+                                   const float* __restrict__ stats,
+                                   const int* __restrict__ exps,
+                                   u64* __restrict__ acc, float* out,
+                                   long long n_rows, int n_feat, int n_bins,
+                                   int n_nodes, int left_only) {
+  const float q[3] = {pow2f(__ldg(exps)), pow2f(__ldg(exps + 1)),
+                      pow2f(__ldg(exps + 2))};
+  const int per_feat = n_bins * 3;
+  for (long long r = blockIdx.x * static_cast<long long>(blockDim.x) +
+                     threadIdx.x;
+       r < n_rows; r += static_cast<long long>(gridDim.x) * blockDim.x) {
+    const int node = chunk_node(__ldg(nid + r), left_only, 0u,
+                                static_cast<unsigned>(n_nodes));
+    if (node < 0) continue;
+    const float s[3] = {__ldg(stats + r * 3), __ldg(stats + r * 3 + 1),
+                        __ldg(stats + r * 3 + 2)};
+    if (s[0] == 0.f && s[1] == 0.f && s[2] == 0.f) continue;
+    const bool fin = isfinite(s[0]) && isfinite(s[1]) && isfinite(s[2]);
+    u64 v[3];
+#pragma unroll
+    for (int k = 0; k < 3; ++k)
+      v[k] = isfinite(s[k]) ? static_cast<u64>(__float2ll_rn(s[k] * q[k]))
+                            : 0ull;
+    const long long base = static_cast<long long>(node) * n_feat * per_feat;
+    const BinT* row = bins + r * n_feat;
+    for (int f = 0; f < n_feat; ++f) {
+      const int b = static_cast<int>(__ldg(row + f));
+      if (static_cast<unsigned>(b) >= static_cast<unsigned>(n_bins)) continue;
+      const long long at = base + f * per_feat + b * 3;
+#pragma unroll
+      for (int k = 0; k < 3; ++k) {
+        if (fin || isfinite(s[k]))
+          atomicAdd(acc + at + k, v[k]);
+        else
+          atomicAdd(out + at + k, s[k]);
+      }
+    }
+  }
+}
+
+// The deep-level route over a one-wave grid of 256-thread blocks, then,
+// with `convert`, the conversion of `acc` into `out` (both zeroed, as
+// for launch_slab_hist).
+static cudaError_t launch_global_hist(const void* bins, int bins_int8,
+                                      const void* nid, const void* stats,
+                                      const void* exps, void* acc, void* out,
+                                      long long n_rows, int n_feat,
+                                      int n_bins, int n_nodes, int left_only,
+                                      int blocks, int convert, void* stream) {
+  if (reinterpret_cast<uintptr_t>(acc) % 8) return cudaErrorMisalignedAddress;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (n_rows > 0) {
+    if (bins_int8)
+      global_hist_kernel<int8_t><<<blocks, 256, 0, s>>>(
+          static_cast<const int8_t*>(bins), static_cast<const int32_t*>(nid),
+          static_cast<const float*>(stats), static_cast<const int*>(exps),
+          static_cast<u64*>(acc), static_cast<float*>(out), n_rows, n_feat,
+          n_bins, n_nodes, left_only);
+    else
+      global_hist_kernel<int32_t><<<blocks, 256, 0, s>>>(
+          static_cast<const int32_t*>(bins), static_cast<const int32_t*>(nid),
+          static_cast<const float*>(stats), static_cast<const int*>(exps),
+          static_cast<u64*>(acc), static_cast<float*>(out), n_rows, n_feat,
+          n_bins, n_nodes, left_only);
+  }
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess || !convert) return err;
+  return launch_slab_convert(
+      acc, out, exps,
+      static_cast<long long>(n_nodes) * n_feat * n_bins * 3, stream);
+}
+
 // Launch over a (row blocks, feature groups) grid of `threads`-thread
 // blocks with `smem` bytes of shared memory each (`replicas` copies of
 // the largest chunk's slab of 8-byte cells, then a queue of kSlabQueue

@@ -59,6 +59,22 @@ extern "C" int tree_hist(const void* bins, int bins_int8, const void* nid,
                           threads, smem, convert, stream);
 }
 
+// The deep levels (a tree past depth bucket 14: more parents than a
+// 16-bit row key holds, or more node chunks than a block sorts its rows
+// into) take launch_global_hist (hist_slab.cuh): a row a thread, its
+// fixed-point stats added into the int64 cells with global atomics,
+// which a node's few rows seldom share; the same bits as the slab.
+extern "C" int tree_hist_global(const void* bins, int bins_int8,
+                                const void* nid, const void* stats,
+                                const void* exps, void* acc, void* out,
+                                long long n_rows, int n_feat, int n_bins,
+                                int n_parents, int left_only, int blocks,
+                                int convert, void* stream) {
+  return launch_global_hist(bins, bins_int8, nid, stats, exps, acc, out,
+                            n_rows, n_feat, n_bins, n_parents, left_only,
+                            blocks, convert, stream);
+}
+
 // ----------------------------------------------------------- tree_split
 // Replaces the phase boundary (_level_boundary, treekernel.py:106, which
 // runs h2o3_tpu/ops/split_scan.py best_splits): sibling subtraction with
@@ -568,7 +584,9 @@ extern "C" int tree_split(const void* lh, const void* prev,
 // grid, fewer blocks where the shared memory allows fewer). A block stages each node's feature, threshold and flags
 // as one 8-byte record in shared memory, and the left sets of the
 // categorical splits as bits (ceil((B-1)/32) words a node; where they do
-// not fit, the byte leftmask is read from global memory instead). Each
+// not fit, the byte leftmask is read from global memory instead). Past
+// 29,056 nodes (a level deeper than 14) the records do not fit either,
+// and a row's node is read from the five global tables (recs_in_smem 0). Each
 // thread then routes eight rows at a time: two 16-byte nid loads, the
 // eight records, the eight bin loads all issued before any is used, and
 // two 16-byte stores of the new ids. The host plans the vector part (the
@@ -587,13 +605,17 @@ __global__ void __launch_bounds__(kRouteThreads, kRouteBlocksPerSm)
     const uint8_t* __restrict__ split, const uint8_t* __restrict__ cs,
     const uint8_t* __restrict__ leftmask, long long n_rows, int n_feat,
     int n_bins, int n_nodes, long long head, long long n_vec, int vec_out,
-    int bits_in_smem) {
+    int bits_in_smem, int recs_in_smem) {
   extern __shared__ int2 rec[];  // x: feat, y: thresh * 8 | flags
   uint32_t* s_bits = reinterpret_cast<uint32_t*>(rec + n_nodes);
   const int Bm = n_bins - 1, W = (Bm + 31) / 32;
-  for (int i = threadIdx.x; i < n_nodes; i += blockDim.x)
-    rec[i] = make_int2(feat[i], thresh[i] * 8 + (na_left[i] ? 1 : 0) +
-                                    (split[i] ? 2 : 0) + (cs[i] ? 4 : 0));
+  auto pack = [&](int i) {
+    return make_int2(__ldg(feat + i),
+                     __ldg(thresh + i) * 8 + (na_left[i] ? 1 : 0) +
+                         (split[i] ? 2 : 0) + (cs[i] ? 4 : 0));
+  };
+  if (recs_in_smem)
+    for (int i = threadIdx.x; i < n_nodes; i += blockDim.x) rec[i] = pack(i);
   if (bits_in_smem)
     for (int i = threadIdx.x; i < n_nodes * W; i += blockDim.x) {
       const int n = i / W, b0 = (i % W) * 32;
@@ -624,9 +646,9 @@ __global__ void __launch_bounds__(kRouteThreads, kRouteBlocksPerSm)
     return 2 * n + (go_left ? 0 : 1);
   };
   auto record = [&](int n) {
-    return static_cast<unsigned>(n) < static_cast<unsigned>(n_nodes)
-               ? rec[n]
-               : make_int2(0, 0);  // outside the level: stays left
+    if (static_cast<unsigned>(n) >= static_cast<unsigned>(n_nodes))
+      return make_int2(0, 0);  // outside the level: stays left
+    return recs_in_smem ? rec[n] : pack(n);
   };
 
   const long long gtid =
@@ -680,7 +702,8 @@ static cudaError_t launch_partition(
     const void* thresh, const void* na_left, const void* split,
     const void* cs, const void* leftmask, long long n_rows, int n_feat,
     int n_bins, int n_nodes, long long head, long long n_vec, int vec_out,
-    int n_blocks, size_t smem, int bits_in_smem, cudaStream_t s) {
+    int n_blocks, size_t smem, int bits_in_smem, int recs_in_smem,
+    cudaStream_t s) {
   const cudaError_t err = allow_smem(
       reinterpret_cast<const void*>(&tree_partition_kernel<BinT>), smem);
   if (err != cudaSuccess) return err;
@@ -691,7 +714,7 @@ static cudaError_t launch_partition(
       static_cast<const uint8_t*>(na_left),
       static_cast<const uint8_t*>(split), static_cast<const uint8_t*>(cs),
       static_cast<const uint8_t*>(leftmask), n_rows, n_feat, n_bins, n_nodes,
-      head, n_vec, vec_out, bits_in_smem);
+      head, n_vec, vec_out, bits_in_smem, recs_in_smem);
   return cudaGetLastError();
 }
 
@@ -703,16 +726,17 @@ extern "C" int tree_partition(const void* bins, int bins_int8,
                               int n_feat, int n_bins, int n_nodes,
                               long long head, long long n_vec, int vec_out,
                               int n_blocks, long long smem, int bits_in_smem,
-                              void* stream) {
+                              int recs_in_smem, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   return bins_int8
              ? launch_partition<int8_t>(bins, nid, out, feat, thresh, na_left,
                                         split, cs, leftmask, n_rows, n_feat,
                                         n_bins, n_nodes, head, n_vec, vec_out,
-                                        n_blocks, smem, bits_in_smem, s)
+                                        n_blocks, smem, bits_in_smem,
+                                        recs_in_smem, s)
              : launch_partition<int32_t>(bins, nid, out, feat, thresh,
                                          na_left, split, cs, leftmask, n_rows,
                                          n_feat, n_bins, n_nodes, head, n_vec,
                                          vec_out, n_blocks, smem, bits_in_smem,
-                                         s);
+                                         recs_in_smem, s);
 }

@@ -82,7 +82,9 @@ def _lib():
             "tree_split": [_VP] * 23 + [_I] * 9 + [_LL, _VP],
             "tree_partition": [_VP, _I, _VP, _VP, _VP, _VP, _VP, _VP, _VP,
                                _VP, _LL, _I, _I, _I, _LL, _LL, _I, _I, _LL,
-                               _I, _VP],
+                               _I, _I, _VP],
+            "tree_hist_global": [_VP, _I, _VP, _VP, _VP, _VP, _VP, _LL, _I,
+                                 _I, _I, _I, _I, _I, _VP],
         })
     return _LIB
 
@@ -137,16 +139,32 @@ def _hist(bins, nid, stats, d, n_nodes_h, n_bins, exps, mesh, name):
         exps = exponents(stats, mesh=mesh)
     p_exps = need(exps, torch.int32, (3,), "exps", dev)
     cells = Lh * F * B * 3
-    acc, out = slab_buffers(cells, dev)
-    plan = slab_geometry(N, F, Lh, B, sms=sm_count(dev),
-                         budget=HIST_SLAB_BYTES)
-    keys, rows = scratch(plan, N, dev)
     sharded = is_sharded(mesh)
-    rc = _lib().tree_hist(p_bins, is8, p_nid, p_stats, p_exps, ptr(keys),
-                          ptr(rows), acc.data_ptr(), out.data_ptr(), N, F, B,
-                          Lh, int(d > 0), plan.rows_per_block, plan.n_chunks,
-                          plan.n_groups, plan.replicas, plan.threads,
-                          plan.smem, int(not sharded), stream(dev))
+    plan = None if Lh > kernels.SLAB_MAX_NODES else slab_geometry(
+        N, F, Lh, B, sms=sm_count(dev), budget=HIST_SLAB_BYTES)
+    if plan is None or (not plan.listed
+                        and plan.n_chunks > kernels.SLAB_LIST_CHUNKS):
+        # a deep level: more parents than the slab's chunks can sort its
+        # rows into, so each row adds into the global cells itself. The
+        # accumulator is an allocation of its own (8 bytes a cell, 7.9 GB
+        # at a depth-20 tree's last level), freed once the launch is
+        # queued, while the output lives on
+        acc = torch.zeros(cells, dtype=torch.int64, device=dev)
+        out = torch.zeros(cells, dtype=torch.float32, device=dev)
+        rc = _lib().tree_hist_global(
+            p_bins, is8, p_nid, p_stats, p_exps, acc.data_ptr(),
+            out.data_ptr(), N, F, B, Lh, int(d > 0),
+            max(1, min(-(-N // 256), 8 * sm_count(dev))),
+            int(not sharded), stream(dev))
+    else:
+        acc, out = slab_buffers(cells, dev)
+        keys, rows = scratch(plan, N, dev)
+        rc = _lib().tree_hist(p_bins, is8, p_nid, p_stats, p_exps,
+                              ptr(keys), ptr(rows), acc.data_ptr(),
+                              out.data_ptr(), N, F, B, Lh, int(d > 0),
+                              plan.rows_per_block, plan.n_chunks,
+                              plan.n_groups, plan.replicas, plan.threads,
+                              plan.smem, int(not sharded), stream(dev))
     launched(_lib(), rc, name)
     if sharded:
         # integer cells sum exactly over the ranks, then convert once
@@ -340,9 +358,10 @@ class RoutePlan(NamedTuple):
     aligned), the ``head`` rows before and ``tail`` rows after one at a
     time; ``vec_out``: the new ids are stored 16 bytes at a time (out is
     aligned like nid). ``smem`` bytes of shared memory a block: an 8-byte
-    record a node, then, where ``bits_in_smem``, ``words`` 32-bit words
-    of left set a node. ``blocks`` of ROUTE_THREADS threads: one wave, as
-    many as the SMs hold, fewer where the rows need fewer."""
+    record a node (``recs_in_smem``; else none, and a row's node is read
+    from the global tables), then, where ``bits_in_smem``, ``words``
+    32-bit words of left set a node. ``blocks`` of ROUTE_THREADS threads:
+    one wave, as many as the SMs hold, fewer where the rows need fewer."""
     head: int
     n_vec: int
     tail: int
@@ -351,29 +370,33 @@ class RoutePlan(NamedTuple):
     bits_in_smem: bool
     smem: int
     blocks: int
+    recs_in_smem: bool = True
 
 
 def route_plan(n_rows: int, n_nodes: int, n_bins: int, nid_addr: int,
-               out_addr: int, *, sms: int) -> RoutePlan:
+               out_addr: int, *, sms: int,
+               global_records: bool = False) -> RoutePlan:
     """Plan ``tree_partition`` over ``n_rows`` rows whose int32 node ids
     start at address ``nid_addr`` and whose new ids go to ``out_addr``, on
     a card of ``sms`` SMs; raises when the node records alone exceed
-    ROUTE_SMEM_BYTES."""
+    ROUTE_SMEM_BYTES, unless ``global_records`` (a deep level's plan: no
+    shared memory, the node tables read from global memory)."""
     head = min(n_rows, (-nid_addr % 16) // 4)
     n_vec = (n_rows - head) // 4
     words = -(-(n_bins - 1) // 32)
-    rec, bits = 8 * n_nodes, 4 * n_nodes * words
+    rec, bits = (0, 0) if global_records else \
+        (8 * n_nodes, 4 * n_nodes * words)
     if rec > ROUTE_SMEM_BYTES:
         raise ValueError(f"tree_partition: {n_nodes} nodes' records exceed "
                          f"{ROUTE_SMEM_BYTES} B of shared memory")
-    in_smem = rec + bits <= ROUTE_SMEM_BYTES
+    in_smem = not global_records and rec + bits <= ROUTE_SMEM_BYTES
     smem = rec + bits if in_smem else rec
     per_sm = max(1, min(ROUTE_BLOCKS_PER_SM,
                         kernels.SM_SMEM_BYTES // (smem + 1024)))
     blocks = max(1, min(-(-n_vec // ROUTE_THREADS), per_sm * sms))
     return RoutePlan(head, n_vec, n_rows - head - 4 * n_vec,
                      (out_addr - nid_addr) % 16 == 0, words, in_smem, smem,
-                     blocks)
+                     blocks, not global_records)
 
 
 def _partition(bins, nid, feat, thresh, na_left, split, cat_split, leftmask,
@@ -399,12 +422,13 @@ def _partition(bins, nid, feat, thresh, na_left, split, cat_split, leftmask,
         need(leftmask, torch.bool, (L, n_bins - 1), "leftmask", dev),
     ]
     plan = route_plan(N, L, n_bins, ptrs[1], out.data_ptr(),
-                      sms=sm_count(dev))
+                      sms=sm_count(dev),
+                      global_records=8 * L > ROUTE_SMEM_BYTES)
     rc = _lib().tree_partition(ptrs[0], is8, ptrs[1], out.data_ptr(),
                                *tables, N, F, n_bins, L, plan.head,
                                plan.n_vec, int(plan.vec_out), plan.blocks,
                                plan.smem, int(plan.bits_in_smem),
-                               stream(dev))
+                               int(plan.recs_in_smem), stream(dev))
     launched(_lib(), rc, name)
     return out
 

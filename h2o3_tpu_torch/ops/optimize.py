@@ -24,6 +24,8 @@ from typing import Callable, Tuple
 import numpy as np
 import torch
 
+from h2o3_tpu_torch.core.job import job_update
+
 ADMM_CHUNK = 16
 
 
@@ -94,6 +96,7 @@ def lbfgs(value_and_grad: Callable, x0: np.ndarray, max_iter: int = 100,
     S, Y, rhos = [], [], []
     n_iter = 0
     for n_iter in range(1, max_iter + 1):
+        job_update(0.0, f"L-BFGS iteration {n_iter}")
         if np.max(np.abs(g)) < gtol:
             break
         qd = g.copy()

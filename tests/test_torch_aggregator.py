@@ -58,7 +58,10 @@ def test_exemplars_counts_assignment_exact(kw):
         assert agg.col(n).domain == doms_r[n]
     assert agg.col("counts").to_numpy().sum() == len(cols["a"])
     assert m_p.output["num_exemplars"] <= kw["target_num_exemplars"]
-    assert "output_frame" not in m_p.output
+    # the aggregated frame is stored under output["output_frame"], as
+    # the reference stores it
+    assert h2o3_tpu_torch.DKV.get(m_p.output["output_frame"]) is agg
+    assert m_r.output["output_frame"] == m_r.aggregated_frame.key
     assert m_p.output["sweeps"] >= 1 and m_p.output["radius"] > 0
 
 

@@ -70,6 +70,16 @@ SLICE_MODULES = (
     "h2o3_tpu_torch/models/word2vec.py",
     "h2o3_tpu_torch/frame/quantiles.py",
     "h2o3_tpu_torch/ops/sort.py",
+    "h2o3_tpu_torch/core/kv.py",
+    "h2o3_tpu_torch/core/scope.py",
+    "h2o3_tpu_torch/core/job.py",
+    "h2o3_tpu_torch/core/udf.py",
+    "h2o3_tpu_torch/ml/leaderboard.py",
+    "h2o3_tpu_torch/ml/grid.py",
+    "h2o3_tpu_torch/ml/ensemble.py",
+    "h2o3_tpu_torch/automl/__init__.py",
+    "h2o3_tpu_torch/automl/steps.py",
+    "h2o3_tpu_torch/automl/executor.py",
 )
 # sources the port compiles: its kernels and its tokenizer
 NATIVE_FILES = sorted(str(p.relative_to(ROOT)) for p in PKG.rglob("*")

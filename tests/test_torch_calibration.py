@@ -104,10 +104,19 @@ def test_calibration_errors():
     with pytest.raises(ValueError, match="requires calibration_frame"):
         h2o3_tpu_torch.GBMEstimator(ntrees=1, calibrate_model=True).train(
             fr, y="y")
-    with pytest.raises(NotImplementedError, match="KV layer"):
+    with pytest.raises(ValueError, match="no frame under the key"):
         h2o3_tpu_torch.GBMEstimator(ntrees=1, calibrate_model=True,
                                     calibration_frame="frame_key").train(
             fr, y="y")
+    # a frame's DKV key calibrates as the frame does
+    h2o3_tpu_torch.DKV.put("cal_frame_key", cf)
+    by_key, by_frame = (h2o3_tpu_torch.GBMEstimator(
+        ntrees=1, calibrate_model=True, calibration_frame=c).train(fr, y="y")
+        for c in ("cal_frame_key", cf))
+    np.testing.assert_array_equal(
+        by_key.predict(fr).col("cal_p1").to_numpy(),
+        by_frame.predict(fr).col("cal_p1").to_numpy())
+    h2o3_tpu_torch.DKV.remove("cal_frame_key")
     with pytest.raises(ValueError, match="unknown calibration_method"):
         h2o3_tpu_torch.GBMEstimator(ntrees=1, calibrate_model=True,
                                     calibration_frame=cf,

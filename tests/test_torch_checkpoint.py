@@ -187,9 +187,17 @@ def test_donor_checks_match_reference_errors(change):
 
 def test_checkpoint_by_key_or_wrong_model(binomial):
     _, fr = binomial
-    with pytest.raises(NotImplementedError, match="KV layer"):
+    with pytest.raises(ValueError, match="'model_key' not found"):
         h2o3_tpu_torch.GBMEstimator(ntrees=2, checkpoint="model_key").train(
             fr, y="y")
+    donor = h2o3_tpu_torch.GBMEstimator(ntrees=1, max_depth=2).train(fr,
+                                                                     y="y")
+    by_key = h2o3_tpu_torch.GBMEstimator(ntrees=2, max_depth=2,
+                                         checkpoint=donor.key).train(fr,
+                                                                     y="y")
+    by_obj = h2o3_tpu_torch.GBMEstimator(ntrees=2, max_depth=2,
+                                         checkpoint=donor).train(fr, y="y")
+    assert torch.equal(by_key.forest.leaf, by_obj.forest.leaf)
     drf = h2o3_tpu_torch.DRFEstimator(ntrees=1, max_depth=2).train(fr, y="y")
     with pytest.raises(ValueError, match="not a gbm model"):
         h2o3_tpu_torch.GBMEstimator(ntrees=2, checkpoint=drf).train(fr, y="y")

@@ -1206,3 +1206,32 @@ def test_sort_join_and_quantiles_card_vs_cpu(dev):
         torch.where(c.na_mask, 0.0, c.data), (~c.na_mask).float(), ranks,
         0.0, 2399.0, 4) for c in x]
     assert np.array_equal(*got)
+
+
+def test_grid_launches_and_standalone_fits(dev):
+    """Phase 27(a) at a small size: a 4-combo GBM grid's sequential walk
+    launches each level kernel combos x trees x levels times, and every
+    grid model is bit-equal (forest, training AUC) to a standalone fit of
+    its combo; the deep levels of a depth-20 tree (the global-atomic
+    histogram, routing records in global memory) EXACT."""
+    import h2o3_tpu_torch as h2o
+    r = np.random.RandomState(9)
+    X = r.randn(N, 6).astype(np.float32)
+    cols = {f"x{i}": X[:, i] for i in range(6)}
+    cols["y"] = (X[:, 0] + 0.5 * r.randn(N) > 0).astype(np.int32)
+    fr = h2o.Frame.from_numpy(cols, domains={"y": ["N", "Y"]}, device=dev)
+    hyper = {"learn_rate": [0.05, 0.1], "min_rows": [5.0, 20.0]}
+    fixed = dict(ntrees=5, max_depth=6, seed=1)
+    kernels.reset_counts()
+    grid = h2o.GridSearch(h2o.GBMEstimator, hyper, **fixed).train(fr, y="y")
+    counts = dict(kernels.LAUNCHES)
+    assert len(grid.models) == 4
+    cs.check_launches(counts, {k: 4 * 5 * 6 for k in cs.LEVEL_KERNELS},
+                      "grid")
+    for m in grid.models:
+        alone = h2o.GBMEstimator(**fixed, **m.output["grid_params"]).train(
+            fr, y="y")
+        assert cs.forests_equal(m.forest, alone.forest)
+        assert m.training_metrics["AUC"] == alone.training_metrics["AUC"]
+    bm = _bm(dev)
+    cs.deep_levels(torch, dev, bm, bm.bins.contiguous(), bm.nbins_total)

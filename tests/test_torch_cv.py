@@ -177,12 +177,22 @@ def test_cv_validation_errors_match_reference(kw, message):
 
 
 def test_unported_cv_outputs_raise():
-    for k in ("keep_cross_validation_predictions",
-              "keep_cross_validation_fold_assignment"):
-        with pytest.raises(NotImplementedError, match="KV layer"):
-            h2o3_tpu_torch.GBMEstimator(nfolds=3, **{k: True})
-        with pytest.raises(NotImplementedError, match="KV layer"):
-            h2o3_tpu_torch.DRFEstimator(nfolds=3, **{k: True})
+    """The CV outputs that are frame keys came with the DKV: each flag
+    stores its frame, which holds ``_cv_holdout`` / ``_cv_folds``."""
+    cols, cats = mixed_cols(n=300, seed=1)
+    _, fr = _frames(cols, cats)
+    for cls in (h2o3_tpu_torch.GBMEstimator, h2o3_tpu_torch.DRFEstimator):
+        m = cls(nfolds=3, ntrees=2, seed=1,
+                keep_cross_validation_predictions=True,
+                keep_cross_validation_fold_assignment=True).train(fr, y="y")
+        hold = h2o3_tpu_torch.DKV.get(m.output["cv_holdout_frame_key"])
+        np.testing.assert_array_equal(hold.col("p1").to_numpy(),
+                                      m._cv_holdout.astype(np.float64))
+        fa = h2o3_tpu_torch.DKV.get(m.output["cv_fold_assignment_key"])
+        np.testing.assert_array_equal(
+            fa.col("fold_assignment").to_numpy(),
+            m._cv_folds.astype(np.float64))
+        assert len(m.output["cv_predictions_keys"]) == 3
 
 
 def test_cv_seed_and_runtime_split():

@@ -648,12 +648,24 @@ def test_three_fold_cv_matches_the_reference(reference_draws):
 def test_parameters_unknown_inert_and_unported():
     with pytest.raises(ValueError, match="unknown DeepLearning params"):
         DeepLearningEstimator(hiddne=[3])
-    with pytest.raises(NotImplementedError, match="A #9"):
-        DeepLearningEstimator(export_weights_and_biases=True)
     assert DeepLearningEstimator.DEFAULTS == RefDeepLearning.DEFAULTS
     _, fr = frames(dl_cols())
     base = dict(hidden=[4], epochs=1, seed=2)
     a = DeepLearningEstimator(**base).train(fr, y="yb", x=X_COLS)
+    # export_weights_and_biases: each layer's weights and biases as
+    # frames under DKV keys, the same net as without it
+    e = DeepLearningEstimator(export_weights_and_biases=True,
+                              **base).train(fr, y="yb", x=X_COLS)
+    assert weight_gap(a.net, e.net) == 0.0
+    from h2o3_tpu_torch.core.kv import DKV
+    for i, layer in enumerate(e.net):
+        wf = DKV.get(e.output["weights_keys"][i])
+        W = np.stack([wf.col(c).to_numpy() for c in wf.names])
+        np.testing.assert_array_equal(W.astype(np.float32),
+                                      layer["W"].cpu().numpy())
+        b = DKV.get(e.output["biases_keys"][i]).col("C1").to_numpy()
+        np.testing.assert_array_equal(b.astype(np.float32),
+                                      layer["b"].cpu().numpy())
     b = DeepLearningEstimator(rate_decay=0.5, loss="CrossEntropy",
                               distribution="bernoulli", max_w2=10.0,
                               reproducible=True, score_interval=1.0,

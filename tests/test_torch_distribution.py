@@ -14,6 +14,7 @@ import pytest
 import torch
 
 from h2o3_tpu.models import distribution as ref_dist
+from h2o3_tpu_torch.core.udf import upload_custom_distribution
 from h2o3_tpu_torch.models import distribution as dist
 
 # (family, shape parameters): every family, and each shape parameter at
@@ -96,16 +97,29 @@ def test_log_f32_is_the_reference_log(lo, hi):
 
 def test_distribution_cache_and_surface():
     """One instance per (name, shape parameter), as the reference caches
-    them; estimator parameters pass through; custom and the algorithm-
-    level names raise."""
+    them; estimator parameters pass through; custom takes its uploaded
+    function (one instance per uploaded object) and raises without one;
+    the algorithm-level names raise."""
     a = dist.get_distribution("tweedie", tweedie_power=1.3, ntrees=5)
     assert a is dist.get_distribution("Tweedie", tweedie_power=1.3)
     assert a is not dist.get_distribution("tweedie")
     assert dist.get_distribution("gamma") is dist.get_distribution("gamma")
     assert dist.get_distribution("quantile", quantile_alpha=0.5) is \
         dist.get_distribution("quantile")
-    with pytest.raises(NotImplementedError, match="job/KV layer"):
+    with pytest.raises(ValueError, match="custom_distribution_func"):
         dist.get_distribution("custom")
+
+    class Twin:
+        def gradient(self, y, f):
+            return f - y
+
+    ref = upload_custom_distribution(Twin)
+    c = dist.get_distribution("custom", custom_distribution_func=ref)
+    assert c is dist.get_distribution("custom", custom_distribution_func=ref)
+    y, f = torch.tensor([1.0, -2.0]), torch.tensor([0.5, 0.5])
+    assert torch.equal(c.grad(y, f), f - y)
+    assert torch.equal(c.hess(y, f), torch.ones(2))
+    assert c.init_margin(0.25) == 0.25 and torch.equal(c.link_inv(f), f)
     for name in ("auto", "multinomial"):
         with pytest.raises(ValueError, match="algorithm level"):
             dist.get_distribution(name)

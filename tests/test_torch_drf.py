@@ -190,8 +190,14 @@ def _drf_parameter_trains(param):
         m = h2o3_tpu_torch.DRFEstimator(
             **dict(kw, ntrees=5, checkpoint=plain)).train(fr, y="y")
         assert m.forest.feat.shape[0] == 5
-        # a key is not a model: keys live in the KV layer
-        with pytest.raises(NotImplementedError, match="checkpoint"):
+        # the donor's DKV key restarts the same fit; a key with no model
+        # under it does not
+        by_key = h2o3_tpu_torch.DRFEstimator(
+            **dict(kw, ntrees=5, checkpoint=plain.key)).train(fr, y="y")
+        for f in Tree._fields:
+            assert torch.equal(getattr(m.forest, f),
+                               getattr(by_key.forest, f)), f
+        with pytest.raises(ValueError, match="not found"):
             h2o3_tpu_torch.DRFEstimator(
                 **dict(kw, ntrees=5, checkpoint="m")).train(fr, y="y")
     elif param == "max_runtime_secs":
@@ -231,12 +237,14 @@ def test_drf_unported_parameters_raise(param, value):
     and calibrate_model since slice 7, histogram_type since slice 9 (its
     edges change), and binomial_double_trees and stopping_rounds, which
     the reference reads nowhere, accepted and inert (the forest is the
-    default fit's). A parameter still off the ported list raises."""
+    default fit's). The CV frame keys came with the DKV, so no DRF
+    parameter is left off the ported list."""
     _drf_parameter_trains(param)
     h2o3_tpu_torch.DRFEstimator(**{param: value})
-    with pytest.raises(NotImplementedError,
-                       match="keep_cross_validation_predictions"):
-        h2o3_tpu_torch.DRFEstimator(keep_cross_validation_predictions=True)
+    est = h2o3_tpu_torch.DRFEstimator(keep_cross_validation_predictions=True)
+    assert est.params["keep_cross_validation_predictions"] is True
+    assert set(h2o3_tpu_torch.DRFEstimator.DEFAULTS) == \
+        h2o3_tpu_torch.DRFEstimator.PORTED
 
 
 def test_drf_surface_errors():

@@ -155,21 +155,19 @@ def test_regression_metrics_parity(weighted):
 
 
 def test_unported_parameter_raises():
-    # nfolds is ported: a 3-fold CV fit trains; the frame keys of its
-    # predictions are not (keys live in the KV layer)
+    # nfolds is ported: a 3-fold CV fit trains, and the frame keys of its
+    # predictions are in the DKV
     cols, cats = _mixed_cols(n=300, seed=2)
     fr = h2o3_tpu_torch.Frame.from_numpy(cols, categorical=cats,
                                          device="cpu")
-    m = h2o3_tpu_torch.GBMEstimator(nfolds=3, ntrees=2, max_depth=3,
-                                    seed=1).train(fr, y="y")
+    m = h2o3_tpu_torch.GBMEstimator(
+        nfolds=3, ntrees=2, max_depth=3, seed=1,
+        keep_cross_validation_predictions=True).train(fr, y="y")
     assert len(m._cv_models) == 3
     assert 0.5 < m.cross_validation_metrics["AUC"] <= 1.0
-    with pytest.raises(NotImplementedError,
-                       match="keep_cross_validation_predictions"):
-        h2o3_tpu_torch.GBMEstimator(nfolds=3,
-                                    keep_cross_validation_predictions=True)
-    with pytest.raises(NotImplementedError, match="distribution"):
-        h2o3_tpu_torch.GBMEstimator(distribution="custom")
+    hold = h2o3_tpu_torch.DKV.get(m.output["cv_holdout_frame_key"])
+    np.testing.assert_array_equal(hold.col("p1").to_numpy(),
+                                  m._cv_holdout.astype(np.float64))
     with pytest.raises(NotImplementedError, match="stopping_metric"):
         h2o3_tpu_torch.GBMEstimator(stopping_metric="AUC")
     with pytest.raises(ValueError, match="unknown GBM params"):

@@ -212,13 +212,18 @@ def test_cross_validation_matches_the_reference(search):
 def test_unported_and_invalid_parameters_raise():
     cols = mixed_cols(n=400, seed=8)
     _, fr = frames(cols, ["c0", "c1", "y"])
-    for k, v in (("keep_cross_validation_predictions", True),
-                 ("keep_cross_validation_fold_assignment", True)):
-        with pytest.raises(NotImplementedError, match=k):
-            glm.GLMEstimator(**{k: v})
-    with pytest.raises(NotImplementedError, match="A #9"):
-        glm.GLMEstimator(beta_constraints="bc_key")
-    with pytest.raises(NotImplementedError, match="A #9"):
+    # the CV frame keys and a beta_constraints key came with the DKV
+    m = glm.GLMEstimator(nfolds=2, seed=1,
+                         keep_cross_validation_predictions=True,
+                         keep_cross_validation_fold_assignment=True
+                         ).train(fr, y="y")
+    from h2o3_tpu_torch.core.kv import DKV
+    np.testing.assert_array_equal(
+        DKV.get(m.output["cv_fold_assignment_key"]).col(
+            "fold_assignment").to_numpy(), m._cv_folds.astype(np.float64))
+    with pytest.raises(ValueError, match="no frame under the key"):
+        glm.GLMEstimator(beta_constraints="bc_key").train(fr, y="y")
+    with pytest.raises(NotImplementedError, match="A #9′"):
         glm.fit_glm_batched(glm.GLMEstimator, [{}], fr, y="y")
     with pytest.raises(ValueError, match="unknown GLM params"):
         glm.GLMEstimator(not_a_param=1)

@@ -393,12 +393,19 @@ def test_unported_inputs_raise(tmp_path):
         q.write_bytes(b"a\n1\n")
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             h2o3_tpu_torch.import_file(str(q), device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP A #9"):
+    with pytest.raises(NotImplementedError, match="ROADMAP A #9′"):
         h2o3_tpu_torch.import_file(p, lazy=True, device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP A #9"):
-        h2o3_tpu_torch.import_file(p, destination_frame="k", device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP A #9"):
-        stream_import_csv(p, destination_frame="k", device="cpu")
+    # destination_frame stores the frame under its key (the DKV)
+    plain = h2o3_tpu_torch.import_file(p, device="cpu")
+    for key, fr in (
+            ("k_import", h2o3_tpu_torch.import_file(
+                p, destination_frame="k_import", device="cpu")),
+            ("k_stream", stream_import_csv(p, destination_frame="k_stream",
+                                           device="cpu"))):
+        assert h2o3_tpu_torch.DKV.get(key) is fr and fr.key == key
+        np.testing.assert_array_equal(fr.col("a").host_view(),
+                                      plain.col("a").host_view())
+        h2o3_tpu_torch.DKV.remove(key)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         parser.parse_setup(p)
     with pytest.raises(NotImplementedError, match="ROADMAP"):

@@ -257,7 +257,12 @@ def test_cv_matches_the_reference(ref_draws):
         assert cvm[key] == pytest.approx(
             m_r.cross_validation_metrics[key], rel=METRIC_TOL)
     assert m_p.output["nfolds"] == 3
-    assert "cv_model_keys" not in m_p.output
+    # the fold models under <main>_cv_<i>, as the reference names them
+    assert [k.split("_cv_")[1] for k in m_p.output["cv_model_keys"]] == \
+        [k.split("_cv_")[1] for k in m_r.output["cv_model_keys"]] == \
+        ["1", "2", "3"]
+    assert [h2o3_tpu_torch.DKV.get(k) for k in m_p.output["cv_model_keys"]] \
+        == m_p._cv_models
 
 
 def test_estimate_k_matches_the_reference(ref_draws):
@@ -297,10 +302,23 @@ def test_user_points_match_the_reference(constrained):
 
 
 def test_user_points_by_key_and_bad_points_raise():
-    with pytest.raises(NotImplementedError, match="ROADMAP A #9"):
-        h2o3_tpu_torch.KMeansEstimator(user_points="points_key")
     cols = blob_cols(n=200, seed=8)
     fr_p = frames(cols)[1]
+    # a Frame's DKV key starts the fit as the Frame does; a key with no
+    # frame under it raises
+    with pytest.raises(ValueError, match="no frame under the key"):
+        h2o3_tpu_torch.KMeansEstimator(k=2, init="User",
+                                       user_points="points_key").train(fr_p)
+    num = ["x0", "x1", "x2"]
+    pts = {n: np.asarray(cols[n])[:2] for n in num}
+    h2o3_tpu_torch.Frame.from_numpy(pts, device="cpu", key="points_key")
+    by_key, by_frame = (h2o3_tpu_torch.KMeansEstimator(
+        k=2, init="User", user_points=u).train(fr_p, x=num)
+        for u in ("points_key",
+                  h2o3_tpu_torch.Frame.from_numpy(pts, device="cpu")))
+    np.testing.assert_array_equal(by_key.output["centers_std"],
+                                  by_frame.output["centers_std"])
+    h2o3_tpu_torch.DKV.remove("points_key")
     up = h2o3_tpu_torch.Frame.from_numpy({"a": np.zeros(2)}, device="cpu")
     with pytest.raises(ValueError, match="one column per predictor"):
         h2o3_tpu_torch.KMeansEstimator(user_points=up).train(fr_p)

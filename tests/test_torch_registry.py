@@ -2,7 +2,10 @@
 reference's: every algorithm the port has is found under the same names
 (the reference's normalization: case and underscores), each other
 algorithm of the reference raises ``NotImplementedError`` naming its
-ROADMAP item, and an unknown name raises ``ValueError`` in both."""
+ROADMAP item, and an unknown name raises ``ValueError`` in both. The
+port also registers ``stackedensemble`` (its AutoML and grid build every
+estimator by name), which the reference's table leaves out: it is the
+builder of the reference's ``ml/ensemble.py``, mirrored."""
 
 import pytest
 
@@ -11,8 +14,11 @@ from h2o3_tpu_torch import models
 
 
 def test_every_ported_name_finds_the_references_estimator():
+    from h2o3_tpu.ml.ensemble import StackedEnsembleEstimator as RefSE
     for algo in models.all_algos():
-        port, ref = models.get_builder(algo), ref_models.get_builder(algo)
+        port = models.get_builder(algo)
+        ref = RefSE if algo == "stackedensemble" else \
+            ref_models.get_builder(algo)
         assert port.algo == ref.algo == algo
         assert port.__name__ == ref.__name__
         assert port.__module__.replace("h2o3_tpu_torch.", "") == \
@@ -21,12 +27,14 @@ def test_every_ported_name_finds_the_references_estimator():
         ["aggregator", "anovaglm", "coxph", "deeplearning", "drf",
          "extendedisolationforest", "gam", "gbm", "glm", "glrm",
          "infogram", "isolationforest", "isotonicregression", "kmeans",
-         "modelselection", "naivebayes", "pca", "psvm", "rulefit", "svd",
-         "targetencoder", "upliftdrf", "word2vec", "xgboost"])
+         "modelselection", "naivebayes", "pca", "psvm", "rulefit",
+         "stackedensemble", "svd", "targetencoder", "upliftdrf", "word2vec",
+         "xgboost"])
     assert not {"kmeans", "pca", "svd", "glrm", "naivebayes",
                 "targetencoder", "gam", "rulefit", "modelselection",
                 "anovaglm", "isotonicregression", "infogram", "coxph",
-                "psvm", "aggregator", "word2vec"} & set(models.UNPORTED)
+                "psvm", "aggregator", "word2vec",
+                "stackedensemble"} & set(models.UNPORTED)
     assert set(models.UNPORTED) == {"generic"}
 
 
@@ -42,6 +50,15 @@ def test_every_ported_name_finds_the_references_estimator():
 def test_names_normalize_as_in_the_reference(name):
     assert models.get_builder(name).algo == \
         ref_models.get_builder(name).algo
+
+
+@pytest.mark.parametrize("name", ["Stacked_Ensemble", "StackedEnsemble",
+                                  "stackedensemble"])
+def test_stacked_ensemble_is_registered(name):
+    from h2o3_tpu_torch.ml.ensemble import StackedEnsembleEstimator
+    assert models.get_builder(name) is StackedEnsembleEstimator
+    with pytest.raises(ValueError, match="unknown algo"):
+        ref_models.get_builder(name)
 
 
 def test_the_rest_of_the_reference_is_named_and_unported():
