@@ -13,7 +13,9 @@ Phases, in order; any failure exits non-zero and no phase carries on:
    flagship width (F=10, B=126, int8 bins, 1M rows, levels d=0..5), one
    level at Lh=256 (depth bucket 10) and one int32-bin level at B=200.
    Then a depth-20 tree's deep levels (``deep_levels``): d = 15 whole and
-   d = 19's histogram and routing, EXACT with dyadic stats.
+   d = 19's histogram and routing, EXACT with dyadic stats; each level's
+   kernels timed beside their plain versions, ``tree_hist``'s
+   ``index_add_`` and the bound.
    Small-integer ("dyadic") stats must match EXACTLY; real-valued stats
    within the stated tolerance, split flips only at near-ties; with
    real-valued stats ``tree_hist`` on the rows permuted (bins, nid and
@@ -150,10 +152,10 @@ Phases, in order; any failure exits non-zero and no phase carries on:
     the assigned ids adding up to the margin (mean vote); GBM's
     ``staged_predict_proba``, its last stage equal to ``predict``;
     ``predict_contributions`` (TreeSHAP, plain torch on the card) with
-    local accuracy on every row it covers (GBM all 5M rows, DRF 250K:
-    the cut and its reason are printed; 1M before phase 22 came) and within 1e-5·max(1, |margin|) of
-    the CPU plain version's (GBM on 20K rows, DRF on 2K); seconds and
-    peak memory. No kernel runs on this path.
+    local accuracy on every row it covers (GBM 1M rows, DRF 10K: the
+    cuts and their reasons are printed) and within 1e-5·max(1, |margin|)
+    of the CPU plain version's (GBM on 20K rows, DRF on 200); seconds
+    and peak memory. No kernel runs on this path.
 22. GLM (no kernel: the Gram is a cuBLAS SGEMM with TF32 held off, the
     solvers plain torch). (a) bench.py's GLM benchmark at its shape,
     nothing cut: 11,000,000 x 28 float32 from RandomState(3), binomial,
@@ -312,7 +314,7 @@ Phases, in order; any failure exits non-zero and no phase carries on:
     trained, the leaderboard sorted by CV AUC, both StackedEnsembles
     where two or more families trained with CV, the leader predicts, the
     level kernels launched and the others not. (d) Two runs of
-    ``H2OAutoML(max_models=4, seed=1, nfolds=3, include_algos=["glm",
+    ``H2OAutoML(max_models=2, seed=1, nfolds=3, include_algos=["glm",
     "gbm", "stackedensemble"])`` on the first 100K rows of (c)'s CSV (the
     default 3600 s budget does not bite): the same steps in the same
     order, bit-equal leaderboards and leader p1. (e) (d)'s best-of-family
@@ -324,6 +326,32 @@ Phases, in order; any failure exits non-zero and no phase carries on:
     with local accuracy on every row and within 1e-5·max(1, |margin|) of
     the CPU plain version on 2,000 rows. Later phases' host data is made
     on a background thread while the earlier phases run (``make_ahead``).
+28. The data surface (no kernel but the fit of (d)). (a) bench.py's
+    AutoML rows (500K airlines rows, the categoricals' codes in their
+    sorted domains) written with this script's writers as SVMLight, ARFF
+    (the four categoricals nominal), Avro (deflate) and, their first
+    100K rows, XLSX: each read by ``import_file`` equals the same rows
+    read from CSV (names, types, domains, NA masks, host values bit for
+    bit; SVMLight on its numeric encoding); each reader's seconds and
+    MB/s. (b) ``export_file`` of the CSV frame writes the CSV's bytes
+    and reads back equal; ``parse_setup`` of every file gives the
+    expected types; a sqlite3 table of the rows through
+    ``import_sql_table`` equals the CSV frame, ``import_sql_select`` of its
+    first 100K rows (``rowid <= 100000``) their CSV frame;
+    ``import_file(lazy=True)`` parses nothing until ``DKV.get``, then
+    equals it. (c) ``device_merge`` at bench.py's join (bench_sort: a 10M
+    row left frame, k from RandomState(11) in [0, 5M), a 2.5M row right
+    frame), inner and left, each against a numpy join of the same
+    arrays (rows, the (v, rv) pairs and their order EXACT); a two-key
+    and a categorical-key join (differing domains) at 1M rows; seconds,
+    left rows/s, peak memory; the budget guard returns None on a 4-level
+    key at 1M x 250K under a 1 GiB budget. (d) Phase 4's flagship GBM
+    on 1M airlines rows (60 launches a level kernel): ``partial_dependence``
+    over DepTime, Distance (nbins 20) and the 8-level UniqueCarrier, and
+    ``permutation_varimp`` over the 10 features, launching no kernel; on
+    a 20K-row head the card within 1e-6·max(1, |mean|) of the CPU plain
+    path's PDP means, and the importance order the same where
+    neighbouring values differ by more than 1e-6.
 
 Launch counts are read per path: each path sets every count to 0 just
 before it runs and reads them just after (phase 15's, over its seven
@@ -352,9 +380,13 @@ and ``glm_surface``, phase 23's as ``deeplearning``,
 ``word2vec``, ``quantiles`` and ``sort``, every kernel 0 on each,
 phase 27's as ``grid``, ``automl``, ``automl_repeat`` (both runs of
 (d)), ``stackedensemble`` (the card's metalearner fit of (e)) and
-``gbm_depth20`` ((f)'s fit);
+``gbm_depth20`` ((f)'s fit), phase 28's as ``readers``, ``write_read``,
+``merge`` and ``explain``;
 ``tree_partition`` has a
-fourth record, at the Isolation Forest levels); the last is
+fourth record, at the Isolation Forest levels; the three level kernels
+have records at phase 2's deep level d = 15, ``tree_hist`` and
+``tree_partition`` at d = 19 too, with their launches on
+``gbm_depth20``); the last is
 ``{"ok": true, "device": {...}}``.
 """
 
@@ -433,11 +465,13 @@ NUMERIC = ("Year", "Month", "DayofMonth", "DayOfWeek", "DepTime",
 # on fewer rows (a depth-10 tree has ~1000 leaves), and fewer again on
 # the CPU
 N_CHECK = 20_000
-# cut from 1M to 250K rows when phase 22 (GLM) came, and to 50K
-# (its CPU head from 2,000 to 500 rows) when phase 27 came: the run's
-# time, not the card, bounds it
-N_SHAP_DRF = 50_000
-N_SHAP_DRF_CPU = 500
+# cut from 1M to 250K rows when phase 22 (GLM) came, to 50K (its CPU
+# head from 2,000 to 500 rows) when phase 27 came, and to 10K (the CPU
+# head to 200) when phase 28 came, as the GBM's from all 5M rows to 1M:
+# the run's time, not the card, bounds them
+N_SHAP_DRF = 10_000
+N_SHAP_DRF_CPU = 200
+N_SHAP_GBM = 1_000_000
 Y = "IsDepDelayed"
 # phase 22: GLM. (a) bench.py's GLM benchmark (BASELINE.json: "GLM
 # binomial IRLS + L-BFGS, HIGGS 11M rows") at its shape, nothing cut;
@@ -734,7 +768,10 @@ CAP_GBM_SECS = 0.5
 CAP_DL_SECS = 2.0
 N_AUTOML = 500_000               # bench.py bench_automl
 AUTOML = dict(max_models=20, seed=1, nfolds=3, max_runtime_secs=300)
-AUTOML_REPEAT = dict(max_models=4, seed=1, nfolds=3,
+# two models (GLM_1, GBM_1) and the two ensembles: cut from four when
+# phase 28 came, for the run's time (the steps, leaderboards and leader
+# must still be bit-equal, and (e) still has a GLM and a GBM base)
+AUTOML_REPEAT = dict(max_models=2, seed=1, nfolds=3,
                      include_algos=["glm", "gbm", "stackedensemble"])
 # (d)-(f) run on the first rows of (c)'s CSV (cut from all 500K for the
 # run's time: bit-equality of two runs does not need them, and (d)'s two
@@ -751,6 +788,15 @@ SE_WITNESS_PERMS = 5
 # short; the CPU plain version on the first DEEP_SHAP_CPU rows
 DEEP_SHAP = dict(ntrees=2, max_depth=20, min_rows=200.0, seed=1)
 DEEP_SHAP_CPU = 2_000
+# phase 28: the data surface
+N_XLSX = 100_000                 # the first rows of (a)'s rows as XLSX
+N_MERGE = 10_000_000             # bench.py bench_sort, nothing cut
+N_MERGE_SMALL = 1_000_000        # the two-key and categorical-key joins
+MERGE_GUARD_BYTES = 1 << 30
+N_EXPLAIN = 1_000_000
+N_EXPLAIN_HEAD = 20_000
+PDP_COLS = ("DepTime", "Distance", "UniqueCarrier")
+PDP_NBINS = 20
 _TREEKERNEL = dict(source="h2o3_tpu_torch/ops/kernels/csrc/treekernel.cu",
                    replaces="h2o3_tpu/ops/pallas/treekernel.py:250")
 KERNELS = {
@@ -1196,7 +1242,8 @@ def phase_toolchain(torch):
 
 
 def phase_kernels(torch, dev, bm):
-    """Phase 2 at the flagship width; returns max |err| per kernel."""
+    """Phase 2 at the flagship width; returns max |err| per kernel and
+    the deep levels' kernel records (``deep_levels``)."""
     from h2o3_tpu_torch.ops.kernels import treekernel as tk
     tp, sc, is_cat, cm, lo, hi = level_plan(bm, torch, dev)
     B = bm.nbins_total
@@ -1250,7 +1297,7 @@ def phase_kernels(torch, dev, bm):
                                   L=512, B=B, exact=True)
     say("phase2 Lh=256 (d=9) exact: " + " ".join(
         f"{k}={v:.3g}" for k, v in errs.items()))
-    deep_levels(torch, dev, bm, bins, B)
+    deep = deep_levels(torch, dev, bm, bins, B)
     # int32 bins at B = 200
     B2, F2 = 200, 10
     bins32 = torch.from_numpy(r.randint(0, B2, (N_KERNEL, F2)).astype(
@@ -1266,7 +1313,7 @@ def phase_kernels(torch, dev, bm):
                                   L=4, B=B2, exact=True)
     say("phase2 int32 bins B=200 (d=2) exact: " + " ".join(
         f"{k}={v:.3g}" for k, v in errs.items()))
-    return worst
+    return worst, deep
 
 
 def deep_levels(torch, dev, bm, bins, B):
@@ -1275,7 +1322,10 @@ def deep_levels(torch, dev, bm, bins, B):
     histogram of 16,384 parents, the 32,768 nodes' records read from
     global memory) the whole level EXACT with dyadic stats; at d = 19
     (L = 524,288, 262,144 parents) ``tree_hist`` and ``tree_partition``
-    (random decisions, categorical ones among them) EXACT."""
+    (random decisions, categorical ones among them) EXACT. Then each
+    level's kernels timed (``deep_timing``). Returns the records of the
+    kernels at d = 15 and of ``tree_hist`` and ``tree_partition`` at
+    d = 19 (launches set from the depth-20 GBM of phase 27)."""
     from h2o3_tpu_torch.ops.kernels import treekernel as tk
     tp, sc, is_cat, cm, lo, hi = level_plan(bm, torch, dev, max_depth=20)
     ops = tk.level_operands(cm, bm.nbins, is_cat, None, lo, hi, sc, dev)
@@ -1283,13 +1333,14 @@ def deep_levels(torch, dev, bm, bins, B):
     n = bins.shape[0]
     stats = dyadic_stats(n, 9, torch, dev)
     L = 2 ** 15
-    nid = torch.from_numpy(r.randint(0, L, n).astype(np.int32)).to(dev)
-    prev = tk.hist_plain(bins, nid >> 1, stats, d=0, n_nodes_h=L // 2,
-                         n_bins=B)
-    errs, _, out_p, _ = compare_level(tk, bins, nid, stats, prev, ops, d=15,
-                                      L=L, B=B, exact=True)
+    nid15 = torch.from_numpy(r.randint(0, L, n).astype(np.int32)).to(dev)
+    prev15 = tk.hist_plain(bins, nid15 >> 1, stats, d=0, n_nodes_h=L // 2,
+                           n_bins=B)
+    errs, _, out_p, _ = compare_level(tk, bins, nid15, stats, prev15, ops,
+                                      d=15, L=L, B=B, exact=True)
     n_split = int(out_p[8].sum())
-    del prev, out_p
+    dec15 = (out_p[2], out_p[3], out_p[4], out_p[8], out_p[9], out_p[7])
+    del out_p
     L = 2 ** 19
     nid = torch.from_numpy(r.randint(0, L, n).astype(np.int32)).to(dev)
     lh_p = tk.hist_plain(bins, nid, stats, d=19, n_nodes_h=L // 2, n_bins=B)
@@ -1315,26 +1366,96 @@ def deep_levels(torch, dev, bm, bins, B):
             f"{k}={v:.3g}" for k, v in errs.items())
         + "; d=19 (L=524288) tree_hist and tree_partition")
     del new_p, new_k
-    # what a depth-20 tree's last level costs (the dense layout: PERF.md
-    # section 7), each beside its byte bound
-    Lh, cell = L // 2, F * B * 3 * 4
-    lh = tk.tree_hist(bins, nid, stats, d=19, n_nodes_h=Lh, n_bins=B)
-    prev = lh.clone()
-    row_bytes = n * (bins.shape[1] * bins.element_size() + 4 + 12)
-    times = {
-        "tree_hist": (time_ms(torch, lambda: tk.tree_hist(
-            bins, nid, stats, d=19, n_nodes_h=Lh, n_bins=B), reps=5),
-            row_bytes + Lh * cell),
-        "tree_split": (time_ms(torch, lambda: tk.tree_split(
-            lh, prev, *ops, d=19, n_nodes=L, n_bins=B), reps=5),
-            2 * Lh * cell + L * cell + L * (B - 1)),
-        "tree_partition": (time_ms(torch, lambda: tk.tree_partition(
-            bins, nid, *dec, n_bins=B), reps=5), n * 9 + L * 11)}
-    say("phase2 a depth-20 tree's last level (d=19, L=524288, "
-        f"{n} rows): " + "; ".join(
-            f"{k} {t['ms']:.4g} ms (host-paced {t['host_paced_ms']:.4g}), "
-            f"bound {b / HBM_BYTES_PER_S * 1e3:.4g} ms (bytes)"
-            for k, (t, b) in times.items()))
+    # what a depth-20 tree's deep levels cost (the dense layout: PERF.md
+    # section 7), each beside its plain version and its bound
+    records = []
+    for d, nid_d, prev, dec_d, names in (
+            (15, nid15, prev15, dec15, LEVEL_KERNELS),
+            (19, nid, None, dec, ("tree_hist", "tree_split",
+                                  "tree_partition"))):
+        acc = deep_timing(torch, dev, tk, bins, nid_d, stats, prev, ops,
+                          dec_d, is_cat, d=d, B=B, plain_split=d < 19)
+        for k in names:
+            a = acc[k]
+            plain = a["plain_ms"]
+            rec = kernel_record(k, None, dict(a, plain_ms=plain or 0.0), 1,
+                                path="gbm_depth20", levels=f"d={d}",
+                                has_library=k == "tree_hist")
+            rec["plain_ms"] = plain
+            say(f"phase2 deep level d={d} ({n} rows, L={2 ** d}) {k}: "
+                f"{rec['ms']:.6g} ms (calls {rec['ms_min']:.6g}.."
+                f"{rec['ms_max']:.6g}; host-paced "
+                f"{rec['host_paced_ms']:.6g}), plain "
+                + (f"{plain:.6g} ms" if plain is not None
+                   else "not timed (its intermediates at L = 524,288 do "
+                        "not fit in the card's memory)")
+                + f", bound {rec['bound_ms']:.6g} ms ({rec['bound_by']}), "
+                f"library {rec['library_ms']}")
+            if plain is not None:
+                records.append(rec)
+        del acc
+    return records
+
+
+def deep_timing(torch, dev, tk, bins, nid, stats, prev, ops, dec, is_cat,
+                *, d, B, plain_split=True):
+    """``timing_acc`` sums of one deep level d's three kernels (as
+    ``level_timing`` times the flagship's): device ms, the plain
+    version's ms (``tree_split``'s only with ``plain_split``, else None),
+    ``tree_hist``'s ``index_add_`` on precomputed cells, the bound's
+    terms. ``tree_split`` runs on the plain histogram of this level and
+    ``prev`` (None at d = 19: the level is timed as its own parent,
+    which costs the kernel the same)."""
+    from h2o3_tpu_torch.ops.fixed_point import exponents
+    N, F = bins.shape
+    L, Lh = 2 ** d, 2 ** d // 2
+    cell_b = F * B * 12
+    lh = tk.hist_plain(bins, nid, stats, d=d, n_nodes_h=Lh, n_bins=B)
+    if prev is None:
+        prev = lh.clone()
+    exps = exponents(stats)
+    n = nid.long()
+    cell = torch.where((n % 2 == 0)[:, None],
+                       ((n >> 1)[:, None] * F
+                        + torch.arange(F, device=dev)) * B + bins.long(),
+                       Lh * F * B).reshape(-1)
+    src = stats[:, None, :].expand(N, F, 3).reshape(N * F, 3)
+    keep = ops[0].bool().expand(L, F)
+    kept, kept_cat = int(keep.sum()), int((keep & is_cat).sum())
+    runs = {
+        "tree_hist": (
+            lambda: tk.tree_hist(bins, nid, stats, d=d, n_nodes_h=Lh,
+                                 n_bins=B, exps=exps),
+            lambda: tk.hist_plain(bins, nid, stats, d=d, n_nodes_h=Lh,
+                                  n_bins=B),
+            lambda: torch.zeros((Lh * F * B + 1, 3), device=dev).index_add_(
+                0, cell, src),
+            _hist_bytes(N, F, Lh, B, bins.element_size()), 3 * N * F),
+        "tree_split": (
+            lambda: tk.tree_split(lh, prev, *ops, d=d, n_nodes=L, n_bins=B),
+            (lambda: tk.split_plain(lh, prev, *ops, d=d, n_nodes=L,
+                                    n_bins=B)) if plain_split else None,
+            None,
+            Lh * cell_b * 2 + L * cell_b + L * (B - 1) + L * 26,
+            kept * (B - 1) * 2 * 20
+            + kept_cat * (B - 1) * int(np.ceil(np.log2(B - 1)))),
+        "tree_partition": (
+            lambda: tk.tree_partition(bins, nid, *dec, n_bins=B),
+            lambda: tk.partition_plain(bins, nid, *dec, n_bins=B), None,
+            N * (F * bins.element_size() + 4 + 4) + L * (B + 12), 4 * N),
+    }
+    acc = {}
+    for k, (kern, plain, lib, nbytes, nops) in runs.items():
+        a = timing_acc()
+        add_time(a, time_ms(torch, kern, reps=5))
+        a["plain_ms"] = (time_ms(torch, plain, reps=2)["ms"]
+                         if plain is not None else None)
+        if lib is not None:
+            a["library_ms"] = time_ms(torch, lib, reps=2)["ms"]
+        a["bytes_ms"] = nbytes / HBM_BYTES_PER_S * 1e3
+        a["ops_ms"] = nops / F32_OPS_PER_S * 1e3
+        acc[k] = a
+    return acc
 
 
 def phase_grow_tree(torch, dev, bm):
@@ -2916,24 +3037,10 @@ def csv_bytes(cols, domains) -> bytes:
     pieces = []
     for j, nm in enumerate(names):
         v = np.asarray(cols[nm])
-        if nm in domains:
-            lv = np.array(domains[nm], dtype=bytes)       # zero-padded
-            table = np.frombuffer(lv.tobytes(), np.uint8).reshape(
-                len(lv), lv.dtype.itemsize)
-            pieces.append(table[v])
-        else:
-            check(v.min() >= 0, f"csv_bytes: {nm} has negative values")
-            w = len(str(int(v.max())))
-            p10 = 10 ** np.arange(w - 1, -1, -1, dtype=np.int64)
-            v64 = v.astype(np.int64)[:, None]
-            digits = (v64 // p10 % 10 + 48).astype(np.uint8)
-            # a digit shows from the leading one on (the units always)
-            digits[(v64 < p10) & (p10 > 1)] = 0
-            pieces.append(digits)
-        sep = b"\n" if j == len(names) - 1 else b","
-        pieces.append(np.full((n, 1), sep[0], np.uint8))
-    mat = np.concatenate(pieces, axis=1)
-    return (",".join(names) + "\n").encode() + mat[mat != 0].tobytes()
+        pieces.append(level_bytes(domains[nm], v) if nm in domains
+                      else decimal_bytes(v))
+        pieces.append(b"\n" if j == len(names) - 1 else b",")
+    return (",".join(names) + "\n").encode() + text_bytes(pieces, n)
 
 
 def same_frames(a, b) -> bool:
@@ -3300,8 +3407,8 @@ def phase_scoring(torch, dev, fr, cols, domains, gbm, drf):
     against the CPU plain versions on N_CHECK rows, the leaf values at the
     assigned ids adding up to the margin (GBM) or mean vote (DRF); GBM's
     staged probabilities, the last stage equal to ``predict``; TreeSHAP
-    contributions with local accuracy on every row they cover (GBM all
-    rows, DRF N_SHAP_DRF: see the printed cut) and within 1e-5·max(1,
+    contributions with local accuracy on every row they cover (GBM
+    N_SHAP_GBM rows, DRF N_SHAP_DRF: see the printed cuts) and within 1e-5·max(1,
     |margin|) of the CPU plain version's. Returns the launches (none: the
     surface is plain torch)."""
     import h2o3_tpu_torch as h2o
@@ -3365,7 +3472,7 @@ def phase_scoring(torch, dev, fr, cols, domains, gbm, drf):
                 f"{t_st:.3f} s, the last stage == predict's p0")
             del st
         # contributions
-        rows = n if label == "GBM" else N_SHAP_DRF
+        rows = N_SHAP_GBM if label == "GBM" else N_SHAP_DRF
         sub = fr if rows == n else h2o.Frame.from_numpy(
             {k: v[:rows] for k, v in cols.items()}, domains=domains,
             device=dev)
@@ -3390,14 +3497,15 @@ def phase_scoring(torch, dev, fr, cols, domains, gbm, drf):
         check((err <= tol[:n_cpu, None]).all(),
               f"{label} contributions card vs CPU plain: max |err| "
               f"{err.max()}")
-        cut = "" if rows == n else (
-            f" (cut from {n} rows: the recursion streams every leaf's "
-            f"[rows, path] float32 weights ~90 times a tree, and a depth-"
-            f"{model.forest.feat.shape[1]} DRF tree has up to "
-            f"{2 ** model.forest.feat.shape[1]} leaves; from 1M to 250000 "
-            f"rows since phase 22 came and to {rows} since phase 27 came, "
-            f"the CPU head to {n_cpu} rows, to keep the whole run within "
-            f"its time limit)")
+        cut = (f" (cut from {n} rows when phase 28 came, to keep the whole "
+               "run within its time limit)" if label == "GBM" else
+               f" (cut from {n} rows: the recursion streams every leaf's "
+               f"[rows, path] float32 weights ~90 times a tree, and a depth-"
+               f"{model.forest.feat.shape[1]} DRF tree has up to "
+               f"{2 ** model.forest.feat.shape[1]} leaves; to 250000 rows "
+               f"when phase 22 came, 50000 when phase 27 came and {rows} "
+               f"when phase 28 came, the CPU head to {n_cpu} rows, to keep "
+               f"the whole run within its time limit)")
         say(f"phase21 {label} predict_contributions on {rows} rows{cut}: "
             f"{t_c:.3f} s, peak device memory {peak / 2**30:.3f} GiB, local "
             f"accuracy on every row (max |gap| {acc_gap.max():.3g}); card "
@@ -6360,8 +6468,10 @@ def phase_automl_repeat(torch, dev, fr):
     pb = b.predict(fr).col("p1").to_numpy()
     check(np.array_equal(pa, pb), "the two leaders' p1 differ")
     say(f"phase27(d) AutoML {AUTOML_REPEAT} twice on the first "
-        f"{fr.nrows} rows of (c)'s CSV (cut from {N_AUTOML} for the run's "
-        f"time): {t_runs[0]:.3f} / {t_runs[1]:.3f} s, steps {steps_a} in "
+        f"{fr.nrows} rows of (c)'s CSV (cut from {N_AUTOML} rows, and "
+        f"from 4 models to {AUTOML_REPEAT['max_models']} when phase 28 came, "
+        f"for the run's time): {t_runs[0]:.3f} / {t_runs[1]:.3f} s, steps "
+        f"{steps_a} in "
         "the same order, leaderboards bit-equal (every metric), leader p1 "
         "bit-equal")
     se = next(m for m in a.leaderboard.models
@@ -6479,6 +6589,596 @@ def phase_orchestration(torch, dev):
             "gbm_depth20": deep_counts}
 
 
+# ------------------------------------------------ phase 28 (slice 16)
+#
+# Writers of the host formats (numpy byte operations and the standard
+# library; the CPU tests write their files with them too). Each takes
+# columns of non-negative integers, a categorical as codes into its
+# domain (``airlines_arrays``' form); ``avro_bytes`` also takes float
+# columns and NA (NaN, or a negative code).
+
+
+def decimal_bytes(v: np.ndarray) -> np.ndarray:
+    """Non-negative integers as an [n, width] byte matrix of their
+    decimal digits, the unused leading bytes 0."""
+    check(v.min() >= 0, "decimal_bytes: negative values")
+    w = len(str(int(v.max())))
+    p10 = 10 ** np.arange(w - 1, -1, -1, dtype=np.int64)
+    v64 = v.astype(np.int64)[:, None]
+    digits = (v64 // p10 % 10 + 48).astype(np.uint8)
+    digits[(v64 < p10) & (p10 > 1)] = 0   # a digit shows from the leading one
+    return digits
+
+
+def level_bytes(levels, codes: np.ndarray) -> np.ndarray:
+    """Each row's level as an [n, width] byte matrix, zero-padded."""
+    lv = np.array(list(levels), dtype=bytes)
+    table = np.frombuffer(lv.tobytes(), np.uint8).reshape(
+        len(lv), lv.dtype.itemsize)
+    return table[codes]
+
+
+def text_bytes(pieces, n: int) -> bytes:
+    """Byte matrices (or single byte strings, repeated on every row)
+    side by side, row after row, the zero bytes dropped."""
+    mats = [np.tile(np.frombuffer(p, np.uint8), (n, 1))
+            if isinstance(p, bytes) else p for p in pieces]
+    mat = np.concatenate(mats, axis=1)
+    return mat[mat != 0].tobytes()
+
+
+def sorted_codes(cols, domains):
+    """The columns with each categorical's codes renumbered into the
+    sorted list of the levels its rows hold (the domain a parse interns),
+    and those domains."""
+    out, doms = dict(cols), {}
+    for nm, dom in domains.items():
+        codes = np.asarray(cols[nm])
+        present = np.unique(codes)
+        levels = sorted(dom[c] for c in present)
+        lut = {lvl: i for i, lvl in enumerate(levels)}
+        remap = np.full(len(dom), -1, np.int32)
+        remap[present] = [lut[dom[c]] for c in present]
+        out[nm], doms[nm] = remap[codes], levels
+    return out, doms
+
+
+def svmlight_bytes(cols, y: str) -> bytes:
+    """SVMLight text: the label ``y``, then feature j (1-based, the other
+    columns in order) as ``j:value``, zero values left out."""
+    names = [c for c in cols if c != y]
+    n = len(cols[y])
+    pieces = [decimal_bytes(np.asarray(cols[y]))]
+    for j, nm in enumerate(names):
+        v = np.asarray(cols[nm])
+        tok = np.concatenate([np.tile(np.frombuffer(
+            f" {j + 1}:".encode(), np.uint8), (n, 1)), decimal_bytes(v)], 1)
+        tok[v == 0] = 0
+        pieces.append(tok)
+    pieces.append(b"\n")
+    return text_bytes(pieces, n)
+
+
+def arff_bytes(cols, domains, relation: str = "airlines") -> bytes:
+    """ARFF: numeric attributes, a nominal one for each categorical with
+    its domain as the declared levels, the rows as CSV."""
+    head = [f"@relation {relation}"]
+    for nm in cols:
+        spec = ("{" + ",".join(domains[nm]) + "}" if nm in domains
+                else "numeric")
+        head.append(f"@attribute {nm} {spec}")
+    body = csv_bytes(cols, domains)
+    return ("\n".join(head) + "\n@data\n").encode() + \
+        body[body.index(b"\n") + 1:]
+
+
+def xlsx_bytes(cols, domains) -> bytes:
+    """An XLSX workbook (zipfile) of one worksheet: a header row of the
+    names, then numbers as values and levels as inline strings."""
+    import io
+    import zipfile
+    n = len(next(iter(cols.values())))
+    pieces = [b"<row>"]
+    for nm, v in cols.items():
+        v = np.asarray(v)
+        if nm in domains:
+            pieces += [b'<c t="inlineStr"><is><t>',
+                       level_bytes(domains[nm], v), b"</t></is></c>"]
+        else:
+            pieces += [b"<c><v>", decimal_bytes(v), b"</v></c>"]
+    pieces.append(b"</row>")
+    header = "<row>" + "".join(
+        f'<c t="inlineStr"><is><t>{nm}</t></is></c>' for nm in cols) \
+        + "</row>"
+    ns = "http://schemas.openxmlformats.org/spreadsheetml/2006/main"
+    sheet = (f'<?xml version="1.0"?><worksheet xmlns="{ns}"><sheetData>'
+             + header).encode() + text_bytes(pieces, n) \
+        + b"</sheetData></worksheet>"
+    buf = io.BytesIO()
+    with zipfile.ZipFile(buf, "w", zipfile.ZIP_DEFLATED) as z:
+        z.writestr("[Content_Types].xml", '<?xml version="1.0"?><Types '
+                   'xmlns="http://schemas.openxmlformats.org/package/2006/'
+                   'content-types"/>')
+        z.writestr("xl/workbook.xml", f'<?xml version="1.0"?><workbook '
+                   f'xmlns="{ns}"><sheets><sheet name="S1" sheetId="1"/>'
+                   '</sheets></workbook>')
+        z.writestr("xl/worksheets/sheet1.xml", sheet)
+    return buf.getvalue()
+
+
+def varint_bytes(v: np.ndarray):
+    """Avro longs (zigzag varints) as ([n, 10] bytes, [n, 10] mask of
+    the bytes each one has)."""
+    x = ((v.astype(np.int64) << 1) ^ (v.astype(np.int64) >> 63)).astype(
+        np.uint64)
+    n = x.shape[0]
+    out = np.zeros((n, 10), np.uint8)
+    keep = np.zeros((n, 10), bool)
+    alive = np.ones(n, bool)
+    for b in range(10):
+        keep[:, b] = alive
+        nxt = x >> np.uint64(7)
+        out[:, b] = (x & np.uint64(0x7F)).astype(np.uint8) | np.where(
+            nxt != 0, 0x80, 0).astype(np.uint8)
+        alive &= nxt != 0
+        x = nxt
+    return out, keep
+
+
+def avro_bytes(cols, domains, codec: str = "deflate",
+               block_rows: int = 65536, sync: bytes = b"h2o3-port-sync16"
+               ) -> bytes:
+    """An Avro object container of one record a row: an integer column
+    as ``long``, a float column as ``double``, a categorical as
+    ``string`` (its level), each a union with ``null`` where it has NA
+    (NaN or a negative code); blocks of ``block_rows`` records,
+    ``null`` or ``deflate`` (raw, wbits -15) coded."""
+    import json
+    import zlib
+    n = len(next(iter(cols.values())))
+    fields, mats = [], []
+    for nm, v in cols.items():
+        v = np.asarray(v)
+        if nm in domains:
+            na, kind = v < 0, "string"
+            codes = np.where(na, 0, v)
+            enc = [lv.encode() for lv in domains[nm]]
+            ln, ln_keep = varint_bytes(np.array([len(e) for e in enc]))
+            lv = level_bytes(enc, codes)
+            body = (np.concatenate([ln[codes], lv], 1),
+                    np.concatenate([ln_keep[codes],
+                                    np.arange(lv.shape[1])[None, :]
+                                    < np.array([len(e) for e in enc])[
+                                        codes][:, None]], 1))
+        elif v.dtype.kind == "f":
+            na, kind = np.isnan(v), "double"
+            raw = np.where(na, 0.0, v).astype("<f8").view(np.uint8)
+            body = (raw.reshape(n, 8), np.ones((n, 8), bool))
+        else:
+            na, kind = np.zeros(n, bool), "long"
+            body = varint_bytes(v)
+        if na.any():
+            fields.append({"name": nm, "type": ["null", kind]})
+            # the union's branch (a long: 0 -> byte 0, 1 -> byte 2)
+            mats.append((np.where(na, 0, 2).astype(np.uint8)[:, None],
+                         np.ones((n, 1), bool)))
+            body = (body[0], body[1] & ~na[:, None])
+        else:
+            fields.append({"name": nm, "type": kind})
+        mats.append(body)
+    mat = np.concatenate([m for m, _ in mats], 1)
+    keep = np.concatenate([k for _, k in mats], 1)
+    row_len = keep.sum(1)
+    flat = mat[keep].tobytes()
+    ends = np.cumsum(row_len)
+
+    def zz(x: int) -> bytes:
+        b, k = varint_bytes(np.array([x]))
+        return b[0][k[0]].tobytes()
+
+    schema = {"type": "record", "name": "r", "fields": fields}
+    meta = {"avro.schema": json.dumps(schema).encode(),
+            "avro.codec": codec.encode()}
+    out = [b"Obj\x01", zz(len(meta))]
+    for k, val in meta.items():
+        out += [zz(len(k)), k.encode(), zz(len(val)), val]
+    out += [zz(0), sync]
+    for lo in range(0, n, block_rows):
+        hi = min(lo + block_rows, n)
+        a = int(ends[lo - 1]) if lo else 0
+        block = flat[a:int(ends[hi - 1])]
+        if codec == "deflate":
+            comp = zlib.compressobj(wbits=-15)
+            block = comp.compress(block) + comp.flush()
+        out += [zz(hi - lo), zz(len(block)), block, sync]
+    return b"".join(out)
+
+
+def surface_files():
+    """(a)'s files, from bench.py's AutoML rows (``airlines_arrays(
+    N_AUTOML)``): the CSV, SVMLight (the label the response's code in
+    its sorted domain, categoricals as such codes), ARFF (the
+    categoricals nominal, declared in sorted order), Avro (deflate) and
+    the CSV and XLSX of the first N_XLSX rows."""
+    cols, domains = airlines_arrays(N_AUTOML)
+    scols, sdoms = sorted_codes(cols, domains)
+    head = {k: v[:N_XLSX] for k, v in scols.items()}
+    return {"csv": csv_bytes(scols, sdoms),
+            "svm": svmlight_bytes(scols, Y),
+            "arff": arff_bytes(scols, sdoms),
+            "avro": avro_bytes(scols, sdoms),
+            "head.csv": csv_bytes(head, sdoms),
+            "xlsx": xlsx_bytes(head, sdoms)}
+
+
+def merge_arrays(n: int = N_MERGE):
+    """bench.py bench_sort's frames: a left {k, b, v} of ``n`` rows from
+    RandomState(11), k in [0, n/2), and a right {k, rv} of n/4 rows."""
+    r = np.random.RandomState(11)
+    left = {"k": r.randint(0, n // 2, n).astype(float), "b": r.randn(n),
+            "v": np.arange(n, dtype=float)}
+    right = {"k": r.randint(0, n // 2, n // 4).astype(float),
+             "rv": np.arange(n // 4, dtype=float)}
+    return left, right
+
+
+def phase_readers(torch, dev, files, tmp):
+    """Phase 28(a): each host format read by ``import_file`` equals the
+    same rows through the CSV path; SVMLight on its numeric encoding.
+    Returns the CSV frame, the CSV frame of its first N_XLSX rows, the
+    paths and the launches."""
+    import h2o3_tpu_torch as h2o
+    paths = {}
+    for kind, data in files.items():
+        paths[kind] = f"{tmp}/airlines.{kind}"
+        with open(paths[kind], "wb") as f:
+            f.write(data)
+    frames, secs, counts = {}, {}, {}
+    for kind in ("csv", "head.csv", "svm", "arff", "avro", "xlsx"):
+        fr, secs[kind], c, _ = timed_fit(
+            torch, lambda: h2o.import_file(paths[kind], device=dev))
+        frames[kind] = fr
+        counts = {k: counts.get(k, 0) + v for k, v in c.items()}
+    check_launches(counts, {}, "readers")
+    csv = frames["csv"]
+    for kind, want in (("arff", csv), ("avro", csv),
+                       ("xlsx", frames["head.csv"])):
+        check(same_frames(frames[kind], want), f"{kind} frame != the CSV "
+              "frame of its rows")
+    svm = frames["svm"]
+    x = [c for c in csv.names if c != Y]
+    check(svm.names == ["C0"] + [f"C{j + 1}" for j in range(len(x))]
+          and all(svm.col(c).type == "numeric" for c in svm.names),
+          f"SVMLight frame {svm.names}")
+    for c_svm, c_csv in zip(svm.names, [Y] + x):
+        a, b = svm.col(c_svm), csv.col(c_csv)
+        check(np.array_equal(a.host_view(), b.host_view())
+              and not bool(a.na_mask[:svm.nrows].any()),
+              f"SVMLight {c_svm} vs CSV {c_csv}")
+    say("phase28(a) readers on bench.py's AutoML rows (" + "; ".join(
+        f"{k} {len(files[k]) / 1e6:.3f} MB in {secs[k]:.3f} s, "
+        f"{len(files[k]) / 1e6 / secs[k]:.6g} MB/s"
+        for k in ("csv", "svm", "arff", "avro", "head.csv", "xlsx"))
+        + f"): ARFF and Avro frames == the CSV frame ({csv.nrows} rows), "
+        f"XLSX == the CSV of its {N_XLSX} rows (names, types, domains, NA "
+        "masks, host values bit for bit), SVMLight == the CSV frame's "
+        "numeric encoding; no kernel launched")
+    return csv, frames["head.csv"], paths, counts
+
+
+def phase_write_read(torch, dev, csv, head, paths, files, tmp):
+    """Phase 28(b): ``export_file`` then ``import_file``, ``parse_setup``
+    of every file, the rows through sqlite3 and ``import_sql_*``, and a
+    lazy import. Returns the launches."""
+    import sqlite3
+    import h2o3_tpu_torch as h2o
+    from h2o3_tpu_torch.frame.frame import raw_columns
+    from h2o3_tpu_torch.io.lazy import FileBackedFrame
+    from h2o3_tpu_torch.ops import kernels
+    kernels.reset_counts()
+    out = f"{tmp}/exported.csv"
+    t0 = time.perf_counter()
+    h2o.export_file(csv, out)
+    t_exp = time.perf_counter() - t0
+    with open(out, "rb") as f:
+        check(f.read() == files["csv"], "export_file bytes != the CSV read")
+    back = h2o.import_file(out, device=dev)
+    check(same_frames(back, csv), "export_file -> import_file")
+    want = {c: "categorical" if csv.col(c).is_categorical else "numeric"
+            for c in csv.names}
+    t0 = time.perf_counter()
+    for kind in ("csv", "arff", "avro", "xlsx", "svm"):
+        setup = h2o.parse_setup(paths[kind])
+        exp = (want if kind != "svm" else
+               {f"C{j}": "numeric" for j in range(len(csv.names))})
+        check(setup["types"] == exp and setup["columns"] == list(exp),
+              f"parse_setup({kind}) {setup['types']}")
+    t_setup = time.perf_counter() - t0
+    db = f"{tmp}/airlines.db"
+    raw = raw_columns(csv, csv.names)
+    rows = list(zip(*[v.tolist() if csv.col(c).is_categorical
+                      else v.astype(np.int64).tolist()
+                      for c, v in raw.items()]))
+    con = sqlite3.connect(db)
+    con.execute("CREATE TABLE airlines (" + ", ".join(
+        f"{c} {'TEXT' if csv.col(c).is_categorical else 'INTEGER'}"
+        for c in csv.names) + ")")
+    con.executemany(f"INSERT INTO airlines VALUES "
+                    f"({', '.join('?' * len(csv.names))})", rows)
+    con.commit()
+    con.close()
+    del rows
+    t0 = time.perf_counter()
+    tab = h2o.import_sql_table(f"sqlite:///{db}", "airlines", device=dev)
+    t_tab = time.perf_counter() - t0
+    check(same_frames(tab, csv), "import_sql_table")
+    del tab
+    sel = h2o.import_sql_select(
+        f"sqlite:///{db}",
+        f"SELECT * FROM airlines WHERE rowid <= {head.nrows}", device=dev)
+    check(same_frames(sel, head), "import_sql_select")
+    del sel
+    stub = h2o.import_file(paths["csv"], destination_frame="surface_lazy",
+                           lazy=True, device=dev)
+    check(isinstance(stub, FileBackedFrame) and stub._frame is None
+          and h2o.DKV.get_raw("surface_lazy") is stub
+          and stub.names == csv.names and stub.nrows == csv.nrows,
+          "lazy import parsed or sniffed wrong")
+    t0 = time.perf_counter()
+    lazy = h2o.DKV.get("surface_lazy")
+    t_lazy = time.perf_counter() - t0
+    check(h2o.DKV.get_raw("surface_lazy") is lazy
+          and h2o.DKV.get("surface_lazy") is lazy, "lazy frame not kept")
+    check(same_frames(lazy, csv), "lazy import")
+    h2o.DKV.remove("surface_lazy")
+    counts = dict(kernels.LAUNCHES)
+    check_launches(counts, {}, "write_read")
+    say(f"phase28(b) export_file {t_exp:.3f} s (the bytes == the CSV "
+        f"read), import_file of it == the CSV frame; parse_setup of the "
+        f"five files {t_setup:.3f} s, the expected types; sqlite3 table "
+        f"of {csv.nrows} rows: import_sql_table {t_tab:.3f} s == the CSV "
+        f"frame, import_sql_select of its first {head.nrows} rows == "
+        f"their CSV frame; import_file(lazy=True) "
+        f"parsed nothing until DKV.get ({t_lazy:.3f} s), then == the CSV "
+        f"frame; no kernel launched")
+    return counts
+
+
+def host_join(l_keys, r_keys, how: str):
+    """Numpy's join of key tuples (a NaN key never matches): (left row,
+    right row or -1) pairs, left rows in order, each one's matches in
+    right-row order. Key tuples become dense ids (a single key of small
+    non-negative integers is its own id), the right rows are counted and
+    ordered by id, and each left row reads its id's count and start."""
+    lk, rk = np.stack(l_keys, 1), np.stack(r_keys, 1)
+    l_ok = ~np.isnan(lk).any(1)
+    r_ok = np.flatnonzero(~np.isnan(rk).any(1))
+    both = np.concatenate([lk[l_ok], rk[r_ok]])
+    if both.shape[1] == 1 and np.all(both == np.round(both)) and \
+            both.min(initial=0) >= 0 and both.max(initial=0) < 2 ** 27:
+        ids = both[:, 0].astype(np.int64)
+    else:
+        ids = np.unique(both, axis=0, return_inverse=True)[1].reshape(-1)
+    n_ok = int(l_ok.sum())
+    lid = np.zeros(lk.shape[0], np.int64)
+    lid[l_ok] = ids[:n_ok]
+    rid = ids[n_ok:]
+    order = np.argsort(rid, kind="stable")
+    per_id = np.bincount(rid, minlength=int(ids.max(initial=0)) + 1)
+    start = np.cumsum(per_id) - per_id
+    cnt = np.where(l_ok, per_id[lid], 0)
+    lo = start[lid]
+    emit = np.maximum(cnt, 1) if how == "left" else cnt
+    li = np.repeat(np.arange(lk.shape[0]), emit)
+    within = np.arange(emit.sum()) - np.repeat(np.cumsum(emit) - emit, emit)
+    hit = within < cnt[li]
+    ri = np.where(hit, r_ok[order[np.minimum(lo[li] + within,
+                                               max(len(order) - 1, 0))]],
+                  -1)
+    return li, ri
+
+
+def check_join(out, li, ri, lv, rv, label: str) -> None:
+    """The merge's value columns ``lv``/``rv`` (names, host arrays) at
+    the host join's pairs, in order, NaN where unmatched."""
+    check(out is not None and out.nrows == len(li),
+          f"{label}: {None if out is None else out.nrows} rows, the host "
+          f"join {len(li)}")
+    for (nm, v), idx in ((lv, li), (rv, ri)):
+        got = out.col(nm).host_view()
+        want = np.where(idx >= 0, v[np.maximum(idx, 0)], np.nan)
+        check(np.array_equal(got, want, equal_nan=True),
+              f"{label}: column {nm} differs from the host join")
+
+
+def phase_merge(torch, dev):
+    """Phase 28(c): ``device_merge`` at bench.py's 10M x 2.5M join (inner
+    and left) against a numpy join; a two-key and a categorical-key join
+    (differing domains) at 1M rows; the budget guard. Returns the
+    launches."""
+    import os
+    import h2o3_tpu_torch as h2o
+    (left, right), _ = made_ahead("merge", merge_arrays)
+    lf = h2o.Frame.from_numpy(left, device=dev)
+    rf = h2o.Frame.from_numpy(right, device=dev)
+    h2o.device_merge(lf, rf, ["k"], "inner")          # warm-up
+    counts = {}
+    lines = []
+    for how in ("inner", "left"):
+        out, secs, c, peak = timed_fit(
+            torch, lambda: h2o.device_merge(lf, rf, ["k"], how))
+        counts = {k: counts.get(k, 0) + v for k, v in c.items()}
+        li, ri = host_join([left["k"]], [right["k"]], how)
+        check_join(out, li, ri, ("v", left["v"]), ("rv", right["rv"]),
+                   f"merge {how}")
+        check(np.array_equal(out.col("k").host_view(), left["k"][li])
+              and np.array_equal(out.col("b").host_view(),
+                                 left["b"].astype(np.float32)[li]),
+              f"merge {how}: key or b column")
+        lines.append(f"{how} {out.nrows} rows in {secs:.4f} s "
+                     f"({N_MERGE / secs:.6g} left rows/s, peak "
+                     f"{peak / 2**30:.3f} GiB)")
+        del out
+    n = N_MERGE_SMALL
+    r = np.random.RandomState(12)
+    k1 = r.randint(0, 200_000, n).astype(float)
+    k2 = r.randint(0, 5, n).astype(float)
+    k1[::101] = np.nan
+    rk1 = r.randint(100_000, 300_000, n // 4).astype(float)
+    rk2 = r.randint(0, 5, n // 4).astype(float)
+    lf2 = h2o.Frame.from_numpy({"k1": k1, "k2": k2,
+                                "lv": np.arange(n, dtype=float)}, device=dev)
+    rf2 = h2o.Frame.from_numpy({"k1": rk1, "k2": rk2,
+                                "rv": np.arange(n // 4, dtype=float)},
+                               device=dev)
+    for how in ("inner", "left"):
+        out, secs, c, _ = timed_fit(
+            torch, lambda: h2o.device_merge(lf2, rf2, ["k1", "k2"], how))
+        counts = {k: counts.get(k, 0) + v for k, v in c.items()}
+        li, ri = host_join([k1, k2], [rk1, rk2], how)
+        check_join(out, li, ri, ("lv", np.arange(n, dtype=float)),
+                   ("rv", np.arange(n // 4, dtype=float)), f"two-key {how}")
+        lines.append(f"two-key {how} {out.nrows} rows in {secs:.4f} s")
+    card = 100_000                                   # ~2.5M joined rows
+    ldom = [f"L{i:06d}" for i in range(card)]
+    rdom = [f"L{i:06d}" for i in range(1, card + 1)]  # the last unseen
+    lcode = r.randint(0, card, n)
+    rcode = r.randint(0, card, n // 4)
+    lf3 = h2o.Frame.from_numpy({"k": lcode.astype(np.int32),
+                                "lv": np.arange(n, dtype=float)},
+                               domains={"k": ldom}, device=dev)
+    rf3 = h2o.Frame.from_numpy({"k": rcode.astype(np.int32),
+                                "rv": np.arange(n // 4, dtype=float)},
+                               domains={"k": rdom}, device=dev)
+    labels = np.array(ldom + rdom[-1:])
+    lab_id = {lv: i for i, lv in enumerate(labels)}
+    rmap = np.array([lab_id[lv] for lv in rdom], float)
+    for how in ("inner", "left"):
+        out, secs, c, _ = timed_fit(
+            torch, lambda: h2o.device_merge(lf3, rf3, ["k"], how))
+        counts = {k: counts.get(k, 0) + v for k, v in c.items()}
+        li, ri = host_join([lcode.astype(float)], [rmap[rcode]], how)
+        check_join(out, li, ri, ("lv", np.arange(n, dtype=float)),
+                   ("rv", np.arange(n // 4, dtype=float)),
+                   f"categorical {how}")
+        check(out.col("k").domain == ldom, "categorical key's domain")
+        lines.append(f"categorical {how} {out.nrows} rows in {secs:.4f} s")
+    gdom = ["a", "b", "c", "d"]
+    lf4 = h2o.Frame.from_numpy({"k": r.randint(0, 4, n).astype(np.int32),
+                                "lv": np.arange(n, dtype=float)},
+                               domains={"k": gdom}, device=dev)
+    rf4 = h2o.Frame.from_numpy(
+        {"k": r.randint(0, 4, n // 4).astype(np.int32),
+         "rv": np.arange(n // 4, dtype=float)}, domains={"k": gdom},
+        device=dev)
+    os.environ["H2O3TPU_MERGE_MAX_OUT_BYTES"] = str(MERGE_GUARD_BYTES)
+    try:
+        out, _, c, _ = timed_fit(
+            torch, lambda: h2o.device_merge(lf4, rf4, ["k"], "inner"))
+    finally:
+        del os.environ["H2O3TPU_MERGE_MAX_OUT_BYTES"]
+    counts = {k: counts.get(k, 0) + v for k, v in c.items()}
+    check(out is None, "the budget guard let a quadratic join through")
+    check_launches(counts, {}, "merge")
+    say(f"phase28(c) device_merge of bench.py's {N_MERGE} x {N_MERGE // 4} "
+        f"frames on k: " + "; ".join(lines) + f" (at {n} x {n // 4}); each "
+        "the numpy join's rows, (v, rv) pairs and order EXACTLY; the "
+        "budget guard (H2O3TPU_MERGE_MAX_OUT_BYTES = 1 GiB) returned None "
+        f"on a 4-level key at {n} x {n // 4}; no kernel launched")
+    return counts
+
+
+def phase_explain(torch, dev, cols, domains):
+    """Phase 28(d): phase 4's flagship GBM on N_EXPLAIN airlines rows,
+    ``partial_dependence`` (two numeric columns and the 8-level carrier)
+    and ``permutation_varimp`` over the 10 features, on the card and, on
+    a N_EXPLAIN_HEAD head, card vs CPU plain. Returns the fit's
+    launches."""
+    import h2o3_tpu_torch as h2o
+    small = {k: v[:N_EXPLAIN] for k, v in cols.items()}
+    fr = h2o.Frame.from_numpy(small, domains=domains, device=dev)
+    x = [c for c in cols if c != Y]
+    model, t_fit, counts, _ = timed_fit(
+        torch, lambda: h2o.GBMEstimator(**FLAGSHIP).train(fr, y=Y, x=x))
+    check_launches(counts, {k: FLAGSHIP["ntrees"] * FLAGSHIP["max_depth"]
+                            for k in LEVEL_KERNELS}, "explain fit")
+    pdp, t_pdp, c_pdp, _ = timed_fit(torch, lambda: h2o.partial_dependence(
+        model, fr, list(PDP_COLS), nbins=PDP_NBINS))
+    vi, t_vi, c_vi, _ = timed_fit(torch, lambda: h2o.permutation_varimp(
+        model, fr, n_repeats=1, seed=0))
+    check_launches({k: c_pdp[k] + c_vi[k] for k in c_pdp}, {},
+                   "partial_dependence / permutation_varimp")
+    check(sorted(r[0] for r in vi) == sorted(x) and vi[0][2] == 1.0,
+          f"varimp table {vi}")
+    head = {k: v[:N_EXPLAIN_HEAD] for k, v in cols.items()}
+    frs = [h2o.Frame.from_numpy(head, domains=domains, device=d)
+           for d in (dev, "cpu")]
+    ms = [model, cpu_model(model)]
+    p_c, p_h = (h2o.partial_dependence(m, f, list(PDP_COLS),
+                                       nbins=PDP_NBINS)
+                for m, f in zip(ms, frs))
+    worst = 0.0
+    for col in PDP_COLS:
+        a, b = p_c[col], p_h[col]
+        check(a["values"] == b["values"], f"PDP grid of {col}")
+        ma, mb = np.array(a["mean_response"]), np.array(b["mean_response"])
+        gap = np.abs(ma - mb) / np.maximum(1.0, np.abs(mb))
+        worst = max(worst, float(gap.max()))
+    check(worst <= 1e-6, f"PDP card vs CPU: {worst}")
+    v_c, v_h = (h2o.permutation_varimp(m, f, n_repeats=1, seed=0)
+                for m, f in zip(ms, frs))
+    rel = dict((r[0], r[1]) for r in v_h)
+    got = [r[0] for r in v_c]
+    want = [r[0] for r in v_h]
+    for i in range(len(want) - 1):
+        # the order must agree where the neighbours stand apart
+        if rel[want[i]] - rel[want[i + 1]] > 1e-6:
+            check(set(got[:i + 1]) == set(want[:i + 1]),
+                  f"varimp order card {got} vs CPU {want}")
+    vgap = max(abs(r[1] - rel[r[0]]) for r in v_c)
+    say(f"phase28(d) GBM {FLAGSHIP} on {N_EXPLAIN} rows: train "
+        f"{t_fit:.3f} s, launches {counts}; partial_dependence over "
+        f"{list(PDP_COLS)} (nbins {PDP_NBINS}, "
+        f"{sum(len(pdp[c]['values']) for c in PDP_COLS)} grid values) "
+        f"{t_pdp:.3f} s; permutation_varimp over {len(x)} features "
+        f"{t_vi:.3f} s, top {[r[0] for r in vi[:3]]}; no kernel launched "
+        f"by either; on {N_EXPLAIN_HEAD} rows card vs CPU plain: PDP means "
+        f"within {worst:.3g} (relative to max(1, |mean|)), the varimp "
+        f"order equal where neighbours differ by > 1e-6 (largest |gap| "
+        f"{vgap:.3g})")
+    return counts
+
+
+def phase_data_surface(torch, dev, cols, domains):
+    """Phase 28: (a) the readers, (b) export, parse_setup, SQL and lazy
+    frames, (c) the device merge, (d) explain. Returns the paths'
+    launches."""
+    import tempfile
+    t28 = time.perf_counter()
+    secs = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        files, wait = made_ahead("surface", surface_files)
+        t0 = time.perf_counter()
+        csv, head, paths, c_read = phase_readers(torch, dev, files, tmp)
+        secs["a"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        c_write = phase_write_read(torch, dev, csv, head, paths, files,
+                                   tmp)
+        secs["b"] = time.perf_counter() - t0
+        del csv, head, files
+    t0 = time.perf_counter()
+    c_merge = phase_merge(torch, dev)
+    secs["c"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    c_explain = phase_explain(torch, dev, cols, domains)
+    secs["d"] = time.perf_counter() - t0
+    say("phase28: " + ", ".join(f"({k}) {v:.3f} s" for k, v in secs.items())
+        + f", waited {wait:.3f} s for the files, together "
+        f"{time.perf_counter() - t28:.3f} s")
+    return {"readers": c_read, "write_read": c_write, "merge": c_merge,
+            "explain": c_explain}
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -6495,7 +7195,8 @@ def main() -> int:
                 ("pca", lambda: pca_frame_arrays(N_PCA)),
                 ("zipf", lambda: zipf_corpus(W2V_TOKENS, W2V_TYPES,
                                              W2V_SENT)),
-                ("grid", grid_arrays), ("automl_csv", automl_csv)])
+                ("grid", grid_arrays), ("automl_csv", automl_csv),
+                ("surface", surface_files), ("merge", merge_arrays)])
 
     def mark(label: str) -> None:
         # each phase starts with an empty DKV (the models a phase made
@@ -6517,7 +7218,7 @@ def main() -> int:
     bm = bin_frame(fr_k, x, nbins=64, nbins_cats=1024)
 
     mark("phases 2-3")
-    worst = phase_kernels(torch, dev, bm)
+    worst, deep_records = phase_kernels(torch, dev, bm)
     phase_grow_tree(torch, dev, bm)
     mark("phase 4")
     model, fr, counts_gbm, t_main = phase_main(torch, dev, cols, domains)
@@ -6632,6 +7333,11 @@ def main() -> int:
     del higgs, ccols
     mark("phase 27")
     paths.update(phase_orchestration(torch, dev))
+    mark("phase 28")
+    paths.update(phase_data_surface(torch, dev, cols, domains))
+    for rec in deep_records:
+        rec["launches"] = paths["gbm_depth20"][rec["name"]]
+    records += deep_records
     for rec in records:
         rec["max_abs_err"] = worst[rec["name"]]
         rec["launches_by_path"] = {p: c[rec["name"]]

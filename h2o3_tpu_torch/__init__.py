@@ -52,6 +52,15 @@ JAX. Its TPU kernels are hand-written CUDA kernels under
     from h2o3_tpu_torch.ops.sort import device_sort, device_join_index
     h2o.models.get_builder("gbm")         # the algorithm registry
     fr = h2o.import_file("airlines.csv", destination_frame="air")  # DKV key
+    fr = h2o.import_file("data.arff")     # also .svm/.svmlight, .xlsx, .avro
+    lazy = h2o.import_file("big.csv", destination_frame="big", lazy=True)
+    h2o.DKV.get("big")                    # parses at the first get
+    h2o.parse_setup("airlines.csv"); h2o.export_file(fr, "out.csv")
+    fr = h2o.parse_raw("a,b\n1,x\n")
+    fr = h2o.import_sql_table("sqlite:////path/to.db", "t")
+    joined = h2o.device_merge(fr, dim, ["key"], "left")    # None: host path
+    h2o.partial_dependence(m, fr, ["DepTime"], nbins=20)
+    h2o.permutation_varimp(m, fr, seed=0)
     grid = h2o.GridSearch(h2o.GBMEstimator, {"max_depth": [3, 6]},
                           ntrees=20).train(fr, y="label")
     grid.sorted_models()
@@ -74,7 +83,10 @@ from h2o3_tpu_torch.core.kv import DKV
 from h2o3_tpu_torch.core.udf import (upload_custom_distribution,
                                      upload_custom_metric)
 from h2o3_tpu_torch.frame.frame import Frame
-from h2o3_tpu_torch.io.parser import import_file
+from h2o3_tpu_torch.io.parser import (export_file, import_file, parse_raw,
+                                      parse_setup)
+from h2o3_tpu_torch.io.sql import import_sql_select, import_sql_table
+from h2o3_tpu_torch.ml.explain import partial_dependence, permutation_varimp
 from h2o3_tpu_torch.ml.ensemble import StackedEnsembleEstimator
 from h2o3_tpu_torch.ml.grid import GridSearch
 from h2o3_tpu_torch.models.aggregator import AggregatorEstimator
@@ -100,8 +112,12 @@ from h2o3_tpu_torch.models.targetencoder import TargetEncoderEstimator
 from h2o3_tpu_torch.models.uplift import UpliftDRFEstimator
 from h2o3_tpu_torch.models.word2vec import Word2VecEstimator
 from h2o3_tpu_torch.models.xgboost import XGBoostEstimator
+from h2o3_tpu_torch.ops.merge import device_merge
 
 __all__ = ["DKV", "Frame", "GridSearch", "H2OAutoML", "import_file",
+           "export_file", "parse_raw", "parse_setup", "import_sql_select",
+           "import_sql_table", "device_merge", "partial_dependence",
+           "permutation_varimp",
            "StackedEnsembleEstimator", "upload_custom_distribution",
            "upload_custom_metric", "AggregatorEstimator",
            "ANOVAGLMEstimator", "CoxPHEstimator", "DeepLearningEstimator", "DRFEstimator",

@@ -3,13 +3,17 @@
 Reference: h2o3_tpu/core/kv.py (water/DKV.java, water/Key.java:44). One
 process-local store of Frames, Models, Jobs, Grids and uploaded
 functions, behind one lock: ``put``, ``get``, ``replace_if`` (a
-compare-and-swap), ``remove``, ``keys``, ``clear``.
+compare-and-swap), ``remove``, ``keys``, ``clear``. A lazy stub
+(``io/lazy.FileBackedFrame``, stored by ``import_file(lazy=True)``) is
+restored by the key's first ``get``: the stub parses its file and the
+Frame takes the stub's place, unless a newer value was stored under the
+key meanwhile, which ``get`` then returns.
 
-Not ported: the durability write-through, the Cleaner's spill and
-restore of cold frames and the store's telemetry (the hooks of the
-reference's ``put``/``get``/``remove``), which wait for ``core/memgov``,
-``core/cleaner`` and ``core/durability`` (ROADMAP A #13). A value lives
-on its device until its key is removed.
+Not ported: the durability write-through, the Cleaner's spill of cold
+frames (and its eviction back to a stub) and the store's telemetry (the
+hooks of the reference's ``put``/``get``/``remove``), which wait for
+``core/memgov``, ``core/cleaner`` and ``core/durability`` (ROADMAP A
+#13). A value lives on its device until its key is removed.
 """
 
 from __future__ import annotations
@@ -42,13 +46,36 @@ class _DKV:
         return key
 
     def get(self, key: str) -> Optional[Any]:
+        """The value under ``key``; a lazy stub is restored first (its
+        parse runs outside the lock)."""
         with self._lock:
-            return self._store.get(key)
+            v = self._store.get(key)
+        while getattr(v, "_is_lazy_stub", False):
+            try:
+                fr = v.restore()
+            except Exception:
+                # a newer put may have replaced the stub meanwhile: raise
+                # only while the store still holds this stub
+                with self._lock:
+                    cur = self._store.get(key)
+                if cur is v:
+                    raise
+                v = cur
+                continue
+            with self._lock:
+                cur = self._store.get(key)
+                if cur is v:
+                    self._store[key] = fr
+                    cur = fr
+            if cur is fr:
+                return fr
+            v = cur             # a newer value (or stub) won: take it
+        return v
 
     def get_raw(self, key: str) -> Optional[Any]:
-        """``get`` (the reference's fetch without un-spilling; nothing
-        spills here)."""
-        return self.get(key)
+        """The value under ``key`` as stored: a lazy stub stays a stub."""
+        with self._lock:
+            return self._store.get(key)
 
     def replace_if(self, key: str, expect: Any, value: Any) -> bool:
         """Store ``value`` only if the key still holds ``expect``."""

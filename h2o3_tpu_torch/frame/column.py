@@ -22,7 +22,7 @@ column.
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict, List, Optional
+from typing import Callable, Dict, List, Optional
 
 import numpy as np
 import torch
@@ -42,6 +42,9 @@ class Column:
     domain: Optional[List[str]] = None
     host: Optional[np.ndarray] = None    # float64 [nrows], NaN at NA
     strings: Optional[np.ndarray] = None  # host objects for T_STR/T_UUID
+    # computes ``host`` at the first ``host_view()`` where it was not
+    # built with the column (a device merge's output)
+    host_fn: Optional[Callable[[], np.ndarray]] = None
 
     @property
     def is_categorical(self) -> bool:
@@ -65,6 +68,8 @@ class Column:
         (the objects of a string or UUID column)."""
         if self.type in (T_STR, T_UUID):
             return self.strings[: self.nrows]
+        if self.host is None and self.host_fn is not None:
+            self.host, self.host_fn = self.host_fn(), None
         return self.host
 
     def to_numpy(self) -> np.ndarray:

@@ -1,22 +1,34 @@
-"""Ingest — CSV files into a Frame, through the native tokenizer.
+"""Ingest — files and text into a Frame, and a Frame out as CSV.
 
 Reference: h2o3_tpu/io/parser.py (ImportFiles → ParseSetup.guessSetup →
 ParseDataset.forkParseDataset, water/parser/ParseDataset.java:127,253,
-with cloud-wide categorical interning, ParseDataset.java:356-440). The
-port takes the reference's native-tokenizer CSV path
-(``_parse_csv_native``: ``.csv`` and ``.csv.gz`` files, one path, a
-glob or a directory): header sniffing, multi-file domain unification,
-``na_strings`` by name or position, ``col_types`` and UUID detection,
-then ``Frame.from_numpy`` on the card unless ``device`` says otherwise.
+with cloud-wide categorical interning, ParseDataset.java:356-440).
+``import_file`` reads one path, a glob or a directory:
 
-Not ported yet (each raises ``NotImplementedError`` naming the ROADMAP
-item it waits for): the pandas fallback and the formats that go through
-it or through Arrow (``.zip``, Parquet, ORC, Avro, XLSX, ARFF,
-SVMLight, multi-file CSVs whose files disagree on a column), and
-``parse_setup``, ``export_file`` and ``parse_raw``, which use pandas
-(ROADMAP A #5); ``lazy=True``, which needs ``io/lazy.py``'s file-backed
-frame (A #9′). ``destination_frame`` stores the frame in the DKV under
-that key. Telemetry and the durability hooks wait with ``telemetry/`` and
+- ``.csv`` and ``.csv.gz`` through the native tokenizer (the reference's
+  ``_parse_csv_native``): header sniffing, multi-file domain
+  unification, ``na_strings`` by name or position, ``col_types`` and
+  UUID detection;
+- ``.svm``/``.svmlight`` (every file of a glob, concatenated), ``.arff``,
+  ``.xlsx`` and ``.avro`` through the host readers of ``io/formats.py``;
+  ``.xls`` raises the reference's ``ValueError``;
+
+then ``Frame.from_numpy`` lands the columns on the card unless
+``device`` says otherwise; ``destination_frame`` stores the frame in the
+DKV under that key. ``lazy=True`` stores an unparsed ``io/lazy``
+``FileBackedFrame`` stub instead, parsed at its key's first
+``DKV.get``. ``parse_setup`` guesses a schema (a CSV from the
+tokenizer's parse of a sample, the host formats by reading them),
+``export_file`` writes a frame as the reference's CSV bytes (pandas'
+``to_csv`` text) to a local path, and ``parse_raw`` parses CSV text
+through the tokenizer.
+
+Not ported: Parquet and ORC, which need pyarrow (ROADMAP A #5′ leaves
+them out); the reference's pandas fallback (``.zip``, other suffixes,
+multi-file CSVs whose files disagree on a column), which raises
+``NotImplementedError`` naming ROADMAP A #5; ``export_file`` to a URI
+scheme, which waits for ``io/persist.py`` (A #10); telemetry and the
+durability hooks, which wait for ``telemetry/`` and
 ``core/durability.py`` (A #13).
 """
 
@@ -31,6 +43,8 @@ from typing import Dict, List, Optional
 import numpy as np
 
 from h2o3_tpu_torch.frame.frame import Frame
+from h2o3_tpu_torch.io import chunking
+from h2o3_tpu_torch.io import formats
 from h2o3_tpu_torch.native import parse_csv_bytes
 from h2o3_tpu_torch.parallel import device as dev_mod
 
@@ -38,31 +52,175 @@ _UUID_RX = _re.compile(
     r"^[0-9a-fA-F]{8}-[0-9a-fA-F]{4}-[0-9a-fA-F]{4}-"
     r"[0-9a-fA-F]{4}-[0-9a-fA-F]{12}$")
 
-_PANDAS = ("needs the reference's pandas/Arrow readers, which are not "
-           "ported (ROADMAP A #5); only .csv and .csv.gz files are")
+_CSV = (".csv", ".csv.gz")
+_HOST = (".svm", ".svmlight", ".arff", ".xlsx", ".xls", ".avro")
+_ARROW = (".parquet", ".pq", ".orc")
 
 
 def _unported(what: str):
-    raise NotImplementedError(f"{what} {_PANDAS}")
+    raise NotImplementedError(
+        f"{what} needs the reference's pandas fallback, which is not "
+        "ported (ROADMAP A #5)")
+
+
+def _arrow_unported(what: str):
+    raise NotImplementedError(
+        f"{what}: Parquet and ORC need pyarrow, which the port does not "
+        "use; they stay out of it (ROADMAP A #5′)")
+
+
+def _expand(path: str) -> List[str]:
+    """The files of a path, a glob or a directory (sorted); raises
+    ``FileNotFoundError`` when one is missing or none matches."""
+    if os.path.isdir(path):
+        paths = sorted(os.path.join(path, f) for f in os.listdir(path))
+    elif any(ch in path for ch in "*?["):
+        paths = sorted(_glob.glob(path))
+    else:
+        paths = [path]
+    if not paths or not all(os.path.exists(f) for f in paths):
+        raise FileNotFoundError(path)
+    return paths
+
+
+def _read_text(path: str) -> str:
+    with open(path, encoding="utf-8") as f:
+        return f.read()
+
+
+def _type_name(col) -> str:
+    """ParseSetup's type word for a column."""
+    if col.is_categorical:
+        return "categorical"
+    return "string" if col.type == "string" else "numeric"
+
+
+def _sample_records(path: str, n: int) -> bytes:
+    """The first ``n`` records of a CSV file (a newline outside double
+    quotes ends one), or all of it when it holds fewer."""
+    buf = b""
+    with (gzip.open(path, "rb") if path.endswith(".gz")
+          else open(path, "rb")) as f:
+        while True:
+            blk = f.read(1 << 16)
+            if not blk:
+                return buf
+            buf += blk
+            a = np.frombuffer(buf, np.uint8)
+            nl = np.flatnonzero(a == 0x0A)
+            q = np.flatnonzero(a == 0x22)
+            ends = nl[(np.searchsorted(q, nl) & 1) == 0]
+            if ends.size >= n:
+                return buf[:int(ends[n - 1]) + 1]
 
 
 def parse_setup(path: str, nrows_sample: int = 1000,
                 header: Optional[bool] = None) -> dict:
-    """Not ported: the reference guesses the schema from a pandas
-    sample (ROADMAP A #5)."""
-    _unported("parse_setup")
+    """Schema guess (ParseSetup.guessSetup): ``{"columns", "types",
+    "separator", "header"}``. A CSV's types are those the tokenizer
+    gives its first ``nrows_sample`` rows; SVMLight, ARFF, XLSX and Avro
+    run their real reader (on the CPU) and read the frame's types, as
+    the reference does. A glob or directory guesses from its first
+    file."""
+    expanded = chunking.expand_paths(path)
+    if expanded and os.path.exists(expanded[0]):
+        path = expanded[0]
+    if path.endswith(_ARROW):
+        _arrow_unported(f"parse_setup of {os.path.basename(path)}")
+    if path.endswith(_HOST):
+        fr = import_file(path, device="cpu")
+        cols = list(fr.names)
+        return {"columns": cols,
+                "types": {n: _type_name(fr.col(n)) for n in cols},
+                "separator": ",", "header": True}
+    if not path.endswith(_CSV):
+        _unported(f"parse_setup of {os.path.basename(path)}")
+    has_header = guess_header(path) if header is None else bool(header)
+    sample = _sample_records(path, nrows_sample + int(has_header))
+    cols, domains = parse_csv_bytes(sample, header=has_header, decode=False)
+    types = {n: "categorical" if n in domains else "numeric" for n in cols}
+    return {"columns": list(cols), "types": types, "separator": ",",
+            "header": has_header}
+
+
+def _csv_field(s: str, sep: str) -> str:
+    """``s`` as the csv module's minimal quoting writes it."""
+    if sep in s or '"' in s or "\n" in s or "\r" in s:
+        return '"' + s.replace('"', '""') + '"'
+    return s
+
+
+def _csv_column(col, sep: str) -> List[str]:
+    """One column's fields as the reference writes them (pandas
+    ``to_csv`` of ``Frame.to_pandas``): a categorical's levels, a
+    string column's strings, a numeric column's integers when every
+    value is integral, finite and below 2^53, else the shortest
+    round-trip text of each float; NA is the empty field."""
+    n = col.nrows
+    if col.is_categorical and col.domain:
+        dom = [_csv_field(str(v), sep) for v in col.domain] + [""]
+        codes = col.host_view()
+        idx = np.where(np.isnan(codes), len(col.domain), codes)
+        return [dom[i] for i in idx.astype(np.int64).tolist()]
+    if col.type in ("string", "uuid"):
+        return ["" if v is None else _csv_field(str(v), sep)
+                for v in col.host_view()[:n]]
+    v = col.host_view()
+    na = np.isnan(v)
+    if v.size and not na.any() and np.all(v == np.round(v)) and \
+            np.max(np.abs(v), initial=0) < 2 ** 53:
+        return list(map(str, v.astype(np.int64).tolist()))
+    out = list(map(repr, v.tolist()))
+    for i in np.flatnonzero(na).tolist():
+        out[i] = ""
+    return out
+
+
+def _csv_text(frame: Frame, sep: str) -> bytes:
+    """The frame as the reference's ``export_file`` writes it: a header
+    of the column names, then one newline-terminated line a row."""
+    fields = [_csv_column(frame.col(n), sep) for n in frame.names]
+    lines = [sep.join(_csv_field(str(n), sep) for n in frame.names)]
+    if len(fields) == 1:
+        # the csv module quotes a record of one empty field
+        lines += ['""' if f == "" else f for f in fields[0]]
+    else:
+        lines += list(map(sep.join, zip(*fields)))
+    return ("\n".join(lines) + "\n").encode("utf-8")
 
 
 def export_file(frame: Frame, path: str, force: bool = False,
                 sep: str = ",") -> str:
-    """Not ported: the reference writes through ``to_pandas`` (ROADMAP
-    A #5)."""
-    _unported("export_file")
+    """Write ``frame`` as CSV (h2o.export_file → water/api ExportHandler)
+    to a local path (or ``file://`` URI), through a temporary file moved
+    into place; raises ``IOError`` if the file exists and ``force`` is
+    False. Other URI schemes wait for ``io/persist.py`` (ROADMAP A
+    #10)."""
+    if "://" in path and not path.startswith("file://"):
+        raise NotImplementedError(
+            f"export_file to {path.split('://', 1)[0]}:// waits for "
+            "io/persist.py (ROADMAP A #10); local paths only")
+    p = path[7:] if path.startswith("file://") else path
+    if not force and os.path.exists(p):
+        raise IOError(f"{path} exists (use force=True)")
+    data = _csv_text(frame, sep)
+    os.makedirs(os.path.dirname(os.path.abspath(p)), exist_ok=True)
+    tmp = p + ".tmp"
+    with open(tmp, "wb") as f:
+        f.write(data)
+    os.replace(tmp, p)
+    return path
 
 
-def parse_raw(text: str, destination_frame: Optional[str] = None) -> Frame:
-    """Not ported: the reference parses through pandas (ROADMAP A #5)."""
-    _unported("parse_raw")
+def parse_raw(text: str, destination_frame: Optional[str] = None,
+              device: dev_mod.DeviceLike = None) -> Frame:
+    """CSV text (its first line the header) through the native
+    tokenizer into a Frame on ``device`` (the upload path)."""
+    device = dev_mod.resolve_device(device)
+    cols, domains = parse_csv_bytes(text.encode("utf-8"), header=True,
+                                    decode=False)
+    return Frame.from_numpy(cols, domains=domains, device=device,
+                            key=destination_frame)
 
 
 def _is_num_token(t: str) -> bool:
@@ -106,29 +264,40 @@ def guess_header(path: str) -> bool:
 def import_file(path: str, destination_frame: Optional[str] = None,
                 col_types: Optional[Dict[str, str]] = None,
                 header: Optional[bool] = None, lazy: bool = False,
-                na_strings=None, device: dev_mod.DeviceLike = None) -> Frame:
-    """h2o.import_file analogue (h2o-py/h2o/h2o.py:414), eager: a CSV or
-    CSV.gz file path, glob or directory, parsed by the native tokenizer
-    into a Frame on ``device`` (CUDA unless the caller names another),
-    stored in the DKV under ``destination_frame`` when one is given.
-    ``lazy=True`` raises ``NotImplementedError``, as does any other
-    format."""
-    if lazy:
-        raise NotImplementedError(
-            "lazy=True registers a file-backed frame (io/lazy.py), which "
-            "is not ported yet (ROADMAP A #9′)")
+                na_strings=None, device: dev_mod.DeviceLike = None):
+    """h2o.import_file analogue (h2o-py/h2o/h2o.py:414): a file path,
+    glob or directory parsed into a Frame on ``device`` (CUDA unless the
+    caller names another), stored in the DKV under ``destination_frame``
+    when one is given. With ``lazy=True`` nothing is parsed: a
+    ``FileBackedFrame`` stub (column names and row count sniffed from a
+    CSV's header and newlines) is stored under ``destination_frame`` (or
+    a new key) and returned; the key's first ``DKV.get`` parses the
+    files with these arguments and stores the Frame in its place."""
     device = dev_mod.resolve_device(device)
-    if os.path.isdir(path):
-        paths = sorted(os.path.join(path, f) for f in os.listdir(path))
-    elif any(ch in path for ch in "*?["):
-        paths = sorted(_glob.glob(path))
-    else:
-        paths = [path]
-    if not paths or not all(os.path.exists(f) for f in paths):
-        raise FileNotFoundError(path)
-    if not all(f.endswith((".csv", ".csv.gz")) for f in paths):
+    paths = _expand(path)
+    if any(f.endswith(_ARROW) for f in paths):
+        _arrow_unported(f"importing {os.path.basename(paths[0])}")
+    if lazy:
+        return _import_lazy(path, paths, destination_frame, dict(
+            col_types=col_types, header=header, na_strings=na_strings,
+            device=device))
+    key = destination_frame
+    if all(f.endswith((".svm", ".svmlight")) for f in paths):
+        text = "\n".join(_read_text(f) for f in paths)
+        return formats.parse_svmlight(text, key=key, device=device)
+    if len(paths) == 1 and paths[0].endswith(".arff"):
+        return formats.parse_arff(_read_text(paths[0]), key=key,
+                                  device=device)
+    if len(paths) == 1 and paths[0].endswith(".xls"):
+        raise ValueError("legacy BIFF .xls is not supported in this build "
+                         "(no xlrd); save as .xlsx or .csv")
+    if len(paths) == 1 and paths[0].endswith(".xlsx"):
+        return formats.parse_xlsx(paths[0], key=key, device=device)
+    if len(paths) == 1 and paths[0].endswith(".avro"):
+        return formats.parse_avro(paths[0], key=key, device=device)
+    if not all(f.endswith(_CSV) for f in paths):
         odd = sorted({os.path.basename(f) for f in paths
-                      if not f.endswith((".csv", ".csv.gz"))})
+                      if not f.endswith(_CSV)})
         _unported(f"importing {odd[:3]}")
     if header is None:
         header = guess_header(paths[0])
@@ -161,7 +330,26 @@ def import_file(path: str, destination_frame: Optional[str] = None,
                 and np.asarray(cols[c]).dtype == object]
     return Frame.from_numpy(cols, categorical=cats, domains=domains,
                             strings=str_cols, uuids=uuid_cols,
-                            device=device, key=destination_frame)
+                            device=device, key=key)
+
+
+def _import_lazy(source: str, paths: List[str], key: Optional[str],
+                 parse_kwargs: dict):
+    """Store and return the unparsed stub of ``import_file(lazy=True)``
+    (the water/fvec FileVec role)."""
+    from h2o3_tpu_torch.core.kv import DKV, make_key
+    from h2o3_tpu_torch.io.lazy import FileBackedFrame, sniff_meta
+    if len(paths) == 1:
+        names, nrows, nbytes = sniff_meta(paths[0],
+                                          header=parse_kwargs["header"])
+    else:
+        names, nrows = None, None
+        nbytes = sum(os.path.getsize(f) for f in paths)
+    key = key or make_key("frame")
+    stub = FileBackedFrame(key, source, paths, names, nrows, nbytes,
+                           parse_kwargs)
+    DKV.put(key, stub)
+    return stub
 
 
 def _na_by_name(na_strings, names_in_order: List[str]) -> Dict[str, List[str]]:

@@ -86,7 +86,7 @@ def device_sort(frame: Frame, key_names: List[str],
     rows = order[:frame.nrows].cpu().numpy()
     new_cols = [dataclasses.replace(c, data=c.data[order],
                                     na_mask=c.na_mask[order],
-                                    host=c.host[rows]) for c in cols]
+                                    host=c.host_view()[rows]) for c in cols]
     return Frame(new_cols, frame.nrows, frame.device,
                  npad=frame.nrows_padded, block=frame.block)
 

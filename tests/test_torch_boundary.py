@@ -80,6 +80,11 @@ SLICE_MODULES = (
     "h2o3_tpu_torch/automl/__init__.py",
     "h2o3_tpu_torch/automl/steps.py",
     "h2o3_tpu_torch/automl/executor.py",
+    "h2o3_tpu_torch/io/formats.py",
+    "h2o3_tpu_torch/io/sql.py",
+    "h2o3_tpu_torch/io/lazy.py",
+    "h2o3_tpu_torch/ops/merge.py",
+    "h2o3_tpu_torch/ml/explain.py",
 )
 # sources the port compiles: its kernels and its tokenizer
 NATIVE_FILES = sorted(str(p.relative_to(ROOT)) for p in PKG.rglob("*")
@@ -323,3 +328,27 @@ def test_survival_svm_aggregator_word2vec_entry_points_default_to_cuda(
            "word2vec": lambda: m.transform(fr, "AVERAGE")}.get(
         algo, lambda: m.predict(fr))()
     assert out.device.type == "cpu"
+
+
+def test_data_surface_entry_points_default_to_cuda_and_raise_without_card(
+        monkeypatch, tmp_path):
+    """The host formats' ``import_file``, a lazy import, ``parse_raw``
+    and the SQL import without a ``device=`` resolve to CUDA and raise
+    without a card, before reading anything."""
+    import sqlite3
+    import h2o3_tpu_torch as h2o
+    p = tmp_path / "a.svm"
+    p.write_text("1 1:2\n")
+    db = tmp_path / "t.db"
+    con = sqlite3.connect(str(db))
+    con.execute("CREATE TABLE t (a REAL)")
+    con.close()
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    before = set(h2o.DKV.keys())
+    for call in (lambda: h2o.import_file(str(p)),
+                 lambda: h2o.import_file(str(p), lazy=True),
+                 lambda: h2o.parse_raw("a\n1\n"),
+                 lambda: h2o.import_sql_table(f"sqlite:///{db}", "t")):
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            call()
+    assert set(h2o.DKV.keys()) == before        # no stub was stored

@@ -1235,3 +1235,66 @@ def test_grid_launches_and_standalone_fits(dev):
         assert m.training_metrics["AUC"] == alone.training_metrics["AUC"]
     bm = _bm(dev)
     cs.deep_levels(torch, dev, bm, bm.bins.contiguous(), bm.nbins_total)
+
+
+def test_device_merge_card_vs_cpu(dev):
+    """Phase 28(c) at a small size: ``device_merge`` on the card EXACTLY
+    the CPU plain path's (inner and left; two keys with NA; categorical
+    keys with differing domains), and no kernel launched."""
+    import h2o3_tpu_torch as h2o
+    r = np.random.RandomState(4)
+    n = 80_000
+    k1 = r.randint(0, 3000, n).astype(float)
+    k1[::97] = np.nan
+    k2 = r.randint(0, 4, n).astype(float)
+    rk1 = r.randint(1500, 4500, n // 4).astype(float)
+    rk2 = r.randint(0, 4, n // 4).astype(float)
+    ldom = [f"L{i}" for i in range(300)]
+    rdom = [f"L{i}" for i in range(1, 301)]
+    left = {"k1": k1, "k2": k2, "c": r.randint(0, 300, n).astype(np.int32),
+            "v": r.randn(n)}
+    right = {"k1": rk1, "k2": rk2,
+             "c": r.randint(0, 300, n // 4).astype(np.int32),
+             "w": np.arange(n // 4, dtype=float)}
+    frames = [(h2o.Frame.from_numpy(left, domains={"c": ldom}, device=d),
+               h2o.Frame.from_numpy(right, domains={"c": rdom}, device=d))
+              for d in (dev, "cpu")]
+    for keys in (["k1"], ["k1", "k2"], ["c"]):
+        for how in ("inner", "left"):
+            kernels.reset_counts()
+            out = [h2o.device_merge(lf, rf, keys, how) for lf, rf in frames]
+            assert not any(kernels.LAUNCHES.values())
+            assert out[0].names == out[1].names
+            assert out[0].nrows == out[1].nrows > 0
+            for c in out[0].names:
+                a, b = out[0].col(c), out[1].col(c)
+                assert a.domain == b.domain
+                assert torch.equal(a.na_mask.cpu(), b.na_mask)
+                assert torch.equal(a.data.cpu(), b.data)
+                assert np.array_equal(a.host_view(), b.host_view(),
+                                      equal_nan=True)
+
+
+def test_partial_dependence_and_varimp_card_vs_cpu(dev):
+    """Phase 28(d) at a small size: the flagship GBM trained on the card,
+    its PDP means on the card within 1e-6·max(1, |mean|) of the CPU plain
+    path's, the permutation importance alike; scoring launches no
+    kernel."""
+    import h2o3_tpu_torch as h2o
+    cols, domains = cs.airlines_arrays(20_000)
+    fr = h2o.Frame.from_numpy(cols, domains=domains, device=dev)
+    x = [c for c in cols if c != cs.Y]
+    model = h2o.GBMEstimator(**cs.FLAGSHIP).train(fr, y=cs.Y, x=x)
+    frs = cs.head_frames(cols, domains, 5_000, dev)
+    kernels.reset_counts()
+    pdps = [h2o.partial_dependence(m, f, list(cs.PDP_COLS), nbins=10)
+            for m, f in ((model, frs[0]), (cs.cpu_model(model), frs[1]))]
+    vis = [h2o.permutation_varimp(m, f, seed=0)
+           for m, f in ((model, frs[0]), (cs.cpu_model(model), frs[1]))]
+    assert not any(kernels.LAUNCHES.values())
+    for c in cs.PDP_COLS:
+        a, b = (np.array(p[c]["mean_response"]) for p in pdps)
+        assert pdps[0][c]["values"] == pdps[1][c]["values"]
+        assert (np.abs(a - b) <= 1e-6 * np.maximum(1.0, np.abs(b))).all()
+    rel = {r[0]: r[1] for r in vis[1]}
+    assert max(abs(r[1] - rel[r[0]]) for r in vis[0]) <= 1e-6

@@ -387,14 +387,16 @@ def test_import_uuid_columns(tmp_path):
 
 def test_unported_inputs_raise(tmp_path):
     p = _write(tmp_path / "ok.csv", {"a": np.arange(3.0)})
-    for name in ("f.zip", "f.parquet", "f.orc", "f.avro", "f.xlsx",
-                 "f.arff", "f.svm", "f.txt"):
+    for name in ("f.zip", "f.parquet", "f.orc", "f.txt"):
         q = tmp_path / name
         q.write_bytes(b"a\n1\n")
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             h2o3_tpu_torch.import_file(str(q), device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP A #9′"):
-        h2o3_tpu_torch.import_file(p, lazy=True, device="cpu")
+        with pytest.raises(NotImplementedError, match="ROADMAP"):
+            parser.parse_setup(str(q))
+    with pytest.raises(NotImplementedError, match="ROADMAP A #5′"):
+        h2o3_tpu_torch.import_file(str(tmp_path / "f.parquet"), lazy=True,
+                                   device="cpu")
     # destination_frame stores the frame under its key (the DKV)
     plain = h2o3_tpu_torch.import_file(p, device="cpu")
     for key, fr in (
@@ -406,12 +408,8 @@ def test_unported_inputs_raise(tmp_path):
         np.testing.assert_array_equal(fr.col("a").host_view(),
                                       plain.col("a").host_view())
         h2o3_tpu_torch.DKV.remove(key)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        parser.parse_setup(p)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        parser.export_file(None, str(tmp_path / "out.csv"))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        parser.parse_raw("a\n1\n")
+    with pytest.raises(NotImplementedError, match="ROADMAP A #10"):
+        parser.export_file(plain, "s3://bucket/out.csv")
     # files that disagree on a column's type: the reference's pandas path
     (tmp_path / "d").mkdir()
     _csv(tmp_path / "d" / "0.csv", ["a"], [["1"], ["2"]])
@@ -520,3 +518,173 @@ def test_csv_to_gbm_forest_equals_the_reference(tmp_path):
     streamed = stream_import_csv(p, device="cpu")
     m_s = h2o3_tpu_torch.GBMEstimator(**PARAMS).train(streamed, y="y")
     _assert_forests(RefGBM(**PARAMS).train(ref_stream(p), y="y"), m_s)
+
+
+# ------------------- parse_setup, export_file, parse_raw, SQL (slice 16)
+
+
+def _ref_setup(path, **kw):
+    return h2o3_tpu.io.parser.parse_setup(str(path), **kw)
+
+
+def test_parse_setup_matches_the_reference(tmp_path):
+    """A CSV's guessed columns, types and header (with and without a
+    header, gzip, a directory, quoted newlines inside the sample, a small
+    sample), and the host formats' (their readers run), as the
+    reference's."""
+    cols = _mixed(3000, 5)
+    p = _write(tmp_path / "m.csv", cols)
+    for kw in ({}, {"nrows_sample": 10}, {"header": True}):
+        assert parser.parse_setup(p, **kw) == _ref_setup(p, **kw)
+    h = _csv(tmp_path / "h.csv", ["1", "2.5", "x"],
+             [["2", "3.5", "y"], ["3", "", "z"]])
+    assert parser.parse_setup(h) == _ref_setup(h)
+    assert parser.parse_setup(h, header=False) == _ref_setup(h, header=False)
+    (tmp_path / "g").mkdir()
+    gz = _write(tmp_path / "g" / "m.csv.gz", cols, opener=gzip.open)
+    assert parser.parse_setup(gz) == _ref_setup(gz)
+    assert parser.parse_setup(str(tmp_path / "g")) == \
+        _ref_setup(tmp_path / "g")
+    q = _csv(tmp_path / "q.csv", ["s", "n"],
+             [[f'"a\nb{i}"', str(i)] for i in range(40)])
+    assert parser.parse_setup(q, nrows_sample=7) == \
+        _ref_setup(q, nrows_sample=7)
+    svm = tmp_path / "t.svm"
+    svm.write_text("1 1:0.5 3:2\n0 2:1.5\n")
+    arff = tmp_path / "t.arff"
+    arff.write_text("@relation r\n@attribute a numeric\n@attribute b {u,v}\n"
+                    "@attribute s string\n@data\n1,u,'x'\n2,v,y\n")
+    for f in (svm, arff):
+        assert parser.parse_setup(str(f)) == _ref_setup(f)
+
+
+def test_parse_setup_and_parse_raw_type_na_tokens_as_the_tokenizer(tmp_path):
+    """Deliberate difference (ROADMAP C): the port guesses a CSV's types
+    and parses raw text with the native tokenizer, which the reference's
+    CSV import uses too; the reference's parse_setup and parse_raw use
+    pandas, which reads "N/A" as NA and True/False as numbers. The port's
+    guess is then the type both packages' import_file gives. Avro, whose
+    file the reference's parse_setup hands to pandas as text (and
+    fails), is read by its reader."""
+    text = "a,b,c,d\n1,True,N/A,x\n2,False,3,y\n"
+    p = tmp_path / "na.csv"
+    p.write_text(text)
+    ref_types = _ref_setup(p)["types"]
+    port_types = parser.parse_setup(str(p))["types"]
+    assert ref_types == {"a": "numeric", "b": "numeric", "c": "numeric",
+                         "d": "categorical"}
+    assert port_types == {"a": "numeric", "b": "categorical",
+                          "c": "categorical", "d": "categorical"}
+    ref, port = _both_import(str(p))
+    assert {c: port.col(c).type for c in port.names} == port_types
+    raw = parser.parse_raw(text, device="cpu")
+    assert {c: raw.col(c).type for c in raw.names} == port_types
+    _assert_port_identical(raw, port)
+    from test_formats_columnar import _write_avro
+    av = tmp_path / "t.avro"
+    _write_avro(str(av), "deflate")
+    with pytest.raises(UnicodeDecodeError):
+        _ref_setup(av)
+    assert parser.parse_setup(str(av)) == {
+        "columns": ["a", "b", "s"], "separator": ",", "header": True,
+        "types": {"a": "numeric", "b": "numeric", "s": "categorical"}}
+
+
+def test_parse_raw_matches_the_reference():
+    r = np.random.RandomState(6)
+    lines = ["i,f,g,e"] + [
+        f"{r.randint(-50, 50)},{r.randn():.4f},{'abc'[r.randint(3)]},"
+        + ("" if i % 7 == 0 else f"{r.randint(0, 9)}") for i in range(400)]
+    text = "\n".join(lines) + "\n"
+    port = parser.parse_raw(text, destination_frame="raw_k", device="cpu")
+    _assert_frames(h2o3_tpu.parse_raw(text), port)
+    assert h2o3_tpu_torch.DKV.get("raw_k") is port
+    h2o3_tpu_torch.DKV.remove("raw_k")
+
+
+def _export_frames():
+    r = np.random.RandomState(8)
+    n = 200
+    f = r.randn(n) * 10.0 ** r.randint(-9, 20, n)
+    f[::9] = np.nan
+    g = np.array(["u", "v,w", 'q"r', "x\ny", "", "plain"], object)[
+        r.randint(0, 6, n)]
+    g[::11] = None
+    return [
+        # the reference's case (tests/test_model_support.py)
+        ({"a": np.asarray([1.5, np.nan, 3.0]),
+          "g": np.asarray(["u", "v", None], dtype=object)}, ["g"], ()),
+        ({"f": f, "i": r.randint(-9, 9, n).astype(float),
+          "big": np.r_[2.0 ** 53, np.arange(n - 1.0)],
+          "neg0": np.r_[-0.0, np.ones(n - 1) / 3], "g": g,
+          "s": np.array([f"s,{i}" if i % 4 else None for i in range(n)],
+                        object)}, ["g"], ["s"]),
+        ({"lone": np.array(["a", None, ""], object)}, ["lone"], ()),
+    ]
+
+
+@pytest.mark.parametrize("case", range(3))
+def test_export_file_writes_the_references_bytes(tmp_path, case):
+    cols, cats, strs = _export_frames()[case]
+    ref = h2o3_tpu.Frame.from_numpy(cols, categorical=cats, strings=strs)
+    port = h2o3_tpu_torch.Frame.from_numpy(cols, categorical=cats,
+                                           strings=strs, device="cpu")
+    a, b = tmp_path / "ref.csv", tmp_path / "port.csv"
+    h2o3_tpu.export_file(ref, str(a))
+    assert h2o3_tpu_torch.export_file(port, str(b)) == str(b)
+    assert b.read_bytes() == a.read_bytes()
+    if case == 0:
+        back_r, back = _both_import(str(b))
+        assert back.nrows == 3 and back.ncols == 2
+        np.testing.assert_array_equal(np.isnan(back.col("a").to_numpy()),
+                                      [False, True, False])
+    with pytest.raises(IOError, match="exists"):
+        h2o3_tpu_torch.export_file(port, str(b))
+    h2o3_tpu_torch.export_file(port, "file://" + str(b), force=True)
+    assert b.read_bytes() == a.read_bytes()
+    h2o3_tpu.export_file(ref, str(a), force=True, sep=";")
+    h2o3_tpu_torch.export_file(port, str(tmp_path / "sub" / "p.csv"),
+                               sep=";")
+    assert (tmp_path / "sub" / "p.csv").read_bytes() == a.read_bytes()
+
+
+def test_sql_ingest_matches_the_reference(tmp_path):
+    """tests/test_model_support.py's table through a URL, a DB-API
+    connection and a SELECT; the no-driver error."""
+    import sqlite3
+    db = str(tmp_path / "t.db")
+    conn = sqlite3.connect(db)
+    conn.execute("CREATE TABLE t (a REAL, b TEXT, c INTEGER)")
+    r = np.random.RandomState(2)
+    rows = [(1.0, "x", 3), (2.5, "y", None), (None, None, 7)] + [
+        (float(r.randn()), "xyz"[r.randint(3)], int(r.randint(0, 99)))
+        for _ in range(300)]
+    conn.executemany("INSERT INTO t VALUES (?, ?, ?)", rows)
+    conn.commit()
+    url = f"sqlite:///{db}"
+    fr = h2o3_tpu_torch.import_sql_table(url, "t", device="cpu")
+    _assert_frames(h2o3_tpu.import_sql_table(url, "t"), fr)
+    a = fr.col("a").to_numpy()
+    assert a[1] == 2.5 and np.isnan(a[2])
+    assert fr.col("b").domain == ["x", "y", "z"]
+    q = "SELECT a, c FROM t WHERE a IS NOT NULL"
+    sel = h2o3_tpu_torch.import_sql_select(url, q, device="cpu",
+                                           destination_frame="sql_k")
+    _assert_frames(h2o3_tpu.import_sql_select(url, q), sel)
+    assert h2o3_tpu_torch.DKV.get("sql_k") is sel
+    h2o3_tpu_torch.DKV.remove("sql_k")
+    by_conn = h2o3_tpu_torch.import_sql_table(table="t", columns="b, c",
+                                              conn=conn, device="cpu")
+    _assert_frames(h2o3_tpu.import_sql_table(table="t", columns="b, c",
+                                             conn=conn), by_conn)
+    conn.execute("SELECT 1")               # the caller's conn stays open
+    empty = h2o3_tpu_torch.import_sql_select(
+        url, "SELECT a, b FROM t WHERE a > 1e9", device="cpu")
+    _assert_frames(h2o3_tpu.import_sql_select(
+        url, "SELECT a, b FROM t WHERE a > 1e9"), empty)
+    with pytest.raises(IOError, match="no built-in driver"):
+        h2o3_tpu.import_sql_select("postgres://h/db", "SELECT 1")
+    with pytest.raises(IOError, match="no built-in driver"):
+        h2o3_tpu_torch.import_sql_select("postgres://h/db", "SELECT 1",
+                                         device="cpu")
+    conn.close()

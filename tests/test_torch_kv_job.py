@@ -12,6 +12,8 @@ background=True)`` returns the Job whose ``dest`` holds the model.
 """
 
 import contextlib
+import os
+import sys
 
 import jax
 import numpy as np
@@ -26,6 +28,8 @@ from h2o3_tpu.parallel import mesh as ref_mesh
 from h2o3_tpu_torch.core import job as port_job
 from h2o3_tpu_torch.core.kv import DKV, make_key
 from h2o3_tpu_torch.core.scope import Scope
+
+from test_torch_ingest import _assert_port_identical
 
 CPU = "cpu"
 
@@ -355,3 +359,129 @@ def test_aggregator_output_frame_and_dl_weights_by_key():
                               dl.net[i]["W"].cpu().numpy())
         assert np.array_equal(bf.col("C1").host_view().astype(np.float32),
                               dl.net[i]["b"].cpu().numpy())
+
+
+# ------------------------------------------------ lazy frames (slice 16)
+
+
+def _lazy_csv(path, n=400):
+    """tests/test_lazy_frames.py's file."""
+    r = np.random.RandomState(0)
+    with open(path, "w") as f:
+        f.write("a,b,c\n")
+        for _ in range(n):
+            f.write(f"{r.randn():.5f},{r.randint(0, 5)},lvl{r.randint(3)}\n")
+    return str(path)
+
+
+def test_lazy_import_defers_parse(tmp_path):
+    from h2o3_tpu.io.parser import import_file as ref_import
+    from h2o3_tpu_torch.io.lazy import FileBackedFrame
+    p = _lazy_csv(tmp_path / "lazy.csv")
+    stub = h2o.import_file(p, destination_frame="lazyfr", lazy=True,
+                           device=CPU)
+    ref_stub = ref_import(p, destination_frame="lazyfr_ref", lazy=True)
+    assert isinstance(stub, FileBackedFrame)
+    assert (stub.names, stub.nrows, stub.nbytes, stub.paths) == (
+        ref_stub.names, ref_stub.nrows, ref_stub.nbytes, ref_stub.paths)
+    assert stub.names == ["a", "b", "c"] and stub.nrows == 400
+    REF_DKV.remove("lazyfr_ref")
+    assert DKV.get_raw("lazyfr") is stub and stub._frame is None
+    fr = DKV.get("lazyfr")                 # the first get parses
+    assert isinstance(fr, h2o.Frame) and fr.key == "lazyfr"
+    assert DKV.get_raw("lazyfr") is fr and DKV.get("lazyfr") is fr
+    _assert_port_identical(fr, h2o.import_file(p, device=CPU))
+    DKV.remove("lazyfr")
+    assert "lazyfr" not in DKV
+
+
+def test_lazy_glob_headerless_and_sniffed_metadata(tmp_path):
+    from h2o3_tpu.io import lazy as ref_lazy
+    from h2o3_tpu_torch.io import lazy
+    (tmp_path / "d").mkdir()
+    a = _lazy_csv(tmp_path / "d" / "0.csv", 50)
+    _lazy_csv(tmp_path / "d" / "1.csv", 70)
+    for hdr in (None, True, False):
+        assert lazy.sniff_meta(a, header=hdr) == \
+            ref_lazy.sniff_meta(a, header=hdr)
+    stub = h2o.import_file(str(tmp_path / "d"), lazy=True, device=CPU)
+    assert stub.names == [] and stub.nrows is None
+    assert stub.nbytes == sum(p.stat().st_size
+                              for p in (tmp_path / "d").iterdir())
+    _assert_port_identical(DKV.get(stub.key),
+                h2o.import_file(str(tmp_path / "d"), device=CPU))
+    DKV.remove(stub.key)
+    stub = h2o.import_file(a, lazy=True, header=False, device=CPU)
+    assert stub.names == ["C1", "C2", "C3"] and stub.nrows == 51
+    assert DKV.get(stub.key).nrows == 51
+    DKV.remove(stub.key)
+
+
+def test_lazy_restore_parses_once_under_concurrent_gets(tmp_path,
+                                                        monkeypatch):
+    import threading
+    import time
+    from h2o3_tpu_torch.io import parser
+    p = _lazy_csv(tmp_path / "c.csv")
+    stub = h2o.import_file(p, destination_frame="conc", lazy=True,
+                           device=CPU)
+    real, calls = parser.import_file, []
+
+    def slow_import(*a, **kw):
+        calls.append(a)
+        time.sleep(0.2)                    # the other gets arrive meanwhile
+        return real(*a, **kw)
+
+    monkeypatch.setattr(parser, "import_file", slow_import)
+    n = (os.cpu_count() or 4) + 1          # more threads than cores
+    barrier, got = threading.Barrier(n), []
+
+    def get():
+        barrier.wait(timeout=30)
+        got.append(DKV.get("conc"))
+
+    threads = [threading.Thread(target=get) for _ in range(n)]
+    switch = sys.getswitchinterval()
+    sys.setswitchinterval(1e-6)
+    try:
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=60)
+    finally:
+        sys.setswitchinterval(switch)
+    assert not any(t.is_alive() for t in threads)
+    assert len(calls) == 1 and len(got) == n
+    assert all(g is got[0] for g in got) and DKV.get_raw("conc") is got[0]
+    assert isinstance(got[0], h2o.Frame) and stub._frame is got[0]
+    DKV.remove("conc")
+
+
+def test_lazy_newer_put_wins_and_a_failed_parse_raises(tmp_path,
+                                                      monkeypatch):
+    from h2o3_tpu_torch.io.lazy import FileBackedFrame
+    p = _lazy_csv(tmp_path / "n.csv")
+    h2o.import_file(p, destination_frame="newer", lazy=True, device=CPU)
+    other = _frame()
+    DKV.put("newer", other)
+    assert DKV.get("newer") is other
+    # a parse that fails while the stub is stored raises ...
+    gone = tmp_path / "gone.csv"
+    gone.write_text("a\n1\n")
+    h2o.import_file(str(gone), destination_frame="gone", lazy=True,
+                    device=CPU)
+    gone.unlink()
+    with pytest.raises(FileNotFoundError):
+        DKV.get("gone")
+    assert isinstance(DKV.get_raw("gone"), FileBackedFrame)
+    # ... but not once a newer value took the key: get returns that
+    replacement = _frame(seed=1)
+
+    def put_then_fail(self):
+        DKV.put("gone", replacement)
+        raise FileNotFoundError("the file went away")
+
+    monkeypatch.setattr(FileBackedFrame, "restore", put_then_fail)
+    assert DKV.get("gone") is replacement
+    for k in ("newer", "gone"):
+        DKV.remove(k)
