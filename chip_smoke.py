@@ -733,9 +733,10 @@ N_PSVM_HEAD = 601                # the tests' data and size
 PSVM_WB_TOL = 1e-4
 PSVM_DEC_TOL = 1e-4
 PSVM_AUC_TOL = 1e-5
-N_AGG = 1_000_000                # of HIGGS's 11M rows: the host loop
+N_AGG = 500_000                  # of HIGGS's 11M rows: the host loop (cut
+#                                  from 1M when phase 29 came, for time)
 N_AGG_HEAD = 3_001               # the tests' data and size
-W2V_TOKENS = 500_000
+W2V_TOKENS = 250_000             # cut from 500K when phase 29 came (time)
 W2V_REFIT_TOKENS = 50_000        # the refit's head (phase 26(d))
 W2V_TYPES = 30_000
 W2V_SENT = 20
@@ -789,7 +790,9 @@ SE_WITNESS_PERMS = 5
 DEEP_SHAP = dict(ntrees=2, max_depth=20, min_rows=200.0, seed=1)
 DEEP_SHAP_CPU = 2_000
 # phase 28: the data surface
-N_XLSX = 100_000                 # the first rows of (a)'s rows as XLSX
+N_XLSX = 50_000                  # the first rows of (a)'s rows as XLSX (cut
+#                                  from 100K when phase 29 came, for time)
+SETUP_KINDS = ("csv", "arff", "svm")   # 28(b)'s parse_setup files
 N_MERGE = 10_000_000             # bench.py bench_sort, nothing cut
 N_MERGE_SMALL = 1_000_000        # the two-key and categorical-key joins
 MERGE_GUARD_BYTES = 1 << 30
@@ -812,7 +815,13 @@ KERNELS = {
         source="h2o3_tpu_torch/ops/kernels/csrc/treekernel.cu",
         replaces="h2o3_tpu/ops/pallas/treekernel.py:351"),
 }
+# the model-axis routes: _fused_call under the reference's vmap over a
+# grid bucket (h2o3_tpu/models/gbm.py _boost_scan_batched_jit)
+for _k in ("tree_hist_models", "tree_split_models", "tree_partition_models"):
+    KERNELS[_k] = dict(_TREEKERNEL, under="h2o3_tpu/models/gbm.py:210 vmap")
 LEVEL_KERNELS = ("tree_hist", "tree_split", "tree_partition")
+MODEL_KERNELS = ("tree_hist_models", "tree_split_models",
+                 "tree_partition_models")
 MESH_KERNELS = ("shard_hist", "tree_split", "shard_partition")
 W_MESH = 2                       # ranks of the data-parallel path
 RANK_TIMEOUT_S = 600.0
@@ -2033,12 +2042,9 @@ def phase_uplift(torch, dev, cols, domains):
     t0 = time.perf_counter()
     model.model_performance(fr)
     say(f"phase8 breakdown: bin_frame alone {t_bin:.3f} s, training "
-        f"metrics alone {time.perf_counter() - t0:.3f} s")
-    # one tree under the profiler (cut from 2 when phase 27 came, for the
-    # run's time)
-    profiled_fit(torch, "phase8 profile (ntrees=1)", lambda: h2o.
-                 UpliftDRFEstimator(**dict(UPLIFT, ntrees=1)).train(
-                     fr, y="visit"))
+        f"metrics alone {time.perf_counter() - t0:.3f} s; the 1-tree fit "
+        "under the profiler cut when phase 29 came, for the run's time "
+        "(phase 4's profile stays)")
     # the fit against the CPU plain path on a sample, without bagging: the
     # card's and the CPU's generators draw different bags
     kw = dict(UPLIFT, sample_rate=1.0)
@@ -5995,7 +6001,8 @@ def phase_aggregator(torch, dev, higgs):
     check(n_ex <= 5000 and total == N_AGG,
           f"Aggregator: {n_ex} exemplars, counts sum {total}")
     t = model.timing
-    say(f"phase26c Aggregator on {N_AGG} x {P_HIGGS} HIGGS rows: "
+    say(f"phase26c Aggregator on {N_AGG} x {P_HIGGS} HIGGS rows (cut from "
+        "1M when phase 29 came, for the run's time): "
         f"{model.output['sweeps']} sweeps, final radius "
         f"{model.output['radius']:.6f}, {n_ex} exemplars (in [2500, 5000]: "
         f"{2500 <= n_ex <= 5000}), counts sum {int(total)}, {secs:.3f} s "
@@ -6113,7 +6120,8 @@ def phase_word2vec(torch, dev):
     out = model.output
     steps = {b: w2v_step_timing(torch, dev, fr, b) for b in (64, 4096)}
     say(f"phase26d Word2Vec on a Zipf(1.0) corpus of {W2V_TOKENS} tokens "
-        f"over {W2V_TYPES} types: vocabulary {out['vocab_size']}, "
+        f"(cut from 500000 when phase 29 came, for the run's time) over "
+        f"{W2V_TYPES} types: vocabulary {out['vocab_size']}, "
         f"{out['pairs']} pairs, {out['steps']} steps at batch "
         f"{model.params['batch_size']} in {secs:.3f} s "
         f"({out['steps'] / secs:.1f} steps/s; the head's refit "
@@ -6255,9 +6263,11 @@ def grid_frame(dev):
 
 
 def phase_grid(torch, dev, fr):
-    """Phase 27(a)-(b): the grid's sequential walk, its launches, each
-    model against a standalone fit, RandomDiscrete's order; the
-    per-model cap. Returns the walk's launches."""
+    """Phase 27(a)-(b): the grid, batched (the default: its one shape
+    bucket through the model-axis kernels), its launches, each model
+    against its standalone fit (the sequential walk, timed with its
+    launches), RandomDiscrete's order; the per-model cap. Returns the
+    batched grid's launches."""
     import h2o3_tpu_torch as h2o
     from h2o3_tpu_torch.automl.executor import Budget, train_capped
     n_combos = int(np.prod([len(v) for v in GRID_HYPER.values()]))
@@ -6265,22 +6275,40 @@ def phase_grid(torch, dev, fr):
         h2o.GBMEstimator, GRID_HYPER, **GRID_FIXED).train(fr, y="y"))
     check(len(grid.models) == n_combos and not grid.failures,
           f"grid: {len(grid.models)} models, failures {grid.failures}")
-    per = n_combos * GRID_FIXED["ntrees"] * GRID_FIXED["max_depth"]
-    check_launches(counts, {k: per for k in LEVEL_KERNELS}, "grid")
-    say(f"phase27(a) grid: {n_combos} GBM combos on {N_GRID_ROWS} rows x 6 "
-        f"in {secs:.3f} s, {n_combos / secs:.6g} models/s, peak "
-        f"{peak / 2**30:.3f} GiB; each level kernel launched {per} times")
+    levels = GRID_FIXED["ntrees"] * GRID_FIXED["max_depth"]
+    check_launches(counts, {k: levels for k in MODEL_KERNELS}, "grid")
+    say(f"phase27(a) grid, batched: {n_combos} GBM combos on {N_GRID_ROWS} "
+        f"rows x 6 in {secs:.3f} s, {n_combos / secs:.6g} models/s, peak "
+        f"{peak / 2**30:.3f} GiB; each model-axis kernel launched {levels} "
+        "times, the one-model level kernels 0")
+    seq_counts = {}
+    t_seq, peak_seq = 0.0, 0
     for m in grid.models:
-        alone = h2o.GBMEstimator(**GRID_FIXED, **m.output["grid_params"]
-                                 ).train(fr, y="y")
+        alone, t1, c1, p1 = timed_fit(torch, lambda: h2o.GBMEstimator(
+            **GRID_FIXED, **m.output["grid_params"]).train(fr, y="y"))
+        t_seq += t1
+        peak_seq = max(peak_seq, p1)
+        for k, v in c1.items():
+            seq_counts[k] = seq_counts.get(k, 0) + v
         check(forests_equal(m.forest, alone.forest)
               and m.training_metrics["AUC"] == alone.training_metrics["AUC"],
               f"grid model {m.output['grid_params']} differs from its "
               "standalone fit")
+    check_launches(seq_counts, {k: n_combos * levels for k in LEVEL_KERNELS},
+                   "grid sequential")
     best = grid.sorted_models()[0]
-    say(f"phase27(a) every grid model bit-equal to its standalone fit "
-        f"(forest, training AUC); best {best.output['grid_params']} AUC "
+    say(f"phase27(a) every batched grid model bit-equal to its standalone "
+        f"fit (forest, training AUC); the {n_combos} standalone fits (the "
+        f"sequential walk) {t_seq:.3f} s, {n_combos / t_seq:.6g} models/s, "
+        f"peak {peak_seq / 2**30:.3f} GiB a fit, each level kernel "
+        f"{n_combos * levels} launches; batched {t_seq / secs:.3f}x the "
+        f"sequential models/s; best {best.output['grid_params']} AUC "
         f"{best.training_metrics['AUC']:.6f}")
+    t = batched_level_ms(torch, fr)
+    say(f"phase27(a) one batched level of the grid ({n_combos} models, "
+        f"d=5, the three model-axis kernels): device {t['ms']:.6g} ms, "
+        f"host-paced {t['host_paced_ms']:.6g} ms, host "
+        f"{t['host_us']:.4g} us a level")
     rnd = h2o.GridSearch(h2o.GBMEstimator, GRID_HYPER, search_criteria={
         "strategy": "RandomDiscrete", "max_models": 5, "seed": 42},
         **GRID_FIXED).train(fr, y="y")
@@ -6860,7 +6888,8 @@ def phase_readers(torch, dev, files, tmp):
         f"{len(files[k]) / 1e6 / secs[k]:.6g} MB/s"
         for k in ("csv", "svm", "arff", "avro", "head.csv", "xlsx"))
         + f"): ARFF and Avro frames == the CSV frame ({csv.nrows} rows), "
-        f"XLSX == the CSV of its {N_XLSX} rows (names, types, domains, NA "
+        f"XLSX == the CSV of its {N_XLSX} rows (cut from 100000 when phase "
+        f"29 came, for the run's time; names, types, domains, NA "
         "masks, host values bit for bit), SVMLight == the CSV frame's "
         "numeric encoding; no kernel launched")
     return csv, frames["head.csv"], paths, counts
@@ -6887,7 +6916,9 @@ def phase_write_read(torch, dev, csv, head, paths, files, tmp):
     want = {c: "categorical" if csv.col(c).is_categorical else "numeric"
             for c in csv.names}
     t0 = time.perf_counter()
-    for kind in ("csv", "arff", "avro", "xlsx", "svm"):
+    # Avro and XLSX cut when phase 29 came, for the run's time: parse_setup
+    # of a host format runs its whole reader again, which (a) timed
+    for kind in SETUP_KINDS:
         setup = h2o.parse_setup(paths[kind])
         exp = (want if kind != "svm" else
                {f"C{j}": "numeric" for j in range(len(csv.names))})
@@ -6934,8 +6965,10 @@ def phase_write_read(torch, dev, csv, head, paths, files, tmp):
     counts = dict(kernels.LAUNCHES)
     check_launches(counts, {}, "write_read")
     say(f"phase28(b) export_file {t_exp:.3f} s (the bytes == the CSV "
-        f"read), import_file of it == the CSV frame; parse_setup of the "
-        f"five files {t_setup:.3f} s, the expected types; sqlite3 table "
+        f"read), import_file of it == the CSV frame; parse_setup of "
+        f"{', '.join(SETUP_KINDS)} {t_setup:.3f} s, the expected types "
+        "(Avro and XLSX cut when phase 29 came, for the run's time); "
+        f"sqlite3 table "
         f"of {csv.nrows} rows: import_sql_table {t_tab:.3f} s == the CSV "
         f"frame, import_sql_select of its first {head.nrows} rows == "
         f"their CSV frame; import_file(lazy=True) "
@@ -7179,6 +7212,368 @@ def phase_data_surface(torch, dev, cols, domains):
             "explain": c_explain}
 
 
+# ------------------------------------------------ phase 29 (slice 17)
+
+M_CHECK = 4                      # models of 29(a)'s kernel checks
+DEEP_MODELS_D = 13               # 29(a)'s deep level: the global route
+GLM_BUCKET = {"alpha": [0.0, 0.5], "lambda_": [1e-4, 1e-3]}
+GLM_BUCKET_FIXED = dict(family="binomial", solver="irlsm", max_iterations=8,
+                        standardize=True)
+N_SEGMENTS = 1_000_000           # 29(c): airlines rows by UniqueCarrier
+SEGMENT_COLUMNS = ["UniqueCarrier"]
+
+
+def grid_bm(fr):
+    """The grid frame's binning as the grid's fits bin it."""
+    from h2o3_tpu_torch.frame.binning import bin_frame
+    return bin_frame(fr, [c for c in fr.names if c != "y"], nbins=64,
+                     nbins_cats=1024)
+
+
+def models_inputs(torch, bm, M, depth, seed):
+    """M models' per-level operands (``tk.models_operands``' inputs):
+    column masks keeping ~80% of the features (feature 0 always), each
+    model its own min_rows / reg_lambda, and ragged depth limits."""
+    dev = bm.bins.device
+    F = bm.bins.shape[1]
+    r = np.random.RandomState(seed)
+    cm = torch.from_numpy(r.rand(M, F) < 0.8).to(dev)
+    cm[:, 0] = True
+    knobs = torch.tensor([[10.0 * (m + 1), 0.5 * (m % 3), 1e-5]
+                          for m in range(M)], dtype=torch.float32,
+                         device=dev)
+    limit = torch.tensor([depth - m % 3 for m in range(M)],
+                         dtype=torch.int32, device=dev)
+    inf = torch.full((M, 1), np.inf, dtype=torch.float32, device=dev)
+    is_cat = torch.tensor([bool(v) for v in bm.is_cat], device=dev)
+    return cm, bm.nbins, is_cat, None, -inf, inf, knobs, limit
+
+
+def models_chain(torch, bm, n_rows, depth, M, seed):
+    """The plain model-axis level chain of M models on the first
+    ``n_rows`` rows of ``bm`` (each model its own dyadic stats,
+    ``models_inputs``). Yields per level d < depth the level's inputs
+    (bins, stats, exps, nid, prev, raw: the operands as a fit passes them,
+    ops: in the kernels' types) and the plain outputs (lh, out, dec,
+    new)."""
+    from h2o3_tpu_torch.ops.fixed_point import exponents_models
+    from h2o3_tpu_torch.ops.kernels import treekernel as tk
+    dev = bm.bins.device
+    bins = bm.bins[:n_rows].contiguous()
+    N = bins.shape[0]
+    B = bm.nbins_total
+    stats = torch.stack([dyadic_stats(N, seed + m, torch, dev)
+                         for m in range(M)])
+    exps = exponents_models(stats)
+    raw = models_inputs(torch, bm, M, depth, seed)
+    ops = tk.models_operands(*raw, dev)
+    nid = torch.zeros((M, N), dtype=torch.int32, device=dev)
+    prev = None
+    for d in range(depth):
+        L, Lh = 2 ** d, max(2 ** d // 2, 1)
+        lh = tk.hist_models_plain(bins, nid, stats, d=d, n_nodes_h=Lh,
+                                  n_bins=B)
+        out = tk.split_models_plain(lh, prev, *ops, d=d, n_nodes=L,
+                                    n_bins=B)
+        dec = (out[2], out[3], out[4], out[8], out[9], out[7])
+        new = tk.partition_models_plain(bins, nid, *dec, n_bins=B)
+        yield dict(d=d, L=L, Lh=Lh, B=B, bins=bins, stats=stats, exps=exps,
+                   nid=nid, prev=prev, raw=raw, ops=ops, lh=lh, out=out,
+                   dec=dec, new=new)
+        prev, nid = out[0], new
+
+
+def compare_models_level(tk, lev) -> dict:
+    """The three model-axis kernels against their plain versions at one
+    level, every output EXACT (NaN equal to NaN). Returns max |err| a
+    kernel."""
+    import torch
+    d, L, Lh, B = lev["d"], lev["L"], lev["Lh"], lev["B"]
+    lh = tk.tree_hist_models(lev["bins"], lev["nid"], lev["stats"], d=d,
+                             n_nodes_h=Lh, n_bins=B, exps=lev["exps"])
+    out = tk.tree_split_models(lev["lh"], lev["prev"], *lev["ops"], d=d,
+                               n_nodes=L, n_bins=B)
+    new = tk.tree_partition_models(lev["bins"], lev["nid"], *lev["dec"],
+                                   n_bins=B)
+    torch.cuda.synchronize()
+    check(torch.equal(lh, lev["lh"]), f"tree_hist_models d={d} not exact")
+    names = ("hist", "gain", "feat", "thresh", "na_left", "left_val",
+             "right_val", "leftmask", "split", "cat_split")
+    for nm, a, b in zip(names, out, lev["out"]):
+        check(identical(a, b), f"tree_split_models d={d} {nm} not exact")
+    check(torch.equal(new, lev["new"]), f"tree_partition_models d={d}")
+    gain, want = out[1], lev["out"][1]
+    fin = torch.isfinite(want)
+    return {"tree_hist_models": float((lh - lev["lh"]).abs().max()),
+            "tree_split_models": float((gain - want)[fin].abs().max())
+            if fin.any() else 0.0,
+            "tree_partition_models": float((new - lev["new"]).abs().max())}
+
+
+def deep_models_level(torch, bm, bins, M, d, seed):
+    """One level d of M models from random node ids (the deep levels a
+    chain would take long to reach): the previous level's histograms of
+    the parents, plain outputs as ``models_chain`` yields them."""
+    from h2o3_tpu_torch.ops.fixed_point import exponents_models
+    from h2o3_tpu_torch.ops.kernels import treekernel as tk
+    dev = bins.device
+    N = bins.shape[0]
+    B = bm.nbins_total
+    L, Lh = 2 ** d, 2 ** (d - 1)
+    r = np.random.RandomState(seed)
+    nid = torch.from_numpy(r.randint(0, L, (M, N)).astype(np.int32)).to(dev)
+    stats = torch.stack([dyadic_stats(N, seed + m, torch, dev)
+                         for m in range(M)])
+    prev = tk.hist_models_plain(bins, nid >> 1, stats, d=0, n_nodes_h=Lh,
+                                n_bins=B)
+    raw = models_inputs(torch, bm, M, d + 1, seed)
+    ops = tk.models_operands(*raw, dev)
+    lh = tk.hist_models_plain(bins, nid, stats, d=d, n_nodes_h=Lh, n_bins=B)
+    out = tk.split_models_plain(lh, prev, *ops, d=d, n_nodes=L, n_bins=B)
+    dec = (out[2], out[3], out[4], out[8], out[9], out[7])
+    new = tk.partition_models_plain(bins, nid, *dec, n_bins=B)
+    return dict(d=d, L=L, Lh=Lh, B=B, bins=bins, stats=stats,
+                exps=exponents_models(stats), nid=nid, prev=prev, raw=raw,
+                ops=ops, lh=lh, out=out, dec=dec, new=new)
+
+
+def batched_level_ms(torch, fr) -> dict:
+    """``time_ms`` of one batched level of the grid: the three model-axis
+    kernels (``fused_level_models``, operands as a fit passes them) for
+    its 16 models at d = 5 on its 500K rows."""
+    from h2o3_tpu_torch.ops.kernels import treekernel as tk
+    M = int(np.prod([len(v) for v in GRID_HYPER.values()]))
+    for lev in models_chain(torch, grid_bm(fr), N_GRID_ROWS, 6, M, 21):
+        pass
+    return time_ms(torch, lambda: tk.fused_level_models(
+        lev["bins"], lev["nid"], lev["stats"], lev["prev"], *lev["raw"],
+        d=lev["d"], n_nodes=lev["L"], n_bins=lev["B"], exps=lev["exps"]))
+
+
+def models_timing(torch, fr) -> dict:
+    """Per-kernel sums over d=0..5 of the model-axis kernels at bench.py's
+    grid (16 models, 500K rows x 6): device, host-paced and host times,
+    the plain versions' (a loop over the one-model plain versions), the
+    library histogram (``index_add_`` on precomputed cells of all 16
+    models) and the bound's two terms; each output EXACT first."""
+    from h2o3_tpu_torch.ops.kernels import treekernel as tk
+    M = int(np.prod([len(v) for v in GRID_HYPER.values()]))
+    bm = grid_bm(fr)
+    acc = {k: timing_acc() for k in MODEL_KERNELS}
+    for lev in models_chain(torch, bm, N_GRID_ROWS, 6, M, 21):
+        compare_models_level(tk, lev)
+        d, L, Lh, B = lev["d"], lev["L"], lev["Lh"], lev["B"]
+        bins, nid, stats = lev["bins"], lev["nid"], lev["stats"]
+        N, F = bins.shape
+        dev = bins.device
+        n = nid.long()
+        f_ar = torch.arange(F, device=dev)
+        node = torch.where(n % 2 == 0, n >> 1, -1) if d else n
+        base = torch.arange(M, device=dev)[:, None] * Lh + node
+        cell = torch.where((node >= 0)[..., None],
+                           (base[..., None] * F + f_ar) * B + bins.long(),
+                           M * Lh * F * B).reshape(-1)
+        src = stats[:, :, None, :].expand(M, N, F, 3).reshape(-1, 3)
+        slots = M * Lh * F * B + 1
+        keep = lev["ops"][0].bool().expand(M, L, F)
+        kept = int(keep.sum())
+        kept_cat = int((keep & lev["ops"][2].bool()).sum()) \
+            if lev["ops"][2] is not None else 0
+        cells = Lh * F * B * 12
+        runs = {
+            "tree_hist_models": (
+                lambda: tk.tree_hist_models(bins, nid, stats, d=d,
+                                            n_nodes_h=Lh, n_bins=B,
+                                            exps=lev["exps"]),
+                lambda: tk.hist_models_plain(bins, nid, stats, d=d,
+                                             n_nodes_h=Lh, n_bins=B),
+                lambda: torch.zeros((slots, 3), device=dev).index_add_(
+                    0, cell, src),
+                N * F * bins.element_size() + M * (N * 16 + cells),
+                3 * N * F * M),
+            "tree_split_models": (
+                lambda: tk.tree_split_models(lev["lh"], lev["prev"],
+                                             *lev["ops"], d=d, n_nodes=L,
+                                             n_bins=B),
+                lambda: tk.split_models_plain(lev["lh"], lev["prev"],
+                                              *lev["ops"], d=d, n_nodes=L,
+                                              n_bins=B),
+                None,
+                M * (cells * (2 if d else 1) + L * F * B * 12
+                     + L * (B - 1) + L * 26),
+                kept * (B - 1) * 2 * 20
+                + kept_cat * (B - 1) * int(np.ceil(np.log2(B - 1)))),
+            "tree_partition_models": (
+                lambda: tk.tree_partition_models(bins, nid, *lev["dec"],
+                                                 n_bins=B),
+                lambda: tk.partition_models_plain(bins, nid, *lev["dec"],
+                                                  n_bins=B),
+                None,
+                N * F * bins.element_size() + M * (N * 8 + L * (B + 12)),
+                4 * N * M),
+        }
+        for k, (kern, plain, lib, nbytes, nops) in runs.items():
+            a = acc[k]
+            t = time_ms(torch, kern)
+            say(f"  {k} d={d} ({M} models x {N} rows, L={L}): {spread(t)}, "
+                f"host-paced {t['host_paced_ms']:.6g} ms, host "
+                f"{t['host_us']:.4g} us a call, exact")
+            add_time(a, t)
+            a["plain_ms"] += time_ms(torch, plain, reps=3)["ms"]
+            if lib is not None:
+                a["library_ms"] += time_ms(torch, lib, reps=3)["ms"]
+            a["bytes_ms"] += nbytes / HBM_BYTES_PER_S * 1e3
+            a["ops_ms"] += nops / F32_OPS_PER_S * 1e3
+        del cell, src
+    return acc
+
+
+def phase_models_kernels(torch, dev, bm, counts_grid):
+    """Phase 29(a): the model-axis kernels EXACT against their plain
+    versions at phase 2's level shapes (1M flagship rows, d=0..5, 4
+    models with ragged depth limits and their own masks and knobs) and
+    at a depth-14 level (d=13: the histogram's global route, 2 models);
+    then timed at bench.py's grid (16 models, d=0..5) with their bounds.
+    Returns (max |err| a kernel, the kernels records)."""
+    from h2o3_tpu_torch.ops.kernels import treekernel as tk
+    worst = {k: 0.0 for k in MODEL_KERNELS}
+    t0 = time.perf_counter()
+    for lev in models_chain(torch, bm, N_KERNEL, 6, M_CHECK, 31):
+        for k, v in compare_models_level(tk, lev).items():
+            worst[k] = max(worst[k], v)
+    bins = bm.bins[:N_KERNEL].contiguous()
+    lev = deep_models_level(torch, bm, bins, 2, DEEP_MODELS_D, 37)
+    for k, v in compare_models_level(tk, lev).items():
+        worst[k] = max(worst[k], v)
+    say(f"phase29(a) the model-axis kernels EXACT against their plain "
+        f"versions: {M_CHECK} models x {N_KERNEL} rows at d=0..5 (depth "
+        f"limits 6, 5, 4, 6), 2 models at d={DEEP_MODELS_D} (L="
+        f"{2 ** DEEP_MODELS_D}); max |err| {worst} "
+        f"({time.perf_counter() - t0:.3f} s)")
+    fr = grid_frame(dev)
+    acc = models_timing(torch, fr)
+    records = []
+    for k, a in acc.items():
+        rec = kernel_record(k, counts_grid[k], a, 6, path="grid",
+                            levels="d=0..5 x 16 models",
+                            has_library=k == "tree_hist_models")
+        records.append(rec)
+        say(f"phase29(a) {k}: {rec['ms']:.6g} ms per launch (mean of the "
+            f"medians of d=0..5, 16 models x {N_GRID_ROWS} rows, calls "
+            f"{rec['ms_min']:.6g}..{rec['ms_max']:.6g}; host-paced "
+            f"{rec['host_paced_ms']:.6g} ms, host {rec['host_us']:.4g} us a "
+            f"call), plain {rec['plain_ms']:.6g} ms, bound "
+            f"{rec['bound_ms']:.6g} ms ({rec['bound_by']}), library "
+            f"{rec['library_ms']}; launches on grid {counts_grid[k]}")
+    return worst, records
+
+
+def phase_glm_bucket(torch, dev, higgs):
+    """Phase 29(b): a GLM bucket (binomial IRLSM, alpha x lambda) on the
+    HIGGS frame through the grid, batched, each lane against its
+    sequential fit. Returns its launches."""
+    import h2o3_tpu_torch as h2o
+    cols, domains, beta, fr = higgs
+    grid, secs, counts, peak = timed_fit(torch, lambda: h2o.GridSearch(
+        h2o.GLMEstimator, GLM_BUCKET, **GLM_BUCKET_FIXED).train(fr, y="y"))
+    check_launches(counts, {}, "glm bucket")
+    check(len(grid.models) == 4 and not grid.failures,
+          f"GLM bucket: {len(grid.models)} models, {grid.failures}")
+    t_seq, gaps = 0.0, []
+    for m in grid.models:
+        gp = m.output["grid_params"]
+        alone, t1, c1, _ = timed_fit(torch, lambda: h2o.GLMEstimator(
+            **GLM_BUCKET_FIXED, **gp).train(fr, y="y"))
+        check_launches(c1, {}, "glm sequential")
+        t_seq += t1
+        gap = coef_gap(m, alone, f"GLM bucket lane {gp}")
+        tol = GLM_ADMM_TOL if gp["alpha"] > 0 else GLM_TOL
+        check(gap <= tol, f"GLM bucket lane {gp}: coefficients {gap} from "
+                          f"its sequential fit, over {tol}")
+        gaps.append((gp["alpha"], gp["lambda_"], gap, tol))
+    say(f"phase29(b) GLM bucket binomial IRLSM alpha {GLM_BUCKET['alpha']} "
+        f"x lambda {GLM_BUCKET['lambda_']} on {N_HIGGS} x {P_HIGGS}: "
+        f"batched {secs:.3f} s ({4 / secs:.6g} models/s, peak "
+        f"{peak / 2**30:.3f} GiB), sequential {t_seq:.3f} s "
+        f"({4 / t_seq:.6g} models/s); each lane against its sequential fit "
+        "(max |coef gap|, tolerance): " + ", ".join(
+            f"a={a} l={lam}: {g:.3g} (<= {t})" for a, lam, g, t in gaps)
+        + "; no kernel launched")
+    return counts
+
+
+def phase_segments(torch, dev, cols, domains):
+    """Phase 29(c): ``train_segments`` of the flagship GBM on the first
+    N_SEGMENTS airlines rows by UniqueCarrier, parallelism 1 and 2 equal,
+    each segment's model bit-equal to a fit on its rows alone. Returns
+    the launches of the parallelism-1 run."""
+    import h2o3_tpu_torch as h2o
+    from h2o3_tpu_torch.frame.frame import raw_columns
+    y = "IsDepDelayed"
+    head = {k: v[:N_SEGMENTS] for k, v in cols.items()}
+    fr = h2o.Frame.from_numpy(head, domains=domains, device=dev)
+    seg1, s1, counts, peak = timed_fit(torch, lambda: h2o.train_segments(
+        h2o.GBMEstimator, FLAGSHIP, fr, SEGMENT_COLUMNS, y=y))
+    seg2, s2, _, _ = timed_fit(torch, lambda: h2o.train_segments(
+        h2o.GBMEstimator, FLAGSHIP, fr, SEGMENT_COLUMNS, y=y,
+        parallelism=2))
+    n_seg = len(seg1.results)
+    check(n_seg == len(domains["UniqueCarrier"])
+          and all(r["status"] == "SUCCEEDED" for r in seg1.results),
+          f"segments: {[(r['segment'], r['status']) for r in seg1.results]}")
+    per = FLAGSHIP["ntrees"] * FLAGSHIP["max_depth"] * n_seg
+    check_launches(counts, {k: per for k in LEVEL_KERNELS}, "segments")
+    check([r["segment"] for r in seg1.results]
+          == [r["segment"] for r in seg2.results]
+          == [{"UniqueCarrier": c} for c in sorted(domains["UniqueCarrier"])],
+          "segment order")
+    raw = raw_columns(fr, fr.names)
+    carrier = raw["UniqueCarrier"]
+    cats = [n for n in fr.names if fr.col(n).is_categorical
+            and n != "UniqueCarrier"]
+    for r1, r2 in zip(seg1.results, seg2.results):
+        m1, m2 = h2o.DKV.get(r1["model_key"]), h2o.DKV.get(r2["model_key"])
+        rows = carrier == r1["segment"]["UniqueCarrier"]
+        sub = h2o.Frame.from_numpy(
+            {n: v[rows] for n, v in raw.items() if n != "UniqueCarrier"},
+            categorical=cats, device=dev)
+        alone = h2o.GBMEstimator(**FLAGSHIP).train(sub, y=y)
+        check(forests_equal(m1.forest, m2.forest)
+              and forests_equal(m1.forest, alone.forest)
+              and m1.training_metrics["AUC"] == alone.training_metrics["AUC"],
+              f"segment {r1['segment']}: parallelism 1, 2 and the fit on "
+              "its rows alone differ")
+    tab = seg1.as_frame()
+    check(tab.nrows == n_seg and tab.names == ["UniqueCarrier", "model",
+                                               "status", "errors"],
+          f"as_frame {tab.names} x {tab.nrows}")
+    say(f"phase29(c) train_segments flagship GBM on {N_SEGMENTS} airlines "
+        f"rows by UniqueCarrier: {n_seg} segments in {s1:.3f} s "
+        f"(parallelism 2: {s2:.3f} s), peak {peak / 2**30:.3f} GiB; "
+        "parallelism 1 and 2 and each fit on its segment's rows alone "
+        "bit-equal (forest, AUC); as_frame "
+        f"{tab.nrows} x {len(tab.names)}; launches {per} a level kernel")
+    return counts
+
+
+def phase_model_batch(torch, dev, bm, cols, domains, higgs, counts_grid):
+    """Phase 29: (a) the model-axis kernels, (b) a GLM bucket, (c)
+    segment models. Returns (max |err| a kernel, records, paths)."""
+    t29 = time.perf_counter()
+    secs = {}
+    worst, records = phase_models_kernels(torch, dev, bm, counts_grid)
+    secs["a"] = time.perf_counter() - t29
+    t0 = time.perf_counter()
+    c_glm = phase_glm_bucket(torch, dev, higgs)
+    secs["b"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    c_seg = phase_segments(torch, dev, cols, domains)
+    secs["c"] = time.perf_counter() - t0
+    say("phase29: " + ", ".join(f"({k}) {v:.3f} s" for k, v in secs.items())
+        + f", together {time.perf_counter() - t29:.3f} s")
+    return worst, records, {"glm_bucket": c_glm, "segments": c_seg}
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -7212,7 +7607,7 @@ def main() -> int:
     from h2o3_tpu_torch.frame.binning import bin_frame
     import h2o3_tpu_torch as h2o
     cols, domains = airlines_arrays(N_MAIN)
-    small = {k: v[:N_KERNEL] for k, v in cols.items()}
+    small = {k: v[:N_KERNEL] for k, v in cols.items()}     # phases 2, 29
     fr_k = h2o.Frame.from_numpy(small, domains=domains, device=dev)
     x = [c for c in cols if c != "IsDepDelayed"]
     bm = bin_frame(fr_k, x, nbins=64, nbins_cats=1024)
@@ -7330,14 +7725,26 @@ def main() -> int:
     paths.update(phase_models26(torch, dev, cols, domains, ccols, cdomains,
                                 higgs))
     say(f"phase 26: {time.perf_counter() - t26:.3f} s")
-    del higgs, ccols
+    del ccols
     mark("phase 27")
     paths.update(phase_orchestration(torch, dev))
     mark("phase 28")
     paths.update(phase_data_surface(torch, dev, cols, domains))
+    mark("phase 29")
+    fr_k = h2o.Frame.from_numpy(small, domains=domains, device=dev)
+    bm = bin_frame(fr_k, x, nbins=64, nbins_cats=1024)
+    errs, model_records, model_paths = phase_model_batch(
+        torch, dev, bm, cols, domains, higgs, paths["grid"])
+    worst.update(errs)
+    paths.update(model_paths)
+    records += model_records
+    del higgs, fr_k, bm
     for rec in deep_records:
         rec["launches"] = paths["gbm_depth20"][rec["name"]]
     records += deep_records
+    for p, c in paths.items():
+        check(p == "grid" or not any(c.get(k, 0) for k in MODEL_KERNELS),
+              f"a model-axis kernel launched on the {p} path")
     for rec in records:
         rec["max_abs_err"] = worst[rec["name"]]
         rec["launches_by_path"] = {p: c[rec["name"]]

@@ -63,7 +63,10 @@ JAX. Its TPU kernels are hand-written CUDA kernels under
     h2o.permutation_varimp(m, fr, seed=0)
     grid = h2o.GridSearch(h2o.GBMEstimator, {"max_depth": [3, 6]},
                           ntrees=20).train(fr, y="label")
-    grid.sorted_models()
+    grid.sorted_models()                  # eligible buckets train batched
+    segs = h2o.train_segments(h2o.GBMEstimator, {"ntrees": 10}, fr,
+                              ["UniqueCarrier"], y="label")
+    segs.as_frame()                       # segment, model, status, errors
     se = h2o.StackedEnsembleEstimator(base_models=[m1, m2]).train(
         fr, y="label")                    # m1, m2 trained with nfolds
     aml = h2o.H2OAutoML(max_models=20, nfolds=3, seed=1,
@@ -89,6 +92,7 @@ from h2o3_tpu_torch.io.sql import import_sql_select, import_sql_table
 from h2o3_tpu_torch.ml.explain import partial_dependence, permutation_varimp
 from h2o3_tpu_torch.ml.ensemble import StackedEnsembleEstimator
 from h2o3_tpu_torch.ml.grid import GridSearch
+from h2o3_tpu_torch.ml.segments import train_segments
 from h2o3_tpu_torch.models.aggregator import AggregatorEstimator
 from h2o3_tpu_torch.models.coxph import CoxPHEstimator
 from h2o3_tpu_torch.models.deeplearning import DeepLearningEstimator
@@ -117,7 +121,7 @@ from h2o3_tpu_torch.ops.merge import device_merge
 __all__ = ["DKV", "Frame", "GridSearch", "H2OAutoML", "import_file",
            "export_file", "parse_raw", "parse_setup", "import_sql_select",
            "import_sql_table", "device_merge", "partial_dependence",
-           "permutation_varimp",
+           "permutation_varimp", "train_segments",
            "StackedEnsembleEstimator", "upload_custom_distribution",
            "upload_custom_metric", "AggregatorEstimator",
            "ANOVAGLMEstimator", "CoxPHEstimator", "DeepLearningEstimator", "DRFEstimator",

@@ -141,6 +141,9 @@ def run_step(aml, step, budget: Budget, training_frame, y, x) -> List:
             return [m]
         cls = get_builder(step.algo)
         if step.kind == "grid":
+            # the grid trains its eligible shape buckets batched
+            # (parallel/model_batch.py via GridSearch.train); with
+            # nfolds >= 2 every combo is ineligible and walks as before
             rem_s = budget.remaining_secs()
             gs = GridSearch(
                 cls, step.hyper,

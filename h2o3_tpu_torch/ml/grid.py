@@ -9,11 +9,18 @@ combo that fails is recorded in ``Grid.failures`` with its error.
 RandomDiscrete shuffles the combos with ``np.random.RandomState(seed)``
 as the reference does, so both walk the same order.
 
-Not ported: the model-batched pre-training of eligible shape buckets
-(``_train_batched``, ``parallel/model_batch.py``: ROADMAP A #9′; it
-only ever adds pre-trained models to the same sequential walk), the
-cluster scheduler's fan-out (``_train_scheduled``, A #12/#13), and
-``recovery_dir`` snapshots with ``resume_grid`` (A #13).
+Model batching (``_train_batched``, ``parallel/model_batch.py``): before
+the walk, the shape buckets of two combos or more among the first
+``max_models`` train together (GBM through the model-axis level
+kernels, GLM as batched IRLS), unless ``H2O3TPU_BATCH_MODELS=off``. The
+walk then takes those models in walk order where it would have trained
+them, so the budgets, asymptotic stopping and the leaderboard behave as
+in the sequential walk, and the models it never reaches are removed from
+the DKV. A bucket its trainer cannot batch (``BatchIneligible``: CV,
+checkpoints, runtime caps, ...) walks sequentially.
+
+Not ported: the cluster scheduler's fan-out (``_train_scheduled``, A
+#12/#13), and ``recovery_dir`` snapshots with ``resume_grid`` (A #13).
 """
 
 from __future__ import annotations
@@ -27,6 +34,7 @@ import numpy as np
 
 from h2o3_tpu_torch.core.job import Job
 from h2o3_tpu_torch.core.kv import DKV, make_key
+from h2o3_tpu_torch.parallel import model_batch
 
 log = logging.getLogger("h2o3_tpu_torch.grid")
 
@@ -181,6 +189,9 @@ class GridSearch:
         job = Job(f"grid {self.builder_cls.algo}", work=float(len(combos)),
                   device=training_frame.device)
         job.status = "RUNNING"
+        pre = self._train_batched(combos, training_frame, y, x,
+                                  validation_frame, job, budget_s=budget_s,
+                                  t0=t0, max_models=max_models)
         for i, combo in enumerate(combos):
             if budget_s and time.time() - t0 > budget_s:
                 log.info("grid budget exhausted after %d models",
@@ -190,9 +201,11 @@ class GridSearch:
                 break
             params = {**self.fixed, **combo}
             try:
-                m = self.builder_cls(**params).train(
-                    training_frame, y=y, x=x,
-                    validation_frame=validation_frame)
+                m = pre.pop(i, None)
+                if m is None:
+                    m = self.builder_cls(**params).train(
+                        training_frame, y=y, x=x,
+                        validation_frame=validation_frame)
                 m.output["grid_params"] = combo
                 models.append(m)
                 if stop_rounds > 0:
@@ -211,11 +224,52 @@ class GridSearch:
                 log.warning("grid combo %s failed: %s", combo, e)
                 failures.append({"params": combo, "error": str(e)})
             job.update(1.0, f"model {i + 1}/{len(combos)}")
+        # batched models the walk never reached (a budget or stopping
+        # fired first): the sequential walk would not have trained them
+        for m in pre.values():
+            DKV.remove(m.key)
         job.status = "DONE"
         sort_metric = (self.criteria.get("sort_metric")
                        or (default_sort_metric(models[0]) if models
                            else "mse"))
         return Grid(self.grid_id, models, failures, sort_metric)
+
+    def _train_batched(self, combos: List[dict], training_frame, y, x,
+                       validation_frame, job, *, budget_s: float,
+                       t0: float, max_models: int) -> Dict[int, object]:
+        """Train the eligible shape buckets ahead of the walk; returns
+        {combo index: Model}, each stored in the DKV. Only the first
+        ``max_models`` combos are planned (the walk can take no more
+        successes), a bucket of one combo is left to the walk, and no
+        bucket starts once the walk's budget is spent.
+
+        Only ``BatchIneligible`` sends a bucket back to the walk. The
+        reference also falls back on any other error; here that error
+        raises, since a model-axis kernel that fails to build or launch
+        must show rather than hide behind the sequential walk."""
+        pre: Dict[int, object] = {}
+        if not model_batch.enabled() or len(combos) < 2:
+            return pre
+        planned = combos[:max_models] if max_models else combos
+        algo = self.builder_cls.algo
+        for bucket in model_batch.plan_buckets(algo, planned):
+            if bucket.width < 2:
+                continue
+            if budget_s and time.time() - t0 > budget_s:
+                break
+            try:
+                models = model_batch.train_bucket(
+                    self.builder_cls, self.fixed,
+                    [planned[i] for i in bucket.indices], training_frame,
+                    y=y, x=x, validation_frame=validation_frame)
+            except model_batch.BatchIneligible as e:
+                log.debug("grid bucket not batchable (%s): sequential", e)
+                continue
+            for i, m in zip(bucket.indices, models):
+                m._store(make_key(f"model_{algo}"))
+                pre[i] = m
+            job.update(0.0, "batched buckets")
+        return pre
 
 
 def resume_grid(recovery_dir: str, training_frame, validation_frame=None):

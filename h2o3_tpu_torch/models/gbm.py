@@ -69,7 +69,8 @@ from h2o3_tpu_torch.models.model import (Deadline, EarlyStopper, Model,
 from h2o3_tpu_torch.models.tree import (Tree, TreeParams, _tree_at,
                                         bucket_depth, concat_forests,
                                         feature_frequencies_frame,
-                                        grow_tree, keep_layout,
+                                        grow_tree, grow_trees_batched,
+                                        keep_layout,
                                         leaf_assignment_frame,
                                         predict_forest, predict_tree,
                                         scalars_of, stack_trees)
@@ -508,6 +509,31 @@ class GBMEstimator(ModelBuilder):
             vy = torch.where(torch.isnan(v), 0.0, v)
         return vbm, vy, vw
 
+    def _train_weights(self, frame: Frame, y: str):
+        """(device weights, host weight mirror) of the rows that train:
+        the weights column, the CV fold mask and the response's NAs; a
+        constant numeric response raises first."""
+        p = self.params
+        w = frame.valid_weights()
+        if p.get("weights_column"):
+            wc = frame.col(p["weights_column"]).numeric_view()
+            w = w * torch.where(torch.isnan(wc), 0.0, wc)
+        w = self._cv_masked_weights(w, frame)
+        rc = frame.col(y)
+        if p.get("check_constant_response", True) and not rc.is_categorical:
+            yh = rc.host_view()
+            vals = yh[~np.isnan(yh)]
+            if vals.size and float(vals.min()) == float(vals.max()):
+                raise ValueError(
+                    "Response cannot be constant - check your response "
+                    "column, or set check_constant_response=False")
+        wh_host = self._host_weights(frame, y)
+        resp_na_host = np.isnan(rc.host_view())
+        if resp_na_host.any():
+            keep = frame.local_rows((~resp_na_host).astype(np.float32))
+            w = w * torch.from_numpy(keep).to(frame.device)
+        return w, wh_host
+
     def _donor(self, x, y, category: str, dist_name: str):
         """The checkpoint model this fit continues, checked, or None."""
         ck = self.params.get("checkpoint")
@@ -533,24 +559,8 @@ class GBMEstimator(ModelBuilder):
         light = bool(getattr(self, "_cv_light", False))
         ckpt = self._donor(x, y, category, dist_name)
 
-        w = frame.valid_weights()
-        if p.get("weights_column"):
-            wc = frame.col(p["weights_column"]).numeric_view()
-            w = w * torch.where(torch.isnan(wc), 0.0, wc)
-        w = self._cv_masked_weights(w, frame)
+        w, wh_host = self._train_weights(frame, y)
         rc = frame.col(y)
-        if p.get("check_constant_response", True) and not rc.is_categorical:
-            yh = rc.host_view()
-            vals = yh[~np.isnan(yh)]
-            if vals.size and float(vals.min()) == float(vals.max()):
-                raise ValueError(
-                    "Response cannot be constant - check your response "
-                    "column, or set check_constant_response=False")
-        wh_host = self._host_weights(frame, y)
-        resp_na_host = np.isnan(rc.host_view())
-        if resp_na_host.any():
-            keep = frame.local_rows((~resp_na_host).astype(np.float32))
-            w = w * torch.from_numpy(keep).to(dev)
         shared_bm = getattr(self, "_cv_shared_bm", None)
         if ckpt is not None:
             # the donor's edges keep its trees valid
@@ -724,11 +734,13 @@ class GBMEstimator(ModelBuilder):
 
     @staticmethod
     def _training_tail(model: GBMModel, bm, off, y_dev, w, dist, x,
-                       gains, mesh) -> None:
+                       gains, mesh, mfin=None) -> None:
         """Training metrics from the forest (margins recomputed tree by
-        tree: the loop's may include trees early stopping dropped), the
-        max-F1 threshold and the scaled relative importance."""
-        mfin = model._margins(bm, off)
+        tree: the loop's may include trees early stopping dropped; or
+        ``mfin``, the same values made another way), the max-F1
+        threshold and the scaled relative importance."""
+        if mfin is None:
+            mfin = model._margins(bm, off)
         pfin = model._link(mfin)
         category = model.output["category"]
         if model.multinomial:
@@ -751,3 +763,220 @@ class GBMEstimator(ModelBuilder):
         model.output["varimp"] = [
             (x[i], float(vi[i]), float(vi[i] / max(vi.max(), 1e-12)),
              float(vi[i] / tot)) for i in order]
+
+
+# ---- model-batched training (parallel/model_batch.py's GBM trainer) ----
+
+# bytes one model of a batch takes per (node, feature, bin) of its deepest
+# level (that level's histogram, the previous level's, the left-child
+# histogram and its int64 accumulator: 12 + 6 + 6 + 12 over its L nodes)
+# and per row (node ids, stats, weights, gradients, margin, temporaries)
+_LEVEL_CELL_BYTES = 36
+_ROW_BYTES = 64
+
+
+def models_per_pass(n_rows: int, n_feat: int, n_bins: int, depth: int,
+                    device) -> Optional[int]:
+    """How many models' trees one level loop grows at once on ``device``:
+    half the card's free memory (``torch.cuda.mem_get_info``) over one
+    model's peak at the layout depth, at least 1; None (all) on the CPU.
+    A depth-20 model alone takes ~24 GB at its last level (F = 10,
+    B = 126), so a deep bucket trains a few models a pass."""
+    if device.type != "cuda":
+        return None
+    L = 2 ** max(depth - 1, 0)
+    W = max(1, (n_bins - 1 + 31) // 32)
+    per = (_LEVEL_CELL_BYTES * L * n_feat * n_bins
+           + depth * L * (11 + 4 * W) + 8 * 2 ** depth + _ROW_BYTES * n_rows)
+    return max(1, int(torch.cuda.mem_get_info(device)[0] // 2 // per))
+
+
+def mean_deviances(devs, w) -> List[float]:
+    """``mean_deviance`` of each model's per-row deviances ``devs`` (one
+    [N] tensor a model, one device) with one host read for all: each
+    model's two sums are the ones ``mean_deviance`` takes."""
+    s = torch.stack([torch.stack([w * d, w]).to(torch.float64).sum(dim=1)
+                     for d in devs]).cpu().tolist()
+    return [tot / max(sw, 1e-12) for tot, sw in s]
+
+
+def fit_gbm_batched(builder_cls, params_list: List[dict], frame: Frame,
+                    y: Optional[str] = None,
+                    x: Optional[Sequence[str]] = None,
+                    validation_frame: Optional[Frame] = None
+                    ) -> List[GBMModel]:
+    """Train a shape bucket of GBM combos together (reference:
+    h2o3_tpu/models/gbm.py ``fit_gbm_batched``, one ``vmap`` of its
+    boosting scan): one preamble (weights, binning, the initial margin,
+    the offset), then per tree each live model's gradients and samples
+    and ONE level loop for all of them (``tree.grow_trees_batched``: the
+    model-axis kernels, a launch a level for the whole bucket).
+
+    Every model is its sequential ``GBMEstimator._fit``, bit for bit:
+    the same preamble, its own ``tree_generator(seed, t)`` draws, the
+    same tree arithmetic, and early stopping at the same tree. The
+    scoring events of all live models share one host read; a model that
+    stops leaves the batch (the others' bits do not depend on it). A
+    bucket whose deepest level would not fit in half the card's free
+    memory trains ``models_per_pass`` models a pass.
+
+    Raises ``parallel.model_batch.BatchIneligible`` where the batch
+    cannot express the fit (the reference's cases: a structural knob that
+    varies, CV, a checkpoint, a custom distribution, a runtime cap,
+    ``max_depth`` across depth buckets, multinomial, early stopping on a
+    validation frame; and a frame partitioned over a mesh), and where a
+    combo would fail on its own (``model_batch.combo_errors``: its
+    checks and host preamble). Models come back in ``params_list``
+    order, not stored in the DKV."""
+    from h2o3_tpu_torch.parallel.model_batch import (BATCHABLE_KNOBS,
+                                                     BatchIneligible,
+                                                     combo_errors)
+    with combo_errors():
+        builders = [builder_cls(**p) for p in params_list]
+        M = len(builders)
+        b0 = builders[0]
+        p0 = b0.params
+        batchable = BATCHABLE_KNOBS["gbm"]
+        for b in builders[1:]:
+            for k, v in b.params.items():
+                if k not in batchable and v != p0.get(k):
+                    raise BatchIneligible(f"structural param '{k}' varies")
+        for b in builders:
+            p = b.params
+            if int(p.get("nfolds") or 0) >= 2 or p.get("fold_column"):
+                raise BatchIneligible("cross-validation")
+            if p.get("checkpoint") is not None:
+                raise BatchIneligible("checkpoint restart")
+            if p.get("custom_distribution_func") or \
+                    str(p.get("distribution")).lower() == "custom":
+                raise BatchIneligible("custom distribution")
+            if float(p.get("max_runtime_secs") or 0.0) > 0:
+                raise BatchIneligible("per-model runtime cap")
+        depths = [int(b.params["max_depth"]) for b in builders]
+        if len({bucket_depth(d) for d in depths}) != 1:
+            raise BatchIneligible("max_depth spans depth buckets")
+        if frame.partitioned:
+            raise BatchIneligible("frame partitioned over a mesh")
+        x = b0.resolve_x(frame, x, y)
+        category = infer_category(frame, y)
+        if category == ModelCategory.MULTINOMIAL:
+            raise BatchIneligible("multinomial (per-class tree loop)")
+        dist_name = b0._resolve_distribution(category)
+        stopper_on = int(p0["stopping_rounds"]) > 0
+        if stopper_on and validation_frame is not None:
+            raise BatchIneligible("validation-frame early stopping")
+
+        # ---- the shared preamble (GBMEstimator._fit's, once) -------------
+        dev = frame.device
+        mesh = frame.mesh
+        w, wh_host = b0._train_weights(frame, y)
+        rc = frame.col(y)
+        bm = bin_frame(frame, x, nbins=p0["nbins"],
+                       nbins_cats=p0["nbins_cats"], weights=wh_host)
+        w, w_scale = b0._normalize_uniform_weights(w, wh_host)
+        if w_scale != 1.0:
+            wh_host = wh_host / np.float32(w_scale)
+        dist = get_distribution(
+            "bernoulli" if category == ModelCategory.BINOMIAL else dist_name,
+            **p0)
+        yv = np.nan_to_num(rc.to_numpy()).astype(np.float32)
+        mean_y = (float(np.sum(yv * wh_host))
+                  / max(float(np.sum(wh_host)), 1e-12))
+        y_dev = torch.from_numpy(frame.local_rows(yv)).to(dev)
+        off = frame_offset(frame, p0.get("offset_column"))
+        if off is None:
+            f0 = np.float32(dist.init_margin(mean_y))
+            margin0 = torch.full((bm.bins.shape[0],), float(f0),
+                                 dtype=torch.float32, device=dev)
+        else:
+            f0 = offset_init(dist, y_dev, w, off, mean_y, mesh)
+            margin0 = off + float(f0)
+        output = {"category": category, "response": y, "names": list(x),
+                  "nclasses": rc.cardinality if rc.is_categorical else 1,
+                  "domain": rc.domain, "init_f": float(f0)}
+        constraints = build_constraints(p0, x, frame, category, dev)
+        interaction_sets = build_interaction_sets(p0, x, dev)
+
+    # ---- per-model knobs ---------------------------------------------
+    D = bucket_depth(depths[0])
+    tp = TreeParams(max_depth=D, nbins_total=bm.nbins_total,
+                    cat_feats=tuple(bool(v) for v in bm.is_cat))
+    f32 = dict(dtype=torch.float32, device=dev)
+    knobs = torch.tensor([[float(b.params["min_rows"]) / w_scale,
+                           float(b.params["reg_lambda"]) / w_scale,
+                           float(b.params["min_split_improvement"])
+                           / w_scale] for b in builders], **f32)
+    depth_limit = torch.tensor(depths, dtype=torch.int32, device=dev)
+    learn_rate = torch.tensor([float(b.params["learn_rate"])
+                               for b in builders], **f32)
+    seeds = [int(b.params["seed"]) if int(b.params["seed"]) >= 0
+             else 0xDEC0DE for b in builders]
+    ntrees = int(p0["ntrees"])
+    interval = int(p0["score_tree_interval"]) or 5
+    stoppers = [EarlyStopper(int(p0["stopping_rounds"]),
+                             float(p0["stopping_tolerance"]))
+                for _ in range(M)]
+    histories: List[List[dict]] = [[] for _ in range(M)]
+    margins = [margin0] * M
+    # each model's forest on its training rows, summed tree by tree from
+    # zero as predict_forest sums it: the leaf values its rows fell in
+    # while growing are the ones predict_tree routes them to
+    scores = [torch.zeros_like(margin0) for _ in range(M)]
+    trees: List[List[Tree]] = [[] for _ in range(M)]
+    gains = [torch.zeros(len(x), **f32) for _ in range(M)]
+    N, F = bm.bins.shape
+    per_pass = models_per_pass(N, F, bm.nbins_total, D, dev) or M
+    alive = list(range(M))
+    for t in range(ntrees):
+        for lo in range(0, len(alive), per_pass):
+            part = alive[lo:lo + per_pass]
+            ws, gs, hs, cms = [], [], [], []
+            for m in part:
+                gen = tree_generator(seeds[m], t, dev)
+                gs.append(dist.grad(y_dev, margins[m]))
+                hs.append(dist.hess(y_dev, margins[m]))
+                ws.append(_sample_rows(w, gen, float(
+                    builders[m].params["sample_rate"])))
+                cms.append(_sample_columns(gen, F, float(
+                    builders[m].params["col_sample_rate_per_tree"]), dev))
+            idx = torch.tensor(part, device=dev)
+            tb, nid, gb = grow_trees_batched(
+                bm.bins, bm.nbins, torch.stack(ws), torch.stack(gs),
+                torch.stack(hs), torch.stack(cms), params=tp,
+                knobs=knobs.index_select(0, idx),
+                depth_limit=depth_limit.index_select(0, idx),
+                constraints=constraints, interaction_sets=interaction_sets)
+            leaf = learn_rate.index_select(0, idx)[:, None] * tb.leaf
+            for j, m in enumerate(part):
+                tree = _tree_at(tb, j)._replace(leaf=leaf[j])
+                v = leaf[j][nid[j].long()]
+                margins[m] = margins[m] + v
+                scores[m] = scores[m] + v
+                trees[m].append(keep_layout(tree))
+                gains[m] = gains[m] + gb[j]
+        if stopper_on and (t + 1) % interval == 0:
+            devs = mean_deviances([dist.deviance(y_dev, margins[m])
+                                   for m in alive], w)
+            for m, dv in zip(list(alive), devs):
+                histories[m].append({"ntrees": t + 1, "deviance": dv})
+                if stoppers[m].should_stop(dv):
+                    alive.remove(m)
+        job_update(1.0 / ntrees, f"tree {t + 1}/{ntrees} of {M} models")
+        if not alive:
+            break
+
+    models = []
+    for m, b in enumerate(builders):
+        model = GBMModel(b.params, dict(output), stack_trees(trees[m]), bm,
+                         f0, dist_name)
+        model.output["scoring_history"] = histories[m]
+        mfin = float(f0) + scores[m]       # GBMModel._margins' arithmetic
+        GBMEstimator._training_tail(model, bm, off, y_dev, w, dist, x,
+                                    gains[m], mesh,
+                                    mfin if off is None else mfin + off)
+        maybe_calibrate(model, b.params, category)
+        if validation_frame is not None:
+            model.validation_metrics = model.model_performance(
+                validation_frame)
+        models.append(model)
+    return models

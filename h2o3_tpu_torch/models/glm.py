@@ -24,10 +24,15 @@ Coefficients agree with the reference's within float32 summation order
 Scoring (``GLMModel``) computes the reference's ``_score_raw`` /
 ``_serve_dev`` math directly (the serving engine is ROADMAP A #10).
 Validation metrics are the base ``train``'s (the reference's
-``_finish``). ``beta_constraints`` may be a Frame's DKV key. Not ported:
-``fit_glm_batched`` (the vmapped grid bucket) waits for
-``parallel/model_batch.py`` (ROADMAP A #9′); GLM on a partitioned frame
-for A #12; the in-fit checkpointer and the telemetry spans for A #13.
+``_finish``). ``beta_constraints`` may be a Frame's DKV key.
+
+``fit_glm_batched`` (``parallel/model_batch.py``'s GLM trainer) solves a
+grid bucket's (alpha, lambda) product together: one design, then one
+batched IRLS solve per ``use_l1`` partition ([M, P, P] Grams, batched
+Cholesky or ADMM solves, the line search of every lane in one pass),
+each lane an independent fit from the zero start that freezes once its
+own loop condition fails. Not ported: GLM on a partitioned frame (A
+#12); the in-fit checkpointer and the telemetry spans (A #13).
 """
 
 from __future__ import annotations
@@ -48,8 +53,9 @@ from h2o3_tpu_torch.models import metrics as mm
 from h2o3_tpu_torch.models.model import (Model, ModelBuilder, ModelCategory,
                                          adapt_domain, infer_category,
                                          masked_weights, require_local)
-from h2o3_tpu_torch.ops.gram import exact_f32, gram
-from h2o3_tpu_torch.ops.optimize import (admm_l1_quadratic,
+from h2o3_tpu_torch.ops.gram import BLOCK_ROWS, exact_f32, gram
+from h2o3_tpu_torch.ops.optimize import (admm_l1_quadratic, cho_factor,
+                                         cho_solve,
                                          cholesky_solve_regularized,
                                          coordinate_descent_quadratic, lbfgs)
 from h2o3_tpu_torch.parallel.device import fetch
@@ -204,14 +210,15 @@ def _irls_iter(X1, coef, y, w, off, l1, l2, fam: Family, *, use_l1: bool):
 
 
 def first_argmin(objs):
-    """``jnp.argmin``'s pick on a float vector: the first NaN if there
-    is one, else the first of the tied minima (inf included)."""
-    n = objs.shape[0]
+    """``jnp.argmin``'s pick along the last axis of ``objs``: the first
+    NaN if there is one, else the first of the tied minima (inf
+    included)."""
+    n = objs.shape[-1]
     ar = torch.arange(n, device=objs.device)
     isn = torch.isnan(objs)
-    k_nan = torch.where(isn, ar, n).min()
-    mn = torch.where(isn, torch.inf, objs).min()
-    k_min = torch.where(objs == mn, ar, n).min()
+    k_nan = torch.where(isn, ar, n).min(-1).values
+    mn = torch.where(isn, torch.inf, objs).min(-1, keepdim=True).values
+    k_min = torch.where(objs == mn, ar, n).min(-1).values
     return torch.where(k_nan < n, k_nan, k_min)
 
 
@@ -247,6 +254,78 @@ def _irls_solve(X1, coef, y, w, off, l1, l2, beta_eps, max_iter: int,
         delta = torch.max(torch.abs(new - coef))
         obj_prev, obj = obj, objs.index_select(0, k)[0]
         coef = new
+    return coef
+
+
+def _irls_solve_batched(X1, y, w, off, l1s, l2s, beta_eps, max_iter: int,
+                        fam: Family, obj_epss, *, use_l1: bool):
+    """M independent ``_irls_solve``s from the zero start at once (the
+    reference's ``_irls_solve_batched``, a ``vmap`` of its loop): lane m
+    has penalties ``l1s[m]``, ``l2s[m]`` and objective epsilon
+    ``obj_epss[m]`` (float32 [M] each). A step builds the M Grams in one
+    batched product over row blocks, solves them batched (Cholesky, or
+    ADMM under L1), and line-searches every lane in one [N, 9·M] pass; a
+    lane whose loop condition fails (or that ran ``max_iter`` steps)
+    keeps its state. One host sync a step. Returns [M, P+1]."""
+    dev = X1.device
+    N, P1 = X1.shape
+    M = l1s.shape[0]
+    steps = torch.cat([2.0 ** -torch.arange(8, dtype=torch.float32,
+                                            device=dev),
+                       torch.zeros(1, dtype=torch.float32, device=dev)])
+    pen = _penalize(P1, dev)
+    beta_eps = _f32(beta_eps, dev)
+    coef = torch.zeros((M, P1), dtype=torch.float32, device=dev)
+    delta, obj_prev, obj = (torch.full((M,), v, dtype=torch.float32,
+                                       device=dev)
+                            for v in (1e30, -1e30, 1e30))
+    it = torch.zeros((M,), dtype=torch.int32, device=dev)
+    nobs = torch.clamp_min(w.sum(), 1.0)
+    block = max(1, BLOCK_ROWS // M)
+    lanes = torch.arange(M, device=dev)
+    while True:
+        rel = torch.abs(obj_prev - obj) / torch.clamp_min(torch.abs(obj),
+                                                          1e-10)
+        live = (delta > beta_eps) & (rel > obj_epss) & (it < max_iter)
+        if not bool(live.any()):
+            break
+        job_update(0.0, "batched IRLS iteration")
+        eta = X1 @ coef.T + off[:, None]                        # [N, M]
+        mu = fam.linkinv(eta)
+        d = fam.dmu_deta(eta, mu)
+        z = eta - off[:, None] + (y[:, None] - mu) / torch.where(
+            torch.abs(d) < 1e-10, 1e-10, d)
+        w_irls = w[:, None] * d * d / torch.clamp_min(fam.variance(mu),
+                                                      1e-10)
+        A = torch.zeros((M, P1, P1), dtype=torch.float32, device=dev)
+        q = torch.zeros((M, P1), dtype=torch.float32, device=dev)
+        for lo in range(0, N, block):
+            Xb, wb = X1[lo:lo + block], w_irls[lo:lo + block]
+            A += (wb.T[:, :, None] * Xb[None]).transpose(1, 2) @ Xb
+            q += (Xb.T @ (wb * z[lo:lo + block])).T
+        A, q = A / nobs, q / nobs
+        if use_l1:
+            full = admm_l1_quadratic(
+                A + l2s[:, None, None] * torch.diag(pen), q, l1s, pen)
+        else:
+            reg = l2s[:, None] * pen + 1e-6
+            full = cho_solve(cho_factor(A + torch.diag_embed(reg)), q)
+        cands = coef[:, None, :] + steps[None, :, None] \
+            * (full - coef)[:, None, :]                         # [M, 9, P1]
+        mus = fam.linkinv(X1 @ cands.reshape(M * 9, P1).T + off[:, None])
+        devs = torch.sum(w[:, None] * fam.deviance(y[:, None], mus),
+                         dim=0).view(M, 9)
+        c = cands[:, :, :-1]
+        objs = devs + (l1s[:, None] * torch.sum(torch.abs(c), dim=2)
+                       + 0.5 * l2s[:, None] * torch.sum(c * c, dim=2))
+        k = first_argmin(objs)
+        new = cands[lanes, k]
+        d_new = torch.max(torch.abs(new - coef), dim=1).values
+        coef = torch.where(live[:, None], new, coef)
+        delta = torch.where(live, d_new, delta)
+        obj_prev = torch.where(live, obj, obj_prev)
+        obj = torch.where(live, objs[lanes, k], obj)
+        it = it + live.to(torch.int32)
     return coef
 
 
@@ -1006,11 +1085,142 @@ def _p_values_table(X1, y, w, coef, fam: Family, names, nobs: float,
             for nm, c, s, zz, pp in zip(names, ch, se, z, pv)]
 
 
-def fit_glm_batched(builder_cls, params_list, frame: Frame, y=None, x=None,
-                    validation_frame=None):
-    """The reference trains a grid bucket's (alpha, lambda) product as one
-    vmapped IRLS program; here it waits for ``parallel/model_batch.py``
-    (the grid walks its combos one after another meanwhile)."""
-    raise NotImplementedError(
-        "fit_glm_batched is not ported yet: it waits for "
-        "parallel/model_batch.py (ROADMAP A #9′)")
+def fit_glm_batched(builder_cls, params_list: List[dict], frame: Frame,
+                    y: Optional[str] = None,
+                    x: Optional[Sequence[str]] = None,
+                    validation_frame: Optional[Frame] = None) -> List[Model]:
+    """Train a grid bucket's (alpha, lambda) product together (reference:
+    h2o3_tpu/models/glm.py ``fit_glm_batched``): the design, weights and
+    response are made once, then one ``_irls_solve_batched`` per
+    ``use_l1`` partition (ADMM where l1 > 0, as the sequential IRLSM
+    picks it), TF32 held off. Each lane is its combo's sequential IRLSM
+    fit up to the float32 order of the batched products.
+
+    Raises ``parallel.model_batch.BatchIneligible`` for what the batched
+    solve cannot express (the reference's cases: a structural knob that
+    varies, CV, lambda_search, p-values, constrained solves,
+    interactions, a solver other than IRLSM, a runtime cap, several
+    lambdas in one combo, multinomial and ordinal; and a frame
+    partitioned over a mesh), and where a combo would fail on its own
+    (``model_batch.combo_errors``: its checks and host preamble). Models
+    come back in ``params_list`` order, not stored in the DKV."""
+    from h2o3_tpu_torch.parallel.model_batch import (BATCHABLE_KNOBS,
+                                                     BatchIneligible,
+                                                     combo_errors)
+    with combo_errors():
+        builders = [builder_cls(**p) for p in params_list]
+        M = len(builders)
+        b0 = builders[0]
+        p0 = b0.params
+        batchable = BATCHABLE_KNOBS["glm"]
+        for b in builders[1:]:
+            for k, v in b.params.items():
+                if k not in batchable and v != p0.get(k):
+                    raise BatchIneligible(f"structural param '{k}' varies")
+        lams, alphas = [], []
+        for b in builders:
+            p = b.params
+            if int(p.get("nfolds") or 0) >= 2 or p.get("fold_column"):
+                raise BatchIneligible("cross-validation")
+            if p.get("lambda_search"):
+                raise BatchIneligible("lambda_search (warm-started path)")
+            if p.get("compute_p_values"):
+                raise BatchIneligible("compute_p_values")
+            if p.get("beta_constraints") is not None or p.get("non_negative"):
+                raise BatchIneligible("constrained solve (projected COD)")
+            if p.get("interactions"):
+                raise BatchIneligible("interaction expansion")
+            if str(p.get("solver") or "auto").lower() not in ("auto", "irlsm"):
+                raise BatchIneligible(f"solver {p.get('solver')}")
+            if float(p.get("max_runtime_secs") or 0.0) > 0:
+                raise BatchIneligible("per-model runtime cap")
+            lam = p.get("lambda_")
+            if isinstance(lam, (list, tuple)):
+                if len(lam) > 1:
+                    raise BatchIneligible("multi-lambda combo")
+                lam = lam[0] if lam else 0.0
+            lams.append(float(lam or 0.0))
+            alphas.append(float(p["alpha"] if p["alpha"] is not None else 0.5))
+        if frame.partitioned:
+            raise BatchIneligible("frame partitioned over a mesh")
+        x = b0.resolve_x(frame, x, y)
+        category = infer_category(frame, y)
+        if category == ModelCategory.MULTINOMIAL:
+            raise BatchIneligible("multinomial")
+        fam_name = b0._resolve_family(category)
+        if fam_name in ("multinomial", "ordinal"):
+            raise BatchIneligible(f"family {fam_name}")
+        fam = Family(fam_name, float(p0["tweedie_power"]), p0["link"],
+                     theta=float(p0.get("theta") or 1e-5))
+
+        # ---- the shared preamble (GLMEstimator._fit_glm's, once) ---------
+        dev = frame.device
+        di = build_datainfo(frame, list(x),
+                            standardize=bool(p0["standardize"]),
+                            use_all_factor_levels=bool(
+                                p0["use_all_factor_levels"]))
+        X1 = di.X1
+        w = frame.valid_weights()
+        if p0.get("weights_column"):
+            wc = frame.col(p0["weights_column"]).numeric_view()
+            w = w * torch.where(torch.isnan(wc), 0.0, wc)
+        off_or0 = torch.zeros((X1.shape[0],), dtype=torch.float32, device=dev)
+        if p0.get("offset_column") and p0["offset_column"] in frame:
+            ov = frame.col(p0["offset_column"]).numeric_view()
+            off_or0 = torch.where(torch.isnan(ov), 0.0, ov)
+        rc = frame.col(y)
+        cmus, csds = coef_stats(di)
+        output = {"category": category, "response": y, "names": list(x),
+                  "coef_names": di.coef_names, "domain": rc.domain,
+                  "coef_means": cmus.tolist(), "coef_sds": csds.tolist(),
+                  "standardized": bool(p0["standardize"]),
+                  "nclasses": rc.cardinality if rc.is_categorical else 1}
+        if category == ModelCategory.BINOMIAL:
+            yraw = frame.local_rows(adapt_domain(rc, rc.domain), -1)
+            yv = np.maximum(yraw, 0).astype(np.float32)
+            wna = (yraw >= 0).astype(np.float32)
+        else:
+            yn = frame.local_rows(rc.host_view(), np.nan)
+            wna = (~np.isnan(yn)).astype(np.float32)
+            yv = np.nan_to_num(yn).astype(np.float32)
+        w = w * torch.from_numpy(wna).to(dev)
+        y_dev = torch.from_numpy(yv).to(dev)
+
+    # ---- one batched solve per use_l1 partition ----------------------
+    l1_all = np.array([lams[m] * alphas[m] for m in range(M)], np.float32)
+    l2_all = np.array([lams[m] * (1.0 - alphas[m]) for m in range(M)],
+                      np.float32)
+    oe_all = np.array([b._objective_eps() for b in builders], np.float32)
+    coefs = np.zeros((M, X1.shape[1]), np.float32)
+    with exact_f32():
+        for use_l1 in (False, True):
+            idx = np.where((l1_all > 0) == use_l1)[0]
+            if idx.size == 0:
+                continue
+            out = _irls_solve_batched(
+                X1, y_dev, w, off_or0,
+                torch.from_numpy(l1_all[idx]).to(dev),
+                torch.from_numpy(l2_all[idx]).to(dev),
+                float(p0["beta_epsilon"]), int(p0["max_iterations"]), fam,
+                torch.from_numpy(oe_all[idx]).to(dev), use_l1=use_l1)
+            coefs[idx] = fetch(out)
+
+        models: List[Model] = []
+        for m, b in enumerate(builders):
+            out_m = dict(output, lambda_best=lams[m])
+            model = GLMModel(b.params, out_m, coefs[m], fam, stats_of(di),
+                             list(x))
+            coef_t = torch.from_numpy(coefs[m]).to(dev)
+            mu = fam.linkinv(X1 @ coef_t + off_or0)
+            if category == ModelCategory.BINOMIAL:
+                model.training_metrics = mm.binomial_metrics(mu, y_dev, w)
+                model.output["default_threshold"] = \
+                    model.training_metrics["max_f1_threshold"]
+            else:
+                model.training_metrics = mm.regression_metrics(
+                    mu, y_dev, w, deviance_fn=fam.deviance)
+            if validation_frame is not None:
+                model.validation_metrics = model.model_performance(
+                    validation_frame)
+            models.append(model)
+    return models

@@ -23,8 +23,9 @@ from typing import NamedTuple, Optional
 import numpy as np
 import torch
 
-from h2o3_tpu_torch.ops.fixed_point import exponents
-from h2o3_tpu_torch.ops.kernels.treekernel import fused_level
+from h2o3_tpu_torch.ops.fixed_point import exponents, exponents_models
+from h2o3_tpu_torch.ops.kernels.treekernel import (fused_level,
+                                                   fused_level_models)
 from h2o3_tpu_torch.ops.segments import segment_sum
 
 
@@ -329,6 +330,121 @@ def grow_tree(bins, nb, w, g, h, col_mask, *, params: TreeParams,
     tree = Tree(feats, threshs, na_lefts, is_splits, leaf,
                 leaf_stats[:, 0], cat_splits, left_words)
     return tree, nid, gain_by_feat
+
+
+def grow_trees_batched(bins, nb, w, g, h, col_mask, *, params: TreeParams,
+                       knobs: torch.Tensor, depth_limit: torch.Tensor,
+                       constraints=None, interaction_sets=None,
+                       level_fn=fused_level_models):
+    """Grow one tree for each of M models in one level loop (the
+    reference's ``vmap`` of its tree step over a grid bucket); returns
+    (Trees stacked [M, ...], final leaf ids [M, N], gain_by_feat [M, F]).
+
+    ``bins`` [N, F] is shared; ``w``, ``g``, ``h`` [M, N] are each
+    model's sampled weights and gradients, ``col_mask`` [M, F] its
+    per-tree column mask, ``knobs`` float32 [M, 3] its (min_rows,
+    reg_lambda, min_split_improvement) and ``depth_limit`` int32 [M] its
+    own max_depth inside the layout depth ``params.max_depth`` (a depth
+    bucket): a model makes no split from its own depth on, so its rows
+    stop where its sequential tree's leaves are. ``constraints`` and
+    ``interaction_sets`` are shared, each model's bounds and allowances
+    its own. Model m's tree, ids and gains are ``grow_tree``'s for its
+    inputs, bit for bit: its stats block and fixed-point exponents are
+    made as ``grow_tree`` makes them, every level goes through the
+    model-axis kernels (``level_fn``: ``fused_level_models``, or
+    ``plain_level_models``), its per-level gain sum is taken on its own
+    [L, F] slice, and the leaf sums are one ``segment_sum`` over M·2^D
+    segments with each model's exponents. One device only (a model
+    batch never runs on a sharded mesh)."""
+    D = params.max_depth
+    B = params.nbins_total
+    N, F = bins.shape
+    M = w.shape[0]
+    dev = bins.device
+    Lmax = 2 ** (D - 1) if D > 0 else 1
+    nid = torch.zeros((M, N), dtype=torch.int32, device=dev)
+    feats = torch.zeros((M, D, Lmax), dtype=torch.int32, device=dev)
+    threshs = torch.full((M, D, Lmax), B, dtype=torch.int32, device=dev)
+    na_lefts = torch.zeros((M, D, Lmax), dtype=torch.bool, device=dev)
+    is_splits = torch.zeros((M, D, Lmax), dtype=torch.bool, device=dev)
+    feat_ids = torch.arange(F, dtype=torch.int32, device=dev)
+    is_cat = None
+    if params.has_cats:
+        is_cat = torch.zeros(F, dtype=torch.bool, device=dev)
+        for j, c in enumerate(params.cat_feats):
+            if c:
+                is_cat |= feat_ids == j
+    W = max(1, (B - 1 + 31) // 32) if params.has_cats else 1
+    cat_splits = torch.zeros((M, D, Lmax), dtype=torch.bool, device=dev)
+    left_words = torch.zeros((M, D, Lmax, W), dtype=torch.int32,
+                             device=dev)
+    gain_by_feat = torch.zeros((M, F), dtype=torch.float32, device=dev)
+    lo = torch.full((M, 1), -torch.inf, dtype=torch.float32, device=dev)
+    hi = torch.full((M, 1), torch.inf, dtype=torch.float32, device=dev)
+    allowed = torch.ones((M, 1, F), dtype=torch.bool, device=dev)
+    pair_allow = None
+
+    stats3 = torch.stack([w, w * g, w * h], dim=2).to(torch.float32)
+    exps = exponents_models(stats3) if stats3.is_cuda else None
+    prev_hist = None
+    for d in range(D):
+        L = 2 ** d
+        cm = col_mask
+        if interaction_sets is not None:
+            cm = cm[:, None, :] & allowed
+        (hist, bg, bf, bt, bnal, blv, brv, leftmask, split,
+         nid_next) = level_fn(
+            bins, nid, stats3, prev_hist, cm, nb, is_cat, constraints, lo,
+            hi, knobs, depth_limit, d=d, n_nodes=L, n_bins=B, exps=exps)
+        prev_hist = hist
+        feats[:, d, :L] = torch.where(split, bf, 0)
+        threshs[:, d, :L] = torch.where(split, bt, B)
+        na_lefts[:, d, :L] = split & bnal
+        is_splits[:, d, :L] = split
+        if is_cat is not None:
+            cs = is_cat[bf.long()] & split
+            cat_splits[:, d, :L] = cs
+            words = _pack_leftmask(leftmask.reshape(M * L, B - 1), W)
+            left_words[:, d, :L] = torch.where(cs[:, :, None],
+                                               words.view(M, L, W), 0)
+        gain = torch.where(split, torch.clamp_min(bg, 0.0), 0.0)
+        contrib = gain[:, :, None] * (bf[:, :, None] == feat_ids)
+        # each model's node sum on its own [L, F] slice: grow_tree's order
+        gain_by_feat = gain_by_feat + torch.stack(
+            [torch.sum(contrib[m], dim=0) for m in range(M)])
+
+        if interaction_sets is not None:
+            if pair_allow is None:
+                s = interaction_sets.to(torch.float32)
+                pair_allow = torch.einsum("sf,sg->fg", s, s) > 0
+            child_allow = pair_allow[bf.long()]                # [M, L, F]
+            child_allow = allowed & torch.where(split[:, :, None],
+                                                child_allow, True)
+            allowed = torch.repeat_interleave(child_allow, 2, dim=1)
+        if constraints is not None:
+            c_split = constraints[bf.long()].to(torch.float32) * split
+            mid = 0.5 * (blv + brv)
+            hi_l = torch.where(c_split > 0, torch.minimum(hi, mid), hi)
+            lo_l = torch.where(c_split < 0, torch.maximum(lo, mid), lo)
+            lo_r = torch.where(c_split > 0, torch.maximum(lo, mid), lo)
+            hi_r = torch.where(c_split < 0, torch.minimum(hi, mid), hi)
+            lo = torch.stack([lo_l, lo_r], dim=2).reshape(M, -1)
+            hi = torch.stack([hi_l, hi_r], dim=2).reshape(M, -1)
+        nid = nid_next
+
+    nleaf = 2 ** D
+    seg = (nid + nleaf * torch.arange(M, dtype=torch.int32,
+                                      device=dev)[:, None]).reshape(-1)
+    leaf_stats = segment_sum(seg, stats3.reshape(M * N, 3),
+                             n_nodes=M * nleaf, e=exps).view(M, nleaf, 3)
+    G, H = leaf_stats[..., 1], leaf_stats[..., 2]
+    leaf = torch.where(leaf_stats[..., 0] > 0,
+                       -G / (H + knobs[:, 1:2] + 1e-10), 0.0)
+    if constraints is not None:
+        leaf = torch.minimum(hi, torch.maximum(lo, leaf))
+    trees = Tree(feats, threshs, na_lefts, is_splits, leaf,
+                 leaf_stats[..., 0], cat_splits, left_words)
+    return trees, nid, gain_by_feat
 
 
 def _route(tree, bins, B: int):

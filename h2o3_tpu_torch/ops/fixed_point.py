@@ -77,6 +77,20 @@ def exponents(vals: torch.Tensor, *, mesh=None) -> torch.Tensor:
     return (FIXED_BITS - nbits - x).clamp(lo, hi).to(torch.int32)
 
 
+def exponents_models(vals: torch.Tensor) -> torch.Tensor:
+    """int32 [M, K] exponents of M models' value blocks ``vals``
+    [M, N, K] at once: row m is ``exponents(vals[m])`` (one device, no
+    mesh), the same integers, from one reduction."""
+    lo, hi = _E_RANGE[vals.dtype]
+    amax = torch.where(torch.isfinite(vals), vals.abs(), 0).amax(1) \
+        if vals.shape[1] else vals.new_zeros(vals.shape[0], vals.shape[2])
+    n = torch.full((1,), vals.shape[1], dtype=torch.float64,
+                   device=vals.device)
+    _, nbits = torch.frexp((n - 1).clamp_min(0))
+    _, x = torch.frexp(amax.to(torch.float64))
+    return (FIXED_BITS - nbits - x).clamp(lo, hi).to(torch.int32)
+
+
 def pow2(e: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
     """2^e, exactly, built from its exponent bits (e within the type's
     normal range)."""
@@ -113,7 +127,11 @@ def index_sum(idx: torch.Tensor, vals: torch.Tensor, n: int, *,
     whose two counts are both set is NaN (fewer than 2^31 rows keep the
     counts apart). The adds of a row go to one of ``SPREAD // n`` copies
     of the cells, by row number, and the copies are summed after: many
-    rows on few cells would otherwise queue on the same addresses."""
+    rows on few cells would otherwise queue on the same addresses.
+
+    ``e`` of shape [G, K] gives G groups their own exponents: the rows
+    are G equal blocks and the cells G equal blocks (M models' leaf sums
+    in one call), and group g's sums are those of its block alone."""
     flat = vals.dim() == 1
     v = vals.reshape(vals.shape[0], -1)
     K = v.shape[1]
@@ -123,6 +141,10 @@ def index_sum(idx: torch.Tensor, vals: torch.Tensor, n: int, *,
                          f"{world} ranks reach 2^31")
     if e is None:
         e = exponents(v, mesh=mesh)
+    e_cells = e
+    if e.dim() == 2:
+        e_cells = e.repeat_interleave(n // e.shape[0], 0)
+        e = e.repeat_interleave(v.shape[0] // e.shape[0], 0)
     copies = max(1, SPREAD // max(n, 1))
     row = idx.to(torch.int64)
     if copies > 1:
@@ -139,5 +161,5 @@ def index_sum(idx: torch.Tensor, vals: torch.Tensor, n: int, *,
     out = torch.where(pos > 0, torch.inf, -torch.inf).to(v.dtype)
     out = torch.where((pos > 0) & (neg > 0), torch.nan, out)
     out = torch.where((pos > 0) | (neg > 0), out,
-                      dequantize(acc[:, :K], e, v.dtype))
+                      dequantize(acc[:, :K], e_cells, v.dtype))
     return out.reshape(n) if flat else out

@@ -42,7 +42,9 @@ EXTRA = {"treekernel": ["-fmad=false"]}
 
 LAUNCHES: Dict[str, int] = {"tree_hist": 0, "tree_split": 0,
                             "tree_partition": 0, "histogram": 0,
-                            "shard_hist": 0, "shard_partition": 0}
+                            "shard_hist": 0, "shard_partition": 0,
+                            "tree_hist_models": 0, "tree_split_models": 0,
+                            "tree_partition_models": 0}
 
 _LIBS: Dict[str, ctypes.CDLL] = {}
 

@@ -9,6 +9,12 @@
 // Layouts (row-major, as the plain versions use them):
 //   bins [N, F] int8 or int32, nid [N] int32, stats [N, 3] float32
 //   histograms [nodes, F, B, 3] float32; NA is bin B-1.
+// The model axis (tree_hist_models): M models share one bins [N, F] and
+// each has its own nid, stats, exps and histogram, stacked model-major
+// (nid [M, N], stats [M, N, 3], exps [M, 3], histograms [M, nodes, F, B,
+// 3]); blockIdx.z (the slab) or blockIdx.y (the deep-level route) is the
+// model, and a block moves its pointers to its model's rows before
+// anything else. A one-model launch has one model and moves nothing.
 //
 // The sums are 64-bit fixed point (ops/fixed_point.py), so they do not
 // depend on the order of the adds and two runs give the same bits: stat k
@@ -269,6 +275,18 @@ __global__ void __launch_bounds__(kSlabMaxThreads)
                      int n_groups, int replicas) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
   u64* slab = reinterpret_cast<u64*>(smem_raw);
+  {  // this block's model
+    const long long m = blockIdx.z;
+    const long long cells =
+        static_cast<long long>(n_nodes) * n_feat * n_bins * 3;
+    nid += m * n_rows;
+    stats += m * n_rows * 3;
+    exps += m * 3;
+    acc += m * cells;
+    out += m * cells;
+    if (keys) keys += m * n_rows;
+    if (list) list += m * n_groups * n_rows;
+  }
   const int f0 = blockIdx.y * n_feat / n_groups;
   const int fg = (blockIdx.y + 1) * n_feat / n_groups - f0;
   const int per_feat = n_bins * 3;
@@ -402,33 +420,34 @@ __global__ void __launch_bounds__(kSlabMaxThreads)
 }
 
 // Each cell of the int64 accumulator `acc` into the float32 output
-// `out`, as (double) sum * 2^-e_k (k = the cell's stat), unless `out`
-// already holds the cell's non-finite sum.
+// `out`, as (double) sum * 2^-e_k (k = the cell's stat, e the exponents
+// of the cell's model: `per_model` cells a model), unless `out` already
+// holds the cell's non-finite sum.
 __global__ void slab_convert_kernel(const long long* __restrict__ acc,
                                     float* __restrict__ out,
                                     const int* __restrict__ exps,
-                                    long long cells) {
-  double inv[3];
-  for (int k = 0; k < 3; ++k)
-    inv[k] = __longlong_as_double(static_cast<long long>(1023 - exps[k])
-                                  << 52);
+                                    long long cells, long long per_model) {
   for (long long i = blockIdx.x * static_cast<long long>(blockDim.x) +
                      threadIdx.x;
        i < cells; i += static_cast<long long>(gridDim.x) * blockDim.x) {
-    if (out[i] == 0.f)
-      out[i] = __double2float_rn(__ll2double_rn(acc[i]) * inv[i % 3]);
+    if (out[i] != 0.f) continue;
+    const int e = exps[i / per_model * 3 + i % 3];
+    const double inv =
+        __longlong_as_double(static_cast<long long>(1023 - e) << 52);
+    out[i] = __double2float_rn(__ll2double_rn(acc[i]) * inv);
   }
 }
 
 static cudaError_t launch_slab_convert(const void* acc, void* out,
                                        const void* exps, long long cells,
-                                       void* stream) {
+                                       void* stream, int n_models = 1) {
   if (cells <= 0) return cudaSuccess;
-  const long long blocks = std::min((cells + 255) / 256, 8192ll);
+  const long long total = cells * n_models;
+  const long long blocks = std::min((total + 255) / 256, 8192ll);
   slab_convert_kernel<<<static_cast<unsigned>(blocks), 256, 0,
                         static_cast<cudaStream_t>(stream)>>>(
       static_cast<const long long*>(acc), static_cast<float*>(out),
-      static_cast<const int*>(exps), cells);
+      static_cast<const int*>(exps), total, cells);
   return cudaGetLastError();
 }
 
@@ -456,6 +475,16 @@ __global__ void global_hist_kernel(const BinT* __restrict__ bins,
                                    u64* __restrict__ acc, float* out,
                                    long long n_rows, int n_feat, int n_bins,
                                    int n_nodes, int left_only) {
+  {  // this block's model
+    const long long m = blockIdx.y;
+    const long long cells =
+        static_cast<long long>(n_nodes) * n_feat * n_bins * 3;
+    nid += m * n_rows;
+    stats += m * n_rows * 3;
+    exps += m * 3;
+    acc += m * cells;
+    out += m * cells;
+  }
   const float q[3] = {pow2f(__ldg(exps)), pow2f(__ldg(exps + 1)),
                       pow2f(__ldg(exps + 2))};
   const int per_feat = n_bins * 3;
@@ -491,26 +520,28 @@ __global__ void global_hist_kernel(const BinT* __restrict__ bins,
   }
 }
 
-// The deep-level route over a one-wave grid of 256-thread blocks, then,
-// with `convert`, the conversion of `acc` into `out` (both zeroed, as
-// for launch_slab_hist).
+// The deep-level route over a one-wave grid of 256-thread blocks (a
+// wave a model), then, with `convert`, the conversion of `acc` into `out`
+// (both zeroed, as for launch_slab_hist).
 static cudaError_t launch_global_hist(const void* bins, int bins_int8,
                                       const void* nid, const void* stats,
                                       const void* exps, void* acc, void* out,
                                       long long n_rows, int n_feat,
                                       int n_bins, int n_nodes, int left_only,
-                                      int blocks, int convert, void* stream) {
+                                      int blocks, int convert, void* stream,
+                                      int n_models = 1) {
   if (reinterpret_cast<uintptr_t>(acc) % 8) return cudaErrorMisalignedAddress;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const dim3 grid(blocks, n_models);
   if (n_rows > 0) {
     if (bins_int8)
-      global_hist_kernel<int8_t><<<blocks, 256, 0, s>>>(
+      global_hist_kernel<int8_t><<<grid, 256, 0, s>>>(
           static_cast<const int8_t*>(bins), static_cast<const int32_t*>(nid),
           static_cast<const float*>(stats), static_cast<const int*>(exps),
           static_cast<u64*>(acc), static_cast<float*>(out), n_rows, n_feat,
           n_bins, n_nodes, left_only);
     else
-      global_hist_kernel<int32_t><<<blocks, 256, 0, s>>>(
+      global_hist_kernel<int32_t><<<grid, 256, 0, s>>>(
           static_cast<const int32_t*>(bins), static_cast<const int32_t*>(nid),
           static_cast<const float*>(stats), static_cast<const int*>(exps),
           static_cast<u64*>(acc), static_cast<float*>(out), n_rows, n_feat,
@@ -520,7 +551,8 @@ static cudaError_t launch_global_hist(const void* bins, int bins_int8,
   if (err != cudaSuccess || !convert) return err;
   return launch_slab_convert(
       acc, out, exps,
-      static_cast<long long>(n_nodes) * n_feat * n_bins * 3, stream);
+      static_cast<long long>(n_nodes) * n_feat * n_bins * 3, stream,
+      n_models);
 }
 
 // Launch over a (row blocks, feature groups) grid of `threads`-thread
@@ -531,7 +563,9 @@ static cudaError_t launch_global_hist(const void* bins, int bins_int8,
 // zeroed int64 [n_nodes, F, B, 3] and `out` zeroed float32 of the same
 // shape; `exps` the three stats' exponents on the device; `keys` holds N
 // entries and `list` N a feature group (both null where the plan sorts
-// no rows); n_nodes < 65536. Returns the launches' cudaError_t.
+// no rows); n_nodes < 65536. With `n_models` > 1 the grid gets a model
+// axis (blockIdx.z) and every per-model buffer holds n_models stacked
+// copies (the header's model axis). Returns the launches' cudaError_t.
 static cudaError_t launch_slab_hist(const void* bins, int bins_int8,
                                     const void* nid, const void* stats,
                                     const void* exps, void* keys, void* list,
@@ -540,11 +574,11 @@ static cudaError_t launch_slab_hist(const void* bins, int bins_int8,
                                     int left_only, long long rows_per_block,
                                     int n_chunks, int n_groups, int replicas,
                                     int threads, long long smem, int convert,
-                                    void* stream) {
+                                    void* stream, int n_models = 1) {
   if (reinterpret_cast<uintptr_t>(acc) % 8) return cudaErrorMisalignedAddress;
   if (n_nodes > static_cast<int>(kSlabSkip)) return cudaErrorInvalidValue;
   const long long nrb = (n_rows + rows_per_block - 1) / rows_per_block;
-  dim3 grid(static_cast<unsigned>(nrb), n_groups);
+  dim3 grid(static_cast<unsigned>(nrb), n_groups, n_models);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const size_t bytes = static_cast<size_t>(smem);
   cudaError_t err;
@@ -577,5 +611,6 @@ static cudaError_t launch_slab_hist(const void* bins, int bins_int8,
   if (err != cudaSuccess || !convert) return err;
   return launch_slab_convert(
       acc, out, exps,
-      static_cast<long long>(n_nodes) * n_feat * n_bins * 3, stream);
+      static_cast<long long>(n_nodes) * n_feat * n_bins * 3, stream,
+      n_models);
 }

@@ -15,6 +15,17 @@
 //   bins [N, F] int8 or int32, nid [N] int32, stats [N, 3] float32 {w, w*g, w*h}
 //   histograms [nodes, F, B, 3] float32; NA is bin B-1.
 // Every launcher returns the cudaError_t of its launch (0 = launched).
+//
+// The model-axis routes (tree_hist_models, tree_split_models,
+// tree_partition_models) replace the same _fused_call under the
+// reference's vmap over a shape bucket of models (h2o3_tpu/models/gbm.py
+// _boost_scan_batched_jit): M models share the bins and each has its own
+// node ids, stats, exponents, knobs, column masks, depth limit,
+// histograms and decisions, stacked model-major ([M, ...]). Each launches
+// the single-model device code once for all M models, with the model on
+// a grid axis of its own: a block moves its pointers to its model's
+// slices first, and then does exactly what the one-model kernel does, so
+// each model's outputs are the bits its own launch would give.
 
 #include <cuda_runtime.h>
 #include <math.h>
@@ -73,6 +84,38 @@ extern "C" int tree_hist_global(const void* bins, int bins_int8,
   return launch_global_hist(bins, bins_int8, nid, stats, exps, acc, out,
                             n_rows, n_feat, n_bins, n_parents, left_only,
                             blocks, convert, stream);
+}
+
+// tree_hist_models: tree_hist of M models in one launch, the model on
+// blockIdx.z of the slab's grid (nid [M, N], stats [M, N, 3], exps [M, 3],
+// keys [M, N] and list [M, groups, N] where the plan sorts rows, acc and
+// out [M, Lh, F, B, 3]); the host plans the slab for one model's rows on
+// a 1/M share of the SMs, so the M models' blocks fill about one wave.
+// Bound: bytes, as tree_hist: the bins once (L2 keeps them for the other
+// models at a grid's sizes), each model's nid and stats once, each
+// model's cells once.
+extern "C" int tree_hist_models(
+    const void* bins, int bins_int8, const void* nid, const void* stats,
+    const void* exps, void* keys, void* list, void* acc, void* out,
+    long long n_rows, int n_feat, int n_bins, int n_parents, int left_only,
+    long long rows_per_block, int n_chunks, int n_groups, int replicas,
+    int threads, long long smem, int n_models, void* stream) {
+  return launch_slab_hist(bins, bins_int8, nid, stats, exps, keys, list, acc,
+                          out, n_rows, n_feat, n_bins, n_parents, left_only,
+                          rows_per_block, n_chunks, n_groups, replicas,
+                          threads, smem, /*convert=*/1, stream, n_models);
+}
+
+// The deep levels of M models: launch_global_hist with a wave of blocks
+// a model (blockIdx.y).
+extern "C" int tree_hist_global_models(
+    const void* bins, int bins_int8, const void* nid, const void* stats,
+    const void* exps, void* acc, void* out, long long n_rows, int n_feat,
+    int n_bins, int n_parents, int left_only, int blocks, int n_models,
+    void* stream) {
+  return launch_global_hist(bins, bins_int8, nid, stats, exps, acc, out,
+                            n_rows, n_feat, n_bins, n_parents, left_only,
+                            blocks, /*convert=*/1, stream, n_models);
 }
 
 // ----------------------------------------------------------- tree_split
@@ -358,6 +401,32 @@ __global__ void __launch_bounds__(kSplitThreads) tree_split_kernel(
   const int tid = threadIdx.x, T = blockDim.x;
   const int B = n_bins, Bm = n_bins - 1, R = T * per;
   const int W = (Bm + 31) / 32;
+  {  // this block's model (blockIdx.y; tree_split_models)
+    const long long m = blockIdx.y;
+    const long long L = gridDim.x / n_feat;
+    const long long cells = static_cast<long long>(n_feat) * B * 3;
+    const long long lh_cells = (d == 0 ? L : L / 2) * cells;
+    lh += m * lh_cells;
+    if (prev) prev += m * lh_cells;
+    col_mask += m * cm_rows * n_feat;
+    lo += m * bound_rows;
+    hi += m * bound_rows;
+    knobs += m * 3;
+    depth_limit += m;
+    hist += m * L * cells;
+    gain_out += m * L;
+    feat_out += m * L;
+    thresh_out += m * L;
+    nal_out += m * L;
+    lv_out += m * L;
+    rv_out += m * L;
+    split_out += m * L;
+    cs_out += m * L;
+    leftmask += m * L * Bm;
+    cands += m * L * n_feat;
+    bits += m * L * n_feat * W;
+    arrivals += m * L;
+  }
   float* ow = smem;
   float* og = ow + B;
   float* oh = og + B;
@@ -538,22 +607,21 @@ __global__ void __launch_bounds__(kSplitThreads) tree_split_kernel(
     lm[b] = win_cat ? (__ldcg(wb + (b >> 5)) >> (b & 31)) & 1u : b <= bt;
 }
 
-extern "C" int tree_split(const void* lh, const void* prev,
-                          const void* col_mask, const void* nb,
-                          const void* is_cat, const void* cons,
-                          const void* lo, const void* hi, const void* knobs,
-                          const void* depth_limit, void* hist, void* gain,
-                          void* feat, void* thresh, void* na_left, void* lv,
-                          void* rv, void* leftmask, void* split, void* cs,
-                          void* cands, void* bits, void* arrivals, int d,
-                          int n_nodes, int n_feat, int n_bins, int cm_rows,
-                          int bound_rows, int threads, int per, int n_sort,
-                          long long smem, void* stream) {
+static cudaError_t launch_split(
+    const void* lh, const void* prev, const void* col_mask, const void* nb,
+    const void* is_cat, const void* cons, const void* lo, const void* hi,
+    const void* knobs, const void* depth_limit, void* hist, void* gain,
+    void* feat, void* thresh, void* na_left, void* lv, void* rv,
+    void* leftmask, void* split, void* cs, void* cands, void* bits,
+    void* arrivals, int d, int n_nodes, int n_feat, int n_bins, int cm_rows,
+    int bound_rows, int threads, int per, int n_sort, long long smem,
+    int n_models, void* stream) {
   cudaError_t err =
       allow_smem(reinterpret_cast<const void*>(&tree_split_kernel), smem);
   if (err != cudaSuccess) return err;
-  tree_split_kernel<<<static_cast<unsigned>(n_nodes) * n_feat, threads,
-                      smem, static_cast<cudaStream_t>(stream)>>>(
+  const dim3 grid(static_cast<unsigned>(n_nodes) * n_feat, n_models);
+  tree_split_kernel<<<grid, threads, smem,
+                      static_cast<cudaStream_t>(stream)>>>(
       static_cast<const float*>(lh), static_cast<const float*>(prev),
       static_cast<const int8_t*>(col_mask), static_cast<const int32_t*>(nb),
       static_cast<const int8_t*>(is_cat), static_cast<const int8_t*>(cons),
@@ -568,6 +636,47 @@ extern "C" int tree_split(const void* lh, const void* prev,
       static_cast<uint32_t*>(bits), static_cast<int*>(arrivals), d, n_feat,
       n_bins, cm_rows, bound_rows, per, n_sort);
   return cudaGetLastError();
+}
+
+extern "C" int tree_split(const void* lh, const void* prev,
+                          const void* col_mask, const void* nb,
+                          const void* is_cat, const void* cons,
+                          const void* lo, const void* hi, const void* knobs,
+                          const void* depth_limit, void* hist, void* gain,
+                          void* feat, void* thresh, void* na_left, void* lv,
+                          void* rv, void* leftmask, void* split, void* cs,
+                          void* cands, void* bits, void* arrivals, int d,
+                          int n_nodes, int n_feat, int n_bins, int cm_rows,
+                          int bound_rows, int threads, int per, int n_sort,
+                          long long smem, void* stream) {
+  return launch_split(lh, prev, col_mask, nb, is_cat, cons, lo, hi, knobs,
+                      depth_limit, hist, gain, feat, thresh, na_left, lv, rv,
+                      leftmask, split, cs, cands, bits, arrivals, d, n_nodes,
+                      n_feat, n_bins, cm_rows, bound_rows, threads, per,
+                      n_sort, smem, 1, stream);
+}
+
+// tree_split_models: tree_split of M models in one launch, the model on
+// blockIdx.y: lh and prev [M, Lh, F, B, 3], col_mask [M, 1|L, F], lo/hi
+// [M, 1|L], knobs [M, 3], depth_limit [M] (a model's own max_depth
+// inside the bucket's layout), the outputs [M, L, ...] and the scratch M
+// times tree_split's; nb, is_cat and the constraints are shared.
+// Bound: as tree_split's, M times over; one launch where the sequential
+// walk pays M.
+extern "C" int tree_split_models(
+    const void* lh, const void* prev, const void* col_mask, const void* nb,
+    const void* is_cat, const void* cons, const void* lo, const void* hi,
+    const void* knobs, const void* depth_limit, void* hist, void* gain,
+    void* feat, void* thresh, void* na_left, void* lv, void* rv,
+    void* leftmask, void* split, void* cs, void* cands, void* bits,
+    void* arrivals, int d, int n_nodes, int n_feat, int n_bins, int cm_rows,
+    int bound_rows, int threads, int per, int n_sort, long long smem,
+    int n_models, void* stream) {
+  return launch_split(lh, prev, col_mask, nb, is_cat, cons, lo, hi, knobs,
+                      depth_limit, hist, gain, feat, thresh, na_left, lv, rv,
+                      leftmask, split, cs, cands, bits, arrivals, d, n_nodes,
+                      n_feat, n_bins, cm_rows, bound_rows, threads, per,
+                      n_sort, smem, n_models, stream);
 }
 
 // ------------------------------------------------------- tree_partition
@@ -609,6 +718,23 @@ __global__ void __launch_bounds__(kRouteThreads, kRouteBlocksPerSm)
   extern __shared__ int2 rec[];  // x: feat, y: thresh * 8 | flags
   uint32_t* s_bits = reinterpret_cast<uint32_t*>(rec + n_nodes);
   const int Bm = n_bins - 1, W = (Bm + 31) / 32;
+  if (gridDim.y > 1) {  // this block's model (tree_partition_models)
+    const long long m = blockIdx.y;
+    nid += m * n_rows;
+    out += m * n_rows;
+    feat += m * n_nodes;
+    thresh += m * n_nodes;
+    na_left += m * n_nodes;
+    split += m * n_nodes;
+    cs += m * n_nodes;
+    leftmask += m * n_nodes * Bm;
+    // the host planned the vector part from model 0's nid; another
+    // model's rows start 4*m*N bytes on (out keeps nid's alignment)
+    head = min(n_rows,
+               static_cast<long long>(
+                   (16 - (reinterpret_cast<uintptr_t>(nid) & 15)) & 15) / 4);
+    n_vec = (n_rows - head) / 4;
+  }
   auto pack = [&](int i) {
     return make_int2(__ldg(feat + i),
                      __ldg(thresh + i) * 8 + (na_left[i] ? 1 : 0) +
@@ -703,11 +829,12 @@ static cudaError_t launch_partition(
     const void* cs, const void* leftmask, long long n_rows, int n_feat,
     int n_bins, int n_nodes, long long head, long long n_vec, int vec_out,
     int n_blocks, size_t smem, int bits_in_smem, int recs_in_smem,
-    cudaStream_t s) {
+    int n_models, cudaStream_t s) {
   const cudaError_t err = allow_smem(
       reinterpret_cast<const void*>(&tree_partition_kernel<BinT>), smem);
   if (err != cudaSuccess) return err;
-  tree_partition_kernel<BinT><<<n_blocks, kRouteThreads, smem, s>>>(
+  const dim3 grid(n_blocks, n_models);
+  tree_partition_kernel<BinT><<<grid, kRouteThreads, smem, s>>>(
       static_cast<const BinT*>(bins), static_cast<const int32_t*>(nid),
       static_cast<int32_t*>(out), static_cast<const int32_t*>(feat),
       static_cast<const int32_t*>(thresh),
@@ -733,10 +860,37 @@ extern "C" int tree_partition(const void* bins, int bins_int8,
                                         split, cs, leftmask, n_rows, n_feat,
                                         n_bins, n_nodes, head, n_vec, vec_out,
                                         n_blocks, smem, bits_in_smem,
-                                        recs_in_smem, s)
+                                        recs_in_smem, 1, s)
              : launch_partition<int32_t>(bins, nid, out, feat, thresh,
                                          na_left, split, cs, leftmask, n_rows,
                                          n_feat, n_bins, n_nodes, head, n_vec,
                                          vec_out, n_blocks, smem, bits_in_smem,
-                                         recs_in_smem, s);
+                                         recs_in_smem, 1, s);
+}
+
+// tree_partition_models: tree_partition of M models in one launch, the
+// model on blockIdx.y: nid and out [M, N], the decision tables [M, L]
+// and the leftmask [M, L, B-1]; the bins are shared. The host plans one
+// model's launch (route_plan on model 0's nid); a block of another model
+// works out where that model's vector part starts.
+// Bound: bytes, as tree_partition's, M times over (the bins once).
+extern "C" int tree_partition_models(
+    const void* bins, int bins_int8, const void* nid, void* out,
+    const void* feat, const void* thresh, const void* na_left,
+    const void* split, const void* cs, const void* leftmask,
+    long long n_rows, int n_feat, int n_bins, int n_nodes, long long head,
+    long long n_vec, int vec_out, int n_blocks, long long smem,
+    int bits_in_smem, int recs_in_smem, int n_models, void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  return bins_int8
+             ? launch_partition<int8_t>(bins, nid, out, feat, thresh, na_left,
+                                        split, cs, leftmask, n_rows, n_feat,
+                                        n_bins, n_nodes, head, n_vec, vec_out,
+                                        n_blocks, smem, bits_in_smem,
+                                        recs_in_smem, n_models, s)
+             : launch_partition<int32_t>(bins, nid, out, feat, thresh,
+                                         na_left, split, cs, leftmask, n_rows,
+                                         n_feat, n_bins, n_nodes, head, n_vec,
+                                         vec_out, n_blocks, smem, bits_in_smem,
+                                         recs_in_smem, n_models, s);
 }

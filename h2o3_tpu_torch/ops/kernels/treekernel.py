@@ -34,6 +34,19 @@ rows) the level runs as the reference's two-kernel variant
 - ``tree_split``      on the summed histogram, identical on every rank;
 - ``shard_partition`` the rank's rows routed (``tree_partition``'s
                       device code, counted under its own name).
+
+The model axis (the reference's ``vmap`` of ``_fused_call`` over a grid
+bucket of models, ``h2o3_tpu/models/gbm.py`` ``_boost_scan_batched_jit``)
+is three more launches, each counted under its own name:
+``tree_hist_models``, ``tree_split_models`` and ``tree_partition_models``
+run one level of M models at once. The bins are shared; node ids,
+stats, exponents, knobs, column masks, depth limits, histograms and
+decisions carry a leading model axis. Each model's outputs are the bits
+its own ``tree_hist`` / ``tree_split`` / ``tree_partition`` give, and
+the plain versions (``hist_models_plain``, ``split_models_plain``,
+``partition_models_plain``) are the single-model plain versions in a
+loop over the models. ``fused_level_models`` composes the three
+wrappers and ``plain_level_models`` the three plain versions.
 """
 
 from __future__ import annotations
@@ -85,6 +98,15 @@ def _lib():
                                _I, _I, _VP],
             "tree_hist_global": [_VP, _I, _VP, _VP, _VP, _VP, _VP, _LL, _I,
                                  _I, _I, _I, _I, _I, _VP],
+            "tree_hist_models": [_VP, _I, _VP, _VP, _VP, _VP, _VP, _VP, _VP,
+                                 _LL, _I, _I, _I, _I, _LL, _I, _I, _I, _I,
+                                 _LL, _I, _VP],
+            "tree_hist_global_models": [_VP, _I, _VP, _VP, _VP, _VP, _VP,
+                                        _LL, _I, _I, _I, _I, _I, _I, _VP],
+            "tree_split_models": [_VP] * 23 + [_I] * 9 + [_LL, _I, _VP],
+            "tree_partition_models": [_VP, _I, _VP, _VP, _VP, _VP, _VP, _VP,
+                                      _VP, _VP, _LL, _I, _I, _I, _LL, _LL,
+                                      _I, _I, _LL, _I, _I, _I, _VP],
         })
     return _LIB
 
@@ -510,3 +532,238 @@ def plain_level(bins, nid, stats, prev_hist, col_mask, nb, is_cat,
                   stats, prev_hist, col_mask, nb, is_cat, constraints, lo,
                   hi, scalars, mesh, exps, d=d, n_nodes=n_nodes,
                   n_bins=n_bins)
+
+
+# ------------------------------------------------------------ model axis
+
+
+def hist_models_plain(bins, nid, stats, *, d: int, n_nodes_h: int,
+                      n_bins: int, exps=None):
+    """Plain version of ``tree_hist_models``: ``hist_plain`` of each
+    model's node ids ``nid[m]`` and stats ``stats[m]``, stacked
+    [M, Lh, F, B, 3] (``exps`` is the kernel's and unused here)."""
+    return torch.stack([hist_plain(bins, nid[m], stats[m], d=d,
+                                   n_nodes_h=n_nodes_h, n_bins=n_bins)
+                        for m in range(nid.shape[0])])
+
+
+def tree_hist_models(bins, nid, stats, *, d: int, n_nodes_h: int,
+                     n_bins: int, exps=None):
+    """[M, Lh, F, B, 3] level histograms of M models in one launch:
+    ``bins`` [N, F] shared, ``nid`` [M, N] int32, ``stats`` [M, N, 3]
+    and ``exps`` int32 [M, 3] (by default each model's ``exponents``).
+    Model m's histogram is ``tree_hist(bins, nid[m], stats[m],
+    exps=exps[m])``, bit for bit. The slab is planned for one model's
+    rows on a 1/M share of the SMs."""
+    if not on_cuda(bins, "tree_hist_models"):
+        return hist_models_plain(bins, nid, stats, d=d, n_nodes_h=n_nodes_h,
+                                 n_bins=n_bins)
+    dev = bins.device
+    N, F = bins.shape
+    M = nid.shape[0]
+    B, Lh = n_bins, n_nodes_h
+    is8 = bin_dtype(bins)
+    p_bins = need(bins, bins.dtype, (N, F), "bins", dev)
+    p_nid = need(nid, torch.int32, (M, N), "nid", dev)
+    p_stats = need(stats, torch.float32, (M, N, 3), "stats", dev)
+    if exps is None:
+        exps = torch.stack([exponents(stats[m]) for m in range(M)])
+    p_exps = need(exps, torch.int32, (M, 3), "exps", dev)
+    cells = Lh * F * B * 3
+    sms = max(1, sm_count(dev) // M)
+    plan = None if Lh > kernels.SLAB_MAX_NODES else slab_geometry(
+        N, F, Lh, B, sms=sms, budget=HIST_SLAB_BYTES)
+    if plan is None or (not plan.listed
+                        and plan.n_chunks > kernels.SLAB_LIST_CHUNKS):
+        # the deep levels: tree_hist's global-atomic route, a wave a model
+        acc = torch.zeros(M * cells, dtype=torch.int64, device=dev)
+        out = torch.zeros(M * cells, dtype=torch.float32, device=dev)
+        rc = _lib().tree_hist_global_models(
+            p_bins, is8, p_nid, p_stats, p_exps, acc.data_ptr(),
+            out.data_ptr(), N, F, B, Lh, int(d > 0),
+            max(1, min(-(-N // 256), 8 * sms)), M, stream(dev))
+    else:
+        acc, out = slab_buffers(M * cells, dev)
+        keys, rows = scratch(plan, M * N, dev)
+        rc = _lib().tree_hist_models(
+            p_bins, is8, p_nid, p_stats, p_exps, ptr(keys), ptr(rows),
+            acc.data_ptr(), out.data_ptr(), N, F, B, Lh, int(d > 0),
+            plan.rows_per_block, plan.n_chunks, plan.n_groups,
+            plan.replicas, plan.threads, plan.smem, M, stream(dev))
+    launched(_lib(), rc, "tree_hist_models")
+    return out.view(M, Lh, F, B, 3)
+
+
+def split_models_plain(lh, prev, col_mask, nb, is_cat, constraints, lo, hi,
+                       knobs, depth_limit, *, d: int, n_nodes: int,
+                       n_bins: int):
+    """Plain version of ``tree_split_models``: ``split_plain`` of each
+    model, its outputs stacked along a leading model axis."""
+    outs = [split_plain(lh[m], None if prev is None else prev[m],
+                        col_mask[m], nb, is_cat, constraints, lo[m], hi[m],
+                        knobs[m], depth_limit[m:m + 1], d=d,
+                        n_nodes=n_nodes, n_bins=n_bins)
+            for m in range(lh.shape[0])]
+    return tuple(torch.stack(o) for o in zip(*outs))
+
+
+def tree_split_models(lh, prev, col_mask, nb, is_cat, constraints, lo, hi,
+                      knobs, depth_limit, *, d: int, n_nodes: int,
+                      n_bins: int):
+    """``tree_split`` of M models in one launch: ``lh`` [M, Lh, F, B, 3],
+    ``prev`` [M, Lh, F, B, 3] (None at d=0), ``col_mask`` int8
+    [M, 1|L, F], ``lo``/``hi`` float32 [M, 1|L], ``knobs`` float32 [M, 3]
+    and ``depth_limit`` int32 [M] per model; ``nb``, ``is_cat`` and
+    ``constraints`` shared. Returns ``tree_split``'s ten outputs, each
+    with a leading model axis; model m's are its own launch's bits."""
+    if not on_cuda(lh, "tree_split_models"):
+        return split_models_plain(lh, prev, col_mask, nb, is_cat,
+                                  constraints, lo, hi, knobs, depth_limit,
+                                  d=d, n_nodes=n_nodes, n_bins=n_bins)
+    dev = lh.device
+    L, B = n_nodes, n_bins
+    M, Lh, F = lh.shape[0], lh.shape[1], lh.shape[2]
+    if d > 0 and prev is None:
+        raise ValueError("tree_split_models: d > 0 needs the previous "
+                         "histograms")
+    cm_rows, bound_rows = col_mask.shape[1], lo.shape[1]
+    if cm_rows not in (1, L) or bound_rows not in (1, L):
+        raise ValueError("tree_split_models: col_mask and lo/hi take 1 or "
+                         "L rows a model")
+    ptrs = [
+        need(lh, torch.float32, (M, Lh, F, B, 3), "lh", dev),
+        need(prev if d > 0 else None, torch.float32, (M, Lh, F, B, 3),
+             "prev", dev),
+        need(col_mask, torch.int8, (M, cm_rows, F), "col_mask", dev),
+        need(nb, torch.int32, (F,), "nb", dev),
+        need(is_cat, torch.int8, (F,), "is_cat", dev),
+        need(constraints, torch.int8, (F,), "constraints", dev),
+        need(lo, torch.float32, (M, bound_rows), "lo", dev),
+        need(hi, torch.float32, (M, bound_rows), "hi", dev),
+        need(knobs, torch.float32, (M, 3), "knobs", dev),
+        need(depth_limit, torch.int32, (M,), "depth_limit", dev),
+    ]
+    plan = split_plan(B)
+    f32 = dict(dtype=torch.float32, device=dev)
+    i32 = dict(dtype=torch.int32, device=dev)
+    b8 = dict(dtype=torch.bool, device=dev)
+    outs = (torch.empty((M, L, F, B, 3), **f32), torch.empty((M, L), **f32),
+            torch.empty((M, L), **i32), torch.empty((M, L), **i32),
+            torch.empty((M, L), **b8), torch.empty((M, L), **f32),
+            torch.empty((M, L), **f32), torch.empty((M, L, B - 1), **b8),
+            torch.empty((M, L), **b8), torch.empty((M, L), **b8))
+    strm = stream(dev)
+    scr = split_scratch(M * L, M * L * F, plan.words, dev, strm)
+    rc = _lib().tree_split_models(
+        *ptrs, *(o.data_ptr() for o in outs), scr[1].data_ptr(),
+        scr[2].data_ptr(), scr[0].data_ptr(), d, L, F, B, cm_rows,
+        bound_rows, plan.threads, plan.per, plan.n_sort, plan.smem, M, strm)
+    launched(_lib(), rc, "tree_split_models")
+    return outs
+
+
+def partition_models_plain(bins, nid, feat, thresh, na_left, split,
+                           cat_split, leftmask, *, n_bins: int):
+    """Plain version of ``tree_partition_models``: ``partition_plain``
+    of each model, stacked [M, N]."""
+    return torch.stack([partition_plain(bins, nid[m], feat[m], thresh[m],
+                                        na_left[m], split[m], cat_split[m],
+                                        leftmask[m], n_bins=n_bins)
+                        for m in range(nid.shape[0])])
+
+
+def tree_partition_models(bins, nid, feat, thresh, na_left, split,
+                          cat_split, leftmask, *, n_bins: int):
+    """Routed node ids [M, N] int32 of M models in one launch: ``nid``
+    [M, N], the decisions [M, L] and ``leftmask`` [M, L, B-1]; ``bins``
+    shared. Model m's row is ``tree_partition`` of its own, bit for
+    bit."""
+    if not on_cuda(bins, "tree_partition_models"):
+        return partition_models_plain(bins, nid, feat, thresh, na_left,
+                                      split, cat_split, leftmask,
+                                      n_bins=n_bins)
+    dev = bins.device
+    N, F = bins.shape
+    M, L = feat.shape
+    is8 = bin_dtype(bins)
+    p_bins = need(bins, bins.dtype, (N, F), "bins", dev)
+    p_nid = need(nid, torch.int32, (M, N), "nid", dev)
+    out = torch.empty((M, N), dtype=torch.int32, device=dev)
+    tables = [
+        need(feat, torch.int32, (M, L), "feat", dev),
+        need(thresh, torch.int32, (M, L), "thresh", dev),
+        need(na_left, torch.bool, (M, L), "na_left", dev),
+        need(split, torch.bool, (M, L), "split", dev),
+        need(cat_split, torch.bool, (M, L), "cat_split", dev),
+        need(leftmask, torch.bool, (M, L, n_bins - 1), "leftmask", dev),
+    ]
+    plan = route_plan(N, L, n_bins, p_nid, out.data_ptr(),
+                      sms=max(1, sm_count(dev) // M),
+                      global_records=8 * L > ROUTE_SMEM_BYTES)
+    rc = _lib().tree_partition_models(
+        p_bins, is8, p_nid, out.data_ptr(), *tables, N, F, n_bins, L,
+        plan.head, plan.n_vec, int(plan.vec_out), plan.blocks, plan.smem,
+        int(plan.bits_in_smem), int(plan.recs_in_smem), M, stream(dev))
+    launched(_lib(), rc, "tree_partition_models")
+    return out
+
+
+def models_operands(col_mask, nb, is_cat, constraints, lo, hi, knobs,
+                    depth_limit, device):
+    """The model axis's small operands in the kernels' types on
+    ``device``: ``col_mask`` [M, F] or [M, L, F] → int8 [M, 1|L, F];
+    ``lo``/``hi`` [M, 1|L] float32; ``knobs`` [M, 3] float32;
+    ``depth_limit`` [M] int32."""
+    cm = col_mask if col_mask.dim() == 3 else col_mask[:, None, :]
+    cm = cm.to(device=device, dtype=torch.int8).contiguous()
+    nb = nb.to(device=device, dtype=torch.int32).contiguous()
+    ic = None if is_cat is None else is_cat.to(device=device,
+                                               dtype=torch.int8)
+    cons = None if constraints is None else constraints.to(
+        device=device, dtype=torch.int8)
+    f32 = dict(device=device, dtype=torch.float32)
+    return (cm, nb, ic, cons, lo.to(**f32).contiguous(),
+            hi.to(**f32).contiguous(), knobs.to(**f32).contiguous(),
+            depth_limit.to(device=device, dtype=torch.int32).contiguous())
+
+
+def _level_models(hist_fn, split_fn, part_fn, bins, nid, stats, prev_hist,
+                  col_mask, nb, is_cat, constraints, lo, hi, knobs,
+                  depth_limit, exps, *, d, n_nodes, n_bins):
+    ops = models_operands(col_mask, nb, is_cat, constraints, lo, hi, knobs,
+                          depth_limit, bins.device)
+    lh = hist_fn(bins, nid, stats, d=d, n_nodes_h=max(n_nodes // 2, 1),
+                 n_bins=n_bins, exps=exps)
+    hist, bg, bf, bt, bnal, blv, brv, lmask, split, cs = split_fn(
+        lh, prev_hist, *ops, d=d, n_nodes=n_nodes, n_bins=n_bins)
+    new_nid = part_fn(bins, nid, bf, bt, bnal, split, cs, lmask,
+                      n_bins=n_bins)
+    return hist, bg, bf, bt, bnal, blv, brv, lmask, split, new_nid
+
+
+def fused_level_models(bins, nid, stats, prev_hist, col_mask, nb, is_cat,
+                       constraints, lo, hi, knobs, depth_limit, *, d: int,
+                       n_nodes: int, n_bins: int, exps=None):
+    """One tree level of M models (``fused_level`` with a leading model
+    axis on every per-model input and output): ``nid`` [M, N], ``stats``
+    [M, N, 3], ``prev_hist`` [M, Lh, F, B, 3], ``col_mask`` [M, F] or
+    [M, L, F], ``lo``/``hi`` [M, 1|L], ``knobs`` [M, 3] (min_rows,
+    reg_lambda, min_split_improvement), ``depth_limit`` [M], ``exps``
+    [M, 3]. CUDA inputs run the three model-axis kernels, CPU inputs
+    their plain versions."""
+    return _level_models(tree_hist_models, tree_split_models,
+                         tree_partition_models, bins, nid, stats, prev_hist,
+                         col_mask, nb, is_cat, constraints, lo, hi, knobs,
+                         depth_limit, exps, d=d, n_nodes=n_nodes,
+                         n_bins=n_bins)
+
+
+def plain_level_models(bins, nid, stats, prev_hist, col_mask, nb, is_cat,
+                       constraints, lo, hi, knobs, depth_limit, *, d: int,
+                       n_nodes: int, n_bins: int, exps=None):
+    """``fused_level_models`` through the plain versions on any device."""
+    return _level_models(hist_models_plain, split_models_plain,
+                         partition_models_plain, bins, nid, stats,
+                         prev_hist, col_mask, nb, is_cat, constraints, lo,
+                         hi, knobs, depth_limit, exps, d=d,
+                         n_nodes=n_nodes, n_bins=n_bins)

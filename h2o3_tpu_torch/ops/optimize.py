@@ -34,28 +34,33 @@ def soft_threshold(x, k):
 
 
 def cho_factor(A):
-    """Lower Cholesky factor of A; NaN where A is not positive definite."""
+    """Lower Cholesky factor of A ([P, P], or [M, P, P] factored each);
+    NaN where a matrix is not positive definite."""
     L, info = torch.linalg.cholesky_ex(A)
-    return torch.where(info == 0, L, torch.nan)
+    return torch.where((info == 0)[..., None, None], L, torch.nan)
 
 
 def cho_solve(L, b):
-    return torch.cholesky_solve(b[:, None], L)[:, 0]
+    """L⁻ᵀL⁻¹b for b [P] (or [M, P] against [M, P, P] factors)."""
+    return torch.cholesky_solve(b[..., None], L)[..., 0]
 
 
 def admm_l1_quadratic(A, q, l1, penalize_mask, rho: float = 1.0,
                       iters: int = 200, tol: float = 1e-6):
     """min_b ½ b'Ab - q'b + l1·|b∘mask|₁ via ADMM (ADMM.java L1Solver):
     one Cholesky of (A + ρI), then up to ``iters`` steps while the
-    largest change of the sparse iterate exceeds ``tol``. Returns it."""
-    P = A.shape[0]
+    largest change of the sparse iterate exceeds ``tol``. Returns it.
+    With ``A`` [M, P, P], ``q`` [M, P] and ``l1`` [M] it solves M
+    problems at once (a batched GLM bucket), each lane freezing once its
+    own condition fails."""
+    P = A.shape[-1]
     dev = A.device
     L = cho_factor(A + rho * torch.eye(P, dtype=A.dtype, device=dev))
-    kappa = l1 / rho * penalize_mask
-    z = torch.zeros((P,), dtype=A.dtype, device=dev)
+    kappa = torch.as_tensor(l1, device=dev)[..., None] / rho * penalize_mask
+    z = torch.zeros(q.shape, dtype=A.dtype, device=dev)
     u = torch.zeros_like(z)
-    it = torch.zeros((), dtype=torch.int32, device=dev)
-    delta = torch.ones((), dtype=torch.float32, device=dev)
+    it = torch.zeros(q.shape[:-1], dtype=torch.int32, device=dev)
+    delta = torch.ones(q.shape[:-1], dtype=torch.float32, device=dev)
     tol_t = torch.tensor(tol, dtype=torch.float32, device=dev)
     for _ in range(0, iters, ADMM_CHUNK):
         for _ in range(ADMM_CHUNK):
@@ -63,12 +68,12 @@ def admm_l1_quadratic(A, q, l1, penalize_mask, rho: float = 1.0,
             b_new = cho_solve(L, q + rho * (z - u))
             z_new = soft_threshold(b_new + u, kappa)
             u_new = u + b_new - z_new
-            d_new = torch.max(torch.abs(z_new - z))
-            z = torch.where(live, z_new, z)
-            u = torch.where(live, u_new, u)
+            d_new = torch.abs(z_new - z).amax(-1)
+            z = torch.where(live[..., None], z_new, z)
+            u = torch.where(live[..., None], u_new, u)
             delta = torch.where(live, d_new, delta)
             it = it + live.to(torch.int32)
-        if not bool((it < iters) & (delta > tol_t)):
+        if not bool(((it < iters) & (delta > tol_t)).any()):
             break
     return z
 

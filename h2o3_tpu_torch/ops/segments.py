@@ -24,7 +24,8 @@ def segment_sum(nid: torch.Tensor, vals: torch.Tensor, *,
     """Per-node sums: vals [N, K] → [n_nodes, K] float32; nid in
     [0, n_nodes). On a sharded ``mesh`` the sums cover every rank's rows.
     On the card ``e`` gives the fixed-point exponents (by default those
-    of ``vals`` over every rank's rows)."""
+    of ``vals`` over every rank's rows); an [M, K] ``e`` gives M equal
+    blocks of rows and of nodes their own (``fixed_point.index_sum``)."""
     vals = vals.to(torch.float32)
     if vals.device.type == "cuda":
         return index_sum(nid, vals, n_nodes, e=e, mesh=mesh)

@@ -17,6 +17,7 @@ import h2o3_tpu_torch
 from h2o3_tpu.models import aggregator as ref_agg
 
 from test_torch_isofor import _one_device
+from torch_threads import one_torch_thread  # noqa: F401 - autouse
 
 
 def agg_cols(n=3001, seed=5):

@@ -10,6 +10,7 @@ import h2o3_tpu_torch
 from h2o3_tpu.frame.binning import bin_frame as ref_bin_frame
 from h2o3_tpu.frame.binning import rebin_for_scoring as ref_rebin
 from h2o3_tpu_torch.frame.binning import bin_frame, rebin_for_scoring
+from torch_threads import one_torch_thread  # noqa: F401 - autouse
 
 
 def _frames(cols, categorical=(), domains=None):

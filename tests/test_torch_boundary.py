@@ -76,6 +76,8 @@ SLICE_MODULES = (
     "h2o3_tpu_torch/core/udf.py",
     "h2o3_tpu_torch/ml/leaderboard.py",
     "h2o3_tpu_torch/ml/grid.py",
+    "h2o3_tpu_torch/parallel/model_batch.py",
+    "h2o3_tpu_torch/ml/segments.py",
     "h2o3_tpu_torch/ml/ensemble.py",
     "h2o3_tpu_torch/automl/__init__.py",
     "h2o3_tpu_torch/automl/steps.py",

@@ -26,6 +26,7 @@ from h2o3_tpu_torch.models.convert import drf_model_from_arrays
 
 from test_torch_drf import _ref_arrays as _drf_arrays
 from torch_ranks import mixed_cols
+from torch_threads import one_torch_thread  # noqa: F401 - autouse
 
 METHODS = ("PlattScaling", "IsotonicRegression")
 

@@ -34,6 +34,7 @@ from h2o3_tpu_torch.models.tree import Tree
 from test_torch_drf import _ref_arrays as _drf_arrays
 from test_torch_gbm import INT_FIELDS, _assert_forests, _ref_arrays
 from torch_ranks import mixed_cols, multi_cols
+from torch_threads import one_torch_thread  # noqa: F401 - autouse
 
 GBM_KW = dict(max_depth=4, seed=11, sample_rate=1.0)
 

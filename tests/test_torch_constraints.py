@@ -21,6 +21,7 @@ from h2o3_tpu.models.gbm import GBMEstimator as RefGBM
 
 from test_torch_gbm import _assert_forests
 from torch_ranks import mixed_cols, multi_cols
+from torch_threads import one_torch_thread  # noqa: F401 - autouse
 
 KW = dict(ntrees=6, max_depth=4, seed=3, sample_rate=1.0)
 

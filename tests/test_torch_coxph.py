@@ -37,6 +37,7 @@ from h2o3_tpu_torch.models import coxph as port_cox
 from h2o3_tpu_torch.models.convert import coxph_model_from_arrays
 
 from test_torch_isofor import _one_device
+from torch_threads import one_torch_thread  # noqa: F401 - autouse
 
 COEF_TOL = 2e-3
 SE_REL = 1e-3

@@ -35,6 +35,9 @@ pytestmark = pytest.mark.gpu
 N = 20_000
 # shared memory of the warps' row queues beside the slab (slab_geometry)
 QUEUE = kernels.SLAB_THREADS // 32 * kernels.SLAB_QUEUE * 4
+# the model-axis routes launch only on a model-batched fit
+NO_MODEL_AXIS = {"tree_hist_models": 0, "tree_split_models": 0,
+                 "tree_partition_models": 0}
 
 
 @pytest.fixture
@@ -76,7 +79,8 @@ def test_flagship_levels_kernels_vs_plain(dev, label):
     _chain(bm.bins, stats, ops, bm.nbins_total, 6, exact=label == "dyadic")
     assert kernels.LAUNCHES == {"tree_hist": 6, "tree_split": 6,
                                 "tree_partition": 6, "histogram": 0,
-                                "shard_hist": 0, "shard_partition": 0}
+                                "shard_hist": 0, "shard_partition": 0,
+                                **NO_MODEL_AXIS}
 
 
 def test_constraints_bounds_and_node_masks(dev):
@@ -236,7 +240,8 @@ def test_gbm_on_card_goes_through_kernels(dev):
     # depth 4 lays out at bucket 6: every bucket level launches
     assert kernels.LAUNCHES == {"tree_hist": 18, "tree_split": 18,
                                 "tree_partition": 18, "histogram": 0,
-                                "shard_hist": 0, "shard_partition": 0}
+                                "shard_hist": 0, "shard_partition": 0,
+                                **NO_MODEL_AXIS}
     m_cpu = h2o.GBMEstimator(ntrees=3, max_depth=4, seed=1).train(
         h2o.Frame.from_numpy(cols, domains=domains, device="cpu"),
         y="IsDepDelayed")
@@ -395,7 +400,8 @@ def test_drf_and_uplift_on_card_go_through_kernels(dev):
     # depth 5 lays out at bucket 6
     assert kernels.LAUNCHES == {"tree_hist": 12, "tree_split": 12,
                                 "tree_partition": 12, "histogram": 0,
-                                "shard_hist": 0, "shard_partition": 0}
+                                "shard_hist": 0, "shard_partition": 0,
+                                **NO_MODEL_AXIS}
     assert np.isfinite(m.training_metrics["AUC"])
     ucols, udomains = cs.criteo_arrays(N)
     ufr = h2o.Frame.from_numpy(ucols, domains=udomains, device=dev)
@@ -404,7 +410,8 @@ def test_drf_and_uplift_on_card_go_through_kernels(dev):
                                 max_depth=4, seed=1).train(ufr, y="visit")
     assert kernels.LAUNCHES == {"tree_hist": 0, "tree_split": 0,
                                 "tree_partition": 0, "histogram": 16,
-                                "shard_hist": 0, "shard_partition": 0}
+                                "shard_hist": 0, "shard_partition": 0,
+                                **NO_MODEL_AXIS}
     assert np.isfinite(um.training_metrics["auuc"])
 
 
@@ -434,7 +441,8 @@ def test_shard_kernels_equal_plain_and_count_apart(dev):
         prev, nid = out[0], new
     assert kernels.LAUNCHES == {"tree_hist": 0, "tree_split": 0,
                                 "tree_partition": 0, "histogram": 0,
-                                "shard_hist": 4, "shard_partition": 4}
+                                "shard_hist": 4, "shard_partition": 4,
+                                **NO_MODEL_AXIS}
 
 
 def test_sharded_level_two_ranks_on_one_card(dev, tmp_path):
@@ -1209,11 +1217,12 @@ def test_sort_join_and_quantiles_card_vs_cpu(dev):
 
 
 def test_grid_launches_and_standalone_fits(dev):
-    """Phase 27(a) at a small size: a 4-combo GBM grid's sequential walk
-    launches each level kernel combos x trees x levels times, and every
-    grid model is bit-equal (forest, training AUC) to a standalone fit of
-    its combo; the deep levels of a depth-20 tree (the global-atomic
-    histogram, routing records in global memory) EXACT."""
+    """Phase 27(a) at a small size: a 4-combo GBM grid trains its one
+    shape bucket batched, each model-axis kernel launched trees x levels
+    times and the one-model level kernels none, and every grid model is
+    bit-equal (forest, training AUC) to a standalone fit of its combo;
+    the deep levels of a depth-20 tree (the global-atomic histogram,
+    routing records in global memory) EXACT."""
     import h2o3_tpu_torch as h2o
     r = np.random.RandomState(9)
     X = r.randn(N, 6).astype(np.float32)
@@ -1226,8 +1235,7 @@ def test_grid_launches_and_standalone_fits(dev):
     grid = h2o.GridSearch(h2o.GBMEstimator, hyper, **fixed).train(fr, y="y")
     counts = dict(kernels.LAUNCHES)
     assert len(grid.models) == 4
-    cs.check_launches(counts, {k: 4 * 5 * 6 for k in cs.LEVEL_KERNELS},
-                      "grid")
+    cs.check_launches(counts, {k: 5 * 6 for k in cs.MODEL_KERNELS}, "grid")
     for m in grid.models:
         alone = h2o.GBMEstimator(**fixed, **m.output["grid_params"]).train(
             fr, y="y")
@@ -1298,3 +1306,79 @@ def test_partial_dependence_and_varimp_card_vs_cpu(dev):
         assert (np.abs(a - b) <= 1e-6 * np.maximum(1.0, np.abs(b))).all()
     rel = {r[0]: r[1] for r in vis[1]}
     assert max(abs(r[1] - rel[r[0]]) for r in vis[0]) <= 1e-6
+
+
+# ------------------------------------------------------ slice 17: model axis
+
+
+def test_model_axis_routes_vs_plain(dev):
+    """Phase 29(a) at a small size: ``tree_hist_models``,
+    ``tree_split_models`` and ``tree_partition_models`` EXACT against their
+    plain versions for 3 models with ragged depth limits (6, 5, 4) at
+    d=0..5 and 2 models at d=13 (the histogram's global route), each
+    counted under its own name."""
+    bm = _bm(dev)
+    kernels.reset_counts()
+    for lev in cs.models_chain(torch, bm, N, 6, 3, 41):
+        cs.compare_models_level(tk, lev)
+    lev = cs.deep_models_level(torch, bm, bm.bins.contiguous(), 2, 13, 43)
+    cs.compare_models_level(tk, lev)
+    assert kernels.LAUNCHES == {"tree_hist": 0, "tree_split": 0,
+                                "tree_partition": 0, "histogram": 0,
+                                "shard_hist": 0, "shard_partition": 0,
+                                "tree_hist_models": 7,
+                                "tree_split_models": 7,
+                                "tree_partition_models": 7}
+
+
+def test_batched_gbm_bit_equal_to_sequential_on_card(dev):
+    """A 4-combo bucket (seeds, sampling, learn rates and depths within
+    bucket 6 vary; early stopping on) through the model-axis kernels, each
+    model bit-equal to its sequential fit on the card: forest, stop
+    point, scoring history and training metrics."""
+    import h2o3_tpu_torch as h2o
+    from h2o3_tpu_torch.models.gbm import fit_gbm_batched
+    cols, domains = cs.airlines_arrays(N)
+    fr = h2o.Frame.from_numpy(cols, domains=domains, device=dev)
+    combos = [dict(learn_rate=0.3, sample_rate=0.7, seed=1, max_depth=3),
+              dict(learn_rate=0.05, seed=2, max_depth=6,
+                   col_sample_rate_per_tree=0.6),
+              dict(learn_rate=0.5, sample_rate=0.5, seed=3, max_depth=5),
+              dict(learn_rate=0.1, min_rows=40.0, seed=4, max_depth=4,
+                   reg_lambda=1.0)]
+    fixed = dict(ntrees=20, stopping_rounds=2, stopping_tolerance=0.01,
+                 score_tree_interval=2)
+    kernels.reset_counts()
+    models = fit_gbm_batched(h2o.GBMEstimator,
+                             [{**fixed, **c} for c in combos], fr,
+                             y="IsDepDelayed")
+    counts = dict(kernels.LAUNCHES)
+    assert counts["tree_hist"] == counts["tree_split"] == 0
+    assert counts["tree_hist_models"] > 0
+    for m, c in zip(models, combos):
+        s = h2o.GBMEstimator(**fixed, **c).train(fr, y="IsDepDelayed")
+        assert cs.forests_equal(m.forest, s.forest), c
+        assert m.output["scoring_history"] == s.output["scoring_history"]
+        assert m.training_metrics.to_dict() == s.training_metrics.to_dict()
+
+
+def test_model_axis_build_failure_raises(dev, monkeypatch, tmp_path):
+    """A model-axis wrapper given CUDA tensors whose library cannot be
+    built raises; it never runs the plain version instead."""
+    bm = _bm(dev)
+    lev = next(cs.models_chain(torch, bm, N, 1, 2, 47))
+
+    def no_nvcc():
+        raise RuntimeError("nvcc not found")
+    monkeypatch.setattr(tk, "_LIB", None)
+    monkeypatch.setattr(kernels, "_LIBS", {})
+    monkeypatch.setattr(kernels, "BUILD", tmp_path)
+    monkeypatch.setattr(kernels, "nvcc", no_nvcc)
+    kernels.reset_counts()
+    with pytest.raises(RuntimeError, match="nvcc"):
+        tk.tree_hist_models(lev["bins"], lev["nid"], lev["stats"], d=0,
+                            n_nodes_h=1, n_bins=lev["B"], exps=lev["exps"])
+    with pytest.raises(RuntimeError, match="nvcc"):
+        tk.tree_partition_models(lev["bins"], lev["nid"], *lev["dec"],
+                                 n_bins=lev["B"])
+    assert not any(kernels.LAUNCHES.values())

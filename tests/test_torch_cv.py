@@ -25,6 +25,7 @@ from h2o3_tpu_torch.models import drf as drf_mod
 from h2o3_tpu_torch.models import gbm as gbm_mod
 
 from torch_ranks import mixed_cols, multi_cols, regression_cols
+from torch_threads import one_torch_thread  # noqa: F401 - autouse
 
 GBM_KW = dict(ntrees=4, max_depth=4, seed=11, sample_rate=1.0,
               col_sample_rate_per_tree=1.0)

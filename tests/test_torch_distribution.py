@@ -16,6 +16,7 @@ import torch
 from h2o3_tpu.models import distribution as ref_dist
 from h2o3_tpu_torch.core.udf import upload_custom_distribution
 from h2o3_tpu_torch.models import distribution as dist
+from torch_threads import one_torch_thread  # noqa: F401 - autouse
 
 # (family, shape parameters): every family, and each shape parameter at
 # its default and off it

@@ -24,6 +24,7 @@ from h2o3_tpu_torch.models.tree import Tree
 
 from tests.test_torch_gbm import (_assert_forests, _mixed_cols,
                                   _regression_cols)
+from torch_threads import one_torch_thread  # noqa: F401 - autouse
 
 
 def _train_both(cols, cats, **params):

@@ -26,6 +26,7 @@ from h2o3_tpu_torch.models.convert import gbm_model_from_arrays
 from test_torch_gbm import _ref_arrays
 from test_torch_isofor import _one_device
 from torch_ranks import mixed_cols, regression_cols
+from torch_threads import one_torch_thread  # noqa: F401 - autouse
 
 TOL = 1e-6
 CASES = {

@@ -36,6 +36,7 @@ from h2o3_tpu_torch.models import extisofor
 from h2o3_tpu_torch.models.convert import extisofor_model_from_arrays
 
 from tests.test_torch_isofor import _one_device, anomaly_cols, auc, spearman
+from torch_threads import one_torch_thread  # noqa: F401 - autouse
 
 NUM = ["x0", "x1", "x2", "x3"]
 

@@ -22,6 +22,7 @@ from h2o3_tpu_torch.ops import fixed_point as fp
 from h2o3_tpu_torch.ops.segments import segment_sum
 
 import torch_ranks as tr
+from torch_threads import one_torch_thread  # noqa: F401 - autouse
 
 ROWS = [1, 2, 3, 1000, 65_537, 1_000_001, 2 ** 21]
 MAXIMA = [0.0, 1e-30, 0.37, 1.0, 4.0, 1e6, 3e38]

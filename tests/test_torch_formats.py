@@ -25,6 +25,7 @@ from h2o3_tpu.io import formats as ref_formats
 from test_torch_ingest import _assert_frames
 from test_torch_isofor import _one_device
 from test_formats_columnar import _write_avro
+from torch_threads import one_torch_thread  # noqa: F401 - autouse
 
 sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
 import chip_smoke as cs  # noqa: E402

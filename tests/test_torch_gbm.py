@@ -23,6 +23,7 @@ from h2o3_tpu_torch.models.tree import Tree
 
 from torch_ranks import mixed_cols as _mixed_cols
 from torch_ranks import regression_cols as _regression_cols
+from torch_threads import one_torch_thread  # noqa: F401 - autouse
 
 INT_FIELDS = ("feat", "thresh", "na_left", "is_split", "cat_split",
               "left_words")

@@ -27,6 +27,7 @@ from h2o3_tpu_torch.parallel import mesh as mesh_mod
 
 import torch_ranks as tr
 from test_torch_gbm import INT_FIELDS, _ref_arrays
+from torch_threads import one_torch_thread  # noqa: F401 - autouse
 
 METRICS = {"binomial": ("AUC", "logloss", "MSE"),
            "gaussian": ("MSE", "mae", "mean_residual_deviance", "r2"),

@@ -22,6 +22,7 @@ from h2o3_tpu_torch.ops import kernels
 from h2o3_tpu_torch.ops.histogram import (histogram, local_histogram,
                                           plain_histogram)
 from h2o3_tpu_torch.ops.kernels.histogram import full_histogram
+from torch_threads import one_torch_thread  # noqa: F401 - autouse
 
 SHAPES = [(1, 17, 4, 300), (8, 33, 7, 1000), (32, 65, 12, 2048)]
 

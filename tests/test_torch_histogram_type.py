@@ -19,6 +19,7 @@ from h2o3_tpu_torch.models.tree import Tree
 
 from tests.test_torch_gbm import _assert_forests
 from torch_ranks import mixed_cols
+from torch_threads import one_torch_thread  # noqa: F401 - autouse
 
 SPELLINGS = ("auto", "QuantilesGlobal", "UniformAdaptive", "Random",
              "RoundRobin")

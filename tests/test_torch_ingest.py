@@ -41,6 +41,7 @@ from h2o3_tpu_torch.native import parse_csv_bytes
 
 from test_torch_gbm import PARAMS, _assert_forests
 from torch_ranks import mixed_cols
+from torch_threads import one_torch_thread  # noqa: F401 - autouse
 
 ROOT = Path(__file__).resolve().parents[1]
 

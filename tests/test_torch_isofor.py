@@ -37,6 +37,7 @@ from h2o3_tpu_torch.frame.binning import bin_frame
 from h2o3_tpu_torch.models import isofor
 from h2o3_tpu_torch.models.convert import isofor_model_from_arrays
 from h2o3_tpu_torch.models.tree import Tree
+from torch_threads import one_torch_thread  # noqa: F401 - autouse
 
 
 def anomaly_cols(n=8000, frac=0.01, seed=3):

@@ -17,6 +17,7 @@ import h2o3_tpu_torch
 from h2o3_tpu.models import isotonic as ref_iso
 from h2o3_tpu_torch.models import isotonic as port_iso
 from h2o3_tpu_torch.models.convert import isotonic_model_from_arrays
+from torch_threads import one_torch_thread  # noqa: F401 - autouse
 
 METRIC_TOL = 1e-6
 

@@ -26,6 +26,7 @@ from h2o3_tpu_torch.ops import merge as port_merge
 
 from test_torch_ingest import _assert_frames
 from test_torch_isofor import _one_device
+from torch_threads import one_torch_thread  # noqa: F401 - autouse
 
 sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
 import chip_smoke as cs  # noqa: E402

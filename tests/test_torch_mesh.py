@@ -19,6 +19,7 @@ from h2o3_tpu_torch.frame.frame import Frame
 from h2o3_tpu_torch.parallel import mesh as mesh_mod
 
 import torch_ranks as tr
+from torch_threads import one_torch_thread  # noqa: F401 - autouse
 
 
 @pytest.fixture(scope="module")

@@ -29,6 +29,7 @@ from h2o3_tpu_torch.models.tree import Tree
 from test_torch_drf import _ref_arrays as _drf_ref_arrays
 from test_torch_gbm import _assert_forests, _ref_arrays
 from torch_ranks import multi_cols
+from torch_threads import one_torch_thread  # noqa: F401 - autouse
 
 GBM = dict(ntrees=3, max_depth=4, seed=11, sample_rate=1.0,
            col_sample_rate_per_tree=1.0)

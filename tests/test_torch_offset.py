@@ -26,6 +26,7 @@ from h2o3_tpu.models.gbm import GBMEstimator as RefGBM
 from test_torch_gbm import _assert_forests, family_cols
 from test_torch_isofor import _one_device
 from torch_ranks import mixed_cols
+from torch_threads import one_torch_thread  # noqa: F401 - autouse
 
 KW = dict(ntrees=4, max_depth=4, seed=11, sample_rate=1.0)
 

@@ -30,6 +30,7 @@ from h2o3_tpu_torch.models import psvm as port_psvm
 from h2o3_tpu_torch.models.convert import psvm_model_from_arrays
 
 from test_torch_isofor import _one_device
+from torch_threads import one_torch_thread  # noqa: F401 - autouse
 
 WB_TOL = 1e-4
 DEC_TOL = 1e-4

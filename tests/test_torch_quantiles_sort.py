@@ -28,6 +28,7 @@ from h2o3_tpu_torch.frame import quantiles as port_q
 from h2o3_tpu_torch.ops import sort as port_sort
 
 from test_torch_isofor import _one_device
+from torch_threads import one_torch_thread  # noqa: F401 - autouse
 
 PROBS = (0.001, 0.01, 0.1, 0.25, 0.333, 0.5, 0.667, 0.75, 0.9, 0.99, 0.999)
 N_SORT = 70_001                  # above DEVICE_SORT_MIN_ROWS, not 8k

@@ -11,6 +11,7 @@ import pytest
 
 from h2o3_tpu import models as ref_models
 from h2o3_tpu_torch import models
+from torch_threads import one_torch_thread  # noqa: F401 - autouse
 
 
 def test_every_ported_name_finds_the_references_estimator():

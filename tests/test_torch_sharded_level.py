@@ -23,6 +23,7 @@ from h2o3_tpu.models.tree import TreeScalars as RefScalars
 from h2o3_tpu.ops.pallas import treekernel as ref_tk
 
 import torch_ranks as tr
+from torch_threads import one_torch_thread  # noqa: F401 - autouse
 
 OUT_NAMES = ("hist", "gain", "feat", "thresh", "na_left", "left_val",
              "right_val", "leftmask", "split", "new_nid")

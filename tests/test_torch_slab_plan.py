@@ -15,6 +15,7 @@ import torch
 
 from h2o3_tpu_torch.ops import kernels
 from h2o3_tpu_torch.ops.histogram import local_histogram
+from torch_threads import one_torch_thread  # noqa: F401 - autouse
 
 H100_SMS = 132
 

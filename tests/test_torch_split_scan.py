@@ -23,6 +23,7 @@ from h2o3_tpu.ops.pallas import treekernel as ref_tk
 from h2o3_tpu_torch.ops import kernels
 from h2o3_tpu_torch.ops.kernels import treekernel as tk
 from h2o3_tpu_torch.ops.split_scan import best_splits
+from torch_threads import one_torch_thread  # noqa: F401 - autouse
 
 OUT_NAMES = ("hist", "gain", "feat", "thresh", "na_left", "left_val",
              "right_val", "leftmask", "split", "cat_split")

@@ -21,6 +21,7 @@ import h2o3_tpu_torch
 from h2o3_tpu.models import targetencoder as ref_te
 from h2o3_tpu.parallel import mesh as ref_mesh
 from h2o3_tpu_torch.models.convert import targetencoder_model_from_arrays
+from torch_threads import one_torch_thread  # noqa: F401 - autouse
 
 CATS = ["c0", "c1", "c2"]
 

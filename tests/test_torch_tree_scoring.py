@@ -27,6 +27,7 @@ from h2o3_tpu_torch.models.convert import (drf_model_from_arrays,
 from tests.test_torch_drf import _ref_arrays as _drf_arrays
 from tests.test_torch_gbm import _ref_arrays as _gbm_arrays
 from torch_ranks import mixed_cols, multi_cols, offset_cols, regression_cols
+from torch_threads import one_torch_thread  # noqa: F401 - autouse
 
 CASES = {
     # name: (data, its training rows' kwargs, algo, params); each model

@@ -22,6 +22,7 @@ from h2o3_tpu.models.uplift import UpliftDRFEstimator as RefUplift
 from h2o3_tpu_torch.models import uplift as up
 from h2o3_tpu_torch.models.convert import uplift_model_from_arrays
 from h2o3_tpu_torch.models.tree import Tree, _mtries_mask
+from torch_threads import one_torch_thread  # noqa: F401 - autouse
 
 INT_FIELDS = ("feat", "thresh", "na_left", "is_split", "cat_split",
               "left_words")

@@ -25,6 +25,7 @@ from h2o3_tpu_torch.models import word2vec as port_w2v
 from h2o3_tpu_torch.models.convert import word2vec_model_from_arrays
 
 from test_torch_isofor import _one_device
+from torch_threads import one_torch_thread  # noqa: F401 - autouse
 
 W_REL = 1e-5
 TOPICS = [["cat", "dog", "pet", "fur"], ["car", "road", "wheel", "drive"]]

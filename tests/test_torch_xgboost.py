@@ -24,6 +24,7 @@ from h2o3_tpu_torch.models.tree import Tree
 
 from tests.test_torch_gbm import _assert_forests
 from torch_ranks import mixed_cols, regression_cols
+from torch_threads import one_torch_thread  # noqa: F401 - autouse
 
 XGB = dict(nrounds=4, max_depth=4, seed=11, subsample=1.0,
            colsample_bytree=1.0, eta=0.3, reg_lambda=0.5, gamma=1e-3,
