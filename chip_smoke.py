@@ -250,8 +250,8 @@ Phases, in order; any failure exits non-zero and no phase carries on:
     planted sin(1.7x) + 0.5·lin (RMSE to the truth < 0.15, a GLM's >
     0.4). (b) RuleFit with the reference's defaults (GBM, rule length
     3, 50 trees, sample_rate 0.8, rules and linear terms, lambda search)
-    on phase 4's first 500K rows (cut from 5M for the rule matrix, from
-    1M when phase 27 came): the
+    on phase 4's first 250K rows (cut from 5M for the rule matrix, from
+    1M when phase 27 came, from 500K when phase 30 came): the
     seconds of the trees, the rule frame and the GLM, the rule count,
     AUC and the top five rules; ``algorithm="drf"`` and
     ``model_type="linear"`` on a head; the head's rules EXACT card vs
@@ -278,8 +278,9 @@ Phases, in order; any failure exits non-zero and no phase carries on:
     a float64 ``cumsum``. (b) PSVM on phase 13's Covertype rows, class
     "2" against the rest, at the defaults: ICF seconds, Newton steps, a
     step against its bound, the support vectors, AUC (> 0.7) beside a
-    GLM's. (c) The Aggregator at its defaults on the first 1M HIGGS
-    rows (cut from 11M for its host loop): sweeps, radius, exemplars
+    GLM's. (c) The Aggregator at its defaults on the first 250K HIGGS
+    rows (cut from 11M for its host loop, then 1M and 500K for the
+    run's time): sweeps, radius, exemplars
     (<= 5000, counts summing to the rows), the host loop's share. (d)
     Word2Vec at its defaults, one epoch (cut from 5), on a 500K-token
     Zipf(1.0) corpus over 30K types with two planted 8-word topics (the
@@ -352,6 +353,34 @@ Phases, in order; any failure exits non-zero and no phase carries on:
     a 20K-row head the card within 1e-6·max(1, |mean|) of the CPU plain
     path's PDP means, and the importance order the same where
     neighbouring values differ by more than 1e-6.
+29. Model batching. (a) The model-axis level kernels against their
+    plain versions (phase 2's shapes, M = 4, ragged depth limits; a
+    depth-14 level) and timed at bench.py's grid (M = 16, d = 0..5). (b)
+    A GLM bucket (binomial IRLSM, alpha x lambda) on the HIGGS frame
+    through the grid, each lane against its sequential fit. (c)
+    ``train_segments`` of the flagship GBM on 1M airlines rows by
+    UniqueCarrier, parallelism 1 and 2, each segment bit-equal to a fit
+    on its rows alone.
+30. Persistence, MOJO and serving (no new kernel). (a) bench.py's
+    serving config: a GBM (``ntrees=20, max_depth=5, seed=1``) on 100K x
+    8 float32 rows from RandomState(14), 20 x 6 launches a level kernel;
+    ``engine.register`` (every row bucket warmed once), then 16 client
+    threads x 50 requests x 8 rows through ``engine.score_rows``: every
+    served row bit-equal to ``Model.predict`` on the same rows, no kernel
+    launched while serving; requests/s, p50/p99 ms, dispatches, mean
+    batch width, the buckets, and 80 sequential ``Model.predict``
+    requests/s. (b) ``save_frame`` / ``load_frame`` of phase 4's first 1M
+    airlines rows (cut from 5M for the run's time): every column's device
+    data, NA mask and domain EXACT, MB/s; ``save_model`` /
+    ``load_model`` of (a)'s GBM, a GLM and a DL on the card (and a CPU
+    copy saved and loaded onto the card): predictions bit-equal. (c)
+    Native and reference-layout MOJOs of the three: the port's readers on
+    20K training rows on the host against the card's predict (p1 within
+    1e-4, the GBM's every tree's leaf values EXACT), ``GenericEstimator``
+    on the native MOJO equal to the readers, the reference-layout
+    decoders on 500 rows within 2e-4. (d) The three through the engine at
+    every bucket (8 .. 4,096 rows), at the first and the last rows of a
+    5,000-row frame: bit-equal to predict.
 
 Launch counts are read per path: each path sets every count to 0 just
 before it runs and reads them just after (phase 15's, over its seven
@@ -381,7 +410,9 @@ and ``glm_surface``, phase 23's as ``deeplearning``,
 phase 27's as ``grid``, ``automl``, ``automl_repeat`` (both runs of
 (d)), ``stackedensemble`` (the card's metalearner fit of (e)) and
 ``gbm_depth20`` ((f)'s fit), phase 28's as ``readers``, ``write_read``,
-``merge`` and ``explain``;
+``merge`` and ``explain``, phase 29's as ``glm_bucket`` and
+``segments``, phase 30's as ``serving_gbm`` (the fit), ``serving`` and
+``served_buckets`` (0 on each);
 ``tree_partition`` has a
 fourth record, at the Isolation Forest levels; the three level kernels
 have records at phase 2's deep level d = 15, ``tree_hist`` and
@@ -699,7 +730,8 @@ GAM_SIN = dict(gam_columns=["x"], num_knots=[12], scale=[0.01])
 GAM_COEF_TOL = 3e-5
 GAM_PRED_TOL = 2e-5
 RULEFIT = dict(seed=1)           # the reference's DEFAULTS otherwise
-N_RULEFIT = 500_000              # cut from 1M when phase 27 came (time)
+N_RULEFIT = 250_000              # cut from 1M when phase 27 came, to
+#                                  250K when phase 30 came (time)
 N_RULEFIT_HEAD = 10_000
 RF_COEF_TOL = 2e-3
 RF_PRED_TOL = 2e-4
@@ -733,8 +765,9 @@ N_PSVM_HEAD = 601                # the tests' data and size
 PSVM_WB_TOL = 1e-4
 PSVM_DEC_TOL = 1e-4
 PSVM_AUC_TOL = 1e-5
-N_AGG = 500_000                  # of HIGGS's 11M rows: the host loop (cut
-#                                  from 1M when phase 29 came, for time)
+N_AGG = 250_000                  # of HIGGS's 11M rows: the host loop (cut
+#                                  from 1M when phase 29 came, to 250K
+#                                  when phase 30 came, for time)
 N_AGG_HEAD = 3_001               # the tests' data and size
 W2V_TOKENS = 250_000             # cut from 500K when phase 29 came (time)
 W2V_REFIT_TOKENS = 50_000        # the refit's head (phase 26(d))
@@ -5497,6 +5530,8 @@ def phase_rulefit(torch, dev, cols, domains):
           f"RuleFit: {n_rules} rules, AUC {auc}")
     say(f"phase25b RuleFit defaults (GBM, length 3, 50 trees, sample_rate "
         f"0.8, rules and linear, lambda search) on {N_RULEFIT} airlines rows"
+        " (cut from 1000000 when phase 27 came and from 500000 when phase "
+        "30 came, for the run's time)"
         f": train {secs:.3f} s (refit {t_re:.3f} s, bit-equal): trees "
         f"{st['trees']:.3f} s, rule frame {st['rule frame']:.3f} s, GLM "
         f"{st['GLM']:.3f} s; {n_rules} rules, "
@@ -6002,7 +6037,8 @@ def phase_aggregator(torch, dev, higgs):
           f"Aggregator: {n_ex} exemplars, counts sum {total}")
     t = model.timing
     say(f"phase26c Aggregator on {N_AGG} x {P_HIGGS} HIGGS rows (cut from "
-        "1M when phase 29 came, for the run's time): "
+        "1M when phase 29 came and from 500K when phase 30 came, for the "
+        "run's time): "
         f"{model.output['sweeps']} sweeps, final radius "
         f"{model.output['radius']:.6f}, {n_ex} exemplars (in [2500, 5000]: "
         f"{2500 <= n_ex <= 5000}), counts sum {int(total)}, {secs:.3f} s "
@@ -7574,6 +7610,362 @@ def phase_model_batch(torch, dev, bm, cols, domains, higgs, counts_grid):
     return worst, records, {"glm_bucket": c_glm, "segments": c_seg}
 
 
+# phase 30: persistence, MOJO and serving
+N_SERVE = 100_000                # bench.py bench_serving, nothing cut
+SERVE_GBM = dict(ntrees=20, max_depth=5, seed=1)
+SERVE_CLIENTS, SERVE_REQS, SERVE_REQ_ROWS = 16, 50, 8
+SERVE_SEQ = 80                   # the sequential Model.predict requests
+SERVE_GLM = dict(family="binomial", lambda_=0.0)
+SERVE_DL = dict(hidden=[50, 50], epochs=2, seed=1)
+N_PERSIST = 1_000_000            # phase 4's frame's first rows (cut from
+#                                  5M for the run's time)
+N_MOJO_ROWS = 20_000             # the readers' rows (training rows)
+N_REF_MOJO_ROWS = 500            # the reference-layout decoders' (a host
+#                                  loop a row and a tree)
+MOJO_TOL = 1e-4                  # tests/test_genmodel.py:21 (atol)
+
+
+def serve_frame(torch, dev):
+    """bench.py bench_serving's frame: 8 float32 features from
+    RandomState(14) and a binomial response N/Y."""
+    import h2o3_tpu_torch as h2o
+    n = N_SERVE
+    r = np.random.RandomState(14)
+    X = r.randn(n, 8).astype(np.float32)
+    yv = (X[:, 0] + 0.5 * X[:, 1] + 0.5 * r.randn(n) > 0).astype(np.int32)
+    cols = {f"x{i}": X[:, i] for i in range(8)}
+    cols["y"] = yv
+    return h2o.Frame.from_numpy(cols, domains={"y": ["N", "Y"]}, device=dev)
+
+
+def serve_payloads():
+    """bench.py's requests: 16 clients x 50 requests x 8 rows of
+    RandomState(15) normals."""
+    feats = [f"x{i}" for i in range(8)]
+    rr = np.random.RandomState(15)
+    out = []
+    for _ in range(SERVE_CLIENTS * SERVE_REQS):
+        vals = rr.randn(SERVE_REQ_ROWS, len(feats))
+        out.append([{f: float(vals[i, j]) for j, f in enumerate(feats)}
+                    for i in range(SERVE_REQ_ROWS)])
+    return out
+
+
+def assert_same_columns(got, want, what: str) -> None:
+    """Prediction columns bit-equal (``want`` a dict of host arrays)."""
+    check(sorted(got) == sorted(want), f"{what}: columns {sorted(got)} "
+                                       f"vs {sorted(want)}")
+    for k in want:
+        a = np.asarray(got[k], np.float64)
+        b = np.asarray(want[k], np.float64)
+        check(a.shape == b.shape and np.array_equal(a, b, equal_nan=True),
+              f"{what}/{k}: not bit-equal (max |diff| "
+              f"{np.nanmax(np.abs(a - b)) if a.shape == b.shape else a.shape})")
+
+
+def host_preds(frame) -> dict:
+    return {n: frame.col(n).to_numpy() for n in frame.names}
+
+
+def phase_serving(torch, dev, fr):
+    """Phase 30(a): bench.py's serving config on the card. Returns (the
+    GBM, its training launches, the serving launches)."""
+    import threading
+
+    import h2o3_tpu_torch as h2o
+    from h2o3_tpu_torch.models.tree import bucket_depth
+    from h2o3_tpu_torch.ops import kernels
+    from h2o3_tpu_torch.serving.engine import buckets_for, engine
+    from h2o3_tpu_torch.serving.rows import (domains_of, parse_rows,
+                                             serving_schema)
+    model, secs, c_train, _ = timed_fit(torch, lambda: h2o.GBMEstimator(
+        **SERVE_GBM).train(fr, y="y"))
+    levels = SERVE_GBM["ntrees"] * bucket_depth(SERVE_GBM["max_depth"])
+    check_launches(c_train, {k: levels for k in LEVEL_KERNELS},
+                   "serving GBM fit")
+    payloads = serve_payloads()
+    schema = serving_schema(model)
+    doms = domains_of(schema)
+
+    def predict_once(rows):
+        pf = h2o.Frame.from_numpy(parse_rows(schema, rows), domains=doms,
+                                  device=dev)
+        return host_preds(model.predict(pf))
+
+    predict_once(payloads[0])                  # warm the per-request path
+    t0 = time.perf_counter()
+    sc = engine.register(model)
+    t_reg = time.perf_counter() - t0
+    check(sc.device.type == dev.type, f"engine device {sc.device}")
+    t0 = time.perf_counter()
+    for rows in payloads[:SERVE_SEQ]:
+        predict_once(rows)
+    qps_seq = SERVE_SEQ / (time.perf_counter() - t0)
+    warm = [threading.Thread(target=lambda: engine.score_rows(
+        model, payloads[0])) for _ in range(SERVE_CLIENTS)]
+    for t in warm:
+        t.start()
+    for t in warm:
+        t.join()
+    lat, outs, errors = [], {}, []
+    lock = threading.Lock()
+
+    def client(cid):
+        for j in range(cid * SERVE_REQS, (cid + 1) * SERVE_REQS):
+            t = time.perf_counter()
+            try:
+                out, _, _ = engine.score_rows(model, payloads[j])
+            except BaseException as e:   # noqa: BLE001 - asserted after
+                errors.append(e)
+                return
+            with lock:
+                lat.append(time.perf_counter() - t)
+                outs[j] = out
+    b = engine._batchers[model.key]
+    d0 = b.dispatches
+    torch.cuda.synchronize()
+    kernels.reset_counts()
+    t0 = time.perf_counter()
+    threads = [threading.Thread(target=client, args=(c,))
+               for c in range(SERVE_CLIENTS)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join()
+    t_conc = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    c_serve = dict(kernels.LAUNCHES)
+    check(not errors, f"serving: {errors[:1]}")
+    check_launches(c_serve, {}, "serving")
+    dispatches = b.dispatches - d0
+    n_req = len(lat)
+    lat_ms = sorted(v * 1e3 for v in lat)
+    # every served row bit-equal to Model.predict on the same rows
+    allrows = [r for rows in payloads for r in rows]
+    want = predict_once(allrows)
+    for j in range(len(payloads)):
+        lo = j * SERVE_REQ_ROWS
+        assert_same_columns(outs[j], {k: v[lo:lo + SERVE_REQ_ROWS]
+                                      for k, v in want.items()},
+                            f"served request {j}")
+    st = engine.stats()["models"][model.key]
+    check(st["warmups"] == {b_: 1 for b_ in buckets_for(4096)},
+          f"warm-ups {st['warmups']}")
+    say(f"phase30(a) serving GBM {SERVE_GBM} on {fr.nrows} x 8 rows: fit "
+        f"{secs:.3f} s ({levels} launches a level kernel); register "
+        f"{t_reg:.3f} s warming buckets {sorted(st['warmups'])}; "
+        f"{SERVE_CLIENTS} clients x {SERVE_REQS} requests x "
+        f"{SERVE_REQ_ROWS} rows: {n_req / t_conc:.6g} requests/s, p50 "
+        f"{lat_ms[len(lat_ms) // 2]:.3f} ms, p99 "
+        f"{lat_ms[min(n_req - 1, int(n_req * 0.99))]:.3f} ms, "
+        f"{dispatches} dispatches, mean batch width "
+        f"{n_req / max(dispatches, 1):.4g} requests; buckets scored "
+        f"{st['buckets']}; sequential Model.predict {qps_seq:.6g} "
+        f"requests/s over {SERVE_SEQ}; every served row bit-equal to "
+        "predict; no kernel launched while serving")
+    return model, c_train, c_serve
+
+
+def phase_persist(torch, dev, model, glm, dl, fr, cols, domains, tmp):
+    """Phase 30(b): a frame and three models through save and load."""
+    import os
+
+    import h2o3_tpu_torch as h2o
+    from h2o3_tpu_torch.io import persist
+    head = {k: v[:N_PERSIST] for k, v in cols.items()}
+    air = h2o.Frame.from_numpy(head, domains=domains, device=dev)
+    uri = os.path.join(tmp, "air.h2o")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    h2o.save_frame(air, uri)
+    t_save = time.perf_counter() - t0
+    size = os.path.getsize(uri)
+    t0 = time.perf_counter()
+    back = h2o.load_frame(uri, device=dev)
+    torch.cuda.synchronize()
+    t_load = time.perf_counter() - t0
+    check(back.names == air.names and back.nrows == air.nrows,
+          "loaded frame shape")
+    for n in air.names:
+        a, b = air.col(n), back.col(n)
+        check(a.type == b.type and a.domain == b.domain
+              and torch.equal(a.data[:a.nrows], b.data[:b.nrows])
+              and torch.equal(a.na_mask[:a.nrows], b.na_mask[:b.nrows]),
+              f"loaded frame column {n} differs on the card")
+    raw_mb = sum(air.col(n).data[:air.nrows].element_size()
+                 for n in air.names) * air.nrows / 1e6
+    say(f"phase30(b) save_frame / load_frame of phase 4's first "
+        f"{N_PERSIST} airlines rows (cut from {N_MAIN} for the run's "
+        f"time): {size / 1e6:.3f} MB file ({raw_mb:.3f} MB of device "
+        f"columns), save {t_save:.3f} s ({raw_mb / t_save:.5g} MB/s), load "
+        f"onto the card {t_load:.3f} s ({raw_mb / t_load:.5g} MB/s); every "
+        "column's device data, NA mask and domain EXACT")
+    del air, back
+    for name, m in (("gbm", model), ("glm", glm), ("deeplearning", dl)):
+        want = host_preds(m.predict(fr))
+        u = os.path.join(tmp, f"{name}.bin")
+        t0 = time.perf_counter()
+        h2o.save_model(m, u)
+        t_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        got = h2o.load_model(u, device=dev)
+        t_l = time.perf_counter() - t0
+        assert_same_columns(host_preds(got.predict(fr)), want,
+                            f"{name} after load_model")
+        # a CPU copy, saved again, loads back onto the card
+        u2 = os.path.join(tmp, f"{name}_cpu.bin")
+        h2o.save_model(persist.model_from_bytes(persist.model_to_bytes(m),
+                                                device="cpu"), u2)
+        again = h2o.load_model(u2, device=dev)
+        assert_same_columns(host_preds(again.predict(fr)), want,
+                            f"{name} saved from the CPU, loaded on the card")
+        say(f"phase30(b) save_model / load_model {name}: "
+            f"{os.path.getsize(u) / 1e6:.4g} MB, save {t_s:.3f} s, load "
+            f"{t_l:.3f} s; predictions bit-equal after the load on the "
+            "card, and after a CPU copy's save and load onto the card")
+        h2o.DKV.remove(m.key)
+
+
+def phase_mojo(torch, dev, model, glm, dl, fr, tmp):
+    """Phase 30(c): native and reference-layout MOJOs of the three
+    models, scored on the host against the card's predict."""
+    import os
+
+    import h2o3_tpu_torch as h2o
+    from h2o3_tpu_torch.frame.binning import rebin_for_scoring
+    from h2o3_tpu_torch.frame.frame import raw_columns
+    from h2o3_tpu_torch.genmodel import refmojo
+    from h2o3_tpu_torch.models.tree import _tree_at, predict_tree
+    sub = h2o.Frame.from_numpy(
+        {n: fr.col(n).host_view()[:N_MOJO_ROWS].astype(np.float32)
+         for n in fr.names if n != "y"}, device=dev)
+    raw = raw_columns(sub, [n for n in sub.names])
+    few = {k: v[:N_REF_MOJO_ROWS] for k, v in raw.items()}
+    gaps = {}
+    for name, m in (("gbm", model), ("glm", glm), ("deeplearning", dl)):
+        want = host_preds(m.predict(sub))
+        path = os.path.join(tmp, f"{name}.zip")
+        t0 = time.perf_counter()
+        m.download_mojo(path)
+        t_exp = time.perf_counter() - t0
+        mojo = h2o.load_mojo(path)
+        t0 = time.perf_counter()
+        got = mojo.predict(raw)
+        t_read = time.perf_counter() - t0
+        gap = float(np.abs(got["p1"] - want["p1"]).max())
+        check(gap <= MOJO_TOL, f"{name} MOJO p1 {gap} from predict")
+        flips = float((got["predict"] != want["predict"]).mean())
+        check(flips < 5e-3, f"{name} MOJO label flips {flips}")
+        if name == "gbm":
+            bins = rebin_for_scoring(m.bm, sub).bins
+            per_tree = torch.stack([predict_tree(
+                _tree_at(m.forest, t), bins, m.bm.nbins_total)
+                for t in range(m.forest.feat.shape[0])]).cpu().numpy()
+            check(np.array_equal(mojo._tree_sums(raw),
+                                 per_tree[:, :sub.nrows].astype(np.float64)),
+                  "the readers' forest walk differs from the card's")
+        g = h2o.GenericEstimator(path=path).train()
+        assert_same_columns(host_preds(g.predict(sub)), got,
+                            f"{name} GenericEstimator against the readers")
+        rpath = os.path.join(tmp, f"{name}_ref.zip")
+        m.download_mojo(rpath, format="reference")
+        if name == "gbm":
+            marg, info = refmojo.score_reference_mojo(rpath, few)
+            p1 = 1 / (1 + np.exp(-(marg[:, 0] + float(info["init_f"]))))
+        elif name == "glm":
+            p1, _ = refmojo.score_reference_glm_mojo(rpath, few)
+        else:
+            out, _ = refmojo.score_reference_dl_mojo(rpath, few)
+            e = np.exp(out - out.max(axis=1, keepdims=True))
+            p1 = (e / e.sum(axis=1, keepdims=True))[:, 1]
+        rgap = float(np.abs(p1 - want["p1"][:N_REF_MOJO_ROWS]).max())
+        check(rgap <= 2 * MOJO_TOL,
+              f"{name} reference-layout MOJO p1 {rgap} from predict")
+        gaps[name] = (gap, flips, rgap)
+        say(f"phase30(c) {name} MOJO: export {t_exp:.3f} s "
+            f"({os.path.getsize(path) / 1e6:.4g} MB), the port's readers "
+            f"on {N_MOJO_ROWS} rows on the host {t_read:.3f} s: p1 within "
+            f"{gap:.3g} of the card's predict (<= {MOJO_TOL}), label flips "
+            f"{flips:.3g}"
+            + ("; every tree's leaf values EXACT" if name == "gbm" else "")
+            + "; GenericEstimator equal to the readers; reference layout "
+            f"({os.path.getsize(rpath) / 1e6:.4g} MB) decoded on "
+            f"{N_REF_MOJO_ROWS} rows within {rgap:.3g}")
+        h2o.DKV.remove(g.key)
+    return gaps
+
+
+def phase_buckets(torch, dev, models, fr):
+    """Phase 30(d): GBM, GLM and DL through the engine at every row
+    bucket, bit-equal to predict on the same rows."""
+    import h2o3_tpu_torch as h2o
+    from h2o3_tpu_torch.ops import kernels
+    from h2o3_tpu_torch.serving.engine import buckets_for, engine
+    from h2o3_tpu_torch.serving.rows import serving_schema
+    n = 5_000
+    sub = h2o.Frame.from_numpy(
+        {c: fr.col(c).host_view()[:n].astype(np.float32)
+         for c in fr.names if c != "y"}, device=dev)
+    host = {c: sub.col(c).host_view() for c in sub.names}
+    kernels.reset_counts()
+    for name, m in models:
+        want = host_preds(m.predict(sub))
+        engine.register(m, device=dev)
+        names = [nm for nm, _ in serving_schema(m)]
+        for b in buckets_for(4096):
+            for lo in (0, n - b):
+                rows = [{c: float(host[c][i]) for c in names}
+                        for i in range(lo, lo + b)]
+                out, _, meta = engine.score_rows(m, rows)
+                check(meta["batch_rows"] == b, f"batch {meta}")
+                assert_same_columns(out, {k: v[lo:lo + b]
+                                          for k, v in want.items()},
+                                    f"{name} bucket {b} rows {lo}")
+    torch.cuda.synchronize()
+    counts = dict(kernels.LAUNCHES)
+    check_launches(counts, {}, "served buckets")
+    say(f"phase30(d) gbm, glm and deeplearning through the engine at every "
+        f"bucket {buckets_for(4096)}, each at the first and the last rows "
+        f"of a {n}-row frame: bit-equal to predict; no kernel launched")
+    return counts
+
+
+def phase_serving_persist_mojo(torch, dev, cols, domains):
+    """Phase 30: (a) serving, (b) persistence, (c) MOJOs, (d) the engine
+    at every bucket. Returns the launches of its paths."""
+    import tempfile
+
+    import h2o3_tpu_torch as h2o
+    from h2o3_tpu_torch.serving.engine import engine
+    t30 = time.perf_counter()
+    secs = {}
+    fr = serve_frame(torch, dev)
+    model, c_train, c_serve = phase_serving(torch, dev, fr)
+    secs["a"] = time.perf_counter() - t30
+    t0 = time.perf_counter()
+    glm, _, c_glm, _ = timed_fit(torch, lambda: h2o.GLMEstimator(
+        **SERVE_GLM).train(fr, y="y"))
+    dl, _, c_dl, _ = timed_fit(torch, lambda: h2o.DeepLearningEstimator(
+        **SERVE_DL).train(fr, y="y"))
+    check_launches(c_glm, {}, "serving GLM fit")
+    check_launches(c_dl, {}, "serving DL fit")
+    with tempfile.TemporaryDirectory() as tmp:
+        phase_persist(torch, dev, model, glm, dl, fr, cols, domains, tmp)
+        secs["b"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        phase_mojo(torch, dev, model, glm, dl, fr, tmp)
+        secs["c"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    c_buckets = phase_buckets(torch, dev, (("gbm", model), ("glm", glm),
+                                           ("deeplearning", dl)), fr)
+    secs["d"] = time.perf_counter() - t0
+    engine.drain()
+    say("phase30: " + ", ".join(f"({k}) {v:.3f} s" for k, v in secs.items())
+        + f", together {time.perf_counter() - t30:.3f} s")
+    return {"serving_gbm": c_train, "serving": c_serve,
+            "served_buckets": c_buckets}
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -7739,6 +8131,8 @@ def main() -> int:
     paths.update(model_paths)
     records += model_records
     del higgs, fr_k, bm
+    mark("phase 30")
+    paths.update(phase_serving_persist_mojo(torch, dev, cols, domains))
     for rec in deep_records:
         rec["launches"] = paths["gbm_depth20"][rec["name"]]
     records += deep_records

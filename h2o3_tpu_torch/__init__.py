@@ -76,6 +76,13 @@ JAX. Its TPU kernels are hand-written CUDA kernels under
     h2o.GBMEstimator(distribution="custom", custom_distribution_func=ref)
     job = h2o.GBMEstimator().train(fr, y="label", background=True)
     job.join().result                     # core/job.Job
+    h2o.save_model(m, "hex://m.bin"); m2 = h2o.load_model("hex://m.bin")
+    h2o.save_frame(fr, "/tmp/fr.h2o"); fr2 = h2o.load_frame("/tmp/fr.h2o")
+    m.download_mojo("m.zip"); m.download_mojo("ref.zip", format="reference")
+    h2o.load_mojo("m.zip").predict({"DepTime": [900.0], ...})
+    g = h2o.GenericEstimator(path="m.zip").train(); g.predict(fr)
+    from h2o3_tpu_torch.serving.engine import engine
+    cols, domains, meta = engine.score_rows(m, [{"DepTime": 900, ...}])
 
 Entry points default to ``torch.device("cuda")`` and raise when no card
 is present; pass ``device="cpu"`` to run the plain versions on the CPU.
@@ -86,6 +93,10 @@ from h2o3_tpu_torch.core.kv import DKV
 from h2o3_tpu_torch.core.udf import (upload_custom_distribution,
                                      upload_custom_metric)
 from h2o3_tpu_torch.frame.frame import Frame
+from h2o3_tpu_torch.genmodel import load_mojo
+from h2o3_tpu_torch.io.persist import (load_frame, load_model,
+                                       persist_manager, save_frame,
+                                       save_model)
 from h2o3_tpu_torch.io.parser import (export_file, import_file, parse_raw,
                                       parse_setup)
 from h2o3_tpu_torch.io.sql import import_sql_select, import_sql_table
@@ -100,6 +111,7 @@ from h2o3_tpu_torch.models.drf import DRFEstimator
 from h2o3_tpu_torch.models.extisofor import ExtendedIsolationForestEstimator
 from h2o3_tpu_torch.models.gam import GAMEstimator
 from h2o3_tpu_torch.models.gbm import GBMEstimator
+from h2o3_tpu_torch.models.generic import GenericEstimator
 from h2o3_tpu_torch.models.glm import GLMEstimator
 from h2o3_tpu_torch.models.glrm import GLRMEstimator
 from h2o3_tpu_torch.models.infogram import InfogramEstimator
@@ -121,7 +133,9 @@ from h2o3_tpu_torch.ops.merge import device_merge
 __all__ = ["DKV", "Frame", "GridSearch", "H2OAutoML", "import_file",
            "export_file", "parse_raw", "parse_setup", "import_sql_select",
            "import_sql_table", "device_merge", "partial_dependence",
-           "permutation_varimp", "train_segments",
+           "permutation_varimp", "train_segments", "save_frame",
+           "load_frame", "save_model", "load_model", "persist_manager",
+           "load_mojo", "GenericEstimator",
            "StackedEnsembleEstimator", "upload_custom_distribution",
            "upload_custom_metric", "AggregatorEstimator",
            "ANOVAGLMEstimator", "CoxPHEstimator", "DeepLearningEstimator", "DRFEstimator",

@@ -180,6 +180,9 @@ class Job:
     def cancel(self) -> None:
         self._cancel_requested.set()
 
+    def cancel_requested(self) -> bool:
+        return self._cancel_requested.is_set()
+
     def join(self, timeout: Optional[float] = None) -> "Job":
         if self._thread is not None:
             self._thread.join(timeout)

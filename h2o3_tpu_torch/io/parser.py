@@ -20,15 +20,16 @@ DKV under that key. ``lazy=True`` stores an unparsed ``io/lazy``
 ``DKV.get``. ``parse_setup`` guesses a schema (a CSV from the
 tokenizer's parse of a sample, the host formats by reading them),
 ``export_file`` writes a frame as the reference's CSV bytes (pandas'
-``to_csv`` text) to a local path, and ``parse_raw`` parses CSV text
-through the tokenizer.
+``to_csv`` text) through ``io/persist.py``'s drivers (a local path,
+``file://``, ``hex://``), and ``parse_raw`` parses CSV text through
+the tokenizer.
 
 Not ported: Parquet and ORC, which need pyarrow (ROADMAP A #5′ leaves
 them out); the reference's pandas fallback (``.zip``, other suffixes,
 multi-file CSVs whose files disagree on a column), which raises
-``NotImplementedError`` naming ROADMAP A #5; ``export_file`` to a URI
-scheme, which waits for ``io/persist.py`` (A #10); telemetry and the
-durability hooks, which wait for ``telemetry/`` and
+``NotImplementedError`` naming ROADMAP A #5; ``export_file`` to
+``s3://``, ``gs://`` or ``hdfs://``, which need pyarrow; telemetry and
+the durability hooks, which wait for ``telemetry/`` and
 ``core/durability.py`` (A #13).
 """
 
@@ -192,23 +193,15 @@ def _csv_text(frame: Frame, sep: str) -> bytes:
 def export_file(frame: Frame, path: str, force: bool = False,
                 sep: str = ",") -> str:
     """Write ``frame`` as CSV (h2o.export_file → water/api ExportHandler)
-    to a local path (or ``file://`` URI), through a temporary file moved
-    into place; raises ``IOError`` if the file exists and ``force`` is
-    False. Other URI schemes wait for ``io/persist.py`` (ROADMAP A
-    #10)."""
-    if "://" in path and not path.startswith("file://"):
-        raise NotImplementedError(
-            f"export_file to {path.split('://', 1)[0]}:// waits for "
-            "io/persist.py (ROADMAP A #10); local paths only")
-    p = path[7:] if path.startswith("file://") else path
-    if not force and os.path.exists(p):
+    through ``io/persist.py``'s drivers: a local path, ``file://`` or
+    ``hex://`` (published atomically); raises ``IOError`` if the target
+    exists and ``force`` is False, and for the read-only ``http(s)://``;
+    ``s3://``, ``gs://`` and ``hdfs://`` raise ``NotImplementedError``
+    (they need pyarrow)."""
+    from h2o3_tpu_torch.io.persist import persist_manager
+    if not force and persist_manager.exists(path):
         raise IOError(f"{path} exists (use force=True)")
-    data = _csv_text(frame, sep)
-    os.makedirs(os.path.dirname(os.path.abspath(p)), exist_ok=True)
-    tmp = p + ".tmp"
-    with open(tmp, "wb") as f:
-        f.write(data)
-    os.replace(tmp, p)
+    persist_manager.write(path, _csv_text(frame, sep))
     return path
 
 

@@ -14,7 +14,7 @@ from functools import lru_cache
 from typing import Dict
 
 # the reference's algorithms the port has not ported yet, by ROADMAP item
-UNPORTED = {"generic": "A #10"}
+UNPORTED: Dict[str, str] = {}
 
 
 @lru_cache(maxsize=None)
@@ -30,6 +30,7 @@ def _registry() -> Dict[str, type]:
         ExtendedIsolationForestEstimator
     from h2o3_tpu_torch.models.gam import GAMEstimator
     from h2o3_tpu_torch.models.gbm import GBMEstimator
+    from h2o3_tpu_torch.models.generic import GenericEstimator
     from h2o3_tpu_torch.models.glm import GLMEstimator
     from h2o3_tpu_torch.models.glrm import GLRMEstimator
     from h2o3_tpu_torch.models.infogram import InfogramEstimator
@@ -50,7 +51,7 @@ def _registry() -> Dict[str, type]:
         AggregatorEstimator, ANOVAGLMEstimator, CoxPHEstimator,
         DeepLearningEstimator, DRFEstimator,
         ExtendedIsolationForestEstimator, GAMEstimator, GBMEstimator,
-        GLMEstimator, GLRMEstimator, InfogramEstimator,
+        GenericEstimator, GLMEstimator, GLRMEstimator, InfogramEstimator,
         IsolationForestEstimator, IsotonicRegressionEstimator,
         KMeansEstimator, ModelSelectionEstimator, NaiveBayesEstimator,
         PCAEstimator, PSVMEstimator, RuleFitEstimator,

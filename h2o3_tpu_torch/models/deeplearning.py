@@ -36,8 +36,9 @@ once a fit (``StepConfig.bf16``).
 
 Not ported: DL on a frame partitioned over a sharded mesh (the gradient
 all-reduce, ROADMAP A #12); the in-fit checkpointer
-``core/recovery`` (A #13); the serving halves ``_serve_dev`` /
-``_serve_finish`` (A #10). The reference's one-slot design memo is not
+``core/recovery`` (A #13). Scoring runs ``_serve_input`` /
+``_serve_dev`` (fixed row tiles) / ``_serve_finish``, the halves the
+serving engine runs too. The reference's one-slot design memo is not
 kept: the fit hands its design to the training metrics instead.
 ``export_weights_and_biases`` stores each layer's weights and biases as
 frames in the DKV.
@@ -61,6 +62,7 @@ from h2o3_tpu_torch.models.model import (EarlyStopper, Model, ModelBuilder,
                                          checkpoint_error, infer_category,
                                          masked_weights, require_local,
                                          resolve_checkpoint_model,
+                                         score_tiles,
                                          validate_checkpoint_params)
 from h2o3_tpu_torch.ops.gram import exact_f32
 from h2o3_tpu_torch.parallel.device import fetch
@@ -397,7 +399,7 @@ class DeepLearningModel(Model):
         self.resp_stats = resp_stats   # (mean, sigma) of a regression target
         self._opt_state = None         # checkpoint= continuation state
         self._steps_trained = 0
-        self._gen_state = None         # (device type, dropout generator)
+        self._gen_state = None         # (device type, generator state bytes)
 
     def _design(self, frame: Frame) -> torch.Tensor:
         return build_datainfo(
@@ -414,28 +416,54 @@ class DeepLearningModel(Model):
         with torch.no_grad(), exact_f32():
             return forward(self._net_on(X.device), X, self.act)
 
-    def _score_raw(self, frame: Frame) -> Dict[str, np.ndarray]:
-        require_local(frame, self.algo)
-        n = frame.nrows
-        X = self._design(frame)
-        out = self._raw_out(X)
-        if self.params.get("autoencoder"):
-            mse = ((out - X) ** 2).mean(dim=1)
-            return {"reconstruction_error": fetch(mse)[:n]}
+    def _serve_input(self, frame: Frame) -> torch.Tensor:
+        """The design matrix: the device input of ``_serve_dev`` (the
+        serving engine's prep too)."""
+        return self._design(frame)
+
+    def _serve_dev(self, X: torch.Tensor) -> torch.Tensor:
+        """The device half of scoring, shared by ``predict`` and the
+        serving engine (an autoencoder scores apart): class probabilities
+        [N, K] or the standardized response [N, 1], in ``score_tiles``'
+        fixed tiles, float32 products (no TF32)."""
+        net = self._net_on(X.device)
+        classes = self.output["category"] in (ModelCategory.BINOMIAL,
+                                              ModelCategory.MULTINOMIAL)
+
+        def tile(Xt):
+            out = forward(net, Xt, self.act)
+            return torch.softmax(out, dim=1) if classes else out
+        with torch.no_grad(), exact_f32():
+            return score_tiles(tile, X)
+
+    def _serve_finish(self, fetched: np.ndarray, n: int
+                      ) -> Dict[str, np.ndarray]:
+        """The host half of scoring: the prediction columns of the first
+        ``n`` rows of ``_serve_dev``'s fetched output (a regression
+        de-standardized on the host in float32, as the reference does)."""
         cat = self.output["category"]
-        if cat in (ModelCategory.BINOMIAL, ModelCategory.MULTINOMIAL):
-            p = fetch(torch.softmax(out, dim=1))[:n]
-            if cat == ModelCategory.BINOMIAL:
-                t = self.output.get("default_threshold", 0.5)
-                return {"predict": (p[:, 1] >= t).astype(np.int32),
-                        "p0": p[:, 0], "p1": p[:, 1]}
+        p = fetched[:n]
+        if cat == ModelCategory.BINOMIAL:
+            t = self.output.get("default_threshold", 0.5)
+            return {"predict": (p[:, 1] >= t).astype(np.int32),
+                    "p0": p[:, 0], "p1": p[:, 1]}
+        if cat == ModelCategory.MULTINOMIAL:
             cols = {"predict": p.argmax(axis=1).astype(np.int32)}
             for k in range(p.shape[1]):
                 cols[f"p{k}"] = p[:, k]
             return cols
         mu, sd = self.resp_stats
-        # de-standardized on the host in float32, as the reference does
-        return {"predict": fetch(out)[:n, 0] * sd + mu}
+        return {"predict": p[:, 0] * sd + mu}
+
+    def _score_raw(self, frame: Frame) -> Dict[str, np.ndarray]:
+        require_local(frame, self.algo)
+        n = frame.nrows
+        X = self._design(frame)
+        if self.params.get("autoencoder"):
+            out = self._raw_out(X)
+            mse = ((out - X) ** 2).mean(dim=1)
+            return {"reconstruction_error": fetch(mse)[:n]}
+        return self._serve_finish(fetch(self._serve_dev(X)), n)
 
     def anomaly(self, frame: Frame) -> Frame:
         """Per-row reconstruction MSE of an autoencoder (reference
@@ -638,7 +666,7 @@ class DeepLearningEstimator(ModelBuilder):
         # a donor from another device type (or the reference) leaves the
         # generator at its seed
         if prior._gen_state is not None and prior._gen_state[0] == dev.type:
-            gen.set_state(prior._gen_state[1])
+            gen.set_state(torch.from_numpy(np.array(prior._gen_state[1])))
         return net, opt, gen, int(prior._steps_trained or 0)
 
     def _fit(self, frame: Frame, x: Sequence[str], y: Optional[str],
@@ -741,7 +769,7 @@ class DeepLearningEstimator(ModelBuilder):
             t.resp_stats)
         model._opt_state = t.opt
         model._steps_trained = int(done)
-        model._gen_state = (t.X.device.type, t.gen.get_state())
+        model._gen_state = (t.X.device.type, t.gen.get_state().numpy())
         if p.get("export_weights_and_biases"):
             _export_weights_and_biases(model, t.X.device)
         nscore = int(p.get("score_training_samples") or 0)

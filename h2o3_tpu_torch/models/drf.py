@@ -32,6 +32,7 @@ a tree; cross-validation runs ``ml/cv.py``'s fast path; calibration
 
 from __future__ import annotations
 
+import types
 from typing import Dict, List, Optional, Sequence
 
 import numpy as np
@@ -52,7 +53,7 @@ from h2o3_tpu_torch.models.model import (Deadline, Model, ModelBuilder,
                                          check_donor, checkpoint_error,
                                          infer_category, masked_weights,
                                          prior_trees, require_local,
-                                         resolve_checkpoint_model)
+                                         resolve_checkpoint_model, rowwise)
 from h2o3_tpu_torch.models.tree import (Tree, TreeParams, bucket_depth,
                                         concat_forests,
                                         feature_frequencies_frame,
@@ -149,25 +150,31 @@ class DRFModel(Model):
         p1 = torch.clamp(votes[:, 0], 0.0, 1.0)
         return torch.stack([1.0 - p1, p1], dim=1)
 
-    def _score_dev(self, frame: Frame) -> torch.Tensor:
-        """Predictions left on the device: p1, [N, K] class
-        probabilities, or the response."""
+    def _serve_input(self, frame: Frame) -> torch.Tensor:
+        """The rows binned with the training edges: the device input of
+        ``_serve_dev`` (the serving engine's prep too)."""
         require_local(frame, self.algo)
-        bm = rebin_for_scoring(self.bm, frame)
-        cat = self.output["category"]
-        if cat == ModelCategory.REGRESSION:
-            return self._mean_votes(bm)[:, 0]
-        p = self._probs(bm)
-        return p[:, 1] if cat == ModelCategory.BINOMIAL else p
+        return rebin_for_scoring(self.bm, frame).bins
 
-    def _score_raw(self, frame: Frame) -> Dict[str, np.ndarray]:
-        require_local(frame, self.algo)
-        bm = rebin_for_scoring(self.bm, frame)
-        n = frame.nrows
+    def _serve_dev(self, bins: torch.Tensor) -> torch.Tensor:
+        """The device half of scoring, shared by ``predict`` and the
+        serving engine: the mean vote [N, 1] of a regression, else the
+        class probabilities [N, K]."""
+        def dev(b):
+            bm = types.SimpleNamespace(bins=b)
+            if self.output["category"] == ModelCategory.REGRESSION:
+                return self._mean_votes(bm)
+            return self._probs(bm)
+        return rowwise(dev, bins)
+
+    def _serve_finish(self, fetched: np.ndarray, n: int
+                      ) -> Dict[str, np.ndarray]:
+        """The host half of scoring: the prediction columns of the first
+        ``n`` rows of ``_serve_dev``'s fetched output."""
         cat = self.output["category"]
         if cat == ModelCategory.REGRESSION:
-            return {"predict": fetch(self._mean_votes(bm)[:, 0])[:n]}
-        p = fetch(self._probs(bm))[:n]
+            return {"predict": fetched[:n, 0]}
+        p = fetched[:n]
         if cat == ModelCategory.MULTINOMIAL:
             out = {"predict": p.argmax(axis=1).astype(np.int32)}
             out.update({f"p{k}": p[:, k] for k in range(p.shape[1])})
@@ -175,6 +182,19 @@ class DRFModel(Model):
         t = self.output.get("default_threshold", 0.5)
         return {"predict": (p[:, 1] >= t).astype(np.int32),
                 "p0": p[:, 0], "p1": p[:, 1]}
+
+    def _score_dev(self, frame: Frame) -> torch.Tensor:
+        """Predictions left on the device: p1, [N, K] class
+        probabilities, or the response."""
+        out = self._serve_dev(self._serve_input(frame))
+        cat = self.output["category"]
+        if cat == ModelCategory.REGRESSION:
+            return out[:, 0]
+        return out[:, 1] if cat == ModelCategory.BINOMIAL else out
+
+    def _score_raw(self, frame: Frame) -> Dict[str, np.ndarray]:
+        return self._serve_finish(
+            fetch(self._serve_dev(self._serve_input(frame))), frame.nrows)
 
     def model_performance(self, frame: Frame, mask_weights=None):
         require_local(frame, self.algo)

@@ -47,6 +47,7 @@ tree, rank).
 
 from __future__ import annotations
 
+import types
 from typing import Dict, List, Optional, Sequence
 
 import numpy as np
@@ -65,7 +66,7 @@ from h2o3_tpu_torch.models.model import (Deadline, EarlyStopper, Model,
                                          adapt_domain, check_donor,
                                          infer_category, masked_weights,
                                          prior_trees, require_local,
-                                         resolve_checkpoint_model)
+                                         resolve_checkpoint_model, rowwise)
 from h2o3_tpu_torch.models.tree import (Tree, TreeParams, _tree_at,
                                         bucket_depth, concat_forests,
                                         feature_frequencies_frame,
@@ -317,15 +318,36 @@ class GBMModel(Model):
                              frame_offset(frame,
                                           self.params.get("offset_column")))
 
+    def _serve_input(self, frame: Frame) -> torch.Tensor:
+        """The rows binned with the training edges: the device input of
+        ``_serve_dev`` (the serving engine's prep too)."""
+        return rebin_for_scoring(self.bm, frame).bins
+
+    def _serve_dev(self, bins: torch.Tensor) -> torch.Tensor:
+        """The device half of scoring, shared by ``predict`` (without an
+        offset) and the serving engine: p1, [N, K] class probabilities
+        or the response of binned rows."""
+        B = self.bm.nbins_total
+        return rowwise(lambda b: self._link(self._margins(
+            types.SimpleNamespace(bins=b, nbins_total=B))), bins)
+
+    def _serve_finish(self, fetched: np.ndarray, n: int
+                      ) -> Dict[str, np.ndarray]:
+        """The host half of scoring: the prediction columns of the first
+        ``n`` rows of ``_serve_dev``'s fetched output."""
+        return self._columns(fetched[:n])
+
     def _score_dev(self, frame: Frame) -> torch.Tensor:
         """Predictions of the rows on this rank's device, left there: p1,
         [N, K] class probabilities, or the response."""
+        off = frame_offset(frame, self.params.get("offset_column"))
+        if off is None:
+            return self._serve_dev(self._serve_input(frame))
         return self._link(self._frame_margins(frame))
 
     def _score_raw(self, frame: Frame) -> Dict[str, np.ndarray]:
-        pred = fetch_replicated(self._score_dev(frame),
-                                frame.mesh)[:frame.nrows]
-        return self._columns(pred)
+        pred = fetch_replicated(self._score_dev(frame), frame.mesh)
+        return self._serve_finish(pred, frame.nrows)
 
     def _score_local(self, frame: Frame) -> Dict[str, np.ndarray]:
         return self._columns(

@@ -21,8 +21,9 @@ gradient from ``torch.autograd`` on the same float32 objectives.
 Coefficients agree with the reference's within float32 summation order
 (the Gram sums in cuBLAS's order, not the reference's 8192-row blocks).
 
-Scoring (``GLMModel``) computes the reference's ``_score_raw`` /
-``_serve_dev`` math directly (the serving engine is ROADMAP A #10).
+Scoring (``GLMModel``) runs the reference's ``_score_raw`` math through
+``_serve_input`` / ``_serve_dev`` (fixed row tiles) / ``_serve_finish``,
+the halves the serving engine runs too (``serving/engine.py``).
 Validation metrics are the base ``train``'s (the reference's
 ``_finish``). ``beta_constraints`` may be a Frame's DKV key.
 
@@ -52,7 +53,8 @@ from h2o3_tpu_torch.frame.frame import Frame, resolve_frame
 from h2o3_tpu_torch.models import metrics as mm
 from h2o3_tpu_torch.models.model import (Model, ModelBuilder, ModelCategory,
                                          adapt_domain, infer_category,
-                                         masked_weights, require_local)
+                                         masked_weights, require_local,
+                                         score_tiles)
 from h2o3_tpu_torch.ops.gram import BLOCK_ROWS, exact_f32, gram
 from h2o3_tpu_torch.ops.optimize import (admm_l1_quadratic, cho_factor,
                                          cho_solve,
@@ -572,23 +574,34 @@ class GLMModel(Model):
         off = self._frame_offset(frame)
         return eta if off is None else eta + off
 
-    def _score_dev(self, frame: Frame) -> torch.Tensor:
-        """The device scores: [Npad, K] class probabilities (ordinal and
-        multinomial, offset ignored) or mu."""
-        if self.output.get("family") == "ordinal":
-            X1 = self._design(frame)
-            P = X1.shape[1] - 1
-            return ordinal_probs(
-                X1, self._coef_t(X1, self.coef[:P]),
-                self._coef_t(X1, self.output["ordinal_alphas"]))
-        if self.coef_multinomial is not None:
-            return torch.softmax(self._eta(frame), dim=1)
-        return self.family.linkinv(self._eta(frame))
+    def _serve_input(self, frame: Frame) -> torch.Tensor:
+        """The design matrix with its intercept column: the device input
+        of ``_serve_dev`` (the serving engine's prep too)."""
+        return self._design(frame)
 
-    def _score_raw(self, frame: Frame) -> Dict[str, np.ndarray]:
-        require_local(frame, self.algo)
-        n = frame.nrows
-        out = fetch(self._score_dev(frame))[:n]
+    def _serve_dev(self, X1: torch.Tensor) -> torch.Tensor:
+        """The device half of scoring, shared by ``predict`` (without an
+        offset) and the serving engine: [N, K] class probabilities
+        (ordinal, multinomial) or mu, in ``score_tiles``' fixed tiles."""
+        if self.output.get("family") == "ordinal":
+            P = X1.shape[1] - 1
+            beta = self._coef_t(X1, self.coef[:P])
+            alphas = self._coef_t(X1, self.output["ordinal_alphas"])
+            fn = lambda X: ordinal_probs(X, beta, alphas)   # noqa: E731
+        elif self.coef_multinomial is not None:
+            B = self._coef_t(X1, self.coef_multinomial)
+            fn = lambda X: torch.softmax(X @ B, dim=1)     # noqa: E731
+        else:
+            beta = self._coef_t(X1)
+            fn = lambda X: self.family.linkinv(X @ beta)   # noqa: E731
+        with exact_f32():
+            return score_tiles(fn, X1)
+
+    def _serve_finish(self, fetched: np.ndarray, n: int
+                      ) -> Dict[str, np.ndarray]:
+        """The host half of scoring: the prediction columns of the first
+        ``n`` rows of the fetched device scores."""
+        out = fetched[:n]
         if out.ndim == 2:
             cols = {"predict": out.argmax(axis=1).astype(np.int32)}
             for k in range(out.shape[1]):
@@ -599,6 +612,20 @@ class GLMModel(Model):
             return {"predict": (out >= t).astype(np.int32),
                     "p0": 1.0 - out, "p1": out}
         return {"predict": out}
+
+    def _score_dev(self, frame: Frame) -> torch.Tensor:
+        """The device scores: [Npad, K] class probabilities (ordinal and
+        multinomial, offset ignored) or mu."""
+        if self._frame_offset(frame) is None or \
+                self.output.get("family") == "ordinal" or \
+                self.coef_multinomial is not None:
+            return self._serve_dev(self._serve_input(frame))
+        return self.family.linkinv(self._eta(frame))
+
+    def _score_raw(self, frame: Frame) -> Dict[str, np.ndarray]:
+        require_local(frame, self.algo)
+        return self._serve_finish(fetch(self._score_dev(frame)),
+                                  frame.nrows)
 
     def model_performance(self, frame: Frame, mask_weights=None):
         """``mask_weights``: the CV fast path's holdout rows on the

@@ -13,8 +13,9 @@ the thresholds and fitted values are the reference's EXACTLY and no
 device is touched. The metrics are ``models/metrics.regression_metrics``
 on the host.
 
-Not ported: its MOJO and serving (ROADMAP A #10), a partitioned frame
-(A #12).
+Not ported: a partitioned frame (ROADMAP A #12). Its MOJO is
+``Model.download_mojo``'s; it has no serving schema, as in the
+reference.
 """
 
 from __future__ import annotations

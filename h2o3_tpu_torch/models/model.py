@@ -238,12 +238,17 @@ class Model:
         cp1 = self.calibrator.apply(np.asarray(cols["p1"], np.float64))
         return {**cols, "cal_p0": 1.0 - cp1, "cal_p1": cp1}
 
+    def predict_domains(self) -> Dict[str, List[str]]:
+        """The domains of the prediction columns: the response's for
+        ``predict`` of a classifier."""
+        if self.output.get("domain"):
+            return {"predict": self.output["domain"]}
+        return {}
+
     def predict(self, frame: Frame) -> Frame:
         """Bulk scoring → prediction Frame on the scored frame's device,
         partitioned like the scored frame."""
-        domains = {}
-        if self.output.get("domain"):
-            domains["predict"] = self.output["domain"]
+        domains = self.predict_domains()
         if frame.partitioned:
             return Frame.from_numpy_partitioned(
                 self._finish_predict(self._score_local(frame)), frame.nrows,
@@ -256,6 +261,78 @@ class Model:
         floats) restricts them to a row subset (the CV fast path scores a
         fold's held-out rows on the parent frame)."""
         raise NotImplementedError
+
+    def download_mojo(self, path: str, format: str = "native") -> str:
+        """Export this model as a MOJO zip for offline scoring
+        (Model.getMojo; ``genmodel/``). ``format="native"``: the
+        ``meta.json`` + ``arrays.npz`` zip both packages' readers score;
+        ``format="reference"``: the reference MOJO layout (``model.ini``,
+        ``domains/``, the tree blobs) for glm, kmeans, deeplearning,
+        isolationforest, word2vec, coxph, glrm, pca, targetencoder, gbm
+        and drf."""
+        from h2o3_tpu_torch.genmodel.export import host_model, mojo_artifacts
+        if format == "reference":
+            from h2o3_tpu_torch.genmodel import refmojo
+            writers = {
+                "glm": refmojo.write_reference_glm_mojo,
+                "kmeans": refmojo.write_reference_kmeans_mojo,
+                "deeplearning": refmojo.write_reference_dl_mojo,
+                "isolationforest": refmojo.write_reference_isofor_mojo,
+                "word2vec": refmojo.write_reference_word2vec_mojo,
+                "coxph": refmojo.write_reference_coxph_mojo,
+                "glrm": refmojo.write_reference_glrm_mojo,
+                "pca": refmojo.write_reference_pca_mojo,
+                "targetencoder": refmojo.write_reference_te_mojo,
+                "gbm": refmojo.write_reference_mojo,
+                "drf": refmojo.write_reference_mojo,
+            }
+            w = writers.get(self.algo)
+            if w is None:
+                raise ValueError(
+                    "reference-format MOJO export supports "
+                    f"{sorted(writers)} (got {self.algo})")
+            return w(host_model(self), path)
+        from h2o3_tpu_torch.genmodel.mojo import write_mojo
+        meta, arrays = mojo_artifacts(self)
+        return write_mojo(path, meta, arrays)
+
+    def download_pojo(self, path: str) -> str:
+        """Export a standalone source-code scorer (the Model.toJava role;
+        a stdlib-only Python module, ``genmodel/pojo.py``)."""
+        from h2o3_tpu_torch.genmodel.pojo import export_pojo
+        return export_pojo(self, path)
+
+
+# rows of one scoring tile (``score_tiles``): the serving engine's
+# largest row bucket, H2O3TPU_SCORE_BATCH_MAX_ROWS's default
+SCORE_TILE = 4096
+
+
+def score_tiles(fn, x: torch.Tensor, tile: int = SCORE_TILE) -> torch.Tensor:
+    """``fn`` over the rows of ``x`` in tiles of exactly ``tile`` rows
+    (the last one zero-padded), concatenated and cut back to ``x``'s
+    rows. A BLAS picks its kernel by the shape and a CPU's vectorized
+    loops end in a scalar tail, so a row's bits could follow the number
+    of rows around it; through fixed tiles they do not, and ``predict``
+    and the serving engine (which pads a request to its row bucket) give
+    a row the same bits."""
+    n = x.shape[0]
+    outs = []
+    for lo in range(0, max(n, 1), tile):
+        xt = x[lo:lo + tile]
+        if xt.shape[0] < tile:
+            xt = torch.cat([xt, xt.new_zeros((tile - xt.shape[0],)
+                                             + tuple(xt.shape[1:]))])
+        outs.append(fn(xt))
+    return (outs[0] if len(outs) == 1 else torch.cat(outs))[:n]
+
+
+def rowwise(fn, x: torch.Tensor) -> torch.Tensor:
+    """``fn`` of row-local elementwise math (a forest's routes, gathers,
+    tree-order sums and link): whole on the card, where a row's bits do
+    not follow the rows around it; in ``score_tiles`` on the CPU, whose
+    vectorized loops end in a scalar tail."""
+    return fn(x) if x.is_cuda else score_tiles(fn, x)
 
 
 def require_local(frame: Frame, algo: str) -> None:

@@ -20,8 +20,8 @@ cross-validation is not ported: the reference's fails (ROADMAP C).
 are ``link`` and ``tweedie_power``, which neither wrapper hands to its
 GLMs.
 
-Not ported: the wrappers on a partitioned frame (ROADMAP A #12), their
-MOJOs and serving (A #10).
+Not ported: the wrappers on a partitioned frame (ROADMAP A #12). They
+have no MOJO and no serving schema, as in the reference.
 """
 
 from __future__ import annotations

@@ -18,8 +18,8 @@ so a test can feed in the reference's ``jax.random`` draw.
 
 Accepted and inert, as in the reference: PCA's ``compute_metrics`` and
 ``impute_missing`` (numerics are mean-imputed). Not ported: PCA/SVD on a
-frame partitioned over a sharded mesh (ROADMAP A #12); MOJO export
-(A #10).
+frame partitioned over a sharded mesh (ROADMAP A #12). Their MOJOs
+(PCA's also in the reference's layout) are ``Model.download_mojo``'s.
 """
 
 from __future__ import annotations
@@ -96,6 +96,11 @@ class _Projection(Model):
 
 class PCAModel(_Projection):
     algo = "pca"
+
+    @property
+    def eigvecs(self):
+        """The eigenvectors [P, k] (the reference's name)."""
+        return self.V
 
     def _score_raw(self, frame: Frame) -> Dict[str, np.ndarray]:
         s = self._project(frame)

@@ -21,8 +21,9 @@ level kernels.
 ``distribution`` is accepted and inert, as in the reference. Not
 ported: ``weights_column`` (the reference's RuleFit fails with it: its
 GLM looks for the weights in the rule frame), multinomial responses
-(the reference raises), a partitioned frame (ROADMAP A #12), MOJO and
-serving (A #10).
+(the reference raises), a partitioned frame (ROADMAP A #12). Its MOJO
+is ``Model.download_mojo``'s; the serving engine, as the reference's,
+serves gbm, drf, glm and deeplearning only.
 """
 
 from __future__ import annotations

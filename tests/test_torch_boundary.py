@@ -87,6 +87,21 @@ SLICE_MODULES = (
     "h2o3_tpu_torch/io/lazy.py",
     "h2o3_tpu_torch/ops/merge.py",
     "h2o3_tpu_torch/ml/explain.py",
+    "h2o3_tpu_torch/core/request_ctx.py",
+    "h2o3_tpu_torch/io/persist.py",
+    "h2o3_tpu_torch/genmodel/__init__.py",
+    "h2o3_tpu_torch/genmodel/mojo.py",
+    "h2o3_tpu_torch/genmodel/readers.py",
+    "h2o3_tpu_torch/genmodel/easy.py",
+    "h2o3_tpu_torch/genmodel/export.py",
+    "h2o3_tpu_torch/genmodel/refmojo.py",
+    "h2o3_tpu_torch/genmodel/pojo.py",
+    "h2o3_tpu_torch/genmodel/pojo_java.py",
+    "h2o3_tpu_torch/serving/__init__.py",
+    "h2o3_tpu_torch/serving/rows.py",
+    "h2o3_tpu_torch/serving/batcher.py",
+    "h2o3_tpu_torch/serving/engine.py",
+    "h2o3_tpu_torch/models/generic.py",
 )
 # sources the port compiles: its kernels and its tokenizer
 NATIVE_FILES = sorted(str(p.relative_to(ROOT)) for p in PKG.rglob("*")

@@ -1,8 +1,8 @@
 """The port's algorithm registry (``h2o3_tpu_torch.models``) against the
 reference's: every algorithm the port has is found under the same names
-(the reference's normalization: case and underscores), each other
-algorithm of the reference raises ``NotImplementedError`` naming its
-ROADMAP item, and an unknown name raises ``ValueError`` in both. The
+(the reference's normalization: case and underscores), no algorithm of
+the reference is left unported (``UNPORTED`` is empty since ``generic``
+came), and an unknown name raises ``ValueError`` in both. The
 port also registers ``stackedensemble`` (its AutoML and grid build every
 estimator by name), which the reference's table leaves out: it is the
 builder of the reference's ``ml/ensemble.py``, mirrored."""
@@ -26,7 +26,7 @@ def test_every_ported_name_finds_the_references_estimator():
             ref.__module__.replace("h2o3_tpu.", "")
     assert models.all_algos() == sorted(
         ["aggregator", "anovaglm", "coxph", "deeplearning", "drf",
-         "extendedisolationforest", "gam", "gbm", "glm", "glrm",
+         "extendedisolationforest", "gam", "gbm", "generic", "glm", "glrm",
          "infogram", "isolationforest", "isotonicregression", "kmeans",
          "modelselection", "naivebayes", "pca", "psvm", "rulefit",
          "stackedensemble", "svd", "targetencoder", "upliftdrf", "word2vec",
@@ -34,9 +34,9 @@ def test_every_ported_name_finds_the_references_estimator():
     assert not {"kmeans", "pca", "svd", "glrm", "naivebayes",
                 "targetencoder", "gam", "rulefit", "modelselection",
                 "anovaglm", "isotonicregression", "infogram", "coxph",
-                "psvm", "aggregator", "word2vec",
+                "psvm", "aggregator", "word2vec", "generic",
                 "stackedensemble"} & set(models.UNPORTED)
-    assert set(models.UNPORTED) == {"generic"}
+    assert set(models.UNPORTED) == set()
 
 
 @pytest.mark.parametrize("name", ["Deep_Learning", "DEEPLEARNING", "gbm",
@@ -47,7 +47,8 @@ def test_every_ported_name_finds_the_references_estimator():
                                   "Rule_Fit", "Model_Selection",
                                   "ANOVA_GLM", "Isotonic_Regression",
                                   "InfoGram", "CoxPH", "PSVM",
-                                  "Aggregator", "Word2Vec", "word_2_vec"])
+                                  "Aggregator", "Word2Vec", "word_2_vec",
+                                  "Generic"])
 def test_names_normalize_as_in_the_reference(name):
     assert models.get_builder(name).algo == \
         ref_models.get_builder(name).algo
@@ -64,10 +65,9 @@ def test_stacked_ensemble_is_registered(name):
 
 def test_the_rest_of_the_reference_is_named_and_unported():
     rest = set(ref_models.all_algos()) - set(models.all_algos())
-    assert rest == set(models.UNPORTED)
-    for algo in sorted(rest):
-        with pytest.raises(NotImplementedError, match="ROADMAP A #"):
-            models.get_builder(algo)
+    assert rest == set(models.UNPORTED) == set()
+    from h2o3_tpu_torch.models.generic import GenericEstimator
+    assert models.get_builder("generic") is GenericEstimator
 
 
 @pytest.mark.parametrize("name", ["nope", "gbm2", "deep learning"])
