@@ -50,8 +50,8 @@ Phases, in order; any failure exits non-zero and no phase carries on:
 8. The uplift main path: 13,979,592 rows of the Criteo Uplift v2.1
    schema, ``UpliftDRFEstimator(ntrees=10, max_depth=10, ...).train``,
    ``_score_raw`` and ``model_performance``; ``histogram`` launched
-   2 x 10 x 10 times and no level kernel; where the time goes (binning
-   alone, the training metrics alone, a 1-tree fit under torch.profiler);
+   2 x 10 x 10 times and no level kernel (its breakdown of where the time
+   goes cut when phases 29 and 31 came);
    AUUC and Qini checked against the CPU plain path on a 20K-row sample.
 9. ``histogram`` timed at the uplift path's shapes (d=0..9), as phase 5.
 10. The sharded tree level over W = 2 ranks (spawned processes, one
@@ -116,8 +116,7 @@ Phases, in order; any failure exits non-zero and no phase carries on:
     to the uncapped fits', a 0.05 s cap keeps a prefix of 1-9 trees, and
     the flagship refit under the loose cap is bit-equal to phase 4's
     forest and training AUC and logloss (every sum of a fit on the card
-    is 64-bit fixed point, so fits are deterministic); the cost of the
-    device wait after each tree is printed.
+    is 64-bit fixed point, so fits are deterministic).
 18. CSV ingest → the flagship GBM: phase 4's 5M rows written as CSV
     (numpy byte operations; categoricals as levels, the response as
     NO/YES), read by ``stream_import_csv`` at the default worker count
@@ -184,11 +183,13 @@ Phases, in order; any failure exits non-zero and no phase carries on:
     a fit takes as long on the head): ``non_negative`` and
     ``beta_constraints`` (COD), p-values
     (gaussian, binomial), an ordinal fit, multinomial IRLSM on a 3-class
-    response with a ridge (Cholesky) and with L1 (ADMM), interactions
-    (DepTime x Distance, UniqueCarrier x Month), 3-fold CV with lambda
-    search (10 lambdas), each against the CPU plain fit on the same rows
-    (the multinomial fits' probabilities too); one COD and one ADMM IRLS
-    iteration timed at P = 263.
+    response with a ridge (Cholesky), interactions (DepTime x Distance,
+    UniqueCarrier x Month), 3-fold CV with lambda search (10 lambdas),
+    each against the CPU plain fit on the same rows (the multinomial
+    fit's probabilities too); the one-hot width P = 263. Cut when phase
+    31 came, for the run's time: the timing of one COD and one ADMM
+    iteration, and the multinomial L1 (ADMM) fit, which
+    tests/test_torch_cuda.py holds on the card at the same tolerances.
 23. DeepLearning (no kernel: cuBLAS products with TF32 off, bf16 GEMMs
     from a batch of 16,384, plain torch). (a) bench.py's DL benchmark at
     its shape, nothing cut: 1,000,000 x 784 pixels rand > 0.8 from
@@ -317,8 +318,11 @@ Phases, in order; any failure exits non-zero and no phase carries on:
     level kernels launched and the others not. (d) Two runs of
     ``H2OAutoML(max_models=2, seed=1, nfolds=3, include_algos=["glm",
     "gbm", "stackedensemble"])`` on the first 100K rows of (c)'s CSV (the
-    default 3600 s budget does not bite): the same steps in the same
-    order, bit-equal leaderboards and leader p1. (e) (d)'s best-of-family
+    default 3600 s budget does not bite), the first direct, the second
+    through ``/99/AutoMLBuilder`` on the card's REST server (phase 31's):
+    the same steps in the same order, bit-equal leaderboards (also as
+    ``/99/Leaderboards`` answers) and leader p1 (also through
+    ``/3/Predictions``). (e) (d)'s best-of-family
     metalearner fit from the same level-one frame on the card and on the
     CPU: coefficients within ``SE_COEF_TOL`` of max(1, |c|), or twice the
     largest witness (the CPU fit on the rows permuted, five permutations)
@@ -335,8 +339,8 @@ Phases, in order; any failure exits non-zero and no phase carries on:
     read from CSV (names, types, domains, NA masks, host values bit for
     bit; SVMLight on its numeric encoding); each reader's seconds and
     MB/s. (b) ``export_file`` of the CSV frame writes the CSV's bytes
-    and reads back equal; ``parse_setup`` of every file gives the
-    expected types; a sqlite3 table of the rows through
+    and reads back equal; ``parse_setup`` of the CSV gives the expected
+    types (the host formats' cut: each reruns a reader (a) holds); a sqlite3 table of the rows through
     ``import_sql_table`` equals the CSV frame, ``import_sql_select`` of its
     first 100K rows (``rowid <= 100000``) their CSV frame;
     ``import_file(lazy=True)`` parses nothing until ``DKV.get``, then
@@ -381,6 +385,29 @@ Phases, in order; any failure exits non-zero and no phase carries on:
     decoders on 500 rows within 2e-4. (d) The three through the engine at
     every bucket (8 .. 4,096 rows), at the first and the last rows of a
     5,000-row frame: bit-equal to predict.
+31. The REST and client surface (no new kernel): the port's server on
+    the card (``start_server(port=0)``) and the port's ``client.init``.
+    (a) 27(c)'s 500K-row airlines CSV through ``client.import_file``
+    (ImportFiles, ParseSetup, Parse): the frame EXACTLY the direct
+    ``import_file``'s. (b) ``H2OGradientBoostingEstimator(ntrees=10,
+    max_depth=6, seed=1)`` over ``/3/ModelBuilders/gbm``: 60 launches of
+    each level kernel, the forest and training AUC bit-equal to the
+    direct fit, ``/3/Predictions`` bit-equal to ``predict``, 1,000 rows
+    through ``/3/Predictions/models/{id}`` bit-equal to the engine's,
+    the ``/3/Models/{id}/mojo`` bytes ``mojo_bytes``. (c) 39 Rapids
+    expressions through ``/99/Rapids`` on phase 4's first 1M rows (the
+    device path), each against ``rapids()`` on a CPU copy: arithmetic,
+    comparisons, rounding, ``ifelse``, ``is.na``, ``cummax``/``cummin``,
+    the integer ``cumsum``, the string LUT, min/max, sort, quantile and
+    merge EXACT; the transcendentals within ``CARD_ULPS``; sum and mean
+    within twice the float32 summation bound; the group-by's sums EXACT
+    against the exact sum rounded once (fixed point), the CPU's within the
+    bound; ``DEV_OPS`` printed. (d) bench.py's grid over ``/99/Grid/gbm``:
+    the model-axis kernels 120 launches each, every model bit-equal to
+    27(a)'s batched model. (e) ``/3/SelfBench`` and ``/3/NetworkTest``
+    printed; the R package generated from the server's
+    ``/3/ModelBuilders`` passes ``rcheck``. (f) Every out-of-scope route
+    answers 501 naming ROADMAP A #13.
 
 Launch counts are read per path: each path sets every count to 0 just
 before it runs and reads them just after (phase 15's, over its seven
@@ -412,7 +439,8 @@ phase 27's as ``grid``, ``automl``, ``automl_repeat`` (both runs of
 ``gbm_depth20`` ((f)'s fit), phase 28's as ``readers``, ``write_read``,
 ``merge`` and ``explain``, phase 29's as ``glm_bucket`` and
 ``segments``, phase 30's as ``serving_gbm`` (the fit), ``serving`` and
-``served_buckets`` (0 on each);
+``served_buckets`` (0 on each), phase 31's as ``rest_parse``,
+``rest_gbm``, ``rest_rapids`` and ``rest_grid``;
 ``tree_partition`` has a
 fourth record, at the Isolation Forest levels; the three level kernels
 have records at phase 2's deep level d = 15, ``tree_hist`` and
@@ -426,6 +454,7 @@ from __future__ import annotations
 import contextlib
 import gc
 import json
+import re
 import subprocess
 import sys
 import time
@@ -566,8 +595,6 @@ SURFACE_FITS = (
     ("ordinal", "late", None, dict(family="ordinal", lambda_=0.0)),
     ("multinomial irlsm ridge", "late", GLM_TOL,
      dict(family="multinomial", solver="irlsm", lambda_=1e-3, alpha=0.0)),
-    ("multinomial irlsm l1 (ADMM)", "late", GLM_TOL,
-     dict(family="multinomial", solver="irlsm", lambda_=1e-3)),
     ("interactions DepTime x Distance", "delay", GLM_WIDE_TOL,
      dict(family="gaussian", lambda_=0.0,
           interactions=["DepTime", "Distance"])),
@@ -790,6 +817,7 @@ N_GRID_ROWS = 500_000            # bench.py bench_grid
 GRID_HYPER = {"learn_rate": [0.05, 0.08, 0.1, 0.15],
               "sample_rate": [0.7, 1.0], "min_rows": [5.0, 20.0]}
 GRID_FIXED = dict(ntrees=20, max_depth=6, seed=1)
+GRID_27A = {}                    # 27(a)'s models by combo: (forest, AUC)
 # the reference's RandomDiscrete walk of GRID_HYPER at seed 42, its first
 # five combos (h2o3_tpu/ml/grid.py GridSearch._combos)
 GRID_RANDOM_ORDER = (
@@ -825,7 +853,10 @@ DEEP_SHAP_CPU = 2_000
 # phase 28: the data surface
 N_XLSX = 50_000                  # the first rows of (a)'s rows as XLSX (cut
 #                                  from 100K when phase 29 came, for time)
-SETUP_KINDS = ("csv", "arff", "svm")   # 28(b)'s parse_setup files
+# 28(b)'s parse_setup files: ARFF and SVMLight cut when phase 31 came,
+# as Avro and XLSX when phase 29 came (a host format's parse_setup runs
+# its whole reader again, whose frame 28(a) holds EXACT)
+SETUP_KINDS = ("csv",)
 N_MERGE = 10_000_000             # bench.py bench_sort, nothing cut
 N_MERGE_SMALL = 1_000_000        # the two-key and categorical-key joins
 MERGE_GUARD_BYTES = 1 << 30
@@ -2064,20 +2095,10 @@ def phase_uplift(torch, dev, cols, domains):
         f"{t_score:.3f} s, AUUC {tm['auuc']:.6f}, Qini {tm['qini']:.6f}, "
         f"peak device memory {peak / 2**30:.3f} GiB")
     say(f"phase8 launches: {counts}")
-    # where the time goes: binning alone, the training metrics alone (the
-    # scoring walks and the host AUUC), and a 2-tree fit under the profiler
-    from h2o3_tpu_torch.frame.binning import bin_frame
-    t0 = time.perf_counter()
-    bin_frame(fr, [f"f{i}" for i in range(12)], nbins=64, nbins_cats=64,
-              weights=np.ones(fr.nrows, np.float32))
-    torch.cuda.synchronize()
-    t_bin = time.perf_counter() - t0
-    t0 = time.perf_counter()
-    model.model_performance(fr)
-    say(f"phase8 breakdown: bin_frame alone {t_bin:.3f} s, training "
-        f"metrics alone {time.perf_counter() - t0:.3f} s; the 1-tree fit "
-        "under the profiler cut when phase 29 came, for the run's time "
-        "(phase 4's profile stays)")
+    say("phase8 breakdown cut: the 1-tree fit under the profiler when "
+        "phase 29 came, bin_frame alone and the training metrics alone "
+        "when phase 31 came, for the run's time (3.0-5.4 s and 4.1-6.7 s "
+        "before the cut; measurements, no check)")
     # the fit against the CPU plain path on a sample, without bagging: the
     # card's and the CPU's generators draw different bags
     kw = dict(UPLIFT, sample_rate=1.0)
@@ -2493,13 +2514,8 @@ def phase_multinomial(torch, dev, cols, domains):
         "multinomial GBM refit differs from the first fit")
     say("phase13 refit: forest and training logloss/AUC bit-equal to the "
         "first fit")
-    from h2o3_tpu_torch.frame.binning import bin_frame
-    t0 = time.perf_counter()
-    bin_frame(fr, [c for c in cols if c != "Cover_Type"], nbins=64,
-              nbins_cats=1024, weights=np.ones(n, np.float32))
-    torch.cuda.synchronize()
-    say(f"phase13 breakdown: bin_frame alone {time.perf_counter() - t0:.3f} "
-        "s")
+    say("phase13 breakdown: bin_frame alone cut when phase 31 came, for "
+        "the run's time (1.5 s; a measurement, no check)")
     small = {k: v[:N_SAMPLE] for k, v in cols.items()}
     a, b = (m.training_metrics for m in card_and_cpu(
         lambda: h2o.GBMEstimator(**MULTI_GBM), small, domains, dev,
@@ -3009,9 +3025,8 @@ def phase_runtime_cap(torch, dev, fr, cols, domains, gbm_forest,
     and a tight one keeps a bit-equal prefix: DRF's and a laplace GBM's
     (both sample rows and columns, so this holds the per-tree draws too),
     and the flagship's refit under the loose cap, bit-equal to phase 4's
-    forest and training AUC and logloss. Then the flagship's tree loop
-    timed alone (the binning shared) without a cap and under the loose
-    cap: what the device wait after each tree costs."""
+    forest and training AUC and logloss. (The flagship's tree loop timed
+    alone with and without the cap was cut when phase 31 came.)"""
     import h2o3_tpu_torch as h2o
     drf = h2o.DRFEstimator(**dict(DRF, max_runtime_secs=CAP_LOOSE_S)
                            ).train(fr, y=Y)
@@ -3038,30 +3053,16 @@ def phase_runtime_cap(torch, dev, fr, cols, domains, gbm_forest,
         + ("leaves" if t_diff is None else f"splits from tree {t_diff + 1}")
         + f", {[(loose.training_metrics[k], v) for k, v in metrics_main.items()]}")
 
-    def loop_s(cap):
-        est = h2o.GBMEstimator(**dict(FLAGSHIP, max_runtime_secs=cap))
-        est._cv_shared_bm = loose.bm      # the tree loop alone
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        est.train(fr, y=Y)
-        torch.cuda.synchronize()
-        return time.perf_counter() - t0
-
-    times = {0.0: [], CAP_LOOSE_S: []}
-    for cap in (0.0, CAP_LOOSE_S, CAP_LOOSE_S, 0.0, 0.0, CAP_LOOSE_S):
-        times[cap].append(loop_s(cap))
-    free, capped = (float(np.median(times[c])) for c in (0.0, CAP_LOOSE_S))
     say(f"phase17f max_runtime_secs={CAP_LOOSE_S:g}: DRF forest == phase "
         f"6's, laplace GBM (sample_rate {LAPLACE['sample_rate']}, "
         f"col_sample_rate_per_tree {LAPLACE['col_sample_rate_per_tree']}) "
         f"== its uncapped fit; ={CAP_TIGHT_S:g}: the laplace GBM stopped "
         f"after {n} of {LAPLACE['ntrees']} trees, its uncapped fit's "
         f"first {n} bit for bit")
-    say(f"phase17f flagship refit under the loose cap: forest and training "
-        f"AUC/logloss bit-equal to phase 4's; tree loop alone (median of 3): "
-        f"{free:.4f} s uncapped, {capped:.4f} s capped, the device wait "
-        f"after each tree {1e3 * (capped - free) / FLAGSHIP['ntrees']:.3f} "
-        f"ms a tree (runs: {times})")
+    say("phase17f flagship refit under the loose cap: forest and training "
+        "AUC/logloss bit-equal to phase 4's; the tree loop timed alone "
+        "uncapped and capped (3 runs each) cut when phase 31 came, for the "
+        "run's time (a measurement, no check)")
 
 
 def csv_bytes(cols, domains) -> bytes:
@@ -3899,7 +3900,6 @@ def phase_glm_surface(torch, dev, cols, domains, delay):
     over all of them."""
     import h2o3_tpu_torch as h2o
     from h2o3_tpu_torch.frame.datainfo import build_datainfo
-    from h2o3_tpu_torch.models import glm as glm_mod
     from h2o3_tpu_torch.ops import kernels
     n = N_SURFACE
     scols = {k: v[:n] for k, v in cols.items()}
@@ -3962,37 +3962,18 @@ def phase_glm_surface(torch, dev, cols, domains, delay):
                      f"{extra})")
     counts = dict(kernels.LAUNCHES)
     check_launches(counts, {}, "GLM surface")
-    # one COD and one ADMM IRLS iteration at the airlines one-hot width
     di = build_datainfo(fr, x, standardize=True)
-    X1 = di.X1
-    check(X1.shape[1] == P_AIRLINES, f"one-hot width {X1.shape[1]}")
-    yv = torch.from_numpy(scols["delay"].astype(np.float32)).to(dev)
-    w = fr.valid_weights()
-    off = torch.zeros_like(w)
-    fam = glm_mod.Family("gaussian")
-    coef = torch.zeros(X1.shape[1], device=dev)
-    f32 = glm_mod._f32
-    secs = {}
-    for what, fn in (
-            ("cod", lambda: glm_mod._irls_iter_cod(
-                X1, coef, yv, w, off, f32(0.0, dev), f32(0.0, dev), None,
-                None, fam)),
-            ("admm", lambda: glm_mod._irls_iter(
-                X1, coef, yv, w, off, f32(0.05, dev), f32(0.05, dev), fam,
-                use_l1=True))):
-        torch.cuda.synchronize()
-        t1 = time.perf_counter()
-        fn()
-        torch.cuda.synchronize()
-        secs[what] = time.perf_counter() - t1
-    say(f"phase22d GLM surface on {n} airlines rows (P = {X1.shape[1]}; "
+    check(di.X1.shape[1] == P_AIRLINES, f"one-hot width {di.X1.shape[1]}")
+    say(f"phase22d GLM surface on {n} airlines rows (P = {di.X1.shape[1]}; "
         f"cut from 100000 rows when phase 27 came, for the run's time: "
         f"its solvers are host-paced, a fit takes as long on the head) in "
         f"{time.perf_counter() - t0:.3f} s: " + "; ".join(lines))
-    say(f"phase22d one IRLS iteration at P = {X1.shape[1]} on {n} rows: COD "
-        f"({glm_mod.COD_SWEEPS} sweeps x {X1.shape[1]} coordinates in plain "
-        f"torch) {secs['cod']:.3f} s, ADMM (lambda 0.05, alpha 0.5) "
-        f"{secs['admm'] * 1e3:.3f} ms (wall, host-paced loops)")
+    say("phase22d cut when phase 31 came, for the run's time: the timing "
+        "of one COD and one ADMM IRLS iteration at P = 263 (1.662-2.431 s "
+        "and 67-85 ms before the cut; a measurement), and the multinomial "
+        "L1 (ADMM) fit (14.4 s on the card before the cut), whose card vs "
+        "CPU check tests/test_torch_cuda.py makes at the same tolerances "
+        "(test_glm_card_vs_cpu_and_refit_bit_equal[multinomial_l1])")
     return counts
 
 
@@ -6332,6 +6313,10 @@ def phase_grid(torch, dev, fr):
               "standalone fit")
     check_launches(seq_counts, {k: n_combos * levels for k in LEVEL_KERNELS},
                    "grid sequential")
+    GRID_27A.clear()
+    GRID_27A.update({json.dumps(m.output["grid_params"], sort_keys=True):
+                     (on_cpu(m.forest), m.training_metrics["AUC"])
+                     for m in grid.models})
     best = grid.sorted_models()[0]
     say(f"phase27(a) every batched grid model bit-equal to its standalone "
         f"fit (forest, training AUC); the {n_combos} standalone fits (the "
@@ -6508,18 +6493,19 @@ def phase_automl_repeat(torch, dev, fr):
     import h2o3_tpu_torch as h2o
     from h2o3_tpu_torch.ml.ensemble import _level_one_columns, _with_response
     from h2o3_tpu_torch.ops import kernels
-    runs, t_runs = [], []
+    rest_server(dev)
     kernels.reset_counts()
-    for _ in range(2):
-        aml = h2o.H2OAutoML(**AUTOML_REPEAT)
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        aml.train(y=Y, training_frame=fr)
-        torch.cuda.synchronize()
-        t_runs.append(time.perf_counter() - t0)
-        runs.append(aml)
+    a = h2o.H2OAutoML(**AUTOML_REPEAT)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    a.train(y=Y, training_frame=fr)
+    torch.cuda.synchronize()
+    t_runs = [time.perf_counter() - t0]
+    t0 = time.perf_counter()
+    b, lb = rest_automl(fr, "automl_repeat")
+    torch.cuda.synchronize()
+    t_runs.append(time.perf_counter() - t0)
     counts = dict(kernels.LAUNCHES)
-    a, b = runs
     steps_a = [m.output["automl_step"] for m in a.leaderboard.models]
     steps_b = [m.output["automl_step"] for m in b.leaderboard.models]
     check(steps_a == steps_b, f"AutoML steps differ: {steps_a} / {steps_b}")
@@ -6528,16 +6514,28 @@ def phase_automl_repeat(torch, dev, fr):
     tab_b = [{k: v for k, v in r.items() if k != "model_id"}
              for r in b.leaderboard.as_table()]
     check(tab_a == tab_b, "the two AutoML leaderboards differ")
+    tab_rest = [{k: v for k, v in r.items() if k != "model_id"}
+                for r in lb["leaderboard_table"]]
+    check(tab_rest == [{k: v for k, v in r.items() if k != "model_id"}
+                       for r in a.leaderboard.as_table()],
+          "/99/Leaderboards differs from the direct run's leaderboard")
     pa = a.predict(fr).col("p1").to_numpy()
-    pb = b.predict(fr).col("p1").to_numpy()
+    leader = lb["models"][0]["name"]
+    st, out = rest("POST", f"/3/Predictions/models/{leader}/frames/"
+                   f"{fr.key}")
+    check(st == 200, f"the REST leader's predictions: {st} {out}")
+    from h2o3_tpu_torch.core.kv import DKV
+    pb = DKV.get(out["predictions_frame"]["name"]).col("p1").to_numpy()
     check(np.array_equal(pa, pb), "the two leaders' p1 differ")
     say(f"phase27(d) AutoML {AUTOML_REPEAT} twice on the first "
         f"{fr.nrows} rows of (c)'s CSV (cut from {N_AUTOML} rows, and "
         f"from 4 models to {AUTOML_REPEAT['max_models']} when phase 28 came, "
-        f"for the run's time): {t_runs[0]:.3f} / {t_runs[1]:.3f} s, steps "
-        f"{steps_a} in "
-        "the same order, leaderboards bit-equal (every metric), leader p1 "
-        "bit-equal")
+        f"for the run's time), the second through /99/AutoMLBuilder on the "
+        f"card server (phase 31's): direct {t_runs[0]:.3f} s, REST "
+        f"{t_runs[1]:.3f} s; steps {steps_a} in the same order, "
+        "leaderboards bit-equal (every metric, directly and as "
+        "/99/Leaderboards answers), the leader's p1 bit-equal (predict and "
+        "/3/Predictions)")
     se = next(m for m in a.leaderboard.models
               if m.output["automl_step"] == "StackedEnsemble_BestOfFamily")
     cols = {}
@@ -7003,7 +7001,9 @@ def phase_write_read(torch, dev, csv, head, paths, files, tmp):
     say(f"phase28(b) export_file {t_exp:.3f} s (the bytes == the CSV "
         f"read), import_file of it == the CSV frame; parse_setup of "
         f"{', '.join(SETUP_KINDS)} {t_setup:.3f} s, the expected types "
-        "(Avro and XLSX cut when phase 29 came, for the run's time); "
+        "(Avro and XLSX cut when phase 29 came, ARFF and SVMLight, 9.6 s "
+        "with CSV's on the slowest host, when phase 31 came, for the "
+        "run's time: each reruns its reader, whose frame (a) holds); "
         f"sqlite3 table "
         f"of {csv.nrows} rows: import_sql_table {t_tab:.3f} s == the CSV "
         f"frame, import_sql_select of its first {head.nrows} rows == "
@@ -7966,6 +7966,408 @@ def phase_serving_persist_mojo(torch, dev, cols, domains):
             "served_buckets": c_buckets}
 
 
+# ------------------------------------------------ phase 31 (slice 19)
+#
+# The REST and client surface: the port's server on the card, driven the
+# way an h2o-py user drives it (``h2o3_tpu_torch.client``) and over raw
+# HTTP where a route has no client call.
+
+REST = {}                        # the card server's URL, once started
+# (c)'s expressions on the 1M-row airlines frame "air": every device op
+# family of the Rapids prims; "carriers" is a small dimension table
+RAPIDS_EXPRS = (
+    '(+ (cols_py air ["DepTime"]) (cols_py air ["CRSDepTime"]))',
+    '(- (cols_py air ["DepTime"]) (cols_py air ["CRSDepTime"]))',
+    '(* (cols_py air ["Distance"]) 2.5)',
+    '(/ (cols_py air ["Distance"]) (cols_py air ["DayOfWeek"]))',
+    '(%% (cols_py air ["DepTime"]) 60)',
+    '(intDiv (cols_py air ["DepTime"]) 100)',
+    '(< (cols_py air ["DepTime"]) (cols_py air ["CRSDepTime"]))',
+    '(>= (cols_py air ["Distance"]) 1000)',
+    '(== (cols_py air ["Month"]) 12)',
+    '(& (> (cols_py air ["DepTime"]) 1200) (< (cols_py air ["Distance"]) '
+    '500))',
+    '(| (== (cols_py air ["DayOfWeek"]) 1) (== (cols_py air ["DayOfWeek"]) '
+    '7))',
+    '(ifelse (> (cols_py air ["DepTime"]) 1200) (cols_py air ["Distance"]) '
+    '0)',
+    '(abs (- (cols_py air ["DepTime"]) 1200))',
+    '(floor (/ (cols_py air ["Distance"]) 7))',
+    '(sign (- (cols_py air ["DepTime"]) 1200))',
+    '(is.na (cols_py air ["DepTime"]))',
+    '(log (cols_py air ["Distance"]))',
+    '(exp (/ (cols_py air ["Distance"]) 1000))',
+    '(sqrt (cols_py air ["Distance"]))',
+    '(log1p (cols_py air ["DepTime"]))',
+    '(log10 (cols_py air ["Distance"]))',
+    '(log2 (cols_py air ["Distance"]))',
+    '(sin (cols_py air ["DepTime"]))',
+    '(cos (cols_py air ["DepTime"]))',
+    '(tanh (/ (- (cols_py air ["DepTime"]) 1200) 600))',
+    '(atan (cols_py air ["Distance"]))',
+    '(^ (/ (cols_py air ["Distance"]) 1000) 1.5)',
+    '(cumsum (cols_py air ["DayOfWeek"]) 0)',
+    '(cummax (cols_py air ["DepTime"]) 0)',
+    '(cummin (cols_py air ["Distance"]) 0)',
+    '(toupper (cols_py air ["Origin"]))',
+    '(sum (cols_py air ["Distance"]))',
+    '(mean (cols_py air ["DepTime"]))',
+    '(min (cols_py air ["Distance"]))',
+    '(max (cols_py air ["DepTime"]))',
+    '(GB air ["UniqueCarrier"] "sum" "Distance" "all" "count" "Distance" '
+    '"all" "mean" "DepTime" "all")',
+    '(sort air ["Distance" "DepTime"] [1 -1])',
+    '(quantile (cols_py air ["Distance"]) [0.1 0.5 0.9] "interpolate")',
+    '(merge air carriers 0 0)',
+)
+# the card's transcendentals against the CPU's (torch's CPU libm, ~0.5
+# ulp off the float64 value): the CUDA math library's documented maximum
+# ulp error of each float32 function, plus 1
+CARD_ULPS = {"log": 2, "exp": 3, "sqrt": 1, "log1p": 2, "log10": 3,
+             "log2": 2, "sin": 3, "cos": 3, "tanh": 3, "atan": 3, "^": 5}
+REST_GBM = FLAGSHIP              # 31(b): phase 28(d)'s GBM parameters
+N_REST_ROWS = 1_000              # 31(b)'s rows through the serving engine
+
+
+def rest_server(dev) -> str:
+    """The port's REST server on the card (started once, on an ephemeral
+    port): its URL."""
+    if "url" not in REST:
+        from h2o3_tpu_torch.api.server import start_server
+        REST["url"] = f"http://127.0.0.1:{start_server(port=0, device=dev)}"
+    return REST["url"]
+
+
+def rest(method: str, path: str, raw: bool = False, body=None, **params):
+    """(status, JSON or bytes) of one request to the card server."""
+    import urllib.error
+    import urllib.parse
+    import urllib.request
+    url = REST["url"] + path
+    data = None
+    if body is not None:
+        data = json.dumps(body).encode()
+    elif method == "POST":
+        data = urllib.parse.urlencode(
+            {k: (json.dumps(v) if isinstance(v, (list, dict)) else v)
+             for k, v in params.items()}).encode()
+    elif params:
+        url += "?" + urllib.parse.urlencode(params)
+    req = urllib.request.Request(url, data=data, method=method)
+    if data is not None:
+        req.add_header("Content-Type", "application/json" if body is not None
+                       else "application/x-www-form-urlencoded")
+    try:
+        with urllib.request.urlopen(req, timeout=600) as resp:
+            out = resp.read()
+            return resp.status, (out if raw else json.loads(out))
+    except urllib.error.HTTPError as e:
+        return e.code, json.loads(e.read())
+
+
+def rest_job(path: str, **params) -> dict:
+    """POST a job-starting request and poll the job to its end."""
+    st, out = rest("POST", path, **params)
+    check(st == 200, f"POST {path}: {st} {out}")
+    key = (out.get("job") or out)["key"]["name"]
+    while True:
+        st, j = rest("GET", f"/3/Jobs/{key}")
+        job = j["jobs"][0]
+        if job["status"] not in ("CREATED", "RUNNING"):
+            check(job["status"] == "DONE",
+                  f"{path}: job {job['status']}: {job['exception']}")
+            return job
+        time.sleep(0.1)                  # h2o-py polls every 0.2 s
+
+
+def rest_automl(fr, project: str):
+    """(d)'s second AutoML run: AUTOML_REPEAT through ``/99/AutoMLBuilder``
+    on the card server, on ``fr`` stored under ``project``'s frame key.
+    Returns the run's H2OAutoML and its ``/99/Leaderboards`` answer."""
+    from h2o3_tpu_torch.core.kv import DKV
+    key = f"{project}.hex"
+    fr._keyed(key)
+    ctl = {"project_name": project, "nfolds": AUTOML_REPEAT["nfolds"],
+           "stopping_criteria": {"max_models": AUTOML_REPEAT["max_models"],
+                                 "seed": AUTOML_REPEAT["seed"]}}
+    rest_job("/99/AutoMLBuilder", build_control=ctl,
+             input_spec={"training_frame": key, "response_column": Y},
+             build_models={"include_algos": AUTOML_REPEAT["include_algos"]})
+    st, lb = rest("GET", f"/99/Leaderboards/{project}")
+    check(st == 200, f"/99/Leaderboards: {st} {lb}")
+    return DKV.get(f"leaderboard_{project}_result"), lb
+
+
+def ulps(got: np.ndarray, want: np.ndarray) -> np.ndarray:
+    """|got - want| in float32 ulps of want."""
+    w32 = np.asarray(want, np.float32)
+    return np.abs(np.asarray(got, np.float64) - w32) / np.spacing(
+        np.abs(w32)).astype(np.float64)
+
+
+def rapids_frames(torch, dev, cols, domains):
+    """(c)'s frames on the card and their CPU copies, stored as "air" /
+    "carriers" and "air_cpu" / "carriers_cpu"."""
+    import h2o3_tpu_torch as h2o
+    car = domains["UniqueCarrier"]
+    dim = {"UniqueCarrier": np.arange(len(car), dtype=np.int32),
+           "hub": np.arange(len(car), dtype=np.float64) * 10.0}
+    out = {}
+    for suffix, d in (("", dev), ("_cpu", "cpu")):
+        out["air" + suffix] = h2o.Frame.from_numpy(
+            cols, domains=domains, device=d, key="air" + suffix)
+        out["carriers" + suffix] = h2o.Frame.from_numpy(
+            dim, domains={"UniqueCarrier": car}, device=d,
+            key="carriers" + suffix)
+    torch.cuda.synchronize()
+    return out
+
+
+def compare_rapids(expr, card, cpu, cols) -> str:
+    """Hold (c)'s card result against the CPU's on the same frame: the
+    kind of check each prim takes. Returns what was held."""
+    from h2o3_tpu_torch.frame.frame import Frame
+    head = expr[1:].split(" ")[0]
+    if not isinstance(card, Frame):
+        col = expr.split('["')[1].split('"')[0]
+        x = np.asarray(cols[col], np.float64)
+        if head in ("min", "max"):
+            check(card == cpu, f"{expr}: card {card}, CPU {cpu}")
+            return "exact"
+        # each within the float32 summation bound of the exact sum
+        bound = 2 * (x.size - 1) * 2.0 ** -24 * float(np.abs(x).sum())
+        if head == "mean":
+            bound /= x.size
+        check(abs(card - cpu) <= bound,
+              f"{expr}: card {card}, CPU {cpu}, bound {bound}")
+        return f"|card - CPU| {abs(card - cpu):.3g} <= {bound:.3g}"
+    check(card.names == cpu.names and card.nrows == cpu.nrows,
+          f"{expr}: shapes differ")
+    worst = 0.0
+    for nm in card.names:
+        a, b = card.col(nm), cpu.col(nm)
+        check((a.type, a.domain) == (b.type, b.domain),
+              f"{expr}: column {nm} types differ")
+        ha, hb = a.to_numpy(), b.to_numpy()
+        check(np.array_equal(np.isnan(ha), np.isnan(hb)),
+              f"{expr}: column {nm} NAs differ")
+        ok = ~np.isnan(ha)
+        if head in CARD_ULPS:
+            u = ulps(ha[ok], hb[ok])
+            worst = max(worst, float(u.max()) if u.size else 0.0)
+            check(worst <= CARD_ULPS[head],
+                  f"{expr}: {worst} ulps over {CARD_ULPS[head]}")
+        elif head == "GB" and nm.startswith(("sum_", "nrow", "mean_")):
+            # the card's group sums are fixed point: the exact sum
+            # rounded once; the CPU's float32 within the summation bound
+            src = nm.split("_", 1)[1] if nm != "nrow" else "Distance"
+            g = np.asarray(cols["UniqueCarrier"])
+            x = np.asarray(cols[src], np.float64)
+            cnt = np.bincount(g, minlength=card.nrows).astype(np.float64)
+            s1 = np.bincount(g, weights=x, minlength=card.nrows)
+            s32 = np.float32(s1).astype(np.float64)
+            want = {"nrow": cnt, "sum": s32, "mean": s32 / cnt}[
+                nm.split("_")[0]]
+            check(np.array_equal(ha, want), f"{expr}: card {nm} is not the "
+                                            "exact sum rounded once")
+            bound = (cnt - 1) * 2.0 ** -24 * np.bincount(
+                g, weights=np.abs(x), minlength=card.nrows) + np.spacing(
+                    np.abs(s32))
+            if nm.startswith("mean_"):
+                bound = bound / cnt
+            check((np.abs(hb - ha) <= bound).all(),
+                  f"{expr}: CPU {nm} off the card's by more than the bound")
+        else:
+            check(np.array_equal(ha[ok], hb[ok]),
+                  f"{expr}: column {nm} differs")
+    return f"<= {worst:.3g} ulps" if head in CARD_ULPS else "exact"
+
+
+def phase_rest_rapids(torch, dev, cols, domains):
+    """31(c): RAPIDS_EXPRS through ``/99/Rapids`` on the card frame and
+    through ``rapids()`` on its CPU copy. Returns the launches."""
+    from h2o3_tpu_torch import rapids as R
+    from h2o3_tpu_torch.core.kv import DKV
+    from h2o3_tpu_torch.ops import kernels
+    frames = rapids_frames(torch, dev, cols, domains)
+    check(frames["air"].nrows >= R._DEV_MIN_ROWS,
+          "the Rapids frame is under the device path's rows")
+    session = R.Session()
+    kernels.reset_counts()
+    dev_ops = 0
+    t_card = t_cpu = 0.0
+    held = []
+    for expr in RAPIDS_EXPRS:
+        torch.cuda.synchronize()
+        ops0 = R.DEV_OPS
+        t0 = time.perf_counter()
+        st, out = rest("POST", "/99/Rapids", ast=expr)
+        torch.cuda.synchronize()
+        t_card += time.perf_counter() - t0
+        dev_ops += R.DEV_OPS - ops0
+        check(st == 200, f"/99/Rapids {expr}: {st} {out}")
+        card = DKV.get(out["key"]["name"]) if "key" in out else out["scalar"]
+        t0 = time.perf_counter()
+        cpu = R.rapids(re.sub(r"\b(air|carriers)\b", r"\1_cpu", expr),
+                       session, device="cpu")
+        t_cpu += time.perf_counter() - t0
+        held.append(f"{expr[1:].split(' ')[0]} "
+                    f"{compare_rapids(expr, card, cpu, cols)}")
+    counts = dict(kernels.LAUNCHES)
+    check(dev_ops > 0, "no Rapids prim ran on the device path")
+    say(f"phase31(c) /99/Rapids: {len(RAPIDS_EXPRS)} expressions on "
+        f"{frames['air'].nrows} airlines rows, card {t_card:.3f} s through "
+        f"REST, the CPU copy {t_cpu:.3f} s; DEV_OPS {dev_ops} on the card; "
+        "held: " + "; ".join(held))
+    return counts
+
+
+def phase_rest(torch, dev, cols, domains):
+    """Phase 31: the REST and client surface on the card (see the module
+    docstring). Returns its paths' launches."""
+    import tempfile
+    import h2o3_tpu_torch as h2o
+    from h2o3_tpu_torch import client
+    from h2o3_tpu_torch.api.server import OUT_OF_SCOPE
+    from h2o3_tpu_torch.client_r import generate_from_live
+    from h2o3_tpu_torch.client_r.rcheck import check_r_source
+    from h2o3_tpu_torch.core.kv import DKV
+    from h2o3_tpu_torch.genmodel.export import mojo_artifacts
+    from h2o3_tpu_torch.genmodel.mojo import mojo_bytes
+    from h2o3_tpu_torch.ops import kernels
+    from h2o3_tpu_torch.serving.engine import engine
+    t31, secs, paths = time.perf_counter(), {}, {}
+    client.init(rest_server(dev))
+    (csv_full, _), _ = made_ahead("automl_csv", automl_csv)
+    with tempfile.TemporaryDirectory() as tmp:
+        path = f"{tmp}/airlines.csv"
+        with open(path, "wb") as f:
+            f.write(csv_full)
+        # (a) ImportFiles + ParseSetup + Parse through the client
+        kernels.reset_counts()
+        t0 = time.perf_counter()
+        hf = client.import_file(path, destination_frame="airlines.hex")
+        torch.cuda.synchronize()
+        t_parse = time.perf_counter() - t0
+        paths["rest_parse"] = dict(kernels.LAUNCHES)
+        fr = DKV.get("airlines.hex")
+        direct = h2o.import_file(path, device=dev)
+    check(hf.shape == (N_AUTOML, len(cols)) and same_frames(fr, direct),
+          "the REST frame differs from the direct import_file")
+    secs["a"] = time.perf_counter() - t31
+    say(f"phase31(a) client.init on the card server, import_file of (27c)'s "
+        f"{N_AUTOML}-row airlines CSV over ImportFiles + ParseSetup + Parse: "
+        f"{t_parse:.3f} s; the frame EXACTLY the direct import_file's "
+        "(names, types, domains, device data, NA masks, host values)")
+    # (b) a GBM over /3/ModelBuilders/gbm, its forest and outputs
+    t0 = time.perf_counter()
+    kernels.reset_counts()
+    est = client.estimators.H2OGradientBoostingEstimator(**REST_GBM)
+    hm = est.train(y=Y, training_frame=hf)
+    torch.cuda.synchronize()
+    t_fit = time.perf_counter() - t0
+    counts = dict(kernels.LAUNCHES)
+    paths["rest_gbm"] = counts
+    levels = REST_GBM["ntrees"] * REST_GBM["max_depth"]
+    check_launches(counts, {k: levels for k in LEVEL_KERNELS}, "rest_gbm")
+    m = DKV.get(hm.model_id)
+    alone = h2o.GBMEstimator(**REST_GBM).train(direct, y=Y)
+    check(forests_equal(m.forest, alone.forest)
+          and m.training_metrics["AUC"] == alone.training_metrics["AUC"],
+          "the REST GBM differs from the direct fit")
+    pred = DKV.get(hm.predict(hf).frame_id)
+    want = alone.predict(direct)
+    check(all(np.array_equal(pred.col(n).host_view(), want.col(n).host_view(),
+                             equal_nan=True) for n in want.names),
+          "/3/Predictions differs from predict")
+    raw = {k: v for k, v in cols.items() if k != Y}
+    rows = [{k: (domains[k][int(v[i])] if k in domains else int(v[i]))
+             for k, v in raw.items()} for i in range(N_REST_ROWS)]
+    st, served = rest("POST", f"/3/Predictions/models/{hm.model_id}",
+                      body={"rows": rows})
+    check(st == 200, f"row predictions: {st} {served}")
+    eng, doms, _ = engine.score_rows(m, rows)
+    for n in ("p0", "p1"):
+        check(np.array_equal(np.asarray(served["predictions"][n]), eng[n]),
+              f"served {n} differs from the engine's")
+    check(served["predictions"]["predict"] ==
+          [doms["predict"][int(c)] for c in eng["predict"]],
+          "served labels differ from the engine's")
+    with tempfile.TemporaryDirectory() as tmp:
+        with open(hm.download_mojo(f"{tmp}/m.zip"), "rb") as fh:
+            check(fh.read() == mojo_bytes(*mojo_artifacts(m)),
+                  "the REST MOJO is not mojo_bytes")
+    secs["b"] = time.perf_counter() - t31 - sum(secs.values())
+    say(f"phase31(b) GBM {REST_GBM} over /3/ModelBuilders/gbm: {t_fit:.3f} "
+        f"s, launches {counts}; forest and training AUC bit-equal to the "
+        f"direct fit (AUC {alone.training_metrics['AUC']:.6f}); "
+        f"/3/Predictions bit-equal to predict on {N_AUTOML} rows; "
+        f"{N_REST_ROWS} rows through /3/Predictions/models/{{id}} bit-equal "
+        "to the engine's; /3/Models/{id}/mojo bytes == mojo_bytes")
+    del m, alone, pred, want, fr, direct
+    DKV.clear()
+    # (c) Rapids on the card against the CPU
+    small = {k: v[:N_KERNEL] for k, v in cols.items()}
+    paths["rest_rapids"] = phase_rest_rapids(torch, dev, small, domains)
+    DKV.clear()
+    secs["c"] = time.perf_counter() - t31 - sum(secs.values())
+    # (d) bench.py's grid over /99/Grid/gbm, against 27(a)'s models
+    gfr = grid_frame(dev)._keyed("grid.hex")
+    kernels.reset_counts()
+    t0 = time.perf_counter()
+    rest_job("/99/Grid/gbm", training_frame="grid.hex", response_column="y",
+             grid_id="rest_grid", hyper_parameters=GRID_HYPER, **GRID_FIXED)
+    torch.cuda.synchronize()
+    t_grid = time.perf_counter() - t0
+    counts = dict(kernels.LAUNCHES)
+    paths["rest_grid"] = counts
+    glevels = GRID_FIXED["ntrees"] * GRID_FIXED["max_depth"]
+    check_launches(counts, {k: glevels for k in MODEL_KERNELS}, "rest_grid")
+    st, g = rest("GET", "/99/Grids/rest_grid")
+    check(st == 200 and len(g["model_ids"]) == len(GRID_27A),
+          f"/99/Grids: {st} {g.get('model_ids')}")
+    for mid in g["model_ids"]:
+        m = DKV.get(mid["name"])
+        ref = GRID_27A[json.dumps(m.output["grid_params"], sort_keys=True)]
+        check(forests_equal(m.forest, ref[0])
+              and m.training_metrics["AUC"] == ref[1],
+              f"REST grid model {m.output['grid_params']} differs from "
+              "27(a)'s")
+    secs["d"] = time.perf_counter() - t31 - sum(secs.values())
+    say(f"phase31(d) /99/Grid/gbm {GRID_HYPER} {GRID_FIXED} on {gfr.nrows} "
+        f"rows: {t_grid:.3f} s, {len(GRID_27A) / t_grid:.6g} models/s, "
+        f"launches {counts}; every model bit-equal to 27(a)'s batched model "
+        "(forest, training AUC)")
+    del gfr
+    DKV.clear()
+    # (e) SelfBench, NetworkTest, the R package of this server
+    st, sb = rest("GET", "/3/SelfBench")
+    check(st == 200 and sb["matmul_bf16_gflops"] > 0, f"SelfBench {sb}")
+    st, nt = rest("GET", "/3/NetworkTest")
+    check(st == 200 and nt["table"][0]["seconds"] > 0, f"NetworkTest {nt}")
+    with tempfile.TemporaryDirectory() as tmp:
+        written = generate_from_live(tmp, REST["url"])
+        bad = {p: check_r_source(open(p).read()) for p in written
+               if p.endswith(".R")}
+    check(not any(bad.values()), f"R package: {bad}")
+    say(f"phase31(e) /3/SelfBench {sb}; /3/NetworkTest {nt['table']} on "
+        f"{nt['nodes']}; the R package generated from this server's "
+        f"/3/ModelBuilders: {len(written)} files, every .R passes rcheck")
+    # (f) the routes that wait for ROADMAP A #13
+    for method, pat, _layer in OUT_OF_SCOPE:
+        p = pat.replace("(?P<key>[^/]+)", "job_x").replace(
+            "(?P<mid>[^/]+)", "m_x")
+        st, err = rest(method, p)
+        check(st == 501 and "ROADMAP A #13" in err["msg"],
+              f"{method} {p}: {st} {err}")
+    secs["e-f"] = time.perf_counter() - t31 - sum(secs.values())
+    say(f"phase31(f) the {len(OUT_OF_SCOPE)} out-of-scope routes answer 501 "
+        "naming ROADMAP A #13")
+    say("phase31: " + ", ".join(f"({k}) {v:.3f} s" for k, v in secs.items())
+        + f", together {time.perf_counter() - t31:.3f} s")
+    return paths
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -8133,11 +8535,14 @@ def main() -> int:
     del higgs, fr_k, bm
     mark("phase 30")
     paths.update(phase_serving_persist_mojo(torch, dev, cols, domains))
+    mark("phase 31")
+    paths.update(phase_rest(torch, dev, cols, domains))
     for rec in deep_records:
         rec["launches"] = paths["gbm_depth20"][rec["name"]]
     records += deep_records
     for p, c in paths.items():
-        check(p == "grid" or not any(c.get(k, 0) for k in MODEL_KERNELS),
+        check(p in ("grid", "rest_grid")
+              or not any(c.get(k, 0) for k in MODEL_KERNELS),
               f"a model-axis kernel launched on the {p} path")
     for rec in records:
         rec["max_abs_err"] = worst[rec["name"]]

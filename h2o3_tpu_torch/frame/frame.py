@@ -2,7 +2,8 @@
 
 Reference: h2o3_tpu/frame/frame.py (``Frame.from_numpy``,
 ``Frame.from_numpy_partitioned``, ``Frame.from_blocks``, ``col``,
-``names``, ``nrows_padded``, ``valid_weights``). A frame built with a
+``names``, ``nrows_padded``, ``valid_weights``, ``__getitem__``,
+``summary``). A frame built with a
 ``key`` (or imported with a ``destination_frame``) is stored in the DKV
 under it, and the entry points that take a frame take its key too
 (``resolve_frame``). A frame built without one has ``key`` None and
@@ -193,8 +194,31 @@ class Frame:
             name_or_idx = self._order[name_or_idx]
         return self._cols[name_or_idx]
 
+    def __getitem__(self, sel) -> "Frame":
+        """A frame of the selected columns (names or indices), sharing
+        their Column objects; unkeyed."""
+        if isinstance(sel, (str, int)):
+            sel = [sel]
+        return Frame([self.col(s) for s in sel], self.nrows, self.device,
+                     npad=self.nrows_padded, mesh=self.mesh,
+                     span=self.span, block=self.block)
+
     def __contains__(self, name: str) -> bool:
         return name in self._cols
+
+    def summary(self) -> Dict[str, dict]:
+        """Each column's rollups (``frame/rollups.rollups``) with its
+        type and, for a categorical, its cardinality."""
+        from h2o3_tpu_torch.frame.rollups import rollups
+        out = {}
+        for n in self._order:
+            c = self.col(n)
+            s = dict(rollups(c))
+            s["type"] = c.type
+            if c.domain:
+                s["cardinality"] = len(c.domain)
+            out[n] = s
+        return out
 
     def add_column(self, col: Column) -> None:
         """Append ``col``, or replace the column of its name. It must

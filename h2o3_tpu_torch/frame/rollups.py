@@ -8,8 +8,9 @@ squared deviations from that mean over the valid rows. The port keeps its
 own copy of the statistics it uses: Extended Isolation Forest imputes
 NAs with the mean, GLM's design (``frame/datainfo.py``) imputes and
 standardizes with mean and sigma, and the device sort (``ops/sort.py``)
-reads a key's range. One pass of torch reductions on the column's
-device and one fetch.
+reads a key's range, and the REST frame summaries (``Frame.summary``)
+read ``rollups``. One pass of torch reductions on the column's device
+and one fetch.
 """
 
 from __future__ import annotations
@@ -54,3 +55,32 @@ def rollup_min_max(col: Column) -> Tuple[float, float]:
     hi = torch.where(valid, x, -torch.inf).max()
     m, M = torch.stack([lo, hi]).tolist()
     return m, M
+
+
+def rollups(col: Column) -> dict:
+    """The column's RollupStats (the reference's ``rollups``): rows,
+    na_count, mean, sigma, min, max, zero_count and sum of the valid
+    rows in float32, computed once and cached on the column. A string or
+    UUID column has ``rows`` and ``na_count`` only."""
+    got = getattr(col, "_rollups", None)
+    if got is not None:
+        return got
+    if col.data is None:
+        col._rollups = {"rows": col.nrows, "na_count": 0}
+        return col._rollups
+    valid, n, x, mean = _valid_f32(col)
+    s = torch.where(valid, x, 0.0).sum()
+    ss = torch.where(valid, (x - mean) ** 2, 0.0).sum()
+    sigma = torch.sqrt(ss / torch.clamp_min(n - 1.0, 1.0))
+    lo = torch.where(valid, x, torch.inf).min()
+    hi = torch.where(valid, x, -torch.inf).max()
+    zeros = torch.where(valid, (x == 0).to(torch.float32), 0.0).sum()
+    na = (~valid).sum().to(torch.float32)
+    vals = torch.stack([n, na, mean, sigma, lo, hi, zeros, s]).tolist()
+    out = dict(zip(("rows", "na_count", "mean", "sigma", "min", "max",
+                    "zero_count", "sum"), vals))
+    out["rows"] = int(out["rows"])
+    out["na_count"] = int(out["na_count"]) - (col.data.shape[0] - col.nrows)
+    out["zero_count"] = int(out["zero_count"])
+    col._rollups = out
+    return out

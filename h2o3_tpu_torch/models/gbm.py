@@ -496,8 +496,9 @@ class GBMEstimator(ModelBuilder):
         "ntrees", "max_depth", "min_rows", "learn_rate", "sample_rate",
         "col_sample_rate_per_tree", "nbins", "nbins_cats", "distribution",
         "min_split_improvement", "seed", "reg_lambda", "weights_column",
-        "tweedie_power", "quantile_alpha", "huber_alpha", "stopping_rounds",
-        "stopping_tolerance", "score_tree_interval", "max_runtime_secs",
+        "ignored_columns", "tweedie_power", "quantile_alpha", "huber_alpha",
+        "stopping_rounds", "stopping_tolerance", "score_tree_interval",
+        "max_runtime_secs",
         "nfolds", "fold_column", "fold_assignment",
         "keep_cross_validation_models", "checkpoint", "offset_column",
         "monotone_constraints", "interaction_constraints",

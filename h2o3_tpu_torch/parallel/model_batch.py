@@ -20,9 +20,8 @@ combos sequentially.
 
 Knob: ``H2O3TPU_BATCH_MODELS`` = ``auto`` (the default: batch eligible
 buckets of two combos or more) | ``off``/``0``/``false``/``no`` (always
-sequential). The reference also reads a ``batch_models`` config entry;
-the port has no ``core/config`` yet (ROADMAP A #11), so only the
-environment is read. The reference's telemetry (the
+sequential). The environment wins over ``core/config.ARGS.batch_models``,
+as in the reference. The reference's telemetry (the
 ``batched_train_batches_total`` / ``batched_train_width`` counters and the
 ``model_batch.train`` span) waits for ``telemetry/`` (A #13).
 """
@@ -75,8 +74,12 @@ BATCHABLE_KNOBS: Dict[str, frozenset] = {
 
 
 def mode() -> str:
-    """The ``H2O3TPU_BATCH_MODELS`` value, lower case (``auto`` unset)."""
-    v = os.environ.get("H2O3TPU_BATCH_MODELS", "auto")
+    """The ``H2O3TPU_BATCH_MODELS`` value (the environment wins over
+    ``core/config.ARGS.batch_models``), lower case."""
+    v = os.environ.get("H2O3TPU_BATCH_MODELS")
+    if v is None:
+        from h2o3_tpu_torch.core.config import ARGS
+        v = ARGS.batch_models
     return str(v).strip().lower() or "auto"
 
 

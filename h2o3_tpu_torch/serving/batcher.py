@@ -17,8 +17,9 @@ dispatch and scatters per-request slices back.
 
 The module is device-free (stdlib and the engine's ``dispatch_fn``).
 Not ported: the heartbeat's local-work scope around a dispatch, the
-trace context a request carries and the logger (ROADMAP A #13); the knobs are read from the environment, as
-``core/config`` waits for A #11.
+trace context a request carries and the logger (ROADMAP A #13). The
+knobs come from the environment over ``core/config.ARGS``, as the
+reference reads them.
 """
 
 from __future__ import annotations
@@ -29,12 +30,8 @@ import time
 from collections import deque
 from typing import Callable, Dict, List, Optional
 
+from h2o3_tpu_torch.core import config as _config
 from h2o3_tpu_torch.core import request_ctx
-
-# the reference's core/config defaults (score_batch_*)
-DEFAULT_MAX_ROWS = 4096
-DEFAULT_WAIT_MS = 2.0
-DEFAULT_QUEUE_DEPTH = 256
 
 
 class QueueSaturated(RuntimeError):
@@ -48,16 +45,18 @@ class BatcherDraining(RuntimeError):
 
 
 def batch_knobs() -> Dict[str, float]:
-    """The micro-batch knobs, read from the environment at each call
-    (``H2O3TPU_SCORE_BATCH_{MAX_ROWS,WAIT_MS,QUEUE_DEPTH}``)."""
+    """The micro-batch knobs, read at each call: the environment
+    (``H2O3TPU_SCORE_BATCH_{MAX_ROWS,WAIT_MS,QUEUE_DEPTH}``) over
+    ``core/config.ARGS``."""
     env = os.environ.get
+    a = _config.ARGS
     return {
         "max_rows": max(1, int(env("H2O3TPU_SCORE_BATCH_MAX_ROWS",
-                                   DEFAULT_MAX_ROWS))),
+                                   a.score_batch_max_rows))),
         "wait_ms": max(0.0, float(env("H2O3TPU_SCORE_BATCH_WAIT_MS",
-                                      DEFAULT_WAIT_MS))),
+                                      a.score_batch_wait_ms))),
         "queue_depth": max(1, int(env("H2O3TPU_SCORE_BATCH_QUEUE_DEPTH",
-                                      DEFAULT_QUEUE_DEPTH))),
+                                      a.score_batch_queue_depth))),
     }
 
 

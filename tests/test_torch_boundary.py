@@ -102,6 +102,17 @@ SLICE_MODULES = (
     "h2o3_tpu_torch/serving/batcher.py",
     "h2o3_tpu_torch/serving/engine.py",
     "h2o3_tpu_torch/models/generic.py",
+    "h2o3_tpu_torch/core/config.py",
+    "h2o3_tpu_torch/core/selfcheck.py",
+    "h2o3_tpu_torch/api/__init__.py",
+    "h2o3_tpu_torch/api/server.py",
+    "h2o3_tpu_torch/api/model_schema.py",
+    "h2o3_tpu_torch/api/metadata.py",
+    "h2o3_tpu_torch/api/flow.py",
+    "h2o3_tpu_torch/rapids/__init__.py",
+    "h2o3_tpu_torch/client/__init__.py",
+    "h2o3_tpu_torch/client_r/__init__.py",
+    "h2o3_tpu_torch/client_r/rcheck.py",
 )
 # sources the port compiles: its kernels and its tokenizer
 NATIVE_FILES = sorted(str(p.relative_to(ROOT)) for p in PKG.rglob("*")
@@ -369,3 +380,21 @@ def test_data_surface_entry_points_default_to_cuda_and_raise_without_card(
         with pytest.raises(RuntimeError, match="no CUDA device"):
             call()
     assert set(h2o.DKV.keys()) == before        # no stub was stored
+
+
+def test_rest_entry_points_default_to_cuda_and_raise_without_card(
+        monkeypatch):
+    """``start_server()``, ``client.init()``, ``rapids()`` and
+    ``run_self_bench()`` without a ``device=`` resolve to CUDA and raise
+    without a card, before a socket is bound."""
+    from h2o3_tpu_torch import client
+    from h2o3_tpu_torch.api import server
+    from h2o3_tpu_torch.core.selfcheck import run_self_bench
+    from h2o3_tpu_torch.rapids import rapids
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    before = server._SERVER
+    for fn in (lambda: server.start_server(port=0), lambda: client.init(),
+               lambda: rapids("(+ 1 2)"), run_self_bench):
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            fn()
+    assert server._SERVER is before

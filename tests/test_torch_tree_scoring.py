@@ -10,7 +10,9 @@ stage is ``predict``'s bit for bit). Contributions within
 link-space margin within the same bound (local accuracy). Where a DRF
 node that does not split has a child that does, the reference ends the
 path early and misses local accuracy: there the port's contributions
-are held against exact Shapley values by enumeration instead."""
+are held against exact Shapley values by enumeration instead. The
+reference's fits and scoring run on one device (``_one_device``), as
+the port's other test files run them (ROADMAP C)."""
 
 import numpy as np
 import pytest
@@ -26,6 +28,7 @@ from h2o3_tpu_torch.models.convert import (drf_model_from_arrays,
 
 from tests.test_torch_drf import _ref_arrays as _drf_arrays
 from tests.test_torch_gbm import _ref_arrays as _gbm_arrays
+from test_torch_isofor import _one_device
 from torch_ranks import mixed_cols, multi_cols, offset_cols, regression_cols
 from torch_threads import one_torch_thread  # noqa: F401 - autouse
 
@@ -61,16 +64,18 @@ def _carried(name):
     if name not in _MODELS:
         make, kw, algo, params = CASES[name]
         cols, cats = make(n=600, **kw)
-        fr = h2o3_tpu.Frame.from_numpy(cols, categorical=cats)
-        if algo == "gbm":
-            m_r = RefGBM(**params).train(fr, y="y")
-            model = gbm_model_from_arrays(_gbm_arrays(m_r), device="cpu")
-        else:
-            m_r = RefDRF(**params).train(fr, y="y")
-            d = dict(_drf_arrays(m_r), params=m_r.params)
-            model = drf_model_from_arrays(d, device="cpu")
-        test_cols, _ = make(n=400, **dict(kw, seed=kw["seed"] + 10))
-        te_r = h2o3_tpu.Frame.from_numpy(test_cols, categorical=cats)
+        with _one_device():
+            fr = h2o3_tpu.Frame.from_numpy(cols, categorical=cats)
+            if algo == "gbm":
+                m_r = RefGBM(**params).train(fr, y="y")
+                model = gbm_model_from_arrays(_gbm_arrays(m_r),
+                                              device="cpu")
+            else:
+                m_r = RefDRF(**params).train(fr, y="y")
+                d = dict(_drf_arrays(m_r), params=m_r.params)
+                model = drf_model_from_arrays(d, device="cpu")
+            test_cols, _ = make(n=400, **dict(kw, seed=kw["seed"] + 10))
+            te_r = h2o3_tpu.Frame.from_numpy(test_cols, categorical=cats)
         te_p = h2o3_tpu_torch.Frame.from_numpy(test_cols, categorical=cats,
                                                device="cpu")
         _MODELS[name] = (m_r, model, te_r, te_p)
@@ -91,7 +96,9 @@ def _same_frames(a_p, a_r, exact=True, **tol):
 def test_leaf_assignment_exact(name):
     m_r, model, te_r, te_p = _carried(name)
     la_p = model.predict_leaf_node_assignment(te_p)
-    _same_frames(la_p, m_r.predict_leaf_node_assignment(te_r))
+    with _one_device():
+        la_r = m_r.predict_leaf_node_assignment(te_r)
+    _same_frames(la_p, la_r)
     if name == "gbm_shallow":
         assert la_p.col("T1.C1").to_numpy().max() < 2 ** 3
     if name.startswith("gbm_multinomial"):
@@ -102,7 +109,9 @@ def test_leaf_assignment_exact(name):
 def test_feature_frequencies_exact(name):
     m_r, model, te_r, te_p = _carried(name)
     ff = model.feature_frequencies(te_p)
-    _same_frames(ff, m_r.feature_frequencies(te_r))
+    with _one_device():
+        ff_r = m_r.feature_frequencies(te_r)
+    _same_frames(ff, ff_r)
     assert ff.col(ff.names[0]).to_numpy().sum() > 0
 
 
@@ -111,8 +120,9 @@ def test_feature_frequencies_exact(name):
 def test_staged_predict_proba(name):
     m_r, model, te_r, te_p = _carried(name)
     st_p = model.staged_predict_proba(te_p)
-    _same_frames(st_p, m_r.staged_predict_proba(te_r), exact=False,
-                 rtol=0, atol=1e-6)
+    with _one_device():
+        st_r = m_r.staged_predict_proba(te_r)
+    _same_frames(st_p, st_r, exact=False, rtol=0, atol=1e-6)
     pred = model.predict(te_p)
     T = model.forest.feat.shape[0] // model.n_class_trees
     if name == "gbm_multinomial":
@@ -184,7 +194,8 @@ def _shapley(model, t, x, F):
 def test_contributions_match_reference_and_sum_to_margin(name):
     m_r, model, te_r, te_p = _carried(name)
     c_p = model.predict_contributions(te_p)
-    c_r = m_r.predict_contributions(te_r)
+    with _one_device():
+        c_r = m_r.predict_contributions(te_r)
     assert c_p.names == c_r.names == list(model.output["names"]) + [
         "BiasTerm"]
     got = np.stack([c_p.col(c).to_numpy() for c in c_p.names], 1)
@@ -228,7 +239,8 @@ def test_contributions_any_row_block_agrees():
 def test_multinomial_contributions_raise(name):
     m_r, model, te_r, te_p = _carried(name)
     for m, fr in ((m_r, te_r), (model, te_p)):
-        with pytest.raises(ValueError, match="regression and binomial"):
+        with _one_device(), pytest.raises(ValueError,
+                                          match="regression and binomial"):
             m.predict_contributions(fr)
 
 
