@@ -26,15 +26,16 @@ Phases, in order; any failure exits non-zero and no phase carries on:
    ntrees=10, max_depth=6, seed=1).train`` and ``predict``, with every
    launch count = 10 trees x 6 levels; training metrics, throughput and
    peak memory; the output checked against the CPU plain path on a small
-   sample; then the binning pass alone and a 1-tree fit under
-   torch.profiler (where the time goes).
+   sample (the binning pass alone and a 1-tree fit under torch.profiler,
+   where the time goes, cut when phase 32 came).
 5. Kernel timings at the main path's shapes (5M rows, d=0..5) with CUDA
    events (``time_ms``: device time with L2 flushed, host-paced time and
    the wrapper's host time), beside their plain versions, a library yardstick and the bound from
    bytes and operations, each output EXACT against its plain version;
    then the three level kernels at the DRF path's deeper levels d=6..9
    (L = 64..512) of the same rows with DRF's per-node mtries masks, and
-   ``tree_split``'s floor (L = 1, F = 1, B = 3).
+   ``tree_split``'s floor (L = 1, F = 1, B = 3); each timing's seconds
+   printed.
 6. The DRF path on phase 4's frame: ``DRFEstimator(ntrees=10,
    max_depth=10, seed=1)`` with the default mtries (sqrt(F) columns per
    node, so ``tree_split`` takes [L, F] masks) and sample_rate 0.632;
@@ -81,7 +82,7 @@ Phases, in order; any failure exits non-zero and no phase carries on:
     10 x 7 x 6 = 420 times; a refit bit-equal (forest, training logloss
     and AUC); the 20K-row fit within 5e-3 of the CPU plain
     fit in logloss and weighted-OVR AUC; then the level kernels timed at
-    its shapes (F = 54), as phase 5.
+    its shapes (F = 54), as phase 5, with the timing's seconds.
 14. Multinomial DRF on phase 13's frame (as phase 6): 10 x 7 x 10 = 700
     launches a level kernel, OOB logloss and AUC; the 20K-row forest
     without bagging (sample_rate=1, mtries=54) EXACTLY the CPU plain
@@ -120,8 +121,8 @@ Phases, in order; any failure exits non-zero and no phase carries on:
 18. CSV ingest → the flagship GBM: phase 4's 5M rows written as CSV
     (numpy byte operations; categoricals as levels, the response as
     NO/YES), read by ``stream_import_csv`` at the default worker count
-    and with ``workers=1`` (bit-identical frames) and by
-    ``import_file``, each frame held against the written arrays; ingest
+    and by ``import_file`` (the one-worker read cut when phase 32 came),
+    each frame held against the written arrays; ingest
     seconds, MB/s and rows/s; the flagship trained on the streamed frame
     (60 launches a level kernel) with binning and forest bit-equal to
     the fit on ``Frame.from_numpy`` of the same values.
@@ -140,8 +141,9 @@ Phases, in order; any failure exits non-zero and no phase carries on:
     row's path length; ``IsolationForestEstimator`` at its defaults
     (ntrees=50, sample_size=256, max_depth=8): ``tree_partition`` launched
     50 x 8 times growing and as many again for the training metrics, 400
-    for ``predict``, the planted rows at AUC >= 0.95, a same-seed refit
-    bit-equal; ``tree_partition`` timed at its levels (d=0..7, B = 65);
+    for ``predict``, the planted rows at AUC >= 0.95, phase 32's
+    two-rank fit bit-equal; ``tree_partition`` timed at its levels (d=0..7,
+    B = 65), with the timing's seconds;
     ``ExtendedIsolationForestEstimator`` at its defaults (ntrees=100,
     sample_size=256) on the 7 numeric columns with extension_level 0 and
     6 (no kernel), AUC >= 0.9; train and predict seconds.
@@ -197,8 +199,8 @@ Phases, in order; any failure exits non-zero and no phase carries on:
     rectifier, 8 epochs (batch 8192, float32) after a 0.1-epoch warm-up
     fit: train seconds, samples/s beside the published 80K, peak memory,
     the training error and the early-stopping history; a refit
-    bit-equal; one step timed (device, host-paced, host) and a 20-step
-    chunk under torch.profiler (no scatter or atomic kernel). (b) On a
+    bit-equal; one step timed (device, host-paced, host; its 20-step
+    chunk under torch.profiler cut when phase 32 came). (b) On a
     8,192-row head (cut from 16,384 when phase 27 came), card vs CPU
     plain from the same initial weights,
     every step held from the card's state (``dl_card_vs_cpu``), then the
@@ -217,8 +219,11 @@ Phases, in order; any failure exits non-zero and no phase carries on:
     dropout against the CPU plain fit on the same rows.
 24. The unsupervised and count-based algorithms (no kernel: cuBLAS
     products with TF32 off, cuSOLVER factorizations, fixed-point
-    segment sums, plain torch); each fit with train seconds, peak
-    memory and a refit bit-equal, each held card vs CPU plain on a
+    segment sums, plain torch); each fit with train seconds and peak
+    memory (the refits of KMeans and PCA/SVD cut when phase 32 came:
+    tests/test_torch_cuda.py holds them bit-equal on the card; GLRM's,
+    Naive Bayes' and the Target Encoder's stay), each held card vs CPU
+    plain on a
     20K-row head (tolerances at N_UNSUP_CPU). (a) KMeans on phase
     22(a)'s HIGGS frame (11M x 28, nothing cut), k = 10, Furthest,
     standardized, 20 steps at most: steps, row-steps/s, tot_withinss,
@@ -242,8 +247,9 @@ Phases, in order; any failure exits non-zero and no phase carries on:
     ``transform(as_training=True)`` seconds; ``none`` and ``loo`` on the
     head, every head EXACT card vs CPU.
 25. GAM, RuleFit, ModelSelection and ANOVA-GLM, Isotonic Regression and
-    Infogram; each fit with train seconds, peak memory, a refit
-    bit-equal on the card and a head held card vs CPU plain at the
+    Infogram; each fit with train seconds, peak memory (its refit cut
+    when phase 32 came: tests/test_torch_cuda.py holds it bit-equal on
+    the card) and a head held card vs CPU plain at the
     tolerances of their CPU tests. (a) GAM on phase 22(a)'s HIGGS frame
     (11M x 28, nothing cut), binomial, x0..x2 as splines with 10 knots
     each (P = 25 + 33 + 1): the basis seconds, PIRLS steps, AUC, one
@@ -268,8 +274,10 @@ Phases, in order; any failure exits non-zero and no phase carries on:
     launch no kernel; RuleFit's and Infogram's tree fits launch the
     three level kernels once a level of every tree.
 26. CoxPH, PSVM, the Aggregator, Word2Vec, the device quantiles and
-    the sort, no kernel; each fit with a refit bit-equal on the card and
-    a head card vs CPU plain at the tolerances of their CPU tests. (a)
+    the sort, no kernel; each fit (its refit, but PSVM's, cut when
+    phase 32 came: tests/test_torch_cuda.py holds it bit-equal on the
+    card) with a head card vs CPU plain at the tolerances of their CPU
+    tests. (a)
     CoxPH on 1M seeded survival rows (``cox_columns``: 10 numeric and a
     5-level covariate with a known beta, 4 strata, left truncation,
     whole days), Efron then Breslow: the tie groups, the host risk
@@ -284,8 +292,7 @@ Phases, in order; any failure exits non-zero and no phase carries on:
     run's time): sweeps, radius, exemplars
     (<= 5000, counts summing to the rows), the host loop's share. (d)
     Word2Vec at its defaults, one epoch (cut from 5), on a 500K-token
-    Zipf(1.0) corpus over 30K types with two planted 8-word topics (the
-    refit held bit-equal on its first 50K tokens): the
+    Zipf(1.0) corpus over 30K types with two planted 8-word topics: the
     vocabulary, pairs, steps/s, a step at batch 64 and 4096, the planted
     words' synonyms (2 of the top 3 in their topic). (e) The device
     quantiles of HIGGS x0 (11M rows) against ``np.quantile``,
@@ -408,6 +415,26 @@ Phases, in order; any failure exits non-zero and no phase carries on:
     printed; the R package generated from the server's
     ``/3/ModelBuilders`` passes ``rcheck``. (f) Every out-of-scope route
     answers 501 naming ROADMAP A #13.
+32. The rest of the data-parallel fits, in the ranks of phases 10-11
+    (no second spawn), each rank fitting on its own rows of a
+    partitioned frame made from the seeds the one-card phases use:
+    DRF (phase 6's configuration on phase 11's frame; ``shard_hist``,
+    ``tree_split`` and ``shard_partition`` 100 launches each a rank),
+    Uplift DRF at 13,979,592 Criteo rows (``histogram`` 200 launches a
+    rank, its int64 cells all-reduced), Isolation Forest and Extended
+    Isolation Forest (ext 0 and 6) on phase 20's planted rows, GLM
+    (22(a)'s IRLSM and L-BFGS at HIGGS, 22(b)'s lambda search, 22(d)'s
+    COD fit) and DeepLearning (23(a)'s fit, then its first steps one at
+    a time). Every rank prints each fit's train and predict seconds,
+    collectives (calls, bytes, seconds), launches and peak memory. The
+    parent holds them against the one-card fits of phases 6 and 7 (the
+    forests, OOB AUC, AUUC and Qini bit-equal), 20 (forests, metrics and
+    every row's score bit-equal), 22 (coefficients within that fit's
+    card-vs-CPU tolerance) and 23 (the 61 steps whose batch lies on rank
+    0 bit-equal, the step across the ranks within ``DL_STEP_TOL``, the
+    whole fit's gap printed); every rank holds the same model and
+    ``predict`` is partitioned like its input. Its seconds, and the
+    cuts that bought them back (``CUTS32``), are printed at the end.
 
 Launch counts are read per path: each path sets every count to 0 just
 before it runs and reads them just after (phase 15's, over its seven
@@ -440,10 +467,11 @@ phase 27's as ``grid``, ``automl``, ``automl_repeat`` (both runs of
 ``merge`` and ``explain``, phase 29's as ``glm_bucket`` and
 ``segments``, phase 30's as ``serving_gbm`` (the fit), ``serving`` and
 ``served_buckets`` (0 on each), phase 31's as ``rest_parse``,
-``rest_gbm``, ``rest_rapids`` and ``rest_grid``;
-``tree_partition`` has a
-fourth record, at the Isolation Forest levels; the three level kernels
-have records at phase 2's deep level d = 15, ``tree_hist`` and
+``rest_gbm``, ``rest_rapids`` and ``rest_grid``, phase 32's (rank 0's)
+as ``<fit>_mesh`` and ``<fit>_mesh_predict`` (``drf_mesh``,
+``uplift_drf_mesh``, ``isolation_forest_mesh``, ...); ``tree_partition``
+has a fourth record, at the Isolation Forest levels; the three level
+kernels have records at phase 2's deep level d = 15, ``tree_hist`` and
 ``tree_partition`` at d = 19 too, with their launches on
 ``gbm_depth20``); the last is
 ``{"ok": true, "device": {...}}``.
@@ -526,10 +554,10 @@ NUMERIC = ("Year", "Month", "DayofMonth", "DayOfWeek", "DepTime",
 # the CPU
 N_CHECK = 20_000
 # cut from 1M to 250K rows when phase 22 (GLM) came, to 50K (its CPU
-# head from 2,000 to 500 rows) when phase 27 came, and to 10K (the CPU
-# head to 200) when phase 28 came, as the GBM's from all 5M rows to 1M:
-# the run's time, not the card, bounds them
-N_SHAP_DRF = 10_000
+# head from 2,000 to 500 rows) when phase 27 came, to 10K (the CPU head
+# to 200) when phase 28 came and to 2,500 when phase 32 came, as the
+# GBM's from all 5M rows to 1M: the run's time, not the card, bounds them
+N_SHAP_DRF = 2_500
 N_SHAP_DRF_CPU = 200
 N_SHAP_GBM = 1_000_000
 Y = "IsDepDelayed"
@@ -797,7 +825,6 @@ N_AGG = 250_000                  # of HIGGS's 11M rows: the host loop (cut
 #                                  when phase 30 came, for time)
 N_AGG_HEAD = 3_001               # the tests' data and size
 W2V_TOKENS = 250_000             # cut from 500K when phase 29 came (time)
-W2V_REFIT_TOKENS = 50_000        # the refit's head (phase 26(d))
 W2V_TYPES = 30_000
 W2V_SENT = 20
 W2V_TOPIC_FRAC = 0.05
@@ -888,7 +915,10 @@ MODEL_KERNELS = ("tree_hist_models", "tree_split_models",
                  "tree_partition_models")
 MESH_KERNELS = ("shard_hist", "tree_split", "shard_partition")
 W_MESH = 2                       # ranks of the data-parallel path
-RANK_TIMEOUT_S = 600.0
+RANK_TIMEOUT_S = 900.0           # phases 10-11 and 32 in the ranks
+# phase 32: 22(d)'s COD fit on the N_SURFACE-row head (SURFACE_FITS[0])
+COD_NN = dict(family="gaussian", lambda_=0.0, non_negative=True,
+              ignored_columns=["late", "IsDepDelayed"])
 L2_FLUSH_BYTES = 128 << 20       # over twice the H100's 50 MB L2
 CARD = ""
 
@@ -1612,58 +1642,6 @@ def phase_main(torch, dev, cols, domains):
     return model, fr, counts, t_train
 
 
-def profiled_fit(torch, label: str, fit):
-    """Run ``fit()`` under torch.profiler: device time by kernel, host
-    time by op, and the device's busy share of the fit's wall time (the
-    profiler stretches the wall time, so the share is a floor). Returns
-    the profiler's ``key_averages()``."""
-    from torch.profiler import ProfilerActivity, profile
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        fit()
-        torch.cuda.synchronize()
-    wall = (time.perf_counter() - t0) * 1e3
-    ev = prof.key_averages()
-
-    def dev_us(e):
-        return getattr(e, "self_device_time_total",
-                       getattr(e, "self_cuda_time_total", 0.0))
-
-    busy = sum(dev_us(e) for e in ev) / 1e3
-    say(f"{label}: fit under the profiler {wall:.1f} ms wall, "
-        f"device busy {busy:.1f} ms ({100 * busy / wall:.1f}%)")
-    for e in sorted(ev, key=dev_us, reverse=True)[:10]:
-        if dev_us(e) > 0:
-            say(f"  device {dev_us(e) / 1e3:9.3f} ms  x{e.count:<5d} "
-                f"{e.key[:90]}")
-    for e in sorted(ev, key=lambda e: e.self_cpu_time_total,
-                    reverse=True)[:10]:
-        say(f"  host   {e.self_cpu_time_total / 1e3:9.3f} ms  "
-            f"x{e.count:<5d} {e.key[:90]}")
-    return ev
-
-
-def phase_profile(torch, dev, fr):
-    """Where the main path's time goes: the binning pass alone, then a
-    1-tree fit under torch.profiler (cut from the main path's 10 trees,
-    as phase 8's, when phase 27(c) took its fixed 300 s budget: the
-    profiler stretches a fit's host time tenfold)."""
-    import h2o3_tpu_torch as h2o
-    from h2o3_tpu_torch.frame.binning import bin_frame
-    x = [c for c in fr.names if c != "IsDepDelayed"]
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    bin_frame(fr, x, nbins=64, nbins_cats=1024,
-              weights=np.ones(fr.nrows, np.float32))
-    torch.cuda.synchronize()
-    say(f"phase4 profile: bin_frame alone {time.perf_counter() - t0:.3f} s")
-    profiled_fit(torch, "phase4 profile (ntrees=1)", lambda: h2o.
-                 GBMEstimator(**dict(FLAGSHIP, ntrees=1)).train(
-                     fr, y="IsDepDelayed"))
-
-
 def _hist_bytes(N, F, Lh, B, bin_bytes):
     return N * (F * bin_bytes + 4 + 12) + Lh * F * B * 12
 
@@ -1847,19 +1825,21 @@ def phase_timing(torch, dev, model, counts):
     """Kernel times at the main path's shapes, averaged over d=0..5; then
     ``tree_hist``, ``tree_split`` and ``tree_partition`` over the DRF
     path's deeper levels d=6..9 (L = 64..512) of the same rows, with
-    DRF's per-node mtries masks (sqrt(F) columns a node); and
-    ``tree_split``'s floor. The DRF records' launches are set once phase
-    6 has counted them."""
+    DRF's per-node mtries masks (sqrt(F) columns a node), its seconds
+    printed; and ``tree_split``'s floor. The DRF records' launches are
+    set once phase 6 has counted them."""
     n = model.bm.bins.shape[0]
     records = timing_records(level_timing(torch, dev, model.bm,
                                           LEVEL_KERNELS, n),
                              counts, n, "phase5", "gbm")
+    t0 = time.perf_counter()
     mtries = max(1, int(np.sqrt(model.bm.bins.shape[1])))
     records += timing_records(
         level_timing(torch, dev, model.bm, LEVEL_KERNELS, n, DRF_DEPTHS,
                      mtries=mtries),
         {k: None for k in LEVEL_KERNELS}, n, "phase5 DRF depths", "drf",
         DRF_DEPTHS)
+    say(f"phase5 DRF depths timing: {time.perf_counter() - t0:.3f} s")
     leaf_sum_timing(torch, dev, model.bm, n)
     floor = split_floor_ms(torch, dev, model.bm)
     say(f"phase5 tree_split floor (L=1, F=1, B=3): {spread(floor)}, "
@@ -2284,9 +2264,175 @@ def rank_main_path(torch, mesh, fr):
                 leaf=model.forest.leaf.cpu())
 
 
-def rank_entry(rank, init_method, backend, devices, card, out_dir):
-    """One rank of phases 10-11 (a spawned process): join the group,
-    ingest its own rows, run both phases, save what the parent checks."""
+def rank_fit32(torch, mesh, fr, label, fit):
+    """One phase-32 fit on a rank and its ``predict`` of the frame:
+    (model, prediction frame, readings: train and predict seconds, the
+    fit's collectives, its and predict's launches, peak device bytes),
+    every count and the peak reset just before the fit."""
+    from h2o3_tpu_torch.ops import kernels
+    from h2o3_tpu_torch.parallel import map_reduce
+    dev = mesh.device
+    torch.cuda.synchronize(dev)
+    torch.cuda.reset_peak_memory_stats(dev)
+    kernels.reset_counts()
+    map_reduce.reset_collectives()
+    t0 = time.perf_counter()
+    model = fit()
+    torch.cuda.synchronize(dev)
+    t_train = time.perf_counter() - t0
+    coll = dict(map_reduce.COLLECTIVES)
+    counts = dict(kernels.LAUNCHES)
+    kernels.reset_counts()
+    t1 = time.perf_counter()
+    pred = model.predict(fr)
+    torch.cuda.synchronize(dev)
+    check(pred.partitioned and pred.span == fr.span,
+          f"phase32 {label}: predict partitioned like its input")
+    return model, pred, dict(
+        label=label, t_train=t_train, t_pred=time.perf_counter() - t1,
+        collectives=coll, counts=counts,
+        counts_pred=dict(kernels.LAUNCHES),
+        peak=torch.cuda.max_memory_allocated(dev))
+
+
+def rank_phase32(torch, mesh, fr, cols, domains):
+    """Phase 32 on one rank: DRF on phase 11's frame, Uplift DRF at the
+    Criteo v2.1 size, Isolation Forest and Extended Isolation Forest on
+    phase 20's planted rows, GLM (22(a)'s IRLSM and L-BFGS at HIGGS,
+    22(b)'s lambda search, 22(d)'s COD) and DeepLearning (23(a)'s fit,
+    and its first steps one at a time), each on this rank's rows of a
+    partitioned frame, the data made here from the seeds the one-card
+    phases use. Returns what the parent holds against those phases."""
+    import h2o3_tpu_torch as h2o
+    from h2o3_tpu_torch.models import deeplearning as dl
+    from h2o3_tpu_torch.ops.gram import exact_f32
+    from h2o3_tpu_torch.parallel.mesh import owned_rows, padded_rows
+    t_all = time.perf_counter()
+    out, stats, ingest = {}, [], {}
+
+    def part(c, n, doms, label):
+        t0 = time.perf_counter()
+        lo, hi = owned_rows(n, mesh, 8)
+        out_fr = h2o.Frame.from_numpy_partitioned(
+            {k: v[lo:hi] for k, v in c.items()}, n, domains=doms, mesh=mesh)
+        ingest[label] = time.perf_counter() - t0
+        return out_fr
+
+    def fit(frame, label, f):
+        model, pred, st = rank_fit32(torch, mesh, frame, label, f)
+        stats.append(st)
+        return model, pred
+
+    # (a) DRF on phase 11's frame
+    m, _ = fit(fr, "DRF", lambda: h2o.DRFEstimator(**DRF).train(fr, y=Y))
+    out["drf"] = dict(forest=on_cpu(m.forest),
+                      auc=m.training_metrics["AUC"],
+                      logloss=m.training_metrics["logloss"])
+    # (b) Uplift DRF at the Criteo v2.1 size
+    (ucols, udoms), ingest["criteo made (waited)"] = made_ahead(
+        "criteo", lambda: criteo_arrays(N_UPLIFT))
+    ufr = part(ucols, N_UPLIFT, udoms, "uplift")
+    del ucols
+    m, _ = fit(ufr, "Uplift DRF", lambda: h2o.UpliftDRFEstimator(
+        **UPLIFT).train(ufr, y="visit"))
+    out["uplift"] = dict(forest=on_cpu(m.forest), leaf_pt=m.leaf_pt.cpu(),
+                         leaf_pc=m.leaf_pc.cpu(),
+                         auuc=m.training_metrics["auuc"],
+                         qini=m.training_metrics["qini"])
+    del m, ufr
+    # (c) the isolation forests on phase 20's planted rows
+    pcols, _ = planted_anomalies(cols)
+    pfr = part(pcols, N_MAIN, domains, "planted")
+    del pcols
+    x = [c for c in cols if c != Y]
+    m, pred = fit(pfr, "Isolation Forest", lambda: h2o.IsolationForestEstimator(
+        **ISOFOR).train(pfr, x=x))
+    out["isofor"] = dict(forest=on_cpu(m.forest),
+                         metrics=dict(m.training_metrics),
+                         bounds=(m.output["min_path_length"],
+                                 m.output["max_path_length"]),
+                         score=pred.col("predict").host_view())
+    for ext in (0, len(NUMERIC) - 1):
+        m, pred = fit(pfr, f"Extended Isolation Forest ext={ext}",
+                      lambda: h2o.ExtendedIsolationForestEstimator(
+                          **EXTISOFOR, extension_level=ext).train(
+                              pfr, x=list(NUMERIC)))
+        out[f"extisofor_{ext}"] = dict(
+            forest=on_cpu(m.forest), metrics=dict(m.training_metrics),
+            score=pred.col("anomaly_score").host_view())
+    del m, pred, pfr
+    # (d) GLM: 22(a) at HIGGS, 22(b)'s lambda search, 22(d)'s COD
+    (hcols, hdoms, _), ingest["higgs made (waited)"] = made_ahead(
+        "higgs", lambda: higgs_arrays(N_HIGGS))
+    hfr = part(hcols, N_HIGGS, hdoms, "higgs")
+    del hcols
+    for solver, iters in HIGGS_FITS:
+        params = dict(HIGGS_GLM, solver=solver, max_iterations=iters)
+        m, _ = fit(hfr, f"GLM {solver}", lambda: h2o.GLMEstimator(
+            **params).train(hfr, y="y"))
+        out[f"glm_{solver}"] = dict(coef=m.coefficients,
+                                    auc=m.training_metrics["AUC"],
+                                    logloss=m.training_metrics["logloss"])
+    del hfr
+    delay = airlines_delay(N_MAIN)
+    ecols = {k: v[:N_ENET] for k, v in cols.items() if k != Y}
+    ecols["delay"] = delay[:N_ENET]
+    edoms = {k: v for k, v in domains.items() if k != Y}
+    efr = part(ecols, N_ENET, edoms, "enet")
+    m, _ = fit(efr, "GLM lambda search", lambda: h2o.GLMEstimator(
+        **ENET).train(efr, y="delay"))
+    out["glm_enet"] = dict(coef=m.coefficients,
+                           lambdas=list(m._lambda_path_vals),
+                           r2=m.training_metrics["r2"])
+    scols = {k: v[:N_SURFACE] for k, v in cols.items()}
+    scols["delay"] = delay[:N_SURFACE]
+    scols["late"] = np.digitize(delay[:N_SURFACE], [0.0, 15.0]).astype(
+        np.int32)
+    sfr = part(scols, N_SURFACE, dict(
+        domains, late=["l0_early", "l1_ontime", "l2_late"]), "surface")
+    m, _ = fit(sfr, "GLM COD", lambda: h2o.GLMEstimator(**COD_NN).train(
+        sfr, y="delay"))
+    out["glm_cod"] = dict(coef=m.coefficients)
+    del efr, sfr, delay
+    # (e) DeepLearning: 23(a)'s fit, then its first steps one at a time:
+    # every batch of rank 0's rows, and the one across the ranks
+    (mcols, mdoms), ingest["mnist made (waited)"] = made_ahead(
+        "mnist", lambda: mnist_shape_arrays(N_DL))
+    mfr = part(mcols, N_DL, mdoms, "mnist")
+    del mcols
+    est = h2o.DeepLearningEstimator(epochs=DL_EPOCHS, **DL)
+    m, pred = fit(mfr, "DeepLearning", lambda: est.train(mfr, y="label"))
+    t0 = time.perf_counter()
+    t = est.prepare(mfr, m.features, "label")
+    # rank 0's rows hold the first k1 batches whole; batch k1 crosses
+    k1 = min(N_DL, padded_rows(N_DL, mesh, 8) // W_MESH) // t.sched.batch
+    with exact_f32():
+        dl.train_steps(t.net, t.opt, t.X, t.y, t.w, t.gen, t.cfg, t.sched,
+                       0, k1, t.n, t.shard)
+        one_rank = [{k: v.detach().cpu().clone() for k, v in l.items()}
+                    for l in t.net]
+        dl.train_steps(t.net, t.opt, t.X, t.y, t.w, t.gen, t.cfg, t.sched,
+                       k1, 1, t.n, t.shard)
+    out["dl"] = dict(
+        net=[{k: v.detach().cpu() for k, v in l.items()} for l in m.net],
+        steps=m._steps_trained, metrics=m.training_metrics.to_dict(),
+        scores=np.stack([pred.col(f"p{k}").host_view()
+                         for k in range(10)], 1),
+        k1=k1, batch=t.sched.batch, one_rank=one_rank,
+        straddle=[{k: v.detach().cpu() for k, v in l.items()}
+                  for l in t.net], replay_s=time.perf_counter() - t0)
+    del m, pred, t, mfr
+    out["stats"] = stats
+    out["ingest"] = ingest
+    out["seconds"] = time.perf_counter() - t_all
+    return out
+
+
+def rank_entry(rank, init_method, backend, devices, card, out_dir,
+               phase32=False):
+    """One rank of phases 10-11 and, with ``phase32``, 32 (a spawned
+    process): join the group, ingest its own rows, run the phases, save
+    what the parent checks."""
     global CARD
     CARD = card
     import torch
@@ -2296,6 +2442,11 @@ def rank_entry(rank, init_method, backend, devices, card, out_dir):
     from h2o3_tpu_torch.parallel.mesh import owned_rows
     mesh = cloud.init(backend, rank, W_MESH, init_method,
                       device=devices[rank])
+    if phase32:
+        # phase 32's data, made from its seeds while phases 10-11 run
+        make_ahead([("criteo", lambda: criteo_arrays(N_UPLIFT)),
+                    ("higgs", lambda: higgs_arrays(N_HIGGS)),
+                    ("mnist", lambda: mnist_shape_arrays(N_DL))])
     try:
         cols, domains = airlines_arrays(N_MAIN)
         lo, hi = owned_rows(N_MAIN, mesh, 8)
@@ -2304,7 +2455,6 @@ def rank_entry(rank, init_method, backend, devices, card, out_dir):
             {k: v[lo:hi] for k, v in cols.items()}, N_MAIN, domains=domains,
             mesh=mesh)
         t_ingest = time.perf_counter() - t0
-        del cols
         check(fr.span == (lo, hi), f"rank {rank} span {fr.span}")
         x = [c for c in fr.names if c != "IsDepDelayed"]
         t0 = time.perf_counter()
@@ -2316,14 +2466,17 @@ def rank_entry(rank, init_method, backend, devices, card, out_dir):
                    t_ingest=t_ingest, t_bin=t_bin)
         del bm
         res.update(rank_main_path(torch, mesh, fr))
+        if phase32:
+            res["p32"] = rank_phase32(torch, mesh, fr, cols, domains)
         torch.save(res, f"{out_dir}/rank{rank}.pt")
     finally:
+        drop_ahead()
         cloud.shutdown()
 
 
-def spawn_ranks(torch, out_dir):
-    """Start the W ranks of phases 10-11, wait for them (at most
-    RANK_TIMEOUT_S; a rank that raises stops all), and return each
+def spawn_ranks(torch, out_dir, phase32=False):
+    """Start the W ranks of phases 10-11 (and 32), wait for them (at
+    most RANK_TIMEOUT_S; a rank that raises stops all), and return each
     rank's saved results."""
     import socket
     import torch.multiprocessing as mp
@@ -2335,7 +2488,7 @@ def spawn_ranks(torch, out_dir):
         f"tcp://localhost:{port}")
     ctx = mp.start_processes(
         rank_entry, args=(f"tcp://localhost:{port}", backend, devices, CARD,
-                          out_dir), nprocs=W_MESH, join=False,
+                          out_dir, phase32), nprocs=W_MESH, join=False,
         start_method="spawn")
     deadline = time.monotonic() + RANK_TIMEOUT_S
     try:
@@ -2351,11 +2504,13 @@ def spawn_ranks(torch, out_dir):
             for r in range(W_MESH)], backend, layout
 
 
-def phase_mesh(torch, dev, fr, auc_one_card, forest_one_card):
+def phase_mesh(torch, dev, fr, auc_one_card, forest_one_card, one_card32):
     """Phases 10-11: the sharded level and the flagship GBM over W ranks,
-    held against one card. Returns (rank 0's launch counts, the largest
-    |err| of each shard kernel against its plain version over the ranks,
-    the full frame's bins for phase 12)."""
+    held against one card; phase 32's fits in the same ranks
+    (``phase_mesh32``, ``one_card32`` phases 6 and 7's). Returns (rank
+    0's launch counts, the largest |err| of each shard kernel against
+    its plain version over the ranks, the full frame's bins for phase
+    12)."""
     import tempfile
     from h2o3_tpu_torch.frame.binning import bin_frame
     from h2o3_tpu_torch.ops.kernels import treekernel as tk
@@ -2363,9 +2518,9 @@ def phase_mesh(torch, dev, fr, auc_one_card, forest_one_card):
     bm = bin_frame(fr, x, nbins=64, nbins_cats=1024)
     t0 = time.perf_counter()
     with tempfile.TemporaryDirectory() as out_dir:
-        ranks, backend, layout = spawn_ranks(torch, out_dir)
-    say(f"phase10-11 ranks done in {time.perf_counter() - t0:.3f} s "
-        "(spawn, ingest, both phases)")
+        ranks, backend, layout = spawn_ranks(torch, out_dir, phase32=True)
+    say(f"phases 10-11 and 32: ranks done in "
+        f"{time.perf_counter() - t0:.3f} s (spawn, ingest, the phases)")
     # phase 10 against one card over all rows
     check(torch.equal(torch.cat([r["bins"] for r in ranks]).to(dev),
                       bm.bins), "partitioned bins != one-card bins")
@@ -2422,7 +2577,255 @@ def phase_mesh(torch, dev, fr, auc_one_card, forest_one_card):
         f"AUC| {d_auc:.3g} (tolerance 5e-3); splits and leaves bit-equal "
         f"to phase 4's (checked)")
     errs = {k: max(r["errs"][k] for r in ranks) for k in ranks[0]["errs"]}
-    return ranks[0]["counts"], errs, bm
+    return ranks[0]["counts"], errs, bm, phase_mesh32(ranks, one_card32)
+
+
+# the ranks' phase-32 results the later phases hold against their
+# one-card fits (20, 22, 23), and the seconds those checks take
+MESH32 = {}
+MESH32_CHECK_S = [0.0]
+# what phase 32 bought its seconds back with: each cut prints its own
+# line where it was; what each saved is a phase's seconds (the "-- phase"
+# lines) against the parent tree's in one call, never a number this run
+# could measure
+CUTS32 = (
+    "phase 4: bin_frame alone and the 1-tree fit under torch.profiler "
+    "(measurements)",
+    "phase 23(a), (c): the 20-step chunks under torch.profiler (the check "
+    "that a step adds through no atomics is tests/test_torch_cuda.py's)",
+    "phases 24-26: the refits tests/test_torch_cuda.py holds bit-equal on "
+    "the card (KMeans x6, PCA/SVD x4, GAM x2, RuleFit, ModelSelection, "
+    "ANOVA-GLM, Isotonic, Infogram x2, CoxPH x2, the Aggregator, "
+    "Word2Vec's head fit and refit)",
+    "phase 18: the one-worker CSV read (each frame is held against the "
+    "written arrays)",
+    "phase 20: the Isolation Forest's same-seed refit (phase 32 fits it "
+    "bit-equal over two ranks)",
+    "phase 21: DRF TreeSHAP rows 10,000 -> 2,500",
+    "phase 28(a): SVMLight, ARFF and Avro read from 50,000 rows, not "
+    "500,000",
+)
+
+
+def mesh32_stat_line(r: int, st: dict) -> str:
+    """One phase-32 fit's readings on rank ``r``."""
+    coll = st["collectives"]
+    return (f"phase32 rank {r} {st['label']}: train {st['t_train']:.3f} s, "
+            f"predict {st['t_pred']:.3f} s; all-reduce "
+            f"{int(coll['all_reduce'])} calls, all-gather "
+            f"{int(coll['all_gather'])}, {int(coll['bytes'])} bytes, "
+            f"{coll['seconds']:.3f} s ({coll['seconds'] / st['t_train']:.1%} "
+            f"of train); launches {st['counts']} (predict "
+            f"{st['counts_pred']}); peak device memory "
+            f"{st['peak'] / 2**30:.3f} GiB")
+
+
+def phase_mesh32(ranks, one_card) -> dict:
+    """Phase 32's checks that phases 6 and 7 hold the one-card fits of
+    (DRF, Uplift DRF), its readings printed for every rank and fit; the
+    rest of its results go to ``MESH32`` for phases 20, 22 and 23.
+    Returns rank 0's launches by path (``<fit>_mesh``)."""
+    import h2o3_tpu_torch as h2o
+    t0 = time.perf_counter()
+    want_drf = DRF["ntrees"] * DRF["max_depth"]
+    want_up = 2 * UPLIFT["ntrees"] * UPLIFT["max_depth"]
+    iso = h2o.IsolationForestEstimator.DEFAULTS
+    want_iso = 2 * iso["ntrees"] * iso["max_depth"]
+    for r, res in enumerate(ranks):
+        p = res["p32"]
+        for st in p["stats"]:
+            say(mesh32_stat_line(r, st))
+        say(f"phase32 rank {r}: ingest seconds "
+            + ", ".join(f"{k} {v:.3f}" for k, v in p["ingest"].items())
+            + f"; DL replay {p['dl']['replay_s']:.3f} s; phase 32 on the "
+            f"rank {p['seconds']:.3f} s")
+        by = {st["label"]: st for st in p["stats"]}
+        check_launches(by["DRF"]["counts"],
+                       {k: want_drf for k in MESH_KERNELS},
+                       f"DRF mesh (rank {r})")
+        check_launches(by["Uplift DRF"]["counts"], {"histogram": want_up},
+                       f"uplift mesh (rank {r})")
+        check_launches(by["Isolation Forest"]["counts"],
+                       {"tree_partition": want_iso},
+                       f"Isolation Forest mesh (rank {r})")
+        check_launches(by["Isolation Forest"]["counts_pred"],
+                       {"tree_partition": want_iso // 2},
+                       f"Isolation Forest mesh predict (rank {r})")
+        for st in p["stats"]:
+            if st["label"] not in ("DRF", "Uplift DRF", "Isolation Forest"):
+                check_launches(st["counts"], {}, f"{st['label']} mesh")
+        drf, up = p["drf"], p["uplift"]
+        tm6 = one_card["drf"].training_metrics
+        check(forests_equal(drf["forest"], one_card["drf"].forest),
+              f"phase32 rank {r}: the DRF forest differs from phase 6's")
+        # the AUC's score histogram sums 0/1 weights (exact in any
+        # order); the logloss is a float64 sum of the ranks' float64 sums
+        d_ll = abs(drf["logloss"] - tm6["logloss"]) / tm6["logloss"]
+        check(drf["auc"] == tm6["AUC"] and d_ll <= 1e-12,
+              f"phase32 rank {r}: DRF OOB AUC {drf['auc']} vs phase 6's "
+              f"{tm6['AUC']}, logloss relative gap {d_ll:.3g}")
+        u1 = one_card["uplift"]
+        check(forests_equal(up["forest"], u1["forest"])
+              and torch_equal(up["leaf_pt"], u1["leaf_pt"])
+              and torch_equal(up["leaf_pc"], u1["leaf_pc"])
+              and up["auuc"] == u1["auuc"] and up["qini"] == u1["qini"],
+              f"phase32 rank {r}: the uplift forest, AUUC {up['auuc']} or "
+              f"Qini {up['qini']} differ from phase 7's ({u1['auuc']}, "
+              f"{u1['qini']})")
+    a, b = (res["p32"] for res in ranks)
+    for key in ("isofor", "extisofor_0", f"extisofor_{len(NUMERIC) - 1}"):
+        check(forests_equal(a[key]["forest"], b[key]["forest"])
+              and np.array_equal(a[key]["score"], b[key]["score"]),
+              f"phase32: the ranks' {key} differ")
+    for key in ("glm_irlsm", "glm_l_bfgs", "glm_enet", "glm_cod"):
+        check(a[key]["coef"] == b[key]["coef"],
+              f"phase32: the ranks' {key} coefficients differ")
+    check(all(torch_equal(x[k], y[k]) for x, y in zip(a["dl"]["net"],
+                                                      b["dl"]["net"])
+              for k in ("W", "b"))
+          and np.array_equal(a["dl"]["scores"], b["dl"]["scores"]),
+          "phase32: the ranks' DeepLearning nets differ")
+    say(f"phase32 (a) DRF {DRF} over {W_MESH} ranks: the forest and OOB "
+        f"AUC {a['drf']['auc']:.6f} bit-equal to phase 6's on every rank, "
+        f"OOB logloss {a['drf']['logloss']:.9f} (a float64 sum of the "
+        f"ranks' sums, within 1e-12 relative); shard_hist, tree_split and "
+        f"shard_partition {want_drf} launches each on every rank")
+    say(f"phase32 (b) Uplift DRF {UPLIFT} at {N_UPLIFT} rows over "
+        f"{W_MESH} ranks: forest and leaf rates bit-equal to phase 7's, "
+        f"AUUC {a['uplift']['auuc']:.6f} and Qini {a['uplift']['qini']:.6f}"
+        f" equal to phase 7's; histogram {want_up} launches on every rank "
+        "(its int64 cells all-reduced)")
+    MESH32.update({k: v for k, v in a.items() if k not in (
+        "drf", "uplift", "stats", "ingest", "seconds")})
+    MESH32["rank_seconds"] = max(res["p32"]["seconds"] for res in ranks)
+    MESH32_CHECK_S[0] += time.perf_counter() - t0
+    paths = {}
+    for st in a["stats"]:
+        name = re.sub(r"[^a-z0-9]+", "_", st["label"].lower()).strip("_")
+        paths[f"{name}_mesh"] = st["counts"]
+        paths[f"{name}_mesh_predict"] = st["counts_pred"]
+    return paths
+
+
+def torch_equal(a, b) -> bool:
+    import torch
+    return torch.equal(a.cpu(), b.cpu())
+
+
+def mesh32_glm(key: str, model, tol: float, label: str) -> None:
+    """The ranks' GLM fit ``key`` against the one-card ``model``: the
+    raw-scale coefficients within ``tol``·max(1, |c|) (the tolerance its
+    phase holds the card against the CPU with, set from row-permuted
+    fits: the all-reduced Gram reorders the row sums as a permutation
+    does)."""
+    got = MESH32.pop(key, None)
+    if got is None:
+        return
+    t0 = time.perf_counter()
+    a, b = got["coef"], model.coefficients
+    check(list(a) == list(b), f"phase32 {label}: coefficient names")
+    gap = max(abs(a[k] - b[k]) / max(1.0, abs(b[k])) for k in b)
+    check(gap <= tol, f"phase32 {label}: {W_MESH} ranks vs one card, "
+                      f"coefficient gap {gap:.3g} > {tol}")
+    extra = ""
+    if "auc" in got:
+        d = abs(got["auc"] - model.training_metrics["AUC"])
+        check(d <= 1e-5, f"phase32 {label}: AUC {got['auc']} vs one card "
+                         f"{model.training_metrics['AUC']}")
+        extra = f", |d AUC| {d:.3g} (<= 1e-5)"
+    if "lambdas" in got:
+        check(np.allclose(got["lambdas"], model._lambda_path_vals,
+                          rtol=1e-5), f"phase32 {label}: lambda path")
+        extra = ", lambda path within 1e-5"
+    say(f"phase32 (d) {label} over {W_MESH} ranks vs the one-card fit: "
+        f"max relative coefficient gap {gap:.3g} (<= {tol}){extra}")
+    MESH32_CHECK_S[0] += time.perf_counter() - t0
+
+
+def mesh32_forest(key: str, model, score, label: str) -> None:
+    """The ranks' isolation forest ``key`` against phase 20's one-card
+    fit: forest, training metrics and every row's score bit-equal."""
+    got = MESH32.pop(key, None)
+    if got is None:
+        return
+    t0 = time.perf_counter()
+    check(forests_equal(got["forest"], model.forest)
+          and got["metrics"] == dict(model.training_metrics)
+          and np.array_equal(got["score"], score),
+          f"phase32 {label}: the forest, metrics or scores over "
+          f"{W_MESH} ranks differ from phase 20's")
+    if "bounds" in got:
+        check(got["bounds"] == (model.output["min_path_length"],
+                                model.output["max_path_length"]),
+              f"phase32 {label}: path length bounds")
+    say(f"phase32 (c) {label} over {W_MESH} ranks: forest, training "
+        f"metrics and the {len(score)} rows' scores bit-equal to phase 20's")
+    MESH32_CHECK_S[0] += time.perf_counter() - t0
+
+
+def mesh32_dl(torch, fr, model) -> None:
+    """The ranks' DeepLearning fit against phase 23(a)'s one-card fit:
+    after the first k1 steps (every batch on rank 0's rows) the nets are
+    bit-equal; the step across the ranks (from the same state) within
+    DL_STEP_TOL; the fits whole within DL_TOL / DL_PROB_TOL, or the gap
+    printed beside the straddling steps that part them."""
+    import h2o3_tpu_torch as h2o
+    from h2o3_tpu_torch.models import deeplearning as dl
+    from h2o3_tpu_torch.ops.gram import exact_f32
+    got = MESH32.pop("dl", None)
+    if got is None:
+        return
+    t0 = time.perf_counter()
+    k1 = got["k1"]
+    t = h2o.DeepLearningEstimator(epochs=DL_EPOCHS, **DL).prepare(
+        fr, model.features, "label")
+    check(t.sched.batch == got["batch"], "phase32 DL batch")
+    with exact_f32():
+        dl.train_steps(t.net, t.opt, t.X, t.y, t.w, t.gen, t.cfg, t.sched,
+                       0, k1, t.n)
+        before = [{k: v.detach().clone() for k, v in l.items()}
+                  for l in t.net]
+        dl.train_steps(t.net, t.opt, t.X, t.y, t.w, t.gen, t.cfg, t.sched,
+                       k1, 1, t.n)
+    check(all(torch_equal(a[k], b[k]) for a, b in zip(got["one_rank"],
+                                                      before)
+              for k in ("W", "b")),
+          f"phase32 DL: after {k1} steps on rank 0's rows the net over "
+          f"{W_MESH} ranks differs from one card's")
+    gap = dl_step_gap(before, got["straddle"], t.net)
+    check(gap <= DL_STEP_TOL, f"phase32 DL: step {k1} across the ranks "
+                              f"{gap:.3g} > {DL_STEP_TOL}")
+    del t, before
+    w_gap = net_gap(got["net"], model.net)
+    s_gap = float(np.abs(got["scores"] - np.stack(
+        [model._score_raw(fr)[f"p{k}"] for k in range(10)], 1)).max())
+    crossing = sum(1 for s in range(got["steps"])
+                   if (dl.batch_start(s, got["batch"], N_DL, N_DL)
+                       // (N_DL // W_MESH))
+                   != ((dl.batch_start(s, got["batch"], N_DL, N_DL)
+                        + got["batch"] - 1) // (N_DL // W_MESH)))
+    tm = got["metrics"]
+    check(got["steps"] == model._steps_trained and np.isfinite(
+        tm["logloss"]) and abs(tm["error_rate"]
+                               - model.training_metrics["error_rate"])
+          <= 0.01, f"phase32 DL: {got['steps']} steps, error "
+                   f"{tm['error_rate']} vs one card's")
+    whole = w_gap <= DL_TOL and s_gap <= DL_PROB_TOL
+    say(f"phase32 (e) DeepLearning {DL} {DL_EPOCHS} epochs over {W_MESH} "
+        f"ranks: after the first {k1} steps (each batch on rank 0's rows) "
+        f"bit-equal to one card's; step {k1} (rows across the ranks) "
+        f"{gap:.3g} of one card's from the same state (<= {DL_STEP_TOL}); "
+        f"the fit whole: weights {w_gap:.3g}, scores {s_gap:.3g} "
+        + ("(within DL_TOL / DL_PROB_TOL)" if whole else
+           f"(over DL_TOL {DL_TOL} / DL_PROB_TOL {DL_PROB_TOL}: {crossing} "
+           f"of the {got['steps']} batches cross the ranks and sum their "
+           "gradient in another order, and float32 fits parted that way "
+           "drift apart)")
+        + f"; {got['steps']} steps each, training error "
+        f"{tm['error_rate']:.6f} vs {model.training_metrics['error_rate']:.6f}"
+        f", logloss {tm['logloss']:.6f} vs "
+        f"{model.training_metrics['logloss']:.6f}")
+    MESH32_CHECK_S[0] += time.perf_counter() - t0
 
 
 def phase_shard_timing(torch, dev, bm, counts):
@@ -3139,8 +3542,10 @@ def phase_csv(torch, dev, cols, domains):
     """Phase 18: CSV ingest → the flagship GBM at full size. Phase 4's
     rows written as CSV (categoricals as their levels, the response as
     NO/YES); read by ``stream_import_csv`` at the default worker count
-    and with ``workers=1`` (bit-identical frames) and by ``import_file``;
-    each frame holds the written arrays; the flagship trained on the
+    and by ``import_file`` (the one-worker read, whose frame was held
+    bit-identical to the parallel one, cut when phase 32 came: each
+    frame is held against the written arrays); each frame holds the
+    written arrays; the flagship trained on the
     streamed frame launches every level kernel 60 times, and its binning
     and forest equal the fit's on ``Frame.from_numpy`` of the same values
     with the CSV frame's domains. Returns the fit's launches."""
@@ -3165,25 +3570,22 @@ def phase_csv(torch, dev, cols, domains):
         for label, read in (
                 (f"stream workers={workers}",
                  lambda: stream_import_csv(path, device=dev)),
-                ("stream workers=1",
-                 lambda: stream_import_csv(path, workers=1, device=dev)),
                 ("import_file", lambda: h2o.import_file(path, device=dev))):
             torch.cuda.synchronize()
             t0 = time.perf_counter()
             frames[label] = read()
             torch.cuda.synchronize()
             secs[label] = time.perf_counter() - t0
-    par, seq, eager = frames.values()
-    check(same_frames(par, seq), "stream_import_csv: the parallel frame "
-                                 "differs from the sequential one")
+    par, eager = frames.values()
     for label, fr in frames.items():
         check_csv_frame(fr, cols, domains, label)
     say("phase18 ingest: " + "; ".join(
         f"{label} {secs[label]:.3f} s, {mb / secs[label]:.6g} MB/s, "
         f"{n / secs[label]:.6g} rows/s" for label in frames)
-        + f"; parallel frame == sequential frame bit for bit; every frame "
-        f"== the written arrays")
-    del seq, eager, frames
+        + "; every frame == the written arrays (the one-worker read, 3.315 "
+        "s, cut when phase 32 came, for the run's time: the parallel "
+        "frame == the arrays holds it)")
+    del eager, frames
     x = [c for c in cols if c != Y]
     model, t_train, counts, _ = timed_fit(
         torch, lambda: h2o.GBMEstimator(**FLAGSHIP).train(par, y=Y, x=x))
@@ -3330,7 +3732,7 @@ def phase_isolation_forests(torch, dev, cols, domains):
     the CPU plain version's (and the rows' path lengths), ``tree_partition``
     launched ntrees x depth times growing and as many again for the
     training metrics and for ``predict``, the planted rows scoring above
-    the rest (AUC >= 0.95), a same-seed refit bit-equal; Extended
+    the rest (AUC >= 0.95), phase 32's two-rank fit bit-equal; Extended
     Isolation Forest at its defaults (ntrees=100, sample_size=256) on the
     7 numeric columns with extension_level 0 and 6 (no kernel). Returns
     (launches by path, the tree_partition timing record)."""
@@ -3384,12 +3786,9 @@ def phase_isolation_forests(torch, dev, cols, domains):
     score = pred.col("predict").host_view()
     check(np.isfinite(score).all() and score.shape == (n,),
           "Isolation Forest scores")
+    mesh32_forest("isofor", model, score, "Isolation Forest")
     auc = host_auc(score, bad)
     check(auc >= 0.95, f"Isolation Forest planted-anomaly AUC {auc}")
-    again = est().train(fr, x=x)
-    check(forests_equal(again.forest, model.forest)
-          and again.training_metrics == model.training_metrics,
-          "Isolation Forest same-seed refit differs")
     tm = model.training_metrics
     say(f"phase20 IsolationForest {ISOFOR} (ntrees={ntrees}, sample_size="
         f"256, max_depth={depth}) on {n} rows ({N_PLANT} planted): train "
@@ -3398,9 +3797,13 @@ def phase_isolation_forests(torch, dev, cols, domains):
         f"{tm['mean_length']:.6f}, path length bounds "
         f"[{model.output['min_path_length']}, "
         f"{model.output['max_path_length']}], peak device memory "
-        f"{peak / 2**30:.3f} GiB; same-seed refit bit-equal")
+        f"{peak / 2**30:.3f} GiB; the same-seed refit cut when phase 32 "
+        "came (its two ranks' fit of this configuration is held bit-equal "
+        "to this forest above)")
     say(f"phase20 launches: fit {counts}, predict {counts_pred}")
+    t0 = time.perf_counter()
     record = isofor_partition_timing(torch, bm, t_card, counts)
+    say(f"phase20 timing of tree_partition: {time.perf_counter() - t0:.3f} s")
     paths = {"isofor": counts, "isofor_predict": counts_pred}
     # (c) Extended Isolation Forest on the numeric columns
     for ext in (0, len(NUMERIC) - 1):
@@ -3415,6 +3818,8 @@ def phase_isolation_forests(torch, dev, cols, domains):
         auc = host_auc(score, bad)
         check(np.isfinite(score).all() and auc >= 0.9,
               f"Extended Isolation Forest ext={ext} AUC {auc}")
+        mesh32_forest(f"extisofor_{ext}", model, score,
+                      f"Extended Isolation Forest ext={ext}")
         say(f"phase20 ExtendedIsolationForest {EXTISOFOR} extension_level="
             f"{ext} (ntrees=100, sample_size=256) on the {len(NUMERIC)} "
             f"numeric columns: train {t_train:.3f} s, predict {t_pred:.3f} "
@@ -3543,8 +3948,9 @@ def phase_scoring(torch, dev, fr, cols, domains, gbm, drf):
                f"[rows, path] float32 weights ~90 times a tree, and a depth-"
                f"{model.forest.feat.shape[1]} DRF tree has up to "
                f"{2 ** model.forest.feat.shape[1]} leaves; to 250000 rows "
-               f"when phase 22 came, 50000 when phase 27 came and {rows} "
-               f"when phase 28 came, the CPU head to {n_cpu} rows, to keep "
+               f"when phase 22 came, 50000 when phase 27 came, 10000 when "
+               f"phase 28 came and {rows} when phase 32 came (10.478 s "
+               f"at 10000 rows), the CPU head to {n_cpu} rows, to keep "
                f"the whole run within its time limit)")
         say(f"phase21 {label} predict_contributions on {rows} rows{cut}: "
             f"{t_c:.3f} s, peak device memory {peak / 2**30:.3f} GiB, local "
@@ -3723,6 +4129,8 @@ def phase_glm_higgs(torch, dev, higgs):
             f"{tm['AUC']:.6f}, logloss {tm['logloss']:.6f}, peak device "
             f"memory {peak / 2**30:.3f} GiB; launches {counts}")
     irls, lb = models["irlsm"], models["l_bfgs"]
+    mesh32_glm("glm_irlsm", irls, GLM_TOL, "GLM IRLSM at HIGGS")
+    mesh32_glm("glm_l_bfgs", lb, GLM_LBFGS_TOL, "GLM L-BFGS at HIGGS")
     raw = irls.coefficients
     want = dict({f"x{i}": float(b) for i, b in enumerate(beta)},
                 Intercept=0.0)
@@ -3803,6 +4211,8 @@ def phase_glm_enet(torch, dev, cols, domains, delay):
     nnz = int((np.abs(model.coef[:-1]) > 0).sum())
     r2 = model.training_metrics["r2"]
     check(np.isfinite(model.coef).all() and 0.0 < r2 < 1.0, f"R2 {r2}")
+    mesh32_glm("glm_enet", model, GLM_ADMM_TOL,
+               f"GLM lambda search on {N_ENET} rows")
     t1 = time.perf_counter()
     _, _, gap, _ = cpu_glm_check(lambda: h2o.GLMEstimator(**ENET), ecols,
                               edoms, "delay", N_ENET_CPU, GLM_ADMM_TOL,
@@ -3928,6 +4338,10 @@ def phase_glm_surface(torch, dev, cols, domains, delay):
         extra = ""
         c = model.coefficients
         if label == "cod non_negative":
+            check(dict(params, ignored_columns=["late", Y]) == COD_NN,
+                  "phase 32's COD fit is 22(d)'s")
+            mesh32_glm("glm_cod", model, GLM_COD_TOL,
+                       f"GLM COD on {n} rows")
             check(min(v for k, v in c.items() if k != "Intercept") >= 0.0,
                   "non_negative: a negative coefficient")
         if label == "cod beta_constraints":
@@ -4307,10 +4721,11 @@ def dl_tie_flips(z, a, k):
 def dl_step_timing(torch, fr, model) -> dict:
     """One training step of ``model``'s fit continued (``prepare`` with
     ``checkpoint=model``: its net, optimizer state and step count, the
-    next batch) timed with ``time_ms``, and one 20-step chunk under
-    torch.profiler: its kernels by device time, the device's busy share,
-    and no scatter or atomic kernel in the step's backward (the refit is
-    bit-equal)."""
+    next batch) timed with ``time_ms``. (Its 20-step chunk under
+    torch.profiler, with the kernels, busy share and launches a step,
+    was cut when phase 32 came, for the run's time: the profiler's
+    start-up was ~8 s; its check, no scatter or atomic kernel in a step,
+    is what the bit-equal refit and phase 32's bit-equal steps hold.)"""
     from h2o3_tpu_torch.models import deeplearning as dl
     p = {k: v for k, v in model.params.items() if k != "checkpoint"}
     t = dl.DeepLearningEstimator(**dict(p, epochs=2 * p["epochs"]),
@@ -4318,23 +4733,12 @@ def dl_step_timing(torch, fr, model) -> dict:
         fr, model.features, model.output["response"])
     step = [t.done]
 
-    def one(k=1):
+    def one():
         with dl.exact_f32():
             dl.train_steps(t.net, t.opt, t.X, t.y, t.w, t.gen, t.cfg,
-                           t.sched, step[0], k, t.n)
-        step[0] += k
-    tm = time_ms(torch, one)
-    ev = profiled_fit(torch, f"phase23 20 steps at batch {t.sched.batch}",
-                      lambda: one(20))
-    names = [e.key for e in ev if getattr(
-        e, "self_device_time_total", getattr(e, "self_cuda_time_total", 0))
-        > 0]
-    bad = [k for k in names if any(s in k.lower() for s in (
-        "scatter", "index_add", "atomic"))]
-    check(not bad, f"DL step kernels that add through atomics: {bad}")
-    tm["launches"] = sum(e.count for e in ev
-                         if e.key.startswith("cudaLaunchKernel")) / 20
-    return tm
+                           t.sched, step[0], 1, t.n)
+        step[0] += 1
+    return time_ms(torch, one)
 
 
 def phase_dl_bench(torch, dev):
@@ -4389,11 +4793,12 @@ def phase_dl_bench(torch, dev):
         f"{tm['mean_per_class_error']:.6f} on {tm['nobs']} sampled rows; "
         f"early-stopping history (step, full-data loss) {hist}; launches "
         f"{counts}")
+    mesh32_dl(torch, fr, model)
     t = dl_step_timing(torch, fr, model)
     dev_s = t["ms"] * model._steps_trained / 1e3
     say(f"phase23a one step at batch {batch}: {spread(t)} device, "
         f"host-paced {t['host_paced_ms']:.4f} ms, host {t['host_us']:.1f} "
-        f"us a call ({t['launches']:.0f} launches a step); the fit's "
+        f"us a call; the fit's "
         f"{model._steps_trained} steps are {dev_s:.3f} s of device time "
         f"against {secs:.3f} s wall: the step loop is "
         + ("paced by the host" if t["host_paced_ms"] > 1.2 * t["ms"]
@@ -4651,6 +5056,13 @@ def keyless(output: dict) -> dict:
             if k in KEY_OUTPUTS else v for k, v in output.items()}
 
 
+# the refits of phases 24-26 cut when phase 32 came, for the run's time:
+# tests/test_torch_cuda.py's *_refit_bit_equal cases hold each of these
+# estimators' refit bit-equal on the card (on heads of the same
+# generators), so the run's second fit was duplicated work
+REFIT_HELD = "refit held by tests/test_torch_cuda.py"
+
+
 def refit_check(torch, build, model, fit, label, fields=()) -> float:
     """A refit on the card bit-equal to ``model`` (output but its DKV
     keys, training metrics, for Naive Bayes statistics, and the model
@@ -4804,15 +5216,13 @@ def phase_kmeans(torch, dev, higgs):
     model, secs, counts, peak = timed_fit(torch,
                                           lambda: build().train(fr, x=x))
     check_launches(counts, {}, "KMeans")
-    t_re = refit_check(torch, build, model, lambda e: e.train(fr, x=x),
-                       "KMeans")
     tm = model.training_metrics
     steps = model.output["iterations"]
     check(np.isfinite(np.asarray(model.output["centers"])).all()
           and tm["nobs"] == N_HIGGS and 0 < tm["betweenss"] < tm["totss"],
           "KMeans centers and metrics")
     say(f"phase24a KMeans k={KMEANS['k']} {KMEANS['init']} on {N_HIGGS} x "
-        f"{P_HIGGS}: train {secs:.3f} s (refit {t_re:.3f} s, bit-equal), "
+        f"{P_HIGGS}: train {secs:.3f} s ({REFIT_HELD}), "
         f"{steps} steps, {N_HIGGS * steps / secs:.6g} row-steps/s, "
         f"tot_withinss {tm['tot_withinss']:.6g}, betweenss/totss "
         f"{tm['betweenss'] / tm['totss']:.6f}, peak device memory "
@@ -4842,7 +5252,6 @@ def phase_kmeans(torch, dev, higgs):
         m, secs, c, _ = timed_fit(torch, lambda: b().train(fh))
         check_launches(c, {}, f"KMeans {label}")
         counts = {k: counts[k] + c[k] for k in counts}
-        refit_check(torch, b, m, lambda e: e.train(fh), f"KMeans {label}")
         mt = m.training_metrics
         check(np.isfinite(mt["tot_withinss"]) and mt["nobs"] == N_KM_HEAD,
               f"KMeans {label} metrics")
@@ -4853,7 +5262,7 @@ def phase_kmeans(torch, dev, higgs):
             extra = (f", CV tot_withinss "
                      f"{m.cross_validation_metrics['tot_withinss']:.6g}")
         say(f"phase24a KMeans {label} on {N_KM_HEAD} rows: {secs:.3f} s "
-            f"(refit bit-equal), k "
+            f"({REFIT_HELD}), k "
             f"{m.output['k']}, {m.output['iterations']} steps, "
             f"tot_withinss {mt['tot_withinss']:.6g}{extra}")
     cons = {k: v[:N_KM_CONS] for k, v in cols.items()}
@@ -4903,14 +5312,12 @@ def phase_pca(torch, dev, cols, domains):
         check_launches(counts, {}, f"PCA {method}")
         paths["pca"] = {k: paths["pca"].get(k, 0) + v
                         for k, v in counts.items()}
-        t_re = refit_check(torch, build, model, lambda e: e.train(fr),
-                           f"PCA {method}")
         pv = np.asarray(model.output["pct_variance"])
         check(np.isfinite(pv).all() and (np.diff(pv) <= 1e-6).all(),
               f"PCA {method} pct_variance")
         models[method] = model
         say(f"phase24b PCA {method} k={K_PCA} on {N_PCA} x {P_PCA}: train "
-            f"{secs:.3f} s (refit {t_re:.3f} s, bit-equal), "
+            f"{secs:.3f} s ({REFIT_HELD}), "
             f"cum_pct_variance {model.output['cum_pct_variance'][-1]:.6f}"
             f", pct_variance[:3] {[round(float(v), 6) for v in pv[:3]]}, "
             f"peak {peak / 2**30:.3f} GiB")
@@ -4951,7 +5358,6 @@ def phase_pca(torch, dev, cols, domains):
         check_launches(counts, {}, algo)
         paths[algo] = {k: paths[algo].get(k, 0) + v
                        for k, v in counts.items()}
-        t_re = refit_check(torch, build, model, lambda e: e.train(fa), algo)
         P = len(model.output["coef_names"])
         frs = head_frames(head, domains, N_UNSUP_CPU, dev)
         ms = [build().train(f) for f in frs]
@@ -4968,7 +5374,7 @@ def phase_pca(torch, dev, cols, domains):
                                       "SVD airlines head")
             what = f"d[:3] {[round(v, 3) for v in model.output['d'][:3]]}"
         say(f"phase24b {algo.upper()} on {N_DIMRED} airlines rows (P = {P}):"
-            f" {secs:.3f} s (refit {t_re:.3f} s, bit-equal), {what}; "
+            f" {secs:.3f} s ({REFIT_HELD}), {what}; "
             f"{N_UNSUP_CPU}-row head card vs CPU plain: {got}")
     return paths
 
@@ -5376,15 +5782,13 @@ def phase_gam(torch, dev, higgs):
     model, secs, counts, peak = timed_fit(
         torch, lambda: build().train(fr, y="y", x=x))
     check_launches(counts, {}, "GAM")
-    t_re = refit_check(torch, build, model,
-                       lambda e: e.train(fr, y="y", x=x), "GAM")
     auc = model.training_metrics["AUC"]
     steps = model.output["pirls_iterations"]
     check(len(model.coef) == P_GAM and np.isfinite(model.coef).all()
           and auc > 0.8, f"GAM: P {len(model.coef)}, AUC {auc}")
     say(f"phase25a GAM binomial on {N_HIGGS} x {P_HIGGS} (x0..x2 splines, "
-        f"10 knots, P = {P_GAM}): train {secs:.3f} s (refit {t_re:.3f} s, "
-        f"bit-equal), the three bases alone {t_basis:.3f} s, {steps} PIRLS "
+        f"10 knots, P = {P_GAM}): train {secs:.3f} s ({REFIT_HELD}), "
+        f"the three bases alone {t_basis:.3f} s, {steps} PIRLS "
         f"steps, AUC {auc:.6f}, residual deviance "
         f"{model.output['residual_deviance']:.8g}, peak "
         f"{peak / 2**30:.3f} GiB; launches {counts}")
@@ -5411,8 +5815,6 @@ def phase_gam(torch, dev, higgs):
                                                      x=["lin", "x"]))
     check_launches(c, {}, "GAM gaussian")
     counts = {k: counts[k] + c[k] for k in counts}
-    refit_check(torch, sb, m, lambda e: e.train(sfr, y="y", x=["lin", "x"]),
-                "GAM gaussian")
     rmse = float(np.sqrt(np.mean((m.predict(sfr).col("predict").host_view()
                                   - f) ** 2)))
     g = h2o.GLMEstimator(lambda_=0.0).train(sfr, y="y", x=["lin", "x"])
@@ -5423,7 +5825,7 @@ def phase_gam(torch, dev, higgs):
     frs = head_frames(scols, {}, N_P25_HEAD, dev)
     ms = [sb().train(fh, y="y", x=["lin", "x"]) for fh in frs]
     say(f"phase25a GAM gaussian on {N_GAM_SIN} rows, sin(1.7x) + 0.5·lin "
-        f"planted: {s:.3f} s (refit bit-equal), RMSE to the truth {rmse:.6f} "
+        f"planted: {s:.3f} s ({REFIT_HELD}), RMSE to the truth {rmse:.6f} "
         f"(< 0.15; a GLM's {g_rmse:.6f} > 0.4); "
         + gam_card_vs_cpu(*ms, frs, "GAM gaussian"))
     return counts
@@ -5503,8 +5905,6 @@ def phase_rulefit(torch, dev, cols, domains):
             torch, lambda: build().train(fr, y=Y))
     want = level_launches(50, 3)
     check_launches(counts, want, "RuleFit")
-    t_re = refit_check(torch, build, model, lambda e: e.train(fr, y=Y),
-                       "RuleFit")
     auc = model.training_metrics["AUC"]
     n_rules = model.output["n_rules"]
     check(0 < n_rules <= 400 and auc > 0.6 and len(model.linear_cols) == 7,
@@ -5513,7 +5913,7 @@ def phase_rulefit(torch, dev, cols, domains):
         f"0.8, rules and linear, lambda search) on {N_RULEFIT} airlines rows"
         " (cut from 1000000 when phase 27 came and from 500000 when phase "
         "30 came, for the run's time)"
-        f": train {secs:.3f} s (refit {t_re:.3f} s, bit-equal): trees "
+        f": train {secs:.3f} s ({REFIT_HELD}): trees "
         f"{st['trees']:.3f} s, rule frame {st['rule frame']:.3f} s, GLM "
         f"{st['GLM']:.3f} s; {n_rules} rules, "
         f"{len(model.rule_importance)} terms kept, AUC {auc:.6f}, peak "
@@ -5591,8 +5991,6 @@ def phase_selection(torch, dev, higgs):
     model, secs, counts, peak = timed_fit(
         torch, lambda: build().train(fr, y="y", x=x))
     check_launches(counts, {}, "ModelSelection")
-    t_re = refit_check(torch, build, model,
-                       lambda e: e.train(fr, y="y", x=x), "ModelSelection")
     fits = model.output["n_glm_fits"]
     # the k largest |beta|, up to what 1M rows resolve: a tie within two
     # standard errors of a coefficient may go either way
@@ -5610,7 +6008,7 @@ def phase_selection(torch, dev, higgs):
               f"{sorted(sure)} (+ one of {sorted(near)})")
     say(f"phase25c ModelSelection maxr (3 of {len(x)}) on {N_SEL} HIGGS rows"
         f": {fits} GLM fits in {secs:.3f} s ({secs / fits * 1e3:.2f} ms a "
-        f"fit; refit {t_re:.3f} s, bit-equal), peak {peak / 2**30:.3f} GiB; "
+        f"fit; {REFIT_HELD}), peak {peak / 2**30:.3f} GiB; "
         + "; ".join(f"size {r['size']} {r['predictors']} r2 {r['r2']:.6f}"
                     for r in model.result())
         + f"; the largest |beta|: "
@@ -5619,8 +6017,6 @@ def phase_selection(torch, dev, higgs):
     am, asecs, ac, apeak = timed_fit(
         torch, lambda: ab().train(fr, y="y", x=list(SEL_X)))
     check_launches(ac, {}, "ANOVA-GLM")
-    t_are = refit_check(torch, ab, am, lambda e: e.train(
-        fr, y="y", x=list(SEL_X)), "ANOVA-GLM")
     check(fr.names == list(cols), "ANOVA-GLM changed the caller's frame")
     for r in am.anova_table:
         if ":" not in r["term"] and abs(beta[int(r["term"][1:])]) > 0.1:
@@ -5628,8 +6024,8 @@ def phase_selection(torch, dev, higgs):
     n_terms = len(am.anova_table)
     check(n_terms == 28 and am.output["n_glm_fits"] == 29, "ANOVA terms")
     say(f"phase25c ANOVA-GLM over x0..x6 with pairwise products on {N_SEL} "
-        f"rows: {n_terms} terms, 29 GLM fits in {asecs:.3f} s (refit "
-        f"{t_are:.3f} s, bit-equal), peak {apeak / 2**30:.3f} GiB; "
+        f"rows: {n_terms} terms, 29 GLM fits in {asecs:.3f} s "
+        f"({REFIT_HELD}), peak {apeak / 2**30:.3f} GiB; "
         + ", ".join(f"{r['term']} {r['deviance']:.6g} (p {r['p_value']:.3g})"
                     for r in am.anova_table[:7]))
     del fr
@@ -5657,8 +6053,6 @@ def phase_isotonic(torch, dev, cols):
     model, secs, counts, _ = timed_fit(
         torch, lambda: build().train(frs[0], y="delay", x=["DepTime"]))
     check_launches(counts, {}, "Isotonic")
-    t_re = refit_check(torch, build, model, lambda e: e.train(
-        frs[0], y="delay", x=["DepTime"]), "Isotonic")
     cpu = build().train(frs[1], y="delay", x=["DepTime"])
     check(np.array_equal(model.tx, cpu.tx) and np.array_equal(model.ty,
                                                                cpu.ty),
@@ -5670,7 +6064,7 @@ def phase_isotonic(torch, dev, cols):
           and 0.02 < slope < 0.04, f"Isotonic: {n_t} thresholds, slope "
                                    f"{slope}")
     say(f"phase25d Isotonic Regression delay ~ DepTime on {N_MAIN} rows: "
-        f"{secs:.3f} s (refit {t_re:.3f} s, bit-equal), {n_t} thresholds, "
+        f"{secs:.3f} s ({REFIT_HELD}), {n_t} thresholds, "
         f"slope {slope:.5f} a minute (0.03 planted), MSE {mse:.6f}; "
         "thresholds and fitted values EXACT card vs CPU plain")
     return counts
@@ -5711,8 +6105,6 @@ def phase_infogram(torch, dev, cols, domains):
         check_launches(c, level_launches(fits * 10, 5), f"Infogram {label}")
         counts = c if counts is None else {k: counts[k] + c[k]
                                            for k in counts}
-        t_re = refit_check(torch, build, model, lambda e: e.train(fr, y=Y),
-                           f"Infogram {label}")
         adm = model.admissible_features
         # CRSDepTime is DepTime less U(-10, 60) minutes: in the core
         # infogram each carries what the other would add, so neither's
@@ -5729,8 +6121,8 @@ def phase_infogram(torch, dev, cols, domains):
             check({"DepTime", "CRSDepTime"} <= set(adm),
                   f"Infogram fair: admissible {adm}")
         say(f"phase25e Infogram {label} on {N_INFOGRAM} airlines rows: "
-            f"{fits} GBM fits in {secs:.3f} s (refit {t_re:.3f} s, "
-            f"bit-equal), peak {peak / 2**30:.3f} GiB, admissible {adm}; "
+            f"{fits} GBM fits in {secs:.3f} s ({REFIT_HELD}), peak "
+            f"{peak / 2**30:.3f} GiB, admissible {adm}; "
             + ", ".join(f"{r['column']} {r['relevance']:.4f}/{r['cmi']:.4f}"
                         for r in model.output["infogram_table"]))
         hkw = {"protected_columns": ["g"]} if kw else {}
@@ -5870,9 +6262,6 @@ def phase_coxph(torch, dev):
         check_launches(c, {}, f"CoxPH {ties}")
         counts = c if counts is None else {k: counts[k] + c[k]
                                            for k in counts}
-        t_re = refit_check(torch, build, model,
-                           lambda e: e.train(fr, y="event"), f"CoxPH {ties}",
-                           fields=("coef",))
         se = np.array([t["se_coef"]
                        for t in model.output["coefficients_table"]])
         z = (model.coef - beta) / se
@@ -5881,7 +6270,7 @@ def phase_coxph(torch, dev):
                   f"CoxPH efron: (coef - beta)/se {np.round(z, 2)}")
         say(f"phase26a CoxPH {ties} on {N_COX} rows: "
             f"{model.output['iterations']} Newton iterations in {secs:.3f} s "
-            f"(refit {t_re:.3f} s, bit-equal), peak {peak / 2**30:.3f} GiB, "
+            f"({REFIT_HELD}), peak {peak / 2**30:.3f} GiB, "
             f"concordance {model.training_metrics['concordance']:.6f}, "
             f"loglik {model.output['loglik']:.6f}; (coef - beta)/se_coef "
             + " ".join(f"{v:+.2f}" for v in z)
@@ -6010,8 +6399,6 @@ def phase_aggregator(torch, dev, higgs):
     build = lambda: h2o.AggregatorEstimator()  # noqa: E731
     model, secs, counts, peak = timed_fit(torch, lambda: build().train(fr))
     check_launches(counts, {}, "Aggregator")
-    t_re = refit_check(torch, build, model, lambda e: e.train(fr),
-                       "Aggregator", fields=("exemplar_assignment",))
     n_ex = model.output["num_exemplars"]
     total = model.aggregated_frame.col("counts").to_numpy().sum()
     check(n_ex <= 5000 and total == N_AGG,
@@ -6023,7 +6410,7 @@ def phase_aggregator(torch, dev, higgs):
         f"{model.output['sweeps']} sweeps, final radius "
         f"{model.output['radius']:.6f}, {n_ex} exemplars (in [2500, 5000]: "
         f"{2500 <= n_ex <= 5000}), counts sum {int(total)}, {secs:.3f} s "
-        f"(refit {t_re:.3f} s, bit-equal), peak {peak / 2**30:.3f} GiB; "
+        f"({REFIT_HELD}), peak {peak / 2**30:.3f} GiB; "
         f"the batches' distances and argmin on the card {t['device']:.3f} s, "
         f"the greedy loop on the host {t['host']:.3f} s "
         f"({t['host'] / max(t['host'] + t['device'], 1e-12):.1%} of the "
@@ -6116,17 +6503,6 @@ def phase_word2vec(torch, dev):
     build = lambda: h2o.Word2VecEstimator(**W2V)  # noqa: E731
     model, secs, counts, peak = timed_fit(torch, lambda: build().train(fr))
     check_launches(counts, {}, "Word2Vec")
-    # the refit on the corpus's first W2V_REFIT_TOKENS tokens (cut from
-    # all of them for the run's time since phase 27 came)
-    fr_head = h2o.Frame.from_numpy(
-        {"words": cols["words"][:W2V_REFIT_TOKENS]}, domains=domains,
-        device=dev)
-    head = build().train(fr_head)
-    t_re = refit_check(torch, build, head, lambda e: e.train(fr_head),
-                       "Word2Vec", fields=("vectors",))
-    say(f"phase26d Word2Vec refit held on the first {W2V_REFIT_TOKENS} "
-        f"tokens (cut from {W2V_TOKENS} for the run's time since phase 27 "
-        f"came; the fit above is of all of them)")
     held = []
     for topic in topics:
         for w in topic:
@@ -6141,8 +6517,7 @@ def phase_word2vec(torch, dev):
         f"{W2V_TYPES} types: vocabulary {out['vocab_size']}, "
         f"{out['pairs']} pairs, {out['steps']} steps at batch "
         f"{model.params['batch_size']} in {secs:.3f} s "
-        f"({out['steps'] / secs:.1f} steps/s; the head's refit "
-        f"{t_re:.3f} s, bit-equal), epoch loss {out['epoch_loss'][-1]:.6f}, peak "
+        f"({out['steps'] / secs:.1f} steps/s; {REFIT_HELD}), epoch loss {out['epoch_loss'][-1]:.6f}, peak "
         f"{peak / 2**30:.3f} GiB; planted words' own-topic synonyms in "
         f"the top 3: {held}; a step at batch "
         + ", at batch ".join(
@@ -6858,17 +7233,19 @@ def avro_bytes(cols, domains, codec: str = "deflate",
 
 def surface_files():
     """(a)'s files, from bench.py's AutoML rows (``airlines_arrays(
-    N_AUTOML)``): the CSV, SVMLight (the label the response's code in
-    its sorted domain, categoricals as such codes), ARFF (the
-    categoricals nominal, declared in sorted order), Avro (deflate) and
-    the CSV and XLSX of the first N_XLSX rows."""
+    N_AUTOML)``): the CSV, and of its first N_XLSX rows the CSV,
+    SVMLight (the label the response's code in its sorted domain,
+    categoricals as such codes), ARFF (the categoricals nominal,
+    declared in sorted order), Avro (deflate) and XLSX (SVMLight, ARFF
+    and Avro cut from all the rows when phase 32 came, for the run's
+    time: the host readers' MB/s are as well read on 50K rows)."""
     cols, domains = airlines_arrays(N_AUTOML)
     scols, sdoms = sorted_codes(cols, domains)
     head = {k: v[:N_XLSX] for k, v in scols.items()}
     return {"csv": csv_bytes(scols, sdoms),
-            "svm": svmlight_bytes(scols, Y),
-            "arff": arff_bytes(scols, sdoms),
-            "avro": avro_bytes(scols, sdoms),
+            "svm": svmlight_bytes(head, Y),
+            "arff": arff_bytes(head, sdoms),
+            "avro": avro_bytes(head, sdoms),
             "head.csv": csv_bytes(head, sdoms),
             "xlsx": xlsx_bytes(head, sdoms)}
 
@@ -6902,18 +7279,17 @@ def phase_readers(torch, dev, files, tmp):
         frames[kind] = fr
         counts = {k: counts.get(k, 0) + v for k, v in c.items()}
     check_launches(counts, {}, "readers")
-    csv = frames["csv"]
-    for kind, want in (("arff", csv), ("avro", csv),
-                       ("xlsx", frames["head.csv"])):
-        check(same_frames(frames[kind], want), f"{kind} frame != the CSV "
+    csv, head = frames["csv"], frames["head.csv"]
+    for kind in ("arff", "avro", "xlsx"):
+        check(same_frames(frames[kind], head), f"{kind} frame != the CSV "
               "frame of its rows")
     svm = frames["svm"]
-    x = [c for c in csv.names if c != Y]
+    x = [c for c in head.names if c != Y]
     check(svm.names == ["C0"] + [f"C{j + 1}" for j in range(len(x))]
           and all(svm.col(c).type == "numeric" for c in svm.names),
           f"SVMLight frame {svm.names}")
     for c_svm, c_csv in zip(svm.names, [Y] + x):
-        a, b = svm.col(c_svm), csv.col(c_csv)
+        a, b = svm.col(c_svm), head.col(c_csv)
         check(np.array_equal(a.host_view(), b.host_view())
               and not bool(a.na_mask[:svm.nrows].any()),
               f"SVMLight {c_svm} vs CSV {c_csv}")
@@ -6921,12 +7297,14 @@ def phase_readers(torch, dev, files, tmp):
         f"{k} {len(files[k]) / 1e6:.3f} MB in {secs[k]:.3f} s, "
         f"{len(files[k]) / 1e6 / secs[k]:.6g} MB/s"
         for k in ("csv", "svm", "arff", "avro", "head.csv", "xlsx"))
-        + f"): ARFF and Avro frames == the CSV frame ({csv.nrows} rows), "
-        f"XLSX == the CSV of its {N_XLSX} rows (cut from 100000 when phase "
-        f"29 came, for the run's time; names, types, domains, NA "
-        "masks, host values bit for bit), SVMLight == the CSV frame's "
-        "numeric encoding; no kernel launched")
-    return csv, frames["head.csv"], paths, counts
+        + f"): the CSV of all {csv.nrows} rows; ARFF, Avro and XLSX frames "
+        f"== the CSV of their first {N_XLSX} rows (XLSX cut from 100000 "
+        "rows when phase 29 came, ARFF and Avro from all of them when "
+        "phase 32 came (3.582 s and 3.940 s), for the run's time; names, "
+        "types, domains, NA masks, host values bit for bit), SVMLight "
+        "== that CSV frame's numeric encoding (cut when phase 32 came, "
+        "5.178 s); no kernel launched")
+    return csv, head, paths, counts
 
 
 def phase_write_read(torch, dev, csv, head, paths, files, tmp):
@@ -8414,7 +8792,11 @@ def main() -> int:
     auc_one_card = model.training_metrics["AUC"]
     metrics_main = {k: model.training_metrics[k] for k in ("AUC", "logloss")}
     gbm_forest = on_cpu(model.forest)
-    phase_profile(torch, dev, fr)
+    say("phase4 profile cut when phase 32 came, for the run's time: "
+        "bin_frame alone (0.701 s) and the 1-tree fit under torch.profiler "
+        "(8.413 s wall, the profiler's start-up included), measurements "
+        "with no check (the run before the cut, NVIDIA H100 80GB HBM3, "
+        "700 W)")
     mark("phase 5")
     records = phase_timing(torch, dev, model, counts_gbm)
     phase_drf_grow_tree(torch, dev, bm)
@@ -8434,11 +8816,16 @@ def main() -> int:
     worst["histogram"] = phase_hist_kernel(torch, dev, ucols, udomains)
     umodel, ufr, counts_up = phase_uplift(torch, dev, ucols, udomains)
     records.append(phase_hist_timing(torch, dev, umodel, ufr, counts_up))
+    one_card32 = {"drf": drf_model, "uplift": dict(
+        forest=on_cpu(umodel.forest), leaf_pt=umodel.leaf_pt.cpu(),
+        leaf_pc=umodel.leaf_pc.cpu(), auuc=umodel.training_metrics["auuc"],
+        qini=umodel.training_metrics["qini"])}
     del umodel, ufr, ucols
 
-    mark("phases 10-12")
-    counts_mesh, errs, bm = phase_mesh(torch, dev, fr, auc_one_card,
-                                       gbm_forest)
+    mark("phases 10-12, 32")
+    counts_mesh, errs, bm, paths32 = phase_mesh(
+        torch, dev, fr, auc_one_card, gbm_forest, one_card32)
+    del one_card32
     worst.update(errs)
     records += phase_shard_timing(torch, dev, bm, counts_mesh)
     del bm
@@ -8446,9 +8833,11 @@ def main() -> int:
     mark("phase 13")
     ccols, cdomains = covtype_arrays()
     mmodel, cfr, counts_gm = phase_multinomial(torch, dev, ccols, cdomains)
+    t13 = time.perf_counter()
     records += timing_records(
         level_timing(torch, dev, mmodel.bm, LEVEL_KERNELS, N_COVTYPE),
         counts_gm, N_COVTYPE, "phase13 timing", "gbm_multinomial")
+    say(f"phase13 timing: {time.perf_counter() - t13:.3f} s")
     del mmodel
     mark("phase 14")
     counts_dm = phase_multinomial_drf(torch, dev, cfr, ccols, cdomains)
@@ -8475,7 +8864,7 @@ def main() -> int:
              "gbm_stopping": counts_stop, "gbm_constraints": counts_cons,
              "gbm_offset": counts_off, "gbm_checkpoint": counts_ckg,
              "drf_checkpoint": counts_ckd, "gbm_cv": counts_cv,
-             "gbm_csv": counts_csv}
+             "gbm_csv": counts_csv, **paths32}
     secs = {}
     t19 = time.perf_counter()
     mark("phase 19")
@@ -8548,6 +8937,15 @@ def main() -> int:
         rec["max_abs_err"] = worst[rec["name"]]
         rec["launches_by_path"] = {p: c[rec["name"]]
                                    for p, c in paths.items()}
+    check(not MESH32 or set(MESH32) == {"rank_seconds"},
+          f"phase 32 results never held against one card: {sorted(MESH32)}")
+    secs32 = MESH32.get("rank_seconds", 0.0) + MESH32_CHECK_S[0]
+    say(f"phase32: {MESH32.get('rank_seconds', 0.0):.3f} s in the ranks "
+        f"(after phases 10-11, the slower rank) + "
+        f"{MESH32_CHECK_S[0]:.3f} s of checks in phases 11, 20, 22 and 23 "
+        f"= {secs32:.3f} s; the cuts that pay for it (their seconds: "
+        "each phase's against the parent tree's in one call): "
+        + "; ".join(CUTS32))
     say(f"chip_smoke total {time.perf_counter() - t_all:.3f} s")
     print(CARD, flush=True)
     print(json.dumps({"kernels": records}), flush=True)

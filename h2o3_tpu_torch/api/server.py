@@ -1812,18 +1812,21 @@ class _Handler(BaseHTTPRequestHandler):
                 close=True)
 
         # -- admission control (exempt: ping/job polling) --------------
+        # one gate for enter and leave: the client has its answer before
+        # ``leave`` runs, and the module's gate may be another by then
+        gate = _GATE
         exempt = _admission_exempt(path)
-        if not exempt and not _GATE.enter(deadline=deadline):
+        if not exempt and not gate.enter(deadline=deadline):
             drained = self._drain(length)
             return self._respond(503, _error_json(path, RuntimeError(
-                f"server saturated ({_GATE.max_inflight} in flight, "
-                f"{_GATE.queue_depth} queued); retry later"), 503),
+                f"server saturated ({gate.max_inflight} in flight, "
+                f"{gate.queue_depth} queued); retry later"), 503),
                 extra_headers={"Retry-After": "1"}, close=not drained)
         try:
             self._handle(method, path, params, length, deadline)
         finally:
             if not exempt:
-                _GATE.leave()
+                gate.leave()
 
     def _post_file(self, path: str, length: int):
         """Raw file-body upload (h2o-py sends the file bytes as the

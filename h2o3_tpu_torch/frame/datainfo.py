@@ -14,7 +14,11 @@ block, with no concatenation of per-column pieces: at 11M rows x 28
 columns a ``cat`` would hold the matrix twice. The trailing column of
 ones (GLM's X1) is written in the same allocation. Padding rows
 are NA in every column, so they hold the means (0 once standardized)
-and zero indicators; GLM weighs them 0.
+and zero indicators; GLM weighs them 0. On a frame partitioned over a
+sharded mesh each rank builds its own rows' design; the means and
+sigmas are all the rows' (``rollup_mean_sigma`` with the frame), the
+domains the frame's, so a rank's rows equal one device's rows of the
+whole frame bit for bit.
 """
 
 from __future__ import annotations
@@ -95,7 +99,7 @@ def build_datainfo(frame: Frame, features: Sequence[str],
                 mu = stats_override["num_means"][len(num_means)]
                 sd = stats_override["num_sigmas"][len(num_sigmas)]
             else:
-                mu, sd = rollup_mean_sigma(c)
+                mu, sd = rollup_mean_sigma(c, frame)
                 sd = sd or 1.0
             sd = sd if sd > 0 else 1.0
             num_means.append(mu)

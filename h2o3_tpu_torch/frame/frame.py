@@ -49,6 +49,9 @@ class Frame:
         self.span = (0, self.nrows_padded) if span is None else span
         self.block = block
         self.key: Optional[str] = None
+        # a partitioned frame's whole-column (mean, sigma) by name, with
+        # the column they were taken from (``frame/rollups.py``)
+        self.mean_sigma: Dict[str, Tuple[Column, Tuple[float, float]]] = {}
 
     def _keyed(self, key: Optional[str]) -> "Frame":
         """Store this frame in the DKV under ``key`` (None: no key)."""
@@ -223,7 +226,7 @@ class Frame:
     def add_column(self, col: Column) -> None:
         """Append ``col``, or replace the column of its name. It must
         hold the frame's rows and padding (this rank's padded rows on
-        the device); the frame keeps no derived caches to clear."""
+        the device); the column's cached ``mean_sigma`` is dropped."""
         lo, hi = self.span
         if col.nrows != self.nrows or (
                 col.data is not None and col.data.shape[0] != hi - lo):
@@ -232,6 +235,7 @@ class Frame:
                 f"{None if col.data is None else col.data.shape[0]}; the "
                 f"frame has {self.nrows} rows padded to {hi - lo}")
         self._cols[col.name] = col
+        self.mean_sigma.pop(col.name, None)
         if col.name not in self._order:
             self._order.append(col.name)
 
@@ -253,6 +257,29 @@ class Frame:
         part = np.asarray(host)[lo:lo + self.local_nrows]
         return np.pad(part, (0, hi - lo - part.shape[0]),
                       constant_values=fill)
+
+    @property
+    def one_device_rows(self) -> int:
+        """The padded row count ``from_numpy`` gives this frame's rows on
+        one device (this frame's own count unless it is partitioned)."""
+        if not self.partitioned:
+            return self.nrows_padded
+        return mesh_mod.padded_rows(self.nrows, mesh_mod.LOCAL, self.block)
+
+    def uniform_rows(self, gen: torch.Generator) -> torch.Tensor:
+        """A U[0, 1) draw from ``gen`` a padded row of this rank, as one
+        device draws it: ``torch.rand`` over the one-device padded rows,
+        of which a rank of a sharded mesh keeps its own logical rows (its
+        padding rows get 1.0). Every rank draws the same vector, so ``gen``
+        stays in step on every rank and with one device."""
+        u = torch.rand(self.one_device_rows, generator=gen,
+                       device=self.device)
+        if not self.partitioned:
+            return u
+        lo, hi = self.span
+        out = torch.ones(hi - lo, dtype=u.dtype, device=self.device)
+        out[:self.local_nrows] = u[lo:lo + self.local_nrows]
+        return out
 
     def __repr__(self) -> str:
         return (f"<Frame {self.nrows}x{self.ncols} on {self.device} "

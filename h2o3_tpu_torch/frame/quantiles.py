@@ -13,7 +13,7 @@ the reference computes them, so both packages pick the same bins and
 return the same values.
 
 Not ported: the mesh reduction of the histogram (a frame partitioned
-over a sharded mesh raises, ROADMAP A #12).
+over a sharded mesh raises, ROADMAP A #12′).
 """
 
 from __future__ import annotations

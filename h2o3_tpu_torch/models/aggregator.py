@@ -19,7 +19,7 @@ the radius to the last bit of the matrix product.
 
 The aggregated frame is stored in the DKV under ``output["output_frame"]``
 and ``aggregated_frame`` reads it back by that key. Not ported:
-a partitioned frame (A #12). ``categorical_encoding`` is accepted and
+a partitioned frame (A #12′). ``categorical_encoding`` is accepted and
 unread, as in the reference.
 """
 

@@ -30,7 +30,7 @@ variance terms from cancelling). Newton: solve(H + 1e-6·I, g), up to 10
 halvings of the step, the ``lre_min`` stop; one host fetch an objective
 value, as in the reference.
 
-Not ported: a partitioned frame (ROADMAP A #12);
+Not ported: a partitioned frame (ROADMAP A #12′);
 ``nfolds`` and ``fold_column`` raise (the reference's cross-validation
 of CoxPH fails).
 """

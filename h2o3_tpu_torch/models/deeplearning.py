@@ -34,9 +34,24 @@ float32 cotangent times the bf16 operand, summed in float32, then
 rounded to bf16). ``bf16_route`` picks how the forward product runs,
 once a fit (``StepConfig.bf16``).
 
-Not ported: DL on a frame partitioned over a sharded mesh (the gradient
-all-reduce, ROADMAP A #12); the in-fit checkpointer
-``core/recovery`` (A #13). Scoring runs ``_serve_input`` /
+Data-parallel fit: on a frame partitioned over a sharded mesh every rank
+builds its own rows' design (the means and sigmas all the rows', so its
+rows are one device's) and takes the same steps. A step's batch is the
+one-device slice ``[start, start + batch)`` of the global rows, in the
+one-device shape: a rank holding all its rows takes the slice itself;
+another puts the rows it holds in place and zeros (weight 0)
+elsewhere, and one holding none of them computes no data term. The
+batch's weight sum comes from every rank's copy of the global weights,
+the dropout masks are drawn for the whole batch on every rank, the L1/L2
+term is added on rank 0 alone, and the gradients are all-reduced in one
+collective. A batch on one rank is then one device's step bit for bit
+(its gradient plus the others' exact zeros; with both L1 and L2 on,
+rank 0's two penalty terms may be summed before the data term), and a
+batch across two differs only in the order of its sums. Early stopping
+reads the all-reduced full-data loss; the training metrics are
+all-reduced. On one: the autoencoder raises (ROADMAP A #12′), as do CV
+and checkpoint. Not ported: the in-fit checkpointer ``core/recovery``
+(A #13). Scoring runs ``_serve_input`` /
 ``_serve_dev`` (fixed row tiles) / ``_serve_finish``, the halves the
 serving engine runs too. The reference's one-slot design memo is not
 kept: the fit hands its design to the training metrics instead.
@@ -57,15 +72,17 @@ from h2o3_tpu_torch.core.job import job_update
 from h2o3_tpu_torch.frame.datainfo import build_datainfo, stats_of
 from h2o3_tpu_torch.frame.frame import Frame
 from h2o3_tpu_torch.models import metrics as mm
-from h2o3_tpu_torch.models.model import (EarlyStopper, Model, ModelBuilder,
-                                         ModelCategory, adapt_domain,
-                                         checkpoint_error, infer_category,
-                                         masked_weights, require_local,
+from h2o3_tpu_torch.models.model import (MESH_TODO, EarlyStopper, Model,
+                                         ModelBuilder, ModelCategory,
+                                         adapt_domain, checkpoint_error,
+                                         infer_category, masked_weights,
                                          resolve_checkpoint_model,
                                          score_tiles,
                                          validate_checkpoint_params)
 from h2o3_tpu_torch.ops.gram import exact_f32
 from h2o3_tpu_torch.parallel.device import fetch
+from h2o3_tpu_torch.parallel.map_reduce import all_reduce_flat
+from h2o3_tpu_torch.parallel.mesh import Mesh, fetch_global, fetch_replicated
 
 AUTOENCODER = "AutoEncoder"
 BF16_MIN_BATCH = 16384   # a training step's products run in bf16 from here
@@ -198,12 +215,20 @@ def forward(net: Net, X: torch.Tensor, act: str, *,
     return h
 
 
+def penalty(net: Net, l1: float, l2: float):
+    """L1/L2 on the weights W (never the biases)."""
+    return sum(l2 * (p["W"] ** 2).sum() + l1 * p["W"].abs().sum()
+               for p in net)
+
+
 def loss(net: Net, X, y, w, act: str, category: str, *, l1: float = 0.0,
          l2: float = 0.0, masks=None, input_dropout: float = 0.0,
-         hidden_dropout: Sequence[float] = (), bf16: Optional[str] = None):
+         hidden_dropout: Sequence[float] = (), bf16: Optional[str] = None,
+         wsum=None):
     """The minibatch objective: the weighted softmax NLL (``category``
     "softmax") or quadratic loss over the output width ("mse"), over
-    sum(w), plus L1/L2 on the weights W (never the biases)."""
+    sum(w) (or ``wsum``: the whole batch's, of a rank holding part of
+    it), plus L1/L2 on the weights W (never the biases)."""
     out = forward(net, X, act, masks=masks, input_dropout=input_dropout,
                   hidden_dropout=hidden_dropout, bf16=bf16)
     if category == "softmax":
@@ -212,10 +237,9 @@ def loss(net: Net, X, y, w, act: str, category: str, *, l1: float = 0.0,
     else:
         err = out - (y if out.dim() == y.dim() else y[:, None])
         data = 0.5 * (w[:, None] * err * err).sum() / max(out.shape[1], 1)
-    total = data / torch.clamp_min(w.sum(), 1e-12)
+    total = data / torch.clamp_min(w.sum() if wsum is None else wsum, 1e-12)
     if l1 or l2:
-        total = total + sum(l2 * (p["W"] ** 2).sum() + l1 * p["W"].abs().sum()
-                            for p in net)
+        total = total + penalty(net, l1, l2)
     return total
 
 
@@ -355,32 +379,104 @@ def _update(params, grads, opt, cfg: StepConfig, lr, mu) -> None:
             s[k]["mu"] = np.float32(mu)
 
 
+class Shard(NamedTuple):
+    """A rank's place in the global rows of a data-parallel fit: its
+    logical rows are global rows ``[lo, lo + rows)`` (local rows
+    ``[0, rows)``), its padded rows end at global row ``hi``; ``N`` is
+    one device's padded row count and ``w_all`` every row's weight, laid
+    out as on one device (each batch's weight sum)."""
+    mesh: Mesh
+    lo: int
+    rows: int
+    hi: int
+    N: int
+    w_all: torch.Tensor
+
+
+def _shard_batch(shard: Shard, X, y, w, lo: int, batch: int, n: int):
+    """(X, y, w) of global batch ``[lo, lo + batch)`` in one device's
+    shape on this rank: the rank's own rows where it holds every logical
+    row of the batch, else its held rows in place and zeros elsewhere;
+    None where it holds none of them."""
+    a, b = max(lo, shard.lo), min(lo + batch, n, shard.lo + shard.rows)
+    if b <= a:
+        return None
+    if a == lo and b == min(lo + batch, n) and lo + batch <= shard.hi:
+        s = lo - shard.lo
+        return X[s:s + batch], y[s:s + batch], w[s:s + batch]
+    out = []
+    for t in (X, y, w):
+        z = t.new_zeros((batch,) + tuple(t.shape[1:]))
+        z[a - lo:b - lo] = t[a - shard.lo:b - shard.lo]
+        out.append(z)
+    return tuple(out)
+
+
 def train_steps(net: Net, opt, X, y, w, gen: Optional[torch.Generator],
                 cfg: StepConfig, sched: Schedule, step0: int, k: int,
-                n: int) -> None:
+                n: int, shard: Optional[Shard] = None) -> None:
     """``k`` minibatch steps from global step ``step0``, in place, each
-    on the rows from ``batch_start``."""
+    on the rows from ``batch_start``; with ``shard``, this rank's part of
+    a data-parallel step (module docstring)."""
     batch = sched.batch
-    N = X.shape[0]
+    N = X.shape[0] if shard is None else shard.N
     lrs, mus = sched.lr_mu(step0, k)
     params = [l[key] for l in net for key in ("W", "b")]
     widths = [X.shape[1]] + [l["W"].shape[1] // (2 if cfg.act == "maxout"
                                                  else 1) for l in net[:-1]]
+    kw = dict(masks=None, input_dropout=cfg.input_dropout,
+              hidden_dropout=cfg.hidden_dropout, bf16=cfg.bf16)
     for i in range(k):
         lo = batch_start(step0 + i, batch, n, N)
-        masks = (draw_masks(gen, batch, widths, cfg.input_dropout,
-                            cfg.hidden_dropout, X.device)
-                 if cfg.dropout else None)
+        kw["masks"] = (draw_masks(gen, batch, widths, cfg.input_dropout,
+                                  cfg.hidden_dropout, X.device)
+                       if cfg.dropout else None)
         with torch.enable_grad():
-            value = loss(net, X[lo:lo + batch], y[lo:lo + batch],
-                         w[lo:lo + batch], cfg.act, cfg.category, l1=cfg.l1,
-                         l2=cfg.l2, masks=masks,
-                         input_dropout=cfg.input_dropout,
-                         hidden_dropout=cfg.hidden_dropout, bf16=cfg.bf16)
-            grads = torch.autograd.grad(value, params)
+            if shard is None:
+                value = loss(net, X[lo:lo + batch], y[lo:lo + batch],
+                             w[lo:lo + batch], cfg.act, cfg.category,
+                             l1=cfg.l1, l2=cfg.l2, **kw)
+                grads = torch.autograd.grad(value, params)
+            else:
+                grads = _shard_grads(net, params, shard, X, y, w, lo, batch,
+                                     n, cfg, kw)
         with torch.no_grad():
             _update(params, list(grads), opt, cfg, float(lrs[i]),
                     float(mus[i]))
+
+
+def _shard_grads(net, params, shard: Shard, X, y, w, lo: int, batch: int,
+                 n: int, cfg: StepConfig, kw):
+    """This rank's gradient of global batch ``[lo, lo + batch)``, summed
+    over the ranks: its rows' data term over the whole batch's weight,
+    plus the L1/L2 term on rank 0."""
+    part = _shard_batch(shard, X, y, w, lo, batch, n)
+    lead = shard.mesh.rank == 0 and (cfg.l1 or cfg.l2)
+    if part is None and not lead:
+        grads = [torch.zeros_like(p) for p in params]
+    else:
+        if part is None:
+            value = penalty(net, cfg.l1, cfg.l2)
+        else:
+            wsum = shard.w_all[lo:lo + batch].sum()
+            value = loss(net, *part, cfg.act, cfg.category,
+                         l1=cfg.l1 if lead else 0.0,
+                         l2=cfg.l2 if lead else 0.0, wsum=wsum, **kw)
+        grads = torch.autograd.grad(value, params)
+    return all_reduce_flat(grads, shard.mesh)
+
+
+def full_loss(net: Net, t, cfg: StepConfig) -> float:
+    """The objective over all the training rows (early stopping's
+    reading) of a fit's state ``t`` (``Training``): on a sharded mesh its
+    data term summed over the ranks, over all the rows' weight."""
+    if t.shard is None:
+        return float(loss(net, t.X, t.y, t.w, cfg.act, cfg.category))
+    mesh = t.shard.mesh
+    data = loss(net, t.X, t.y, t.w, cfg.act, cfg.category,
+                wsum=torch.ones((), device=t.X.device))
+    data, wsum = all_reduce_flat((data, t.w.sum()), mesh)
+    return float(data / torch.clamp_min(wsum, 1e-12))
 
 
 # ---- the model --------------------------------------------------------------
@@ -456,14 +552,21 @@ class DeepLearningModel(Model):
         return {"predict": p[:, 0] * sd + mu}
 
     def _score_raw(self, frame: Frame) -> Dict[str, np.ndarray]:
-        require_local(frame, self.algo)
-        n = frame.nrows
+        return self._scores(frame, lambda t: fetch_replicated(t, frame.mesh),
+                            frame.nrows)
+
+    def _score_local(self, frame: Frame) -> Dict[str, np.ndarray]:
+        return self._scores(frame, fetch, frame.local_nrows)
+
+    def _scores(self, frame: Frame, get, n: int) -> Dict[str, np.ndarray]:
+        """The prediction columns of the first ``n`` rows ``get`` (a
+        device → host copy) returns."""
         X = self._design(frame)
         if self.params.get("autoencoder"):
             out = self._raw_out(X)
             mse = ((out - X) ** 2).mean(dim=1)
-            return {"reconstruction_error": fetch(mse)[:n]}
-        return self._serve_finish(fetch(self._serve_dev(X)), n)
+            return {"reconstruction_error": get(mse)[:n]}
+        return self._serve_finish(get(self._serve_dev(X)), n)
 
     def anomaly(self, frame: Frame) -> Frame:
         """Per-row reconstruction MSE of an autoencoder (reference
@@ -481,12 +584,14 @@ class DeepLearningModel(Model):
 
     def _performance(self, frame: Frame, X: torch.Tensor, mask_weights):
         y = self.output["response"]
+        mesh = frame.mesh
         w = masked_weights(frame.valid_weights(), mask_weights)
         out = self._raw_out(X)
         if self.params.get("autoencoder"):
             err = ((out - X) ** 2).mean(dim=1)
-            mse = float((w * err).sum() / torch.clamp_min(w.sum(), 1e-12))
-            return mm.ModelMetrics(AUTOENCODER, int(w.sum()), mse)
+            se, sw = all_reduce_flat(((w * err).sum(), w.sum()), mesh)
+            mse = float(se / torch.clamp_min(sw, 1e-12))
+            return mm.ModelMetrics(AUTOENCODER, int(sw), mse)
         cat = self.output["category"]
         if cat in (ModelCategory.BINOMIAL, ModelCategory.MULTINOMIAL):
             yv = frame.local_rows(adapt_domain(frame.col(y),
@@ -496,15 +601,16 @@ class DeepLearningModel(Model):
             yt = torch.from_numpy(np.maximum(yv, 0)).to(w.device)
             p = torch.softmax(out, dim=1)
             if cat == ModelCategory.BINOMIAL:
-                return mm.binomial_metrics(p[:, 1], yt.to(torch.float32), w)
-            return mm.multinomial_metrics(p, yt, w,
+                return mm.binomial_metrics(p[:, 1], yt.to(torch.float32), w,
+                                           mesh=mesh)
+            return mm.multinomial_metrics(p, yt, w, mesh=mesh,
                                           domain=self.output["domain"])
         mu, sd = self.resp_stats
         pred = out[:, 0] * sd + mu
         yv = frame.col(y).numeric_view()
         w = w * torch.where(torch.isnan(yv), 0.0, 1.0)
         yv = torch.where(torch.isnan(yv), 0.0, yv)
-        return mm.regression_metrics(pred, yv, w)
+        return mm.regression_metrics(pred, yv, w, mesh=mesh)
 
 
 def _export_weights_and_biases(model, device) -> None:
@@ -559,6 +665,7 @@ class Training(NamedTuple):
     category: Optional[str]      # None for the autoencoder
     resp_stats: Optional[Tuple[float, float]]
     hidden: List[int]
+    shard: Optional[Shard] = None  # a rank's place in a data-parallel fit
 
 
 class DeepLearningEstimator(ModelBuilder):
@@ -569,6 +676,7 @@ class DeepLearningEstimator(ModelBuilder):
 
     algo = "deeplearning"
     label = "DeepLearning"
+    SHARDED = True
 
     DEFAULTS = dict(
         hidden=(200, 200), epochs=10.0, activation="Rectifier",
@@ -606,14 +714,17 @@ class DeepLearningEstimator(ModelBuilder):
             yv = rc.numeric_view()
             w = w * torch.where(torch.isnan(yv), 0.0, 1.0)
             # the target's weighted mean and sigma in host float32, as the
-            # reference computes them
-            yhost = np.nan_to_num(fetch(yv))
-            wn = fetch(w)
+            # reference computes them, over one device's layout of all the
+            # rows (on every rank of a partitioned frame)
+            n, N = frame.nrows, frame.one_device_rows
+            yhost = np.nan_to_num(fetch_global(yv, n, N, frame.mesh))
+            wn = fetch_global(w, n, N, frame.mesh)
             tot = max(wn.sum(), 1e-12)
             mu = float((yhost * wn).sum() / tot)
             sd = float(np.sqrt(np.maximum(
                 ((yhost - mu) ** 2 * wn).sum() / tot, 1e-12)))
-            y_dev = torch.from_numpy((yhost - mu) / sd).to(dev)[:, None]
+            y_dev = torch.from_numpy(frame.local_rows(
+                ((yhost - mu) / sd)[:n])).to(dev)[:, None]
             return category, y_dev, 1, "mse", w, (mu, sd)
         host = rc.host_view()
         ok = frame.local_rows((~np.isnan(host)).astype(np.float32), 0.0)
@@ -671,7 +782,10 @@ class DeepLearningEstimator(ModelBuilder):
 
     def _fit(self, frame: Frame, x: Sequence[str], y: Optional[str],
              validation_frame: Optional[Frame] = None) -> Model:
-        require_local(frame, self.label)
+        if frame.partitioned and self.params.get("autoencoder"):
+            raise NotImplementedError(
+                "DeepLearning parameter 'autoencoder' on a frame partitioned "
+                f"over a sharded mesh is not ported yet ({MESH_TODO})")
         with exact_f32():
             return self._fit_dl(frame, list(x), y, validation_frame)
 
@@ -705,7 +819,7 @@ class DeepLearningEstimator(ModelBuilder):
         hd = (tuple(float(v) for v in hd) if hd is not None
               else tuple([0.5 if act_dropout else 0.0] * len(hidden)))
 
-        n, N = frame.nrows, X.shape[0]
+        n, N = frame.nrows, frame.one_device_rows
         batch = batch_size(n, N, int(p["mini_batch_size"]))
         if batch > N:
             raise ValueError(f"mini_batch_size {batch} exceeds the "
@@ -723,9 +837,15 @@ class DeepLearningEstimator(ModelBuilder):
                          float(p["momentum_stable"]),
                          float(p["momentum_ramp"]), batch)
         total = max(1, int(float(p["epochs"]) * n / batch))
+        shard = None
+        if frame.partitioned:
+            lo, hi = frame.span
+            shard = Shard(frame.mesh, lo, frame.local_nrows, hi, N,
+                          torch.from_numpy(fetch_global(
+                              w, n, N, frame.mesh)).to(dev))
         return Training(X, y_dev, w, net, opt, gen, cfg, sched, n,
                         min(done, total), total, di, category, resp_stats,
-                        hidden)
+                        hidden, shard)
 
     def _fit_dl(self, frame: Frame, x: List[str], y: Optional[str],
                 validation_frame: Optional[Frame]) -> Model:
@@ -743,14 +863,13 @@ class DeepLearningEstimator(ModelBuilder):
         while done < total:
             k = min(chunk, total - done)
             train_steps(net, t.opt, t.X, t.y, t.w, t.gen, cfg, t.sched, done,
-                        k, t.n)
+                        k, t.n, t.shard)
             done += k
             job_update(k / total, f"step {done}/{total}")
             if stopper.enabled and (done >= next_score or done >= total):
                 next_score += stride
                 with torch.no_grad():
-                    lv = float(loss(net, t.X, t.y, t.w, cfg.act,
-                                    cfg.category))
+                    lv = full_loss(net, t, cfg)
                 history.append({"step": done, "loss": lv})
                 if stopper.should_stop(lv):
                     break
@@ -775,8 +894,9 @@ class DeepLearningEstimator(ModelBuilder):
         nscore = int(p.get("score_training_samples") or 0)
         mask = None
         if nscore and t.n > nscore:
-            mask = np.zeros(frame.nrows_padded, np.float32)
+            mask = np.zeros(t.n, np.float32)
             mask[sample_rows(self._seed() & 0xFFFF, t.n, nscore)] = 1.0
+            mask = frame.local_rows(mask)
         model.training_metrics = model._performance(frame, t.X, mask)
         if t.category == ModelCategory.BINOMIAL:
             model.output["default_threshold"] = \
@@ -785,8 +905,9 @@ class DeepLearningEstimator(ModelBuilder):
             nv = int(p.get("score_validation_samples") or 0)
             vmask = None
             if nv and validation_frame.nrows > nv:
-                vmask = np.zeros(validation_frame.nrows_padded, np.float32)
+                vmask = np.zeros(validation_frame.nrows, np.float32)
                 vmask[sample_rows(0xD2, validation_frame.nrows, nv)] = 1.0
+                vmask = validation_frame.local_rows(vmask)
             model.validation_metrics = model.model_performance(
                 validation_frame, mask_weights=vmask)
         return model

@@ -28,6 +28,18 @@ the donor's out-of-bag accumulators (``_oob``), so it is bit-equal to
 one longer fit, forest and OOB metrics; ``max_runtime_secs`` stops after
 a tree; cross-validation runs ``ml/cv.py``'s fast path; calibration
 ``ml/calibration.py``.
+
+Data-parallel fit: on a frame partitioned over a sharded mesh every rank
+runs this loop on its own rows. The bag is drawn as one device draws it
+(``Frame.uniform_rows``: the whole one-device vector on every rank, each
+keeping its own rows'), so the tree's generator reaches its column and
+per-node draws in the same state as on one device; each level runs the
+shard kernels with the histogram's int64 cells all-reduced
+(``grow_tree``), so every rank grows one device's forest bit for bit.
+The out-of-bag accumulators stay with each rank's rows; the OOB metrics
+are all-reduced. ``predict`` and ``model_performance`` take a
+partitioned frame; the scoring surface (leaf ids, feature frequencies,
+TreeSHAP) raises on one (ROADMAP A #12′).
 """
 
 from __future__ import annotations
@@ -52,7 +64,7 @@ from h2o3_tpu_torch.models.model import (Deadline, Model, ModelBuilder,
                                          ModelCategory, adapt_domain,
                                          check_donor, checkpoint_error,
                                          infer_category, masked_weights,
-                                         prior_trees, require_local,
+                                         prior_trees,
                                          resolve_checkpoint_model, rowwise)
 from h2o3_tpu_torch.models.tree import (Tree, TreeParams, bucket_depth,
                                         concat_forests,
@@ -61,6 +73,7 @@ from h2o3_tpu_torch.models.tree import (Tree, TreeParams, bucket_depth,
                                         predict_forest, scalars_of,
                                         stack_trees)
 from h2o3_tpu_torch.parallel.device import fetch
+from h2o3_tpu_torch.parallel.mesh import fetch_replicated
 
 MAX_COMPLETE_DEPTH = 14  # complete-tree layout: histograms are 2^d·F·B·3
 # SharedTree's checkpoint-non-modifiable fields plus DRF's own knobs
@@ -78,15 +91,20 @@ def edge_method(histogram_type) -> str:
 
 def bag_step(bm: BinnedMatrix, ys, w, oob_sum, oob_cnt,
              gen: torch.Generator, *, tp: TreeParams, sc,
-             sample_rate: float, mtries: int):
-    """One tree of the forest on the device, with no host sync: bag mask,
-    per-tree column sample, then for each column k of the targets ys
-    [N, K] a ``grow_tree`` with g = -y_k, h = 1 (so the Newton leaf is
-    the bag-weighted mean of y_k) and per-node ``mtries`` masks drawn from
-    ``gen`` in class order, and the out-of-bag accumulators. Returns (the
-    K trees, oob_sum [N, K], oob_cnt, gain_by_feature)."""
+             sample_rate: float, mtries: int, draw_rows=None, mesh=None):
+    """One tree of the forest on the device, with no host sync on one
+    device: bag mask, per-tree column sample, then for each column k of
+    the targets ys [N, K] a ``grow_tree`` with g = -y_k, h = 1 (so the
+    Newton leaf is the bag-weighted mean of y_k) and per-node ``mtries``
+    masks drawn from ``gen`` in class order, and the out-of-bag
+    accumulators. ``draw_rows(gen)`` gives the bag's uniform draw a row
+    (default: ``torch.rand`` over the rows); on a sharded ``mesh`` the
+    rows are this rank's. Returns (the K trees, oob_sum [N, K], oob_cnt,
+    gain_by_feature)."""
     dev = w.device
-    keep = torch.rand(w.shape[0], generator=gen, device=dev) < sample_rate
+    u = (draw_rows(gen) if draw_rows is not None
+         else torch.rand(w.shape[0], generator=gen, device=dev))
+    keep = u < sample_rate
     wbag = w * keep.to(torch.float32)
     oob = (w > 0) & ~keep
     col_mask = _sample_columns(gen, bm.bins.shape[1], tp.col_sample_rate,
@@ -97,7 +115,7 @@ def bag_step(bm: BinnedMatrix, ys, w, oob_sum, oob_cnt,
     for k in range(ys.shape[1]):
         tree, nid, gain = grow_tree(bm.bins, bm.nbins, wbag, -ys[:, k], ones,
                                     col_mask, params=tp, scalars=sc,
-                                    mtries=mtries, generator=gen)
+                                    mtries=mtries, generator=gen, mesh=mesh)
         # routing nid is bag-independent
         oob_sum[:, k] += torch.where(oob, tree.leaf[nid.long()], 0.0)
         trees.append(tree)
@@ -153,7 +171,6 @@ class DRFModel(Model):
     def _serve_input(self, frame: Frame) -> torch.Tensor:
         """The rows binned with the training edges: the device input of
         ``_serve_dev`` (the serving engine's prep too)."""
-        require_local(frame, self.algo)
         return rebin_for_scoring(self.bm, frame).bins
 
     def _serve_dev(self, bins: torch.Tensor) -> torch.Tensor:
@@ -193,11 +210,16 @@ class DRFModel(Model):
         return out[:, 1] if cat == ModelCategory.BINOMIAL else out
 
     def _score_raw(self, frame: Frame) -> Dict[str, np.ndarray]:
+        return self._serve_finish(fetch_replicated(
+            self._serve_dev(self._serve_input(frame)), frame.mesh),
+            frame.nrows)
+
+    def _score_local(self, frame: Frame) -> Dict[str, np.ndarray]:
         return self._serve_finish(
-            fetch(self._serve_dev(self._serve_input(frame))), frame.nrows)
+            fetch(self._serve_dev(self._serve_input(frame))),
+            frame.local_nrows)
 
     def model_performance(self, frame: Frame, mask_weights=None):
-        require_local(frame, self.algo)
         y = self.output["response"]
         bm = rebin_for_scoring(self.bm, frame)
         w = frame.valid_weights()
@@ -211,17 +233,18 @@ class DRFModel(Model):
             yv = frame.col(y).numeric_view()
             w = w * torch.where(torch.isnan(yv), 0.0, 1.0)
             yv = torch.where(torch.isnan(yv), 0.0, yv)
-            return mm.regression_metrics(self._mean_votes(bm)[:, 0], yv, w)
-        yv = adapt_domain(frame.col(y), self.output["domain"])
-        yv = np.pad(yv, (0, bm.bins.shape[0] - frame.nrows),
-                    constant_values=-1)
+            return mm.regression_metrics(self._mean_votes(bm)[:, 0], yv, w,
+                                         mesh=frame.mesh)
+        yv = frame.local_rows(adapt_domain(frame.col(y),
+                                           self.output["domain"]), -1)
         w = w * torch.from_numpy((yv >= 0).astype(np.float32)).to(w.device)
         yv = torch.from_numpy(np.maximum(yv, 0)).to(w.device)
         if cat == ModelCategory.MULTINOMIAL:
             return mm.multinomial_metrics(self._probs(bm), yv, w,
+                                          mesh=frame.mesh,
                                           domain=self.output["domain"])
         return mm.binomial_metrics(self._probs(bm)[:, 1],
-                                   yv.to(torch.float32), w)
+                                   yv.to(torch.float32), w, mesh=frame.mesh)
 
     def predict_leaf_node_assignment(self, frame: Frame) -> Frame:
         """Per-tree terminal node ids (h2o-py predict_leaf_node_assignment
@@ -260,6 +283,7 @@ class DRFEstimator(ModelBuilder):
 
     algo = "drf"
     label = "DRF"
+    SHARDED = True
     cv_fold_masking = True
 
     DEFAULTS = dict(
@@ -294,6 +318,7 @@ class DRFEstimator(ModelBuilder):
              validation_frame: Optional[Frame] = None):
         p = self.params
         dev = frame.device
+        mesh = frame.mesh
         category = infer_category(frame, y)
         # near leave-one-out CV folds (ml/cv.py): no OOB metrics, varimp
         # or calibration, and a depth slack of 1 level, not 3
@@ -313,8 +338,7 @@ class DRFEstimator(ModelBuilder):
         wh_host = self._host_weights(frame, y)
         resp_na_host = np.isnan(rc.host_view())
         if resp_na_host.any():
-            keep = np.pad((~resp_na_host).astype(np.float32),
-                          (0, frame.nrows_padded - frame.nrows))
+            keep = frame.local_rows((~resp_na_host).astype(np.float32))
             w = w * torch.from_numpy(keep).to(dev)
         shared_bm = getattr(self, "_cv_shared_bm", None)
         if ckpt is not None:
@@ -331,9 +355,10 @@ class DRFEstimator(ModelBuilder):
         # whether or not rows reach them, so the depth is capped by the
         # data size too (log2(rows) + 3 leaves room for unbalanced trees;
         # + 1 for light CV folds, whose models are dropped after scoring);
-        # trees are laid out at the depth bucket, never past the caps
+        # trees are laid out at the depth bucket, never past the caps. The
+        # rows are one device's, so every rank lays out one device's trees
         depth = int(p["max_depth"])
-        data_cap = int(np.ceil(np.log2(max(frame.nrows_padded, 4)))) \
+        data_cap = int(np.ceil(np.log2(max(frame.one_device_rows, 4)))) \
             + (1 if light else 3)
         depth = min(depth, MAX_COMPLETE_DEPTH, data_cap)
         layout_depth = min(bucket_depth(depth), MAX_COMPLETE_DEPTH, data_cap)
@@ -368,8 +393,9 @@ class DRFEstimator(ModelBuilder):
         else:
             ys = (yv.astype(np.int32)[:, None]
                   == np.arange(rc.cardinality)[None, :]).astype(np.float32)
-        ys = torch.from_numpy(np.pad(ys, ((0, npad - frame.nrows),
-                                          (0, 0)))).to(dev)
+        ys = torch.from_numpy(np.stack([frame.local_rows(ys[:, k])
+                                         for k in range(ys.shape[1])],
+                                        1)).to(dev)
 
         seed = int(p["seed"]) if int(p["seed"]) >= 0 else 0xD2F
         ntrees = int(p["ntrees"])
@@ -399,7 +425,8 @@ class DRFEstimator(ModelBuilder):
             step, oob_sum, oob_cnt, gain = bag_step(
                 bm, ys, w, oob_sum, oob_cnt,
                 tree_generator(seed, prior_T + t, dev), tp=tp, sc=sc,
-                sample_rate=sample_rate, mtries=mtries)
+                sample_rate=sample_rate, mtries=mtries,
+                draw_rows=frame.uniform_rows, mesh=mesh)
             trees += step
             gains = gains + gain
             job_update(1.0 / ntrees, f"tree {t + 1}/{ntrees}")
@@ -423,16 +450,17 @@ class DRFEstimator(ModelBuilder):
         mean_oob = oob_sum / torch.clamp_min(oob_cnt, 1.0)[:, None]
         if category == ModelCategory.REGRESSION:
             model.training_metrics = mm.regression_metrics(
-                mean_oob[:, 0], ys[:, 0], w_oob)
+                mean_oob[:, 0], ys[:, 0], w_oob, mesh=mesh)
         elif category == ModelCategory.BINOMIAL:
             model.training_metrics = mm.binomial_metrics(
-                torch.clamp(mean_oob[:, 0], 0.0, 1.0), ys[:, 0], w_oob)
+                torch.clamp(mean_oob[:, 0], 0.0, 1.0), ys[:, 0], w_oob,
+                mesh=mesh)
             model.output["default_threshold"] = \
                 model.training_metrics["max_f1_threshold"]
         else:
             model.training_metrics = mm.multinomial_metrics(
                 vote_probs(mean_oob), torch.argmax(ys, dim=1), w_oob,
-                domain=rc.domain)
+                mesh=mesh, domain=rc.domain)
         # scaled relative importance (hex/VarImp semantics)
         vi = fetch(gains)
         order = np.argsort(-vi)

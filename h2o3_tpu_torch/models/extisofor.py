@@ -18,6 +18,13 @@ the card) and the rows' projections on their nodes' normals, in plain
 torch on the rows' device: there is no TPU kernel behind it. The
 projections are float32 sums over F; ``proj < offset`` can differ from
 the reference's only at a near-tie.
+
+Data-parallel fit: on a frame partitioned over a sharded mesh every rank
+projects its own rows. The means are all the rows' (``rollup_mean`` with
+the frame), the box's minima and maxima are all-reduced, the bag is
+drawn as one device draws it (``Frame.uniform_rows``) and the node
+counts are all-reduced: every rank grows one device's forest bit for
+bit. The training metrics come from the scores gathered over the ranks.
 """
 
 from __future__ import annotations
@@ -32,10 +39,12 @@ from h2o3_tpu_torch.frame.rollups import rollup_mean
 from h2o3_tpu_torch.models.gbm import tree_generator
 from h2o3_tpu_torch.models.isofor import (ANOMALY, avg_path_correction,
                                           node_counts)
-from h2o3_tpu_torch.models.model import Model, ModelBuilder, require_local
+from h2o3_tpu_torch.models.model import Model, ModelBuilder
 from h2o3_tpu_torch.models.tree import _mtries_mask
 from h2o3_tpu_torch.ops.fixed_point import exponents
 from h2o3_tpu_torch.parallel.device import fetch
+from h2o3_tpu_torch.parallel.map_reduce import all_reduce
+from h2o3_tpu_torch.parallel.mesh import fetch_replicated
 
 
 class ExtTree(NamedTuple):
@@ -65,21 +74,23 @@ def draw_tree(gen: torch.Generator, lo: torch.Tensor, hi: torch.Tensor,
     return {"normals": wn, "offsets": torch.sum(wn * pnt, dim=2)}
 
 
-def grow_ext_tree(X, w, normals, offsets) -> ExtTree:
+def grow_ext_tree(X, w, normals, offsets, mesh=None) -> ExtTree:
     """One extended isolation tree from given hyperplanes ([D, Lmax, F]
     normals, [D, Lmax] offsets): a node splits while its bag weight ``w``
-    exceeds 1; a row goes left when its projection is below the offset."""
+    exceeds 1; a row goes left when its projection is below the offset.
+    On a sharded ``mesh`` the rows are this rank's and the node counts
+    cover every rank's."""
     D, Lmax = offsets.shape
     dev = X.device
     nid = torch.zeros((X.shape[0],), dtype=torch.int64, device=dev)
-    e = exponents(w[:, None]) if w.is_cuda else None
+    e = exponents(w[:, None], mesh=mesh) if w.is_cuda else None
     is_splits = torch.zeros((D, Lmax), dtype=torch.bool, device=dev)
     for d in range(D):
         L = 2 ** d
-        is_splits[d, :L] = node_counts(nid, w, L, e) > 1.0
+        is_splits[d, :L] = node_counts(nid, w, L, e, mesh) > 1.0
         nid = 2 * nid + torch.where(_goes_left(X, nid, normals[d], offsets[d],
                                                is_splits[d]), 0, 1)
-    leaf_cnt = node_counts(nid, w, 2 ** D, e)
+    leaf_cnt = node_counts(nid, w, 2 ** D, e, mesh)
     return ExtTree(normals, offsets, is_splits,
                    avg_path_correction(leaf_cnt))
 
@@ -112,24 +123,26 @@ def ext_forest_mean_length(forest: ExtTree, X) -> torch.Tensor:
 
 def feature_matrix(frame: Frame, names, means=None):
     """Dense float32 [Npad, F] on the frame's device with NA (and padding)
-    → the column's rollup mean (or ``means``); returns (X, means)."""
+    → the column's rollup mean over all the frame's rows (or ``means``);
+    returns (X, means)."""
     cols, out_means = [], []
     for i, n in enumerate(names):
         c = frame.col(n)
-        mu = rollup_mean(c) if means is None else means[i]
+        mu = rollup_mean(c, frame) if means is None else means[i]
         out_means.append(mu)
         v = c.numeric_view()
         cols.append(torch.where(torch.isnan(v), mu, v))
     return torch.stack(cols, dim=1), out_means
 
 
-def value_box(X, means):
+def value_box(X, means, mesh=None):
     """Per-feature (min, max) of X [N, F] and the means: the reference
     takes them over its padded matrix, whose padding rows hold the means,
-    so the means count whatever this frame's own padding."""
+    so the means count whatever this frame's own padding. On a sharded
+    ``mesh`` over every rank's rows."""
     mu = torch.tensor(means, dtype=torch.float32).to(X.device)
-    return (torch.minimum(X.amin(dim=0), mu),
-            torch.maximum(X.amax(dim=0), mu))
+    return (all_reduce(torch.minimum(X.amin(dim=0), mu), mesh, op="min"),
+            all_reduce(torch.maximum(X.amax(dim=0), mu), mesh, op="max"))
 
 
 class ExtendedIsolationForestModel(Model):
@@ -144,9 +157,17 @@ class ExtendedIsolationForestModel(Model):
         self.features = features
 
     def _score_raw(self, frame: Frame) -> Dict[str, np.ndarray]:
-        require_local(frame, self.algo)
+        return self._scores(frame, lambda t: fetch_replicated(
+            t, frame.mesh)[:frame.nrows])
+
+    def _score_local(self, frame: Frame) -> Dict[str, np.ndarray]:
+        return self._scores(frame, lambda t: fetch(t)[:frame.local_nrows])
+
+    def _scores(self, frame: Frame, get) -> Dict[str, np.ndarray]:
+        """The prediction columns from ``get``, the host copy of the
+        frame's rows of a device tensor."""
         X, _ = feature_matrix(frame, self.features, self.means)
-        ml = fetch(ext_forest_mean_length(self.forest, X))[:frame.nrows]
+        ml = get(ext_forest_mean_length(self.forest, X))
         score = 2.0 ** (-ml / max(self.c_norm, 1e-12))
         return {"anomaly_score": score, "mean_length": ml}
 
@@ -162,6 +183,7 @@ class ExtendedIsolationForestEstimator(ModelBuilder):
 
     algo = "extendedisolationforest"
     label = "ExtendedIsolationForest"
+    SHARDED = True
 
     DEFAULTS = dict(
         ntrees=100, sample_size=256, extension_level=0, seed=-1,
@@ -179,7 +201,7 @@ class ExtendedIsolationForestEstimator(ModelBuilder):
             raise ValueError(
                 f"extension_level must be in [0, {len(x) - 1}]")
         X, means = feature_matrix(frame, x)
-        lo, hi = value_box(X, means)
+        lo, hi = value_box(X, means, frame.mesh)
         w = frame.valid_weights()
         n = frame.nrows
         psi = int(p["sample_size"])
@@ -189,11 +211,11 @@ class ExtendedIsolationForestEstimator(ModelBuilder):
         trees = []
         for t in range(int(p["ntrees"])):
             gen = tree_generator(seed, t, dev)
-            keep = torch.rand(w.shape[0], generator=gen, device=dev) \
-                < bag_rate
+            keep = frame.uniform_rows(gen) < bag_rate
             dr = draw_tree(gen, lo, hi, depth, ext)
             trees.append(grow_ext_tree(X, w * keep.to(torch.float32),
-                                       dr["normals"], dr["offsets"]))
+                                       dr["normals"], dr["offsets"],
+                                       frame.mesh))
         forest = ExtTree(*(torch.stack([getattr(t, f) for t in trees])
                            for f in ExtTree._fields))
         c_norm = float(avg_path_correction(torch.tensor([float(psi)]))[0])

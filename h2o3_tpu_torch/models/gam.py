@@ -18,7 +18,7 @@ float32: the reference runs those column passes in host numpy.
 last update, as the reference reports it.
 
 Not ported: GAM on a frame partitioned over a sharded mesh (ROADMAP
-A #12). It has no MOJO and no serving schema, as in the reference.
+A #12′). It has no MOJO and no serving schema, as in the reference.
 """
 
 from __future__ import annotations

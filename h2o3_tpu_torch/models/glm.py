@@ -32,8 +32,20 @@ grid bucket's (alpha, lambda) product together: one design, then one
 batched IRLS solve per ``use_l1`` partition ([M, P, P] Grams, batched
 Cholesky or ADMM solves, the line search of every lane in one pass),
 each lane an independent fit from the zero start that freezes once its
-own loop condition fails. Not ported: GLM on a partitioned frame (A
-#12); the in-fit checkpointer and the telemetry spans (A #13).
+own loop condition fails.
+
+Data-parallel fit: on a frame partitioned over a sharded mesh every rank
+builds its own rows' design (the means and sigmas all the rows', so the
+rows are one device's) and runs this same loop. IRLSM, ADMM and COD
+solve from the all-reduced Gram (``ops/gram.py``); the line search's
+nine deviances, L-BFGS's objective and gradient (its penalty added on
+rank 0 alone), the lambda search's lambda_max and the training metrics
+are all-reduced, so every rank takes the same host decisions and ends
+with the same coefficients. Sums of partial sums follow another order
+than one device's, as a row permutation does. On one: ordinal, p-values
+and interactions raise (ROADMAP A #12′), as do CV, checkpoint and a
+batched bucket. Not ported: the in-fit checkpointer and the telemetry
+spans (A #13).
 """
 
 from __future__ import annotations
@@ -51,9 +63,9 @@ from h2o3_tpu_torch.frame.datainfo import (build_datainfo, coef_stats,
                                            stats_of)
 from h2o3_tpu_torch.frame.frame import Frame, resolve_frame
 from h2o3_tpu_torch.models import metrics as mm
-from h2o3_tpu_torch.models.model import (Model, ModelBuilder, ModelCategory,
-                                         adapt_domain, infer_category,
-                                         masked_weights, require_local,
+from h2o3_tpu_torch.models.model import (MESH_TODO, Model, ModelBuilder,
+                                         ModelCategory, adapt_domain,
+                                         infer_category, masked_weights,
                                          score_tiles)
 from h2o3_tpu_torch.ops.gram import BLOCK_ROWS, exact_f32, gram
 from h2o3_tpu_torch.ops.optimize import (admm_l1_quadratic, cho_factor,
@@ -61,6 +73,8 @@ from h2o3_tpu_torch.ops.optimize import (admm_l1_quadratic, cho_factor,
                                          cholesky_solve_regularized,
                                          coordinate_descent_quadratic, lbfgs)
 from h2o3_tpu_torch.parallel.device import fetch
+from h2o3_tpu_torch.parallel.map_reduce import all_reduce, all_reduce_flat
+from h2o3_tpu_torch.parallel.mesh import fetch_replicated, is_sharded
 
 ORDINAL = "Ordinal"
 COD_SWEEPS = 50          # cyclic sweeps of one COD IRLS iteration
@@ -191,18 +205,32 @@ def _working(fam: Family, X1, coef, y, w, off):
     return mu, z, w_irls
 
 
-def _normal_equations(X1, w_irls, z, w):
-    """(A, q): the Gram and X'Wz over nobs = max(sum w, 1)."""
-    xtx, xtz, _ = gram(X1, w_irls, z)
-    nobs = torch.clamp_min(w.sum(), 1.0)
+def _wsum(w, mesh=None):
+    """sum w over every rank's rows (a 0-d tensor)."""
+    return all_reduce(w.sum().reshape(1), mesh)[0]
+
+
+def _lead(mesh) -> bool:
+    """True on the rank that adds a replicated term (a penalty) to a sum
+    all-reduced over the ranks: every rank of one device, rank 0 of a
+    sharded mesh."""
+    return not is_sharded(mesh) or mesh.rank == 0
+
+
+def _normal_equations(X1, w_irls, z, w, mesh=None):
+    """(A, q): the Gram and X'Wz over nobs = max(sum w, 1), over every
+    rank of ``mesh``."""
+    xtx, xtz, _ = gram(X1, w_irls, z, mesh=mesh)
+    nobs = torch.clamp_min(_wsum(w, mesh), 1.0)
     return xtx / nobs, xtz / nobs
 
 
-def _irls_iter(X1, coef, y, w, off, l1, l2, fam: Family, *, use_l1: bool):
+def _irls_iter(X1, coef, y, w, off, l1, l2, fam: Family, *, use_l1: bool,
+               mesh=None):
     """One IRLS iteration: re-weight → Gram → penalized solve (ADMM under
     L1, else the ridge-regularized Cholesky). Returns (coef, delta)."""
     _, z, w_irls = _working(fam, X1, coef, y, w, off)
-    A, q = _normal_equations(X1, w_irls, z, w)
+    A, q = _normal_equations(X1, w_irls, z, w, mesh)
     pen = _penalize(X1.shape[1], X1.device)
     if use_l1:
         new = admm_l1_quadratic(A + l2 * torch.diag(pen), q, l1, pen)
@@ -225,7 +253,7 @@ def first_argmin(objs):
 
 
 def _irls_solve(X1, coef, y, w, off, l1, l2, beta_eps, max_iter: int,
-                fam: Family, obj_eps, *, use_l1: bool):
+                fam: Family, obj_eps, *, use_l1: bool, mesh=None):
     """The IRLS loop of GLM.java fitIRLSM: stops on the beta-epsilon
     (largest coefficient change), the objective-epsilon (relative change
     of the penalized objective) or ``max_iter``; each step is the best of
@@ -244,10 +272,11 @@ def _irls_solve(X1, coef, y, w, off, l1, l2, beta_eps, max_iter: int,
             break
         job_update(0.0, "IRLS iteration")
         full, _ = _irls_iter(X1, coef, y, w, off, l1, l2, fam,
-                             use_l1=use_l1)
+                             use_l1=use_l1, mesh=mesh)
         cands = coef[None, :] + steps[:, None] * (full - coef)[None, :]
         mus = fam.linkinv(X1 @ cands.T + off[:, None])         # [N, 9]
-        devs = torch.sum(w[:, None] * fam.deviance(y[:, None], mus), dim=0)
+        devs = all_reduce(torch.sum(w[:, None] * fam.deviance(
+            y[:, None], mus), dim=0), mesh)
         c = cands[:, :-1]
         objs = devs + (l1 * torch.sum(torch.abs(c), dim=1)
                        + 0.5 * l2 * torch.sum(c * c, dim=1))
@@ -332,70 +361,81 @@ def _irls_solve_batched(X1, y, w, off, l1s, l2s, beta_eps, max_iter: int,
 
 
 def _irls_solve_path(X1, coef, y, w, off, l1s, l2s, beta_eps, max_iter: int,
-                     fam: Family, obj_eps, *, use_l1: bool):
+                     fam: Family, obj_eps, *, use_l1: bool, mesh=None):
     """The lambda path: one IRLS solve a lambda, each warm-started from
     the previous solution. Returns (last coefficients, [L, P+1] path)."""
     path = []
     for l1, l2 in zip(l1s, l2s):
         coef = _irls_solve(X1, coef, y, w, off, l1, l2, beta_eps, max_iter,
-                           fam, obj_eps, use_l1=use_l1)
+                           fam, obj_eps, use_l1=use_l1, mesh=mesh)
         path.append(coef)
     return coef, torch.stack(path)
 
 
-def _irls_iter_cod(X1, coef, y, w, off, l1, l2, lo, hi, fam: Family):
+def _irls_iter_cod(X1, coef, y, w, off, l1, l2, lo, hi, fam: Family,
+                   mesh=None):
     """One IRLS iteration solved by (box-constrained) cyclic coordinate
     descent (GLM.java:1495 fitCOD, the beta_constraints / non_negative
     projected path). Returns (coef, delta)."""
     _, z, w_irls = _working(fam, X1, coef, y, w, off)
-    A, q = _normal_equations(X1, w_irls, z, w)
+    A, q = _normal_equations(X1, w_irls, z, w, mesh)
     new = coordinate_descent_quadratic(A, q, l1, l2,
                                        _penalize(X1.shape[1], X1.device),
                                        lower=lo, upper=hi, sweeps=COD_SWEEPS)
     return new, torch.max(torch.abs(new - coef))
 
 
-def _grad_of(obj_fn, x64, dev):
+def _grad_of(obj_fn, x64, dev, mesh=None):
     """(value, gradient) of ``obj_fn`` at the float64 host iterate taken
-    as float32, by autograd."""
+    as float32, by autograd; on a sharded ``mesh`` both summed over the
+    ranks in one collective."""
     c = torch.tensor(np.asarray(x64, np.float32), device=dev,
                      requires_grad=True)
     obj = obj_fn(c)
     g, = torch.autograd.grad(obj, c)
+    if is_sharded(mesh):
+        vg = all_reduce(torch.cat([obj.detach().reshape(1), g]), mesh)
+        return vg[0], vg[1:]
     return obj.detach(), g
 
 
-def _glm_value_grad(coef, X1, y, w, off, l2, fam: Family):
-    """Penalized deviance objective and gradient (GLMGradientTask)."""
+def _glm_value_grad(coef, X1, y, w, off, l2, fam: Family, mesh=None):
+    """Penalized deviance objective and gradient (GLMGradientTask), over
+    every rank of ``mesh`` (the penalty on the lead rank only)."""
     pen = _penalize(X1.shape[1], X1.device)
-    nobs = torch.clamp_min(w.sum(), 1.0)
+    nobs = torch.clamp_min(_wsum(w, mesh), 1.0)
+    lead = _lead(mesh)
 
     def obj(c):
         mu = fam.linkinv(X1 @ c + off)
         dev = torch.sum(w * fam.deviance(y, mu)) / (2.0 * nobs)
-        return dev + 0.5 * l2 * torch.sum(pen * c * c)
+        return dev + 0.5 * l2 * torch.sum(pen * c * c) if lead else dev
 
-    return _grad_of(obj, coef, X1.device)
+    return _grad_of(obj, coef, X1.device, mesh)
 
 
-def _multinomial_value_grad(flat, X1, y_int, w, l2, K: int):
+def _multinomial_value_grad(flat, X1, y_int, w, l2, K: int, mesh=None):
     Pp1 = X1.shape[1]
     pen = _penalize(Pp1, X1.device)
     Y = (y_int[:, None] == torch.arange(K, device=X1.device)[None, :]).to(
         torch.float32)
-    nobs = torch.clamp_min(w.sum(), 1.0)
+    nobs = torch.clamp_min(_wsum(w, mesh), 1.0)
+    lead = _lead(mesh)
 
     def obj(fl):
         B = fl.reshape(Pp1, K)
         logp = torch.log_softmax(X1 @ B, dim=1)
         nll = -torch.sum(w[:, None] * Y * logp) / nobs
+        if not lead:
+            return nll
         return nll + 0.5 * l2 * torch.sum((pen[:, None] * B) ** 2)
 
-    return _grad_of(obj, flat, X1.device)
+    return _grad_of(obj, flat, X1.device, mesh)
 
 
 def _multinomial_irls_solve(X1, B, y_int, w, l1, l2, beta_eps,
-                            max_iter: int, *, K: int, use_l1: bool):
+                            max_iter: int, *, K: int, use_l1: bool,
+                            mesh=None):
     """Multinomial IRLSM (GLM.java:1995): block-coordinate IRLS over the
     classes, one weighted least-squares solve a class a sweep (working
     weights p_c(1 - p_c), working response from the class margin), until
@@ -415,7 +455,8 @@ def _multinomial_irls_solve(X1, B, y_int, w, l1, l2, beta_eps,
             pc = torch.softmax(eta, dim=1)[:, c]
             yc = (y_int == c).to(torch.float32)
             d = torch.clamp_min(pc * (1.0 - pc), 1e-10)
-            A, q = _normal_equations(X1, w * d, eta[:, c] + (yc - pc) / d, w)
+            A, q = _normal_equations(X1, w * d, eta[:, c] + (yc - pc) / d, w,
+                                     mesh)
             if use_l1:
                 bc = admm_l1_quadratic(A + l2 * torch.diag(pen), q, l1, pen)
             else:
@@ -623,9 +664,13 @@ class GLMModel(Model):
         return self.family.linkinv(self._eta(frame))
 
     def _score_raw(self, frame: Frame) -> Dict[str, np.ndarray]:
-        require_local(frame, self.algo)
+        return self._serve_finish(
+            fetch_replicated(self._score_dev(frame), frame.mesh),
+            frame.nrows)
+
+    def _score_local(self, frame: Frame) -> Dict[str, np.ndarray]:
         return self._serve_finish(fetch(self._score_dev(frame)),
-                                  frame.nrows)
+                                  frame.local_nrows)
 
     def model_performance(self, frame: Frame, mask_weights=None):
         """``mask_weights``: the CV fast path's holdout rows on the
@@ -647,14 +692,17 @@ class GLMModel(Model):
             yt = torch.from_numpy(np.maximum(yv, 0)).to(w.device)
             if cat == ModelCategory.BINOMIAL:
                 return mm.binomial_metrics(self.family.linkinv(eta),
-                                           yt.to(torch.float32), w)
+                                           yt.to(torch.float32), w,
+                                           mesh=frame.mesh)
             return mm.multinomial_metrics(torch.softmax(eta, dim=1), yt, w,
+                                          mesh=frame.mesh,
                                           domain=self.output["domain"])
         yv = frame.col(y).numeric_view()
         w = w * torch.where(torch.isnan(yv), 0.0, 1.0)
         yv = torch.where(torch.isnan(yv), 0.0, yv)
         return mm.regression_metrics(self.family.linkinv(eta), yv, w,
-                                     deviance_fn=self.family.deviance)
+                                     deviance_fn=self.family.deviance,
+                                     mesh=frame.mesh)
 
     @property
     def coefficients(self) -> Dict[str, float]:
@@ -695,6 +743,7 @@ class GLMEstimator(ModelBuilder):
 
     algo = "glm"
     label = "GLM"
+    SHARDED = True
     cv_fold_masking = True   # ml/cv.py fast path: folds = masked weights
 
     DEFAULTS = dict(
@@ -739,15 +788,15 @@ class GLMEstimator(ModelBuilder):
         return 1e-6
 
     def _fit_irlsm(self, X1, yv, w, fam, l1, l2, coef0, max_iter: int,
-                   beta_eps: float, off):
+                   beta_eps: float, off, mesh=None):
         dev = X1.device
         coef = _coef_on(coef0, dev)
         return _irls_solve(X1, coef, yv, w, off, _f32(l1, dev),
                            _f32(l2, dev), beta_eps, max_iter, fam,
-                           self._objective_eps(), use_l1=l1 > 0)
+                           self._objective_eps(), use_l1=l1 > 0, mesh=mesh)
 
     def _fit_cod(self, X1, yv, w, fam, l1, l2, coef0, max_iter: int,
-                 beta_eps: float, bounds, off) -> np.ndarray:
+                 beta_eps: float, bounds, off, mesh=None) -> np.ndarray:
         """IRLS outer loop with a COD (box-constrained) inner solve."""
         dev = X1.device
         lo, hi = (None, None) if bounds is None else (
@@ -757,7 +806,7 @@ class GLMEstimator(ModelBuilder):
         for _ in range(max_iter):
             job_update(0.0, "IRLS-COD iteration")
             coef, delta = _irls_iter_cod(X1, coef, yv, w, off, _f32(l1, dev),
-                                         _f32(l2, dev), lo, hi, fam)
+                                         _f32(l2, dev), lo, hi, fam, mesh)
             if float(delta) < beta_eps:
                 break
         return fetch(coef)
@@ -805,15 +854,15 @@ class GLMEstimator(ModelBuilder):
         return lo, hi
 
     def _fit_lbfgs(self, X1, yv, w, fam, l2, coef0, max_iter: int,
-                   off) -> np.ndarray:
+                   off, mesh=None) -> np.ndarray:
         l2d = _f32(l2, X1.device)
         coef, _, _ = lbfgs(lambda c: _glm_value_grad(c, X1, yv, w, off, l2d,
-                                                     fam),
+                                                     fam, mesh),
                            _host(coef0), max_iter=max_iter)
         return coef
 
     def _fit_multinomial(self, X1, y_int, w, K: int, l2: float,
-                         max_iter: int, solver: str, l1: float):
+                         max_iter: int, solver: str, l1: float, mesh=None):
         dev = X1.device
         if solver in ("irlsm", "coordinate_descent",
                       "coordinate_descent_naive"):
@@ -821,10 +870,10 @@ class GLMEstimator(ModelBuilder):
                              device=dev)
             return fetch(_multinomial_irls_solve(
                 X1, B0, y_int, w, _f32(l1, dev), _f32(l2, dev), 1e-5,
-                max_iter, K=K, use_l1=l1 > 0))
+                max_iter, K=K, use_l1=l1 > 0, mesh=mesh))
         l2d = _f32(l2, dev)
         sol, _, _ = lbfgs(lambda c: _multinomial_value_grad(c, X1, y_int, w,
-                                                            l2d, K),
+                                                            l2d, K, mesh),
                           np.zeros(X1.shape[1] * K), max_iter=max_iter)
         return sol.reshape(X1.shape[1], K)
 
@@ -838,7 +887,16 @@ class GLMEstimator(ModelBuilder):
 
     def _fit(self, frame: Frame, x: Sequence[str], y: Optional[str],
              validation_frame: Optional[Frame] = None) -> Model:
-        require_local(frame, self.label)
+        if frame.partitioned:
+            for k in ("interactions", "compute_p_values"):
+                if self.params.get(k):
+                    raise NotImplementedError(
+                        f"GLM parameter '{k}' on a frame partitioned over a "
+                        f"sharded mesh is not ported yet ({MESH_TODO})")
+            if str(self.params["family"]).lower() == "ordinal":
+                raise NotImplementedError(
+                    "GLM family 'ordinal' on a frame partitioned over a "
+                    f"sharded mesh is not ported yet ({MESH_TODO})")
         with exact_f32():
             return self._fit_glm(frame, list(x), y)
 
@@ -854,6 +912,7 @@ class GLMEstimator(ModelBuilder):
     def _fit_glm(self, frame: Frame, x: List[str], y: str) -> Model:
         p = self.params
         dev = frame.device
+        mesh = frame.mesh
         category = infer_category(frame, y)
         fam_name = self._resolve_family(category)
         fam = Family(fam_name, float(p["tweedie_power"]), p["link"],
@@ -912,10 +971,10 @@ class GLMEstimator(ModelBuilder):
             yv = np.nan_to_num(yn).astype(np.float32)
         w = w * torch.from_numpy(wna).to(dev)
         y_dev = torch.from_numpy(yv).to(dev)
-        nobs = float(w.sum())
+        nobs = float(_wsum(w, mesh))
 
         alpha = float(p["alpha"] if p["alpha"] is not None else 0.5)
-        lambdas = _lambda_path(p, X1, y_dev, w, nobs, alpha)
+        lambdas = _lambda_path(p, X1, y_dev, w, nobs, alpha, mesh)
         if p.get("compute_p_values") and any(lam != 0.0 for lam in lambdas):
             raise ValueError("compute_p_values requires no regularization "
                              "(lambda = 0)")
@@ -940,20 +999,21 @@ class GLMEstimator(ModelBuilder):
                 [_f32(lam * alpha, dev) for lam in lambdas],
                 [_f32(lam * (1.0 - alpha), dev) for lam in lambdas],
                 beta_eps, max_iter, fam, self._objective_eps(),
-                use_l1=alpha > 0)
+                use_l1=alpha > 0, mesh=mesh)
         else:
             for lam in lambdas:
                 l1, l2 = lam * alpha, lam * (1.0 - alpha)
                 if solver in ("coordinate_descent",
                               "coordinate_descent_naive"):
                     coef = self._fit_cod(X1, y_dev, w, fam, l1, l2, coef,
-                                         max_iter, beta_eps, bounds, off_or0)
+                                         max_iter, beta_eps, bounds, off_or0,
+                                         mesh)
                 elif solver in ("l_bfgs", "lbfgs") and l1 == 0:
                     coef = self._fit_lbfgs(X1, y_dev, w, fam, l2, coef,
-                                           max_iter, off_or0)
+                                           max_iter, off_or0, mesh)
                 else:
                     coef = self._fit_irlsm(X1, y_dev, w, fam, l1, l2, coef,
-                                           max_iter, beta_eps, off_or0)
+                                           max_iter, beta_eps, off_or0, mesh)
         coef = _host(coef)
 
         output["lambda_best"] = float(lambdas[-1])
@@ -976,12 +1036,13 @@ class GLMEstimator(ModelBuilder):
             model._lambda_path_vals = list(lambdas)
         mu = fam.linkinv(X1 @ coef_t + off_or0)
         if category == ModelCategory.BINOMIAL:
-            model.training_metrics = mm.binomial_metrics(mu, y_dev, w)
+            model.training_metrics = mm.binomial_metrics(mu, y_dev, w,
+                                                         mesh=mesh)
             model.output["default_threshold"] = \
                 model.training_metrics["max_f1_threshold"]
         else:
             model.training_metrics = mm.regression_metrics(
-                mu, y_dev, w, deviance_fn=fam.deviance)
+                mu, y_dev, w, deviance_fn=fam.deviance, mesh=mesh)
         return model
 
     def _fit_ordinal(self, frame, x, rc, X1, w, di, output):
@@ -1029,12 +1090,12 @@ class GLMEstimator(ModelBuilder):
         alpha = float(p["alpha"] if p["alpha"] is not None else 0.5)
         B = self._fit_multinomial(X1, y_dev, w, K, _l2_of(p),
                                   int(p["max_iterations"]), solver=msolver,
-                                  l1=alpha * float(lam))
+                                  l1=alpha * float(lam), mesh=frame.mesh)
         model = GLMModel(p, output, B[:, 0], Family("binomial"),
                          stats_of(di), list(x), coef_multinomial=B)
         probs = torch.softmax(X1 @ model._coef_t(X1, B), dim=1)
         model.training_metrics = mm.multinomial_metrics(
-            probs, y_dev, w, domain=rc.domain)
+            probs, y_dev, w, mesh=frame.mesh, domain=rc.domain)
         return model
 
 
@@ -1046,10 +1107,12 @@ def _l2_of(p) -> float:
     return float(lam) * (1.0 - float(p["alpha"] or 0.0))
 
 
-def _lambda_path(p, X1, y, w, nobs: float, alpha: float) -> List[float]:
+def _lambda_path(p, X1, y, w, nobs: float, alpha: float,
+                 mesh=None) -> List[float]:
     """Regularization path (GLM.java lambda search): nlambdas values
     log-spaced from lambda_max, the smallest lambda with every penalized
-    coefficient 0, down to lambda_max · lambda_min_ratio."""
+    coefficient 0, down to lambda_max · lambda_min_ratio; its sums over
+    every rank of ``mesh``."""
     if p.get("_lambda_path_override"):
         # CV fold fits walk the main model's full-frame path, so their
         # per-lambda holdout deviances align index-wise
@@ -1059,8 +1122,9 @@ def _lambda_path(p, X1, y, w, nobs: float, alpha: float) -> List[float]:
         if lam is None:
             return [0.0]
         return list(lam) if isinstance(lam, (list, tuple)) else [float(lam)]
-    ybar = float(torch.sum(w * y) / torch.clamp_min(torch.sum(w), 1e-12))
-    xty = torch.abs((X1 * w[:, None]).T @ (y - ybar))[:-1]
+    swy, sw = all_reduce_flat((torch.sum(w * y), torch.sum(w)), mesh)
+    ybar = float(swy / torch.clamp_min(sw, 1e-12))
+    xty = torch.abs(all_reduce((X1 * w[:, None]).T @ (y - ybar), mesh))[:-1]
     lam_max = float(torch.max(xty)) / (nobs * max(alpha, 1e-3))
     lmr = float(p["lambda_min_ratio"])
     if lmr <= 0:            # wire default -1 = auto

@@ -26,7 +26,7 @@ signs are LAPACK's, JAX's or cuSOLVER's; A follows Y's sign); Random is
 ``torch.Generator``, kept apart so a test can feed in the reference's
 ``jax.random`` draw). ``loss`` and ``recover_svd`` are accepted and
 inert, as in the reference (the loss is quadratic). Not ported: GLRM on a
-frame partitioned over a sharded mesh (ROADMAP A #12). Its MOJO, native
+frame partitioned over a sharded mesh (ROADMAP A #12′). Its MOJO, native
 and in the reference's layout, is ``Model.download_mojo``'s.
 """
 

@@ -15,7 +15,7 @@ the ``ntop`` most relevant predictors are probed; the rest score cmi 0.
 
 Not ported: ``fold_column`` (with it the reference runs its generic
 cross-validation on a screening model that scores nothing), a
-partitioned frame (ROADMAP A #12). ``nfolds`` >= 2 raises, as in the
+partitioned frame (ROADMAP A #12′). ``nfolds`` >= 2 raises, as in the
 reference.
 """
 

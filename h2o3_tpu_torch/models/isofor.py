@@ -18,6 +18,14 @@ routing is ``partition_plain``'s rule with no categorical subset split.
 Scoring routes the same way and adds ``is_split`` along the path. The
 draws differ from the reference's ``jax.random`` bits, so fits compare
 by their statistics.
+
+Data-parallel fit: on a frame partitioned over a sharded mesh every rank
+routes its own rows; the bag is drawn as one device draws it
+(``Frame.uniform_rows``), so the tree's decisions, drawn after it, are
+one device's; the per-level node counts are all-reduced (integer sums in
+fixed point), so every rank grows one device's forest bit for bit. The
+training path-length bounds and metrics come from the path lengths
+gathered over the ranks.
 """
 
 from __future__ import annotations
@@ -32,12 +40,13 @@ from h2o3_tpu_torch.frame.binning import (BinnedMatrix, bin_frame,
 from h2o3_tpu_torch.frame.frame import Frame
 from h2o3_tpu_torch.models.distribution import log_f32
 from h2o3_tpu_torch.models.gbm import tree_generator
-from h2o3_tpu_torch.models.model import Model, ModelBuilder, require_local
+from h2o3_tpu_torch.models.model import Model, ModelBuilder
 from h2o3_tpu_torch.models.tree import Tree, stack_trees, zero_catsplit
 from h2o3_tpu_torch.ops.fixed_point import exponents
 from h2o3_tpu_torch.ops.kernels.treekernel import tree_partition
 from h2o3_tpu_torch.ops.segments import segment_sum
 from h2o3_tpu_torch.parallel.device import fetch
+from h2o3_tpu_torch.parallel.mesh import fetch_replicated
 
 ANOMALY = "AnomalyDetection"
 
@@ -52,10 +61,11 @@ def avg_path_correction(n: torch.Tensor) -> torch.Tensor:
     return torch.where(n > 2.0, c, torch.where(n == 2.0, 1.0, 0.0))
 
 
-def node_counts(nid, w, n_nodes: int, e):
+def node_counts(nid, w, n_nodes: int, e, mesh=None):
     """Bag weight per node [n_nodes] (fixed point on the card, with the
-    tree's exponents ``e``)."""
-    return segment_sum(nid, w[:, None], n_nodes=n_nodes, e=e)[:, 0]
+    tree's exponents ``e``), over every rank of ``mesh``."""
+    return segment_sum(nid, w[:, None], n_nodes=n_nodes, mesh=mesh,
+                       e=e)[:, 0]
 
 
 def draw_tree(gen: torch.Generator, nb: torch.Tensor, depth: int,
@@ -80,21 +90,23 @@ def draw_tree(gen: torch.Generator, nb: torch.Tensor, depth: int,
             "na_left": nal & live}
 
 
-def grow_isolation_tree(bins, w, feat, thresh, na_left, *, B: int) -> Tree:
+def grow_isolation_tree(bins, w, feat, thresh, na_left, *, B: int,
+                        mesh=None) -> Tree:
     """One isolation tree from given decisions ([D, Lmax] each): a node
     splits while its bag weight ``w`` exceeds 1; rows route by
     ``tree_partition``. The Tree keeps ``feat`` and ``na_left`` at every
     node and ``thresh`` where the node splits (B elsewhere), as the
-    reference's does."""
+    reference's does. On a sharded ``mesh`` the rows are this rank's and
+    the node counts cover every rank's."""
     D, Lmax = feat.shape
     dev = bins.device
     nid = torch.zeros((bins.shape[0],), dtype=torch.int32, device=dev)
-    e = exponents(w[:, None]) if w.is_cuda else None
+    e = exponents(w[:, None], mesh=mesh) if w.is_cuda else None
     threshs = torch.full((D, Lmax), B, dtype=torch.int32, device=dev)
     is_splits = torch.zeros((D, Lmax), dtype=torch.bool, device=dev)
     for d in range(D):
         L = 2 ** d
-        split = node_counts(nid, w, L, e) > 1.0
+        split = node_counts(nid, w, L, e, mesh) > 1.0
         t = torch.where(split, thresh[d, :L], B)
         threshs[d, :L] = t
         is_splits[d, :L] = split
@@ -102,7 +114,7 @@ def grow_isolation_tree(bins, w, feat, thresh, na_left, *, B: int) -> Tree:
             bins, nid, feat[d, :L], t, na_left[d, :L], split,
             torch.zeros(L, dtype=torch.bool, device=dev),
             torch.zeros((L, B - 1), dtype=torch.bool, device=dev), n_bins=B)
-    leaf_cnt = node_counts(nid, w, 2 ** D, e)
+    leaf_cnt = node_counts(nid, w, 2 ** D, e, mesh)
     return Tree(feat, threshs, na_left, is_splits,
                 avg_path_correction(leaf_cnt), leaf_cnt,
                 *zero_catsplit(D, Lmax, dev))
@@ -149,10 +161,18 @@ class IsolationForestModel(Model):
         self.c_norm = c_norm       # c(sample_size): the paper's normaliser
 
     def _score_raw(self, frame: Frame) -> Dict[str, np.ndarray]:
-        require_local(frame, self.algo)
+        return self._scores(frame, lambda t: fetch_replicated(
+            t, frame.mesh)[:frame.nrows])
+
+    def _score_local(self, frame: Frame) -> Dict[str, np.ndarray]:
+        return self._scores(frame, lambda t: fetch(t)[:frame.local_nrows])
+
+    def _scores(self, frame: Frame, get) -> Dict[str, np.ndarray]:
+        """The prediction columns from ``get``, the host copy of the
+        frame's rows of a device tensor."""
         bm = rebin_for_scoring(self.bm, frame)
-        ml = fetch(forest_mean_length(self.forest, bm.bins,
-                                      self.bm.nbins_total))[:frame.nrows]
+        ml = get(forest_mean_length(self.forest, bm.bins,
+                                    self.bm.nbins_total))
         mn = self.output.get("min_path_length")
         mx = self.output.get("max_path_length")
         if mn is not None and mx is not None and mx > mn:
@@ -176,6 +196,7 @@ class IsolationForestEstimator(ModelBuilder):
 
     algo = "isolationforest"
     label = "IsolationForest"
+    SHARDED = True
 
     DEFAULTS = dict(
         ntrees=50, sample_size=256, sample_rate=-1.0, max_depth=8,
@@ -191,6 +212,7 @@ class IsolationForestEstimator(ModelBuilder):
         bm = bin_frame(frame, x, nbins=p["nbins"], nbins_cats=p["nbins_cats"],
                        histogram_type="uniform")
         w = frame.valid_weights()
+        mesh = frame.mesh
         n = frame.nrows
         rate = float(p["sample_rate"])
         psi = int(p["sample_size"])
@@ -204,17 +226,17 @@ class IsolationForestEstimator(ModelBuilder):
         trees = []
         for t in range(ntrees):
             gen = tree_generator(seed, t, dev)
-            keep = torch.rand(w.shape[0], generator=gen, device=dev) \
-                < bag_rate
+            keep = frame.uniform_rows(gen) < bag_rate
             dr = draw_tree(gen, bm.nbins, depth, dev)
             trees.append(grow_isolation_tree(
                 bm.bins, w * keep.to(torch.float32), dr["feat"],
-                dr["thresh"], dr["na_left"], B=B))
+                dr["thresh"], dr["na_left"], B=B, mesh=mesh))
         forest = stack_trees(trees)
         c_norm = float(avg_path_correction(torch.tensor([float(psi)]))[0])
         # the training total path lengths (summed over the trees) give the
         # score bounds (IsolationForest.java:238) and the training metrics
-        ml = fetch(forest_mean_length(forest, bm.bins, B))[:n]
+        ml = fetch_replicated(forest_mean_length(forest, bm.bins, B),
+                              mesh)[:n]
         tot = ml * ntrees
         output = {"category": ANOMALY, "response": None, "names": list(x),
                   "domain": None,

@@ -13,7 +13,7 @@ the thresholds and fitted values are the reference's EXACTLY and no
 device is touched. The metrics are ``models/metrics.regression_metrics``
 on the host.
 
-Not ported: a partitioned frame (ROADMAP A #12). Its MOJO is
+Not ported: a partitioned frame (ROADMAP A #12′). Its MOJO is
 ``Model.download_mojo``'s; it has no serving schema, as in the
 reference.
 """

@@ -21,7 +21,7 @@ k cuts the within sum of squares by less than 20%.
 
 ``max_runtime_secs`` is accepted and inert, as in the reference;
 ``user_points`` is a Frame or its DKV key. Not ported: KMeans on a
-frame partitioned over a sharded mesh (A #12). Its MOJO, native and in
+frame partitioned over a sharded mesh (A #12′). Its MOJO, native and in
 the reference's layout, is ``Model.download_mojo``'s.
 """
 

@@ -335,13 +335,17 @@ def rowwise(fn, x: torch.Tensor) -> torch.Tensor:
     return fn(x) if x.is_cuda else score_tiles(fn, x)
 
 
+# where the data-parallel work that is not ported yet is queued
+MESH_TODO = "ROADMAP A #12′"
+
+
 def require_local(frame: Frame, algo: str) -> None:
     """Raise for a frame partitioned over a sharded mesh: ``algo`` does
     not run on one yet."""
     if frame.partitioned:
         raise NotImplementedError(
             f"{algo} on a frame partitioned over a sharded mesh is not "
-            "ported yet")
+            f"ported yet ({MESH_TODO})")
 
 
 class EarlyStopper:
@@ -538,7 +542,8 @@ class ModelBuilder:
                 if self.params.get(k) != self.DEFAULTS.get(k):
                     raise NotImplementedError(
                         f"{self.label} parameter '{k}' on a frame "
-                        "partitioned over a sharded mesh is not ported yet")
+                        "partitioned over a sharded mesh is not ported yet "
+                        f"({MESH_TODO})")
         x = self.resolve_x(training_frame, x, y)
 
         def _run(_job: Optional[Job]):

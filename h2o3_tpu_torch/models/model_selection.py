@@ -20,7 +20,7 @@ cross-validation is not ported: the reference's fails (ROADMAP C).
 are ``link`` and ``tweedie_power``, which neither wrapper hands to its
 GLMs.
 
-Not ported: the wrappers on a partitioned frame (ROADMAP A #12). They
+Not ported: the wrappers on a partitioned frame (ROADMAP A #12′). They
 have no MOJO and no serving schema, as in the reference.
 """
 

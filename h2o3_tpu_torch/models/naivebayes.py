@@ -16,7 +16,7 @@ by its max-F1 threshold. The metrics are ``models/metrics.py``'s;
 Accepted and inert, as in the reference: ``eps_prob``,
 ``compute_metrics`` and ``weights_column`` (the fit weighs every row
 with a response 1). Not ported: Naive Bayes on a frame partitioned over
-a sharded mesh (ROADMAP A #12). Its MOJO is ``Model.download_mojo``'s.
+a sharded mesh (ROADMAP A #12′). Its MOJO is ``Model.download_mojo``'s.
 """
 
 from __future__ import annotations

@@ -18,7 +18,7 @@ so a test can feed in the reference's ``jax.random`` draw.
 
 Accepted and inert, as in the reference: PCA's ``compute_metrics`` and
 ``impute_missing`` (numerics are mean-imputed). Not ported: PCA/SVD on a
-frame partitioned over a sharded mesh (ROADMAP A #12). Their MOJOs
+frame partitioned over a sharded mesh (ROADMAP A #12′). Their MOJOs
 (PCA's also in the reference's layout) are ``Model.download_mojo``'s.
 """
 

@@ -16,7 +16,7 @@ pivot whose residual is within rounding of another's can differ from
 the reference's, since the GEMV adds in another order.
 
 Not ported: ``nfolds`` and ``fold_column`` (raise), a partitioned frame
-(ROADMAP A #12). It has no MOJO and no serving schema, as in the
+(ROADMAP A #12′). It has no MOJO and no serving schema, as in the
 reference.
 """
 

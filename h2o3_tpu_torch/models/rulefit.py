@@ -21,7 +21,7 @@ level kernels.
 ``distribution`` is accepted and inert, as in the reference. Not
 ported: ``weights_column`` (the reference's RuleFit fails with it: its
 GLM looks for the weights in the rule frame), multinomial responses
-(the reference raises), a partitioned frame (ROADMAP A #12). Its MOJO
+(the reference raises), a partitioned frame (ROADMAP A #12′). Its MOJO
 is ``Model.download_mojo``'s; the serving engine, as the reference's,
 serves gbm, drf, glm and deeplearning only.
 """

@@ -24,7 +24,7 @@ from its codes without going through strings.
 ``weights_column`` and ``fold_assignment`` are accepted and inert, as in
 the reference (every row with a response weighs 1). Not ported: the
 Target Encoder on a frame partitioned over a sharded mesh (ROADMAP
-A #12). Its MOJO is the reference's layout only
+A #12′). Its MOJO is the reference's layout only
 (``download_mojo(format="reference")``), as in the reference.
 """
 

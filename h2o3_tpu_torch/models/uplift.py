@@ -16,6 +16,14 @@ a tree.
 Random numbers: each tree draws its bag and its per-node column samples
 from a ``torch.Generator`` seeded from (seed, tree index), as GBM does.
 The draws differ from the reference's ``jax.random`` bits.
+
+Data-parallel fit: on a frame partitioned over a sharded mesh every rank
+grows the trees on its own rows, its bag drawn as one device draws it
+(``Frame.uniform_rows``); each level's two histograms sum the rank's
+rows and all-reduce their int64 cells, the leaf sums likewise, so every
+rank grows one device's forest bit for bit. AUUC and Qini come from the
+scores gathered over the ranks (``fetch_replicated``): one device's
+numbers on every rank.
 """
 
 from __future__ import annotations
@@ -30,14 +38,14 @@ from h2o3_tpu_torch.frame.binning import (BinnedMatrix, bin_frame,
 from h2o3_tpu_torch.frame.frame import Frame
 from h2o3_tpu_torch.models import metrics as mm
 from h2o3_tpu_torch.models.gbm import tree_generator
-from h2o3_tpu_torch.models.model import (Model, ModelBuilder, adapt_domain,
-                                         require_local)
+from h2o3_tpu_torch.models.model import Model, ModelBuilder, adapt_domain
 from h2o3_tpu_torch.models.tree import (Tree, _mtries_mask, predict_forest,
                                         row_feature_values, stack_trees,
                                         zero_catsplit)
 from h2o3_tpu_torch.ops.histogram import histogram, stat_exponents
 from h2o3_tpu_torch.ops.segments import segment_sum
 from h2o3_tpu_torch.parallel.device import fetch
+from h2o3_tpu_torch.parallel.mesh import fetch_replicated
 
 
 def _smooth_p(pos, n):
@@ -115,14 +123,15 @@ def _best_uplift_splits(ht, hc, nb, col_mask, min_rows: float, metric: str):
 def _grow_uplift_tree(bins, nb, w, y, treat, gen: Optional[torch.Generator],
                       *, depth: int, B: int, mtries: int, metric: str,
                       min_rows: float = 10.0,
-                      hist_fn: Callable = histogram):
+                      hist_fn: Callable = histogram, mesh=None):
     """One uplift tree on the device; returns (Tree with leaf = uplift,
     per-leaf treated response rate, per-leaf control response rate).
 
     ``0 < mtries < F`` samples exactly ``mtries`` columns per node per
     level from ``gen``. ``hist_fn`` is ``histogram`` (the kernel on CUDA
     tensors) or ``plain_histogram`` (the plain version, for holding one
-    against the other)."""
+    against the other; one device only). On a sharded ``mesh`` the rows
+    are this rank's; the histograms and leaf sums cover every rank's."""
     dev = bins.device
     N, F = bins.shape
     Lmax = 2 ** (depth - 1) if depth > 0 else 1
@@ -136,11 +145,15 @@ def _grow_uplift_tree(bins, nb, w, y, treat, gen: Optional[torch.Generator],
     ones = torch.ones_like(y)
     all_cols = torch.ones((1, F), dtype=torch.bool, device=dev)
     # each arm's stats are the tree's: their exponents once a tree
-    et, ec = stat_exponents(wt, y, ones), stat_exponents(wc, y, ones)
+    et = stat_exponents(wt, y, ones, mesh=mesh)
+    ec = stat_exponents(wc, y, ones, mesh=mesh)
+    hkw = {} if mesh is None else {"mesh": mesh}
     for d in range(depth):
         L = 2 ** d
-        ht = hist_fn(bins, nid, wt, y, ones, n_nodes=L, n_bins=B, exps=et)
-        hc = hist_fn(bins, nid, wc, y, ones, n_nodes=L, n_bins=B, exps=ec)
+        ht = hist_fn(bins, nid, wt, y, ones, n_nodes=L, n_bins=B, exps=et,
+                     **hkw)
+        hc = hist_fn(bins, nid, wc, y, ones, n_nodes=L, n_bins=B, exps=ec,
+                     **hkw)
         cm = (_mtries_mask(gen, L, F, mtries, dev) if 0 < mtries < F
               else all_cols)
         bg, bf, bt, bnal = _best_uplift_splits(ht, hc, nb, cm, min_rows,
@@ -158,8 +171,10 @@ def _grow_uplift_tree(bins, nb, w, y, treat, gen: Optional[torch.Generator],
                                          b_r <= threshs[d][n]), True)
         nid = (2 * nid + torch.where(goleft, 0, 1)).to(torch.int32)
     nleaf = 2 ** depth
-    st_t = segment_sum(nid, torch.stack([wt, wt * y], dim=1), n_nodes=nleaf)
-    st_c = segment_sum(nid, torch.stack([wc, wc * y], dim=1), n_nodes=nleaf)
+    st_t = segment_sum(nid, torch.stack([wt, wt * y], dim=1), n_nodes=nleaf,
+                       mesh=mesh)
+    st_c = segment_sum(nid, torch.stack([wc, wc * y], dim=1), n_nodes=nleaf,
+                       mesh=mesh)
     p_t = _smooth_p(st_t[:, 1], st_t[:, 0])
     p_c = _smooth_p(st_c[:, 1], st_c[:, 0])
     tree = Tree(feats, threshs, na_lefts, is_splits, p_t - p_c,
@@ -213,19 +228,26 @@ class UpliftDRFModel(Model):
         self.leaf_pc = leaf_pc
         self.bm = bm
 
-    def _score_raw(self, frame: Frame) -> Dict[str, np.ndarray]:
-        require_local(frame, self.algo)
+    def _rates(self, frame: Frame, get) -> Dict[str, np.ndarray]:
+        """The prediction columns from ``get``, the host copy of the
+        frame's rows of a device tensor."""
         bm = rebin_for_scoring(self.bm, frame)
         B = self.bm.nbins_total
         T = self.forest.feat.shape[0]
-        n = frame.nrows
         # tree leaves are p_t - p_c by construction, so uplift falls out
         # of the two class-rate scans without a third forest walk
-        pt = fetch(predict_forest(
-            self.forest._replace(leaf=self.leaf_pt), bm.bins, B))[:n] / T
-        pc = fetch(predict_forest(
-            self.forest._replace(leaf=self.leaf_pc), bm.bins, B))[:n] / T
+        pt = get(predict_forest(
+            self.forest._replace(leaf=self.leaf_pt), bm.bins, B)) / T
+        pc = get(predict_forest(
+            self.forest._replace(leaf=self.leaf_pc), bm.bins, B)) / T
         return {"uplift_predict": pt - pc, "p_y1_ct1": pt, "p_y1_ct0": pc}
+
+    def _score_raw(self, frame: Frame) -> Dict[str, np.ndarray]:
+        return self._rates(frame, lambda t: fetch_replicated(
+            t, frame.mesh)[:frame.nrows])
+
+    def _score_local(self, frame: Frame) -> Dict[str, np.ndarray]:
+        return self._rates(frame, lambda t: fetch(t)[:frame.local_nrows])
 
     def model_performance(self, frame: Frame):
         raw = self._score_raw(frame)
@@ -252,6 +274,7 @@ class UpliftDRFEstimator(ModelBuilder):
     their defaults raise ``NotImplementedError``."""
 
     algo = "upliftdrf"
+    SHARDED = True
 
     DEFAULTS = dict(
         ntrees=50, max_depth=10, min_rows=10.0, nbins=64, nbins_cats=64,
@@ -293,7 +316,6 @@ class UpliftDRFEstimator(ModelBuilder):
         if metric not in ("kl", "euclidean", "chi_squared"):
             raise ValueError(f"unknown uplift_metric '{p['uplift_metric']}'; "
                              "use KL, Euclidean or ChiSquared")
-        n = frame.nrows
         w = frame.valid_weights()
         if p.get("weights_column") and p["weights_column"] in frame:
             wc_ = frame.col(p["weights_column"]).numeric_view()
@@ -301,14 +323,13 @@ class UpliftDRFEstimator(ModelBuilder):
         # host mirror of w for the weighted bin sketch — no device fetch
         bm = bin_frame(frame, x, nbins=p["nbins"], nbins_cats=p["nbins_cats"],
                        weights=self._host_weights(frame, None))
-        npad = bm.bins.shape[0]
         yv = adapt_domain(rc, rc.domain)
         trv = adapt_domain(tc, tc.domain)
         ok = (yv >= 0) & (trv >= 0)
 
         def dev_f32(a):
-            return torch.from_numpy(
-                np.pad(a.astype(np.float32), (0, npad - n))).to(dev)
+            return torch.from_numpy(frame.local_rows(
+                a.astype(np.float32))).to(dev)
 
         w = w * dev_f32(ok)
         y_dev = dev_f32(np.maximum(yv, 0))
@@ -326,11 +347,12 @@ class UpliftDRFEstimator(ModelBuilder):
         trees, pts, pcs = [], [], []
         for t in range(int(p["ntrees"])):
             gen = tree_generator(seed, t, dev)
-            keep = torch.rand(npad, generator=gen, device=dev) < sample_rate
+            keep = frame.uniform_rows(gen) < sample_rate
             tr_, pt_, pc_ = _grow_uplift_tree(
                 bm.bins, bm.nbins, w * keep.to(torch.float32), y_dev, t_dev,
                 gen, depth=depth, B=bm.nbins_total, mtries=mtries,
-                metric=metric, min_rows=float(p["min_rows"]))
+                metric=metric, min_rows=float(p["min_rows"]),
+                mesh=frame.mesh)
             trees.append(tr_)
             pts.append(pt_)
             pcs.append(pc_)

@@ -24,7 +24,7 @@ step is ~35 launches.
 ``W_in`` starts from ``draw_init_W_in`` (a ``torch.Generator`` seeded
 like the reference's key; the tests feed the reference's draw in).
 
-Not ported: a partitioned frame (ROADMAP A #12). Its MOJO, native and
+Not ported: a partitioned frame (ROADMAP A #12′). Its MOJO, native and
 in the reference's layout, is ``Model.download_mojo``'s.
 """
 

@@ -21,8 +21,6 @@ from __future__ import annotations
 
 import torch
 
-from h2o3_tpu_torch.parallel.map_reduce import all_reduce
-
 
 def local_histogram(bins: torch.Tensor, nid: torch.Tensor,
                     stats: torch.Tensor, *, n_nodes: int,
@@ -73,19 +71,18 @@ def histogram(bins, nid, w, g, h, *, n_nodes: int, n_bins: int,
     w == 0. ``exps`` are the kernel's fixed-point exponents of the
     stats (``stat_exponents``), by default computed here."""
     from h2o3_tpu_torch.ops.kernels.histogram import full_histogram
-    return all_reduce(full_histogram(bins, nid, _stats(w, g, h),
-                                     n_nodes=n_nodes, n_bins=n_bins,
-                                     exps=exps), mesh)
+    return full_histogram(bins, nid, _stats(w, g, h), n_nodes=n_nodes,
+                          n_bins=n_bins, exps=exps, mesh=mesh)
 
 
-def stat_exponents(w, g, h):
+def stat_exponents(w, g, h, mesh=None):
     """The kernel's fixed-point exponents of the {w, w·g, w·h} stats on
-    the card (None elsewhere): a caller whose stats stay fixed over many
-    histograms computes them once."""
+    the card (None elsewhere), over every rank of ``mesh``: a caller
+    whose stats stay fixed over many histograms computes them once."""
     if not w.is_cuda:
         return None
     from h2o3_tpu_torch.ops.fixed_point import exponents
-    return exponents(_stats(w, g, h))
+    return exponents(_stats(w, g, h), mesh=mesh)
 
 
 def plain_histogram(bins, nid, w, g, h, *, n_nodes: int,

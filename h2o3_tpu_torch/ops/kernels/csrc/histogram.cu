@@ -32,7 +32,9 @@
 // L = 1). Rows whose stats are all zero (out of bag, or the other arm of
 // an uplift split) are skipped before their bin is read, and the scatter
 // runs on full warps of rows that count. A second, small launch converts
-// the int64 cells to float32.
+// the int64 cells to float32; with `convert` 0 (one rank's rows of a
+// sharded mesh) it is left out: the caller all-reduces the int64 cells
+// and converts them once with slab_convert (hist_slab.cuh).
 
 #include "hist_slab.cuh"
 
@@ -42,9 +44,9 @@ extern "C" int histogram(const void* bins, int bins_int8, const void* nid,
                          int n_feat, int n_bins, int n_nodes,
                          long long rows_per_block, int n_chunks, int n_groups,
                          int replicas, int threads, long long smem,
-                         void* stream) {
+                         int convert, void* stream) {
   return launch_slab_hist(bins, bins_int8, nid, stats, exps, keys, list, acc,
                           out, n_rows, n_feat, n_bins, n_nodes,
                           /*left_only=*/0, rows_per_block, n_chunks, n_groups,
-                          replicas, threads, smem, /*convert=*/1, stream);
+                          replicas, threads, smem, convert, stream);
 }

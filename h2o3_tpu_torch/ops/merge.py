@@ -30,7 +30,7 @@ a domain of 2^24 levels or more, and a result over the output budget
 
 The output frame's host views are read from the device when first asked
 for (``Column.host_view``), not by the merge. Not ported: a frame
-partitioned over a sharded mesh (ROADMAP A #12).
+partitioned over a sharded mesh (ROADMAP A #12′).
 """
 
 from __future__ import annotations

@@ -10,7 +10,7 @@ expands the match ranges. Frames under ``DEVICE_SORT_MIN_ROWS`` rows,
 with a string column, or with a key that does not survive a float32
 cast, return None: the caller takes the host path.
 
-Not ported: a frame partitioned over a sharded mesh (ROADMAP A #12).
+Not ported: a frame partitioned over a sharded mesh (ROADMAP A #12′).
 """
 
 from __future__ import annotations

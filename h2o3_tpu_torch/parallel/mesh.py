@@ -17,6 +17,7 @@ point that takes ``mesh=`` runs exactly its one-device code for it.
 from __future__ import annotations
 
 import dataclasses
+import time
 from typing import Any, Optional, Tuple
 
 import numpy as np
@@ -111,6 +112,20 @@ def fetch_replicated(x: torch.Tensor,
     x = x.detach().cpu().contiguous()
     if not is_sharded(mesh):
         return x.numpy()
+    from h2o3_tpu_torch.parallel.map_reduce import count_collective
+    t0 = time.perf_counter()
     parts = [torch.empty_like(x) for _ in range(mesh.world_size)]
     dist.all_gather(parts, x, group=mesh.host_group)
+    count_collective("all_gather", x.numel() * x.element_size()
+                     * mesh.world_size, t0)
     return torch.cat(parts).numpy()
+
+
+def fetch_global(x: torch.Tensor, nrows: int, npad: int,
+                 mesh: Optional[Mesh] = None) -> np.ndarray:
+    """Host copy of a row-sharded tensor laid out as one device holds it:
+    the ``nrows`` logical rows, then zeros to ``npad`` rows (one device's
+    padding)."""
+    full = fetch_replicated(x, mesh)[:nrows]
+    pad = np.zeros((npad - nrows,) + full.shape[1:], full.dtype)
+    return np.concatenate([full, pad])

@@ -986,6 +986,41 @@ def test_deeplearning_card_vs_cpu_and_refit_bit_equal(dev, case):
     assert cs.same_net(refit, m_card)
 
 
+@pytest.mark.parametrize("batch", [None, cs.DL_BF16_BATCH])
+def test_deeplearning_steps_launch_no_atomic_kernel(dev, batch):
+    """Twenty steps of chip_smoke's DL configuration (float32, and the
+    bf16 route at its batch) continued from a short fit, under
+    torch.profiler: the profiler sees the steps' kernels, and none of
+    them adds through scatter, index_add or atomics (a step's sums keep
+    one order, so a refit is bit-equal)."""
+    import h2o3_tpu_torch as h2o
+    from torch.profiler import ProfilerActivity, profile
+    from h2o3_tpu_torch.models import deeplearning as dl
+    cols, domains = cs.mnist_shape_arrays(2 * (batch or 8_192))
+    fr = h2o.Frame.from_numpy(cols, domains=domains, device=dev)
+    params = dict(cs.DL, epochs=1.0)
+    if batch:
+        params["mini_batch_size"] = batch
+    model = h2o.DeepLearningEstimator(**params).train(fr, y="label")
+    t = dl.DeepLearningEstimator(**dict(params, epochs=2.0),
+                                 checkpoint=model).prepare(
+        fr, model.features, model.output["response"])
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        with dl.exact_f32():
+            dl.train_steps(t.net, t.opt, t.X, t.y, t.w, t.gen, t.cfg,
+                           t.sched, t.done, 20, t.n)
+        torch.cuda.synchronize()
+    names = [e.key for e in prof.key_averages() if getattr(
+        e, "self_device_time_total", getattr(e, "self_cuda_time_total", 0))
+        > 0]
+    assert names, "the profiler saw no device time"
+    bad = [k for k in names if any(s in k.lower() for s in (
+        "scatter", "index_add", "atomic"))]
+    assert not bad, f"DL step kernels that add through atomics: {bad}"
+
+
 def test_bf16_product_on_the_card(dev):
     """The bf16 product on the card (one bf16 GEMM with a float32
     result, ``torch.mm(..., out_dtype=)``) against the upcast product on

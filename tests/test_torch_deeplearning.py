@@ -691,7 +691,13 @@ def test_partitioned_frame_raises():
     from h2o3_tpu_torch.models.model import require_local
     _, fr = frames(dl_cols(n=64))
     fr.mesh = SimpleNamespace(sharded=True)   # as a rank's frame of a mesh
-    with pytest.raises(NotImplementedError, match="partitioned"):
-        DeepLearningEstimator(hidden=[2], epochs=1).train(fr, y="yb")
+    # DL trains on a partitioned frame (tests/test_torch_global_fit_glm_dl
+    # .py); cross-validation and the autoencoder there are queued, and raise
+    with pytest.raises(NotImplementedError, match="partitioned.*A #12′"):
+        DeepLearningEstimator(hidden=[2], epochs=1, nfolds=2).train(fr,
+                                                                    y="yb")
+    with pytest.raises(NotImplementedError, match="partitioned.*A #12′"):
+        DeepLearningEstimator(hidden=[2], epochs=1, autoencoder=True).train(
+            fr)
     with pytest.raises(NotImplementedError, match="partitioned"):
         require_local(fr, "deeplearning")

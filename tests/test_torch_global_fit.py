@@ -182,18 +182,26 @@ def test_sampled_fit_holds_one_forest_on_every_rank(fits):
 
 
 def test_unported_estimators_raise_on_a_partitioned_frame():
+    """What is queued for ROADMAP A #12′ raises on a partitioned frame and
+    names it: estimators not ported to one (KMeans, CoxPH), the scoring
+    surface (a DRF's TreeSHAP) and cross-validation of the ported GLM
+    and DRF. No path gathers the rows to one rank to train."""
     cols, cats = tr.mixed_cols(n=64)
     fr = h2o3_tpu_torch.Frame.from_numpy(cols, categorical=cats,
                                          device="cpu")
     model = h2o3_tpu_torch.DRFEstimator(ntrees=1, max_depth=2).train(
         fr, y="y")
     fr.mesh = mesh_mod.Mesh(None, None, 0, 2)       # as if sharded
-    for fn in (lambda: h2o3_tpu_torch.DRFEstimator().train(fr, y="y"),
-               lambda: h2o3_tpu_torch.UpliftDRFEstimator(
-                   treatment_column="c").train(fr, y="y"),
-               lambda: model.predict(fr),
-               lambda: model.model_performance(fr)):
-        with pytest.raises(NotImplementedError, match="sharded mesh"):
+    for fn in (lambda: h2o3_tpu_torch.KMeansEstimator(k=2).train(fr),
+               lambda: h2o3_tpu_torch.CoxPHEstimator(
+                   stop_column="x0").train(fr, y="y"),
+               lambda: model.predict_contributions(fr),
+               lambda: h2o3_tpu_torch.GLMEstimator(nfolds=2).train(
+                   fr, y="y"),
+               lambda: h2o3_tpu_torch.DRFEstimator(nfolds=2).train(
+                   fr, y="y")):
+        with pytest.raises(NotImplementedError,
+                           match="sharded mesh.*ROADMAP A #12′"):
             fn()
 
 

@@ -14,9 +14,13 @@ port only, so a rank never loads JAX or the reference package.
 
 Scenarios: ``mesh`` (collectives, partitioned ingest and binning),
 ``fixed`` (fixed-point exponents and sums over the ranks),
-``level`` (the sharded tree level, levels 0..2) and ``fit`` (W-rank GBM
+``level`` (the sharded tree level, levels 0..2), ``fit`` (W-rank GBM
 fits — binomial, gaussian, multinomial, and binomial with an offset
-column and a monotone constraint — scoring and metrics).
+column and a monotone constraint — scoring and metrics), ``trees``
+(W-rank DRF, the XGBoost facade, Uplift DRF and the isolation forests,
+``TREE_CASES``; the isolation trees also grown from the reference's
+draws) and ``glm_dl`` (W-rank GLM and DeepLearning fits,
+``GLM_CASES`` and ``DL_CASES``; DL's first steps one at a time).
 """
 
 from __future__ import annotations
@@ -42,6 +46,13 @@ def run_ranks(scenario: str, run_dir: Path, world: int = 2,
     seconds for all of them (then kill every rank and fail), and return
     each rank's results in rank order. ``run_dir`` may hold
     ``input.pkl`` for the ranks to read."""
+    return start_ranks(scenario, run_dir, world, timeout, device)()
+
+
+def start_ranks(scenario: str, run_dir: Path, world: int = 2,
+                timeout: float = JOIN_TIMEOUT_S, device: str = "cpu"):
+    """``run_ranks`` started: returns the function that waits for the
+    ranks and returns their results, so the caller can work meanwhile."""
     env = dict(os.environ, PYTHONPATH=str(ROOT), OMP_NUM_THREADS="1")
     procs = [subprocess.Popen(
         [sys.executable, __file__, scenario, str(r), str(world),
@@ -49,6 +60,10 @@ def run_ranks(scenario: str, run_dir: Path, world: int = 2,
         stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
         for r in range(world)]
     deadline = time.monotonic() + timeout
+    return lambda: _join(procs, deadline, timeout, scenario, run_dir, world)
+
+
+def _join(procs, deadline, timeout, scenario, run_dir, world) -> list:
     logs = []
     for p in procs:
         try:
@@ -211,6 +226,195 @@ FIT_CASES = {
 }
 
 
+def uplift_cols(n=2000, seed=21):
+    """tests/test_torch_uplift.py's uplift data: x0 > 0 defines the
+    responders to treatment; x1 is a prognostic factor."""
+    r = np.random.RandomState(seed)
+    X = r.randn(n, 3)
+    treat = r.randint(0, 2, n)
+    base = 0.2 + 0.2 * (X[:, 1] > 0)
+    lift = 0.35 * ((X[:, 0] > 0) & (treat == 1))
+    y = (r.rand(n) < base + lift).astype(int)
+    cols = {"x0": X[:, 0], "x1": X[:, 1], "x2": X[:, 2],
+            "treatment": np.where(treat == 1, "treatment",
+                                  "control").astype(object),
+            "conversion": np.where(y == 1, "yes", "no").astype(object)}
+    return cols, ["treatment", "conversion"]
+
+
+def anomaly_cols(n=3001, frac=0.01, seed=3):
+    """tests/test_torch_isofor.py's anomaly data: four numerics (NAs in
+    x3), a categorical, ``frac`` of the rows planted far out in x0..x2."""
+    r = np.random.RandomState(seed)
+    X = r.randn(n, 4)
+    bad = np.zeros(n, bool)
+    bad[r.choice(n, int(frac * n), replace=False)] = True
+    X[bad, :3] = r.uniform(4.0, 7.0, (bad.sum(), 3)) \
+        * r.choice([-1.0, 1.0], (bad.sum(), 3))
+    X[r.rand(n) < 0.03, 3] = np.nan
+    cols = {f"x{i}": X[:, i] for i in range(4)}
+    cols["c"] = r.choice(["a", "b", "c"], n)
+    return cols, ["c"]
+
+
+ISO_NUM = ["x0", "x1", "x2", "x3"]
+ISO_DEPTH = 7
+ISO_BAG = 400
+XGB = dict(nrounds=4, max_depth=4, seed=11, subsample=1.0,
+           colsample_bytree=1.0, eta=0.3, reg_lambda=0.5, gamma=1e-3,
+           max_bins=40)
+# (estimator, columns, response, params); sampling on where only the
+# port's world-1 fit is the comparison (the packages' draws differ)
+TREE_CASES = {
+    "drf_binomial": ("drf", lambda: mixed_cols(seed=6), "y", dict(
+        ntrees=4, max_depth=6, seed=11, sample_rate=1.0, mtries=5)),
+    "drf_regression": ("drf", lambda: regression_cols(seed=2), "y", dict(
+        ntrees=4, max_depth=6, seed=11, sample_rate=1.0, mtries=4,
+        min_rows=5.0)),
+    "drf_multinomial": ("drf", lambda: multi_cols(seed=3), "y", dict(
+        ntrees=3, max_depth=5, seed=11)),
+    "drf_sampled": ("drf", lambda: mixed_cols(seed=6), "y", dict(
+        ntrees=4, max_depth=6, seed=11, col_sample_rate_per_tree=0.7)),
+    "xgboost": ("xgboost", lambda: mixed_cols(seed=6), "y", XGB),
+    "uplift": ("uplift", uplift_cols, "conversion", dict(
+        treatment_column="treatment", ntrees=3, max_depth=5,
+        sample_rate=1.0, mtries=-2, seed=7)),
+    "uplift_sampled": ("uplift", uplift_cols, "conversion", dict(
+        treatment_column="treatment", ntrees=3, max_depth=5, mtries=2,
+        seed=7)),
+    "isofor": ("isofor", anomaly_cols, None, dict(ntrees=6, seed=4)),
+    "extisofor": ("extisofor", anomaly_cols, None, dict(
+        ntrees=6, seed=4, extension_level=2)),
+}
+TREE_REF_CASES = ("drf_binomial", "drf_regression", "xgboost", "uplift")
+
+
+def glm_cols(n=3000, seed=0, response="binomial", bias=0.0):
+    """tests/test_torch_glm.py's mixed columns: three numerics (NAs in
+    x2, x1 on a wide scale), two categoricals (NAs in c1)."""
+    r = np.random.RandomState(seed)
+    X = r.randn(n, 3)
+    X[:, 1] = 40.0 + 15.0 * X[:, 1]
+    c0 = r.choice(["red", "green", "blue", "grey"], n)
+    c1 = r.choice(["a", "b", "c"], n).astype(object)
+    eta = (0.8 * X[:, 0] - 0.02 * (X[:, 1] - 40) + 0.3 * X[:, 2]
+           + 0.6 * (c0 == "green") - 0.4 * (c1 == "c") + bias)
+    X[r.rand(n) < 0.05, 2] = np.nan
+    c1[r.rand(n) < 0.04] = None
+    cols = {"x0": X[:, 0], "x1": X[:, 1], "x2": X[:, 2], "c0": c0, "c1": c1}
+    if response == "binomial":
+        cols["y"] = np.array(["no", "yes"], object)[
+            (r.rand(n) < 1 / (1 + np.exp(-eta))).astype(int)]
+        return cols, ["c0", "c1", "y"]
+    cols["y"] = 2.0 + eta + 0.3 * r.randn(n)
+    return cols, ["c0", "c1"]
+
+
+def family_cols(family: str, n=2501, seed=7):
+    """tests/test_torch_glm.py's family columns (default links): positive
+    predictors and a response in ``family``'s domain."""
+    r = np.random.RandomState(seed)
+    x0 = r.rand(n) + 0.5
+    x1 = r.rand(n)
+    c = r.choice(["p", "q", "s"], n)
+    eta_lin = 0.4 + 0.5 * x0 + 0.3 * x1 + 0.2 * (c == "q")
+    mu = np.exp(eta_lin - 0.5) if family in ("poisson", "gamma") \
+        else eta_lin
+    if family == "poisson":
+        y = r.poisson(mu).astype(float)
+    elif family == "gamma":
+        y = r.gamma(4.0, mu / 4.0)
+    else:
+        y = mu + 0.1 * r.randn(n)
+    return {"x0": x0, "x1": x1, "c": c, "y": y}, ["c"]
+
+
+GLM_CASES = {
+    "binomial_irlsm": (lambda: glm_cols(), dict(
+        family="binomial", lambda_=0.0, solver="irlsm", beta_epsilon=1e-6)),
+    "gamma_irlsm": (lambda: family_cols("gamma"), dict(
+        family="gamma", lambda_=0.0, solver="irlsm", beta_epsilon=1e-6)),
+    "gaussian_lbfgs": (lambda: family_cols("gaussian", seed=8), dict(
+        family="gaussian", lambda_=0.0, solver="l_bfgs",
+        max_iterations=60)),
+    "poisson_cod": (lambda: family_cols("poisson", seed=8), dict(
+        family="poisson", lambda_=0.0, solver="coordinate_descent",
+        max_iterations=10)),
+    "binomial_admm": (lambda: glm_cols(seed=1), dict(
+        family="binomial", alpha=1.0, lambda_=1e-3, solver="irlsm")),
+    "gaussian_lambda_search": (
+        lambda: glm_cols(seed=2, response="gaussian", bias=1.5), dict(
+            family="gaussian", alpha=0.5, lambda_search=True, nlambdas=8,
+            lambda_min_ratio=1e-3)),
+}
+
+
+def dl_cols(n=4096, seed=0):
+    """tests/test_torch_deeplearning.py's columns: five numerics (NAs in
+    x2, x3 on a wide scale), a categorical with NAs, binomial, 4-class
+    and real responses."""
+    r = np.random.RandomState(seed)
+    X = r.randn(n, 5)
+    X[:, 3] = 50.0 + 20.0 * X[:, 3]
+    c0 = r.choice(["red", "green", "blue"], n).astype(object)
+    eta = (X[:, 0] - 0.8 * X[:, 1] + 0.5 * X[:, 2] * X[:, 4]
+           + 0.02 * (X[:, 3] - 50) + 0.7 * (c0 == "green"))
+    X[r.rand(n) < 0.05, 2] = np.nan
+    c0[r.rand(n) < 0.03] = None
+    cols = {f"x{i}": X[:, i] for i in range(5)}
+    cols["c0"] = c0
+    cols["yb"] = np.array(["no", "yes"], object)[
+        (r.rand(n) < 1 / (1 + np.exp(-eta))).astype(int)]
+    cols["ym"] = np.array(["a", "b", "c", "d"], object)[
+        np.clip(np.floor(eta + 2 + 0.5 * r.randn(n)), 0, 3).astype(int)]
+    cols["yr"] = 3.0 + 2.0 * np.tanh(eta) + 0.2 * r.randn(n)
+    return cols
+
+
+DL_X = ["x0", "x1", "x2", "x3", "x4", "c0"]
+# (response, params, from the reference's initial weights, rows). The
+# reference pads 4,096 rows as the port does (its batch starts agree);
+# dropout fits draw the port's masks, so only the world-1 fit compares,
+# on 4,000 rows: the ranks' halves are not a whole number of 128-row
+# batches, so one batch straddles them
+DL_CASES = {
+    "rectifier": ("yb", dict(hidden=[16, 8], epochs=6, seed=1), True, 4096),
+    "tanh": ("yr", dict(hidden=[16, 8], epochs=6, seed=1,
+                        activation="Tanh"), True, 4096),
+    "rectifier_dropout": ("yb", dict(hidden=[16, 8], epochs=4, seed=1,
+                                     activation="RectifierWithDropout",
+                                     input_dropout_ratio=0.1), False, 4000),
+    "tanh_dropout": ("ym", dict(hidden=[16, 8], epochs=4, seed=1,
+                                activation="TanhWithDropout"), False, 4000),
+}
+DL_REPLAY_CASE = "rectifier_dropout"
+DL_REPLAY = 17          # steps replayed one at a time (15 on rank 0)
+
+
+def dl_from_weights(init):
+    """An ``init_params`` that returns ``init`` (a net's numpy arrays)."""
+    def draw(gen, sizes, maxout, device):
+        return [{k: torch.from_numpy(np.array(l[k], np.float32)).to(device)
+                 for k in ("W", "b")} for l in init]
+    return draw
+
+
+def dl_replay(est, fr, y, steps: int):
+    """The nets after each of a fit's first ``steps`` steps, one step at
+    a time (``DeepLearningEstimator.prepare`` + ``train_steps``)."""
+    from h2o3_tpu_torch.models import deeplearning as dl
+    from h2o3_tpu_torch.ops.gram import exact_f32
+    out = []
+    with exact_f32():
+        t = est.prepare(fr, DL_X, y)
+        for k in range(steps):
+            dl.train_steps(t.net, t.opt, t.X, t.y, t.w, t.gen, t.cfg,
+                           t.sched, k, 1, t.n, t.shard)
+            out.append([{key: l[key].detach().numpy().copy()
+                         for key in ("W", "b")} for l in t.net])
+    return out
+
+
 # ---------------------------------------------------------------- ranks
 
 
@@ -345,6 +549,131 @@ def scenario_fit(mesh, run_dir):
     return out
 
 
+def _metrics(m) -> dict:
+    tm = m.training_metrics
+    return tm.to_dict() if hasattr(tm, "to_dict") else dict(tm)
+
+
+def _scored(m, fr) -> dict:
+    """A model's fit and its scores on the partitioned frame it trained
+    on."""
+    pred = m.predict(fr)
+    perf = m.model_performance(fr)
+    return dict(metrics=_metrics(m), raw=m._score_raw(fr), span=fr.span,
+                perf=perf.to_dict() if hasattr(perf, "to_dict") else perf,
+                pred={c: pred.col(c).host_view() for c in pred.names},
+                pred_local={c: pred.col(c).data.numpy()
+                            for c in pred.names})
+
+
+def tree_estimator(kind: str, params: dict):
+    import h2o3_tpu_torch as h2o
+    return {"drf": h2o.DRFEstimator, "xgboost": h2o.XGBoostEstimator,
+            "uplift": h2o.UpliftDRFEstimator,
+            "isofor": h2o.IsolationForestEstimator,
+            "extisofor": h2o.ExtendedIsolationForestEstimator}[kind](**params)
+
+
+def forest_arrays(m) -> dict:
+    """A tree model's forest (and an uplift model's leaf rates) as numpy
+    arrays."""
+    f = m.forest
+    out = {k: getattr(f, k).numpy() for k in f._fields}
+    for k in ("leaf_pt", "leaf_pc"):
+        if hasattr(m, k):
+            out[k] = getattr(m, k).numpy()
+    return out
+
+
+def scenario_trees(mesh, run_dir):
+    import h2o3_tpu_torch as h2o
+    from h2o3_tpu_torch.frame.binning import bin_frame
+    from h2o3_tpu_torch.models import extisofor, isofor
+    from h2o3_tpu_torch.parallel import map_reduce
+    with open(run_dir / "input.pkl", "rb") as f:
+        inputs = pickle.load(f)
+    out = {}
+    for case, (kind, make, y, params) in TREE_CASES.items():
+        cols, cats = make()
+        local, n = _owned(cols, mesh)
+        fr = h2o.Frame.from_numpy_partitioned(local, n, categorical=cats,
+                                              mesh=mesh)
+        map_reduce.reset_collectives()
+        m = tree_estimator(kind, params).train(fr, y=y)
+        out[case] = dict(_scored(m, fr), forest=forest_arrays(m),
+                         collectives=dict(map_reduce.COLLECTIVES))
+    # isolation trees grown from the reference's draws and bags
+    cols, cats = anomaly_cols()
+    local, n = _owned(cols, mesh)
+    fr = h2o.Frame.from_numpy_partitioned(local, n, categorical=cats,
+                                          mesh=mesh)
+    bm = bin_frame(fr, list(cols), nbins=64, nbins_cats=64,
+                   histogram_type="uniform")
+    X, _ = extisofor.feature_matrix(fr, ISO_NUM)
+    grown = {"isofor": [], "extisofor": []}
+    for d in inputs["iso_draws"]:
+        w = torch.from_numpy(fr.local_rows(d["keep"]))
+        t = isofor.grow_isolation_tree(
+            bm.bins, w, *(torch.from_numpy(d[k]) for k in
+                          ("feat", "thresh", "na_left")),
+            B=bm.nbins_total, mesh=mesh)
+        grown["isofor"].append(dict(
+            {k: getattr(t, k).numpy() for k in ("is_split", "thresh",
+                                                 "leaf_w", "leaf")},
+            plen=isofor.tree_path_length(t, bm.bins,
+                                         bm.nbins_total).numpy()))
+    for d in inputs["ext_draws"]:
+        w = torch.from_numpy(fr.local_rows(d["keep"]))
+        t = extisofor.grow_ext_tree(X, w, torch.from_numpy(d["normals"]),
+                                    torch.from_numpy(d["offsets"]), mesh)
+        grown["extisofor"].append({k: getattr(t, k).numpy()
+                                   for k in ("is_split", "leaf")})
+    out["grown"] = grown
+    return out
+
+
+def scenario_glm_dl(mesh, run_dir):
+    import h2o3_tpu_torch as h2o
+    from h2o3_tpu_torch.models import deeplearning as dl
+    from h2o3_tpu_torch.parallel import map_reduce
+    with open(run_dir / "input.pkl", "rb") as f:
+        inputs = pickle.load(f)
+    out = {}
+    for case, (make, params) in GLM_CASES.items():
+        cols, cats = make()
+        local, n = _owned(cols, mesh)
+        fr = h2o.Frame.from_numpy_partitioned(local, n, categorical=cats,
+                                              mesh=mesh)
+        map_reduce.reset_collectives()
+        m = h2o.GLMEstimator(**params).train(fr, y="y")
+        out["glm_" + case] = dict(
+            _scored(m, fr), coefs=m.coefficients, coef=np.asarray(m.coef),
+            path=getattr(m, "_coef_path", None),
+            lambdas=getattr(m, "_lambda_path_vals", None),
+            collectives=dict(map_reduce.COLLECTIVES))
+    draw = dl.init_params
+    try:
+        for case, (y, params, ref_init, rows) in DL_CASES.items():
+            local, n = _owned(dl_cols(rows), mesh)
+            fr = h2o.Frame.from_numpy_partitioned(local, n, mesh=mesh)
+            dl.init_params = (dl_from_weights(inputs["dl_init"][case])
+                              if ref_init else draw)
+            map_reduce.reset_collectives()
+            est = h2o.DeepLearningEstimator(**params)
+            m = est.train(fr, y=y, x=DL_X)
+            res = dict(_scored(m, fr), steps=m._steps_trained,
+                       history=m.output["scoring_history"],
+                       net=[{k: l[k].numpy() for k in ("W", "b")}
+                            for l in m.net],
+                       collectives=dict(map_reduce.COLLECTIVES))
+            if case == DL_REPLAY_CASE:
+                res["replay"] = dl_replay(est, fr, y, DL_REPLAY)
+            out["dl_" + case] = res
+    finally:
+        dl.init_params = draw
+    return out
+
+
 def main(argv) -> int:
     from h2o3_tpu_torch.core import cloud
     scenario, rank, world, run_dir = argv[1], int(argv[2]), int(argv[3]), \
@@ -361,6 +690,10 @@ def main(argv) -> int:
             out = scenario_level(mesh)
         elif scenario == "fit":
             out = scenario_fit(mesh, run_dir)
+        elif scenario == "trees":
+            out = scenario_trees(mesh, run_dir)
+        elif scenario == "glm_dl":
+            out = scenario_glm_dl(mesh, run_dir)
         else:
             raise ValueError(f"unknown scenario {scenario!r}")
         with open(run_dir / f"{scenario}-{rank}.pkl", "wb") as f:
